@@ -1,0 +1,143 @@
+"""Build the CUDA sources in `csrc/` with nvcc and load them with ctypes.
+
+Each `csrc/<name>.cu` exposes a plain C interface and becomes its own
+shared library, `build/repro_torch/<name>-<hash>.so` under the repository
+root (or `REPRO_TORCH_BUILD_DIR`). The hash covers the sources and the
+flags, so an edit rebuilds and a stale library is never loaded. All
+missing libraries are built by parallel nvcc processes on the first call
+to `library()`; nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+SZ = ctypes.c_size_t
+# the C functions of each library: name -> (argtypes, restype). Launchers
+# return cudaGetLastError(); *_workspace_floats size the f32 scratch the
+# wrapper allocates (split-K partials, head-group partials).
+SIGNATURES = {
+    "rmsnorm_matmul": {
+        "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, P], I),
+        "rmsnorm_matmul_workspace_floats": ([I, I, I], SZ)},
+    "matmul_residual_add": {
+        "matmul_residual_add_bf16": ([P, P, P, P, P, I, I, I, P], I),
+        "matmul_residual_add_workspace_floats": ([I, I, I], SZ)},
+    "flash_attention_proj": {
+        "flash_attention_proj_bf16": (
+            [P, P, P, P, P, P, I, I, I, I, I, I, I, P], I),
+        "flash_attention_proj_workspace_floats": ([I, I, I, I], SZ)},
+}
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+build_seconds: float | None = None        # wall time of the last build
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels of repro_torch are built on first use")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=SOURCES, *, verbose: bool = False) -> dict[str, Path]:
+    """Compile every library in `names` that is missing, one nvcc process
+    per source, all started together. Returns {name: path}."""
+    global build_seconds
+    out = {n: _target(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    t0 = time.perf_counter()
+    if todo:
+        exe = nvcc()
+        build_dir().mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for n in todo:
+            tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [exe, *FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+                   "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {n} (exit {proc.returncode})\n{log}")
+                continue
+            if verbose:
+                print(f"--- nvcc {n}\n{log}", flush=True)
+            os.replace(tmp, out[n])
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, building all sources first
+    if any is missing."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            paths = build()
+            for n, path in paths.items():
+                if n in _LIBS:
+                    continue
+                handle = ctypes.CDLL(str(path))
+                for fn_name, (argtypes, restype) in SIGNATURES[n].items():
+                    fn = getattr(handle, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                _LIBS[n] = handle
+            lib = _LIBS[name]
+        return lib
+
+
+def entry(name: str, fn: str | None = None):
+    """C function `fn` (default: the launcher `<name>_bf16`) of kernel
+    `name`'s library, with argtypes and restype declared."""
+    return getattr(library(name), fn or f"{name}_bf16")
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launch returned a non-zero cudaError_t."""
+    if err != 0:
+        fn = library(name).repro_error_string
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"({fn(err).decode()})")

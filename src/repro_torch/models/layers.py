@@ -1,0 +1,213 @@
+"""Parameter specs and core layers (the port of `repro.models.layers`).
+
+Numerics follow the reference: bf16 parameters and activations, f32
+inside norms, softmax and rotary embeddings, f32 accumulation in every
+product with the result rounded back to the activation dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+Logical = tuple
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    logical: Logical
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"      # normal | zeros | ones | embed
+    scale: float | None = None  # None -> 1/sqrt(fan_in)
+
+    def materialize(self, generator: torch.Generator,
+                    device) -> torch.Tensor:
+        """Draw this parameter on `device` from `generator` (which must
+        live on the same device). Normal draws are made in f32 and rounded
+        to the parameter dtype, as the reference does."""
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        scale = self.scale if self.scale is not None else fan_in ** -0.5
+        if self.init == "embed":
+            scale = 1.0
+        x = torch.randn(self.shape, generator=generator, dtype=F32,
+                        device=device)
+        return (x.mul_(scale)).to(self.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Normalization / activations
+# ----------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.to(F32))).to(dt)
+
+
+def _mm(x, w, eq: str):
+    """einsum with f32 accumulation, rounded back to x's dtype."""
+    return torch.einsum(eq, x.to(F32), w.to(F32)).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = _mm(x, w_gate, "...d,df->...f")
+    u = _mm(x, w_up, "...d,df->...f")
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return _mm(h, w_down, "...f,fd->...d")
+
+
+# ----------------------------------------------------------------------------
+# Rotary position embeddings (two halves rotated, not interleaved pairs)
+# ----------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 1e4, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=F32, device=device) \
+        / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integer."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].to(F32) * freqs        # (..., seq, hd/2)
+    angles = angles[..., None, :]                         # broadcast heads
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.to(F32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Shared spec builders
+# ----------------------------------------------------------------------------
+
+def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
+               *, qkv_bias: bool = False, qk_norm: bool = False,
+               dtype=torch.bfloat16) -> dict:
+    s = {
+        "wq": ParamSpec((d_model, n_heads, head_dim), ("embed", "heads", None), dtype),
+        "wk": ParamSpec((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", None), dtype),
+        "wv": ParamSpec((d_model, n_kv_heads, head_dim), ("embed", "kv_heads", None), dtype),
+        "wo": ParamSpec((n_heads, head_dim, d_model), ("heads", None, "embed"), dtype),
+    }
+    if qkv_bias:
+        s |= {
+            "bq": ParamSpec((n_heads, head_dim), ("heads", None), dtype, init="zeros"),
+            "bk": ParamSpec((n_kv_heads, head_dim), ("kv_heads", None), dtype, init="zeros"),
+            "bv": ParamSpec((n_kv_heads, head_dim), ("kv_heads", None), dtype, init="zeros"),
+        }
+    if qk_norm:
+        s |= {
+            "q_norm": ParamSpec((head_dim,), ("norm",), dtype, init="zeros"),
+            "k_norm": ParamSpec((head_dim,), ("norm",), dtype, init="zeros"),
+        }
+    return s
+
+
+def ffn_specs(d_model: int, d_ff: int, *, kind: str = "swiglu",
+              dtype=torch.bfloat16) -> dict:
+    if kind == "swiglu":
+        return {
+            "w_gate": ParamSpec((d_model, d_ff), ("embed", "ffn"), dtype),
+            "w_up": ParamSpec((d_model, d_ff), ("embed", "ffn"), dtype),
+            "w_down": ParamSpec((d_ff, d_model), ("ffn", "embed"), dtype),
+        }
+    raise NotImplementedError(
+        f"ffn kind {kind!r}: only swiglu is ported so far (the geglu and "
+        f"gelu MLPs come with the other block kinds, ROADMAP Queue 1 "
+        f"item 10)")
+
+
+def apply_ffn(params: dict, x, *, kind: str = "swiglu"):
+    if kind == "swiglu":
+        return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    raise NotImplementedError(f"ffn kind {kind!r} (ROADMAP Queue 1 item 10)")
+
+
+def qkv_postprocess(params: dict, q, k, v, positions, *, qkv_bias=False,
+                    qk_norm=False, rope=True, theta=1e4):
+    """Bias / qk-norm / rope tail shared by the plain and fused qkv paths."""
+    if qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if rope:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    return q, k, v
+
+
+def qkv_project(params: dict, x, positions, *, n_heads, n_kv_heads, head_dim,
+                qkv_bias=False, qk_norm=False, rope=True, theta=1e4):
+    """x: (B, S, d) -> q (B,S,H,hd), k/v (B,S,KV,hd) with rope applied."""
+    q = _mm(x, params["wq"], "bsd,dhk->bshk")
+    k = _mm(x, params["wk"], "bsd,dhk->bshk")
+    v = _mm(x, params["wv"], "bsd,dhk->bshk")
+    return qkv_postprocess(params, q, k, v, positions, qkv_bias=qkv_bias,
+                           qk_norm=qk_norm, rope=rope, theta=theta)
+
+
+def out_project(params: dict, attn_out):
+    """attn_out: (B, S, H, hd) -> (B, S, d)."""
+    return _mm(attn_out, params["wo"], "bshk,hkd->bsd")
+
+
+# ----------------------------------------------------------------------------
+# Fused kernel routing (KernelPolicy mode "fused")
+# ----------------------------------------------------------------------------
+#
+# These helpers flatten the leading dims, hand the kernels dense operands
+# (a transposed or sliced view is copied first: the kernels take no
+# strides) and dispatch through kernels/ops.py.
+
+def dense(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself if it is contiguous and 32-byte aligned, else a copy."""
+    if t.is_contiguous() and t.data_ptr() % 32 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def fused_norm_matmul(x, scale, w):
+    """rmsnorm(x, scale) @ w with the norm in the A-tile prologue.
+    x: (..., d); scale: (d,); w: (d, f) -> (..., f)."""
+    from repro_torch.kernels import ops
+    d = x.shape[-1]
+    y = ops.rmsnorm_matmul(dense(x.reshape(-1, d)), dense(scale), dense(w))
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def fused_matmul_residual(h, w, res):
+    """h @ w + res with the residual added in the output epilogue.
+    h: (..., f); w: (f, d); res: (..., d) -> (..., d)."""
+    from repro_torch.kernels import ops
+    f = h.shape[-1]
+    y = ops.matmul_residual_add(dense(h.reshape(-1, f)), dense(w),
+                                dense(res.reshape(-1, w.shape[1])))
+    return y.reshape(res.shape)
+
+
+def fused_attention_proj(q, k, v, wo, *, causal: bool = True):
+    """Flash attention + output projection in one kernel.
+    q: (B, S, H, hd), k/v: (B, S, KV, hd) (model layout), wo: (H, hd, d)
+    -> (B, S, d). The transposes to the kernel layout are made dense."""
+    from repro_torch.kernels import ops
+    qt = dense(q.transpose(1, 2))
+    kt = dense(k.transpose(1, 2))
+    vt = dense(v.transpose(1, 2))
+    return ops.flash_attention_proj(qt, kt, vt, dense(wo), causal=causal)

@@ -1,0 +1,215 @@
+"""repro_torch's fused kernels against the reference Pallas kernels.
+
+The same numpy inputs go through `repro.kernels.ops` under the "fused"
+policy (the Pallas kernels, interpreted off-TPU) and through the port's
+plain versions in `repro_torch.kernels.fused` — the arithmetic the CUDA
+kernels implement. Tolerances: f32 1e-5 (sum order only); bf16 2e-2
+(sum order can flip one bf16 rounding of an intermediate). The three
+rounding traps are checked on their own: the port follows the Pallas
+*kernels*, not the `ops._ref_*` oracles, where the two differ.
+
+The CUDA kernels themselves run only on a GPU: `test_torch_cuda.py`
+compares them with these plain versions there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.cluster.policy import use_policy
+from repro.kernels import ops as jops
+from repro_torch.kernels import fused, ops, ref
+
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of `dtype`."""
+    return (jnp.asarray(a).astype(JDT[dtype]),
+            torch.from_numpy(a).to(TDT[dtype]))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, dtype):
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+def _mismatches(a, b) -> int:
+    return int(np.sum(_np(a) != _np(b)))
+
+
+# ----------------------------------------------------------------------------
+# rmsnorm_matmul
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_rmsnorm_matmul_matches_pallas(dtype, m):
+    rng = np.random.default_rng(m)
+    k, n = 64, 48
+    xj, xt = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    sj, st = _pair(0.1 * rng.standard_normal(k).astype(np.float32), dtype)
+    wj, wt = _pair(rng.standard_normal((k, n), np.float32), dtype)
+    with use_policy("fused"):
+        want = jops.rmsnorm_matmul(xj, sj, wj)
+    got = fused.rmsnorm_matmul(xt, st, wt)
+    assert got.dtype == TDT[dtype] and got.shape == (m, n)
+    _close(got, want, dtype)
+
+
+def test_rmsnorm_matmul_rounds_the_norm_before_the_product():
+    """Trap (a): the Pallas prologue casts the normalised row to bf16
+    before the product. The plain version does too; a version that keeps
+    the norm in f32 disagrees with the kernel far more often."""
+    rng = np.random.default_rng(7)
+    m, k, n = 8, 64, 64
+    xj, xt = _pair(rng.standard_normal((m, k), np.float32), "bfloat16")
+    sj, st = _pair(0.1 * rng.standard_normal(k).astype(np.float32),
+                   "bfloat16")
+    wj, wt = _pair(rng.standard_normal((k, n), np.float32), "bfloat16")
+    with use_policy("fused"):
+        want = jops.rmsnorm_matmul(xj, sj, wj)
+    got = fused.rmsnorm_matmul_plain(xt, st, wt)
+    xf = xt.float()
+    xn = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6) \
+        * (1 + st.float())
+    unrounded = (xn @ wt.float()).to(torch.bfloat16)
+    assert _mismatches(got, want) < _mismatches(unrounded, want)
+    _close(got, want, "bfloat16")
+
+
+# ----------------------------------------------------------------------------
+# matmul_residual_add
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_matmul_residual_add_matches_pallas(dtype, m):
+    rng = np.random.default_rng(10 + m)
+    k, n = 80, 40
+    aj, at = _pair(rng.standard_normal((m, k), np.float32), dtype)
+    bj, bt = _pair(rng.standard_normal((k, n), np.float32), dtype)
+    rj, rt = _pair(rng.standard_normal((m, n), np.float32), dtype)
+    with use_policy("fused"):
+        want = jops.matmul_residual_add(aj, bj, rj)
+    got = fused.matmul_residual_add(at, bt, rt)
+    assert got.dtype == TDT[dtype] and got.shape == (m, n)
+    _close(got, want, dtype)
+
+
+def test_matmul_residual_add_rounds_twice_like_the_kernel():
+    """Trap (b): the Pallas epilogue adds the residual to the *already
+    rounded* bf16 product. With small integers every f32 sum is exact, so
+    the plain version equals the Pallas kernel bit for bit, while the
+    single-rounding oracle (`ops._ref_matmul_residual_add`, and the port's
+    `ref.matmul_residual_add`) differs from it."""
+    rng = np.random.default_rng(3)
+    m, k, n = 8, 16, 64
+    aj, at = _pair(rng.integers(-32, 33, (m, k)).astype(np.float32),
+                   "bfloat16")
+    bj, bt = _pair(rng.integers(-32, 33, (k, n)).astype(np.float32),
+                   "bfloat16")
+    res = rng.integers(-64, 65, (m, n)).astype(np.float32) + 0.375
+    rj, rt = _pair(res, "bfloat16")
+    with use_policy("fused"):
+        kernel = jops.matmul_residual_add(aj, bj, rj)
+    with use_policy("reference"):
+        oracle = jops.matmul_residual_add(aj, bj, rj)
+    got = fused.matmul_residual_add_plain(at, bt, rt)
+    assert _mismatches(got, kernel) == 0
+    assert _mismatches(kernel, oracle) > 0
+    assert _mismatches(ref.matmul_residual_add(at, bt, rt), oracle) == 0
+
+
+# ----------------------------------------------------------------------------
+# flash_attention_proj
+# ----------------------------------------------------------------------------
+
+
+def _attn_inputs(seed, b, h, kv, s, hd, dm, dtype):
+    rng = np.random.default_rng(seed)
+    q = _pair(rng.standard_normal((b, h, s, hd), np.float32), dtype)
+    k = _pair(rng.standard_normal((b, kv, s, hd), np.float32), dtype)
+    v = _pair(rng.standard_normal((b, kv, s, hd), np.float32), dtype)
+    wo = _pair(0.1 * rng.standard_normal((h, hd, dm)).astype(np.float32),
+               dtype)
+    return q, k, v, wo
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,s", [(4, 2, 12), (10, 2, 24), (4, 4, 7)])
+def test_flash_attention_proj_matches_pallas(dtype, h, kv, s):
+    (qj, qt), (kj, kt), (vj, vt), (wj, wt) = _attn_inputs(
+        h * s, 2, h, kv, s, 16, 32, dtype)
+    with use_policy("fused"):
+        want = jops.flash_attention_proj(qj, kj, vj, wj, causal=True)
+    got = fused.flash_attention_proj(qt, kt, vt, wt, causal=True)
+    assert got.dtype == TDT[dtype] and got.shape == (2, s, 32)
+    _close(got, want, dtype)
+
+
+def test_flash_attention_proj_rounds_p_and_head_outputs():
+    """Trap (d): p is rounded to bf16 before p@v and each head's output to
+    wo.dtype before the projection, with GQA h -> h // (H/KV). A version
+    that keeps p and the head outputs in f32 disagrees with the kernel
+    more often than the plain version does."""
+    (qj, qt), (kj, kt), (vj, vt), (wj, wt) = _attn_inputs(
+        5, 1, 10, 2, 24, 16, 64, "bfloat16")
+    with use_policy("fused"):
+        want = jops.flash_attention_proj(qj, kj, vj, wj, causal=True)
+    got = fused.flash_attention_proj_plain(qt, kt, vt, wt, causal=True)
+    kf = kt.repeat_interleave(5, dim=1).float()
+    vf = vt.repeat_interleave(5, dim=1).float()
+    sc = (qt.float() @ kf.transpose(-1, -2)) * 16 ** -0.5
+    sc = sc.masked_fill(~torch.ones(24, 24, dtype=torch.bool).tril(), -1e30)
+    o = torch.softmax(sc, -1) @ vf
+    unrounded = torch.einsum("bhsk,hkd->bsd", o, wt.float()).to(
+        torch.bfloat16)
+    assert _mismatches(got, want) < _mismatches(unrounded, want)
+    _close(got, want, "bfloat16")
+
+
+def test_flash_attention_proj_full_attention_matches_pallas():
+    (qj, qt), (kj, kt), (vj, vt), (wj, wt) = _attn_inputs(
+        9, 1, 4, 2, 10, 16, 32, "float32")
+    with use_policy("fused"):
+        want = jops.flash_attention_proj(qj, kj, vj, wj, causal=False)
+    _close(fused.flash_attention_proj(qt, kt, vt, wt, causal=False), want,
+           "float32")
+
+
+# ----------------------------------------------------------------------------
+# dispatch and counting
+# ----------------------------------------------------------------------------
+
+
+def test_reference_mode_matches_the_reference_oracles():
+    (qj, qt), (kj, kt), (vj, vt), (wj, wt) = _attn_inputs(
+        11, 1, 4, 2, 12, 16, 32, "float32")
+    with use_policy("reference"):
+        want = jops.flash_attention_proj(qj, kj, vj, wj)
+    from repro_torch.cluster.policy import use_policy as tuse
+    with tuse("reference") as pol:
+        got = ops.flash_attention_proj(qt, kt, vt, wt)
+    assert pol.stats == {"ref_calls": 1}
+    _close(got, want, "float32")
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    fused.reset_counts()
+    x = torch.randn(3, 16)
+    out = fused.rmsnorm_matmul(x, torch.zeros(16), torch.randn(16, 8))
+    assert out.shape == (3, 8)
+    assert fused.counts()["rmsnorm_matmul"] == {"launches": 0,
+                                                "plain_cuda_calls": 0}
