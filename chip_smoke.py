@@ -15,20 +15,24 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
   agree    a reduced model (2 layers, 4 heads of 128) through the fused
            kernels on the card vs the plain versions on the CPU
   prefill  qwen3-14b, all 40 layers, random weights from a seeded
-           generator on the card, make_prefill_step on B=1, S=512
+           generator on the card, make_prefill_step on B=1, S=512; then
+           the same prefill under torch.profiler
   serve    Cluster("qwen3-14b") ServeSessionProgram(slots=8, max_seq=256,
            max_prompt=64, chunk=16, paged=True, page_size=16) under the
-           "fused" policy: 12 requests, half sharing a 32-token preamble;
-           the session step replayed as a CUDA graph, then run eagerly
-           (the tokens must agree)
-  profile  torch.profiler over decode steps of that model (8 slots, paged):
-           step wall time run eagerly and replayed as a CUDA graph, the
-           device's busy share, time by kernel
+           "fused" policy: 12 requests, half sharing a 32-token preamble,
+           the session step replayed as a CUDA graph, under
+           torch.profiler; then the same requests without the profiler,
+           replayed (timed) and run eagerly (the tokens must agree)
+  profile  torch.profiler over decode steps of that model (8 slots, paged),
+           run eagerly and replayed as a CUDA graph: wall time per step,
+           the device's busy and idle shares in each, time by kernel
 
 The kernel launch counts are set to 0 before each of the prefill and serve
 phases and read right after; every kernel of a phase must have launched
-and no plain version may have run on a CUDA tensor. The last two lines are
-the kernels' JSON record and {"ok": true, "device": {...}}.
+and no plain version may have run on a CUDA tensor. A wrapper counts the
+launches it makes; the launches a replayed CUDA graph makes are counted
+from the profiler's trace (`fused.traced_launches`). The last two lines
+are the kernels' JSON record and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -111,13 +115,17 @@ def main() -> int:
 
     records = kernel_phase(fused)
     agree_phase()
-    cfg, params, launches = prefill_phase(fused)
-    serve_counts = serve_phase(fused, cfg, params)
-    for name, n in serve_counts.items():
-        launches[name] += n
+    cfg, params, prefill_counts = prefill_phase(fused)
+    serve_counts, serve_traced = serve_phase(fused, cfg, params)
     profile_phase(cfg, params)
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        # launches: the kernel's runs on the device in the main path (the
+        # prefill's, equal to its wrapper count, and the traced serve
+        # run's, graph replays included); wrapper_launches: the wrappers'
+        # own counts over the same two runs
+        name = rec["name"]
+        rec["launches"] = prefill_counts[name] + serve_traced[name]
+        rec["wrapper_launches"] = prefill_counts[name] + serve_counts[name]
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(gpu_line())
     print(json.dumps({"kernels": records}))
@@ -282,6 +290,11 @@ def _check_counts(fused, phase: str, must_launch) -> dict:
 
 
 def prefill_phase(fused):
+    """One full-width prefill, timed with the counts set to 0 just before
+    it; then the same prefill traced, whose device kernels must match the
+    wrappers' counts (eager: one launch per wrapper call)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.cluster.policy import use_policy
     from repro_torch.cluster.session import Cluster
     from repro_torch.models import steps
@@ -298,6 +311,7 @@ def prefill_phase(fused):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(cfg, policy="fused")
+    prefill(params, {"tokens": tokens[:, :16]})          # warm-up
     fused.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -305,6 +319,16 @@ def prefill_phase(fused):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _check_counts(fused, "prefill", fused.WRAPPERS)
+    fused.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    traced = fused.traced_launches(prof)
+    if traced != launches or _check_counts(fused, "prefill",
+                                           fused.WRAPPERS) != launches:
+        raise AssertionError(f"prefill: the trace saw {traced}, the "
+                             f"wrappers counted {launches}")
     with torch.inference_mode():
         with use_policy("fused"):
             hidden, _ = steps.forward(cfg, params, tokens)
@@ -351,34 +375,69 @@ def serve_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
     return reqs
 
 
-def _serve(cfg, params, reqs, cuda_graph: bool):
+def _serve(cfg, params, reqs, *, eager: bool = False, fused=None):
+    """Serve `reqs` through a fresh session and drain it. `eager` swaps
+    the compiled session's chunk program for one that runs every step
+    from Python (the graph's check). Given `fused`, the launch counts are
+    set to 0 just before the requests go in and the run is traced;
+    returns the wrapper counts and the trace's counts as well."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.cluster.session import Cluster, ServeSessionProgram
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
 
     cluster = Cluster("qwen3-14b")
     spec = ServeSessionProgram(slots=8, max_seq=256, max_prompt=64,
                                chunk=16, paged=True, page_size=16,
-                               prefix_cache=True, cuda_graph=cuda_graph)
+                               prefix_cache=True)
     with cluster.policy("fused"):
         prog = cluster.compile(spec)
+    if eager:
+        prog._chunk_fn = engine.session_chunk_fn(
+            steps.make_decode_step(cfg, max_seq=spec.max_seq,
+                                   policy="fused"),
+            spec.chunk, eos_id=spec.eos_id, cuda_graph=False)
     sess = prog.open(params=params)
     torch.cuda.synchronize()
+    prof = None
+    if fused is not None:
+        fused.reset_counts()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
     t0 = time.perf_counter()
     handles = [sess.submit(p, n) for p, n in reqs]
     stats = sess.drain()
     torch.cuda.synchronize()
-    return sess, handles, stats, time.perf_counter() - t0
+    dt = time.perf_counter() - t0
+    if prof is None:
+        return sess, handles, stats, dt
+    counts = _check_counts(fused, "serve",
+                           ("rmsnorm_matmul", "matmul_residual_add"))
+    prof.stop()
+    return sess, handles, stats, dt, counts, fused.traced_launches(prof)
 
 
 def serve_phase(fused, cfg, params) -> dict:
-    """The main path: the session step replayed as a CUDA graph (the
-    default). Then the same requests again with the step run eagerly from
-    Python: the tokens must be the same, and the two throughputs compare
-    the engine's two modes within one call."""
+    """The main path: the session step replayed as a CUDA graph, as the
+    session runs it on the card, under torch.profiler. The wrappers count
+    the launches of the session's eager first step and of its capture;
+    the trace counts every launch the replays made. Then the same requests
+    twice more without the profiler: replayed (the timed run) and run
+    eagerly from Python. The tokens of all three must be the same."""
     reqs = serve_requests(cfg.vocab)
-    fused.reset_counts()
-    sess, handles, stats, dt = _serve(cfg, params, reqs, cuda_graph=True)
-    counts = _check_counts(fused, "serve",
-                           ("rmsnorm_matmul", "matmul_residual_add"))
+    sess, handles, stats, dt, counts, traced = _serve(cfg, params, reqs,
+                                                      fused=fused)
+    for name in ("rmsnorm_matmul", "matmul_residual_add"):
+        if traced[name] < counts[name]:
+            raise AssertionError(f"serve: the trace saw {traced[name]} "
+                                 f"launches of {name}, the wrapper counted "
+                                 f"{counts[name]}")
+    log("serve", mode="cuda_graph,traced", wall_s=f"{dt:.2f}",
+        tokens_per_s=f"{stats['tokens_per_s']:.2f}",
+        wrapper_launches=json.dumps(counts).replace(" ", ""),
+        traced_launches=json.dumps(traced).replace(" ", ""))
     for h, (prompt, n) in zip(handles, reqs):
         toks = h.result()
         if not (toks.size == n or (h.hit_eos and toks.size <= n)):
@@ -393,35 +452,37 @@ def serve_phase(fused, cfg, params) -> dict:
     if kv["prefix_hits"] <= 0 or kv["cow_forks"] <= 0:
         raise AssertionError(f"serve: expected prefix hits and a COW fork, "
                              f"got {kv}")
-    log("serve", mode="cuda_graph", requests=len(reqs), wall_s=f"{dt:.2f}",
-        tokens_per_s=f"{stats['tokens_per_s']:.2f}",
-        emitted=stats["emitted_total"],
-        ttft_p50_ms=f"{stats['ttft_ms']['p50']:.1f}",
-        occupancy_pct=f"{stats['occupancy_pct']:.1f}",
-        stall_pct=f"{stats['stall']['stall_pct']:.2f}",
-        kv=json.dumps({k: kv[k] for k in (
-            "prefix_hits", "prefix_misses", "pages_shared",
-            "prefill_skipped_tokens", "cow_forks", "allocs",
-            "used_pages")}).replace(" ", ""),
-        launches=json.dumps(counts).replace(" ", ""),
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}")
-    graphed = [h.result() for h in handles]
+    traced_tokens = [h.result() for h in handles]
     del sess
-    _, handles, stats, dt = _serve(cfg, params, reqs, cuda_graph=False)
-    same = all(np.array_equal(a, h.result()) for a, h in zip(graphed, handles))
-    if not same:
-        raise AssertionError("serve: eager tokens differ from the graph's")
-    log("serve", mode="eager", wall_s=f"{dt:.2f}",
-        tokens_per_s=f"{stats['tokens_per_s']:.2f}",
-        ttft_p50_ms=f"{stats['ttft_ms']['p50']:.1f}",
-        tokens_equal_to_graph=same)
-    return counts
+    for mode, eager in (("cuda_graph", False), ("eager", True)):
+        sess, handles, stats, dt = _serve(cfg, params, reqs, eager=eager)
+        same = all(np.array_equal(a, h.result())
+                   for a, h in zip(traced_tokens, handles))
+        if not same or stats["kv"] != kv:
+            raise AssertionError(f"serve: {mode} tokens or kv counters "
+                                 f"differ from the traced run's")
+        log("serve", mode=mode, requests=len(reqs), wall_s=f"{dt:.2f}",
+            tokens_per_s=f"{stats['tokens_per_s']:.2f}",
+            emitted=stats["emitted_total"],
+            ttft_p50_ms=f"{stats['ttft_ms']['p50']:.1f}",
+            occupancy_pct=f"{stats['occupancy_pct']:.1f}",
+            stall_pct=f"{stats['stall']['stall_pct']:.2f}",
+            kv=json.dumps({k: kv[k] for k in (
+                "prefix_hits", "prefix_misses", "pages_shared",
+                "prefill_skipped_tokens", "cow_forks", "allocs",
+                "used_pages")}).replace(" ", ""),
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}",
+            tokens_equal_to_traced=same)
+        del sess
+    return counts, traced
 
 
 def profile_phase(cfg, params, steps_n: int = 4) -> None:
-    """Where a decode step's time goes: wall time per step on the host
-    clock, the device's busy share (kernel time over wall) and the top
-    kernels by device time, from torch.profiler."""
+    """Where a decode step's time goes, run eagerly from Python and
+    replayed as a CUDA graph. For each: the wall time per step on the host
+    clock, then the same steps under torch.profiler, whose kernel time
+    over that run's own wall time is the device's busy share (idle = 1 -
+    busy, not clamped), and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import steps
@@ -442,9 +503,6 @@ def profile_phase(cfg, params, steps_n: int = 4) -> None:
         torch.cuda.synchronize()
 
     run(2)
-    t0 = time.perf_counter()
-    run(steps_n)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps_n
     graph = torch.cuda.CUDAGraph()         # the same step, replayed
     batch = {"tokens": tok.long(), "pos": pos, "pages": pages}
     side = torch.cuda.Stream()
@@ -452,34 +510,41 @@ def profile_phase(cfg, params, steps_n: int = 4) -> None:
     with torch.cuda.graph(graph, stream=side,
                           capture_error_mode="thread_local"):
         step(params, cache, batch)
-    graph.replay()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps_n):
-        graph.replay()
-    torch.cuda.synchronize()
-    graph_ms = (time.perf_counter() - t0) * 1e3 / steps_n
+
+    def replay(n):
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+
+    replay(1)
+    for mode, fn in (("eager", run), ("cuda_graph", replay)):
+        t0 = time.perf_counter()
+        fn(steps_n)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps_n
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(steps_n)
+            traced_ms = (time.perf_counter() - t0) * 1e3 / steps_n
+        rows = [(e.key, e.device_time_total / 1e3 / steps_n,
+                 e.count // steps_n)
+                for e in prof.key_averages() if e.device_time_total > 0
+                and "CUDA" in str(getattr(e, "device_type", ""))]
+        if not rows:
+            log("profile", mode=mode, step_wall_ms=f"{wall_ms:.2f}",
+                device_time="not measured (the profiler saw no kernels)")
+            continue
+        busy = sum(r[1] for r in rows)
+        rows.sort(key=lambda r: -r[1])
+        log("profile", mode=mode, step_wall_ms=f"{wall_ms:.2f}",
+            traced_step_wall_ms=f"{traced_ms:.2f}",
+            device_busy_ms=f"{busy:.2f}",
+            device_idle_pct=f"{100 * (1 - busy / traced_ms):.1f}",
+            launches_per_step=sum(r[2] for r in rows))
+        for key, ms, n in rows[:8]:
+            log("profile", mode=mode, kernel=f"'{key[:60]}'",
+                ms_per_step=f"{ms:.3f}", launches_per_step=n)
     del graph
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(steps_n)
-    rows = [(e.key, e.device_time_total / 1e3 / steps_n, e.count // steps_n)
-            for e in prof.key_averages() if e.device_time_total > 0
-            and "CUDA" in str(getattr(e, "device_type", ""))]
-    if not rows:
-        log("profile", decode_step_wall_ms=f"{wall_ms:.2f}",
-            device_time="not measured (the profiler saw no kernels)")
-        return
-    busy = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    log("profile", decode_step_wall_ms=f"{wall_ms:.2f}",
-        device_busy_ms=f"{busy:.2f}",
-        device_idle_pct=f"{100 * max(0.0, 1 - busy / wall_ms):.1f}",
-        graph_replay_ms=f"{graph_ms:.2f}",
-        graph_idle_pct=f"{100 * max(0.0, 1 - busy / graph_ms):.1f}")
-    for key, ms, n in rows[:8]:
-        log("profile", kernel=f"'{key[:60]}'", ms_per_step=f"{ms:.3f}",
-            launches_per_step=n)
 
 
 if __name__ == "__main__":

@@ -22,18 +22,9 @@ import torch
 from repro_torch.cluster.policy import KernelPolicy, as_policy, use_policy
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.registry import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import steps
 from repro_torch.runtime import engine
-
-
-def resolve_device(device=None) -> torch.device:
-    """None -> "cuda". A CUDA device without CUDA raises: the port never
-    quietly runs on the CPU unless the caller asks for it."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; repro_torch runs on the "
-                           "GPU unless the caller passes device='cpu'")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +54,6 @@ class ServeSessionProgram:
     n_pages: int | None = None             # None -> slots * pages_per_slot
     #   + 1 (the trash page)
     prefix_cache: bool = True
-    cuda_graph: bool = True                # replay the session step as a
-    #   CUDA graph on the GPU (runtime/engine.py); no effect on the CPU
     shed_watermark: int | None = None      # item 8
     preempt: bool = False                  # item 8
     watchdog_s: float | None = None        # item 8
@@ -147,8 +136,7 @@ class CompiledServeSession:
         step = steps.make_decode_step(cfg, max_seq=spec.max_seq,
                                       policy=policy)
         self._chunk_fn = engine.session_chunk_fn(step, spec.chunk,
-                                                 eos_id=spec.eos_id,
-                                                 cuda_graph=spec.cuda_graph)
+                                                 eos_id=spec.eos_id)
         self._page_copy_fn = None
         if spec.paged:
             pps = -((spec.max_seq + 1) // -spec.page_size)   # ceil

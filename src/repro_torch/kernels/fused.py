@@ -201,20 +201,38 @@ def reset_counts() -> None:
         fn.cuda_calls = 0
 
 
-def credit_launches(delta: dict) -> None:
-    """Add `delta` {name: n} to the wrappers' launch counts: a replayed
-    CUDA graph runs the launches its capture recorded without calling the
-    wrappers again (see runtime/engine.py)."""
-    for name, n in delta.items():
-        WRAPPERS[name].launches += n
-
-
 def counts() -> dict:
     """{name: {"launches": n, "plain_cuda_calls": n}} since the last
     `reset_counts()`."""
     return {name: {"launches": WRAPPERS[name].launches,
                    "plain_cuda_calls": PLAIN[name].cuda_calls}
             for name in WRAPPERS}
+
+
+# The device kernel that opens each launch of a wrapper (a split-K or slab
+# finish may follow it), as a profiler names it, spaces removed.
+ENTRY_KERNELS = {
+    "rmsnorm_matmul": ("skinny::partial_kernel<true>",
+                       "gemm::tile_kernel<true,false>"),
+    "matmul_residual_add": ("skinny::partial_kernel<false>",
+                            "gemm::tile_kernel<false,true>"),
+    "flash_attention_proj": ("fa_proj_kernel",),
+}
+
+
+def traced_launches(prof) -> dict:
+    """{name: n}: how often each wrapper's kernel ran on the device in the
+    torch.profiler trace `prof`, counted by its entry kernel. Unlike the
+    wrappers' counts this sees the launches a replayed CUDA graph makes."""
+    out = dict.fromkeys(WRAPPERS, 0)
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        key = e.key.replace(" ", "")
+        for name, entries in ENTRY_KERNELS.items():
+            if any(k in key for k in entries):
+                out[name] += e.count
+    return out
 
 
 reset_counts()

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.cluster import policy as kpolicy
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.blocks import BLOCKS
 from repro_torch.models.layers import ParamSpec, rms_norm
@@ -81,10 +82,12 @@ def _materialize(tree, generator, device):
     return [_materialize(t, generator, device) for t in tree]
 
 
-def init_params(cfg, seed: int = 0, *, device="cpu", max_seq: int = 4096):
-    """Random parameters drawn on `device` from a seeded torch.Generator
-    (the port cannot recreate the reference's jax.random streams; tests
-    load the reference's parameters through `weights.from_jax_params`)."""
+def init_params(cfg, seed: int = 0, *, device=None, max_seq: int = 4096):
+    """Random parameters drawn on `device` (None: the GPU) from a seeded
+    torch.Generator (the port cannot recreate the reference's jax.random
+    streams; tests load the reference's parameters through
+    `weights.from_jax_params`)."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return _materialize(param_specs(cfg, max_seq), gen, device)
@@ -106,11 +109,12 @@ def cache_specs(cfg, B: int, cache_len: int) -> dict:
 
 
 def _zeros(specs: dict, device) -> dict:
+    device = resolve_device(device)
     return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
             for k, s in specs.items()}
 
 
-def init_cache(cfg, B: int, cache_len: int, *, device="cpu"):
+def init_cache(cfg, B: int, cache_len: int, *, device=None):
     return _zeros(cache_specs(cfg, B, cache_len), device)
 
 
@@ -142,7 +146,7 @@ def paged_cache_specs(cfg, B: int, cache_len: int, *, n_pages: int,
 
 
 def init_paged_cache(cfg, B: int, cache_len: int, *, n_pages: int,
-                     page_size: int, device="cpu"):
+                     page_size: int, device=None):
     return _zeros(paged_cache_specs(cfg, B, cache_len, n_pages=n_pages,
                                     page_size=page_size), device)
 

@@ -18,9 +18,9 @@ its remaining steps; those steps emit nothing and change no slot's
 tokens, position or counters, exactly as skipped steps do. (A per-step
 device skip needs CUDA-graph conditional nodes: a later PR.)
 
-On the GPU one session step can be captured as a CUDA graph and replayed
-(`cuda_graph=True`): the step's ~1,800 launches from Python become one,
-which is what the reference gets from compiling the scan.
+On the GPU one session step is captured as a CUDA graph and replayed: the
+step's ~1,800 launches from Python become one, which is what the
+reference gets from compiling the scan.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 I64 = torch.int64
 
@@ -83,10 +85,12 @@ class StallClock:
 
 def init_session_state(cache, n_slots: int, max_prompt: int,
                        pages_per_slot: int | None = None, *,
-                       device="cpu") -> dict:
-    """Fresh device state for a ServeSession's slot pool (all slots idle).
-    `pages_per_slot` (paged sessions) adds the per-slot page tables, every
-    entry at the reserved trash page 0."""
+                       device=None) -> dict:
+    """Fresh device state for a ServeSession's slot pool (all slots idle)
+    on `device` (None: the GPU). `pages_per_slot` (paged sessions) adds the
+    per-slot page tables, every entry at the reserved trash page 0."""
+    device = resolve_device(device)
+
     def ints(*shape):
         return torch.zeros(shape, dtype=I64, device=device)
 
@@ -158,38 +162,30 @@ class _StepGraph:
 
     Construction runs one step eagerly on a side stream (the warm-up
     capture needs, and a real step of the session), then captures the next
-    one without running it. The kernel wrappers count launches while the
-    step is captured; those launches only run when the graph is replayed,
-    so the capture's counts are taken back and credited once per replay."""
+    one without running it. A kernel wrapper counts a launch when it is
+    called, so it counts the captured launches once; their executions in
+    the replays are seen only by a device trace
+    (`kernels.fused.traced_launches`)."""
 
     def __init__(self, decode_step, params, state, eos_id):
-        from repro_torch.kernels import fused
-
-        self._credit = fused.credit_launches
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             self.first = _session_step(decode_step, params, state, eos_id)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        before = fused.counts()
         with torch.cuda.graph(self.graph, stream=side,
                               capture_error_mode="thread_local"):
             self.out = _session_step(decode_step, params, state, eos_id)
-        after = fused.counts()
-        self.delta = {k: after[k]["launches"] - before[k]["launches"]
-                      for k in after}
-        self._credit({k: -n for k, n in self.delta.items()})
 
     def replay(self):
         self.graph.replay()
-        self._credit(self.delta)
         return self.out
 
 
 def session_chunk_fn(decode_step: Callable, chunk: int,
                      eos_id: int | None = None, *,
-                     cuda_graph: bool = False) -> Callable:
+                     cuda_graph: bool = True) -> Callable:
     """The K-step session program: `chunk_fn(params, state) -> (state,
     tokens (B, K), emit (B, K) bool, busy (B,), all_done)`.
 
@@ -201,10 +197,11 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
     inactive, finished (EOS) or out of budget. `busy` counts the steps
     each slot was live for; `all_done` is a 0-d bool tensor.
 
-    `cuda_graph=True` (CUDA state only) captures the session's step as a
-    CUDA graph at its first step (kept in ``state["step_graph"]``) and
-    replays it for every later step: the same kernels on the same
-    tensors, so the same results."""
+    On CUDA state the session's step is captured as a CUDA graph at its
+    first step (kept in ``state["step_graph"]``) and replayed for every
+    later step: the same kernels on the same tensors, so the same results.
+    `cuda_graph=False` runs every step eagerly (to check the graph
+    against)."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 

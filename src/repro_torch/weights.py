@@ -15,9 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
-    """numpy array (including ml_dtypes bfloat16) -> torch tensor."""
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """numpy array (including ml_dtypes bfloat16) -> torch tensor on
+    `device` (None: the GPU)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -31,8 +35,10 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def from_jax_params(tree: dict, *, device="cpu") -> dict:
-    """Reference parameter tree of numpy leaves -> port parameters."""
+def from_jax_params(tree: dict, *, device=None) -> dict:
+    """Reference parameter tree of numpy leaves -> port parameters on
+    `device` (None: the GPU)."""
+    device = resolve_device(device)
     blocks = tree["blocks"]
     subs = sorted(blocks, key=lambda k: int(k.removeprefix("sub")))
     n_super = len(np.asarray(next(_leaves(blocks[subs[0]]))))

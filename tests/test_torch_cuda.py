@@ -76,17 +76,23 @@ def test_cuda_flash_attention_proj(cuda, h, kv, s, dm, causal):
 @pytest.mark.cuda
 def test_cuda_graph_session_matches_eager(cuda):
     """The session step replayed as a CUDA graph gives the eager step's
-    tokens, and the replays are credited to the kernels' launch counts."""
+    tokens, and a device trace of the graphed run sees as many kernel
+    launches as the wrappers counted in the eager run."""
     import dataclasses
 
     import numpy as np
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.cluster.session import Cluster, ServeSessionProgram
     from repro_torch.configs import get
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
 
     cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2, d_model=256,
                               n_heads=4, n_kv_heads=2, d_ff=512, vocab=512)
     cluster = Cluster(cfg)
+    spec = ServeSessionProgram(slots=4, max_seq=64, max_prompt=32, chunk=8,
+                               paged=True, page_size=8)
     rng = np.random.default_rng(0)
     pre = rng.integers(1, 512, 16)
     reqs = [(np.concatenate([pre, rng.integers(1, 512, i)]), 6 + i)
@@ -94,16 +100,26 @@ def test_cuda_graph_session_matches_eager(cuda):
     out, launches = [], []
     for graph in (True, False):
         with cluster.policy("fused"):
-            prog = cluster.compile(ServeSessionProgram(
-                slots=4, max_seq=64, max_prompt=32, chunk=8, paged=True,
-                page_size=8, cuda_graph=graph))
+            prog = cluster.compile(spec)
+        if not graph:
+            prog._chunk_fn = engine.session_chunk_fn(
+                steps.make_decode_step(cfg, max_seq=spec.max_seq,
+                                       policy="fused"),
+                spec.chunk, cuda_graph=False)
         sess = prog.open(params=prog.init_params(3))
         fused.reset_counts()
-        handles = [sess.submit(p, n) for p, n in reqs]
-        sess.drain()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            handles = [sess.submit(p, n) for p, n in reqs]
+            sess.drain()
+            torch.cuda.synchronize()
         out.append([h.result() for h in handles])
-        launches.append(fused.counts())
+        launches.append((fused.counts(), fused.traced_launches(prof)))
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
-    assert launches[0] == launches[1]
-    assert launches[0]["rmsnorm_matmul"]["launches"] > 0
+    (g_counts, g_traced), (e_counts, e_traced) = launches
+    eager = {k: c["launches"] for k, c in e_counts.items()}
+    assert eager["rmsnorm_matmul"] > 0 and eager["matmul_residual_add"] > 0
+    assert e_traced == eager == g_traced
+    assert 0 < g_counts["rmsnorm_matmul"]["launches"] < eager[
+        "rmsnorm_matmul"]

@@ -44,7 +44,7 @@ def _params(jcfg, dtype=None):
     jp = jsteps.init_params(jcfg, jax.random.PRNGKey(0))
     if dtype is not None:
         jp = jax.tree.map(lambda a: a.astype(dtype), jp)
-    tp = weights.from_jax_params(jax.tree.map(np.asarray, jp))
+    tp = weights.from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     return jp, tp
 
 
@@ -137,7 +137,7 @@ def _decode_both(jcfg, tcfg, jp, tp, policy, cache_dtype, paged,
     offs = np.array([0, 2, 5])                # per-slot start positions
     jc = jsteps.init_cache(jcfg, B, L)
     jc = jax.tree.map(lambda c: c.astype(cache_dtype), jc)
-    tc = tsteps.init_cache(tcfg, B, L)
+    tc = tsteps.init_cache(tcfg, B, L, device="cpu")
     tc = {k: v.to(getattr(torch, jnp.dtype(cache_dtype).name))
           for k, v in tc.items()}
     jbatch, tbatch = {}, {}
@@ -149,7 +149,7 @@ def _decode_both(jcfg, tcfg, jp, tp, policy, cache_dtype, paged,
                                      page_size=ps)
         jc = jax.tree.map(lambda c: c.astype(cache_dtype), jc)
         tc = tsteps.init_paged_cache(tcfg, B, L, n_pages=n_pages,
-                                     page_size=ps)
+                                     page_size=ps, device="cpu")
         tc = {k: v.to(getattr(torch, jnp.dtype(cache_dtype).name))
               for k, v in tc.items()}
         jbatch["pages"] = jnp.asarray(pages)

@@ -23,6 +23,9 @@ from repro_torch import weights
 from repro_torch.cluster import session as tsession
 from repro_torch.cluster.session import Cluster as TCluster
 from repro_torch.cluster.session import ServeSessionProgram as TProgram
+from repro_torch.configs import registry as treg
+from repro_torch.models import steps as tsteps
+from repro_torch.runtime import engine
 
 ARCH = "qwen3-14b-smoke"
 COMMON = dict(slots=4, max_seq=48, max_prompt=16, chunk=4)
@@ -53,7 +56,8 @@ def params():
     jc = JCluster(ARCH)
     jp = jc.compile(JProgram(preempt=False, **COMMON)).init_params()
     jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
-    return jp, weights.from_jax_params(jax.tree.map(np.asarray, jp))
+    return jp, weights.from_jax_params(jax.tree.map(np.asarray, jp),
+                                       device="cpu")
 
 
 def _serve(prog, p, reqs):
@@ -104,7 +108,7 @@ def test_one_shot_run():
     argmax, a 0.01 logit gap, so they are compared within the port.)"""
     jprog = JCluster(ARCH).compile(JProgram(preempt=False, **COMMON))
     jp = jprog.init_params()
-    tp = weights.from_jax_params(jax.tree.map(np.asarray, jp))
+    tp = weights.from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     tprog = TCluster(ARCH, device="cpu").compile(TProgram(**COMMON))
     want = jprog.run(params=jp, max_new=6)["tokens"]
     got = tprog.run(params=tp, max_new=6)["tokens"]
@@ -139,6 +143,49 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tsession.resolve_device(None)
     assert TCluster(ARCH, device="cpu").device.type == "cpu"
+
+
+def _allocating_entry_points():
+    cfg = treg.get(ARCH)
+    leaf = np.zeros((2, 3), np.float32)
+    return {
+        "init_params": lambda **kw: tsteps.init_params(cfg, **kw),
+        "init_cache": lambda **kw: tsteps.init_cache(cfg, 2, 8, **kw),
+        "init_paged_cache": lambda **kw: tsteps.init_paged_cache(
+            cfg, 2, 8, n_pages=5, page_size=4, **kw),
+        "init_session_state": lambda **kw: engine.init_session_state(
+            {}, 2, 4, pages_per_slot=2, **kw),
+        "from_jax_params": lambda **kw: weights.from_jax_params(
+            {"blocks": {"sub0": {"w": np.zeros((1, 2))}}, "ln_f": leaf},
+            **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_allocating_entry_points()))
+def test_allocating_entry_points_default_to_cuda(monkeypatch, name):
+    """Without a device the allocating functions take the GPU: with CUDA
+    absent they raise instead of quietly building CPU tensors, so that
+    `make_prefill_step(cfg)(init_params(cfg), batch)` never runs the
+    plain versions on the CPU by accident."""
+    fn = _allocating_entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fn()
+    out = fn(device="cpu")
+    leaves = [out] if isinstance(out, torch.Tensor) else list(
+        _tensor_leaves(out))
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_leaves(v)
 
 
 def test_unported_knobs_raise():
