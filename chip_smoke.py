@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU: build the CUDA kernels, hold
-each against its plain PyTorch version, then serve qwen3-14b at full width
-through the port's paged ServeSession and one-shot prefill.
+each against its plain PyTorch version, run the paper's Table 1 kernel
+suite through `repro_torch.kernels.ops`, then serve qwen3-14b at full
+width through the port's paged ServeSession and one-shot prefill.
 
     python3 chip_smoke.py
 
@@ -12,6 +13,15 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            bf16: max abs error against the stated tolerance, kernel, plain
            and library times (CUDA events, L2 flushed before each launch),
            and the card's least time for the same work (the bound)
+  suite    matmul, axpy, dotp, conv2d_3x3 and dct8x8 through
+           repro_torch.kernels.ops under the default policy, in f32 (and
+           bf16 for matmul and axpy), at the paper's sizes, at card sizes
+           (>= 10x the L2) and at one ragged shape each: every output vs
+           the plain version, kernel, plain and library times (warm, 200
+           launches, at the paper's sizes, also replayed as a CUDA graph;
+           L2 flushed at the others), the
+           bound (bytes, or operations at the f32 or bf16 peak), the
+           launches; TF32 off for the plain versions and the library calls
   agree    a reduced model (2 layers, 4 heads of 128) through the fused
            kernels on the card vs the plain versions on the CPU
   prefill  qwen3-14b, all 40 layers, random weights from a seeded
@@ -27,11 +37,11 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            run eagerly and replayed as a CUDA graph: wall time per step,
            the device's busy and idle shares in each, time by kernel
 
-The kernel launch counts are set to 0 before each of the prefill and serve
-phases and read right after; every kernel of a phase must have launched
+The kernel launch counts are set to 0 before each of the suite, prefill
+and serve runs and read right after; every kernel of a phase must have launched
 and no plain version may have run on a CUDA tensor. A wrapper counts the
 launches it makes; the launches a replayed CUDA graph makes are counted
-from the profiler's trace (`fused.traced_launches`). The last two lines
+from the profiler's trace (`launches.traced_launches`). The last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}.
 """
 
@@ -49,7 +59,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12            # f32 on the CUDA cores (no tensor cores)
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16: one output rounding + sum order
+F32_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 elementwise: sum order only
 
 
 def log(phase: str, **kv) -> None:
@@ -64,9 +76,12 @@ def gpu_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """The card's least time in ms for the work, and what sets it: the
+    bytes over HBM's rate or the operations over the peak of their type."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS_PER_S
+    t_ops = flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -95,12 +110,53 @@ class Timer:
         return total / iters
 
 
+def warm_ms(fn, iters: int = 200) -> float:
+    """Mean device time of `fn` over `iters` back-to-back launches between
+    one pair of events, its data left in L2 (a kernel of a few us is
+    resolved only so; MemPool's own kernels run from L1)."""
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def graph_ms(fn, iters: int = 200) -> float:
+    """Device time per launch of `fn`: `iters` launches captured once as a
+    CUDA graph and replayed between one pair of events, so the host's
+    dispatch between them is not counted (warm, as `warm_ms`)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    graph.replay()
+    e.record()
+    torch.cuda.synchronize()
+    del graph
+    return s.elapsed_time(e) / iters
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels import build, fused
+    from repro_torch.kernels import build, fused, launches
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -114,18 +170,21 @@ def main() -> int:
         build.library(name)
 
     records = kernel_phase(fused)
+    suite_records = suite_phase(launches)
     agree_phase()
-    cfg, params, prefill_counts = prefill_phase(fused)
-    serve_counts, serve_traced = serve_phase(fused, cfg, params)
+    cfg, params, prefill_counts = prefill_phase(launches)
+    serve_counts, serve_traced = serve_phase(launches, cfg, params)
     profile_phase(cfg, params)
     for rec in records:
-        # launches: the kernel's runs on the device in the main path (the
-        # prefill's, equal to its wrapper count, and the traced serve
+        # launches: a fused kernel's runs on the device in the main path
+        # (the prefill's, equal to its wrapper count, and the traced serve
         # run's, graph replays included); wrapper_launches: the wrappers'
-        # own counts over the same two runs
+        # own counts over the same two runs. A suite kernel's record
+        # already holds the suite phase's counts.
         name = rec["name"]
         rec["launches"] = prefill_counts[name] + serve_traced[name]
         rec["wrapper_launches"] = prefill_counts[name] + serve_counts[name]
+    records += suite_records
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(gpu_line())
     print(json.dumps({"kernels": records}))
@@ -147,9 +206,9 @@ REPLACES = {
 }
 
 
-def _compare(name, got, want):
+def _compare(name, got, want, tol=TOL):
     err = (got.float() - want.float()).abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), **TOL)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite output")
     return err
@@ -237,6 +296,188 @@ def kernel_phase(fused) -> list[dict]:
 
 
 # ----------------------------------------------------------------------------
+# the paper's Table 1 suite through repro_torch.kernels.ops
+# ----------------------------------------------------------------------------
+
+SUITE_REPLACES = {
+    "matmul": "src/repro/kernels/matmul.py:25",
+    "axpy": "src/repro/kernels/axpy.py:19",
+    "dotp": "src/repro/kernels/dotp.py:19",
+    "conv2d": "src/repro/kernels/conv2d.py:28",
+    "dct8x8": "src/repro/kernels/dct8x8.py:17",
+}
+PAPER, CARD, RAGGED = "paper", "card", "ragged"
+
+
+def suite_cases():
+    """(name, size, dtype, label, args, bytes, flops, library, tol) for
+    every case: the paper's sizes (benchmarks/bench_table1_kernels.py),
+    card sizes (working sets >= 10x the 50 MB L2) and one ragged shape per
+    kernel (edges that divide no tile). tol: assert_close keywords, or for
+    dotp the absolute error allowed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    f32, bf16 = torch.float32, torch.bfloat16
+    size_of = {f32: 4, bf16: 2}
+
+    def rand(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    cases = []
+    for size, m, k, n, dt in ((PAPER, 256, 256, 256, f32),
+                              (CARD, 4096, 4096, 4096, f32),
+                              (CARD, 4096, 4096, 4096, bf16),
+                              (RAGGED, 1000, 136, 200, f32),
+                              (RAGGED, 1000, 136, 200, bf16),
+                              (RAGGED, 5, 520, 300, bf16)):
+        a = rand(m, k, dtype=dt)
+        b = rand(k, n, dtype=dt, scale=1.0 if dt == f32 else k ** -0.5)
+        tol = (dict(rtol=0.0, atol=1e-4 * k ** 0.5) if dt == f32 else TOL)
+        cases.append(("matmul", size, dt, f"M{m}xK{k}xN{n}", (a, b),
+                      (m * k + k * n + m * n) * size_of[dt], 2.0 * m * n * k,
+                      ("torch.matmul", lambda a=a, b=b: torch.matmul(a, b)),
+                      tol))
+    alpha = torch.tensor(2.0, device="cuda")
+    for size, m, n, dt, al in ((PAPER, 768, 128, f32, alpha),
+                               (CARD, 2097152, 128, f32, alpha),
+                               (CARD, 2097152, 128, bf16, alpha),
+                               (RAGGED, 1001, 77, f32, 2.0),
+                               (RAGGED, 1001, 77, bf16, alpha)):
+        x, y = rand(m, n, dtype=dt), rand(m, n, dtype=dt)
+        cases.append(("axpy", size, dt, f"{m}x{n}", (al, x, y),
+                      3 * m * n * size_of[dt], 2.0 * m * n,
+                      ("torch.add(alpha=)",
+                       lambda x=x, y=y: torch.add(y, x, alpha=2.0)),
+                      F32_TOL if dt == f32 else TOL))
+    for size, m, n in ((PAPER, 768, 128), (CARD, 2097152, 128),
+                       (RAGGED, 1001, 77)):
+        x, y = rand(m, n), rand(m, n)
+        scale = (x * y).abs().sum().item()
+        cases.append(("dotp", size, f32, f"{m}x{n}", (x, y),
+                      2 * m * n * 4 + 4, 2.0 * m * n,
+                      ("torch.dot", lambda x=x, y=y: torch.dot(x.view(-1),
+                                                                y.view(-1))),
+                      1e-5 * scale))
+    for size, h, w_ in ((PAPER, 96, 1024), (CARD, 8192, 8192),
+                        (RAGGED, 97, 1023)):
+        x, w = rand(h, w_), rand(3, 3)
+        cases.append(("conv2d", size, f32, f"{h}x{w_}", (x, w),
+                      2 * h * w_ * 4 + 36, 18.0 * h * w_,
+                      ("F.conv2d(padding=1)",
+                       lambda x=x, w=w: F.conv2d(x[None, None], w[None, None],
+                                                 padding=1)),
+                      F32_TOL))
+    c = torch.from_numpy(ref.dct_matrix(8)).cuda()
+    for size, n in ((PAPER, 24576), (CARD, 4194304), (RAGGED, 1001)):
+        x = rand(n, 8, 8)
+        cases.append(("dct8x8", size, f32, f"{n}blk", (x,),
+                      2 * n * 64 * 4 + 256, 4.0 * n * 8 ** 3,
+                      ("einsum", lambda x=x: torch.einsum(
+                          "ij,njk,lk->nil", c, x, c)),
+                      F32_TOL))
+    return cases
+
+
+def suite_phase(launches) -> list[dict]:
+    """The Table 1 kernels through `repro_torch.kernels.ops` under the
+    default policy, in f32 as the Table 1 bench runs them (and bf16 for
+    matmul and axpy). The counts are set to 0 just before every case runs
+    once through ops and read just after: each kernel must have launched
+    and no plain version run. Then each output is held against the plain
+    version on the same inputs and the three are timed: warm, 200
+    launches between one pair of events, at the paper's sizes (and the
+    same 200 replayed as a CUDA graph: device time without the host's
+    dispatch); L2 flushed before each launch at the others. The tensors
+    are freed at the end."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.kernels import ops
+
+    # the plain versions and the library calls must compute in f32, not
+    # TF32 (cuDNN's convolutions allow TF32 by default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("suite: float32 matmul precision is "
+                             f"{torch.get_float32_matmul_precision()!r}")
+    op = {"matmul": ops.matmul, "axpy": ops.axpy, "dotp": ops.dotp,
+          "conv2d": ops.conv2d_3x3, "dct8x8": ops.dct8x8}
+    cases = suite_cases()
+    torch.cuda.synchronize()
+    with use_policy(None) as pol:                  # the default policy
+        launches.reset_counts()
+        outs = [op[c[0]](*c[4]) for c in cases]
+        torch.cuda.synchronize()
+        counts = launches.counts()
+    for name in launches.SUITE:
+        if counts[name]["launches"] <= 0 or counts[name]["plain_cuda_calls"]:
+            raise AssertionError(f"suite: {name} counts {counts[name]}")
+    if pol.stats != {"kernel_calls": len(cases)}:
+        raise AssertionError(f"suite: policy routed {pol.stats}")
+
+    timer = Timer()
+    rows = {}
+    for (name, size, dt, label, args, byts, flops, (lib_name, lib), tol), \
+            got in zip(cases, outs):
+        plain = launches.PLAIN[name]
+        want = plain(*args)
+        if name == "dotp":
+            err = abs(got.item() - want.item())
+            if got.shape != () or got.dtype != torch.float32 or err > tol:
+                raise AssertionError(f"suite: dotp {label} err {err} > {tol}")
+            tol_s = f"atol={tol:.3g}"
+        else:
+            err = _compare(f"{name} {label}", got, want, tol)
+            tol_s = f"rtol={tol['rtol']},atol={tol['atol']:.3g}"
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"suite: {name} {label} gave {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        kernel = launches.WRAPPERS[name]
+        extra = {}
+        if size == PAPER:
+            fns = (lambda: kernel(*args), lambda: plain(*args), lib)
+            times = [warm_ms(f) for f in fns]
+            extra = dict(zip(("graph_ms", "plain_graph_ms",
+                              "library_graph_ms"), map(graph_ms, fns)))
+        else:
+            times = [timer(lambda: kernel(*args)),
+                     timer(lambda: plain(*args), 3), timer(lib)]
+        peak = F32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
+        bms, by = bound(byts, flops, peak)
+        timing = "warm" if size == PAPER else "flushed"
+        dts = str(dt).replace("torch.", "")
+        log("suite", name=name, size=size, dtype=dts, shape=label,
+            max_abs_err=f"{err:.3g}", tol=tol_s, kernel_ms=f"{times[0]:.5f}",
+            plain_ms=f"{times[1]:.5f}", library_ms=f"{times[2]:.5f}",
+            library=f"'{lib_name}'", bound_ms=f"{bms:.5f}", bound_by=by,
+            timing=timing, launches=counts[name]["launches"],
+            **{k: f"{v:.5f}" for k, v in extra.items()})
+        rows.setdefault(name, []).append({
+            "size": size, "dtype": dts, "shape": label, "max_abs_err": err,
+            "ms": times[0], "plain_ms": times[1], "library_ms": times[2],
+            "library": lib_name, "bound_ms": bms, "bound_by": by,
+            "timing": timing, **extra})
+    records = []
+    for name, rs in rows.items():
+        # the record of a kernel is its first card-size (f32) row
+        head = next(r for r in rs if r["size"] == CARD)
+        records.append({
+            "name": name, "route": "cuda", "source": f"{SRC}/{name}.cu",
+            "replaces": SUITE_REPLACES[name],
+            "launches": counts[name]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape", "timing")},
+            "rows": rs})
+    del cases, outs, timer
+    torch.cuda.empty_cache()
+    return records
+
+
+# ----------------------------------------------------------------------------
 # a reduced model: kernels on the card vs plain versions on the CPU
 # ----------------------------------------------------------------------------
 
@@ -277,8 +518,8 @@ def _to(tree, device):
 # full width: prefill and serve
 # ----------------------------------------------------------------------------
 
-def _check_counts(fused, phase: str, must_launch) -> dict:
-    counts = fused.counts()
+def _check_counts(launches, phase: str, must_launch) -> dict:
+    counts = launches.counts()
     for name, c in counts.items():
         if c["plain_cuda_calls"]:
             raise AssertionError(f"{phase}: plain {name} ran on CUDA "
@@ -289,7 +530,7 @@ def _check_counts(fused, phase: str, must_launch) -> dict:
     return {n: c["launches"] for n, c in counts.items()}
 
 
-def prefill_phase(fused):
+def prefill_phase(launches):
     """One full-width prefill, timed with the counts set to 0 just before
     it; then the same prefill traced, whose device kernels must match the
     wrappers' counts (eager: one launch per wrapper call)."""
@@ -312,23 +553,23 @@ def prefill_phase(fused):
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(cfg, policy="fused")
     prefill(params, {"tokens": tokens[:, :16]})          # warm-up
-    fused.reset_counts()
+    launches.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tok = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = _check_counts(fused, "prefill", fused.WRAPPERS)
-    fused.reset_counts()
+    counted = _check_counts(launches, "prefill", launches.FUSED)
+    launches.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-    traced = fused.traced_launches(prof)
-    if traced != launches or _check_counts(fused, "prefill",
-                                           fused.WRAPPERS) != launches:
+    traced = launches.traced_launches(prof)
+    if traced != counted or _check_counts(launches, "prefill",
+                                          launches.FUSED) != counted:
         raise AssertionError(f"prefill: the trace saw {traced}, the "
-                             f"wrappers counted {launches}")
+                             f"wrappers counted {counted}")
     with torch.inference_mode():
         with use_policy("fused"):
             hidden, _ = steps.forward(cfg, params, tokens)
@@ -338,8 +579,9 @@ def prefill_phase(fused):
     if int(lg.argmax(-1)) != int(tok[0]):
         raise AssertionError("prefill: argmax disagrees with the step")
     log("prefill", B=1, S=512, layers=cfg.n_layers, ms=f"{dt * 1e3:.1f}",
-        token=int(tok[0]), launches=json.dumps(launches).replace(" ", ""))
-    return cfg, params, launches
+        token=int(tok[0]), launches=json.dumps(
+            {n: counted[n] for n in launches.FUSED}).replace(" ", ""))
+    return cfg, params, counted
 
 
 def _leaves(tree):
@@ -375,10 +617,10 @@ def serve_requests(vocab: int) -> list[tuple[np.ndarray, int]]:
     return reqs
 
 
-def _serve(cfg, params, reqs, *, eager: bool = False, fused=None):
+def _serve(cfg, params, reqs, *, eager: bool = False, launches=None):
     """Serve `reqs` through a fresh session and drain it. `eager` swaps
     the compiled session's chunk program for one that runs every step
-    from Python (the graph's check). Given `fused`, the launch counts are
+    from Python (the graph's check). Given `launches`, the counts are
     set to 0 just before the requests go in and the run is traced;
     returns the wrapper counts and the trace's counts as well."""
     from torch.profiler import ProfilerActivity, profile
@@ -401,8 +643,8 @@ def _serve(cfg, params, reqs, *, eager: bool = False, fused=None):
     sess = prog.open(params=params)
     torch.cuda.synchronize()
     prof = None
-    if fused is not None:
-        fused.reset_counts()
+    if launches is not None:
+        launches.reset_counts()
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         prof.start()
@@ -413,13 +655,13 @@ def _serve(cfg, params, reqs, *, eager: bool = False, fused=None):
     dt = time.perf_counter() - t0
     if prof is None:
         return sess, handles, stats, dt
-    counts = _check_counts(fused, "serve",
+    counts = _check_counts(launches, "serve",
                            ("rmsnorm_matmul", "matmul_residual_add"))
     prof.stop()
-    return sess, handles, stats, dt, counts, fused.traced_launches(prof)
+    return sess, handles, stats, dt, counts, launches.traced_launches(prof)
 
 
-def serve_phase(fused, cfg, params) -> dict:
+def serve_phase(launches, cfg, params) -> dict:
     """The main path: the session step replayed as a CUDA graph, as the
     session runs it on the card, under torch.profiler. The wrappers count
     the launches of the session's eager first step and of its capture;
@@ -428,7 +670,7 @@ def serve_phase(fused, cfg, params) -> dict:
     eagerly from Python. The tokens of all three must be the same."""
     reqs = serve_requests(cfg.vocab)
     sess, handles, stats, dt, counts, traced = _serve(cfg, params, reqs,
-                                                      fused=fused)
+                                                      launches=launches)
     for name in ("rmsnorm_matmul", "matmul_residual_add"):
         if traced[name] < counts[name]:
             raise AssertionError(f"serve: the trace saw {traced[name]} "
@@ -436,8 +678,10 @@ def serve_phase(fused, cfg, params) -> dict:
                                  f"{counts[name]}")
     log("serve", mode="cuda_graph,traced", wall_s=f"{dt:.2f}",
         tokens_per_s=f"{stats['tokens_per_s']:.2f}",
-        wrapper_launches=json.dumps(counts).replace(" ", ""),
-        traced_launches=json.dumps(traced).replace(" ", ""))
+        wrapper_launches=json.dumps(
+            {n: counts[n] for n in launches.FUSED}).replace(" ", ""),
+        traced_launches=json.dumps(
+            {n: traced[n] for n in launches.FUSED}).replace(" ", ""))
     for h, (prompt, n) in zip(handles, reqs):
         toks = h.result()
         if not (toks.size == n or (h.hit_eos and toks.size <= n)):

@@ -2,6 +2,6 @@
 policy-dispatched ops. Nothing here builds or imports CUDA tooling at
 import time: `build.py` compiles `csrc/` with nvcc on the first launch."""
 
-from . import fused, ops, ref
+from . import fused, launches, ops, ref
 
-__all__ = ["fused", "ops", "ref"]
+__all__ = ["fused", "launches", "ops", "ref"]

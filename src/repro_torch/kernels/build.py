@@ -19,8 +19,11 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj")
+SOURCES = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj",
+           "matmul", "axpy", "dotp", "conv2d", "dct8x8")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -29,8 +32,9 @@ I = ctypes.c_int
 F = ctypes.c_float
 SZ = ctypes.c_size_t
 # the C functions of each library: name -> (argtypes, restype). Launchers
-# return cudaGetLastError(); *_workspace_floats size the f32 scratch the
-# wrapper allocates (split-K partials, head-group partials).
+# (one per dtype, `<name>_<f32|bf16>`) return cudaGetLastError();
+# *_workspace_floats size the f32 scratch the wrapper allocates (split-K
+# partials, head-group partials, dotp's block partials).
 SIGNATURES = {
     "rmsnorm_matmul": {
         "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, P], I),
@@ -42,7 +46,21 @@ SIGNATURES = {
         "flash_attention_proj_bf16": (
             [P, P, P, P, P, P, I, I, I, I, I, I, I, P], I),
         "flash_attention_proj_workspace_floats": ([I, I, I, I], SZ)},
+    "matmul": {
+        "matmul_f32": ([P, P, P, I, I, I, P], I),
+        "matmul_bf16": ([P, P, P, P, I, I, I, P], I),
+        "matmul_workspace_floats": ([I, I, I], SZ)},
+    "axpy": {
+        "axpy_f32": ([P, P, P, P, SZ, P], I),
+        "axpy_bf16": ([P, P, P, P, SZ, P], I)},
+    "dotp": {
+        "dotp_f32": ([P, P, P, P, SZ, P], I),
+        "dotp_bf16": ([P, P, P, P, SZ, P], I),
+        "dotp_workspace_floats": ([SZ], SZ)},
+    "conv2d": {"conv2d_3x3_f32": ([P, P, P, I, I, P], I)},
+    "dct8x8": {"dct8x8_f32": ([P, P, P, SZ, P], I)},
 }
+
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -141,3 +159,44 @@ def check(name: str, err: int) -> None:
         fn.restype = ctypes.c_char_p
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({fn(err).decode()})")
+
+
+# ----------------------------------------------------------------------------
+# what every wrapper does around a launch
+# ----------------------------------------------------------------------------
+
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def stream() -> int:
+    """The current CUDA stream, as the launchers take it."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def workspace(name: str, device, *sizes: int) -> torch.Tensor:
+    """The f32 scratch kernel `name` asks for at these sizes (its C
+    function `<name>_workspace_floats`); one element when it needs none."""
+    floats = entry(name, f"{name}_workspace_floats")(*sizes)
+    return torch.empty(max(int(floats), 1), dtype=torch.float32,
+                       device=device)
+
+
+def check_operands(name: str, *tensors: torch.Tensor,
+                   dtypes=(torch.bfloat16,)) -> torch.device:
+    """Raise unless the operands share one device and a dtype of `dtypes`
+    (nothing is cast) and are contiguous and 32-byte aligned; return the
+    device."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    if dt not in dtypes:
+        raise TypeError(f"{name}: the CUDA kernel takes "
+                        f"{' or '.join(map(str, dtypes))}, got {dt}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: operands of {t.dtype} and {dt}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.data_ptr() % 32:
+            raise ValueError(f"{name}: operands must be 32-byte aligned")
+    return dev

@@ -1,6 +1,6 @@
 // Shared pieces of the port's Hopper kernels: bf16 tile loads and the two
-// matmul paths that `rmsnorm_matmul.cu` and `matmul_residual_add.cu`
-// instantiate with their prologue and epilogue:
+// matmul paths that `rmsnorm_matmul.cu`, `matmul_residual_add.cu` and
+// `matmul.cu` instantiate with their prologue and epilogue (or none):
 //   * gemm::   a tiled tensor-core (wmma) matmul for M > 16 (prefill);
 //   * skinny:: a split-K CUDA-core matmul for M <= 16 (decode, M = slots),
 //     where the weight stream is the whole cost and 16-byte loads with
@@ -295,7 +295,11 @@ inline size_t smem_bytes(int kps) {
   return (size_t)MR * kps * 2 + (size_t)WARPS * MR * COLS * 4;
 }
 
-template <bool NORM>
+// RESID does not change the partial sums: it names the instantiation, so
+// that each entry point (rmsnorm_matmul <true,false>, matmul_residual_add
+// <false,true>, matmul <false,false>) opens with a kernel of its own name,
+// which is what a profiler trace counts its launches by.
+template <bool NORM, bool RESID>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 partial_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
                const bf16* __restrict__ b, float* __restrict__ ws, int M,
@@ -393,7 +397,7 @@ __global__ void finish_kernel(const float* __restrict__ ws,
 }  // namespace skinny
 
 // f32 workspace (in floats) the skinny path needs; 0 for the tiled path.
-inline size_t matmul_workspace_floats(int M, int N, int K) {
+inline size_t split_k_workspace_floats(int M, int N, int K) {
   if (M > skinny::MAX_M || M <= 0 || N <= 0 || K <= 0) return 0;
   int splits, kps;
   skinny::plan(M, N, K, &splits, &kps);
@@ -412,12 +416,12 @@ int launch_matmul(const void* a, const void* scale, const void* b,
     skinny::plan(M, N, K, &splits, &kps);
     const size_t smem = skinny::smem_bytes(kps);
     cudaError_t err = cudaFuncSetAttribute(
-        skinny::partial_kernel<NORM>,
+        skinny::partial_kernel<NORM, RESID>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((N + skinny::COLS - 1) / skinny::COLS, splits,
                     (M + skinny::MR - 1) / skinny::MR);
-    skinny::partial_kernel<NORM><<<grid, skinny::THREADS, smem, st>>>(
+    skinny::partial_kernel<NORM, RESID><<<grid, skinny::THREADS, smem, st>>>(
         (const bf16*)a, (const bf16*)scale, (const bf16*)b, workspace, M, N,
         K, kps, eps);
     err = cudaGetLastError();

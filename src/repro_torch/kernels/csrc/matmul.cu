@@ -1,0 +1,140 @@
+// matmul: out (M,N) = a (M,K) @ b (K,N), f32 accumulation, output in the
+// operands' dtype (f32 or bf16), row-major, M, N and K masked at the edge.
+//
+// Replaces the Pallas kernel `repro/kernels/matmul.py` _matmul_kernel /
+// matmul: the paper's Table 1 `matmul`, an output tile held across the K
+// loop (MemPool's register tile) while operand tiles stream in.
+//
+// Bound on an H100 (67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s bf16 on
+// the tensor cores, 3.35 TB/s): operations-bound at every size the suite
+// runs; 4096^3 takes at least 2.05 ms in f32 and 0.139 ms in bf16.
+//
+// bf16: the tiled wmma path (M > 16) and the split-K path (M <= 16) of
+// common.cuh with no prologue and no epilogue.
+//
+// f32: true f32 on the CUDA cores (no TF32, no operand rounding). A block
+// of 256 threads owns a 128 x 128 output tile and each thread an 8 x 8
+// register tile (64 FMAs for 16 shared-memory loads). K is walked 8 at a
+// time through two shared-memory buffers: the next step's A and B tiles
+// are loaded into registers while the current one is multiplied, A stored
+// transposed so that both operands are read as float4 along the tile.
+#include "common.cuh"
+
+namespace sgemm {
+constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
+
+// four consecutive floats of one row at `col` (holding `n`), zero past
+// `n`: one float4 load when whole and aligned.
+__device__ __forceinline__ float4 load4(const float* row, int col, int n) {
+  const float* src = row + col;
+  if (col + 4 <= n && (reinterpret_cast<uintptr_t>(src) & 15) == 0)
+    return __ldg(reinterpret_cast<const float4*>(src));
+  float4 v;
+  v.x = col + 0 < n ? src[0] : 0.f;
+  v.y = col + 1 < n ? src[1] : 0.f;
+  v.z = col + 2 < n ? src[2] : 0.f;
+  v.w = col + 3 < n ? src[3] : 0.f;
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ out, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][BK][BM];   // A tile, transposed
+  __shared__ __align__(16) float Bs[2][BK][BN];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int ty = tid / (BN / TN), tx = tid % (BN / TN);   // 16 x 16
+  // A: 128 rows x 8 k, one float4 a thread; B: 8 k rows x 128, likewise
+  const int ar = tid / 2, ac = (tid % 2) * 4;
+  const int br = tid / (BN / 4), bc = (tid % (BN / 4)) * 4;
+
+  float4 ra, rb;
+  auto fetch = [&](int k0) {
+    ra = (m0 + ar < M) ? load4(a + (size_t)(m0 + ar) * K, k0 + ac, K)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    rb = (k0 + br < K) ? load4(b + (size_t)(k0 + br) * N, n0 + bc, N)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto stash = [&](int buf) {
+    As[buf][ac + 0][ar] = ra.x;
+    As[buf][ac + 1][ar] = ra.y;
+    As[buf][ac + 2][ar] = ra.z;
+    As[buf][ac + 3][ar] = ra.w;
+    *reinterpret_cast<float4*>(&Bs[buf][br][bc]) = rb;
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  const int steps = (K + BK - 1) / BK;
+  for (int t = 0; t < steps; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < steps) fetch((t + 1) * BK);
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[TM], bv[TN];
+      *reinterpret_cast<float4*>(av) =
+          *reinterpret_cast<const float4*>(&As[cur][kk][ty * TM]);
+      *reinterpret_cast<float4*>(av + 4) =
+          *reinterpret_cast<const float4*>(&As[cur][kk][ty * TM + 4]);
+      *reinterpret_cast<float4*>(bv) =
+          *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * TN]);
+      *reinterpret_cast<float4*>(bv + 4) =
+          *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * TN + 4]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (t + 1 < steps) stash(cur ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty * TM + i;
+    if (row >= M) break;
+    float* dst = out + (size_t)row * N;
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int col = n0 + tx * TN + j;
+      if (col + 4 <= N && (reinterpret_cast<uintptr_t>(dst + col) & 15) == 0) {
+        *reinterpret_cast<float4*>(dst + col) =
+            make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (col + u < N) dst[col + u] = acc[i][j + u];
+      }
+    }
+  }
+}
+}  // namespace sgemm
+
+extern "C" size_t matmul_workspace_floats(int M, int N, int K) {
+  return split_k_workspace_floats(M, N, K);
+}
+
+extern "C" int matmul_f32(const void* a, const void* b, void* out, int M,
+                          int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + sgemm::BM - 1) / sgemm::BM,
+                  (N + sgemm::BN - 1) / sgemm::BN);
+  sgemm::matmul_f32_kernel<<<grid, sgemm::THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)out, M, N, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int matmul_bf16(const void* a, const void* b, void* out,
+                           void* workspace, int M, int N, int K,
+                           void* stream) {
+  return launch_matmul<false, false>(a, nullptr, b, nullptr, out,
+                                     (float*)workspace, M, N, K, 0.f, stream);
+}

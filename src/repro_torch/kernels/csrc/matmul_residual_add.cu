@@ -17,7 +17,7 @@
 #include "common.cuh"
 
 extern "C" size_t matmul_residual_add_workspace_floats(int M, int N, int K) {
-  return matmul_workspace_floats(M, N, K);
+  return split_k_workspace_floats(M, N, K);
 }
 
 extern "C" int matmul_residual_add_bf16(const void* a, const void* b,

@@ -21,7 +21,7 @@
 #include "common.cuh"
 
 extern "C" size_t rmsnorm_matmul_workspace_floats(int M, int N, int K) {
-  return matmul_workspace_floats(M, N, K);
+  return split_k_workspace_floats(M, N, K);
 }
 
 extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,

@@ -8,7 +8,7 @@ Hopper kernel from `csrc/` on the current stream, or raises — there is no
 fallback. Each wrapper counts its launches in ``<wrapper>.launches``; each
 plain version counts the calls it served with CUDA tensors in
 ``<plain>.cuda_calls`` (a run on the card that should go through the
-kernels asserts that this stays 0).
+kernels asserts that this stays 0). `launches.py` gathers the counts.
 
   rmsnorm_matmul       replaces repro/kernels/fused.py build_rmsnorm_matmul
   matmul_residual_add  replaces repro/kernels/fused.py
@@ -29,32 +29,6 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 NEG = -1e30
 HEAD_DIM = 128                    # flash_attention_proj's compiled head size
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _workspace(name: str, device, *sizes: int) -> torch.Tensor:
-    """The f32 scratch kernel `name` asks for at these sizes (its C
-    function `<name>_workspace_floats`); one element when it needs none."""
-    floats = build.entry(name, f"{name}_workspace_floats")(*sizes)
-    return torch.empty(max(int(floats), 1), dtype=F32, device=device)
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: operands on {t.device} and {dev}")
-        if t.dtype != BF16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
-        if t.data_ptr() % 32:
-            raise ValueError(f"{name}: operands must be 32-byte aligned")
-    return dev
 
 
 # ----------------------------------------------------------------------------
@@ -81,15 +55,15 @@ def rmsnorm_matmul(x, scale, w, eps: float = 1e-6):
                          f"{tuple(scale.shape)}, {tuple(w.shape)}")
     if not x.is_cuda:
         return rmsnorm_matmul_plain(x, scale, w, eps)
-    _check_cuda("rmsnorm_matmul", x, scale, w)
+    build.check_operands("rmsnorm_matmul", x, scale, w)
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    ws = _workspace("rmsnorm_matmul", x.device, m, n, k)
+    ws = build.workspace("rmsnorm_matmul", x.device, m, n, k)
     err = build.entry("rmsnorm_matmul")(
         x.data_ptr(), scale.data_ptr(), w.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, n, k, float(eps), _stream())
+        ws.data_ptr(), m, n, k, float(eps), build.stream())
     build.check("rmsnorm_matmul", err)
     rmsnorm_matmul.launches += 1
     return out
@@ -117,15 +91,15 @@ def matmul_residual_add(a, b, res):
                          f"{tuple(b.shape)}, {tuple(res.shape)}")
     if not a.is_cuda:
         return matmul_residual_add_plain(a, b, res)
-    _check_cuda("matmul_residual_add", a, b, res)
+    build.check_operands("matmul_residual_add", a, b, res)
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    ws = _workspace("matmul_residual_add", a.device, m, n, k)
+    ws = build.workspace("matmul_residual_add", a.device, m, n, k)
     err = build.entry("matmul_residual_add")(
         a.data_ptr(), b.data_ptr(), res.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, n, k, _stream())
+        ws.data_ptr(), m, n, k, build.stream())
     build.check("matmul_residual_add", err)
     matmul_residual_add.launches += 1
     return out
@@ -169,70 +143,18 @@ def flash_attention_proj(q, k, v, wo, causal: bool = True):
                          f"{tuple(wo.shape)}")
     if not q.is_cuda:
         return flash_attention_proj_plain(q, k, v, wo, causal)
-    _check_cuda("flash_attention_proj", q, k, v, wo)
+    build.check_operands("flash_attention_proj", q, k, v, wo)
     dm = wo.shape[2]
     if hd != HEAD_DIM or dm % 16:
         raise ValueError(f"flash_attention_proj: the CUDA kernel takes "
                          f"hd={HEAD_DIM} and d_model % 16 == 0; got hd={hd}, "
                          f"d_model={dm}")
     out = torch.empty((b, s, dm), dtype=q.dtype, device=q.device)
-    ws = _workspace("flash_attention_proj", q.device, b, h, s, dm)
+    ws = build.workspace("flash_attention_proj", q.device, b, h, s, dm)
     err = build.entry("flash_attention_proj")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), wo.data_ptr(),
         out.data_ptr(), ws.data_ptr(), b, h, kv, s, hd, dm,
-        int(bool(causal)), _stream())
+        int(bool(causal)), build.stream())
     build.check("flash_attention_proj", err)
     flash_attention_proj.launches += 1
     return out
-
-
-WRAPPERS = {"rmsnorm_matmul": rmsnorm_matmul,
-            "matmul_residual_add": matmul_residual_add,
-            "flash_attention_proj": flash_attention_proj}
-PLAIN = {"rmsnorm_matmul": rmsnorm_matmul_plain,
-         "matmul_residual_add": matmul_residual_add_plain,
-         "flash_attention_proj": flash_attention_proj_plain}
-
-
-def reset_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    for fn in PLAIN.values():
-        fn.cuda_calls = 0
-
-
-def counts() -> dict:
-    """{name: {"launches": n, "plain_cuda_calls": n}} since the last
-    `reset_counts()`."""
-    return {name: {"launches": WRAPPERS[name].launches,
-                   "plain_cuda_calls": PLAIN[name].cuda_calls}
-            for name in WRAPPERS}
-
-
-# The device kernel that opens each launch of a wrapper (a split-K or slab
-# finish may follow it), as a profiler names it, spaces removed.
-ENTRY_KERNELS = {
-    "rmsnorm_matmul": ("skinny::partial_kernel<true>",
-                       "gemm::tile_kernel<true,false>"),
-    "matmul_residual_add": ("skinny::partial_kernel<false>",
-                            "gemm::tile_kernel<false,true>"),
-    "flash_attention_proj": ("fa_proj_kernel",),
-}
-
-
-def traced_launches(prof) -> dict:
-    """{name: n}: how often each wrapper's kernel ran on the device in the
-    torch.profiler trace `prof`, counted by its entry kernel. Unlike the
-    wrappers' counts this sees the launches a replayed CUDA graph makes."""
-    out = dict.fromkeys(WRAPPERS, 0)
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        key = e.key.replace(" ", "")
-        for name, entries in ENTRY_KERNELS.items():
-            if any(k in key for k in entries):
-                out[name] += e.count
-    return out
-
-
-reset_counts()

@@ -1,0 +1,88 @@
+"""Launch accounting for every kernel of the port, in one place.
+
+Each wrapper counts the launches it makes in ``<wrapper>.launches``; each
+plain version counts the calls it served with CUDA tensors in
+``<plain>.cuda_calls``. `reset_counts` sets all of them to 0, `counts`
+reads them, and `traced_launches` counts each kernel's device runs in a
+torch.profiler trace, which also sees the launches a replayed CUDA graph
+makes (the wrappers do not run then).
+"""
+
+from __future__ import annotations
+
+from . import axpy as _axpy
+from . import conv2d as _conv2d
+from . import dct8x8 as _dct8x8
+from . import dotp as _dotp
+from . import fused as _fused
+from . import matmul as _matmul
+
+WRAPPERS = {"rmsnorm_matmul": _fused.rmsnorm_matmul,
+            "matmul_residual_add": _fused.matmul_residual_add,
+            "flash_attention_proj": _fused.flash_attention_proj,
+            "matmul": _matmul.matmul,
+            "axpy": _axpy.axpy,
+            "dotp": _dotp.dotp,
+            "conv2d": _conv2d.conv2d_3x3,
+            "dct8x8": _dct8x8.dct8x8}
+PLAIN = {"rmsnorm_matmul": _fused.rmsnorm_matmul_plain,
+         "matmul_residual_add": _fused.matmul_residual_add_plain,
+         "flash_attention_proj": _fused.flash_attention_proj_plain,
+         "matmul": _matmul.matmul_plain,
+         "axpy": _axpy.axpy_plain,
+         "dotp": _dotp.dotp_plain,
+         "conv2d": _conv2d.conv2d_3x3_plain,
+         "dct8x8": _dct8x8.dct8x8_plain}
+FUSED = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj")
+SUITE = ("matmul", "axpy", "dotp", "conv2d", "dct8x8")
+
+
+def reset_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    for fn in PLAIN.values():
+        fn.cuda_calls = 0
+
+
+def counts() -> dict:
+    """{name: {"launches": n, "plain_cuda_calls": n}} since the last
+    `reset_counts()`."""
+    return {name: {"launches": WRAPPERS[name].launches,
+                   "plain_cuda_calls": PLAIN[name].cuda_calls}
+            for name in WRAPPERS}
+
+
+# The device kernel that opens each launch of a wrapper (a split-K, slab or
+# partial-sum finish may follow it), as a profiler names it, spaces
+# removed. The three matmul entry points instantiate the same templates
+# with other flags, so each has names of its own.
+ENTRY_KERNELS = {
+    "rmsnorm_matmul": ("skinny::partial_kernel<true,false>",
+                       "gemm::tile_kernel<true,false>"),
+    "matmul_residual_add": ("skinny::partial_kernel<false,true>",
+                            "gemm::tile_kernel<false,true>"),
+    "flash_attention_proj": ("fa_proj_kernel",),
+    "matmul": ("skinny::partial_kernel<false,false>",
+               "gemm::tile_kernel<false,false>", "matmul_f32_kernel"),
+    "axpy": ("axpy_kernel_",),
+    "dotp": ("dotp_partial_kernel",),
+    "conv2d": ("conv2d_3x3_kernel",),
+    "dct8x8": ("dct8x8_kernel",),
+}
+
+
+def traced_launches(prof) -> dict:
+    """{name: n}: how often each wrapper's kernel ran on the device in the
+    torch.profiler trace `prof`, counted by its entry kernel."""
+    out = dict.fromkeys(WRAPPERS, 0)
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        key = e.key.replace(" ", "")
+        for name, entries in ENTRY_KERNELS.items():
+            if any(k in key for k in entries):
+                out[name] += e.count
+    return out
+
+
+reset_counts()

@@ -1,0 +1,49 @@
+"""matmul — the paper's Table 1 `matmul`: wrapper, plain version, launch
+count. Replaces `repro/kernels/matmul.py` _matmul_kernel / matmul;
+the kernel is `csrc/matmul.cu` (bound and design in its notes).
+
+The wrapper takes CPU tensors to the plain version and CUDA tensors to the
+kernel, or raises (see `fused.py` for the counting convention).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build, ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def matmul_plain(a, b):
+    """a @ b with an f32 accumulator, rounded once to a.dtype."""
+    if a.is_cuda:
+        matmul_plain.cuda_calls += 1
+    return ref.matmul(a, b)
+
+
+def matmul(a, b):
+    """a: (M, K) @ b: (K, N) -> (M, N) in a.dtype (f32 or bf16 on CUDA)."""
+    m, k = a.shape
+    if b.dim() != 2 or b.shape[0] != k:
+        raise ValueError(f"matmul: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+    if not a.is_cuda:
+        return matmul_plain(a, b)
+    build.check_operands("matmul", a, b, dtypes=DTYPES)
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if m == 0 or n == 0 or k == 0:
+        return out.zero_()
+    if a.dtype == torch.float32:
+        err = build.entry("matmul", "matmul_f32")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+            build.stream())
+    else:
+        ws = build.workspace("matmul", a.device, m, n, k)
+        err = build.entry("matmul", "matmul_bf16")(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n,
+            k, build.stream())
+    build.check("matmul", err)
+    matmul.launches += 1
+    return out

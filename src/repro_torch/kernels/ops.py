@@ -1,20 +1,42 @@
-"""Policy-dispatched kernel ops — the port's `repro.kernels.ops` for the
-three fused kernels on the serving path (forward only; the custom-VJP
-backward comes with the training slice).
+"""Policy-dispatched kernel ops — the port's `repro.kernels.ops`: the
+paper's Table 1 suite (`matmul`, `axpy`, `dotp`, `conv2d_3x3`, `dct8x8`)
+and the three fused kernels on the serving path (forward only; the
+custom-VJP backward comes with the training slice).
 
 Under the active `KernelPolicy`:
 
   * mode "reference" -> the plain oracle (`kernels/ref.py`);
-  * mode "interpret" -> the kernel's plain PyTorch version (`fused.py`);
+  * mode "interpret" -> the kernel's plain PyTorch version;
   * otherwise        -> the kernel wrapper: the Hopper kernel for CUDA
                         tensors, its plain version for CPU tensors.
+
+The suite's block arguments (``bm``/``bn``/``bk``, ``block_rows``,
+``block_n``) are the reference's Pallas grid blocking. Outside the
+"reference" mode they are checked as the reference checks them (an
+explicit block, capped at its dimension, must divide it) and are passed
+to no kernel: the CUDA kernels choose their own tiles.
+
+Every ported kernel registers one `OpDescriptor` in `OPS`, under the
+reference's name (the convolution is "conv2d"). `composition` and
+`tuned_call` come with the tuning layer.
 """
 
 from __future__ import annotations
 
-from repro_torch.cluster.policy import current_policy
+import dataclasses
+from typing import Any, Callable
 
+import torch
+
+from repro_torch.cluster.policy import current_policy
+from repro_torch.device import resolve_device
+
+from . import axpy as _axpy
+from . import conv2d as _conv2d
+from . import dct8x8 as _dct8x8
+from . import dotp as _dotp
 from . import fused as _fused
+from . import matmul as _matmul
 from . import ref as _ref
 
 
@@ -30,6 +52,85 @@ def _route(name: str) -> str:
     pol.bump("kernel_calls")
     return "kernel"
 
+
+def _check_blocks(**dims_and_blocks: tuple[int, int | None]) -> None:
+    """The reference's `pipeline.resolve_block` check on each (dim,
+    block): None passes, an explicit block is capped at its dimension and
+    must then divide it."""
+    for what, (dim, block) in dims_and_blocks.items():
+        if block is None:
+            continue
+        b = max(1, min(block, dim))
+        if dim % b:
+            raise ValueError(
+                f"block size {b} ({what}) does not divide dimension {dim}; "
+                f"pass a divisor or omit it for the snapped default")
+
+
+# ----------------------------------------------------------------------------
+# The paper's Table 1 suite
+# ----------------------------------------------------------------------------
+
+def matmul(a, b, *, bm: int | None = None, bn: int | None = None,
+           bk: int | None = None):
+    """a (M, K) @ b (K, N), f32 accumulator, output in a.dtype."""
+    route = _route("matmul")
+    if route == "reference":
+        return _ref.matmul(a, b)
+    _check_blocks(bm=(a.shape[0], bm), bn=(b.shape[1], bn),
+                  bk=(a.shape[1], bk))
+    if route == "plain":
+        return _matmul.matmul_plain(a, b)
+    return _matmul.matmul(a, b)
+
+
+def axpy(alpha, x, y, *, block_rows: int | None = None):
+    """alpha * x + y in f32, output in x.dtype; x, y: (M, N)."""
+    route = _route("axpy")
+    if route == "reference":
+        return _ref.axpy(alpha, x, y)
+    _check_blocks(block_rows=(x.shape[0], block_rows))
+    if route == "plain":
+        return _axpy.axpy_plain(alpha, x, y)
+    return _axpy.axpy(alpha, x, y)
+
+
+def dotp(x, y, *, block_rows: int | None = None):
+    """sum(x * y) in f32 as a 0-d f32 tensor; x, y: (M, N)."""
+    route = _route("dotp")
+    if route == "reference":
+        return _ref.dotp(x, y)
+    _check_blocks(block_rows=(x.shape[0], block_rows))
+    if route == "plain":
+        return _dotp.dotp_plain(x, y)
+    return _dotp.dotp(x, y)
+
+
+def conv2d_3x3(x, w, *, block_rows: int | None = None):
+    """Zero-padded 'same' 3x3 correlation; x: (H, W), w: (3, 3)."""
+    route = _route("conv2d")
+    if route == "reference":
+        return _ref.conv2d_3x3(x, w)
+    _check_blocks(block_rows=(x.shape[0], block_rows))
+    if route == "plain":
+        return _conv2d.conv2d_3x3_plain(x, w)
+    return _conv2d.conv2d_3x3(x, w)
+
+
+def dct8x8(blocks, *, block_n: int | None = None):
+    """The 2-D DCT C X C^T of each block of (N, 8, 8)."""
+    route = _route("dct8x8")
+    if route == "reference":
+        return _ref.dct8x8(blocks)
+    _check_blocks(block_n=(blocks.shape[0], block_n))
+    if route == "plain":
+        return _dct8x8.dct8x8_plain(blocks)
+    return _dct8x8.dct8x8(blocks)
+
+
+# ----------------------------------------------------------------------------
+# The fused kernels of the serving path
+# ----------------------------------------------------------------------------
 
 def rmsnorm_matmul(x, scale, w):
     """matmul(rmsnorm(x, scale), w); the normed x never round-trips HBM."""
@@ -59,3 +160,150 @@ def flash_attention_proj(q, k, v, wo, *, causal: bool = True):
     if route == "plain":
         return _fused.flash_attention_proj_plain(q, k, v, wo, causal)
     return _fused.flash_attention_proj(q, k, v, wo, causal)
+
+
+# ----------------------------------------------------------------------------
+# Kernel descriptor table — one record per ported kernel
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class OpDescriptor:
+    """A kernel's public contract in one place (the reference's, less the
+    tuning layer's `composition`).
+
+    `shapes(*operands)` maps the wrapper's operands to the reference's
+    pipeline-layer shape dict; `operands(shapes, dtype, device=None)` is
+    its inverse, seeded random operands on `device` (the GPU unless
+    given); `reference` is the oracle the "reference" mode routes to;
+    `streamed_operand` is the index of the operand whose dtype sets the
+    tile footprint; `fused` marks the producer-consumer kernels.
+    """
+
+    name: str
+    wrapper: Callable
+    shapes: Callable[..., dict]
+    reference: Callable | None = None
+    streamed_operand: int = 0
+    fused: bool = False
+    operands: Callable[..., tuple] | None = None
+
+
+OPS: dict[str, OpDescriptor] = {}
+
+
+def register_op(desc: OpDescriptor) -> OpDescriptor:
+    OPS[desc.name] = desc
+    return desc
+
+
+def wrapper_for(name: str):
+    """Public name -> policy-dispatched wrapper."""
+    return OPS[name].wrapper
+
+
+def kernel_shapes(name: str, *operands) -> dict:
+    """The pipeline-layer shape dict for a kernel's operands, in the
+    public wrapper's operand order."""
+    return OPS[name].shapes(*operands)
+
+
+def _shapes_mn(*xs):
+    x = xs[-1]
+    return {"m": x.shape[0], "n": x.shape[1]}
+
+
+def _shapes_matmul(a, b, *_):
+    return {"m": a.shape[0], "k": a.shape[1], "n": b.shape[1]}
+
+
+def _shapes_conv2d(x, w):
+    return {"h": x.shape[0], "w": x.shape[1]}
+
+
+def _shapes_dct8x8(blocks):
+    return {"n": blocks.shape[0]}
+
+
+def _shapes_rmsnorm_matmul(x, scale, w):
+    return {"m": x.shape[0], "k": x.shape[1], "n": w.shape[1]}
+
+
+def _shapes_flash_attention_proj(q, k, v, wo):
+    b, h, s, hd = q.shape
+    return {"b": b, "h": h, "kv": k.shape[1], "s": s, "hd": hd,
+            "dm": wo.shape[-1]}
+
+
+# -- operand factories (seeded; one seed per operand, as the reference) -----
+
+def _rand(seed: int, shape: tuple, dtype, device, scale: float = 1.0):
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+
+def _mk_axpy(s, dt, device=None):
+    return (2.0, _rand(0, (s["m"], s["n"]), dt, device),
+            _rand(1, (s["m"], s["n"]), dt, device))
+
+
+def _mk_dotp(s, dt, device=None):
+    return (_rand(2, (s["m"], s["n"]), dt, device),
+            _rand(3, (s["m"], s["n"]), dt, device))
+
+
+def _mk_matmul(s, dt, device=None):
+    return (_rand(4, (s["m"], s["k"]), dt, device),
+            _rand(5, (s["k"], s["n"]), dt, device))
+
+
+def _mk_conv2d(s, dt, device=None):
+    return (_rand(6, (s["h"], s["w"]), dt, device),
+            _rand(7, (3, 3), dt, device))
+
+
+def _mk_dct8x8(s, dt, device=None):
+    return (_rand(8, (s["n"], 8, 8), dt, device),)
+
+
+def _mk_rmsnorm_matmul(s, dt, device=None):
+    return (_rand(14, (s["m"], s["k"]), dt, device),
+            _rand(15, (s["k"],), dt, device, 0.1),
+            _rand(16, (s["k"], s["n"]), dt, device))
+
+
+def _mk_matmul_residual_add(s, dt, device=None):
+    return (_rand(20, (s["m"], s["k"]), dt, device),
+            _rand(21, (s["k"], s["n"]), dt, device),
+            _rand(22, (s["m"], s["n"]), dt, device))
+
+
+def _mk_flash_attention_proj(s, dt, device=None):
+    b, h, kv, sq, hd, dm = (s[k] for k in ("b", "h", "kv", "s", "hd", "dm"))
+    return (_rand(23, (b, h, sq, hd), dt, device),
+            _rand(24, (b, kv, sq, hd), dt, device),
+            _rand(25, (b, kv, sq, hd), dt, device),
+            _rand(26, (h, hd, dm), dt, device, 0.1))
+
+
+for _desc in (
+    OpDescriptor("axpy", axpy, _shapes_mn, _ref.axpy, streamed_operand=1,
+                 operands=_mk_axpy),
+    OpDescriptor("dotp", dotp, _shapes_mn, _ref.dotp, operands=_mk_dotp),
+    OpDescriptor("matmul", matmul, _shapes_matmul, _ref.matmul,
+                 operands=_mk_matmul),
+    OpDescriptor("conv2d", conv2d_3x3, _shapes_conv2d, _ref.conv2d_3x3,
+                 operands=_mk_conv2d),
+    OpDescriptor("dct8x8", dct8x8, _shapes_dct8x8, _ref.dct8x8,
+                 operands=_mk_dct8x8),
+    OpDescriptor("rmsnorm_matmul", rmsnorm_matmul, _shapes_rmsnorm_matmul,
+                 _ref.rmsnorm_matmul, fused=True,
+                 operands=_mk_rmsnorm_matmul),
+    OpDescriptor("matmul_residual_add", matmul_residual_add, _shapes_matmul,
+                 _ref.matmul_residual_add, fused=True,
+                 operands=_mk_matmul_residual_add),
+    OpDescriptor("flash_attention_proj", flash_attention_proj,
+                 _shapes_flash_attention_proj, _ref.flash_attention_proj,
+                 fused=True, operands=_mk_flash_attention_proj),
+):
+    register_op(_desc)

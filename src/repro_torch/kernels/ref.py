@@ -1,6 +1,7 @@
 """Plain PyTorch oracles — the counterparts of `repro.kernels.ref` and of
 the `_ref_*` compositions in `repro.kernels.ops` that the ``"reference"``
-policy mode routes to.
+policy mode routes to. The Table 1 suite's oracles (matmul, axpy, dotp,
+conv2d_3x3, dct8x8) are the reference's own, line for line.
 
 These follow the reference package's *oracles*, not its kernels: the
 residual add rounds once (the kernel rounds twice, see `fused.py`), and
@@ -9,10 +10,57 @@ attention is a full-softmax composition.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32 = torch.float32
 NEG = -1e30
+
+
+def matmul(a, b):
+    return (a.to(F32) @ b.to(F32)).to(a.dtype)
+
+
+def axpy(alpha, x, y):
+    """alpha: a Python number or a tensor holding one value."""
+    a = torch.as_tensor(alpha, dtype=F32, device=x.device)
+    return (a * x.to(F32) + y.to(F32)).to(x.dtype)
+
+
+def dotp(x, y):
+    """A 0-d f32 tensor, whatever the operands' dtype."""
+    return torch.sum(x.to(F32) * y.to(F32))
+
+
+def conv2d_3x3(x, w):
+    """x: (H, W); w: (3, 3). Zero-padded 'same' convolution (correlation),
+    the nine products summed dy outer, dx inner, from 0."""
+    h, wd = x.shape
+    xp = torch.nn.functional.pad(x.to(F32), (1, 1, 1, 1))
+    wf = w.to(F32)
+    out = torch.zeros((h, wd), dtype=F32, device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            out = out + wf[dy, dx] * xp[dy:dy + h, dx:dx + wd]
+    return out.to(x.dtype)
+
+
+def dct_matrix(n: int = 8) -> np.ndarray:
+    """The orthonormal DCT-II matrix, as float32 numpy (the reference's
+    `repro.kernels.ref.dct_matrix`, kept here because that module imports
+    jax)."""
+    k = np.arange(n)[:, None]
+    i = np.arange(n)[None, :]
+    c = np.sqrt(2.0 / n) * np.cos((2 * i + 1) * k * np.pi / (2 * n))
+    c[0] /= np.sqrt(2.0)
+    return c.astype(np.float32)
+
+
+def dct8x8(blocks):
+    """blocks: (N, 8, 8) -> 2-D DCT per block: C X C^T."""
+    c = torch.from_numpy(dct_matrix(8)).to(blocks.device)
+    return torch.einsum("ij,njk,lk->nil", c, blocks.to(F32),
+                        c).to(blocks.dtype)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):

@@ -165,7 +165,7 @@ class _StepGraph:
     one without running it. A kernel wrapper counts a launch when it is
     called, so it counts the captured launches once; their executions in
     the replays are seen only by a device trace
-    (`kernels.fused.traced_launches`)."""
+    (`kernels.launches.traced_launches`)."""
 
     def __init__(self, decode_step, params, state, eos_id):
         side = torch.cuda.Stream()

@@ -4,13 +4,16 @@ Every test here is marked `cuda` and skips without a CUDA device (the
 kernels have no CPU mode). It imports no jax, so it runs on a machine
 with only PyTorch: `python -m pytest -q tests/test_torch_cuda.py`.
 Tolerance: bf16 outputs within 2e-2 absolute + relative (one output
-rounding, and f32 sums taken in another order).
+rounding, and f32 sums taken in another order); f32 within 1e-5 (sum
+order), matmul within 1e-4 * sqrt(K) absolute, dotp within 1e-5 of
+sum|x*y|.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import fused
+from repro_torch.kernels import axpy, conv2d, dct8x8, dotp, fused, launches
+from repro_torch.kernels import matmul
 
 
 @pytest.fixture
@@ -97,7 +100,7 @@ def test_cuda_graph_session_matches_eager(cuda):
     pre = rng.integers(1, 512, 16)
     reqs = [(np.concatenate([pre, rng.integers(1, 512, i)]), 6 + i)
             for i in range(1, 7)]
-    out, launches = [], []
+    out, counted = [], []
     for graph in (True, False):
         with cluster.policy("fused"):
             prog = cluster.compile(spec)
@@ -107,19 +110,144 @@ def test_cuda_graph_session_matches_eager(cuda):
                                        policy="fused"),
                 spec.chunk, cuda_graph=False)
         sess = prog.open(params=prog.init_params(3))
-        fused.reset_counts()
+        launches.reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             handles = [sess.submit(p, n) for p, n in reqs]
             sess.drain()
             torch.cuda.synchronize()
         out.append([h.result() for h in handles])
-        launches.append((fused.counts(), fused.traced_launches(prof)))
+        counted.append((launches.counts(), launches.traced_launches(prof)))
     for a, b in zip(*out):
         np.testing.assert_array_equal(a, b)
-    (g_counts, g_traced), (e_counts, e_traced) = launches
+    (g_counts, g_traced), (e_counts, e_traced) = counted
     eager = {k: c["launches"] for k, c in e_counts.items()}
     assert eager["rmsnorm_matmul"] > 0 and eager["matmul_residual_add"] > 0
     assert e_traced == eager == g_traced
     assert 0 < g_counts["rmsnorm_matmul"]["launches"] < eager[
         "rmsnorm_matmul"]
+
+
+# ----------------------------------------------------------------------------
+# the Table 1 suite
+# ----------------------------------------------------------------------------
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _randn(g, *shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1000, 136, 200), (5, 520, 300),
+                                   (130, 7, 129), (256, 256, 256)])
+def test_cuda_matmul(cuda, dtype, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = _randn(g, m, k, dtype=DT[dtype])
+    b = _randn(g, k, n, dtype=DT[dtype], scale=k ** -0.5)
+    before = matmul.matmul.launches
+    got = matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.matmul.launches == before + 1
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    tol = (dict(rtol=0.0, atol=1e-4 * k ** 0.5) if dtype == "float32"
+           else BF16_TOL)
+    torch.testing.assert_close(got.float(), matmul.matmul_plain(
+        a, b).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (3, 5)])
+def test_cuda_axpy(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = _randn(g, *shape, dtype=DT[dtype])
+    y = _randn(g, *shape, dtype=DT[dtype])
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    want = axpy.axpy_plain(1.7, x, y)
+    for alpha in (1.7, torch.tensor(1.7, device=cuda)):
+        got = axpy.axpy(alpha, x, y)
+        torch.cuda.synchronize()
+        assert got.dtype == x.dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (2, 3)])
+def test_cuda_dotp_is_deterministic(cuda, dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(g, *shape, dtype=DT[dtype])
+    y = _randn(g, *shape, dtype=DT[dtype])
+    first, second = dotp.dotp(x, y), dotp.dotp(x, y)
+    torch.cuda.synchronize()
+    assert first.shape == () and first.dtype == torch.float32
+    assert first.item() == second.item()        # no atomics: same bits
+    scale = (x.float() * y.float()).abs().sum().item()
+    assert abs(first.item() - dotp.dotp_plain(x, y).item()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(97, 1023), (96, 1024), (1, 1), (17, 65)])
+def test_cuda_conv2d(cuda, h, w):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, wt = _randn(g, h, w), _randn(g, 3, 3)
+    got = conv2d.conv2d_3x3(x, wt)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, conv2d.conv2d_3x3_plain(x, wt),
+                               **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1001, 24576, 1, 17])
+def test_cuda_dct8x8(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(g, n, 8, 8)
+    got = dct8x8.dct8x8(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, dct8x8.dct8x8_plain(x), **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_suite_rejects_what_the_kernels_do_not_take(cuda):
+    x = torch.randn(64, 32, device=cuda)
+    with pytest.raises(TypeError):
+        conv2d.conv2d_3x3(x.half(), torch.randn(3, 3, device=cuda).half())
+    with pytest.raises(TypeError):
+        dct8x8.dct8x8(torch.randn(4, 8, 8, device=cuda).bfloat16())
+    with pytest.raises(TypeError):
+        axpy.axpy(2.0, x, x.bfloat16())
+    with pytest.raises(ValueError):
+        matmul.matmul(x, torch.randn(40, 32, device=cuda).t())
+    with pytest.raises(ValueError):
+        dotp.dotp(x.t(), x.t())
+
+
+@pytest.mark.cuda
+def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
+    """The plain matmul instantiates the fused kernels' templates: a trace
+    counts its launches as matmul's, not matmul_residual_add's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    a = _randn(g, 8, 256, dtype=torch.bfloat16)
+    big = _randn(g, 64, 256, dtype=torch.bfloat16)
+    b = _randn(g, 256, 128, dtype=torch.bfloat16, scale=1 / 16)
+    r = _randn(g, 8, 128, dtype=torch.bfloat16)
+    matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            matmul.matmul(a, b)             # split-K path
+        matmul.matmul(big, b)               # tiled path
+        matmul.matmul(a.float(), b.float())
+        fused.matmul_residual_add(a, b, r)
+        torch.cuda.synchronize()
+    traced = launches.traced_launches(prof)
+    assert traced["matmul"] == 5
+    assert traced["matmul_residual_add"] == 1
+    assert traced["rmsnorm_matmul"] == 0

@@ -19,7 +19,7 @@ import torch
 
 from repro.cluster.policy import use_policy
 from repro.kernels import ops as jops
-from repro_torch.kernels import fused, ops, ref
+from repro_torch.kernels import fused, launches, ops, ref
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -207,9 +207,9 @@ def test_reference_mode_matches_the_reference_oracles():
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
-    fused.reset_counts()
+    launches.reset_counts()
     x = torch.randn(3, 16)
     out = fused.rmsnorm_matmul(x, torch.zeros(16), torch.randn(16, 8))
     assert out.shape == (3, 8)
-    assert fused.counts()["rmsnorm_matmul"] == {"launches": 0,
-                                                "plain_cuda_calls": 0}
+    assert launches.counts()["rmsnorm_matmul"] == {"launches": 0,
+                                                   "plain_cuda_calls": 0}
