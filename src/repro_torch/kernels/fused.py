@@ -26,7 +26,6 @@ import torch
 from . import build
 
 F32 = torch.float32
-BF16 = torch.bfloat16
 NEG = -1e30
 HEAD_DIM = 128                    # flash_attention_proj's compiled head size
 

@@ -24,7 +24,7 @@ reference's name (the convolution is "conv2d"). `composition` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Callable
 
 import torch
 

@@ -237,17 +237,26 @@ def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
     big = _randn(g, 64, 256, dtype=torch.bfloat16)
     b = _randn(g, 256, 128, dtype=torch.bfloat16, scale=1 / 16)
     r = _randn(g, 8, 128, dtype=torch.bfloat16)
-    matmul.matmul(a, b)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    af, bf = a.float(), b.float()
+
+    def run():
         for _ in range(3):
             matmul.matmul(a, b)             # split-K path
         matmul.matmul(big, b)               # tiled path
-        matmul.matmul(a.float(), b.float())
+        matmul.matmul(af, bf)               # f32 tile
         fused.matmul_residual_add(a, b, r)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge = r.float().sum()              # kernels at the trace's edges
+        run()
+        edge = edge + r.float().sum()
         torch.cuda.synchronize()
     traced = launches.traced_launches(prof)
-    assert traced["matmul"] == 5
-    assert traced["matmul_residual_add"] == 1
-    assert traced["rmsnorm_matmul"] == 0
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if "CUDA" in str(getattr(e, "device_type", ""))})
+    assert traced["matmul"] == 5, (traced, kernels)
+    assert traced["matmul_residual_add"] == 1, (traced, kernels)
+    assert traced["rmsnorm_matmul"] == 0, (traced, kernels)
