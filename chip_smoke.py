@@ -1,7 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU: build the CUDA kernels, hold
 each against its plain PyTorch version, run the paper's Table 1 kernel
-suite through `repro_torch.kernels.ops`, then serve qwen3-14b at full
-width through the port's paged ServeSession and one-shot prefill.
+suite and the fused ops' compositions through `repro_torch.kernels.ops`,
+run whisper-small's prefill and decode, then qwen3-14b at full width:
+its one-shot prefill on the fused and on the "pallas" route, and serving
+through the port's paged ServeSession.
 
     python3 chip_smoke.py
 
@@ -9,10 +11,11 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
 
   device   the card's name and power limit (nvidia-smi)
   build    nvcc of every source in src/repro_torch/kernels/csrc (parallel)
-  kernels  each kernel vs its plain version at the main path's shapes, in
-           bf16: max abs error against the stated tolerance, kernel, plain
-           and library times (CUDA events, L2 flushed before each launch),
-           and the card's least time for the same work (the bound)
+  kernels  each kernel of the model paths vs its plain version at those
+           paths' shapes, in bf16 (rmsnorm also in f32): max abs error
+           against the stated tolerance, kernel, plain and library times
+           (CUDA events, L2 flushed before each launch), and the card's
+           least time for the same work (the bound)
   suite    matmul, axpy, dotp, conv2d_3x3 and dct8x8 through
            repro_torch.kernels.ops under the default policy, in f32 (and
            bf16 for matmul and axpy), at the paper's sizes, at card sizes
@@ -22,11 +25,26 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            L2 flushed at the others), the
            bound (bytes, or operations at the f32 or bf16 peak), the
            launches; TF32 off for the plain versions and the library calls
-  agree    a reduced model (2 layers, 4 heads of 128) through the fused
-           kernels on the card vs the plain versions on the CPU
+  compose  each fused op's composition (`ops.OPS[name].composition`,
+           its unfused lane) vs the fused kernel at a model path's shape
+           under the default policy: it must launch its primitive kernels
+           (rmsnorm, matmul, flash_attention) and no fused one; both timed
+  agree    reduced models through the kernels on the card vs the plain
+           versions on the CPU: qwen3 (2 layers, 4 heads of 128) under
+           "fused" and under "tuned" with attn_schedule="pallas", and
+           whisper-small (2 + 2 layers at full width) under "fused"
+  whisper  whisper-small at full width (12 + 12 layers), random weights,
+           under "fused": make_prefill_step on 8 x 32 tokens and 8 x 1500
+           stub frames (its encoder MLPs launch matmul_bias_act 24 times),
+           then make_decode_step for 16 greedy steps on a private cache of
+           448; the prefill again under torch.profiler
   prefill  qwen3-14b, all 40 layers, random weights from a seeded
            generator on the card, make_prefill_step on B=1, S=512; then
            the same prefill under torch.profiler
+  pallas_prefill  the same prefill under the default "tuned" policy with
+           attn_schedule="pallas": flash_attention 40 times, projections
+           as torch products; counted, traced, its token set beside the
+           fused prefill's
   serve    Cluster("qwen3-14b") ServeSessionProgram(slots=8, max_seq=256,
            max_prompt=64, chunk=16, paged=True, page_size=16) under the
            "fused" policy: 12 requests, half sharing a 32-token preamble,
@@ -37,9 +55,10 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            run eagerly and replayed as a CUDA graph: wall time per step,
            the device's busy and idle shares in each, time by kernel
 
-The kernel launch counts are set to 0 before each of the suite, prefill
-and serve runs and read right after; every kernel of a phase must have launched
-and no plain version may have run on a CUDA tensor. A wrapper counts the
+The kernel launch counts are set to 0 before each of the suite, compose,
+whisper, prefill, pallas_prefill and serve runs and read right after;
+every kernel of a phase must have launched and no plain version may have
+run on a CUDA tensor. A wrapper counts the
 launches it makes; the launches a replayed CUDA graph makes are counted
 from the profiler's trace (`launches.traced_launches`). The last two lines
 are the kernels' JSON record and {"ok": true, "device": {...}}.
@@ -58,6 +77,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+QWEN_FUSED = ("rmsnorm_matmul", "matmul_residual_add",
+              "flash_attention_proj")       # the fused route of qwen3-14b
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # f32 on the CUDA cores (no tensor cores)
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16: one output rounding + sum order
@@ -156,7 +177,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels import build, fused, launches
+    from repro_torch.kernels import build, launches
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -169,21 +190,32 @@ def main() -> int:
     for name in build.SOURCES:
         build.library(name)
 
-    records = kernel_phase(fused)
+    records = kernel_phase()
     suite_records = suite_phase(launches)
+    compose_counts = compose_phase(launches)
     agree_phase()
-    cfg, params, prefill_counts = prefill_phase(launches)
+    whisper_counts = whisper_phase(launches)
+    cfg, params, prefill_counts, token = prefill_phase(launches)
+    pallas_counts = pallas_prefill_phase(launches, cfg, params, token)
     serve_counts, serve_traced = serve_phase(launches, cfg, params)
     profile_phase(cfg, params)
     for rec in records:
-        # launches: a fused kernel's runs on the device in the main path
-        # (the prefill's, equal to its wrapper count, and the traced serve
-        # run's, graph replays included); wrapper_launches: the wrappers'
-        # own counts over the same two runs. A suite kernel's record
-        # already holds the suite phase's counts.
+        # launches: a kernel's runs on the device in the path that takes
+        # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
+        # count) and the traced serve run's, graph replays included;
+        # wrapper_launches: the wrappers' own counts over the same two
+        # runs. flash_attention: the "pallas" prefill's; matmul_bias_act:
+        # the whisper prefill's; rmsnorm: rmsnorm_matmul's composition's.
+        # A suite kernel's record already holds the suite phase's counts.
         name = rec["name"]
-        rec["launches"] = prefill_counts[name] + serve_traced[name]
-        rec["wrapper_launches"] = prefill_counts[name] + serve_counts[name]
+        if name in QWEN_FUSED:
+            rec["launches"] = prefill_counts[name] + serve_traced[name]
+            rec["wrapper_launches"] = prefill_counts[name] + \
+                serve_counts[name]
+        else:
+            rec["launches"] = {"flash_attention": pallas_counts,
+                               "matmul_bias_act": whisper_counts,
+                               "rmsnorm": compose_counts}[name][name]
     records += suite_records
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(gpu_line())
@@ -203,6 +235,9 @@ REPLACES = {
     "rmsnorm_matmul": "src/repro/kernels/fused.py:61",
     "matmul_residual_add": "src/repro/kernels/fused.py:196",
     "flash_attention_proj": "src/repro/kernels/fused.py:265",
+    "flash_attention": "src/repro/kernels/flash_attention.py:31",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:18",
+    "matmul_bias_act": "src/repro/kernels/fused.py:131",
 }
 
 
@@ -214,84 +249,139 @@ def _compare(name, got, want, tol=TOL):
     return err
 
 
-def kernel_phase(fused) -> list[dict]:
+def kernel_phase() -> list[dict]:
+    """Each kernel of the model paths against its plain version on the
+    same inputs, at the shapes those paths give it, then timed with its
+    plain version and one library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
     timer = Timer()
     g = torch.Generator(device="cuda").manual_seed(0)
 
-    def randn(*shape, scale=1.0):
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=g, device="cuda")
-                * scale).bfloat16()
+                * scale).to(dtype)
 
-    cases = {}        # name -> list of (label, err, ms, plain, lib, bound)
+    # name -> list of (label, err, tol, ms, plain, lib, bound)
+    cases = {}
+
+    def case(name, label, kernel, plain, library, bnd, tol=TOL):
+        err = _compare(f"{name} {label}", kernel(), plain(), tol)
+        cases.setdefault(name, []).append((
+            label, err, tol, timer(kernel), timer(plain, 3), timer(library),
+            bnd))
+
     K = 5120
     for m, n in ((8, 5120), (8, 1024), (8, 17408), (512, 5120),
                  (512, 17408)):
         x, s, w = randn(m, K), randn(K, scale=0.1), randn(K, n,
                                                            scale=K ** -0.5)
-        err = _compare("rmsnorm_matmul", fused.rmsnorm_matmul(x, s, w),
-                       fused.rmsnorm_matmul_plain(x, s, w))
-        b = bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n)
-        cases.setdefault("rmsnorm_matmul", []).append((
-            f"M{m}xK{K}xN{n}", err,
-            timer(lambda: fused.rmsnorm_matmul(x, s, w)),
-            timer(lambda: fused.rmsnorm_matmul_plain(x, s, w), 3),
-            timer(lambda: torch.matmul(x, w)), b))
+        case("rmsnorm_matmul", f"M{m}xK{K}xN{n}",
+             lambda: fused.rmsnorm_matmul(x, s, w),
+             lambda: fused.rmsnorm_matmul_plain(x, s, w),
+             lambda: torch.matmul(x, w),
+             bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n))
     for m, k in ((8, 5120), (8, 17408), (512, 17408)):
         n = 5120
         a, w, r = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
-        err = _compare("matmul_residual_add",
-                       fused.matmul_residual_add(a, w, r),
-                       fused.matmul_residual_add_plain(a, w, r))
-        b = bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n)
-        cases.setdefault("matmul_residual_add", []).append((
-            f"M{m}xK{k}xN{n}", err,
-            timer(lambda: fused.matmul_residual_add(a, w, r)),
-            timer(lambda: fused.matmul_residual_add_plain(a, w, r), 3),
-            timer(lambda: torch.addmm(r, a, w)), b))
+        case("matmul_residual_add", f"M{m}xK{k}xN{n}",
+             lambda: fused.matmul_residual_add(a, w, r),
+             lambda: fused.matmul_residual_add_plain(a, w, r),
+             lambda: torch.addmm(r, a, w),
+             bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n))
     B, H, KV, S, HD, DM = 1, 40, 8, 512, 128, 5120
     q, k, v = randn(B, H, S, HD), randn(B, KV, S, HD), randn(B, KV, S, HD)
     wo = randn(H, HD, DM, scale=(H * HD) ** -0.5)
-    err = _compare("flash_attention_proj",
-                   fused.flash_attention_proj(q, k, v, wo),
-                   fused.flash_attention_proj_plain(q, k, v, wo))
     causal_pairs = S * (S + 1) // 2             # key positions this run needs
-    flops = 4.0 * B * H * HD * causal_pairs + 2.0 * B * S * H * HD * DM
-    byts = (q.numel() + k.numel() + v.numel() + wo.numel() + B * S * DM) * 2
-
     kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
 
     def library_fa():       # SDPA on the GQA-expanded k/v, then the product
-        o = torch.nn.functional.scaled_dot_product_attention(
-            q, kr, vr, is_causal=True)
+        o = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
         return torch.einsum("bhsk,hkd->bsd", o, wo)
 
-    cases["flash_attention_proj"] = [(
-        f"B{B}xH{H}xKV{KV}xS{S}xhd{HD}xdm{DM}", err,
-        timer(lambda: fused.flash_attention_proj(q, k, v, wo)),
-        timer(lambda: fused.flash_attention_proj_plain(q, k, v, wo), 3),
-        timer(library_fa), bound(byts, flops))]
+    case("flash_attention_proj", f"B{B}xH{H}xKV{KV}xS{S}xhd{HD}xdm{DM}",
+         lambda: fused.flash_attention_proj(q, k, v, wo),
+         lambda: fused.flash_attention_proj_plain(q, k, v, wo), library_fa,
+         bound((q.numel() + k.numel() + v.numel() + wo.numel()
+                + B * S * DM) * 2,
+               4.0 * B * H * HD * causal_pairs + 2.0 * B * S * H * HD * DM))
+
+    # flash_attention: qwen3-14b's "pallas" prefill (causal, and full), and
+    # 12 heads of 64 at a length no tile divides
+    for b, h, kvh, sq, hd, causal in ((1, 40, 8, 512, 128, True),
+                                      (1, 40, 8, 512, 128, False),
+                                      (1, 12, 12, 1000, 64, False)):
+        q, k, v = (randn(b, h, sq, hd), randn(b, kvh, sq, hd),
+                   randn(b, kvh, sq, hd))
+        pairs = sq * (sq + 1) // 2 if causal else sq * sq
+        case("flash_attention",
+             f"B{b}xH{h}xKV{kvh}xS{sq}xhd{hd}x{'causal' if causal else 'full'}",
+             lambda: flash_attention(q, k, v, causal),
+             lambda: flash_attention_plain(q, k, v, causal),
+             lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    is_causal=causal,
+                                                    enable_gqa=True),
+             bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                   4.0 * b * h * hd * pairs))
+
+    # rmsnorm: the composition lane of qwen3-14b's rmsnorm_matmul (prefill
+    # and decode rows of 5120), and fig14's 512 x 512 in f32; the
+    # arithmetic is f32 on the CUDA cores
+    for m, d, dt in ((512, 5120, torch.bfloat16), (8, 5120, torch.bfloat16),
+                     (512, 512, torch.float32)):
+        x, sc = randn(m, d, dtype=dt), randn(d, scale=0.1, dtype=dt)
+        w1 = 1.0 + sc
+        size = 2 if dt == torch.bfloat16 else 4
+        case("rmsnorm", f"M{m}xD{d}x{str(dt).replace('torch.', '')}",
+             lambda: rmsnorm(x, sc), lambda: rmsnorm_plain(x, sc),
+             lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-6),
+             bound((2 * m * d + d) * size, 4.0 * m * d, F32_FLOPS_PER_S),
+             TOL if dt == torch.bfloat16 else F32_TOL)
+
+    # matmul_bias_act: whisper-small's encoder MLP at 8 x 1500 frames (gelu
+    # in, none out), and a decode-sized M on the split-K path
+    for m, k, n, act in ((12000, 768, 3072, "gelu"),
+                         (12000, 3072, 768, "none"),
+                         (5, 768, 3072, "silu")):
+        a, w, bias = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
+        lib_act = {"none": lambda t: t,
+                   "gelu": lambda t: F.gelu(t, approximate="tanh"),
+                   "silu": F.silu}[act]
+        case("matmul_bias_act", f"M{m}xK{k}xN{n}x{act}",
+             lambda: fused.matmul_bias_act(a, w, bias, act),
+             lambda: fused.matmul_bias_act_plain(a, w, bias, act),
+             lambda: lib_act(torch.addmm(bias, a, w)),
+             bound((m * k + k * n + n + m * n) * 2, 2.0 * m * k * n))
 
     records = []
     for name, rows in cases.items():
-        for label, err, ms, plain, lib, (bms, by) in rows:
+        for label, err, tol, ms, plain, lib, (bms, by) in rows:
             log("kernel", name=name, shape=label, max_abs_err=f"{err:.3g}",
-                tol=f"rtol={TOL['rtol']},atol={TOL['atol']}",
+                tol=f"rtol={tol['rtol']},atol={tol['atol']}",
                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                 library_ms=f"{lib:.4f}", bound_ms=f"{bms:.4f}",
                 bound_by=by)
-        # the record of a kernel is its decode shape (the first row), the
-        # prefill attention for flash_attention_proj; every row is logged
-        label, err, ms, plain, lib, (bms, by) = rows[0]
+        # the record of a kernel is its first row: the decode shape of the
+        # qwen3 projections, the prefill shape of the attention kernels,
+        # rmsnorm's prefill rows, whisper's first MLP product
+        label, err, tol, ms, plain, lib, (bms, by) = rows[0]
         records.append({
             "name": name, "route": "cuda",
             "source": f"{SRC}/{name}.cu", "replaces": REPLACES[name],
             "launches": 0, "max_abs_err": max(r[1] for r in rows),
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "shape": label,
-            "rows": [{"shape": r[0], "max_abs_err": r[1], "ms": r[2],
-                      "plain_ms": r[3], "library_ms": r[4],
-                      "bound_ms": r[5][0], "bound_by": r[5][1]}
+            "rows": [{"shape": r[0], "max_abs_err": r[1], "ms": r[3],
+                      "plain_ms": r[4], "library_ms": r[5],
+                      "bound_ms": r[6][0], "bound_by": r[6][1]}
                      for r in rows]})
+    del cases, timer
+    torch.cuda.empty_cache()
     return records
 
 
@@ -482,28 +572,86 @@ def suite_phase(launches) -> list[dict]:
 # ----------------------------------------------------------------------------
 
 def agree_phase() -> None:
-    from repro_torch.cluster.policy import use_policy
+    """Reduced models, kernels on the card against plain versions on the
+    CPU (policy "interpret"), logits within 5e-2 absolute + relative (a
+    2-layer bf16 model: sum order flips single bf16 roundings, which the
+    next layer carries on): qwen3 through the fused kernels, qwen3 through
+    flash_attention ("tuned", attn_schedule="pallas"), and whisper-small
+    (2 + 2 layers at full width) through matmul_bias_act ("fused"), its
+    attention weights rescaled to their true fan-in (`_true_fan_in`)."""
     from repro_torch.configs import get
+
+    qwen = dataclasses.replace(get("qwen3-14b"), name="qwen3-14b-narrow",
+                               n_layers=2, d_model=512, n_heads=4,
+                               n_kv_heads=2, d_ff=1024, vocab=2048)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, qwen.vocab, (2, 40)))
+    _agree("fused", qwen, "fused", tokens)
+    _agree("pallas", dataclasses.replace(qwen, attn_schedule="pallas"),
+           "tuned", tokens)
+    whisper = dataclasses.replace(get("whisper-small"), n_layers=2,
+                                  n_enc_layers=2)
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, whisper.enc_seq, whisper.d_model)).astype(np.float32)).bfloat16()
+    _agree("whisper", whisper, "fused",
+           torch.from_numpy(rng.integers(0, whisper.vocab, (1, 16))),
+           frames, max_seq=448, rescale=True)
+
+
+def _true_fan_in(tree):
+    """The parameter init draws a 3-D weight with fan-in shape[-2]: wq,
+    wk and wv (d, H, hd) with H (12 for whisper), wo (H, hd, d) with hd.
+    With no qk-norm (qwen3 has one) whisper's random attention scores are
+    then ~64x too large: each softmax picks one key, and a bf16 rounding
+    flips which (bf16 against f32 logits differ by up to 4.6 on the CPU).
+    Rescaled to the true fan-in (d, and H * hd) they differ by 0.03."""
+    if isinstance(tree, list):
+        return [_true_fan_in(v) for v in tree]
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor) and k in ("wq", "wk", "wv", "wo"):
+            fan, true = ((v.shape[1], v.shape[0]) if k != "wo"
+                         else (v.shape[1], v.shape[0] * v.shape[1]))
+            out[k] = (v.float() * (fan / true) ** 0.5).to(v.dtype)
+        elif isinstance(v, (dict, list)):
+            out[k] = _true_fan_in(v)
+        else:
+            out[k] = v
+    return out
+
+
+def _agree(label, cfg, policy, tokens, frames=None, max_seq=4096,
+           rescale=False) -> None:
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.kernels import launches
     from repro_torch.models import steps
 
-    cfg = dataclasses.replace(get("qwen3-14b"), name="qwen3-14b-narrow",
-                              n_layers=2, d_model=512, n_heads=4,
-                              n_kv_heads=2, d_ff=1024, vocab=2048)
-    params = steps.init_params(cfg, 1, device="cpu")
+    params = steps.init_params(cfg, 1, device="cpu", max_seq=max_seq)
+    if rescale:
+        params = _true_fan_in(params)
     gpu = _to(params, "cuda")
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 40)))
-    with use_policy("interpret"):
-        h_cpu, _ = steps.forward(cfg, params, tokens)
-    with use_policy("fused"):
-        h_gpu, _ = steps.forward(cfg, gpu, tokens.cuda())
-    lg_cpu = steps.logits(params, h_cpu)
-    lg_gpu = steps.logits(gpu, h_gpu).cpu()
+    with torch.inference_mode():
+        with use_policy("interpret"):
+            h_cpu, _ = steps.forward(cfg, params, tokens, cross_embeds=frames)
+        launches.reset_counts()
+        with use_policy(policy):
+            h_gpu, _ = steps.forward(
+                cfg, gpu, tokens.cuda(),
+                cross_embeds=None if frames is None else frames.cuda())
+        torch.cuda.synchronize()
+        ran = {n: c for n, c in _check_counts(launches, "agree", ()).items()
+               if c}
+        lg_cpu = steps.logits(params, h_cpu)
+        lg_gpu = steps.logits(gpu, h_gpu).cpu()
+    if not ran:
+        raise AssertionError(f"agree {label}: no kernel launched")
     err = (lg_cpu - lg_gpu).abs().max().item()
     torch.testing.assert_close(lg_gpu, lg_cpu, rtol=5e-2, atol=5e-2)
     agree = (lg_cpu.argmax(-1) == lg_gpu.argmax(-1)).float().mean().item()
-    log("agree", logits_max_abs_err=f"{err:.3g}", tol="rtol=5e-2,atol=5e-2",
-        argmax_agreement=f"{agree:.3f}")
+    log("agree", model=label, policy=policy, layers=cfg.n_layers,
+        logits_max_abs_err=f"{err:.3g}", tol="rtol=5e-2,atol=5e-2",
+        argmax_agreement=f"{agree:.3f}",
+        launches=json.dumps(ran).replace(" ", ""))
 
 
 def _to(tree, device):
@@ -512,6 +660,134 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return [_to(v, device) for v in tree]
+
+
+# ----------------------------------------------------------------------------
+# the fused ops' compositions (their unfused lanes)
+# ----------------------------------------------------------------------------
+
+COMPOSE = {   # name -> (shape dict, the kernels its composition launches)
+    "rmsnorm_matmul": (dict(m=512, k=5120, n=17408), ("rmsnorm", "matmul")),
+    "matmul_residual_add": (dict(m=512, k=17408, n=5120), ("matmul",)),
+    "matmul_bias_act": (dict(m=12000, k=768, n=3072), ("matmul",)),
+    "flash_attention_proj": (dict(b=1, h=40, kv=8, s=512, hd=128, dm=5120),
+                             ("flash_attention",)),
+}
+
+
+def compose_phase(launches) -> dict:
+    """Each fused op's composition (`ops.OPS[name].composition`, the
+    reference's unfused lane) at a model path's shape, on the op's seeded
+    operands, under the default policy: the counts are set to 0 just
+    before it runs once and read just after; it must launch its primitive
+    kernels and no fused one. Its output is held against the fused
+    kernel's (bf16, 2e-2: the same roundings, sums in another order) and
+    both are timed (L2 flushed, mean of 10). Returns the summed counts."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.kernels import ops
+
+    timer = Timer()
+    total = dict.fromkeys(launches.WRAPPERS, 0)
+    for name, (shapes, parts) in COMPOSE.items():
+        desc = ops.OPS[name]
+        args = desc.operands(shapes, torch.bfloat16, device="cuda")
+        with use_policy(None):
+            launches.reset_counts()
+            comp = desc.composition(*args)
+            torch.cuda.synchronize()
+            counts = _check_counts(launches, f"compose {name}", parts)
+            if any(counts[n] for n in launches.FUSED):
+                raise AssertionError(f"compose {name}: a fused kernel ran "
+                                     f"{counts}")
+            err = _compare(f"compose {name}", comp, desc.wrapper(*args))
+            fused_ms = timer(lambda: desc.wrapper(*args))
+            comp_ms = timer(lambda: desc.composition(*args))
+        for n, c in counts.items():
+            total[n] += c
+        log("compose", name=name, shape="x".join(
+            f"{k}{v}" for k, v in shapes.items()), max_abs_err=f"{err:.3g}",
+            tol=f"rtol={TOL['rtol']},atol={TOL['atol']}",
+            fused_ms=f"{fused_ms:.4f}", composition_ms=f"{comp_ms:.4f}",
+            launches=_nonzero(counts))
+        del args, comp
+    del timer
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------------
+# whisper-small at full width: prefill and decode
+# ----------------------------------------------------------------------------
+
+def whisper_phase(launches) -> dict:
+    """whisper-small, all 12 + 12 layers, random weights from a seeded
+    generator on the card, under "fused": make_prefill_step on 8 x 32
+    tokens with 8 x 1500 stub frame embeddings (from a seeded generator,
+    as the reference's `_encode` takes them), counted and traced (exactly
+    24 matmul_bias_act launches: 12 encoder MLPs x 2 products, the
+    decoder takes none); then make_decode_step for 16 greedy steps on a
+    private cache of 448, fed its own tokens from the prefill's. Its
+    weights are freed at the end."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+
+    cfg = get("whisper-small")
+    B, S, MAX_SEQ, STEPS = 8, 32, 448, 16
+    torch.cuda.reset_peak_memory_stats()
+    params = steps.init_params(cfg, 0, device="cuda", max_seq=MAX_SEQ)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=g,
+                         device="cuda").bfloat16()
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (B, S))).cuda()
+    batch = {"tokens": tokens, "enc_embeds": frames}
+    prefill = steps.make_prefill_step(cfg, policy="fused")
+    prefill(params, batch)                                # warm-up
+    counted, tok, dt = _counted_and_traced(
+        launches, "whisper", lambda: prefill(params, batch),
+        ("matmul_bias_act",))
+    want = {n: 0 for n in counted} | {"matmul_bias_act": 2 * cfg.n_enc_layers}
+    if counted != want:
+        raise AssertionError(f"whisper: prefill launches {counted}")
+    with torch.inference_mode(), use_policy("fused"):
+        hidden, _ = steps.forward(cfg, params, tokens, cross_embeds=frames)
+        lg = steps.logits(params, hidden[:, -1])
+    if not torch.isfinite(lg).all() or tuple(lg.shape) != (B, cfg.vocab):
+        raise AssertionError("whisper: logits not finite or misshapen")
+    if not torch.equal(lg.argmax(-1).to(torch.int32), tok):
+        raise AssertionError("whisper: argmax disagrees with the step")
+
+    cache = steps.init_cache(cfg, B, MAX_SEQ, device="cuda")
+    step = steps.make_decode_step(cfg, max_seq=MAX_SEQ, policy="fused")
+    cur, out = tok[:, None], []
+    step(params, steps.init_cache(cfg, B, 8, device="cuda"),
+         {"tokens": cur, "pos": 0})                      # warm-up
+    launches.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(STEPS):
+        cache, cur = step(params, cache, {"tokens": cur, "pos": pos})
+        out.append(cur)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    _check_counts(launches, "whisper decode", ())
+    dec = torch.cat(out, dim=1).cpu()
+    if dec.shape != (B, STEPS) or dec.min() < 0 or dec.max() >= cfg.vocab:
+        raise AssertionError(f"whisper: decode tokens {dec}")
+    for name, c in cache.items():
+        if not torch.isfinite(c).all():
+            raise AssertionError(f"whisper: non-finite {name} cache")
+    log("whisper", B=B, S=S, enc_frames=cfg.enc_seq,
+        layers=f"{cfg.n_enc_layers}+{cfg.n_layers}", policy="fused",
+        prefill_ms=f"{dt * 1e3:.1f}", decode_ms_per_step=f"{step_ms:.2f}",
+        prefill_tokens=",".join(map(str, tok.tolist())),
+        decode_tokens_slot0=",".join(map(str, dec[0].tolist())),
+        launches=_nonzero(counted), traced_launches=_nonzero(counted),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del params, cache, frames
+    torch.cuda.empty_cache()
+    return counted
 
 
 # ----------------------------------------------------------------------------
@@ -534,8 +810,6 @@ def prefill_phase(launches):
     """One full-width prefill, timed with the counts set to 0 just before
     it; then the same prefill traced, whose device kernels must match the
     wrappers' counts (eager: one launch per wrapper call)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.cluster.policy import use_policy
     from repro_torch.cluster.session import Cluster
     from repro_torch.models import steps
@@ -553,23 +827,9 @@ def prefill_phase(launches):
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(cfg, policy="fused")
     prefill(params, {"tokens": tokens[:, :16]})          # warm-up
-    launches.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tok = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counted = _check_counts(launches, "prefill", launches.FUSED)
-    launches.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-    traced = launches.traced_launches(prof)
-    if traced != counted or _check_counts(launches, "prefill",
-                                          launches.FUSED) != counted:
-        raise AssertionError(f"prefill: the trace saw {traced}, the "
-                             f"wrappers counted {counted}")
+    counted, tok, dt = _counted_and_traced(
+        launches, "prefill", lambda: prefill(params, {"tokens": tokens}),
+        QWEN_FUSED)
     with torch.inference_mode():
         with use_policy("fused"):
             hidden, _ = steps.forward(cfg, params, tokens)
@@ -580,8 +840,70 @@ def prefill_phase(launches):
         raise AssertionError("prefill: argmax disagrees with the step")
     log("prefill", B=1, S=512, layers=cfg.n_layers, ms=f"{dt * 1e3:.1f}",
         token=int(tok[0]), launches=json.dumps(
-            {n: counted[n] for n in launches.FUSED}).replace(" ", ""))
-    return cfg, params, counted
+            {n: counted[n] for n in QWEN_FUSED}).replace(" ", ""))
+    return cfg, params, counted, int(tok[0])
+
+
+def _counted_and_traced(launches, phase, fn, must_launch):
+    """Run `fn` with the counts set to 0 just before it and read just after
+    (every kernel of `must_launch` must have launched, no plain version on
+    the card); then again under torch.profiler, whose trace must see the
+    same launches (eager: one device launch per wrapper call). Returns
+    (the counts, fn's result, its wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launches.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counted = _check_counts(launches, phase, must_launch)
+    launches.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    traced = launches.traced_launches(prof)
+    if traced != counted or _check_counts(launches, phase,
+                                          must_launch) != counted:
+        raise AssertionError(f"{phase}: the trace saw {traced}, the "
+                             f"wrappers counted {counted}")
+    return counted, out, dt
+
+
+def _nonzero(counts: dict) -> str:
+    return json.dumps({n: c for n, c in counts.items() if c}).replace(" ",
+                                                                      "")
+
+
+def pallas_prefill_phase(launches, cfg, params, fused_token: int) -> dict:
+    """qwen3-14b's prefill (B=1, S=512) under the default "tuned" policy
+    with attn_schedule="pallas": attention through flash_attention, the
+    projections as torch products (the reference computes them outside
+    any Pallas kernel). Its token beside the fused prefill's is a finding,
+    not a check: bf16 near-ties can part the two routes."""
+    from repro_torch.models import steps
+
+    pcfg = dataclasses.replace(cfg, attn_schedule="pallas")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, 512))).cuda()
+    prefill = steps.make_prefill_step(pcfg, policy="tuned")
+    prefill(params, {"tokens": tokens[:, :16]})          # warm-up
+    counted, tok, dt = _counted_and_traced(
+        launches, "pallas_prefill",
+        lambda: prefill(params, {"tokens": tokens}), ("flash_attention",))
+    want = {n: 0 for n in counted} | {"flash_attention": pcfg.n_layers}
+    if counted != want:
+        raise AssertionError(f"pallas_prefill: launches {counted}")
+    token = int(tok[0])
+    if not 0 <= token < cfg.vocab:
+        raise AssertionError(f"pallas_prefill: token {token} out of range")
+    log("pallas_prefill", B=1, S=512, layers=pcfg.n_layers, policy="tuned",
+        ms=f"{dt * 1e3:.1f}", token=token,
+        token_equal_to_fused=token == fused_token,
+        launches=_nonzero(counted))
+    return counted
 
 
 def _leaves(tree):
@@ -679,9 +1001,9 @@ def serve_phase(launches, cfg, params) -> dict:
     log("serve", mode="cuda_graph,traced", wall_s=f"{dt:.2f}",
         tokens_per_s=f"{stats['tokens_per_s']:.2f}",
         wrapper_launches=json.dumps(
-            {n: counts[n] for n in launches.FUSED}).replace(" ", ""),
+            {n: counts[n] for n in QWEN_FUSED}).replace(" ", ""),
         traced_launches=json.dumps(
-            {n: traced[n] for n in launches.FUSED}).replace(" ", ""))
+            {n: traced[n] for n in QWEN_FUSED}).replace(" ", ""))
     for h, (prompt, n) in zip(handles, reqs):
         toks = h.result()
         if not (toks.size == n or (h.hit_eos and toks.size <= n)):

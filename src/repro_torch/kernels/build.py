@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj",
-           "matmul", "axpy", "dotp", "conv2d", "dct8x8")
+           "matmul", "axpy", "dotp", "conv2d", "dct8x8", "rmsnorm",
+           "matmul_bias_act", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -59,6 +60,14 @@ SIGNATURES = {
         "dotp_workspace_floats": ([SZ], SZ)},
     "conv2d": {"conv2d_3x3_f32": ([P, P, P, I, I, P], I)},
     "dct8x8": {"dct8x8_f32": ([P, P, P, SZ, P], I)},
+    "rmsnorm": {
+        "rmsnorm_f32": ([P, P, P, I, I, F, P], I),
+        "rmsnorm_bf16": ([P, P, P, I, I, F, P], I)},
+    "matmul_bias_act": {
+        "matmul_bias_act_bf16": ([P, P, P, P, P, I, I, I, I, P], I),
+        "matmul_bias_act_workspace_floats": ([I, I, I], SZ)},
+    "flash_attention": {
+        "flash_attention_bf16": ([P, P, P, P, I, I, I, I, I, I, F, P], I)},
 }
 
 

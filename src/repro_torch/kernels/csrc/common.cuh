@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper kernels: bf16 tile loads and the two
-// matmul paths that `rmsnorm_matmul.cu`, `matmul_residual_add.cu` and
-// `matmul.cu` instantiate with their prologue and epilogue (or none):
+// matmul paths that `rmsnorm_matmul.cu`, `matmul_residual_add.cu`,
+// `matmul_bias_act.cu` and `matmul.cu` instantiate with their prologue and
+// epilogue (or none):
 //   * gemm::   a tiled tensor-core (wmma) matmul for M > 16 (prefill);
 //   * skinny:: a split-K CUDA-core matmul for M <= 16 (decode, M = slots),
 //     where the weight stream is the whole cost and 16-byte loads with
@@ -96,9 +97,41 @@ __device__ __forceinline__ uint4 norm8(const uint4& x, const uint4& s,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled matmul (M > 16) with an optional RMSNorm prologue and residual
-// epilogue: out (M,N) = epilogue(prologue(a) (M,K) @ b (K,N)), row-major
-// bf16, M, N and K masked at the ragged edge.
+// Epilogues, applied to the f32 accumulator of one output element (row-major
+// index `idx`, column `col`). Each first rounds the accumulator to bf16, as
+// the reference kernels' matmul body stores acc.astype(bf16) before their
+// epilogue hook sees it (two roundings, not one):
+//   EPI_NONE       bf16(acc)
+//   EPI_RESID      bf16(f32(bf16(acc)) + f32(res[idx]))
+//   EPI_BIAS*      bf16(act(f32(bf16(acc)) + f32(bias[col]))), act none,
+//                  gelu (the tanh form, jax.nn.gelu's default) or silu
+// `extra` is the residual (M,N) or the bias (N,).
+// ---------------------------------------------------------------------------
+
+enum : int { EPI_NONE = 0, EPI_RESID = 1, EPI_BIAS = 2, EPI_BIAS_GELU = 3,
+             EPI_BIAS_SILU = 4 };
+
+template <int EPI>
+__device__ __forceinline__ bf16 epilogue(float acc, const bf16* extra,
+                                         size_t idx, int col) {
+  const bf16 y = __float2bfloat16(acc);
+  if (EPI == EPI_RESID)
+    return __float2bfloat16(__bfloat162float(y) + __bfloat162float(extra[idx]));
+  if (EPI >= EPI_BIAS) {
+    float h = __bfloat162float(y) + __bfloat162float(extra[col]);
+    if (EPI == EPI_BIAS_GELU)
+      h = 0.5f * h * (1.f + tanhf(0.7978845608028654f *
+                                  (h + 0.044715f * h * h * h)));
+    if (EPI == EPI_BIAS_SILU) h = h / (1.f + expf(-h));
+    return __float2bfloat16(h);
+  }
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// Tiled matmul (M > 16) with an optional RMSNorm prologue and one of the
+// epilogues above: out (M,N) = epilogue(prologue(a) (M,K) @ b (K,N)),
+// row-major bf16, M, N and K masked at the ragged edge.
 //
 // A block owns a 64 x 128 output tile; its 8 warps (2 x 4) each hold a
 // 32 x 32 f32 accumulator in four wmma fragments. K is walked in steps of
@@ -110,9 +143,7 @@ __device__ __forceinline__ uint4 norm8(const uint4& x, const uint4& s,
 //   computed once per block: bf16((x * rstd) * (1 + scale)) — normalised
 //   in f32 and rounded to bf16 *before* the product, as the reference
 //   kernel's prologue does.
-// RESID: out = bf16(f32(bf16(acc)) + f32(res)) — the accumulator rounded
-//   to bf16 first and the residual added to that, which is what the
-//   reference kernel's epilogue sees (two roundings, not one).
+// EPI: applied as each output element is stored.
 // ---------------------------------------------------------------------------
 
 namespace gemm {
@@ -157,10 +188,10 @@ __device__ __forceinline__ void stash(const Stage& st, bf16* As, bf16* Bs,
   }
 }
 
-template <bool NORM, bool RESID>
+template <bool NORM, int EPI>
 __global__ void __launch_bounds__(THREADS)
 tile_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
-            const bf16* __restrict__ b, const bf16* __restrict__ res,
+            const bf16* __restrict__ b, const bf16* __restrict__ extra,
             bf16* __restrict__ out, int M, int N, int K, float eps) {
   __shared__ __align__(128) bf16 As[2][BM * BK];
   __shared__ __align__(128) bf16 Bs[2][BK * BN];
@@ -229,11 +260,8 @@ tile_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
         const int row = m0 + wm * WM + i * 16 + e / 16;
         const int col = n0 + wn * WN + j * 16 + e % 16;
         if (row < M && col < N) {
-          bf16 y = __float2bfloat16(sw[e]);
-          if (RESID)
-            y = __float2bfloat16(__bfloat162float(y) +
-                                 __bfloat162float(res[(size_t)row * N + col]));
-          out[(size_t)row * N + col] = y;
+          const size_t idx = (size_t)row * N + col;
+          out[idx] = epilogue<EPI>(sw[e], extra, idx, col);
         }
       }
       __syncwarp();
@@ -252,8 +280,7 @@ tile_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
 // first weight loads are in flight; the 8 warps then stride over the k
 // rows eight at a time, each lane keeping 8 x 8 f32 accumulators. Partial sums are reduced over warps in shared memory and
 // over splits by `finish_kernel`, both in a fixed order, so results are
-// deterministic. The finish applies the epilogue (bf16 rounding and, for
-// RESID, the residual added to the rounded product).
+// deterministic. The finish applies the epilogue.
 // ---------------------------------------------------------------------------
 
 namespace skinny {
@@ -295,11 +322,12 @@ inline size_t smem_bytes(int kps) {
   return (size_t)MR * kps * 2 + (size_t)WARPS * MR * COLS * 4;
 }
 
-// RESID does not change the partial sums: it names the instantiation, so
-// that each entry point (rmsnorm_matmul <true,false>, matmul_residual_add
-// <false,true>, matmul <false,false>) opens with a kernel of its own name,
-// which is what a profiler trace counts its launches by.
-template <bool NORM, bool RESID>
+// EPI does not change the partial sums: it names the instantiation, so
+// that each entry point (rmsnorm_matmul <true,0>, matmul_residual_add
+// <false,1>, matmul_bias_act <false,2..4>, matmul <false,0>) opens with a
+// kernel of its own name, which is what a profiler trace counts its
+// launches by.
+template <bool NORM, int EPI>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 partial_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
                const bf16* __restrict__ b, float* __restrict__ ws, int M,
@@ -380,9 +408,9 @@ partial_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
   }
 }
 
-template <bool RESID>
+template <int EPI>
 __global__ void finish_kernel(const float* __restrict__ ws,
-                              const bf16* __restrict__ res,
+                              const bf16* __restrict__ extra,
                               bf16* __restrict__ out, int M, int N,
                               int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -390,9 +418,7 @@ __global__ void finish_kernel(const float* __restrict__ ws,
   if (i >= mn) return;
   float s = 0.f;
   for (int sp = 0; sp < splits; ++sp) s += ws[sp * mn + i];
-  bf16 y = __float2bfloat16(s);
-  if (RESID) y = __float2bfloat16(__bfloat162float(y) + __bfloat162float(res[i]));
-  out[i] = y;
+  out[i] = epilogue<EPI>(s, extra, i, (int)(i % N));
 }
 }  // namespace skinny
 
@@ -404,9 +430,9 @@ inline size_t split_k_workspace_floats(int M, int N, int K) {
   return (size_t)splits * M * N;
 }
 
-template <bool NORM, bool RESID>
+template <bool NORM, int EPI>
 int launch_matmul(const void* a, const void* scale, const void* b,
-                  const void* res, void* out, float* workspace, int M, int N,
+                  const void* extra, void* out, float* workspace, int M, int N,
                   int K, float eps, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -416,24 +442,24 @@ int launch_matmul(const void* a, const void* scale, const void* b,
     skinny::plan(M, N, K, &splits, &kps);
     const size_t smem = skinny::smem_bytes(kps);
     cudaError_t err = cudaFuncSetAttribute(
-        skinny::partial_kernel<NORM, RESID>,
+        skinny::partial_kernel<NORM, EPI>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((N + skinny::COLS - 1) / skinny::COLS, splits,
                     (M + skinny::MR - 1) / skinny::MR);
-    skinny::partial_kernel<NORM, RESID><<<grid, skinny::THREADS, smem, st>>>(
+    skinny::partial_kernel<NORM, EPI><<<grid, skinny::THREADS, smem, st>>>(
         (const bf16*)a, (const bf16*)scale, (const bf16*)b, workspace, M, N,
         K, kps, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const size_t mn = (size_t)M * N;
-    skinny::finish_kernel<RESID><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        workspace, (const bf16*)res, (bf16*)out, M, N, splits);
+    skinny::finish_kernel<EPI><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+        workspace, (const bf16*)extra, (bf16*)out, M, N, splits);
     return (int)cudaGetLastError();
   }
   const dim3 grid((M + gemm::BM - 1) / gemm::BM, (N + gemm::BN - 1) / gemm::BN);
-  gemm::tile_kernel<NORM, RESID><<<grid, gemm::THREADS, 0, st>>>(
-      (const bf16*)a, (const bf16*)scale, (const bf16*)b, (const bf16*)res,
+  gemm::tile_kernel<NORM, EPI><<<grid, gemm::THREADS, 0, st>>>(
+      (const bf16*)a, (const bf16*)scale, (const bf16*)b, (const bf16*)extra,
       (bf16*)out, M, N, K, eps);
   return (int)cudaGetLastError();
 }

@@ -135,6 +135,6 @@ extern "C" int matmul_f32(const void* a, const void* b, void* out, int M,
 extern "C" int matmul_bf16(const void* a, const void* b, void* out,
                            void* workspace, int M, int N, int K,
                            void* stream) {
-  return launch_matmul<false, false>(a, nullptr, b, nullptr, out,
+  return launch_matmul<false, EPI_NONE>(a, nullptr, b, nullptr, out,
                                      (float*)workspace, M, N, K, 0.f, stream);
 }

@@ -24,6 +24,6 @@ extern "C" int matmul_residual_add_bf16(const void* a, const void* b,
                                         const void* res, void* out,
                                         void* workspace, int M, int N, int K,
                                         void* stream) {
-  return launch_matmul<false, true>(a, nullptr, b, res, out,
+  return launch_matmul<false, EPI_RESID>(a, nullptr, b, res, out,
                                     (float*)workspace, M, N, K, 0.f, stream);
 }

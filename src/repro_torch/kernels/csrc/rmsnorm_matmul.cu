@@ -28,6 +28,6 @@ extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,
                                    const void* w, void* out, void* workspace,
                                    int M, int N, int K, float eps,
                                    void* stream) {
-  return launch_matmul<true, false>(x, scale, w, nullptr, out,
+  return launch_matmul<true, EPI_NONE>(x, scale, w, nullptr, out,
                                     (float*)workspace, M, N, K, eps, stream);
 }

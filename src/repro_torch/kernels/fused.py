@@ -11,6 +11,7 @@ plain version counts the calls it served with CUDA tensors in
 kernels asserts that this stays 0). `launches.py` gathers the counts.
 
   rmsnorm_matmul       replaces repro/kernels/fused.py build_rmsnorm_matmul
+  matmul_bias_act      replaces repro/kernels/fused.py build_matmul_bias_act
   matmul_residual_add  replaces repro/kernels/fused.py
                        build_matmul_residual_add
   flash_attention_proj replaces repro/kernels/fused.py _fa_proj_kernel /
@@ -23,11 +24,12 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, ref
+from .flash_attention import attention_f32
 
 F32 = torch.float32
-NEG = -1e30
 HEAD_DIM = 128                    # flash_attention_proj's compiled head size
+ACTS = ("none", "gelu", "silu")   # matmul_bias_act's activation codes, in order
 
 
 # ----------------------------------------------------------------------------
@@ -65,6 +67,45 @@ def rmsnorm_matmul(x, scale, w, eps: float = 1e-6):
         ws.data_ptr(), m, n, k, float(eps), build.stream())
     build.check("rmsnorm_matmul", err)
     rmsnorm_matmul.launches += 1
+    return out
+
+
+# ----------------------------------------------------------------------------
+# matmul_bias_act
+# ----------------------------------------------------------------------------
+
+def matmul_bias_act_plain(a, b, bias, act: str = "gelu"):
+    """The reference *kernel's* double rounding: the matmul result is
+    rounded to a.dtype, then the bias is added and the activation applied
+    in f32, and the result rounded again (ops._ref_matmul_bias_act rounds
+    once)."""
+    if a.is_cuda:
+        matmul_bias_act_plain.cuda_calls += 1
+    y = (a.to(F32) @ b.to(F32)).to(a.dtype)
+    return ref.ACTIVATIONS[act](y.to(F32) + bias.to(F32)).to(a.dtype)
+
+
+def matmul_bias_act(a, b, bias, act: str = "gelu"):
+    """act(a @ b + bias). a: (M, K); b: (K, N); bias: (N,); act in ACTS."""
+    m, k = a.shape
+    if act not in ACTS:
+        raise ValueError(f"matmul_bias_act: act {act!r} not in {ACTS}")
+    if b.shape[0] != k or bias.shape != (b.shape[1],):
+        raise ValueError(f"matmul_bias_act: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(bias.shape)}")
+    if not a.is_cuda:
+        return matmul_bias_act_plain(a, b, bias, act)
+    build.check_operands("matmul_bias_act", a, b, bias)
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if m == 0 or n == 0:
+        return out
+    ws = build.workspace("matmul_bias_act", a.device, m, n, k)
+    err = build.entry("matmul_bias_act")(
+        a.data_ptr(), b.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), m, n, k, ACTS.index(act), build.stream())
+    build.check("matmul_bias_act", err)
+    matmul_bias_act.launches += 1
     return out
 
 
@@ -115,19 +156,7 @@ def flash_attention_proj_plain(q, k, v, wo, causal: bool = True):
     reference kernel when its kv block spans the sequence (S <= 512)."""
     if q.is_cuda:
         flash_attention_proj_plain.cuda_calls += 1
-    h, s, hd = q.shape[1], q.shape[2], q.shape[3]
-    g = h // k.shape[1]
-    kf = k.repeat_interleave(g, dim=1).to(F32)
-    vv = v.repeat_interleave(g, dim=1)
-    scores = (q.to(F32) @ kf.transpose(-1, -2)) * hd ** -0.5
-    if causal:
-        ok = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        scores = torch.where(ok, scores, torch.full_like(scores, NEG))
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = (p.to(vv.dtype).to(F32) @ vv.to(F32)) / torch.clamp(l, min=1e-30)
-    o = o.to(wo.dtype).to(F32)
+    o = attention_f32(q, k, v, causal).to(wo.dtype).to(F32)
     return torch.einsum("bhsk,hkd->bsd", o, wo.to(F32)).to(q.dtype)
 
 

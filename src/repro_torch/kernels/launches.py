@@ -14,8 +14,10 @@ from . import axpy as _axpy
 from . import conv2d as _conv2d
 from . import dct8x8 as _dct8x8
 from . import dotp as _dotp
+from . import flash_attention as _fa
 from . import fused as _fused
 from . import matmul as _matmul
+from . import rmsnorm as _rmsnorm
 
 WRAPPERS = {"rmsnorm_matmul": _fused.rmsnorm_matmul,
             "matmul_residual_add": _fused.matmul_residual_add,
@@ -24,7 +26,10 @@ WRAPPERS = {"rmsnorm_matmul": _fused.rmsnorm_matmul,
             "axpy": _axpy.axpy,
             "dotp": _dotp.dotp,
             "conv2d": _conv2d.conv2d_3x3,
-            "dct8x8": _dct8x8.dct8x8}
+            "dct8x8": _dct8x8.dct8x8,
+            "rmsnorm": _rmsnorm.rmsnorm,
+            "flash_attention": _fa.flash_attention,
+            "matmul_bias_act": _fused.matmul_bias_act}
 PLAIN = {"rmsnorm_matmul": _fused.rmsnorm_matmul_plain,
          "matmul_residual_add": _fused.matmul_residual_add_plain,
          "flash_attention_proj": _fused.flash_attention_proj_plain,
@@ -32,8 +37,12 @@ PLAIN = {"rmsnorm_matmul": _fused.rmsnorm_matmul_plain,
          "axpy": _axpy.axpy_plain,
          "dotp": _dotp.dotp_plain,
          "conv2d": _conv2d.conv2d_3x3_plain,
-         "dct8x8": _dct8x8.dct8x8_plain}
-FUSED = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj")
+         "dct8x8": _dct8x8.dct8x8_plain,
+         "rmsnorm": _rmsnorm.rmsnorm_plain,
+         "flash_attention": _fa.flash_attention_plain,
+         "matmul_bias_act": _fused.matmul_bias_act_plain}
+FUSED = ("rmsnorm_matmul", "matmul_residual_add", "flash_attention_proj",
+         "matmul_bias_act")
 SUITE = ("matmul", "axpy", "dotp", "conv2d", "dct8x8")
 
 
@@ -54,20 +63,27 @@ def counts() -> dict:
 
 # The device kernel that opens each launch of a wrapper (a split-K, slab or
 # partial-sum finish may follow it), as a profiler names it, spaces
-# removed. The three matmul entry points instantiate the same templates
-# with other flags, so each has names of its own.
+# removed. The four matmul entry points instantiate the same templates
+# with other flags (<prologue, epilogue code>, common.cuh), so each has
+# names of its own.
 ENTRY_KERNELS = {
-    "rmsnorm_matmul": ("skinny::partial_kernel<true,false>",
-                       "gemm::tile_kernel<true,false>"),
-    "matmul_residual_add": ("skinny::partial_kernel<false,true>",
-                            "gemm::tile_kernel<false,true>"),
+    "rmsnorm_matmul": ("skinny::partial_kernel<true,0>",
+                       "gemm::tile_kernel<true,0>"),
+    "matmul_residual_add": ("skinny::partial_kernel<false,1>",
+                            "gemm::tile_kernel<false,1>"),
     "flash_attention_proj": ("fa_proj_kernel",),
-    "matmul": ("skinny::partial_kernel<false,false>",
-               "gemm::tile_kernel<false,false>", "matmul_f32_kernel"),
+    "matmul": ("skinny::partial_kernel<false,0>",
+               "gemm::tile_kernel<false,0>", "matmul_f32_kernel"),
     "axpy": ("axpy_kernel_",),
     "dotp": ("dotp_partial_kernel",),
     "conv2d": ("conv2d_3x3_kernel",),
     "dct8x8": ("dct8x8_kernel",),
+    "rmsnorm": ("rmsnorm_kernel<",),
+    "flash_attention": ("flash_attention_kernel<",),
+    "matmul_bias_act": tuple(f"{path}<false,{epi}>"
+                             for path in ("skinny::partial_kernel",
+                                          "gemm::tile_kernel")
+                             for epi in (2, 3, 4)),
 }
 
 

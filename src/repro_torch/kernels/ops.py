@@ -1,7 +1,7 @@
 """Policy-dispatched kernel ops — the port's `repro.kernels.ops`: the
-paper's Table 1 suite (`matmul`, `axpy`, `dotp`, `conv2d_3x3`, `dct8x8`)
-and the three fused kernels on the serving path (forward only; the
-custom-VJP backward comes with the training slice).
+paper's Table 1 suite (`matmul`, `axpy`, `dotp`, `conv2d_3x3`, `dct8x8`),
+`rmsnorm` and `flash_attention`, and the four fused kernels (forward
+only; the custom-VJP backward comes with the training slice).
 
 Under the active `KernelPolicy`:
 
@@ -10,15 +10,19 @@ Under the active `KernelPolicy`:
   * otherwise        -> the kernel wrapper: the Hopper kernel for CUDA
                         tensors, its plain version for CPU tensors.
 
-The suite's block arguments (``bm``/``bn``/``bk``, ``block_rows``,
-``block_n``) are the reference's Pallas grid blocking. Outside the
-"reference" mode they are checked as the reference checks them (an
-explicit block, capped at its dimension, must divide it) and are passed
-to no kernel: the CUDA kernels choose their own tiles.
+The block arguments of the unfused ops (``bm``/``bn``/``bk``,
+``block_rows``, ``block_n``, ``bq``/``bk``) are the reference's Pallas
+grid blocking. Outside the "reference" mode they are checked as the
+reference checks them (an explicit block, capped at its dimension, must
+divide it) and are passed to no kernel: the CUDA kernels choose their own
+tiles.
 
 Every ported kernel registers one `OpDescriptor` in `OPS`, under the
-reference's name (the convolution is "conv2d"). `composition` and
-`tuned_call` come with the tuning layer.
+reference's name (the convolution is "conv2d"). Each fused op's
+`composition` is its unfused route, built from the policy-dispatched
+primitives (`rmsnorm`, `matmul`, `flash_attention`) with PyTorch
+epilogues, as the reference's `_comp_*` are. `tuned_call` and the timed
+race between the two come with the tuning layer.
 """
 
 from __future__ import annotations
@@ -35,9 +39,13 @@ from . import axpy as _axpy
 from . import conv2d as _conv2d
 from . import dct8x8 as _dct8x8
 from . import dotp as _dotp
+from . import flash_attention as _fa
 from . import fused as _fused
 from . import matmul as _matmul
 from . import ref as _ref
+from . import rmsnorm as _rmsnorm
+
+F32 = torch.float32
 
 
 def _route(name: str) -> str:
@@ -128,8 +136,38 @@ def dct8x8(blocks, *, block_n: int | None = None):
     return _dct8x8.dct8x8(blocks)
 
 
+def rmsnorm(x, scale, *, block_rows: int | None = None):
+    """x * rsqrt(mean(x^2) + 1e-6) * (1 + scale) per row; x: (M, D)."""
+    route = _route("rmsnorm")
+    if route == "reference":
+        return _ref.rmsnorm(x, scale)
+    _check_blocks(block_rows=(x.shape[0], block_rows))
+    if route == "plain":
+        return _rmsnorm.rmsnorm_plain(x, scale)
+    return _rmsnorm.rmsnorm(x, scale)
+
+
+def _ref_flash_attention(q, k, v, *, causal: bool = True):
+    g = q.shape[1] // k.shape[1]
+    return _ref.flash_attention(q, k.repeat_interleave(g, dim=1),
+                                v.repeat_interleave(g, dim=1), causal=causal)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int | None = None,
+                    bk: int | None = None):
+    """Attention, causal or full, GQA head h -> kv head h // (H/KV).
+    q: (B, H, S, hd); k/v: (B, KV, S, hd)."""
+    route = _route("flash_attention")
+    if route == "reference":
+        return _ref_flash_attention(q, k, v, causal=causal)
+    _check_blocks(bq=(q.shape[2], bq), bk=(q.shape[2], bk))
+    if route == "plain":
+        return _fa.flash_attention_plain(q, k, v, causal)
+    return _fa.flash_attention(q, k, v, causal)
+
+
 # ----------------------------------------------------------------------------
-# The fused kernels of the serving path
+# The fused kernels
 # ----------------------------------------------------------------------------
 
 def rmsnorm_matmul(x, scale, w):
@@ -140,6 +178,16 @@ def rmsnorm_matmul(x, scale, w):
     if route == "plain":
         return _fused.rmsnorm_matmul_plain(x, scale, w)
     return _fused.rmsnorm_matmul(x, scale, w)
+
+
+def matmul_bias_act(a, b, bias, *, act: str = "gelu"):
+    """act(a @ b + bias) with the epilogue applied before writeback."""
+    route = _route("matmul_bias_act")
+    if route == "reference":
+        return _ref.matmul_bias_act(a, b, bias, act)
+    if route == "plain":
+        return _fused.matmul_bias_act_plain(a, b, bias, act)
+    return _fused.matmul_bias_act(a, b, bias, act)
 
 
 def matmul_residual_add(a, b, res):
@@ -168,15 +216,17 @@ def flash_attention_proj(q, k, v, wo, *, causal: bool = True):
 
 @dataclasses.dataclass(frozen=True)
 class OpDescriptor:
-    """A kernel's public contract in one place (the reference's, less the
-    tuning layer's `composition`).
+    """A kernel's public contract in one place (the reference's).
 
     `shapes(*operands)` maps the wrapper's operands to the reference's
     pipeline-layer shape dict; `operands(shapes, dtype, device=None)` is
     its inverse, seeded random operands on `device` (the GPU unless
     given); `reference` is the oracle the "reference" mode routes to;
     `streamed_operand` is the index of the operand whose dtype sets the
-    tile footprint; `fused` marks the producer-consumer kernels.
+    tile footprint; `fused` marks the producer-consumer kernels, and
+    `composition` is a fused kernel's unfused route: the same math from
+    the primitive wrappers plus PyTorch epilogues (not the `reference`
+    oracle), the fusion's opponent in the tuning layer's race.
     """
 
     name: str
@@ -186,6 +236,7 @@ class OpDescriptor:
     streamed_operand: int = 0
     fused: bool = False
     operands: Callable[..., tuple] | None = None
+    composition: Callable | None = None
 
 
 OPS: dict[str, OpDescriptor] = {}
@@ -222,6 +273,15 @@ def _shapes_conv2d(x, w):
 
 def _shapes_dct8x8(blocks):
     return {"n": blocks.shape[0]}
+
+
+def _shapes_rmsnorm(x, scale):
+    return {"m": x.shape[0], "d": x.shape[1]}
+
+
+def _shapes_flash_attention(q, k, v):
+    b, h, s, hd = q.shape
+    return {"b": b, "h": h, "kv": k.shape[1], "s": s, "hd": hd}
 
 
 def _shapes_rmsnorm_matmul(x, scale, w):
@@ -266,10 +326,28 @@ def _mk_dct8x8(s, dt, device=None):
     return (_rand(8, (s["n"], 8, 8), dt, device),)
 
 
+def _mk_rmsnorm(s, dt, device=None):
+    return (_rand(9, (s["m"], s["d"]), dt, device),
+            _rand(10, (s["d"],), dt, device, 0.1))
+
+
+def _mk_flash_attention(s, dt, device=None):
+    b, h, kv, sq, hd = (s[k] for k in ("b", "h", "kv", "s", "hd"))
+    return (_rand(11, (b, h, sq, hd), dt, device),
+            _rand(12, (b, kv, sq, hd), dt, device),
+            _rand(13, (b, kv, sq, hd), dt, device))
+
+
 def _mk_rmsnorm_matmul(s, dt, device=None):
     return (_rand(14, (s["m"], s["k"]), dt, device),
             _rand(15, (s["k"],), dt, device, 0.1),
             _rand(16, (s["k"], s["n"]), dt, device))
+
+
+def _mk_matmul_bias_act(s, dt, device=None):
+    return (_rand(17, (s["m"], s["k"]), dt, device),
+            _rand(18, (s["k"], s["n"]), dt, device),
+            _rand(19, (s["n"],), dt, device))
 
 
 def _mk_matmul_residual_add(s, dt, device=None):
@@ -286,6 +364,29 @@ def _mk_flash_attention_proj(s, dt, device=None):
             _rand(26, (h, hd, dm), dt, device, 0.1))
 
 
+# -- unfused compositions (the fused kernels' race opponents) ----------------
+# The reference's `_comp_*`: the primitive wrappers above under the active
+# policy, with the epilogue written in PyTorch.
+
+def _comp_rmsnorm_matmul(x, scale, w):
+    return matmul(rmsnorm(x, scale), w)
+
+
+def _comp_matmul_bias_act(a, b, bias, *, act: str = "gelu"):
+    h = matmul(a, b).to(F32) + bias.to(F32)
+    return _ref.ACTIVATIONS[act](h).to(a.dtype)
+
+
+def _comp_matmul_residual_add(a, b, res):
+    return (matmul(a, b).to(F32) + res.to(F32)).to(a.dtype)
+
+
+def _comp_flash_attention_proj(q, k, v, wo, *, causal: bool = True):
+    o = flash_attention(q, k, v, causal=causal)
+    return torch.einsum("bhsk,hkd->bsd", o.to(F32),
+                        wo.to(F32)).to(q.dtype)
+
+
 for _desc in (
     OpDescriptor("axpy", axpy, _shapes_mn, _ref.axpy, streamed_operand=1,
                  operands=_mk_axpy),
@@ -296,14 +397,26 @@ for _desc in (
                  operands=_mk_conv2d),
     OpDescriptor("dct8x8", dct8x8, _shapes_dct8x8, _ref.dct8x8,
                  operands=_mk_dct8x8),
+    OpDescriptor("rmsnorm", rmsnorm, _shapes_rmsnorm, _ref.rmsnorm,
+                 operands=_mk_rmsnorm),
+    OpDescriptor("flash_attention", flash_attention,
+                 _shapes_flash_attention, _ref_flash_attention,
+                 operands=_mk_flash_attention),
     OpDescriptor("rmsnorm_matmul", rmsnorm_matmul, _shapes_rmsnorm_matmul,
                  _ref.rmsnorm_matmul, fused=True,
-                 operands=_mk_rmsnorm_matmul),
+                 operands=_mk_rmsnorm_matmul,
+                 composition=_comp_rmsnorm_matmul),
+    OpDescriptor("matmul_bias_act", matmul_bias_act, _shapes_matmul,
+                 _ref.matmul_bias_act, fused=True,
+                 operands=_mk_matmul_bias_act,
+                 composition=_comp_matmul_bias_act),
     OpDescriptor("matmul_residual_add", matmul_residual_add, _shapes_matmul,
                  _ref.matmul_residual_add, fused=True,
-                 operands=_mk_matmul_residual_add),
+                 operands=_mk_matmul_residual_add,
+                 composition=_comp_matmul_residual_add),
     OpDescriptor("flash_attention_proj", flash_attention_proj,
                  _shapes_flash_attention_proj, _ref.flash_attention_proj,
-                 fused=True, operands=_mk_flash_attention_proj),
+                 fused=True, operands=_mk_flash_attention_proj,
+                 composition=_comp_flash_attention_proj),
 ):
     register_op(_desc)

@@ -4,17 +4,28 @@ policy mode routes to. The Table 1 suite's oracles (matmul, axpy, dotp,
 conv2d_3x3, dct8x8) are the reference's own, line for line.
 
 These follow the reference package's *oracles*, not its kernels: the
-residual add rounds once (the kernel rounds twice, see `fused.py`), and
-attention is a full-softmax composition.
+residual add and the bias-activation epilogue round once (the kernels
+round twice, see `fused.py`), and attention is a full-softmax
+composition.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 F32 = torch.float32
 NEG = -1e30
+
+# the reference's `kernels/fused.py` ACTIVATIONS: its "gelu" is
+# `jax.nn.gelu`, whose default is the tanh approximation (torch's default
+# is the exact erf form)
+ACTIVATIONS = {
+    "none": lambda x: x,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+}
 
 
 def matmul(a, b):
@@ -82,6 +93,12 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 def rmsnorm_matmul(x, scale, w):
     return (rmsnorm(x, scale).to(F32) @ w.to(F32)).to(x.dtype)
+
+
+def matmul_bias_act(a, b, bias, act: str = "gelu"):
+    """act(a @ b + bias) in f32, rounded once (`ops._ref_matmul_bias_act`)."""
+    h = a.to(F32) @ b.to(F32) + bias.to(F32)
+    return ACTIVATIONS[act](h).to(a.dtype)
 
 
 def matmul_residual_add(a, b, res):

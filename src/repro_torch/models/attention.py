@@ -3,9 +3,15 @@
   direct   — materialise the (S x S) scores; small S.
   masked   — q-chunk x kv-chunk blocks with causal masking and an online
              softmax; the same function as `direct` in bounded memory.
-             (The reference's folded and banded schedules compute the same
-             function again and wait in ROADMAP Queue 1 item 3, as does
-             the flash custom VJP, which comes with training.)
+  pallas   — the flash_attention kernel (`kernels/flash_attention.py`,
+             hand-written CUDA on the GPU) for causal attention without a
+             window; anything else falls back to "auto", as the reference
+             does. (The reference's folded and banded schedules compute
+             the same function again and wait in ROADMAP Queue 1 item 3,
+             as does the flash custom VJP, which comes with training.)
+
+`cross_attention` is non-causal attention against a short context
+(whisper's encoder output), chunked over q when q is long.
 
 Decode attention over a private or a paged cache is plain tensor code, as
 in the reference. GQA is computed in grouped form throughout.
@@ -92,16 +98,32 @@ def _masked(q, k, v, n_kv: int, chunk: int, window):
     return torch.cat(outs, dim=1)
 
 
+def pallas_flash_attention(q, k, v, *, causal: bool = True):
+    """Model-layout attention through the flash_attention kernel: q (B, S,
+    H, hd), k/v (B, S, KV, hd), made dense in the kernel's (B, H, S, hd)
+    layout and transposed back. Forward only."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import dense
+    o = ops.flash_attention(dense(q.transpose(1, 2)),
+                            dense(k.transpose(1, 2)),
+                            dense(v.transpose(1, 2)), causal=causal)
+    return o.transpose(1, 2)
+
+
 def attention(q, k, v, *, n_kv: int, causal: bool = True,
               window: int | None = None, chunk: int = 1024,
               schedule: str = "auto"):
     """Prefill attention. q: (B,S,H,hd); k/v: (B,S,KV,hd)."""
     s = q.shape[1]
-    if schedule not in ("auto", "direct", "masked"):
+    if schedule not in ("auto", "direct", "masked", "pallas"):
         raise NotImplementedError(
-            f"attention schedule {schedule!r}: the port has direct and "
-            f"masked so far (folded, banded and the pallas route are "
-            f"ROADMAP Queue 1 item 3 / Queue 2 kernel 4)")
+            f"attention schedule {schedule!r}: the port has direct, masked "
+            f"and pallas so far (folded and banded are ROADMAP Queue 1 "
+            f"item 3)")
+    if schedule == "pallas" and causal and window is None:
+        return pallas_flash_attention(q, k, v, causal=True)
+    if schedule == "pallas":      # the kernel has no window or full path here
+        schedule = "auto"
     if schedule == "auto":
         if s <= 2 * chunk or s % chunk or not causal:
             schedule = "direct"
@@ -111,6 +133,23 @@ def attention(q, k, v, *, n_kv: int, causal: bool = True,
         return direct_attention(q, k, v, n_kv=n_kv, causal=causal,
                                 window=window)
     return _masked(q, k, v, n_kv, chunk, window)
+
+
+def cross_attention(q, k, v, *, n_kv: int, chunk: int = 1024):
+    """Non-causal attention of q (B, S, H, hd) against a short context k/v
+    (B, S_kv, KV, hd), kept whole; long q is taken `chunk` rows at a time
+    so the (S x S_kv) scores never exist at full S."""
+    b, s, h, hd = q.shape
+    if s <= 2 * chunk or s % chunk:
+        return direct_attention(q, k, v, n_kv=n_kv, causal=False)
+    kf = k.to(F32)
+    outs = []
+    for q0 in range(0, s, chunk):
+        qg = _group(q[:, q0:q0 + chunk], n_kv)
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), kf) \
+            * hd ** -0.5
+        outs.append(_softmax_pv(scores, v).reshape(b, chunk, h, hd))
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,

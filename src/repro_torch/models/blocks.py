@@ -1,9 +1,13 @@
 """Residual block kinds (the port of `repro.models.blocks`).
 
-The dense attention + FFN block ("attn") is ported: specs, full-sequence
+Ported: the dense attention + FFN block ("attn": specs, full-sequence
 `apply`, `cache_specs` and one-token `decode`, on the plain route and on
-the fused route (KernelPolicy mode "fused"), with the paged-KV switch.
-Every other kind raises NotImplementedError (ROADMAP Queue 1 item 10).
+the fused route of KernelPolicy mode "fused", with the paged-KV switch),
+and whisper's two kinds: the encoder block ("enc_attn", bidirectional,
+its gelu MLP on the fused route under "fused") and the decoder block
+("attn_cross": causal self-attention, cross-attention to the encoder
+output, the MLP; decode on private caches). Every other kind raises
+NotImplementedError (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -14,10 +18,10 @@ import torch.nn.functional as F
 from repro_torch.cluster.policy import current_policy
 
 from . import attention as attn_lib
-from .layers import (ParamSpec, apply_ffn, attn_specs, ffn_specs,
-                     fused_attention_proj, fused_matmul_residual,
-                     fused_norm_matmul, out_project, qkv_postprocess,
-                     qkv_project, rms_norm)
+from .layers import (ParamSpec, _mm, apply_ffn, attn_specs, ffn_specs,
+                     fused_attention_proj, fused_matmul_bias_act,
+                     fused_matmul_residual, fused_norm_matmul, layer_norm,
+                     out_project, qkv_postprocess, qkv_project, rms_norm)
 
 F32 = torch.float32
 
@@ -25,13 +29,16 @@ F32 = torch.float32
 def _norm_specs(cfg, name: str) -> dict:
     if cfg.norm == "rms":
         return {name: ParamSpec((cfg.d_model,), ("norm",), init="zeros")}
-    raise NotImplementedError(
-        f"norm {cfg.norm!r}: layer norm comes with the other block kinds "
-        f"(ROADMAP Queue 1 item 10)")
+    return {name + "_s": ParamSpec((cfg.d_model,), ("norm",), init="ones"),
+            name + "_b": ParamSpec((cfg.d_model,), ("norm",), init="zeros")}
 
 
 def _norm(cfg, p, name: str, x):
-    return rms_norm(x, p[name])
+    """rms_norm with p[name], or layer_norm with p[name + "_s" / "_b"] (the
+    reference's `_norm` and `_ln`, which compute the same)."""
+    if cfg.norm == "rms":
+        return rms_norm(x, p[name])
+    return layer_norm(x, p[name + "_s"], p[name + "_b"])
 
 
 def attn_block_specs(cfg) -> dict:
@@ -102,16 +109,22 @@ def _self_attention(cfg, p, x, ctx, *, window, causal=True):
 
 
 def _ffn_residual(cfg, p, x):
-    """x + FFN(norm(x)); under "fused" the norm is folded into the
-    gate/up prologues and the residual into the down-projection
-    epilogue."""
-    if current_policy().fused and cfg.norm == "rms" \
-            and cfg.ffn_kind == "swiglu":
+    """x + FFN(norm(x)); under "fused" a swiglu MLP folds the rmsnorm into
+    the gate/up prologues and the residual into the down-projection
+    epilogue, and a gelu MLP takes the bias + activation epilogue on both
+    of its products."""
+    if current_policy().fused:
         f = p["ffn"]
-        g = fused_norm_matmul(x, p["ln_ffn"], f["w_gate"])
-        u = fused_norm_matmul(x, p["ln_ffn"], f["w_up"])
-        h = F.silu(g.to(F32)).to(x.dtype) * u
-        return fused_matmul_residual(h, f["w_down"], x)
+        if cfg.norm == "rms" and cfg.ffn_kind == "swiglu":
+            g = fused_norm_matmul(x, p["ln_ffn"], f["w_gate"])
+            u = fused_norm_matmul(x, p["ln_ffn"], f["w_up"])
+            h = F.silu(g.to(F32)).to(x.dtype) * u
+            return fused_matmul_residual(h, f["w_down"], x)
+        if cfg.ffn_kind == "gelu":
+            h = fused_matmul_bias_act(_norm(cfg, p, "ln_ffn", x), f["w_in"],
+                                      f["b_in"], "gelu")
+            return x + fused_matmul_bias_act(h, f["w_out"], f["b_out"],
+                                             "none")
     return x + apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x),
                          kind=cfg.ffn_kind)
 
@@ -170,6 +183,105 @@ def attn_block_decode(cfg, p, x, cache, pos, ctx, *, window=None):
     return x, {"k": kc, "v": vc}
 
 
+# ----------------------------------------------------------------------------
+# Whisper: the decoder block ("attn_cross") and the encoder block ("enc_attn")
+# ----------------------------------------------------------------------------
+
+def attn_cross_block_specs(cfg) -> dict:
+    s = {}
+    s |= _norm_specs(cfg, "ln_self")
+    s["self"] = attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           qkv_bias=cfg.qkv_bias)
+    s |= _norm_specs(cfg, "ln_cross")
+    s["cross"] = attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                            qkv_bias=cfg.qkv_bias)
+    s |= _norm_specs(cfg, "ln_ffn")
+    s["ffn"] = ffn_specs(cfg.d_model, cfg.d_ff, kind=cfg.ffn_kind)
+    return s
+
+
+def _self_qkv(cfg, p, x, ctx):
+    """The decoder's self-attention projections: no rope (whisper's
+    positions are learned and added to the embeddings)."""
+    return qkv_project(p["self"], _norm(cfg, p, "ln_self", x),
+                       ctx["positions"], n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                       qkv_bias=cfg.qkv_bias, rope=False)
+
+
+def _cross_q(cfg, p, x):
+    qc = _mm(_norm(cfg, p, "ln_cross", x), p["cross"]["wq"],
+             "bsd,dhk->bshk")
+    return qc + p["cross"]["bq"] if cfg.qkv_bias else qc
+
+
+def attn_cross_block_apply(cfg, p, x, ctx):
+    """Causal self-attention, cross-attention to ctx["cross_embeds"] (the
+    encoder output), then the MLP. The MLP is `apply_ffn` under every
+    policy: the reference's decoder takes no fused kernel."""
+    q, k, v = _self_qkv(cfg, p, x, ctx)
+    o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=True,
+                           chunk=cfg.attn_chunk, schedule=cfg.attn_schedule)
+    x = x + out_project(p["self"], o)
+    enc = ctx["cross_embeds"]
+    kc = _mm(enc, p["cross"]["wk"], "bsd,dhk->bshk")
+    vc = _mm(enc, p["cross"]["wv"], "bsd,dhk->bshk")
+    if cfg.qkv_bias:
+        kc, vc = kc + p["cross"]["bk"], vc + p["cross"]["bv"]
+    o = attn_lib.cross_attention(_cross_q(cfg, p, x), kc, vc,
+                                 n_kv=cfg.n_kv_heads, chunk=cfg.attn_chunk)
+    x = x + out_project(p["cross"], o)
+    x = x + apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x),
+                      kind=cfg.ffn_kind)
+    return x, 0.0
+
+
+def attn_cross_cache_specs(cfg, B: int, cache_len: int) -> dict:
+    self_c = attn_cache_specs(cfg, B, cache_len)
+    cross = ParamSpec((B, cfg.enc_seq, cfg.n_kv_heads, cfg.hd),
+                      ("batch", None, "kv_heads", None), init="zeros")
+    return {"self_k": self_c["k"], "self_v": self_c["v"],
+            "cross_k": cross, "cross_v": cross}
+
+
+def attn_cross_block_decode(cfg, p, x, cache, pos, ctx):
+    """One token through the decoder block on private caches, updated in
+    place. The cross K/V are read from the cache as they stand: nothing
+    fills them from the encoder (zeros from init, as in the reference;
+    ROADMAP Queue 3)."""
+    if ctx.get("pages") is not None:
+        raise NotImplementedError(
+            "attn_cross decode through the paged pool (whisper in the paged "
+            "session) is not ported yet (ROADMAP Queue 1 item 10)")
+    q, k, v = _self_qkv(cfg, p, x, ctx)
+    kc, vc = attn_lib.update_cache(cache["self_k"], cache["self_v"], k, v,
+                                   pos)
+    o = attn_lib.decode_attention(q, kc, vc, pos + 1, n_kv=cfg.n_kv_heads)
+    x = x + out_project(p["self"], o)
+    o = attn_lib.decode_attention(_cross_q(cfg, p, x), cache["cross_k"],
+                                  cache["cross_v"], cfg.enc_seq,
+                                  n_kv=cfg.n_kv_heads)
+    x = x + out_project(p["cross"], o)
+    x = x + apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x),
+                      kind=cfg.ffn_kind)
+    return x, {"self_k": kc, "self_v": vc, "cross_k": cache["cross_k"],
+               "cross_v": cache["cross_v"]}
+
+
+def enc_attn_block_apply(cfg, p, x, ctx):
+    """Bidirectional self-attention (direct), then the MLP through
+    `_ffn_residual`, which under "fused" is whisper's matmul_bias_act
+    path."""
+    q, k, v = qkv_project(p["attn"], _norm(cfg, p, "ln_attn", x),
+                          ctx["positions"], n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                          qkv_bias=cfg.qkv_bias, rope=False)
+    o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=False,
+                           schedule="direct")
+    x = x + out_project(p["attn"], o)
+    return _ffn_residual(cfg, p, x), 0.0
+
+
 def _not_ported(kind: str):
     def fail(*_, **__):
         raise NotImplementedError(
@@ -181,9 +293,16 @@ def _not_ported(kind: str):
 BLOCKS = {
     "attn": dict(specs=attn_block_specs, apply=attn_block_apply,
                  cache=attn_cache_specs, decode=attn_block_decode),
+    "attn_cross": dict(specs=attn_cross_block_specs,
+                       apply=attn_cross_block_apply,
+                       cache=attn_cross_cache_specs,
+                       decode=attn_cross_block_decode),
+    # the encoder block's parameters are the attn block's (whisper has no
+    # qk-norm and an MLP)
+    "enc_attn": dict(specs=attn_block_specs, apply=enc_attn_block_apply,
+                     cache=None, decode=None),
 }
-for _kind in ("local_attn", "attn_moe", "cross", "attn_cross", "enc_attn",
-              "rglru", "mlstm", "slstm"):
+for _kind in ("local_attn", "attn_moe", "cross", "rglru", "mlstm", "slstm"):
     BLOCKS[_kind] = dict(specs=_not_ported(_kind), apply=_not_ported(_kind),
                          cache=_not_ported(_kind),
                          decode=_not_ported(_kind))

@@ -12,6 +12,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import ACTIVATIONS
+
 F32 = torch.float32
 Logical = tuple
 
@@ -56,6 +58,17 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return (y * (1.0 + scale.to(F32))).to(dt)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """(x - mean) * rsqrt(var + eps) * scale + bias in f32, the population
+    variance, rounded to x's dtype (the scale is `scale`, not 1 + scale)."""
+    dt = x.dtype
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(F32) + bias.to(F32)).to(dt)
+
+
 def _mm(x, w, eq: str):
     """einsum with f32 accumulation, rounded back to x's dtype."""
     return torch.einsum(eq, x.to(F32), w.to(F32)).to(x.dtype)
@@ -66,6 +79,14 @@ def swiglu(x, w_gate, w_up, w_down):
     u = _mm(x, w_up, "...d,df->...f")
     h = F.silu(g.to(F32)).to(x.dtype) * u
     return _mm(h, w_down, "...f,fd->...d")
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """Whisper's MLP: b_in is added in x's dtype to the rounded product,
+    then gelu (the tanh form, jax.nn.gelu's default) in f32."""
+    h = _mm(x, w_in, "...d,df->...f") + b_in
+    h = ACTIVATIONS["gelu"](h.to(F32)).to(x.dtype)
+    return _mm(h, w_out, "...f,fd->...d") + b_out
 
 
 # ----------------------------------------------------------------------------
@@ -125,15 +146,24 @@ def ffn_specs(d_model: int, d_ff: int, *, kind: str = "swiglu",
             "w_up": ParamSpec((d_model, d_ff), ("embed", "ffn"), dtype),
             "w_down": ParamSpec((d_ff, d_model), ("ffn", "embed"), dtype),
         }
+    if kind == "gelu":  # whisper-style MLP with biases
+        return {
+            "w_in": ParamSpec((d_model, d_ff), ("embed", "ffn"), dtype),
+            "b_in": ParamSpec((d_ff,), ("ffn",), dtype, init="zeros"),
+            "w_out": ParamSpec((d_ff, d_model), ("ffn", "embed"), dtype),
+            "b_out": ParamSpec((d_model,), ("embed",), dtype, init="zeros"),
+        }
     raise NotImplementedError(
-        f"ffn kind {kind!r}: only swiglu is ported so far (the geglu and "
-        f"gelu MLPs come with the other block kinds, ROADMAP Queue 1 "
-        f"item 10)")
+        f"ffn kind {kind!r}: swiglu and gelu are ported so far (geglu comes "
+        f"with its block kinds, ROADMAP Queue 1 item 10)")
 
 
 def apply_ffn(params: dict, x, *, kind: str = "swiglu"):
     if kind == "swiglu":
         return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    if kind == "gelu":
+        return gelu_mlp(x, params["w_in"], params["b_in"], params["w_out"],
+                        params["b_out"])
     raise NotImplementedError(f"ffn kind {kind!r} (ROADMAP Queue 1 item 10)")
 
 
@@ -200,6 +230,16 @@ def fused_matmul_residual(h, w, res):
     y = ops.matmul_residual_add(dense(h.reshape(-1, f)), dense(w),
                                 dense(res.reshape(-1, w.shape[1])))
     return y.reshape(res.shape)
+
+
+def fused_matmul_bias_act(h, w, bias, act: str):
+    """act(h @ w + bias) with the bias and activation in the output
+    epilogue. h: (..., f); w: (f, d); bias: (d,) -> (..., d)."""
+    from repro_torch.kernels import ops
+    f = h.shape[-1]
+    y = ops.matmul_bias_act(dense(h.reshape(-1, f)), dense(w), dense(bias),
+                            act=act)
+    return y.reshape(*h.shape[:-1], w.shape[1])
 
 
 def fused_attention_proj(q, k, v, wo, *, causal: bool = True):

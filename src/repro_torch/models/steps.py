@@ -7,8 +7,11 @@ Layout differences from the reference, all for PyTorch idiom:
   reference stacks them on a leading axis for `lax.scan`); `forward`
   and the decode step loop over it in Python.
 * the decode cache stacks layers on a leading axis, ``{"k": (L, B, S,
-  KV, hd), "v": ...}`` (paged: ``(L, n_pages, page_size, KV, hd)``),
-  and is updated in place where the reference donates its buffers.
+  KV, hd), "v": ...}`` (paged: ``(L, n_pages, page_size, KV, hd)``;
+  whisper's decoder: ``self_k``/``self_v``/``cross_k``/``cross_v``), and
+  is updated in place where the reference donates its buffers.
+* an encoder-decoder model's encoder blocks are the list
+  ``params["enc"]["blocks"]`` (the reference stacks them too).
 
 Training (`loss_fn`, `make_train_step`) waits for ROADMAP Queue 1 item 11.
 """
@@ -20,8 +23,8 @@ import torch
 from repro_torch.cluster import policy as kpolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.blocks import BLOCKS
-from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.models.blocks import BLOCKS, _norm, _norm_specs
+from repro_torch.models.layers import ParamSpec, layer_norm
 
 F32 = torch.float32
 
@@ -42,23 +45,31 @@ def block_plan(cfg) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
 def layer_kinds(cfg) -> list[str]:
     """The block kind of every layer, in order."""
     pattern, n_super, remainder = block_plan(cfg)
-    kinds = list(pattern) * n_super + list(remainder)
-    if cfg.family == "encdec":
-        raise NotImplementedError("encoder-decoder models come with the "
-                                  "other block kinds (ROADMAP Queue 1 "
-                                  "item 10)")
-    return kinds
+    return list(pattern) * n_super + list(remainder)
 
 
 def param_specs(cfg, max_seq: int = 4096) -> dict:
+    """`max_seq` sizes an encoder-decoder model's learned decoder
+    positions (`dec_pos`)."""
     d = cfg.d_model
-    return {
+    specs = {
         "tok_embed": ParamSpec((cfg.vocab, d), ("vocab", None), init="embed",
                                scale=1.0),
         "unembed": ParamSpec((d, cfg.vocab), ("embed", "vocab")),
-        "ln_f": ParamSpec((d,), ("norm",), init="zeros"),
-        "blocks": [BLOCKS[k]["specs"](cfg) for k in layer_kinds(cfg)],
-    }
+    } | _norm_specs(cfg, "ln_f")
+    specs["blocks"] = [BLOCKS[k]["specs"](cfg) for k in layer_kinds(cfg)]
+    if cfg.family == "encdec":
+        specs["enc"] = {
+            "blocks": [BLOCKS["enc_attn"]["specs"](cfg)
+                       for _ in range(cfg.n_enc_layers)],
+            "pos": ParamSpec((cfg.enc_seq, d), (None, None), init="embed",
+                             scale=0.02),
+            "ln_s": ParamSpec((d,), ("norm",), init="ones"),
+            "ln_b": ParamSpec((d,), ("norm",), init="zeros"),
+        }
+        specs["dec_pos"] = ParamSpec((max_seq, d), (None, None),
+                                     init="embed", scale=0.02)
+    return specs
 
 
 def iter_specs(tree):
@@ -139,6 +150,11 @@ def paged_cache_specs(cfg, B: int, cache_len: int, *, n_pages: int,
     if cfg.window:
         raise ValueError(f"arch {cfg.name!r} keeps windowed (rolling) "
                          f"caches — paged serving needs positional attention")
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"arch {cfg.name!r}: the paged cache of the attn_cross kind "
+            f"(whisper in the paged session) is not ported yet (ROADMAP "
+            f"Queue 1 item 10)")
     return {k: ParamSpec((s.shape[0], n_pages, page_size, *s.shape[3:]),
                          ("layers", None, None, *s.logical[3:]), s.dtype,
                          s.init)
@@ -189,7 +205,19 @@ def make_paged_cache_ops(cfg, B: int, cache_len: int):
 # ----------------------------------------------------------------------------
 
 def _final_norm(cfg, params, x):
-    return rms_norm(x, params["ln_f"])
+    return _norm(cfg, params, "ln_f", x)
+
+
+def _encode(cfg, params, enc_embeds):
+    """Whisper's encoder over stub frame embeddings (B, enc_seq, d)."""
+    enc = params["enc"]
+    x = enc_embeds + enc["pos"].to(enc_embeds.dtype)
+    B, S = x.shape[:2]
+    ctx = {"positions": torch.arange(S, device=x.device).expand(B, S),
+           "rope": False}
+    for p in enc["blocks"]:
+        x, _ = BLOCKS["enc_attn"]["apply"](cfg, p, x, ctx)
+    return layer_norm(x, enc["ln_s"], enc["ln_b"])
 
 
 def logits(params, hidden):
@@ -205,13 +233,20 @@ def logits(params, hidden):
     return hidden.to(F32) @ w.to(F32)
 
 
-def forward(cfg, params, tokens):
-    """Token ids (B, S) -> final hidden states (B, S, d) and aux loss."""
+def forward(cfg, params, tokens, *, cross_embeds=None):
+    """Token ids (B, S) -> final hidden states (B, S, d) and aux loss. An
+    encoder-decoder model encodes `cross_embeds` (its stub frame
+    embeddings) first and adds its learned decoder positions."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
     x = params["tok_embed"][tokens.long()]
+    encdec = cfg.family == "encdec"
+    if encdec:
+        cross_embeds = _encode(cfg, params, cross_embeds)
+        x = x + params["dec_pos"][:S].to(x.dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    ctx = {"positions": positions, "rope": True, "max_seq": S}
+    ctx = {"positions": positions, "rope": not encdec,
+           "cross_embeds": cross_embeds, "max_seq": S}
     aux = 0.0
     for kind, p in zip(kinds, params["blocks"]):
         x, a = BLOCKS[kind]["apply"](cfg, p, x, ctx)
@@ -221,13 +256,16 @@ def forward(cfg, params, tokens):
 
 def make_prefill_step(cfg, *, policy=None):
     """`prefill_step(params, batch) -> (B,) int32` greedy next tokens.
+    `batch["enc_embeds"]` (or "img_embeds") is the cross context.
     `policy` pins the kernel policy (None -> the ambient one)."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
 
     @torch.inference_mode()
     def prefill_step(params, batch):
         with kpolicy.scoped(pol):
-            hidden, _ = forward(cfg, params, batch["tokens"])
+            cross = batch.get("enc_embeds", batch.get("img_embeds"))
+            hidden, _ = forward(cfg, params, batch["tokens"],
+                                cross_embeds=cross)
             lg = logits(params, hidden[:, -1])
             return torch.argmax(lg, dim=-1).to(torch.int32)
 
@@ -240,9 +278,11 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
     `batch["pos"]` is an int (all slots at one position) or a (B,) tensor
     (per-slot positions, the continuous-batching session); a
     ``batch["pages"]`` (B, pages_per_slot) table routes K/V through the
-    paged pool. The cache is updated in place."""
+    paged pool. The cache is updated in place. An encoder-decoder model
+    adds its learned position `dec_pos[pos]` and takes no rope."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
     kinds = layer_kinds(cfg)
+    encdec = cfg.family == "encdec"
 
     @torch.inference_mode()
     def decode_step(params, cache, batch):
@@ -252,8 +292,10 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
             pos = torch.as_tensor(batch["pos"], device=tokens.device)
             x = params["tok_embed"][tokens.long()]                # (B,1,d)
             positions = (pos.expand(B) if pos.ndim == 0 else pos)[:, None]
-            ctx = {"positions": positions, "rope": True, "max_seq": max_seq,
-                   "pages": batch.get("pages")}
+            if encdec:
+                x = x + params["dec_pos"][positions.long()].to(x.dtype)
+            ctx = {"positions": positions, "rope": not encdec,
+                   "max_seq": max_seq, "pages": batch.get("pages")}
             for i, (kind, p) in enumerate(zip(kinds, params["blocks"])):
                 layer_cache = {k: c[i] for k, c in cache.items()}
                 x, _ = BLOCKS[kind]["decode"](cfg, p, x, layer_cache, pos,

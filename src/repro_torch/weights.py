@@ -5,7 +5,9 @@ tree (``repro.models.steps.init_params`` after ``np.asarray`` on every
 leaf) and returns the port's parameters: the same tensors, with the
 leading layer axis of each stacked super-block in ``tree["blocks"]``
 unstacked into the list of per-layer dicts `repro_torch.models.steps`
-uses. bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits.
+uses, and likewise an encoder-decoder tree's ``tree["enc"]["blocks"]``.
+bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits. A
+dict-valued key the port does not know raises: nothing is dropped.
 
 Nothing of the reference package is imported here.
 """
@@ -39,23 +41,41 @@ def from_jax_params(tree: dict, *, device=None) -> dict:
     """Reference parameter tree of numpy leaves -> port parameters on
     `device` (None: the GPU)."""
     device = resolve_device(device)
+    unknown = [k for k, v in tree.items() if isinstance(v, dict)
+               and k not in ("blocks", "rem", "enc")]
+    if unknown:
+        raise ValueError(f"from_jax_params: unknown subtrees {unknown}")
     blocks = tree["blocks"]
     subs = sorted(blocks, key=lambda k: int(k.removeprefix("sub")))
-    n_super = len(np.asarray(next(_leaves(blocks[subs[0]]))))
+    n_super = _depth(blocks[subs[0]])
     layers = []
     for i in range(n_super):
         for sub in subs:
-            layers.append(_map(blocks[sub],
-                               lambda a, i=i: to_tensor(np.asarray(a)[i],
-                                                        device)))
+            layers.append(_layer(blocks[sub], i, device))
     if "rem" in tree:
         rem = tree["rem"]
         for key in sorted(rem, key=lambda k: int(k.removeprefix("rem"))):
             layers.append(_map(rem[key], lambda a: to_tensor(a, device)))
     out = {k: to_tensor(v, device) for k, v in tree.items()
-           if k not in ("blocks", "rem") and not isinstance(v, dict)}
+           if not isinstance(v, dict)}
     out["blocks"] = layers
+    if "enc" in tree:
+        enc = tree["enc"]
+        out["enc"] = {k: to_tensor(v, device) for k, v in enc.items()
+                      if k != "blocks"}
+        out["enc"]["blocks"] = [_layer(enc["blocks"], i, device)
+                                for i in range(_depth(enc["blocks"]))]
     return out
+
+
+def _depth(stacked) -> int:
+    """The leading (layers) axis of a stacked block tree."""
+    return len(np.asarray(next(_leaves(stacked))))
+
+
+def _layer(stacked, i: int, device):
+    """Layer i of a stacked block tree, as tensors."""
+    return _map(stacked, lambda a: to_tensor(np.asarray(a)[i], device))
 
 
 def _leaves(tree):

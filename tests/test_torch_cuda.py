@@ -14,6 +14,9 @@ import torch
 
 from repro_torch.kernels import axpy, conv2d, dct8x8, dotp, fused, launches
 from repro_torch.kernels import matmul
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
 
 @pytest.fixture
@@ -260,3 +263,134 @@ def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
     assert traced["matmul"] == 5, (traced, kernels)
     assert traced["matmul_residual_add"] == 1, (traced, kernels)
     assert traced["rmsnorm_matmul"] == 0, (traced, kernels)
+
+
+# ----------------------------------------------------------------------------
+# rmsnorm, flash_attention, matmul_bias_act
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d", [(8, 5120), (512, 5120), (512, 512),
+                                 (7, 100), (3, 13)])
+def test_cuda_rmsnorm(cuda, dtype, m, d):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = _randn(g, m, d, dtype=DT[dtype])
+    s = _randn(g, d, dtype=DT[dtype], scale=0.1)
+    before = rmsnorm.launches
+    got = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (m, d)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    torch.testing.assert_close(got.float(), rmsnorm_plain(x, s).float(),
+                               **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,hd,causal", [
+    (1, 40, 8, 512, 128, True), (1, 40, 8, 512, 128, False),
+    (1, 12, 12, 1000, 64, False), (1, 12, 12, 1000, 64, True),
+    (2, 4, 2, 70, 128, True), (2, 6, 3, 33, 64, False)])
+def test_cuda_flash_attention(cuda, b, h, kv, s, hd, causal):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q = _randn(g, b, h, s, hd, dtype=torch.bfloat16)
+    k = _randn(g, b, kv, s, hd, dtype=torch.bfloat16)
+    v = _randn(g, b, kv, s, hd, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, causal).float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,act", [(12000, 768, 3072, "gelu"),
+                                       (300, 3072, 768, "none"),
+                                       (70, 256, 130, "silu"),
+                                       (5, 520, 300, "none"),
+                                       (16, 72, 264, "gelu"),
+                                       (1, 768, 3072, "silu")])
+def test_cuda_matmul_bias_act(cuda, m, k, n, act):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    a = _randn(g, m, k, dtype=torch.bfloat16)
+    b = _randn(g, k, n, dtype=torch.bfloat16, scale=k ** -0.5)
+    bias = _randn(g, n, dtype=torch.bfloat16)
+    before = fused.matmul_bias_act.launches
+    got = fused.matmul_bias_act(a, b, bias, act)
+    torch.cuda.synchronize()
+    assert fused.matmul_bias_act.launches == before + 1
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), fused.matmul_bias_act_plain(
+        a, b, bias, act).float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_new_kernels_raise_rather_than_fall_back(cuda):
+    """What the kernels do not take raises; no plain version runs."""
+    launches.reset_counts()
+    q = torch.randn(1, 2, 16, 128, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)                       # f32
+    q32 = torch.randn(1, 2, 16, 32, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="hd"):
+        flash_attention(q32, q32, q32)                 # hd 32
+    a = torch.randn(16, 32, device=cuda)
+    with pytest.raises(TypeError):
+        fused.matmul_bias_act(a, a.t().contiguous(), torch.zeros(16,
+                                                                 device=cuda))
+    with pytest.raises(TypeError):
+        rmsnorm(a.half(), torch.zeros(32, device=cuda).half())
+    with pytest.raises(ValueError, match="act"):
+        fused.matmul_bias_act(a.bfloat16(), a.t().contiguous().bfloat16(),
+                              torch.zeros(16, device=cuda).bfloat16(), "relu")
+    counts = launches.counts()
+    assert all(c == {"launches": 0, "plain_cuda_calls": 0}
+               for c in counts.values()), counts
+
+
+@pytest.mark.cuda
+def test_cuda_traced_launches_of_the_new_kernels(cuda):
+    """A trace counts each new kernel's launches by its entry kernel:
+    matmul_bias_act's three activations on both matmul paths apart from
+    matmul's and matmul_residual_add's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    bf = torch.bfloat16
+    small, big = _randn(g, 8, 256, dtype=bf), _randn(g, 64, 256, dtype=bf)
+    w = _randn(g, 256, 128, dtype=bf, scale=1 / 16)
+    bias = _randn(g, 128, dtype=bf)
+    q = _randn(g, 1, 4, 64, 64, dtype=bf)
+    x = _randn(g, 8, 256)
+
+    def run():
+        for act in fused.ACTS:
+            fused.matmul_bias_act(small, w, bias, act)   # split-K path
+            fused.matmul_bias_act(big, w, bias, act)     # tiled path
+        matmul.matmul(big, w)
+        rmsnorm(x, x[0])
+        rmsnorm(small, small[0])
+        flash_attention(q, q, q)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge = x.sum()                      # kernels at the trace's edges
+        run()
+        edge = edge + x.sum()
+        torch.cuda.synchronize()
+    traced = launches.traced_launches(prof)
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if "CUDA" in str(getattr(e, "device_type", ""))})
+    assert traced["matmul_bias_act"] == 6, (traced, kernels)
+    assert traced["matmul"] == 1, (traced, kernels)
+    assert traced["rmsnorm"] == 2, (traced, kernels)
+    assert traced["flash_attention"] == 1, (traced, kernels)
+    assert traced["matmul_residual_add"] == 0, (traced, kernels)
+    assert traced["rmsnorm_matmul"] == 0, (traced, kernels)
+    assert traced["flash_attention_proj"] == 0, (traced, kernels)

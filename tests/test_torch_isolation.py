@@ -53,7 +53,9 @@ def _run(code: str, env_extra=None) -> subprocess.CompletedProcess:
 
 def test_import_leaves_jax_out():
     r = _run("import sys, repro_torch, repro_torch.kernels.ops, "
-             "repro_torch.runtime, repro_torch.weights\n"
+             "repro_torch.runtime, repro_torch.weights, "
+             "repro_torch.kernels.flash_attention, "
+             "repro_torch.kernels.rmsnorm\n"
              "import repro_torch.cluster.session\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
              "assert not any(m == 'repro' or m.startswith('repro.') "
@@ -67,6 +69,7 @@ def test_import_needs_no_nvcc_or_triton():
              "import repro_torch, repro_torch.kernels.fused as f\n"
              "import repro_torch.kernels.build as b\n"
              "assert f.rmsnorm_matmul.launches == 0\n"
+             "assert f.matmul_bias_act.launches == 0\n"
              "assert b._LIBS == {}\n",
              env_extra={"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert r.returncode == 0, r.stderr

@@ -193,3 +193,72 @@ def test_decode_cache_bf16(model, policy):
         want = np.asarray(jc["blocks"]["sub0"][key], np.float32)
         np.testing.assert_allclose(_f32(tc[key]), want, rtol=5e-2,
                                    atol=5e-2)
+
+
+# ----------------------------------------------------------------------------
+# the "pallas" schedule and cross_attention
+# ----------------------------------------------------------------------------
+
+
+def _attn_operands(seed, b, s, h, kv, hd, dtype, s_kv=None):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, s, h, hd), (b, s_kv or s, kv, hd), (b, s_kv or s, kv, hd)]
+    arrs = [rng.standard_normal(shp).astype(np.float32) for shp in shapes]
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    return ([jnp.asarray(a).astype(jdt) for a in arrs],
+            [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 5)],
+                         ids=["causal", "full", "window"])
+def test_pallas_schedule_matches_reference(dtype, causal, window):
+    """schedule="pallas": causal attention without a window goes through
+    the flash_attention kernel (Pallas interpreted there, the plain version
+    here); the rest falls back to "auto" on both sides. Tolerance: f32
+    1e-5, bf16 2e-2."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    (qj, kj, vj), (qt, kt, vt) = _attn_operands(5, 2, 20, 4, 2, 16, dtype)
+    kw = dict(n_kv=2, causal=causal, window=window, chunk=8,
+              schedule="pallas")
+    with juse("tuned"):
+        want = jattn.attention(qj, kj, vj, **kw)
+    with tuse("tuned") as pol:
+        got = tattn.attention(qt, kt, vt, **kw)
+    assert pol.stats == ({"kernel_calls": 1} if causal and not window
+                         else {})
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert got.shape == (2, 20, 4, 16) and got.dtype == qt.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s", [12, 24], ids=["direct", "chunked"])
+def test_cross_attention_matches_reference(s):
+    """q of length s against a context of 10: s = 24 > 2 * chunk takes
+    the q-chunked path on both sides (f32, 1e-5)."""
+    from repro.models import attention as jattn
+    from repro_torch.models import attention as tattn
+    (qj, kj, vj), (qt, kt, vt) = _attn_operands(6, 2, s, 4, 2, 16,
+                                                "float32", s_kv=10)
+    want = jattn.cross_attention(qj, kj, vj, n_kv=2, chunk=8)
+    got = tattn.cross_attention(qt, kt, vt, n_kv=2, chunk=8)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+def test_pallas_prefill_tokens_f32(model):
+    """qwen3-14b-smoke with attn_schedule="pallas" under "tuned": the
+    prefill's attention is the flash_attention kernel on both sides."""
+    jcfg, tcfg, _, (jp, tp) = model
+    jcfg = dataclasses.replace(jcfg, attn_schedule="pallas")
+    tcfg = dataclasses.replace(tcfg, attn_schedule="pallas")
+    tokens = np.random.default_rng(4).integers(0, 256, (3, 10)).astype(
+        np.int32)
+    want = jsteps.make_prefill_step(jcfg, policy="tuned")(
+        jp, {"tokens": jnp.asarray(tokens)})
+    with tuse("tuned") as pol:
+        got = tsteps.make_prefill_step(tcfg)(
+            tp, {"tokens": torch.from_numpy(tokens)})
+    assert pol.stats == {"kernel_calls": tcfg.n_layers}
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
