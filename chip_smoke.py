@@ -40,7 +40,8 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            448; the prefill again under torch.profiler
   prefill  qwen3-14b, all 40 layers, random weights from a seeded
            generator on the card, make_prefill_step on B=1, S=512; then
-           the same prefill under torch.profiler
+           the same prefill under torch.profiler, whose five device
+           kernels with the most time it prints
   pallas_prefill  the same prefill under the default "tuned" policy with
            attn_schedule="pallas": flash_attention 40 times, projections
            as torch products; counted, traced, its token set beside the
@@ -278,7 +279,7 @@ def kernel_phase() -> list[dict]:
 
     K = 5120
     for m, n in ((8, 5120), (8, 1024), (8, 17408), (512, 5120),
-                 (512, 17408)):
+                 (512, 7168), (512, 17408)):
         x, s, w = randn(m, K), randn(K, scale=0.1), randn(K, n,
                                                            scale=K ** -0.5)
         case("rmsnorm_matmul", f"M{m}xK{K}xN{n}",
@@ -744,7 +745,7 @@ def whisper_phase(launches) -> dict:
     batch = {"tokens": tokens, "enc_embeds": frames}
     prefill = steps.make_prefill_step(cfg, policy="fused")
     prefill(params, batch)                                # warm-up
-    counted, tok, dt = _counted_and_traced(
+    counted, tok, dt, _ = _counted_and_traced(
         launches, "whisper", lambda: prefill(params, batch),
         ("matmul_bias_act",))
     want = {n: 0 for n in counted} | {"matmul_bias_act": 2 * cfg.n_enc_layers}
@@ -827,7 +828,7 @@ def prefill_phase(launches):
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(cfg, policy="fused")
     prefill(params, {"tokens": tokens[:, :16]})          # warm-up
-    counted, tok, dt = _counted_and_traced(
+    counted, tok, dt, top = _counted_and_traced(
         launches, "prefill", lambda: prefill(params, {"tokens": tokens}),
         QWEN_FUSED)
     with torch.inference_mode():
@@ -840,7 +841,11 @@ def prefill_phase(launches):
         raise AssertionError("prefill: argmax disagrees with the step")
     log("prefill", B=1, S=512, layers=cfg.n_layers, ms=f"{dt * 1e3:.1f}",
         token=int(tok[0]), launches=json.dumps(
-            {n: counted[n] for n in QWEN_FUSED}).replace(" ", ""))
+            {n: counted[n] for n in QWEN_FUSED}).replace(" ", ""),
+        traced_device_ms=f"{sum(r[1] for r in top):.1f}")
+    for key, ms, n in top[:5]:
+        log("prefill", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
+            launches=n)
     return cfg, params, counted, int(tok[0])
 
 
@@ -849,7 +854,8 @@ def _counted_and_traced(launches, phase, fn, must_launch):
     (every kernel of `must_launch` must have launched, no plain version on
     the card); then again under torch.profiler, whose trace must see the
     same launches (eager: one device launch per wrapper call). Returns
-    (the counts, fn's result, its wall seconds)."""
+    (the counts, fn's result, its wall seconds, the traced run's device
+    kernels as (name, ms, launches), most time first)."""
     from torch.profiler import ProfilerActivity, profile
 
     launches.reset_counts()
@@ -869,7 +875,11 @@ def _counted_and_traced(launches, phase, fn, must_launch):
                                           must_launch) != counted:
         raise AssertionError(f"{phase}: the trace saw {traced}, the "
                              f"wrappers counted {counted}")
-    return counted, out, dt
+    top = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                  for e in prof.key_averages() if e.device_time_total > 0
+                  and "CUDA" in str(getattr(e, "device_type", ""))),
+                 key=lambda r: -r[1])
+    return counted, out, dt, top
 
 
 def _nonzero(counts: dict) -> str:
@@ -890,7 +900,7 @@ def pallas_prefill_phase(launches, cfg, params, fused_token: int) -> dict:
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(pcfg, policy="tuned")
     prefill(params, {"tokens": tokens[:, :16]})          # warm-up
-    counted, tok, dt = _counted_and_traced(
+    counted, tok, dt, _ = _counted_and_traced(
         launches, "pallas_prefill",
         lambda: prefill(params, {"tokens": tokens}), ("flash_attention",))
     want = {n: 0 for n in counted} | {"flash_attention": pcfg.n_layers}

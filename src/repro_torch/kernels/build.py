@@ -35,7 +35,8 @@ SZ = ctypes.c_size_t
 # the C functions of each library: name -> (argtypes, restype). Launchers
 # (one per dtype, `<name>_<f32|bf16>`) return cudaGetLastError();
 # *_workspace_floats size the f32 scratch the wrapper allocates (split-K
-# partials, head-group partials, dotp's block partials).
+# partials, the bf16 operands the wgmma paths stage, dotp's block
+# partials).
 SIGNATURES = {
     "rmsnorm_matmul": {
         "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, P], I),

@@ -9,18 +9,76 @@
 // 2*M*K*N / (K*N*2) = M = 512 flops per weight
 // byte, above the card's ~295) it is bound by operations instead.
 //
-// Design: the normalised rows never exist in device memory. Each block
-// computes the 1/rms of its rows once, then normalises the rows as it
-// stages them into shared memory (in f32, rounded to bf16 as the reference
-// prologue does). M <= 16 (decode) takes the split-K skinny path of
-// common.cuh: the weight is streamed once with 16-byte loads, four k rows
-// in flight per warp, f32 FMAs on the CUDA cores, and a fixed-order
-// reduction over warps and splits. Larger M (prefill) takes the tiled
-// wmma path, blocks ordered M-fastest so that the blocks sharing a weight
-// column tile run together. Simple first: no TMA, no wgmma, no pipelining.
-#include "common.cuh"
+// Design, by shape:
+//   * M <= 16 (decode): the split-K skinny path of common.cuh. The weight
+//     is streamed once with 16-byte loads, f32 FMAs on the CUDA cores, a
+//     fixed-order reduction over warps and splits; the rows are normalised
+//     as they are staged.
+//   * M > 16, K and N multiples of 8 (prefill): `norm_rows_kernel`, a warp
+//     a row, computes each row's 1/rms once and writes bf16((x * rstd) *
+//     (1 + scale)) into a bf16 (M, K) workspace (5.2 MB at M 512 K 5120,
+//     which stays in the 50 MB L2); then the TMA + wgmma mainloop of
+//     wgmma_gemm.cuh multiplies it by w. The reference rounds the
+//     normalised rows to bf16 before the product, so rstd cannot move into
+//     the epilogue; the workspace costs one write and one read of x's size.
+//   * any other M > 16 (K or N not a multiple of 8): gemm::tile_kernel of
+//     common.cuh, which normalises the A tile as it stages it.
+#include "wgmma_gemm.cuh"
 
+namespace {
+constexpr int ROWS = 4;                 // rows (warps) a block
+constexpr int U = 4;                    // 16-byte loads a lane keeps in flight
+
+// One warp a row: the sum of squares, then the normalised row, each pass
+// with U loads in flight a lane (the row's second read comes from L2).
+__global__ void __launch_bounds__(ROWS * 32)
+norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
+                 bf16* __restrict__ xn, int M, int K, float eps) {
+  const int row = blockIdx.x * ROWS + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;                 // whole warps leave together
+  const bf16* xr = x + (size_t)row * K;
+  float ss = 0.f;
+  for (int k0 = lane * 8; k0 < K; k0 += 256 * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = load8_reg(xr, k0 + u * 256, K);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {       // past K: zeros
+      float f[8];
+      unpack8(v[u], f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ss += f[j] * f[j];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float rstd = rsqrtf(ss / (float)K + eps);
+  bf16* o = xn + (size_t)row * K;
+  for (int k0 = lane * 8; k0 < K; k0 += 256 * U) {
+    uint4 v[U], s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      v[u] = load8_reg(xr, k0 + u * 256, K);
+      s[u] = load8_reg(scale, k0 + u * 256, K);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)         // K % 8 == 0: whole vectors
+      if (k0 + u * 256 < K)
+        *reinterpret_cast<uint4*>(o + k0 + u * 256) = norm8(v[u], s[u], rstd);
+  }
+}
+
+bool takes_wgmma(int M, int N, int K) {
+  return M > skinny::MAX_M && hopper::takes(N, K);
+}
+}  // namespace
+
+// f32 workspace (in floats): the split-K partials at M <= 16, the bf16
+// normalised rows on the wgmma path, none on the tile path.
 extern "C" size_t rmsnorm_matmul_workspace_floats(int M, int N, int K) {
+  if (M > 0 && K > 0 && takes_wgmma(M, N, K))
+    return ((size_t)M * K + 1) / 2;
   return split_k_workspace_floats(M, N, K);
 }
 
@@ -28,6 +86,17 @@ extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,
                                    const void* w, void* out, void* workspace,
                                    int M, int N, int K, float eps,
                                    void* stream) {
-  return launch_matmul<true, EPI_NONE>(x, scale, w, nullptr, out,
-                                    (float*)workspace, M, N, K, eps, stream);
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (!takes_wgmma(M, N, K))
+    return launch_matmul<true, EPI_NONE>(x, scale, w, nullptr, out,
+                                         (float*)workspace, M, N, K, eps,
+                                         stream);
+  if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+  bf16* xn = static_cast<bf16*>(workspace);
+  norm_rows_kernel<<<(M + ROWS - 1) / ROWS, ROWS * 32, 0,
+                     (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)scale, xn, M, K, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return hopper::launch<EPI_NONE>(xn, w, nullptr, out, M, N, K, stream);
 }

@@ -1,0 +1,505 @@
+// A Hopper GEMM mainloop: out (M,N) = epilogue(a (M,K) @ b (K,N)), row-major
+// bf16 in and out, f32 accumulation, one rounding before the epilogue (the
+// `epilogue<EPI>` of common.cuh, as gemm::tile_kernel applies it).
+//
+// Shape of the kernel (one block an output tile of BM = 128 rows by BN
+// columns, 384 threads):
+//   * warpgroup 0 is the producer: after giving up registers (setmaxnreg),
+//     one thread keeps TMA loads (cp.async.bulk.tensor) of A and B tiles in
+//     flight into a ring of STAGES shared-memory stages, each guarded by a
+//     `full` mbarrier (the loads' bytes) and an `empty` one (the consumers'
+//     release);
+//   * warpgroups 1 and 2 are the consumers, one 64-row half of the tile
+//     each: wgmma.mma_async m64nBNk16 over the stage's four k16 slices,
+//     the accumulator (BN/2 floats a thread) in registers; each step
+//     releases the stage of the step before once that step's products have
+//     retired (wgmma.wait_group 1), so the tensor cores never wait on a
+//     release;
+//   * the epilogue rounds and stores from registers, masked at the edges.
+// Layouts: A is K-major, loaded as one 64 (k) x 128 (rows) box a stage.
+// B is the weight as the model stores it, (K, N) row-major, so it is
+// MN-major for wgmma (the transpose bit of B is set). With the 128-byte
+// swizzle a TMA box row holds at most 64 bf16, so a stage holds B as
+// ceil(BN/64) boxes of 64 (n) x 64 (k), 8 KB apart; wgmma's descriptor
+// steps between them with its leading byte offset (8 KB) and between
+// groups of 8 k rows with its stride byte offset (1 KB). A BN that is not
+// a multiple of 64 loads the last box whole and reads only its first
+// columns.
+//
+// What it takes: K % 8 == 0 and N % 8 == 0 (TMA's global strides are
+// multiples of 16 bytes) and 16-byte aligned operands. TMA fills boxes
+// past the matrix edge with zeros, so ragged M, N and K need no masking in
+// the mainloop. Shapes it does not take stay on gemm::tile_kernel; that
+// choice is made on the shape (`hopper::takes`) before any launch, and a
+// failed encode or launch is returned, never retried on another path.
+//
+// Tensor maps are encoded on the host for every call (a pointer can be
+// reused by the caching allocator for another tensor, so they are not
+// cached), with cuTensorMapEncodeTiled fetched once through
+// cudaGetDriverEntryPoint (no -lcuda), and passed by value as
+// `const __grid_constant__ CUtensorMap`.
+//
+// The N tile is chosen from the shape so that the tiles fill whole waves
+// of the SMs (`pick_bn`): qwen3-14b's prefill at M = 512 takes 128 x 160
+// at N 5120 (128 tiles, one wave), 128 x 224 at N 7168 (128 tiles) and
+// 128 x 176 at N 17408 (396 tiles, three waves).
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; no driver symbol is linked
+
+#include "common.cuh"
+
+namespace hopper {
+constexpr int BM = 128, BK = 64, THREADS = 384;
+constexpr int BOX = 64;                       // bf16 in a 128-byte box row
+constexpr int A_BYTES = BM * BK * 2;          // 16 KB
+constexpr int B_BOX_BYTES = BK * BOX * 2;     // 8 KB
+constexpr int SMEM_CAP = 220 * 1024;          // of the 227 KB a block may use
+constexpr int TILE_N[] = {128, 160, 176, 224};
+
+template <int BN>
+struct Tile {
+  static_assert(BN % 8 == 0 && BN <= 256, "wgmma's N");
+  static constexpr int BOXES = (BN + BOX - 1) / BOX;
+  static constexpr int STAGE_BYTES = A_BYTES + BOXES * B_BOX_BYTES;
+  static constexpr int STAGES =
+      SMEM_CAP / STAGE_BYTES > 6 ? 6 : SMEM_CAP / STAGE_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // 1 KB to align
+};
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box, coordinates innermost first, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// A shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of the accumulator across the
+// asynchronous products.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x BN, f32, the m64nBNk16 register layout) += a (64 x 16, K-major)
+// @ b (16 x BN, MN-major): one wgmma.mma_async, operands by descriptor.
+template <int BN>
+struct Mma;
+
+template <>
+struct Mma<128> {
+  __device__ static __forceinline__ void run(float (&d)[64], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<160> {
+  __device__ static __forceinline__ void run(float (&d)[80], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79"
+        "}, %80, %81, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<176> {
+  __device__ static __forceinline__ void run(float (&d)[88], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87"
+        "}, %88, %89, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Mma<224> {
+  __device__ static __forceinline__ void run(float (&d)[112], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        "%108, %109, %110, %111"
+        "}, %112, %113, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const bf16* __restrict__ extra, bf16* __restrict__ out,
+                 int M, int N, int K) {
+  using T = Tile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[T::STAGES], empty[T::STAGES];
+  // the 128-byte swizzle repeats every 1 KB: stages start on 1 KB
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int ktiles = (K + BK - 1) / BK;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);                 // the producer's expect_tx
+      mbar_init(&empty[s], 2);                // one release a consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {                              // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_a)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(&map_b)) : "memory");
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % T::STAGES;
+        mbar_wait(&empty[s], ((kt / T::STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * T::STAGE_BYTES;
+        mbar_expect_tx(&full[s], T::STAGE_BYTES);
+        tma_load(st, &map_a, &full[s], kt * BK, m0);
+#pragma unroll
+        for (int j = 0; j < T::BOXES; ++j)
+          tma_load(st + A_BYTES + j * B_BOX_BYTES, &map_b, &full[s],
+                   n0 + j * BOX, kt * BK);
+      }
+    }
+  } else {                                    // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const uint32_t half = (wg - 1) * 64 * 128;     // 64 rows of 128 bytes
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % T::STAGES;
+      mbar_wait(&full[s], (kt / T::STAGES) & 1);
+      const uint32_t a_addr = smem_u32(smem + s * T::STAGE_BYTES) + half;
+      const uint32_t b_addr = smem_u32(smem + s * T::STAGE_BYTES + A_BYTES);
+      fence_acc(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)       // k16 slices: A +32 bytes,
+        Mma<BN>::run(acc,                        // B +16 rows of 128 bytes
+                     sw128_desc(a_addr + kk * 32, 16, 1024),
+                     sw128_desc(b_addr + kk * 2048, B_BOX_BYTES, 1024));
+      wg_commit();
+      fence_acc(acc);
+      wg_wait<1>();                              // step kt-1 has retired
+      if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % T::STAGES]);
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+
+    // m64nBNk16 layout: warp w, lane l hold rows 16w + l/4 (+8) and, for
+    // each 8-column group j, columns 8j + 2(l%4) (+1)
+    const int warp = t / 32, lane = t % 32;
+    const int r0 = m0 + (wg - 1) * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + (lane % 4) * 2;
+      if (col >= N) continue;                    // N % 8 == 0: col+1 < N too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + h * 8;
+        if (row >= M) continue;
+        const size_t idx = (size_t)row * N + col;
+        __nv_bfloat162 y;
+        y.x = epilogue<EPI>(acc[4 * j + 2 * h], extra, idx, col);
+        y.y = epilogue<EPI>(acc[4 * j + 2 * h + 1], extra, idx + 1, col + 1);
+        *reinterpret_cast<__nv_bfloat162*>(out + idx) = y;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+// Whether the path takes a shape: TMA's global strides (K, N bf16) must
+// be multiples of 16 bytes.
+inline bool takes(int N, int K) { return N % 8 == 0 && K % 8 == 0; }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major (rows, cols) bf16 matrix read in boxes of
+// 64 columns by `box_rows` rows, 128-byte swizzled, zero past its edges.
+inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rows,
+                          int cols, int box_rows) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BOX, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The N tile whose tiles fill the SMs' waves best: least ceil(tiles /
+// SMs) * BN (the columns one SM walks), the wider tile on a tie.
+inline int pick_bn(int M, int N) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long mt = (M + BM - 1) / BM;
+  int best = TILE_N[0];
+  long best_cost = -1;
+  for (int bn : TILE_N) {
+    const long tiles = mt * ((N + bn - 1) / bn);
+    const long cost = (tiles + sms - 1) / sms * bn;
+    if (best_cost < 0 || cost <= best_cost) {
+      best_cost = cost;
+      best = bn;
+    }
+  }
+  return best;
+}
+
+template <int BN, int EPI>
+cudaError_t launch_bn(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                      const void* extra, void* out, int M, int N, int K,
+                      cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      tma_wgmma_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile<BN>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  tma_wgmma_kernel<BN, EPI><<<grid, THREADS, Tile<BN>::SMEM, st>>>(
+      map_a, map_b, (const bf16*)extra, (bf16*)out, M, N, K);
+  return cudaGetLastError();
+}
+
+// out (M,N) = epilogue(a (M,K) @ b (K,N)); the caller has checked `takes`.
+template <int EPI>
+int launch(const void* a, const void* b, const void* extra, void* out, int M,
+           int N, int K, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || !takes(N, K))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = encode(&map_a, a, M, K, BM);
+  if (err == cudaSuccess) err = encode(&map_b, b, K, N, BK);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (pick_bn(M, N)) {
+    case 128:
+      err = launch_bn<128, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      break;
+    case 160:
+      err = launch_bn<160, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      break;
+    case 176:
+      err = launch_bn<176, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      break;
+    default:
+      err = launch_bn<224, EPI>(map_a, map_b, extra, out, M, N, K, st);
+  }
+  return (int)err;
+}
+}  // namespace hopper

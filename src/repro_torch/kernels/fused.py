@@ -161,7 +161,8 @@ def flash_attention_proj_plain(q, k, v, wo, causal: bool = True):
 
 
 def flash_attention_proj(q, k, v, wo, causal: bool = True):
-    """einsum("bhsk,hkd->bsd", attention(q, k, v), wo) in one kernel."""
+    """einsum("bhsk,hkd->bsd", attention(q, k, v), wo) in one call: the
+    per-head attention, then the projection over all heads as one GEMM."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     if (k.shape != (b, kv, s, hd) or v.shape != k.shape or h % kv
@@ -173,9 +174,9 @@ def flash_attention_proj(q, k, v, wo, causal: bool = True):
         return flash_attention_proj_plain(q, k, v, wo, causal)
     build.check_operands("flash_attention_proj", q, k, v, wo)
     dm = wo.shape[2]
-    if hd != HEAD_DIM or dm % 16:
+    if hd != HEAD_DIM or dm % 8:
         raise ValueError(f"flash_attention_proj: the CUDA kernel takes "
-                         f"hd={HEAD_DIM} and d_model % 16 == 0; got hd={hd}, "
+                         f"hd={HEAD_DIM} and d_model % 8 == 0; got hd={hd}, "
                          f"d_model={dm}")
     out = torch.empty((b, s, dm), dtype=q.dtype, device=q.device)
     ws = build.workspace("flash_attention_proj", q.device, b, h, s, dm)

@@ -61,17 +61,20 @@ def counts() -> dict:
             for name in WRAPPERS}
 
 
-# The device kernel that opens each launch of a wrapper (a split-K, slab or
-# partial-sum finish may follow it), as a profiler names it, spaces
-# removed. The four matmul entry points instantiate the same templates
-# with other flags (<prologue, epilogue code>, common.cuh), so each has
-# names of its own.
+# The device kernel that opens each launch of a wrapper (a split-K finish,
+# a partial-sum finish or the wgmma mainloop may follow it), as a profiler
+# names it, spaces removed. The four matmul entry points instantiate the
+# same templates with other flags (<prologue, epilogue code>, common.cuh),
+# so each has names of its own; rmsnorm_matmul's and flash_attention_proj's
+# wgmma paths open with a kernel of their own (the row normalisation, the
+# per-head attention) and share `hopper::tma_wgmma_kernel`, which no
+# pattern names.
 ENTRY_KERNELS = {
     "rmsnorm_matmul": ("skinny::partial_kernel<true,0>",
-                       "gemm::tile_kernel<true,0>"),
+                       "gemm::tile_kernel<true,0>", "norm_rows_kernel"),
     "matmul_residual_add": ("skinny::partial_kernel<false,1>",
                             "gemm::tile_kernel<false,1>"),
-    "flash_attention_proj": ("fa_proj_kernel",),
+    "flash_attention_proj": ("fa_proj_heads_kernel",),
     "matmul": ("skinny::partial_kernel<false,0>",
                "gemm::tile_kernel<false,0>", "matmul_f32_kernel"),
     "axpy": ("axpy_kernel_",),

@@ -59,8 +59,8 @@ def _fused_rms(cfg) -> bool:
 
 
 def _fused_qkv(cfg, p, x, ctx):
-    """qkv with the pre-attention rmsnorm folded into each projection's
-    prologue (the normed activations never round-trip device memory)."""
+    """qkv with the pre-attention rmsnorm fused into each projection
+    (`fused_norm_matmul`)."""
     a = p["attn"]
     d = x.shape[-1]
 
@@ -93,8 +93,8 @@ def _self_attention(cfg, p, x, ctx, *, window, causal=True):
     if _fused_rms(cfg):
         q, k, v = _fused_qkv(cfg, p, x, ctx)
         if causal and window is None:
-            # the whole hot path in one kernel: flash attention with the
-            # output projection summed across heads on chip
+            # the whole hot path in one call: flash attention, then the
+            # output projection summed across heads in one GEMM
             return x + fused_attention_proj(q, k, v, p["attn"]["wo"],
                                             causal=True)
         o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=causal,

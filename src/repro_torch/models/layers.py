@@ -214,7 +214,7 @@ def dense(t: torch.Tensor) -> torch.Tensor:
 
 
 def fused_norm_matmul(x, scale, w):
-    """rmsnorm(x, scale) @ w with the norm in the A-tile prologue.
+    """rmsnorm(x, scale) @ w in one fused call (`ops.rmsnorm_matmul`).
     x: (..., d); scale: (d,); w: (d, f) -> (..., f)."""
     from repro_torch.kernels import ops
     d = x.shape[-1]

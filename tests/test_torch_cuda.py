@@ -30,9 +30,14 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(8, 5120, 1024), (1, 5120, 17408),
-                                   (3, 200, 72), (12, 300, 130),
-                                   (70, 256, 130)])
+@pytest.mark.parametrize("m,k,n", [
+    (8, 5120, 1024), (1, 5120, 17408), (3, 200, 72), (12, 300, 130),
+    # the wgmma path: qwen3-14b's prefill (qkv, gate/up), a ragged M, and
+    # edges of M, K and N that divide no tile
+    (512, 5120, 7168), (512, 5120, 17408), (1000, 5120, 5120),
+    (17, 136, 72), (64, 136, 136), (200, 136, 72),
+    # K or N not a multiple of 8: the wmma tile
+    (70, 256, 130), (100, 136, 134), (40, 130, 72)])
 def test_cuda_rmsnorm_matmul(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
@@ -62,15 +67,16 @@ def test_cuda_matmul_residual_add(cuda, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,kv,s,dm,causal", [(40, 8, 512, 256, True),
-                                              (4, 2, 100, 256, True),
-                                              (6, 3, 70, 256, False),
-                                              (10, 2, 130, 144, True)])
-def test_cuda_flash_attention_proj(cuda, h, kv, s, dm, causal):
+@pytest.mark.parametrize("b,h,kv,s,dm,causal", [
+    (1, 40, 8, 512, 256, True), (1, 4, 2, 100, 256, True),
+    (1, 6, 3, 70, 256, False), (1, 10, 2, 130, 144, True),
+    (1, 40, 8, 512, 5120, True), (1, 40, 8, 512, 5120, False),
+    (2, 4, 2, 1000, 264, True), (2, 6, 3, 1000, 136, False)])
+def test_cuda_flash_attention_proj(cuda, b, h, kv, s, dm, causal):
     g = torch.Generator(device=cuda).manual_seed(2)
-    q = torch.randn(1, h, s, 128, generator=g, device=cuda).bfloat16()
-    k = torch.randn(1, kv, s, 128, generator=g, device=cuda).bfloat16()
-    v = torch.randn(1, kv, s, 128, generator=g, device=cuda).bfloat16()
+    q = torch.randn(b, h, s, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, kv, s, 128, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, kv, s, 128, generator=g, device=cuda).bfloat16()
     wo = (torch.randn(h, 128, dm, generator=g, device=cuda)
           * (h * 128) ** -0.5).bfloat16()
     got = fused.flash_attention_proj(q, k, v, wo, causal)
@@ -394,3 +400,51 @@ def test_cuda_traced_launches_of_the_new_kernels(cuda):
     assert traced["matmul_residual_add"] == 0, (traced, kernels)
     assert traced["rmsnorm_matmul"] == 0, (traced, kernels)
     assert traced["flash_attention_proj"] == 0, (traced, kernels)
+
+
+@pytest.mark.cuda
+def test_cuda_traced_launches_of_the_wgmma_paths(cuda):
+    """rmsnorm_matmul's and flash_attention_proj's wgmma paths open with
+    kernels of their own: a trace counts each launch on its own wrapper,
+    beside flash_attention's and matmul's, and rmsnorm_matmul's three
+    paths (split-K, wgmma, the wmma tile for N % 8 != 0) all count as
+    rmsnorm_matmul's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(13)
+    bf = torch.bfloat16
+    x = _randn(g, 64, 256, dtype=bf)
+    s = _randn(g, 256, dtype=bf, scale=0.1)
+    w = _randn(g, 256, 128, dtype=bf, scale=1 / 16)
+    w_odd = _randn(g, 256, 130, dtype=bf, scale=1 / 16)
+    q = _randn(g, 1, 4, 64, 128, dtype=bf)
+    kv = _randn(g, 1, 2, 64, 128, dtype=bf)
+    wo = _randn(g, 4, 128, 256, dtype=bf, scale=1 / 16)
+
+    def run():
+        fused.rmsnorm_matmul(x, s, w)                 # wgmma path
+        fused.rmsnorm_matmul(x, s, w)
+        fused.rmsnorm_matmul(x[:8], s, w)             # split-K path
+        fused.rmsnorm_matmul(x, s, w_odd)             # the wmma tile
+        fused.flash_attention_proj(q, kv, kv, wo)
+        flash_attention(q, kv, kv)
+        matmul.matmul(x, w)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge = x.float().sum()              # kernels at the trace's edges
+        run()
+        edge = edge + x.float().sum()
+        torch.cuda.synchronize()
+    traced = launches.traced_launches(prof)
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if "CUDA" in str(getattr(e, "device_type", ""))})
+    assert traced["rmsnorm_matmul"] == 4, (traced, kernels)
+    assert traced["flash_attention_proj"] == 1, (traced, kernels)
+    assert traced["flash_attention"] == 1, (traced, kernels)
+    assert traced["matmul"] == 1, (traced, kernels)
+    assert traced["rmsnorm"] == 0, (traced, kernels)
+    assert traced["matmul_residual_add"] == 0, (traced, kernels)
+    assert any("tma_wgmma_kernel" in k for k in kernels), kernels
