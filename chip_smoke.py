@@ -15,10 +15,15 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            paths' shapes, in bf16 (rmsnorm also in f32): max abs error
            against the stated tolerance, kernel, plain and library times
            (CUDA events, L2 flushed before each launch), and the card's
-           least time for the same work (the bound)
+           least time for the same work (the bound); each GEMM row names
+           its schedule: split-K, the wmma tile, or the Hopper mainloop,
+           persistent or one tile per block, with its N tile and tiles
+           and the mainloop instantiation a profiler trace of one call
+           shows
   suite    matmul, axpy, dotp, conv2d_3x3 and dct8x8 through
            repro_torch.kernels.ops under the default policy, in f32 (and
-           bf16 for matmul and axpy), at the paper's sizes, at card sizes
+           bf16 for matmul and axpy; bf16 matmul rows name their
+           schedule), at the paper's sizes, at card sizes
            (>= 10x the L2) and at one ragged shape each: every output vs
            the plain version, kernel, plain and library times (warm, 200
            launches, at the paper's sizes, also replayed as a CUDA graph;
@@ -67,8 +72,10 @@ are the kernels' JSON record and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -242,6 +249,55 @@ REPLACES = {
 }
 
 
+def gemm_schedule(name: str, m: int, k: int, n: int) -> str:
+    """How GEMM wrapper `name` runs an (M, K, N) product, by the rule of
+    `hopper::takes_prefill`: "split_k" (M <= 16), "wmma_tile" (K or N not
+    a multiple of 8), or on the Hopper
+    mainloop "persistent" (more tiles than SMs: one block an SM walks
+    several) or "one_tile_per_block", with its N tile, tiles and blocks
+    (`wgmma_plan` of csrc/wgmma_gemm.cuh). flash_attention_proj's
+    projection always takes the mainloop."""
+    from repro_torch.kernels import build
+
+    if name != "flash_attention_proj":
+        if m <= 16:
+            return "split_k"
+        if k % 8 or n % 8:
+            return "wmma_tile"
+    plan = (ctypes.c_int * 3)()
+    build.check(name, build.entry(name, "wgmma_plan")(m, n, plan))
+    bn, tiles, blocks = plan
+    kind = "persistent" if tiles > blocks else "one_tile_per_block"
+    return f"{kind},bn={bn},tiles={tiles},blocks={blocks}"
+
+
+def on_mainloop(schedule: str) -> bool:
+    """Whether a `gemm_schedule` runs on the Hopper mainloop."""
+    return schedule.startswith(("persistent", "one_tile_per_block"))
+
+
+def mainloop_instance(fn) -> str:
+    """The `hopper::tma_wgmma_kernel<BN,EPI,OWNER>` instantiation one call
+    of `fn` runs on the card, as a torch.profiler trace names it; raises
+    unless the trace shows exactly one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    edge = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge += 1                       # kernels at the trace's edges
+        fn()
+        edge += 1
+        torch.cuda.synchronize()
+    names = {m.group(0).replace(" ", "") for e in prof.key_averages()
+             if "CUDA" in str(getattr(e, "device_type", ""))
+             for m in [re.search(r"tma_wgmma_kernel<[^>]*>", e.key)] if m}
+    if len(names) != 1:
+        raise AssertionError(f"expected one mainloop kernel in the trace, "
+                             f"saw {sorted(names)}")
+    return names.pop()
+
+
 def _compare(name, got, want, tol=TOL):
     err = (got.float() - want.float()).abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -268,14 +324,17 @@ def kernel_phase() -> list[dict]:
         return (torch.randn(shape, generator=g, device="cuda")
                 * scale).to(dtype)
 
-    # name -> list of (label, err, tol, ms, plain, lib, bound)
+    # name -> list of (label, err, tol, ms, plain, lib, bound, schedule)
     cases = {}
 
-    def case(name, label, kernel, plain, library, bnd, tol=TOL):
+    def case(name, label, kernel, plain, library, bnd, tol=TOL,
+             schedule=None):
         err = _compare(f"{name} {label}", kernel(), plain(), tol)
+        if schedule and on_mainloop(schedule):
+            schedule += f",kernel={mainloop_instance(kernel)}"
         cases.setdefault(name, []).append((
             label, err, tol, timer(kernel), timer(plain, 3), timer(library),
-            bnd))
+            bnd, schedule))
 
     K = 5120
     for m, n in ((8, 5120), (8, 1024), (8, 17408), (512, 5120),
@@ -286,7 +345,8 @@ def kernel_phase() -> list[dict]:
              lambda: fused.rmsnorm_matmul(x, s, w),
              lambda: fused.rmsnorm_matmul_plain(x, s, w),
              lambda: torch.matmul(x, w),
-             bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n))
+             bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n),
+             schedule=gemm_schedule("rmsnorm_matmul", m, K, n))
     for m, k in ((8, 5120), (8, 17408), (512, 17408)):
         n = 5120
         a, w, r = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
@@ -294,7 +354,8 @@ def kernel_phase() -> list[dict]:
              lambda: fused.matmul_residual_add(a, w, r),
              lambda: fused.matmul_residual_add_plain(a, w, r),
              lambda: torch.addmm(r, a, w),
-             bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n))
+             bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n),
+             schedule=gemm_schedule("matmul_residual_add", m, k, n))
     B, H, KV, S, HD, DM = 1, 40, 8, 512, 128, 5120
     q, k, v = randn(B, H, S, HD), randn(B, KV, S, HD), randn(B, KV, S, HD)
     wo = randn(H, HD, DM, scale=(H * HD) ** -0.5)
@@ -310,7 +371,8 @@ def kernel_phase() -> list[dict]:
          lambda: fused.flash_attention_proj_plain(q, k, v, wo), library_fa,
          bound((q.numel() + k.numel() + v.numel() + wo.numel()
                 + B * S * DM) * 2,
-               4.0 * B * H * HD * causal_pairs + 2.0 * B * S * H * HD * DM))
+               4.0 * B * H * HD * causal_pairs + 2.0 * B * S * H * HD * DM),
+         schedule=gemm_schedule("flash_attention_proj", B * S, H * HD, DM))
 
     # flash_attention: qwen3-14b's "pallas" prefill (causal, and full), and
     # 12 heads of 64 at a length no tile divides
@@ -361,16 +423,16 @@ def kernel_phase() -> list[dict]:
 
     records = []
     for name, rows in cases.items():
-        for label, err, tol, ms, plain, lib, (bms, by) in rows:
+        for label, err, tol, ms, plain, lib, (bms, by), sched in rows:
             log("kernel", name=name, shape=label, max_abs_err=f"{err:.3g}",
                 tol=f"rtol={tol['rtol']},atol={tol['atol']}",
                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                 library_ms=f"{lib:.4f}", bound_ms=f"{bms:.4f}",
-                bound_by=by)
+                bound_by=by, **({"schedule": sched} if sched else {}))
         # the record of a kernel is its first row: the decode shape of the
         # qwen3 projections, the prefill shape of the attention kernels,
         # rmsnorm's prefill rows, whisper's first MLP product
-        label, err, tol, ms, plain, lib, (bms, by) = rows[0]
+        label, err, tol, ms, plain, lib, (bms, by), _ = rows[0]
         records.append({
             "name": name, "route": "cuda",
             "source": f"{SRC}/{name}.cu", "replaces": REPLACES[name],
@@ -379,7 +441,8 @@ def kernel_phase() -> list[dict]:
             "library_ms": lib, "shape": label,
             "rows": [{"shape": r[0], "max_abs_err": r[1], "ms": r[3],
                       "plain_ms": r[4], "library_ms": r[5],
-                      "bound_ms": r[6][0], "bound_by": r[6][1]}
+                      "bound_ms": r[6][0], "bound_by": r[6][1],
+                      **({"schedule": r[7]} if r[7] else {})}
                      for r in rows]})
     del cases, timer
     torch.cuda.empty_cache()
@@ -538,6 +601,13 @@ def suite_phase(launches) -> list[dict]:
                      timer(lambda: plain(*args), 3), timer(lib)]
         peak = F32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
         bms, by = bound(byts, flops, peak)
+        sched = {}
+        if name == "matmul" and dt == torch.bfloat16:
+            (m, k), n = args[0].shape, args[1].shape[1]
+            sched = {"schedule": gemm_schedule(name, m, k, n)}
+            if on_mainloop(sched["schedule"]):
+                sched["schedule"] += (
+                    f",kernel={mainloop_instance(lambda: kernel(*args))}")
         timing = "warm" if size == PAPER else "flushed"
         dts = str(dt).replace("torch.", "")
         log("suite", name=name, size=size, dtype=dts, shape=label,
@@ -545,12 +615,12 @@ def suite_phase(launches) -> list[dict]:
             plain_ms=f"{times[1]:.5f}", library_ms=f"{times[2]:.5f}",
             library=f"'{lib_name}'", bound_ms=f"{bms:.5f}", bound_by=by,
             timing=timing, launches=counts[name]["launches"],
-            **{k: f"{v:.5f}" for k, v in extra.items()})
+            **{k: f"{v:.5f}" for k, v in extra.items()}, **sched)
         rows.setdefault(name, []).append({
             "size": size, "dtype": dts, "shape": label, "max_abs_err": err,
             "ms": times[0], "plain_ms": times[1], "library_ms": times[2],
             "library": lib_name, "bound_ms": bms, "bound_by": by,
-            "timing": timing, **extra})
+            "timing": timing, **extra, **sched})
     records = []
     for name, rs in rows.items():
         # the record of a kernel is its first card-size (f32) row

@@ -36,22 +36,26 @@ SZ = ctypes.c_size_t
 # (one per dtype, `<name>_<f32|bf16>`) return cudaGetLastError();
 # *_workspace_floats size the f32 scratch the wrapper allocates (split-K
 # partials, the bf16 operands the wgmma paths stage, dotp's block
-# partials).
+# partials); the libraries that include csrc/wgmma_gemm.cuh also export
+# `wgmma_plan` (M, N, int[3] out: the mainloop's BN, tiles and blocks).
+WGMMA_PLAN = {"wgmma_plan": ([I, I, P], I)}
 SIGNATURES = {
     "rmsnorm_matmul": {
         "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, P], I),
-        "rmsnorm_matmul_workspace_floats": ([I, I, I], SZ)},
+        "rmsnorm_matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN},
     "matmul_residual_add": {
         "matmul_residual_add_bf16": ([P, P, P, P, P, I, I, I, P], I),
-        "matmul_residual_add_workspace_floats": ([I, I, I], SZ)},
+        "matmul_residual_add_workspace_floats": ([I, I, I], SZ),
+        **WGMMA_PLAN},
     "flash_attention_proj": {
         "flash_attention_proj_bf16": (
             [P, P, P, P, P, P, I, I, I, I, I, I, I, P], I),
-        "flash_attention_proj_workspace_floats": ([I, I, I, I], SZ)},
+        "flash_attention_proj_workspace_floats": ([I, I, I, I], SZ),
+        **WGMMA_PLAN},
     "matmul": {
         "matmul_f32": ([P, P, P, I, I, I, P], I),
         "matmul_bf16": ([P, P, P, P, I, I, I, P], I),
-        "matmul_workspace_floats": ([I, I, I], SZ)},
+        "matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN},
     "axpy": {
         "axpy_f32": ([P, P, P, P, SZ, P], I),
         "axpy_bf16": ([P, P, P, P, SZ, P], I)},

@@ -77,6 +77,6 @@ extern "C" int flash_attention_proj_bf16(const void* q, const void* k,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, o, H, KV, S, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return hopper::launch<EPI_NONE>(o, wo, nullptr, out, B * S, dm, H * HD,
-                                  stream);
+  return hopper::launch<EPI_NONE, hopper::OWNER_FLASH_ATTENTION_PROJ>(
+      o, wo, nullptr, out, B * S, dm, H * HD, stream);
 }

@@ -9,8 +9,12 @@
 // the tensor cores, 3.35 TB/s): operations-bound at every size the suite
 // runs; 4096^3 takes at least 2.05 ms in f32 and 0.139 ms in bf16.
 //
-// bf16: the tiled wmma path (M > 16) and the split-K path (M <= 16) of
-// common.cuh with no prologue and no epilogue.
+// bf16, by shape (no prologue, no epilogue beyond the one rounding):
+//   * M > 16, K and N multiples of 8: the TMA + wgmma mainloop of
+//     wgmma_gemm.cuh, persistent when the tiles outnumber the SMs (4096^3
+//     at BN 256: 512 tiles on 132 blocks);
+//   * M <= 16: the split-K path of common.cuh (the weight stream);
+//   * any other M > 16: the 64 x 128 wmma tile of common.cuh.
 //
 // f32: true f32 on the CUDA cores (no TF32, no operand rounding). A block
 // of 256 threads owns a 128 x 128 output tile and each thread an 8 x 8
@@ -18,7 +22,7 @@
 // time through two shared-memory buffers: the next step's A and B tiles
 // are loaded into registers while the current one is multiplied, A stored
 // transposed so that both operands are read as float4 along the tile.
-#include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace sgemm {
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
@@ -135,6 +139,10 @@ extern "C" int matmul_f32(const void* a, const void* b, void* out, int M,
 extern "C" int matmul_bf16(const void* a, const void* b, void* out,
                            void* workspace, int M, int N, int K,
                            void* stream) {
+  if (hopper::takes_prefill(M, N, K))
+    return hopper::launch<EPI_NONE, hopper::OWNER_MATMUL>(a, b, nullptr, out,
+                                                          M, N, K, stream);
   return launch_matmul<false, EPI_NONE>(a, nullptr, b, nullptr, out,
-                                     (float*)workspace, M, N, K, 0.f, stream);
+                                        (float*)workspace, M, N, K, 0.f,
+                                        stream);
 }

@@ -4,17 +4,25 @@
 // build_matmul_residual_add (body `matmul._matmul_kernel`, residual added
 // in the store epilogue). The double rounding is the reference kernel's:
 // its matmul body stores acc.astype(bf16) and the epilogue hook adds the
-// residual to that already-rounded value.
+// residual to that already-rounded value (`epilogue<EPI_RESID>` of
+// common.cuh, on every path).
 //
-// Bound on an H100 (3.35 TB/s): at decode (M = 8) bytes-bound by the
-// weight — qwen3-14b's out-projection (5120 x 5120, 52 MB) at least
-// 16 us, the down-projection (17408 x 5120, 178 MB) at least 53 us.
+// Bound on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode (M = 8)
+// bytes-bound by the weight — qwen3-14b's out-projection (5120 x 5120,
+// 52 MB) at least 16 us, the down-projection (17408 x 5120, 178 MB) at
+// least 53 us; at prefill (M = 512) operations-bound, the down projection
+// at least 92 us.
 //
-// Design: the same two matmul paths as rmsnorm_matmul (see common.cuh):
-// split-K weight streaming for M <= 16, tiled wmma above. The residual is
-// read in the epilogue (the tile store, or the split-K finish), so the
-// rounded matmul output never round-trips device memory as bf16.
-#include "common.cuh"
+// Design, by shape:
+//   * M > 16, K and N multiples of 8 (prefill): the TMA + wgmma mainloop
+//     of wgmma_gemm.cuh with the residual read in its register epilogue;
+//     qwen3's down projection at M 512 is 128 tiles of 128 x 160, one
+//     wave, 272 k steps each;
+//   * M <= 16 (decode): the split-K weight streaming of common.cuh, the
+//     residual added in the split-K finish;
+//   * any other M > 16: the 64 x 128 wmma tile of common.cuh.
+// The rounded matmul output never round-trips device memory as bf16.
+#include "wgmma_gemm.cuh"
 
 extern "C" size_t matmul_residual_add_workspace_floats(int M, int N, int K) {
   return split_k_workspace_floats(M, N, K);
@@ -24,6 +32,10 @@ extern "C" int matmul_residual_add_bf16(const void* a, const void* b,
                                         const void* res, void* out,
                                         void* workspace, int M, int N, int K,
                                         void* stream) {
+  if (hopper::takes_prefill(M, N, K))
+    return hopper::launch<EPI_RESID, hopper::OWNER_MATMUL_RESIDUAL_ADD>(
+        a, b, res, out, M, N, K, stream);
   return launch_matmul<false, EPI_RESID>(a, nullptr, b, res, out,
-                                    (float*)workspace, M, N, K, 0.f, stream);
+                                         (float*)workspace, M, N, K, 0.f,
+                                         stream);
 }

@@ -68,16 +68,12 @@ norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
         *reinterpret_cast<uint4*>(o + k0 + u * 256) = norm8(v[u], s[u], rstd);
   }
 }
-
-bool takes_wgmma(int M, int N, int K) {
-  return M > skinny::MAX_M && hopper::takes(N, K);
-}
 }  // namespace
 
 // f32 workspace (in floats): the split-K partials at M <= 16, the bf16
 // normalised rows on the wgmma path, none on the tile path.
 extern "C" size_t rmsnorm_matmul_workspace_floats(int M, int N, int K) {
-  if (M > 0 && K > 0 && takes_wgmma(M, N, K))
+  if (M > 0 && K > 0 && hopper::takes_prefill(M, N, K))
     return ((size_t)M * K + 1) / 2;
   return split_k_workspace_floats(M, N, K);
 }
@@ -87,7 +83,7 @@ extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,
                                    int M, int N, int K, float eps,
                                    void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (!takes_wgmma(M, N, K))
+  if (!hopper::takes_prefill(M, N, K))
     return launch_matmul<true, EPI_NONE>(x, scale, w, nullptr, out,
                                          (float*)workspace, M, N, K, eps,
                                          stream);
@@ -98,5 +94,6 @@ extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,
       (const bf16*)x, (const bf16*)scale, xn, M, K, eps);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return hopper::launch<EPI_NONE>(xn, w, nullptr, out, M, N, K, stream);
+  return hopper::launch<EPI_NONE, hopper::OWNER_RMSNORM_MATMUL>(
+      xn, w, nullptr, out, M, N, K, stream);
 }

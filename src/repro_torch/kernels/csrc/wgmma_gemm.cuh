@@ -2,8 +2,8 @@
 // bf16 in and out, f32 accumulation, one rounding before the epilogue (the
 // `epilogue<EPI>` of common.cuh, as gemm::tile_kernel applies it).
 //
-// Shape of the kernel (one block an output tile of BM = 128 rows by BN
-// columns, 384 threads):
+// Shape of the kernel (a block of 384 threads walks output tiles of BM =
+// 128 rows by BN columns):
 //   * warpgroup 0 is the producer: after giving up registers (setmaxnreg),
 //     one thread keeps TMA loads (cp.async.bulk.tensor) of A and B tiles in
 //     flight into a ring of STAGES shared-memory stages, each guarded by a
@@ -14,8 +14,18 @@
 //     the accumulator (BN/2 floats a thread) in registers; each step
 //     releases the stage of the step before once that step's products have
 //     retired (wgmma.wait_group 1), so the tensor cores never wait on a
-//     release;
-//   * the epilogue rounds and stores from registers, masked at the edges.
+//     release, and the tile's last stage is released once all its products
+//     have retired (wait_group 0);
+//   * the epilogue rounds and stores from registers, 16 bytes a lane after
+//     a shuffle transpose within each quad of lanes (`store_rows`), masked
+//     at the edges.
+// Tiles: a grid of at most one wave (tiles <= SMs) is one block a tile. A
+// larger grid is persistent: one block an SM, block b walking tiles b,
+// b + gridDim.x, ... in bands of GROUP row tiles walked column by column
+// (`tile_origin`), so the tiles in flight at once share A rows and B
+// columns in L2. The ring's stage index and mbarrier phases run on across
+// a block's tiles, so the producer loads the next tile's first stages
+// while the consumers store the current tile's epilogue.
 // Layouts: A is K-major, loaded as one 64 (k) x 128 (rows) box a stage.
 // B is the weight as the model stores it, (K, N) row-major, so it is
 // MN-major for wgmma (the transpose bit of B is set). With the 128-byte
@@ -33,6 +43,11 @@
 // choice is made on the shape (`hopper::takes`) before any launch, and a
 // failed encode or launch is returned, never retried on another path.
 //
+// Each caller names itself in the kernel's last template argument, OWNER
+// (a plain int, so a profiler trace reads `tma_wgmma_kernel<BN,EPI,
+// OWNER>`): the four wrappers that launch the mainloop each have
+// instantiations of their own, which is what a trace counts them by.
+//
 // Tensor maps are encoded on the host for every call (a pointer can be
 // reused by the caching allocator for another tensor, so they are not
 // cached), with cuTensorMapEncodeTiled fetched once through
@@ -42,7 +57,8 @@
 // The N tile is chosen from the shape so that the tiles fill whole waves
 // of the SMs (`pick_bn`): qwen3-14b's prefill at M = 512 takes 128 x 160
 // at N 5120 (128 tiles, one wave), 128 x 224 at N 7168 (128 tiles) and
-// 128 x 176 at N 17408 (396 tiles, three waves).
+// 128 x 176 at N 17408 (396 tiles, three waves, persistent); 4096^3 takes
+// 128 x 256 (512 tiles, persistent on 132 blocks).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; no driver symbol is linked
@@ -55,7 +71,12 @@ constexpr int BOX = 64;                       // bf16 in a 128-byte box row
 constexpr int A_BYTES = BM * BK * 2;          // 16 KB
 constexpr int B_BOX_BYTES = BK * BOX * 2;     // 8 KB
 constexpr int SMEM_CAP = 220 * 1024;          // of the 227 KB a block may use
-constexpr int TILE_N[] = {128, 160, 176, 224};
+constexpr int TILE_N[] = {128, 160, 176, 224, 256};
+constexpr int GROUP = 8;                      // row tiles a band of the walk
+
+// The wrapper that launches an instantiation (its OWNER argument).
+enum : int { OWNER_RMSNORM_MATMUL = 0, OWNER_FLASH_ATTENTION_PROJ = 1,
+             OWNER_MATMUL = 2, OWNER_MATMUL_RESIDUAL_ADD = 3 };
 
 template <int BN>
 struct Tile {
@@ -293,11 +314,130 @@ struct Mma<224> {
   }
 };
 
+template <>
+struct Mma<256> {
+  __device__ static __forceinline__ void run(float (&d)[128], uint64_t a,
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 
+// The origin (m0, n0) of walk index `tile` of an mt x nt grid of tiles:
+// bands of GROUP row tiles (the last band may hold fewer), each walked
+// column by column, down the band's rows first.
+template <int BN>
+__device__ __forceinline__ void tile_origin(int tile, int mt, int nt,
+                                            int& m0, int& n0) {
+  const int band = tile / (GROUP * nt);
+  const int first = band * GROUP;
+  const int rows = min(GROUP, mt - first);
+  const int in = tile - band * GROUP * nt;
+  m0 = (first + in % rows) * BM;
+  n0 = (in / rows) * BN;
+}
+
+// The epilogue of one consumer warp's rows, 16 bytes a store. In the
+// m64nBNk16 layout lane l holds, of each 8-column group, columns 2(l%4)
+// and 2(l%4) + 1 of row r0 (l/4 added by the caller) and of row r0 + 8:
+// the four lanes of a quad share a row. Within a quad the groups of each
+// 32-column chunk are transposed with shuffles (lane q receives group q
+// of the chunk, its column pair p from lane p), so that each lane rounds 8
+// contiguous columns through epilogue<EPI> and stores them as one 16-byte
+// vector; the residual is read likewise. N % 8 == 0, so a group lies in
+// or out of the matrix whole.
 template <int BN, int EPI>
+__device__ __forceinline__ void store_rows(const float (&acc)[BN / 2],
+                                           const bf16* __restrict__ extra,
+                                           bf16* __restrict__ out, int r0,
+                                           int n0, int M, int N, int lane) {
+  constexpr int GROUPS = BN / 8;
+  const int q = lane % 4;
+#pragma unroll
+  for (int c = 0; c < (GROUPS + 3) / 4; ++c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v[8];                    // v[2p + e]: column 8g + 2p + e
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = q ^ r;         // the group sent, and the pair received
+        float send0 = 0.f, send1 = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (4 * c + jj < GROUPS && jj == j) {
+            send0 = acc[4 * (4 * c + jj) + 2 * h];
+            send1 = acc[4 * (4 * c + jj) + 2 * h + 1];
+          }
+        const float got0 = __shfl_xor_sync(0xffffffffu, send0, r);
+        const float got1 = __shfl_xor_sync(0xffffffffu, send1, r);
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          if (p == j) {
+            v[2 * p] = got0;
+            v[2 * p + 1] = got1;
+          }
+      }
+      const int g = 4 * c + q, row = r0 + 8 * h, col = n0 + 8 * g;
+      if (g >= GROUPS || row >= M || col >= N) continue;
+      const size_t idx = (size_t)row * N + col;
+      __align__(16) bf16 res[8], y[8];
+      if (EPI == EPI_RESID)
+        *reinterpret_cast<uint4*>(res) =
+            *reinterpret_cast<const uint4*>(extra + idx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        y[i] = EPI == EPI_RESID ? epilogue<EPI>(v[i], res, i, col + i)
+                                : epilogue<EPI>(v[i], extra, idx + i, col + i);
+      *reinterpret_cast<uint4*>(out + idx) = *reinterpret_cast<const uint4*>(y);
+    }
+  }
+}
+
+template <int BN, int EPI, int OWNER>
 __global__ void __launch_bounds__(THREADS, 1)
 tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
@@ -310,7 +450,8 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
 
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN;
+  const int tiles = mt * nt;
   const int ktiles = (K + BK - 1) / BK;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   if (threadIdx.x == 0) {
@@ -323,6 +464,8 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
 
+  // `it` counts the block's k steps over all its tiles: stage it % STAGES,
+  // in its (it / STAGES)-th use
   if (wg == 0) {                              // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (t == 0) {
@@ -330,62 +473,62 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                        reinterpret_cast<uint64_t>(&map_a)) : "memory");
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&map_b)) : "memory");
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int s = kt % T::STAGES;
-        mbar_wait(&empty[s], ((kt / T::STAGES) & 1) ^ 1);
-        unsigned char* st = smem + s * T::STAGE_BYTES;
-        mbar_expect_tx(&full[s], T::STAGE_BYTES);
-        tma_load(st, &map_a, &full[s], kt * BK, m0);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        tile_origin<BN>(tile, mt, nt, m0, n0);
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % T::STAGES;
+          mbar_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
+          unsigned char* st = smem + s * T::STAGE_BYTES;
+          mbar_expect_tx(&full[s], T::STAGE_BYTES);
+          tma_load(st, &map_a, &full[s], kt * BK, m0);
 #pragma unroll
-        for (int j = 0; j < T::BOXES; ++j)
-          tma_load(st + A_BYTES + j * B_BOX_BYTES, &map_b, &full[s],
-                   n0 + j * BOX, kt * BK);
+          for (int j = 0; j < T::BOXES; ++j)
+            tma_load(st + A_BYTES + j * B_BOX_BYTES, &map_b, &full[s],
+                     n0 + j * BOX, kt * BK);
+        }
       }
     }
   } else {                                    // consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    float acc[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     const uint32_t half = (wg - 1) * 64 * 128;     // 64 rows of 128 bytes
-    for (int kt = 0; kt < ktiles; ++kt) {
-      const int s = kt % T::STAGES;
-      mbar_wait(&full[s], (kt / T::STAGES) & 1);
-      const uint32_t a_addr = smem_u32(smem + s * T::STAGE_BYTES) + half;
-      const uint32_t b_addr = smem_u32(smem + s * T::STAGE_BYTES + A_BYTES);
-      fence_acc(acc);
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)       // k16 slices: A +32 bytes,
-        Mma<BN>::run(acc,                        // B +16 rows of 128 bytes
-                     sw128_desc(a_addr + kk * 32, 16, 1024),
-                     sw128_desc(b_addr + kk * 2048, B_BOX_BYTES, 1024));
-      wg_commit();
-      fence_acc(acc);
-      wg_wait<1>();                              // step kt-1 has retired
-      if (kt > 0 && t == 0) mbar_arrive(&empty[(kt - 1) % T::STAGES]);
-    }
-    wg_wait<0>();
-    fence_acc(acc);
-
     // m64nBNk16 layout: warp w, lane l hold rows 16w + l/4 (+8) and, for
     // each 8-column group j, columns 8j + 2(l%4) (+1)
     const int warp = t / 32, lane = t % 32;
-    const int r0 = m0 + (wg - 1) * 64 + warp * 16 + lane / 4;
+    float acc[BN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tile_origin<BN>(tile, mt, nt, m0, n0);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int col = n0 + j * 8 + (lane % 4) * 2;
-      if (col >= N) continue;                    // N % 8 == 0: col+1 < N too
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % T::STAGES;
+        mbar_wait(&full[s], (it / T::STAGES) & 1);
+        const uint32_t a_addr = smem_u32(smem + s * T::STAGE_BYTES) + half;
+        const uint32_t b_addr = smem_u32(smem + s * T::STAGE_BYTES + A_BYTES);
+        fence_acc(acc);
+        wg_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + h * 8;
-        if (row >= M) continue;
-        const size_t idx = (size_t)row * N + col;
-        __nv_bfloat162 y;
-        y.x = epilogue<EPI>(acc[4 * j + 2 * h], extra, idx, col);
-        y.y = epilogue<EPI>(acc[4 * j + 2 * h + 1], extra, idx + 1, col + 1);
-        *reinterpret_cast<__nv_bfloat162*>(out + idx) = y;
+        for (int kk = 0; kk < BK / 16; ++kk)     // k16 slices: A +32 bytes,
+          Mma<BN>::run(acc,                      // B +16 rows of 128 bytes
+                       sw128_desc(a_addr + kk * 32, 16, 1024),
+                       sw128_desc(b_addr + kk * 2048, B_BOX_BYTES, 1024));
+        wg_commit();
+        fence_acc(acc);
+        wg_wait<1>();                            // step it-1 has retired
+        if (kt > 0 && t == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
       }
+      wg_wait<0>();
+      fence_acc(acc);
+      // the tile's last stage: the producer may be waiting on it for the
+      // block's next tile
+      if (t == 0) mbar_arrive(&empty[(it - 1) % T::STAGES]);
+
+      store_rows<BN, EPI>(acc, extra, out,
+                          m0 + (wg - 1) * 64 + warp * 16 + lane / 4, n0, M,
+                          N, lane);
     }
   }
 }
@@ -397,6 +540,13 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 // Whether the path takes a shape: TMA's global strides (K, N bf16) must
 // be multiples of 16 bytes.
 inline bool takes(int N, int K) { return N % 8 == 0 && K % 8 == 0; }
+
+// Whether a wrapper with common.cuh's split-K path sends an (M, K) x (K, N)
+// product here: above M = 16 (below, streaming the weight is the whole
+// cost and split-K does it) when the path takes the shape.
+inline bool takes_prefill(int M, int N, int K) {
+  return M > skinny::MAX_M && takes(N, K);
+}
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -442,12 +592,16 @@ inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The N tile whose tiles fill the SMs' waves best: least ceil(tiles /
-// SMs) * BN (the columns one SM walks), the wider tile on a tie.
-inline int pick_bn(int M, int N) {
+inline int sm_count() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// The N tile whose tiles fill the SMs' waves best: least ceil(tiles /
+// SMs) * BN (the columns one SM walks), the wider tile on a tie.
+inline int pick_bn(int M, int N, int sms) {
   const long mt = (M + BM - 1) / BM;
   int best = TILE_N[0];
   long best_cost = -1;
@@ -462,22 +616,35 @@ inline int pick_bn(int M, int N) {
   return best;
 }
 
-template <int BN, int EPI>
+// How an (M, N) output is walked: its N tile, its tiles, and the blocks
+// launched (one a tile up to one wave, else one an SM: persistent).
+struct Plan {
+  int bn, tiles, blocks;
+};
+
+inline Plan plan(int M, int N) {
+  const int sms = sm_count();
+  const int bn = pick_bn(M, N, sms);
+  const int tiles = ((M + BM - 1) / BM) * ((N + bn - 1) / bn);
+  return {bn, tiles, tiles < sms ? tiles : sms};
+}
+
+template <int BN, int EPI, int OWNER>
 cudaError_t launch_bn(const CUtensorMap& map_a, const CUtensorMap& map_b,
                       const void* extra, void* out, int M, int N, int K,
-                      cudaStream_t st) {
+                      int blocks, cudaStream_t st) {
   const cudaError_t err = cudaFuncSetAttribute(
-      tma_wgmma_kernel<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<BN>::SMEM);
+      tma_wgmma_kernel<BN, EPI, OWNER>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  tma_wgmma_kernel<BN, EPI><<<grid, THREADS, Tile<BN>::SMEM, st>>>(
+  tma_wgmma_kernel<BN, EPI, OWNER><<<blocks, THREADS, Tile<BN>::SMEM, st>>>(
       map_a, map_b, (const bf16*)extra, (bf16*)out, M, N, K);
   return cudaGetLastError();
 }
 
-// out (M,N) = epilogue(a (M,K) @ b (K,N)); the caller has checked `takes`.
-template <int EPI>
+// out (M,N) = epilogue(a (M,K) @ b (K,N)); the caller has checked `takes`
+// and names itself in OWNER.
+template <int EPI, int OWNER>
 int launch(const void* a, const void* b, const void* extra, void* out, int M,
            int N, int K, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || !takes(N, K))
@@ -487,19 +654,40 @@ int launch(const void* a, const void* b, const void* extra, void* out, int M,
   if (err == cudaSuccess) err = encode(&map_b, b, K, N, BK);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (pick_bn(M, N)) {
+  const Plan p = plan(M, N);
+  switch (p.bn) {
     case 128:
-      err = launch_bn<128, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      err = launch_bn<128, EPI, OWNER>(map_a, map_b, extra, out, M, N, K,
+                                       p.blocks, st);
       break;
     case 160:
-      err = launch_bn<160, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      err = launch_bn<160, EPI, OWNER>(map_a, map_b, extra, out, M, N, K,
+                                       p.blocks, st);
       break;
     case 176:
-      err = launch_bn<176, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      err = launch_bn<176, EPI, OWNER>(map_a, map_b, extra, out, M, N, K,
+                                       p.blocks, st);
+      break;
+    case 224:
+      err = launch_bn<224, EPI, OWNER>(map_a, map_b, extra, out, M, N, K,
+                                       p.blocks, st);
       break;
     default:
-      err = launch_bn<224, EPI>(map_a, map_b, extra, out, M, N, K, st);
+      err = launch_bn<256, EPI, OWNER>(map_a, map_b, extra, out, M, N, K,
+                                       p.blocks, st);
   }
   return (int)err;
 }
 }  // namespace hopper
+
+// The mainloop's plan for an (M, N) output on the current device, as
+// {BN, tiles, blocks} in `plan` (the walk is persistent when tiles >
+// blocks); for reports, not for launching.
+extern "C" int wgmma_plan(int M, int N, int* plan) {
+  if (M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const hopper::Plan p = hopper::plan(M, N);
+  plan[0] = p.bn;
+  plan[1] = p.tiles;
+  plan[2] = p.blocks;
+  return 0;
+}

@@ -61,22 +61,40 @@ def counts() -> dict:
             for name in WRAPPERS}
 
 
+# The Hopper mainloop's N tiles (`hopper::TILE_N`) and the OWNER argument
+# each wrapper instantiates it with (`hopper::OWNER_*`, csrc/wgmma_gemm.cuh).
+TILE_N = (128, 160, 176, 224, 256)
+MAINLOOP_OWNER = {"rmsnorm_matmul": 0, "flash_attention_proj": 1,
+                  "matmul": 2, "matmul_residual_add": 3}
+
+
+def _mainloop(wrapper: str, epi: int) -> tuple:
+    """The profiler names of `wrapper`'s mainloop instantiations, one a
+    BN: `hopper::tma_wgmma_kernel<BN,EPI,OWNER>`."""
+    return tuple(f"hopper::tma_wgmma_kernel<{bn},{epi},"
+                 f"{MAINLOOP_OWNER[wrapper]}>" for bn in TILE_N)
+
+
 # The device kernel that opens each launch of a wrapper (a split-K finish,
 # a partial-sum finish or the wgmma mainloop may follow it), as a profiler
 # names it, spaces removed. The four matmul entry points instantiate the
-# same templates with other flags (<prologue, epilogue code>, common.cuh),
-# so each has names of its own; rmsnorm_matmul's and flash_attention_proj's
-# wgmma paths open with a kernel of their own (the row normalisation, the
-# per-head attention) and share `hopper::tma_wgmma_kernel`, which no
-# pattern names.
+# same templates with other flags (<prologue, epilogue code>, common.cuh;
+# <BN, epilogue code, owner>, wgmma_gemm.cuh), so each has names of its
+# own. matmul's and matmul_residual_add's M > 16 calls open with the
+# mainloop, counted by their own instantiations; rmsnorm_matmul's and
+# flash_attention_proj's open with a kernel of their own (the row
+# normalisation, the per-head attention), which counts them, and their
+# mainloop instantiations are named by no pattern.
 ENTRY_KERNELS = {
     "rmsnorm_matmul": ("skinny::partial_kernel<true,0>",
                        "gemm::tile_kernel<true,0>", "norm_rows_kernel"),
     "matmul_residual_add": ("skinny::partial_kernel<false,1>",
-                            "gemm::tile_kernel<false,1>"),
+                            "gemm::tile_kernel<false,1>",
+                            *_mainloop("matmul_residual_add", 1)),
     "flash_attention_proj": ("fa_proj_heads_kernel",),
     "matmul": ("skinny::partial_kernel<false,0>",
-               "gemm::tile_kernel<false,0>", "matmul_f32_kernel"),
+               "gemm::tile_kernel<false,0>", "matmul_f32_kernel",
+               *_mainloop("matmul", 0)),
     "axpy": ("axpy_kernel_",),
     "dotp": ("dotp_partial_kernel",),
     "conv2d": ("conv2d_3x3_kernel",),

@@ -54,7 +54,12 @@ def test_cuda_rmsnorm_matmul(cuda, m, k, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 5120, 5120), (8, 17408, 5120),
                                    (5, 100, 36), (16, 72, 264),
-                                   (40, 128, 96)])
+                                   (40, 128, 96),
+                                   # the mainloop: qwen3-14b's down
+                                   # projection, and edges no tile divides
+                                   (512, 17408, 5120), (130, 200, 200),
+                                   # K % 8 != 0: the wmma tile
+                                   (64, 100, 96)])
 def test_cuda_matmul_residual_add(cuda, m, k, n):
     g = torch.Generator(device=cuda).manual_seed(1)
     a = torch.randn(m, k, generator=g, device=cuda).bfloat16()
@@ -64,6 +69,32 @@ def test_cuda_matmul_residual_add(cuda, m, k, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), fused.matmul_residual_add_plain(
         a, b, r).float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (64, 16, 64),          # the mainloop, one k step
+    (64, 520, 64),         # the mainloop, 9 k steps
+    (2000, 16, 3000),      # persistent: 384 tiles, one k step each
+    (2000, 520, 3000),     # persistent, 9 k steps a tile
+    (8, 16, 64)])          # split-K
+def test_cuda_matmul_residual_add_rounds_twice_like_the_kernel(cuda, m, k,
+                                                               n):
+    """The Pallas kernel's two roundings, bf16(f32(bf16(acc)) + f32(res)),
+    bit for bit: with small integers every f32 sum is exact in any order,
+    so the kernel must equal the plain version exactly (the CPU tests hold
+    the plain version to the Pallas kernel on the same kind of input)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    a = torch.randint(-32, 33, (m, k), generator=g, device=cuda).bfloat16()
+    b = torch.randint(-32, 33, (k, n), generator=g, device=cuda).bfloat16()
+    r = (torch.randint(-64, 65, (m, n), generator=g, device=cuda)
+         + 0.375).bfloat16()
+    got = fused.matmul_residual_add(a, b, r)
+    torch.cuda.synchronize()
+    want = fused.matmul_residual_add_plain(a, b, r)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    once = (a.float() @ b.float() + r.float()).bfloat16()   # one rounding
+    assert not torch.equal(got, once)
 
 
 @pytest.mark.cuda
@@ -169,6 +200,24 @@ def test_cuda_matmul(cuda, dtype, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (4096, 4096, 4096),    # the suite's card size: 1,024 tiles, persistent
+    (2000, 512, 3000),     # 384 tiles, no multiple of the 132 SMs
+    (300, 4096, 1000)])    # one wave
+def test_cuda_matmul_bf16_on_the_mainloop(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a = _randn(g, m, k, dtype=torch.bfloat16)
+    b = _randn(g, k, n, dtype=torch.bfloat16, scale=k ** -0.5)
+    before = matmul.matmul.launches
+    got = matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.matmul.launches == before + 1
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), matmul.matmul_plain(
+        a, b).float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (3, 5)])
 def test_cuda_axpy(cuda, dtype, shape):
@@ -238,22 +287,32 @@ def test_cuda_suite_rejects_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
     """The plain matmul instantiates the fused kernels' templates: a trace
-    counts its launches as matmul's, not matmul_residual_add's."""
+    counts its launches as matmul's, not matmul_residual_add's or
+    rmsnorm_matmul's, on every path, the Hopper mainloop included (each
+    wrapper's mainloop instantiations carry an owner of their own)."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=cuda).manual_seed(8)
     a = _randn(g, 8, 256, dtype=torch.bfloat16)
     big = _randn(g, 64, 256, dtype=torch.bfloat16)
+    odd = _randn(g, 64, 250, dtype=torch.bfloat16)
     b = _randn(g, 256, 128, dtype=torch.bfloat16, scale=1 / 16)
+    b_odd = _randn(g, 250, 128, dtype=torch.bfloat16, scale=1 / 16)
     r = _randn(g, 8, 128, dtype=torch.bfloat16)
+    r_big = _randn(g, 64, 128, dtype=torch.bfloat16)
+    s = _randn(g, 256, dtype=torch.bfloat16, scale=0.1)
     af, bf = a.float(), b.float()
 
     def run():
         for _ in range(3):
             matmul.matmul(a, b)             # split-K path
-        matmul.matmul(big, b)               # tiled path
+        matmul.matmul(big, b)               # the mainloop
+        matmul.matmul(odd, b_odd)           # K % 8 != 0: the wmma tile
         matmul.matmul(af, bf)               # f32 tile
-        fused.matmul_residual_add(a, b, r)
+        fused.matmul_residual_add(a, b, r)            # split-K
+        fused.matmul_residual_add(big, b, r_big)      # the mainloop
+        fused.matmul_residual_add(big, b, r_big)
+        fused.rmsnorm_matmul(big, s, b)               # norm + the mainloop
 
     run()
     torch.cuda.synchronize()
@@ -266,9 +325,13 @@ def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
     traced = launches.traced_launches(prof)
     kernels = sorted({e.key for e in prof.key_averages()
                       if "CUDA" in str(getattr(e, "device_type", ""))})
-    assert traced["matmul"] == 5, (traced, kernels)
-    assert traced["matmul_residual_add"] == 1, (traced, kernels)
-    assert traced["rmsnorm_matmul"] == 0, (traced, kernels)
+    assert traced["matmul"] == 6, (traced, kernels)
+    assert traced["matmul_residual_add"] == 3, (traced, kernels)
+    assert traced["rmsnorm_matmul"] == 1, (traced, kernels)
+    assert traced["flash_attention_proj"] == 0, (traced, kernels)
+    names = {k.replace(" ", "") for k in kernels}
+    for inst in ("<128,0,2>", "<128,1,3>", "<128,0,0>"):
+        assert any(f"tma_wgmma_kernel{inst}" in k for k in names), kernels
 
 
 # ----------------------------------------------------------------------------

@@ -99,11 +99,16 @@ def test_rmsnorm_matmul_rounds_the_norm_before_the_product():
 # ----------------------------------------------------------------------------
 
 
+# (k, n) by m: M <= 16 (the split-K path on the card) at K 80 N 40, and M >
+# 16 with M, K and N that divide no tile of the card's mainloop
+RESID_KN = {130: (200, 200)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [1, 3, 8])
+@pytest.mark.parametrize("m", [1, 3, 8, 40, 130])
 def test_matmul_residual_add_matches_pallas(dtype, m):
     rng = np.random.default_rng(10 + m)
-    k, n = 80, 40
+    k, n = RESID_KN.get(m, (80, 40))
     aj, at = _pair(rng.standard_normal((m, k), np.float32), dtype)
     bj, bt = _pair(rng.standard_normal((k, n), np.float32), dtype)
     rj, rt = _pair(rng.standard_normal((m, n), np.float32), dtype)

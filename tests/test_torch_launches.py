@@ -1,5 +1,7 @@
 """The profiler names that `launches.ENTRY_KERNELS` counts each wrapper's
-launches by, against the `__global__` kernels the CUDA sources define.
+launches by, against the `__global__` kernels the CUDA sources define
+and the template instantiations their `launch_matmul<NORM, EPI>` and
+`hopper::launch<EPI, OWNER>` calls make.
 
 A trace counts a launch for wrapper A when a device kernel's name holds
 one of A's patterns. So every pattern must name a kernel that A's source
@@ -23,6 +25,8 @@ WRAPPERS = sorted(launches.ENTRY_KERNELS)
 # common.cuh's `launch_matmul<NORM, EPI>` instantiates these kernels
 LAUNCH_MATMUL = ("gemm::tile_kernel<{n},{e}>", "skinny::partial_kernel<{n},{e}>",
                  "skinny::finish_kernel<{e}>")
+# wgmma_gemm.cuh's `hopper::launch<EPI, OWNER>`, one per N tile
+MAINLOOP = "hopper::tma_wgmma_kernel<{bn},{e},{o}>"
 
 
 def _strip(text: str) -> str:
@@ -69,15 +73,37 @@ def includes_of(path: Path) -> set[Path]:
     return seen
 
 
+def enum_codes(header: str) -> dict:
+    """{name: value} of every `enum : int { ... }` in a csrc header."""
+    text = _strip((CSRC / header).read_text())
+    return {k: v for body in re.findall(r"enum\s*:\s*int\s*\{([^}]*)\}", text)
+            for k, v in re.findall(r"(\w+)\s*=\s*(\d+)", body)}
+
+
 def epi_codes() -> dict:
-    enum = re.search(r"enum\s*:\s*int\s*\{([^}]*)\}",
-                     _strip((CSRC / "common.cuh").read_text())).group(1)
-    return {k: v for k, v in re.findall(r"(\w+)\s*=\s*(\d+)", enum)}
+    return enum_codes("common.cuh")
+
+
+def tile_n() -> tuple:
+    """`hopper::TILE_N`, the mainloop's N tiles."""
+    body = re.search(r"TILE_N\[\]\s*=\s*\{([^}]*)\}",
+                     _strip((CSRC / "wgmma_gemm.cuh").read_text())).group(1)
+    return tuple(int(v) for v in re.findall(r"\d+", body))
+
+
+def mainloop_calls(wrapper: str) -> list[tuple[str, str]]:
+    """(EPI code, OWNER code) of every `hopper::launch<EPI, OWNER>` call in
+    the wrapper's source."""
+    codes = epi_codes() | enum_codes("wgmma_gemm.cuh")
+    calls = re.findall(r"hopper::launch<\s*(\w+)\s*,\s*(?:hopper::)?(\w+)\s*>",
+                       _strip((CSRC / f"{wrapper}.cu").read_text()))
+    return [(codes[epi], codes[owner]) for epi, owner in calls]
 
 
 def owned(wrapper: str) -> tuple[set, set]:
     """(the base names of every kernel the wrapper's source can reach, the
-    instantiated names of its `launch_matmul` calls)."""
+    instantiated names of its `launch_matmul` and `hopper::launch`
+    calls)."""
     src = CSRC / f"{wrapper}.cu"
     bases = {name for p in includes_of(src) for name, _ in kernels_of(p)}
     codes = epi_codes()
@@ -85,6 +111,8 @@ def owned(wrapper: str) -> tuple[set, set]:
     for norm, epi in re.findall(r"launch_matmul<\s*(true|false)\s*,\s*(\w+)\s*>",
                                 _strip(src.read_text())):
         insts |= {f.format(n=norm, e=codes[epi]) for f in LAUNCH_MATMUL}
+    for epi, owner in mainloop_calls(wrapper):
+        insts |= {MAINLOOP.format(bn=bn, e=epi, o=owner) for bn in tile_n()}
     return bases, insts
 
 
@@ -133,17 +161,55 @@ def test_no_pattern_holds_for_another_wrappers_kernel(wrapper):
                 assert pattern not in theirs, (pattern, other, theirs)
 
 
-def test_the_shared_wgmma_mainloop_is_counted_for_no_wrapper():
-    """rmsnorm_matmul and flash_attention_proj both launch
-    `hopper::tma_wgmma_kernel`; each is counted by the kernel that opens
-    its call, so no pattern may hold for the mainloop."""
+MAINLOOP_WRAPPERS = ("rmsnorm_matmul", "flash_attention_proj", "matmul",
+                     "matmul_residual_add")
+
+
+def test_each_mainloop_instantiation_is_launched_by_one_wrapper():
+    """Four wrappers launch `hopper::tma_wgmma_kernel`, each under an OWNER
+    of its own. Every instantiation a pattern names is launched by exactly
+    one wrapper's source: the wrapper whose pattern it is."""
     kernels = dict(kernels_of(CSRC / "wgmma_gemm.cuh"))
     assert kernels == {"hopper::tma_wgmma_kernel": True}
-    for wrapper in ("rmsnorm_matmul", "flash_attention_proj"):
-        assert CSRC / "wgmma_gemm.cuh" in includes_of(CSRC / f"{wrapper}.cu")
-    for patterns in launches.ENTRY_KERNELS.values():
+    insts = {w: owned(w)[1] for w in WRAPPERS}
+    named = 0
+    for wrapper, patterns in launches.ENTRY_KERNELS.items():
         for p in patterns:
-            assert _split(p)[0] not in "hopper::tma_wgmma_kernel", p
+            if _split(p)[0] != "hopper::tma_wgmma_kernel":
+                continue
+            named += 1
+            assert [w for w in WRAPPERS if p in insts[w]] == [wrapper], p
+    assert named == len(launches.TILE_N) * 2      # matmul, matmul_residual_add
+
+
+def test_each_mainloop_caller_has_an_owner_of_its_own():
+    """The OWNER codes of csrc/wgmma_gemm.cuh are the ones launches.py
+    names, each wrapper's calls use its own, and launches.TILE_N is the
+    header's TILE_N."""
+    owners = {k: int(v) for k, v in enum_codes("wgmma_gemm.cuh").items()
+              if k.startswith("OWNER_")}
+    assert {f"OWNER_{w.upper()}": c
+            for w, c in launches.MAINLOOP_OWNER.items()} == owners
+    assert tuple(launches.TILE_N) == tile_n()
+    for wrapper in WRAPPERS:
+        calls = mainloop_calls(wrapper)
+        if wrapper not in MAINLOOP_WRAPPERS:
+            assert calls == [], wrapper
+            continue
+        assert CSRC / "wgmma_gemm.cuh" in includes_of(CSRC / f"{wrapper}.cu")
+        assert calls and {int(o) for _, o in calls} == {
+            launches.MAINLOOP_OWNER[wrapper]}, (wrapper, calls)
+
+
+def test_rmsnorm_matmul_and_fa_proj_are_counted_by_their_opening_kernel():
+    """Their mainloop follows a kernel of their own in the same call; a
+    pattern for both would count each call twice."""
+    for wrapper in ("rmsnorm_matmul", "flash_attention_proj"):
+        bases, insts = owned(wrapper)
+        mainloop = {i for i in insts if i.startswith("hopper::")}
+        assert len(mainloop) == len(launches.TILE_N), wrapper
+        for p in launches.ENTRY_KERNELS[wrapper]:
+            assert _split(p)[0] != "hopper::tma_wgmma_kernel", p
 
 
 def test_the_parser_reads_namespaces_and_templates():
@@ -155,3 +221,5 @@ def test_the_parser_reads_namespaces_and_templates():
         "fa_proj_heads_kernel": False}
     assert owned("matmul_bias_act")[1] >= {"gemm::tile_kernel<false,3>",
                                            "skinny::finish_kernel<4>"}
+    assert owned("matmul_residual_add")[1] >= {
+        "hopper::tma_wgmma_kernel<160,1,3>", "gemm::tile_kernel<false,1>"}

@@ -54,7 +54,9 @@ def _normal(seed: int, *shape) -> np.ndarray:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", [(64, 64, 64), (128, 96, 40),
-                                   (24, 200, 72)])
+                                   (24, 200, 72),
+                                   # M > 16, no edge a multiple of a tile
+                                   (40, 80, 40), (130, 200, 200)])
 def test_matmul_matches_pallas(dtype, m, k, n):
     aj, at = _pair(_normal(m, m, k), dtype)
     bj, bt = _pair(_normal(k, k, n), dtype)
