@@ -42,15 +42,16 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            under "fused": make_prefill_step on 8 x 32 tokens and 8 x 1500
            stub frames (its encoder MLPs launch matmul_bias_act 24 times),
            then make_decode_step for 16 greedy steps on a private cache of
-           448; the prefill again under torch.profiler
+           448; the prefill again under torch.profiler: its mainloop
+           instantiations and five device kernels with the most time
   prefill  qwen3-14b, all 40 layers, random weights from a seeded
            generator on the card, make_prefill_step on B=1, S=512; then
            the same prefill under torch.profiler, whose five device
            kernels with the most time it prints
   pallas_prefill  the same prefill under the default "tuned" policy with
            attn_schedule="pallas": flash_attention 40 times, projections
-           as torch products; counted, traced, its token set beside the
-           fused prefill's
+           as torch products; counted, traced (its five device kernels
+           with the most time), its token set beside the fused prefill's
   serve    Cluster("qwen3-14b") ServeSessionProgram(slots=8, max_seq=256,
            max_prompt=64, chunk=16, paged=True, page_size=16) under the
            "fused" policy: 12 requests, half sharing a 32-token preamble,
@@ -407,7 +408,7 @@ def kernel_phase() -> list[dict]:
              TOL if dt == torch.bfloat16 else F32_TOL)
 
     # matmul_bias_act: whisper-small's encoder MLP at 8 x 1500 frames (gelu
-    # in, none out), and a decode-sized M on the split-K path
+    # in, none out) on the mainloop, and a decode-sized M on split-K
     for m, k, n, act in ((12000, 768, 3072, "gelu"),
                          (12000, 3072, 768, "none"),
                          (5, 768, 3072, "silu")):
@@ -419,7 +420,8 @@ def kernel_phase() -> list[dict]:
              lambda: fused.matmul_bias_act(a, w, bias, act),
              lambda: fused.matmul_bias_act_plain(a, w, bias, act),
              lambda: lib_act(torch.addmm(bias, a, w)),
-             bound((m * k + k * n + n + m * n) * 2, 2.0 * m * k * n))
+             bound((m * k + k * n + n + m * n) * 2, 2.0 * m * k * n),
+             schedule=gemm_schedule("matmul_bias_act", m, k, n))
 
     records = []
     for name, rows in cases.items():
@@ -815,7 +817,7 @@ def whisper_phase(launches) -> dict:
     batch = {"tokens": tokens, "enc_embeds": frames}
     prefill = steps.make_prefill_step(cfg, policy="fused")
     prefill(params, batch)                                # warm-up
-    counted, tok, dt, _ = _counted_and_traced(
+    counted, tok, dt, top = _counted_and_traced(
         launches, "whisper", lambda: prefill(params, batch),
         ("matmul_bias_act",))
     want = {n: 0 for n in counted} | {"matmul_bias_act": 2 * cfg.n_enc_layers}
@@ -849,13 +851,23 @@ def whisper_phase(launches) -> dict:
     for name, c in cache.items():
         if not torch.isfinite(c).all():
             raise AssertionError(f"whisper: non-finite {name} cache")
+    # the MLP products' mainloop instantiations in the trace, and the
+    # prefill's five device kernels with the most time
+    mainloop = {m.group(0): n for key, _, n in top
+                for m in [re.search(r"tma_wgmma_kernel<[^>]*>",
+                                    key.replace(" ", ""))] if m}
     log("whisper", B=B, S=S, enc_frames=cfg.enc_seq,
         layers=f"{cfg.n_enc_layers}+{cfg.n_layers}", policy="fused",
         prefill_ms=f"{dt * 1e3:.1f}", decode_ms_per_step=f"{step_ms:.2f}",
+        traced_device_ms=f"{sum(r[1] for r in top):.1f}",
+        mainloop=json.dumps(mainloop).replace(" ", ""),
         prefill_tokens=",".join(map(str, tok.tolist())),
         decode_tokens_slot0=",".join(map(str, dec[0].tolist())),
         launches=_nonzero(counted), traced_launches=_nonzero(counted),
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    for key, ms, n in top[:5]:
+        log("whisper", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
+            launches=n)
     del params, cache, frames
     torch.cuda.empty_cache()
     return counted
@@ -901,6 +913,8 @@ def prefill_phase(launches):
     counted, tok, dt, top = _counted_and_traced(
         launches, "prefill", lambda: prefill(params, {"tokens": tokens}),
         QWEN_FUSED)
+    if counted["flash_attention_proj"] != cfg.n_layers:
+        raise AssertionError(f"prefill: launches {counted}")
     with torch.inference_mode():
         with use_policy("fused"):
             hidden, _ = steps.forward(cfg, params, tokens)
@@ -970,7 +984,7 @@ def pallas_prefill_phase(launches, cfg, params, fused_token: int) -> dict:
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(pcfg, policy="tuned")
     prefill(params, {"tokens": tokens[:, :16]})          # warm-up
-    counted, tok, dt, _ = _counted_and_traced(
+    counted, tok, dt, top = _counted_and_traced(
         launches, "pallas_prefill",
         lambda: prefill(params, {"tokens": tokens}), ("flash_attention",))
     want = {n: 0 for n in counted} | {"flash_attention": pcfg.n_layers}
@@ -982,7 +996,11 @@ def pallas_prefill_phase(launches, cfg, params, fused_token: int) -> dict:
     log("pallas_prefill", B=1, S=512, layers=pcfg.n_layers, policy="tuned",
         ms=f"{dt * 1e3:.1f}", token=token,
         token_equal_to_fused=token == fused_token,
-        launches=_nonzero(counted))
+        launches=_nonzero(counted),
+        traced_device_ms=f"{sum(r[1] for r in top):.1f}")
+    for key, ms, n in top[:5]:
+        log("pallas_prefill", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
+            launches=n)
     return counted
 
 

@@ -70,7 +70,8 @@ SIGNATURES = {
         "rmsnorm_bf16": ([P, P, P, I, I, F, P], I)},
     "matmul_bias_act": {
         "matmul_bias_act_bf16": ([P, P, P, P, P, I, I, I, I, P], I),
-        "matmul_bias_act_workspace_floats": ([I, I, I], SZ)},
+        "matmul_bias_act_workspace_floats": ([I, I, I], SZ),
+        **WGMMA_PLAN},
     "flash_attention": {
         "flash_attention_bf16": ([P, P, P, P, I, I, I, I, I, I, F, P], I)},
 }

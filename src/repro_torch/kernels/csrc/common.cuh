@@ -25,25 +25,6 @@ extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dst[0..8) = src[col..col+8) of one row holding `n` elements; columns at
-// or past `n` read as zero. A 16-byte vector load when the run is whole
-// and aligned, element loads otherwise. `dst` is 16-byte aligned.
-__device__ __forceinline__ void load_row8(bf16* dst, const bf16* row,
-                                          int col, int n) {
-  const bf16* src = row + col;
-  if (col + 8 <= n && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      dst[i] = (col + i < n) ? src[i] : __float2bfloat16(0.f);
-  }
-}
-
-__device__ __forceinline__ void zero8(bf16* dst) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-}
-
 // 8 bf16 of one row starting at `col` (holding `n`), as one register:
 // a 16-byte load when whole and aligned, element loads (zero past `n`)
 // otherwise.

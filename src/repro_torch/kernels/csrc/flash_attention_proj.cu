@@ -14,10 +14,12 @@
 // operation-bound.
 //
 // Design: two launches in one call.
-//   1. `fa_proj_heads_kernel`, one (batch, head, 64-row q tile) a block
-//      (320 blocks at the qwen3 shape), writes each head's output, rounded
-//      to bf16, into a workspace O laid out (B, S, H, hd): row-major
-//      (B*S, H*hd).
+//   1. `fa_proj_heads_kernel`, the Hopper attention core of attention.cuh
+//      (a TMA ring of K and V tiles, Q K^T and P V on wgmma with the
+//      scores and the output accumulator in registers), one block a
+//      (batch, head, 128-row query tile): 160 blocks at the qwen3 shape. It
+//      writes each head's output, rounded to bf16, into a workspace O laid
+//      out (B, S, H, hd): row-major (B*S, H*hd).
 //   2. the TMA + wgmma mainloop of wgmma_gemm.cuh computes O @ wo, with wo
 //      (H, hd, dm) read as (H*hd, dm) row-major: one f32 accumulator over
 //      all heads, rounded once.
@@ -35,19 +37,14 @@
 namespace {
 constexpr int HD = 128;
 
-__global__ void __launch_bounds__(attn::THREADS)
-fa_proj_heads_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     int H, int KV, int S, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  attn::attend<HD>(q + ((size_t)b * H + h) * S * HD,
-                   k + ((size_t)b * KV + kvh) * S * HD,
-                   v + ((size_t)b * KV + kvh) * S * HD,
+__global__ void __launch_bounds__(attn::THREADS, 1)
+fa_proj_heads_kernel(const __grid_constant__ attn::Maps maps,
+                     bf16* __restrict__ o, int H, int KV, int S, int causal) {
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  attn::attend<HD>(maps, bh, b * KV + h / (H / KV),
                    o + (size_t)b * S * H * HD + (size_t)h * HD,
-                   (size_t)H * HD, S, blockIdx.x * attn::BQ, causal,
-                   1.0f / sqrtf((float)HD), smem);
+                   (size_t)H * HD, S, attn::first_row(), causal,
+                   1.0f / sqrtf((float)HD));
 }
 }  // namespace
 
@@ -66,15 +63,17 @@ extern "C" int flash_attention_proj_bf16(const void* q, const void* k,
   if (hd != HD || B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
       dm <= 0 || !hopper::takes(dm, H * HD) || workspace == nullptr)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = attn::smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_proj_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  attn::Maps maps;
+  cudaError_t err = attn::encode_maps<HD>(&maps, q, k, v, B, H, KV, S);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = attn::Layout<HD>::SMEM;
+  err = cudaFuncSetAttribute(fa_proj_heads_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return (int)err;
   bf16* o = static_cast<bf16*>(workspace);
-  const dim3 grid((S + attn::BQ - 1) / attn::BQ, H, B);
-  fa_proj_heads_kernel<<<grid, attn::THREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, H, KV, S, causal);
+  fa_proj_heads_kernel<<<attn::grid(B, H, S), attn::THREADS, smem,
+                         (cudaStream_t)stream>>>(maps, o, H, KV, S, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return hopper::launch<EPI_NONE, hopper::OWNER_FLASH_ATTENTION_PROJ>(

@@ -6,18 +6,24 @@
 // epilogue). The double rounding is the reference kernel's: its matmul body
 // stores acc.astype(bf16), and the epilogue hook adds the bias to that
 // already-rounded value in f32, applies the activation and rounds again
-// (`ops._ref_matmul_bias_act` rounds once).
+// (`epilogue<EPI_BIAS*>` of common.cuh, on every path;
+// `ops._ref_matmul_bias_act` rounds once).
 //
 // Bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s): whisper-small's encoder
 // FFN at 8 x 1500 frames (M = 12000, K 768 / N 3072 and back) is 56.6 GFLOP
 // a call, at least 57 us, bound by operations.
 //
-// Design: the same two matmul paths as rmsnorm_matmul (see common.cuh):
-// split-K weight streaming for M <= 16, tiled wmma above, M masked at the
-// ragged edge (12000 is no multiple of the 64-row tile). The bias is read
-// and the activation applied in the epilogue (the tile store, or the
-// split-K finish), so the pre-activation never round-trips device memory.
-#include "common.cuh"
+// Design, by shape:
+//   * M > 16, K and N multiples of 8 (whisper's encoder MLP): the TMA +
+//     wgmma mainloop of wgmma_gemm.cuh under an owner of its own, the bias
+//     read 8 values a load and the activation applied in its register
+//     epilogue; at M 12000 it walks 1,316 tiles of 128 x 224 (N 3072) or
+//     470 of 128 x 160 (N 768) on 132 persistent blocks;
+//   * M <= 16 (decode): the split-K weight streaming of common.cuh, the
+//     bias and activation in the split-K finish;
+//   * any other M > 16: the 64 x 128 wmma tile of common.cuh.
+// The pre-activation never round-trips device memory.
+#include "wgmma_gemm.cuh"
 
 extern "C" size_t matmul_bias_act_workspace_floats(int M, int N, int K) {
   return split_k_workspace_floats(M, N, K);
@@ -29,16 +35,26 @@ extern "C" int matmul_bias_act_bf16(const void* a, const void* b,
                                     void* workspace, int M, int N, int K,
                                     int act, void* stream) {
   float* ws = (float*)workspace;
+  const bool mainloop = hopper::takes_prefill(M, N, K);
   switch (act) {
     case 0:
-      return launch_matmul<false, EPI_BIAS>(a, nullptr, b, bias, out, ws, M,
-                                            N, K, 0.f, stream);
+      return mainloop
+          ? hopper::launch<EPI_BIAS, hopper::OWNER_MATMUL_BIAS_ACT>(
+                a, b, bias, out, M, N, K, stream)
+          : launch_matmul<false, EPI_BIAS>(a, nullptr, b, bias, out, ws, M,
+                                           N, K, 0.f, stream);
     case 1:
-      return launch_matmul<false, EPI_BIAS_GELU>(a, nullptr, b, bias, out, ws,
-                                                 M, N, K, 0.f, stream);
+      return mainloop
+          ? hopper::launch<EPI_BIAS_GELU, hopper::OWNER_MATMUL_BIAS_ACT>(
+                a, b, bias, out, M, N, K, stream)
+          : launch_matmul<false, EPI_BIAS_GELU>(a, nullptr, b, bias, out, ws,
+                                                M, N, K, 0.f, stream);
     case 2:
-      return launch_matmul<false, EPI_BIAS_SILU>(a, nullptr, b, bias, out, ws,
-                                                 M, N, K, 0.f, stream);
+      return mainloop
+          ? hopper::launch<EPI_BIAS_SILU, hopper::OWNER_MATMUL_BIAS_ACT>(
+                a, b, bias, out, M, N, K, stream)
+          : launch_matmul<false, EPI_BIAS_SILU>(a, nullptr, b, bias, out, ws,
+                                                M, N, K, 0.f, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,6 +2,17 @@
 // bf16 in and out, f32 accumulation, one rounding before the epilogue (the
 // `epilogue<EPI>` of common.cuh, as gemm::tile_kernel applies it).
 //
+// It is the matrix product of the Pallas kernels `repro/kernels/matmul.py`
+// _matmul_kernel (bf16) and of `repro/kernels/fused.py`
+// build_rmsnorm_matmul, build_matmul_bias_act, build_matmul_residual_add
+// and _fa_proj_kernel's projection, at M > 16. Bound on an H100: 2MNK
+// operations at 989 TFLOP/s (qwen3-14b's prefill products at M 512 take
+// 27-92 us, whisper-small's encoder MLP at M 12000 57 us), above the bytes
+// of its operands. What holds it from that: a m64 wgmma reads B from
+// shared memory for each 64-row warpgroup, and both consumer warpgroups
+// run a tile's epilogue while the tensor cores wait (an activation's
+// epilogue at K 768 costs about as much as the tile's products).
+//
 // Shape of the kernel (a block of 384 threads walks output tiles of BM =
 // 128 rows by BN columns):
 //   * warpgroup 0 is the producer: after giving up registers (setmaxnreg),
@@ -45,8 +56,12 @@
 //
 // Each caller names itself in the kernel's last template argument, OWNER
 // (a plain int, so a profiler trace reads `tma_wgmma_kernel<BN,EPI,
-// OWNER>`): the four wrappers that launch the mainloop each have
+// OWNER>`): the five wrappers that launch the mainloop each have
 // instantiations of their own, which is what a trace counts them by.
+//
+// The attention core (attention.cuh) builds on the same pieces: the
+// mbarrier and TMA wrappers (with a 3-D box load and 3-D tensor maps),
+// the swizzled descriptors, the register hand-over and `store_rows`.
 //
 // Tensor maps are encoded on the host for every call (a pointer can be
 // reused by the caching allocator for another tensor, so they are not
@@ -58,7 +73,9 @@
 // of the SMs (`pick_bn`): qwen3-14b's prefill at M = 512 takes 128 x 160
 // at N 5120 (128 tiles, one wave), 128 x 224 at N 7168 (128 tiles) and
 // 128 x 176 at N 17408 (396 tiles, three waves, persistent); 4096^3 takes
-// 128 x 256 (512 tiles, persistent on 132 blocks).
+// 128 x 256 (512 tiles, persistent on 132 blocks); whisper-small's encoder
+// MLP at M 12000 takes 128 x 224 at N 3072 (1,316 tiles) and 128 x 160 at
+// N 768 (470 tiles), both persistent.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; no driver symbol is linked
@@ -76,7 +93,8 @@ constexpr int GROUP = 8;                      // row tiles a band of the walk
 
 // The wrapper that launches an instantiation (its OWNER argument).
 enum : int { OWNER_RMSNORM_MATMUL = 0, OWNER_FLASH_ATTENTION_PROJ = 1,
-             OWNER_MATMUL = 2, OWNER_MATMUL_RESIDUAL_ADD = 3 };
+             OWNER_MATMUL = 2, OWNER_MATMUL_RESIDUAL_ADD = 3,
+             OWNER_MATMUL_BIAS_ACT = 4 };
 
 template <int BN>
 struct Tile {
@@ -131,6 +149,34 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// One 3-D TMA box (a box of rows of slab c2), completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Hand registers between warpgroups: the producer gives its up, the
+// consumers take them (both called by a whole warpgroup, once, at the top
+// of a branch that never rejoins the other).
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // A shared-memory matrix descriptor for the 128-byte swizzle: start
@@ -388,13 +434,15 @@ __device__ __forceinline__ void tile_origin(int tile, int mt, int nt,
 // 32-column chunk are transposed with shuffles (lane q receives group q
 // of the chunk, its column pair p from lane p), so that each lane rounds 8
 // contiguous columns through epilogue<EPI> and stores them as one 16-byte
-// vector; the residual is read likewise. N % 8 == 0, so a group lies in
-// or out of the matrix whole.
+// vector; the residual (M, N) or the bias (N,) is read likewise, 8 values
+// a load. N % 8 == 0, so a group lies in or out of the matrix whole. Rows
+// are `ld` elements apart in `out` and in the residual.
 template <int BN, int EPI>
 __device__ __forceinline__ void store_rows(const float (&acc)[BN / 2],
                                            const bf16* __restrict__ extra,
                                            bf16* __restrict__ out, int r0,
-                                           int n0, int M, int N, int lane) {
+                                           int n0, int M, int N, int lane,
+                                           size_t ld) {
   constexpr int GROUPS = BN / 8;
   const int q = lane % 4;
 #pragma unroll
@@ -423,15 +471,13 @@ __device__ __forceinline__ void store_rows(const float (&acc)[BN / 2],
       }
       const int g = 4 * c + q, row = r0 + 8 * h, col = n0 + 8 * g;
       if (g >= GROUPS || row >= M || col >= N) continue;
-      const size_t idx = (size_t)row * N + col;
-      __align__(16) bf16 res[8], y[8];
-      if (EPI == EPI_RESID)
-        *reinterpret_cast<uint4*>(res) =
-            *reinterpret_cast<const uint4*>(extra + idx);
+      const size_t idx = (size_t)row * ld + col;
+      __align__(16) bf16 ext[8], y[8];
+      if (EPI != EPI_NONE)           // the residual's 8 values, or the bias's
+        *reinterpret_cast<uint4*>(ext) = *reinterpret_cast<const uint4*>(
+            extra + (EPI == EPI_RESID ? idx : (size_t)col));
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        y[i] = EPI == EPI_RESID ? epilogue<EPI>(v[i], res, i, col + i)
-                                : epilogue<EPI>(v[i], extra, idx + i, col + i);
+      for (int i = 0; i < 8; ++i) y[i] = epilogue<EPI>(v[i], ext, i, i);
       *reinterpret_cast<uint4*>(out + idx) = *reinterpret_cast<const uint4*>(y);
     }
   }
@@ -467,12 +513,10 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   // `it` counts the block's k steps over all its tiles: stage it % STAGES,
   // in its (it / STAGES)-th use
   if (wg == 0) {                              // producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    reg_dealloc<40>();
     if (t == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&map_a)) : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
-                       reinterpret_cast<uint64_t>(&map_b)) : "memory");
+      prefetch_map(&map_a);
+      prefetch_map(&map_b);
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         int m0, n0;
@@ -491,7 +535,7 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   } else {                                    // consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    reg_alloc<232>();
     const uint32_t half = (wg - 1) * 64 * 128;     // 64 rows of 128 bytes
     // m64nBNk16 layout: warp w, lane l hold rows 16w + l/4 (+8) and, for
     // each 8-column group j, columns 8j + 2(l%4) (+1)
@@ -528,7 +572,7 @@ tma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
       store_rows<BN, EPI>(acc, extra, out,
                           m0 + (wg - 1) * 64 + warp * 16 + lane / 4, n0, M,
-                          N, lane);
+                          N, lane, N);
     }
   }
 }
@@ -575,17 +619,22 @@ inline EncodeTiled encode_fn() {
 
 // The tensor map of a row-major (rows, cols) bf16 matrix read in boxes of
 // 64 columns by `box_rows` rows, 128-byte swizzled, zero past its edges.
+// With `slabs` > 0 the map is 3-D: `slabs` such matrices end to end, a box
+// reading rows of one slab only (zero past that slab's last row, where a
+// 2-D map over all the rows would read the next slab's).
 inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rows,
-                          int cols, int box_rows) {
+                          int cols, int box_rows, int slabs = 0) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BOX, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BOX, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        slabs > 0 ? 3 : 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -65,7 +65,8 @@ def counts() -> dict:
 # each wrapper instantiates it with (`hopper::OWNER_*`, csrc/wgmma_gemm.cuh).
 TILE_N = (128, 160, 176, 224, 256)
 MAINLOOP_OWNER = {"rmsnorm_matmul": 0, "flash_attention_proj": 1,
-                  "matmul": 2, "matmul_residual_add": 3}
+                  "matmul": 2, "matmul_residual_add": 3,
+                  "matmul_bias_act": 4}
 
 
 def _mainloop(wrapper: str, epi: int) -> tuple:
@@ -77,14 +78,14 @@ def _mainloop(wrapper: str, epi: int) -> tuple:
 
 # The device kernel that opens each launch of a wrapper (a split-K finish,
 # a partial-sum finish or the wgmma mainloop may follow it), as a profiler
-# names it, spaces removed. The four matmul entry points instantiate the
+# names it, spaces removed. The five matmul entry points instantiate the
 # same templates with other flags (<prologue, epilogue code>, common.cuh;
 # <BN, epilogue code, owner>, wgmma_gemm.cuh), so each has names of its
-# own. matmul's and matmul_residual_add's M > 16 calls open with the
-# mainloop, counted by their own instantiations; rmsnorm_matmul's and
-# flash_attention_proj's open with a kernel of their own (the row
-# normalisation, the per-head attention), which counts them, and their
-# mainloop instantiations are named by no pattern.
+# own. matmul's, matmul_residual_add's and matmul_bias_act's M > 16 calls
+# open with the mainloop, counted by their own instantiations;
+# rmsnorm_matmul's and flash_attention_proj's open with a kernel of their
+# own (the row normalisation, the per-head attention), which counts them,
+# and their mainloop instantiations are named by no pattern.
 ENTRY_KERNELS = {
     "rmsnorm_matmul": ("skinny::partial_kernel<true,0>",
                        "gemm::tile_kernel<true,0>", "norm_rows_kernel"),
@@ -101,10 +102,12 @@ ENTRY_KERNELS = {
     "dct8x8": ("dct8x8_kernel",),
     "rmsnorm": ("rmsnorm_kernel<",),
     "flash_attention": ("flash_attention_kernel<",),
-    "matmul_bias_act": tuple(f"{path}<false,{epi}>"
-                             for path in ("skinny::partial_kernel",
-                                          "gemm::tile_kernel")
-                             for epi in (2, 3, 4)),
+    "matmul_bias_act": (*(f"{path}<false,{epi}>"
+                          for path in ("skinny::partial_kernel",
+                                       "gemm::tile_kernel")
+                          for epi in (2, 3, 4)),
+                        *(k for epi in (2, 3, 4)
+                          for k in _mainloop("matmul_bias_act", epi))),
 }
 
 

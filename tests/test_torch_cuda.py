@@ -102,7 +102,11 @@ def test_cuda_matmul_residual_add_rounds_twice_like_the_kernel(cuda, m, k,
     (1, 40, 8, 512, 256, True), (1, 4, 2, 100, 256, True),
     (1, 6, 3, 70, 256, False), (1, 10, 2, 130, 144, True),
     (1, 40, 8, 512, 5120, True), (1, 40, 8, 512, 5120, False),
-    (2, 4, 2, 1000, 264, True), (2, 6, 3, 1000, 136, False)])
+    (2, 4, 2, 1000, 264, True), (2, 6, 3, 1000, 136, False),
+    # lengths no key or query tile divides, several batches and heads: a
+    # TMA box that read the next head's rows would show here
+    (3, 8, 2, 200, 256, False), (2, 5, 1, 33, 128, True),
+    (2, 4, 4, 1, 64, True)])
 def test_cuda_flash_attention_proj(cuda, b, h, kv, s, dm, causal):
     g = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(b, h, s, 128, generator=g, device=cuda).bfloat16()
@@ -361,7 +365,14 @@ def test_cuda_rmsnorm(cuda, dtype, m, d):
 @pytest.mark.parametrize("b,h,kv,s,hd,causal", [
     (1, 40, 8, 512, 128, True), (1, 40, 8, 512, 128, False),
     (1, 12, 12, 1000, 64, False), (1, 12, 12, 1000, 64, True),
-    (2, 4, 2, 70, 128, True), (2, 6, 3, 33, 64, False)])
+    (2, 4, 2, 70, 128, True), (2, 6, 3, 33, 64, False),
+    # B > 1, H > KV, S no 64-key or 128-row tile divides, both head sizes,
+    # causal and full: a K/V box reading the next head's rows shows here
+    (2, 8, 2, 200, 128, True), (2, 8, 2, 200, 128, False),
+    (3, 6, 3, 130, 64, True), (3, 6, 3, 130, 64, False),
+    # one query, one exact tile, a key tile of one key
+    (2, 2, 1, 1, 128, True), (1, 4, 2, 64, 64, False),
+    (1, 4, 1, 129, 128, True), (2, 3, 3, 4096, 64, True)])
 def test_cuda_flash_attention(cuda, b, h, kv, s, hd, causal):
     g = torch.Generator(device=cuda).manual_seed(10)
     q = _randn(g, b, h, s, hd, dtype=torch.bfloat16)
@@ -382,7 +393,15 @@ def test_cuda_flash_attention(cuda, b, h, kv, s, hd, causal):
                                        (70, 256, 130, "silu"),
                                        (5, 520, 300, "none"),
                                        (16, 72, 264, "gelu"),
-                                       (1, 768, 3072, "silu")])
+                                       (1, 768, 3072, "silu"),
+                                       # the mainloop at ragged M, all
+                                       # three activations; whisper's
+                                       # second MLP product (persistent)
+                                       (17, 136, 72, "gelu"),
+                                       (200, 136, 72, "silu"),
+                                       (130, 200, 200, "none"),
+                                       (2000, 520, 3000, "silu"),
+                                       (12000, 3072, 768, "none")])
 def test_cuda_matmul_bias_act(cuda, m, k, n, act):
     g = torch.Generator(device=cuda).manual_seed(11)
     a = _randn(g, m, k, dtype=torch.bfloat16)
@@ -395,6 +414,73 @@ def test_cuda_matmul_bias_act(cuda, m, k, n, act):
     assert got.dtype == a.dtype and got.shape == (m, n)
     torch.testing.assert_close(got.float(), fused.matmul_bias_act_plain(
         a, b, bias, act).float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (64, 16, 64),          # the mainloop, one k step
+    (64, 520, 64),         # the mainloop, 9 k steps
+    (2000, 16, 3000),      # persistent: 384 tiles, one k step each
+    (2000, 520, 3000),     # persistent, 9 k steps a tile
+    (8, 16, 64)])          # split-K
+def test_cuda_matmul_bias_act_rounds_twice_like_the_kernel(cuda, m, k, n):
+    """The Pallas kernel's two roundings, bf16(f32(bf16(acc)) + f32(bias)),
+    bit for bit (act none: with small integers every f32 sum is exact in
+    any order, so the kernel must equal the plain version exactly)."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    a = torch.randint(-32, 33, (m, k), generator=g, device=cuda).bfloat16()
+    b = torch.randint(-32, 33, (k, n), generator=g, device=cuda).bfloat16()
+    bias = (torch.randint(-64, 65, (n,), generator=g, device=cuda)
+            + 0.375).bfloat16()
+    got = fused.matmul_bias_act(a, b, bias, "none")
+    torch.cuda.synchronize()
+    want = fused.matmul_bias_act_plain(a, b, bias, "none")
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    once = (a.float() @ b.float() + bias.float()).bfloat16()  # one rounding
+    assert not torch.equal(got, once)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_bias_act_runs_the_mainloop_under_its_owner(cuda):
+    """At M > 16 (K, N % 8 == 0) each activation runs one
+    `tma_wgmma_kernel<BN,EPI,4>` (EPI 2 bias, 3 gelu, 4 silu), which the
+    trace counts as matmul_bias_act's and no other wrapper's."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    bf = torch.bfloat16
+    a = _randn(g, 300, 768, dtype=bf)
+    w = _randn(g, 768, 3072, dtype=bf, scale=768 ** -0.5)
+    bias = _randn(g, 3072, dtype=bf)
+
+    def run():
+        for act in fused.ACTS:
+            fused.matmul_bias_act(a, w, bias, act)
+
+    run()
+    torch.cuda.synchronize()
+    launches.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge = bias.float().sum()           # kernels at the trace's edges
+        run()
+        edge = edge + bias.float().sum()
+        torch.cuda.synchronize()
+    traced = launches.traced_launches(prof)
+    found = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        m = re.search(r"tma_wgmma_kernel<(\d+),(\d+),(\d+)>",
+                      e.key.replace(" ", ""))
+        if m:
+            found[m.group(2), m.group(3)] = found.get(
+                (m.group(2), m.group(3)), 0) + e.count
+    assert found == {("2", "4"): 1, ("3", "4"): 1, ("4", "4"): 1}, found
+    assert traced["matmul_bias_act"] == 3 == fused.matmul_bias_act.launches
+    assert sum(traced.values()) == 3, traced
 
 
 @pytest.mark.cuda
@@ -424,8 +510,8 @@ def test_cuda_new_kernels_raise_rather_than_fall_back(cuda):
 @pytest.mark.cuda
 def test_cuda_traced_launches_of_the_new_kernels(cuda):
     """A trace counts each new kernel's launches by its entry kernel:
-    matmul_bias_act's three activations on both matmul paths apart from
-    matmul's and matmul_residual_add's."""
+    matmul_bias_act's three activations on split-K and on the mainloop
+    apart from matmul's and matmul_residual_add's."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=cuda).manual_seed(12)
@@ -439,7 +525,7 @@ def test_cuda_traced_launches_of_the_new_kernels(cuda):
     def run():
         for act in fused.ACTS:
             fused.matmul_bias_act(small, w, bias, act)   # split-K path
-            fused.matmul_bias_act(big, w, bias, act)     # tiled path
+            fused.matmul_bias_act(big, w, bias, act)     # the mainloop
         matmul.matmul(big, w)
         rmsnorm(x, x[0])
         rmsnorm(small, small[0])

@@ -162,11 +162,11 @@ def test_no_pattern_holds_for_another_wrappers_kernel(wrapper):
 
 
 MAINLOOP_WRAPPERS = ("rmsnorm_matmul", "flash_attention_proj", "matmul",
-                     "matmul_residual_add")
+                     "matmul_residual_add", "matmul_bias_act")
 
 
 def test_each_mainloop_instantiation_is_launched_by_one_wrapper():
-    """Four wrappers launch `hopper::tma_wgmma_kernel`, each under an OWNER
+    """Five wrappers launch `hopper::tma_wgmma_kernel`, each under an OWNER
     of its own. Every instantiation a pattern names is launched by exactly
     one wrapper's source: the wrapper whose pattern it is."""
     kernels = dict(kernels_of(CSRC / "wgmma_gemm.cuh"))
@@ -179,7 +179,8 @@ def test_each_mainloop_instantiation_is_launched_by_one_wrapper():
                 continue
             named += 1
             assert [w for w in WRAPPERS if p in insts[w]] == [wrapper], p
-    assert named == len(launches.TILE_N) * 2      # matmul, matmul_residual_add
+    # matmul, matmul_residual_add, and matmul_bias_act's three activations
+    assert named == len(launches.TILE_N) * 5
 
 
 def test_each_mainloop_caller_has_an_owner_of_its_own():
@@ -223,3 +224,49 @@ def test_the_parser_reads_namespaces_and_templates():
                                            "skinny::finish_kernel<4>"}
     assert owned("matmul_residual_add")[1] >= {
         "hopper::tma_wgmma_kernel<160,1,3>", "gemm::tile_kernel<false,1>"}
+
+
+def test_matmul_bias_act_launches_the_mainloop_under_owner_4():
+    """Every `hopper::launch<>` of matmul_bias_act.cu names OWNER 4, one
+    call an activation (bias, bias + gelu, bias + silu), and launches.py
+    counts it so."""
+    codes = enum_codes("wgmma_gemm.cuh")
+    assert codes["OWNER_MATMUL_BIAS_ACT"] == "4"
+    assert launches.MAINLOOP_OWNER["matmul_bias_act"] == 4
+    epi = epi_codes()
+    assert sorted(mainloop_calls("matmul_bias_act")) == [
+        (epi["EPI_BIAS"], "4"), (epi["EPI_BIAS_GELU"], "4"),
+        (epi["EPI_BIAS_SILU"], "4")]
+
+
+@pytest.mark.parametrize("epi", (2, 3, 4))
+@pytest.mark.parametrize("bn", launches.TILE_N)
+def test_owner_4_instantiations_count_as_matmul_bias_act_only(bn, epi):
+    """A trace's `tma_wgmma_kernel<BN,EPI,4>` (as `traced_launches` matches
+    it, by substring) counts for matmul_bias_act and for no other
+    wrapper."""
+    name = f"hopper::tma_wgmma_kernel<{bn},{epi},4>"
+    matched = [w for w, patterns in launches.ENTRY_KERNELS.items()
+               if any(p in name for p in patterns)]
+    assert matched == ["matmul_bias_act"], (name, matched)
+    assert name in owned("matmul_bias_act")[1]
+
+
+@pytest.mark.parametrize("wrapper,kernel", [
+    ("flash_attention", "flash_attention_kernel"),
+    ("flash_attention_proj", "fa_proj_heads_kernel")])
+def test_the_attention_kernels_run_the_hopper_core(wrapper, kernel):
+    """Both attention kernels keep their names (and so their patterns) and
+    run attention.cuh's core, which reaches the mainloop's TMA and wgmma
+    pieces and defines no kernel of its own."""
+    src = CSRC / f"{wrapper}.cu"
+    assert {CSRC / "attention.cuh", CSRC / "wgmma_gemm.cuh"} <= includes_of(
+        src)
+    assert kernels_of(CSRC / "attention.cuh") == []
+    (name, templ), = kernels_of(src)
+    assert name == kernel
+    assert "attn::attend<" in _strip(src.read_text())
+    shown = f"{kernel}<128>" if templ else kernel    # as a trace names it
+    traced = [w for w, patterns in launches.ENTRY_KERNELS.items()
+              if any(p in shown for p in patterns)]
+    assert traced == [wrapper]
