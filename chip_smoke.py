@@ -67,8 +67,13 @@ whisper, prefill, pallas_prefill and serve runs and read right after;
 every kernel of a phase must have launched and no plain version may have
 run on a CUDA tensor. A wrapper counts the
 launches it makes; the launches a replayed CUDA graph makes are counted
-from the profiler's trace (`launches.traced_launches`). The last two lines
-are the kernels' JSON record and {"ok": true, "device": {...}}.
+from the profiler's trace (`launches.traced_launches`). Every trace but
+the serve and profile phases' holds its work between two sentinel
+kernels (`torch.cuda._sleep`), after a primer kernel (a trace's first
+kernel record can go missing) and 0.1 s of host time: a trace that lost
+either sentinel is logged and taken again with 1 s, then 4 s of host
+time, and the done line lists it. The last two lines are the kernels'
+JSON record and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -226,7 +231,8 @@ def main() -> int:
                                "matmul_bias_act": whisper_counts,
                                "rmsnorm": compose_counts}[name][name]
     records += suite_records
-    log("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
+        traces_taken_again=json.dumps(LOST_TRACES).replace(" ", ""))
     print(gpu_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -277,25 +283,89 @@ def on_mainloop(schedule: str) -> bool:
     return schedule.startswith(("persistent", "one_tile_per_block"))
 
 
+SENTINEL = "spin_kernel"          # torch.cuda._sleep's kernel
+PADS_S = (0.1, 1.0, 4.0)          # host time kept from a trace's ends, by try
+LOST_TRACES: list[str] = []       # traces taken again: "what:sentinels seen"
+
+
+def device_events(prof) -> list:
+    """The device kernels of a torch.profiler trace, sentinels left out."""
+    return [e for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", ""))
+            and SENTINEL not in e.key]
+
+
+def sentinels(prof) -> int:
+    """How many sentinel kernels a torch.profiler trace holds."""
+    return sum(e.count for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", ""))
+               and SENTINEL in e.key)
+
+
+def open_record(pad_s: float) -> None:
+    """Just after a profiler starts: wait `pad_s` on the host, run a
+    primer kernel, then launch the opening sentinel kernel. On the H100 a
+    trace's first kernel record could go missing (one sentinel of two
+    seen, the traced work whole), so a primer, which nothing counts, goes
+    first; the pads keep the work clear of the trace's ends."""
+    time.sleep(pad_s)
+    torch.zeros(1, device="cuda")       # the primer
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1000)
+
+
+def close_record(pad_s: float) -> None:
+    """Just before a profiler stops: the closing sentinel, then `pad_s`."""
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(pad_s)
+
+
+def traced(what: str, fn):
+    """Run `fn` under torch.profiler between two sentinel kernels and
+    return the profile. A trace that lost device records shows itself by a
+    sentinel gone missing: it is logged (and noted in LOST_TRACES) and
+    taken again with a longer pad, once for each of PADS_S; no whole trace
+    in that many raises. `fn` runs once a trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for pad_s in PADS_S:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_record(pad_s)
+            fn()
+            close_record(pad_s)
+        seen = sentinels(prof)
+        if seen == 2:
+            return prof
+        LOST_TRACES.append(f"{what}:{seen}")
+        dev = sorted((e for e in prof.events()
+                      if "CUDA" in str(getattr(e, "device_type", ""))),
+                     key=lambda e: e.time_range.start)
+        log("trace", what=what, pad_s=pad_s, sentinels=f"{seen}/2",
+            device_events=len(dev), first=json.dumps(
+                [(e.name[:40], round(e.time_range.start / 1e3, 3))
+                 for e in dev[:3]]).replace(" ", ""),
+            last=json.dumps(
+                [(e.name[:40], round(e.time_range.start / 1e3, 3))
+                 for e in dev[-2:]]).replace(" ", ""))
+    raise AssertionError(f"{what}: {len(PADS_S)} traces each lost device "
+                         f"records (sentinels seen in the last: {seen} of 2)")
+
+
 def mainloop_instance(fn) -> str:
     """The `hopper::tma_wgmma_kernel<BN,EPI,OWNER>` instantiation one call
     of `fn` runs on the card, as a torch.profiler trace names it; raises
     unless the trace shows exactly one."""
-    from torch.profiler import ProfilerActivity, profile
-
-    edge = torch.zeros(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        edge += 1                       # kernels at the trace's edges
-        fn()
-        edge += 1
-        torch.cuda.synchronize()
-    names = {m.group(0).replace(" ", "") for e in prof.key_averages()
-             if "CUDA" in str(getattr(e, "device_type", ""))
+    prof = traced("mainloop_instance", fn)
+    events = device_events(prof)
+    names = {m.group(0).replace(" ", "") for e in events
              for m in [re.search(r"tma_wgmma_kernel<[^>]*>", e.key)] if m}
     if len(names) != 1:
         raise AssertionError(f"expected one mainloop kernel in the trace, "
-                             f"saw {sorted(names)}")
+                             f"saw {sorted(names)} among "
+                             f"{[e.key[:80] for e in events]}")
     return names.pop()
 
 
@@ -940,8 +1010,6 @@ def _counted_and_traced(launches, phase, fn, must_launch):
     same launches (eager: one device launch per wrapper call). Returns
     (the counts, fn's result, its wall seconds, the traced run's device
     kernels as (name, ms, launches), most time first)."""
-    from torch.profiler import ProfilerActivity, profile
-
     launches.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -949,19 +1017,19 @@ def _counted_and_traced(launches, phase, fn, must_launch):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counted = _check_counts(launches, phase, must_launch)
-    launches.reset_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def counted_fn():
+        launches.reset_counts()         # each trace counts its own run
         fn()
-        torch.cuda.synchronize()
-    traced = launches.traced_launches(prof)
-    if traced != counted or _check_counts(launches, phase,
-                                          must_launch) != counted:
-        raise AssertionError(f"{phase}: the trace saw {traced}, the "
+
+    prof = traced(phase, counted_fn)
+    seen = launches.traced_launches(prof)
+    if seen != counted or _check_counts(launches, phase,
+                                        must_launch) != counted:
+        raise AssertionError(f"{phase}: the trace saw {seen}, the "
                              f"wrappers counted {counted}")
     top = sorted(((e.key, e.device_time_total / 1e3, e.count)
-                  for e in prof.key_averages() if e.device_time_total > 0
-                  and "CUDA" in str(getattr(e, "device_type", ""))),
+                  for e in device_events(prof) if e.device_time_total > 0),
                  key=lambda r: -r[1])
     return counted, out, dt, top
 
