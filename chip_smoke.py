@@ -14,12 +14,16 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
   kernels  each kernel of the model paths vs its plain version at those
            paths' shapes, in bf16 (rmsnorm also in f32): max abs error
            against the stated tolerance, kernel, plain and library times
-           (CUDA events, L2 flushed before each launch), and the card's
+           (CUDA events, L2 flushed before each launch; for rmsnorm and
+           the decode kernel's rows also the kernel's and the library's
+           device time replayed as a CUDA graph), and the card's
            least time for the same work (the bound); each GEMM row names
-           its schedule: split-K, the wmma tile, or the Hopper mainloop,
-           persistent or one tile per block, with its N tile and tiles
-           and the mainloop instantiation a profiler trace of one call
-           shows
+           its schedule: at M <= 16 the decode kernel (N tile, cluster,
+           CTAs) or split-K, above it the wmma tile or the Hopper
+           mainloop, persistent or one tile per block, with its N tile
+           and tiles; and the decode or mainloop instantiation a profiler
+           trace of one call shows (the decode kernel: one launch, no
+           split-K kernel)
   suite    matmul, axpy, dotp, conv2d_3x3 and dct8x8 through
            repro_torch.kernels.ops under the default policy, in f32 (and
            bf16 for matmul and axpy; bf16 matmul rows name their
@@ -60,20 +64,22 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            replayed (timed) and run eagerly (the tokens must agree)
   profile  torch.profiler over decode steps of that model (8 slots, paged),
            run eagerly and replayed as a CUDA graph: wall time per step,
-           the device's busy and idle shares in each, time by kernel
+           the device's busy and idle shares in each, time by kernel; the
+           traced launches a step must equal one eager step's wrapper
+           counts, with no split-K kernel
 
 The kernel launch counts are set to 0 before each of the suite, compose,
-whisper, prefill, pallas_prefill and serve runs and read right after;
-every kernel of a phase must have launched and no plain version may have
-run on a CUDA tensor. A wrapper counts the
-launches it makes; the launches a replayed CUDA graph makes are counted
-from the profiler's trace (`launches.traced_launches`). Every trace but
-the serve and profile phases' holds its work between two sentinel
-kernels (`torch.cuda._sleep`), after a primer kernel (a trace's first
-kernel record can go missing) and 0.1 s of host time: a trace that lost
-either sentinel is logged and taken again with 1 s, then 4 s of host
-time, and the done line lists it. The last two lines are the kernels'
-JSON record and {"ok": true, "device": {...}}.
+whisper, prefill, pallas_prefill, serve and profile runs and read right
+after; every kernel of a phase must have launched and no plain version
+may have run on a CUDA tensor. A wrapper counts the launches it makes;
+the launches a replayed CUDA graph makes are counted from the profiler's
+trace (`launches.traced_launches`). Every trace but the serve phase's
+holds its work between two sentinel kernels (`torch.cuda._sleep`), after
+64 primer kernels (a trace's first kernel records can go missing) and
+0.1 s of host time: a trace that lost either sentinel is logged and taken
+again with 1 s, then 4 s of host time, and the done line lists it. The
+last two lines are the kernels' JSON record and {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -161,29 +167,37 @@ def warm_ms(fn, iters: int = 200) -> float:
     return s.elapsed_time(e) / iters
 
 
-def graph_ms(fn, iters: int = 200) -> float:
+def graph_ms(fn, iters: int = 200, flush=None) -> float:
     """Device time per launch of `fn`: `iters` launches captured once as a
     CUDA graph and replayed between one pair of events, so the host's
-    dispatch between them is not counted (warm, as `warm_ms`)."""
+    dispatch between them is not counted (warm, as `warm_ms`). Given a
+    `flush` buffer, each launch follows a zeroing of it (the L2 flushed, as
+    `Timer` does), and a graph of the flushes alone is subtracted."""
     fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.graph(graph, stream=side,
-                          capture_error_mode="thread_local"):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    graph.replay()
-    e.record()
-    torch.cuda.synchronize()
-    del graph
-    return s.elapsed_time(e) / iters
+    times = []
+    for with_fn in ((False, True) if flush is not None else (True,)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            for _ in range(iters):
+                if flush is not None:
+                    flush.zero_()
+                if with_fn:
+                    fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        del graph
+        times.append(s.elapsed_time(e))
+    return (times[-1] - (times[0] if flush is not None else 0.0)) / iters
 
 
 def main() -> int:
@@ -212,7 +226,7 @@ def main() -> int:
     cfg, params, prefill_counts, token = prefill_phase(launches)
     pallas_counts = pallas_prefill_phase(launches, cfg, params, token)
     serve_counts, serve_traced = serve_phase(launches, cfg, params)
-    profile_phase(cfg, params)
+    profile_phase(launches, cfg, params)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
@@ -258,17 +272,26 @@ REPLACES = {
 
 def gemm_schedule(name: str, m: int, k: int, n: int) -> str:
     """How GEMM wrapper `name` runs an (M, K, N) product, by the rule of
-    `hopper::takes_prefill`: "split_k" (M <= 16), "wmma_tile" (K or N not
-    a multiple of 8), or on the Hopper
-    mainloop "persistent" (more tiles than SMs: one block an SM walks
-    several) or "one_tile_per_block", with its N tile, tiles and blocks
-    (`wgmma_plan` of csrc/wgmma_gemm.cuh). flash_attention_proj's
+    `decode::takes` and `hopper::takes_prefill`: at M <= 16 "decode" (K
+    and N multiples of 8, K <= 32768: csrc/decode_gemm.cuh, with its N tile, cluster
+    size, CTAs, k rows a CTA and ring stages from `<name>_decode_plan`) or
+    "split_k"; above, "wmma_tile" (K or N not a multiple of 8), or on the
+    Hopper mainloop "persistent" (more tiles than SMs: one block an SM
+    walks several) or "one_tile_per_block", with its N tile, tiles and
+    blocks (`wgmma_plan` of csrc/wgmma_gemm.cuh). flash_attention_proj's
     projection always takes the mainloop."""
     from repro_torch.kernels import build
 
     if name != "flash_attention_proj":
         if m <= 16:
-            return "split_k"
+            if k % 8 or n % 8 or k > 32768:
+                return "split_k"
+            dp = (ctypes.c_int * 5)()
+            build.check(name, build.entry(name, f"{name}_decode_plan")(
+                m, n, k, dp))
+            bn, cluster, ctas, k_cta, stages = dp
+            return (f"decode,bn={bn},cluster={cluster},ctas={ctas},"
+                    f"k_per_cta={k_cta},stages={stages}")
         if k % 8 or n % 8:
             return "wmma_tile"
     plan = (ctypes.c_int * 3)()
@@ -283,16 +306,42 @@ def on_mainloop(schedule: str) -> bool:
     return schedule.startswith(("persistent", "one_tile_per_block"))
 
 
+MAINLOOP_KERNEL = r"tma_wgmma_kernel<[^>]*>"
+DECODE_KERNEL = r"tma_gemv_kernel<[^>]*>"
+
+
 SENTINEL = "spin_kernel"          # torch.cuda._sleep's kernel
 PADS_S = (0.1, 1.0, 4.0)          # host time kept from a trace's ends, by try
 LOST_TRACES: list[str] = []       # traces taken again: "what:sentinels seen"
 
 
 def device_events(prof) -> list:
-    """The device kernels of a torch.profiler trace, sentinels left out."""
+    """The device kernels of a torch.profiler trace, sentinels and primers
+    left out."""
     return [e for e in prof.key_averages()
             if "CUDA" in str(getattr(e, "device_type", ""))
-            and SENTINEL not in e.key]
+            and SENTINEL not in e.key and PRIMER not in e.key]
+
+
+def device_busy_ms(prof) -> float:
+    """The time at least one device kernel ran in a torch.profiler trace,
+    sentinels and primers left out: the union of their spans. Kernels
+    launched with programmatic dependent launch (the decode kernel) start
+    while the kernel before them runs and wait for it, so their spans
+    overlap, and the sum of kernel times overstates the busy time."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if "CUDA" in str(getattr(e, "device_type", ""))
+                   and SENTINEL not in e.name and PRIMER not in e.name)
+    busy, end = 0.0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy / 1e3
 
 
 def sentinels(prof) -> int:
@@ -302,14 +351,21 @@ def sentinels(prof) -> int:
                and SENTINEL in e.key)
 
 
+PRIMERS = 64                      # primer kernels ahead of a trace's work
+PRIMER = "FillFunctor<double>"    # theirs: a float64 fill, which nothing
+                                  # else of the port launches
+
+
 def open_record(pad_s: float) -> None:
-    """Just after a profiler starts: wait `pad_s` on the host, run a
-    primer kernel, then launch the opening sentinel kernel. On the H100 a
-    trace's first kernel record could go missing (one sentinel of two
-    seen, the traced work whole), so a primer, which nothing counts, goes
-    first; the pads keep the work clear of the trace's ends."""
+    """Just after a profiler starts: wait `pad_s` on the host, run PRIMERS
+    primer kernels, then launch the opening sentinel kernel. On the H100 a
+    trace's first kernel records can go missing (one of them in a prefill's
+    trace of ~3,000 records, up to 13 in a decode trace of ~15,000), so
+    primers, which nothing counts, go first; the pads keep the work clear
+    of the trace's ends."""
     time.sleep(pad_s)
-    torch.zeros(1, device="cuda")       # the primer
+    for _ in range(PRIMERS):
+        torch.zeros(1, dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
     torch.cuda._sleep(1000)
 
@@ -354,19 +410,24 @@ def traced(what: str, fn):
                          f"records (sentinels seen in the last: {seen} of 2)")
 
 
-def mainloop_instance(fn) -> str:
-    """The `hopper::tma_wgmma_kernel<BN,EPI,OWNER>` instantiation one call
-    of `fn` runs on the card, as a torch.profiler trace names it; raises
-    unless the trace shows exactly one."""
-    prof = traced("mainloop_instance", fn)
+def kernel_instance(fn, pattern: str = MAINLOOP_KERNEL) -> str:
+    """The kernel instantiation matching `pattern` (the mainloop's
+    `hopper::tma_wgmma_kernel<BN,EPI,OWNER>`, or the decode kernel's
+    `decode::tma_gemv_kernel<NORM,EPI>`) that one call of `fn` runs on the
+    card, as a torch.profiler trace names it; raises unless the trace shows
+    it exactly once and, for the decode kernel, no split-K kernel (one
+    launch a call, no finish)."""
+    prof = traced("kernel_instance", fn)
     events = device_events(prof)
-    names = {m.group(0).replace(" ", "") for e in events
-             for m in [re.search(r"tma_wgmma_kernel<[^>]*>", e.key)] if m}
-    if len(names) != 1:
-        raise AssertionError(f"expected one mainloop kernel in the trace, "
-                             f"saw {sorted(names)} among "
+    hits = [(m.group(0).replace(" ", ""), e.count) for e in events
+            for m in [re.search(pattern, e.key)] if m]
+    others = [e.key[:80] for e in events if "skinny::" in e.key]
+    if len(hits) != 1 or hits[0][1] != 1 or (
+            pattern == DECODE_KERNEL and others):
+        raise AssertionError(f"expected one {pattern} launch in the trace, "
+                             f"saw {hits} among "
                              f"{[e.key[:80] for e in events]}")
-    return names.pop()
+    return hits[0][0]
 
 
 def _compare(name, got, want, tol=TOL):
@@ -395,21 +456,31 @@ def kernel_phase() -> list[dict]:
         return (torch.randn(shape, generator=g, device="cuda")
                 * scale).to(dtype)
 
-    # name -> list of (label, err, tol, ms, plain, lib, bound, schedule)
+    # name -> list of (label, err, tol, ms, plain, lib, bound, schedule,
+    # graph times)
     cases = {}
 
     def case(name, label, kernel, plain, library, bnd, tol=TOL,
              schedule=None):
         err = _compare(f"{name} {label}", kernel(), plain(), tol)
+        graphed = {}
         if schedule and on_mainloop(schedule):
-            schedule += f",kernel={mainloop_instance(kernel)}"
+            schedule += f",kernel={kernel_instance(kernel)}"
+        elif schedule and schedule.startswith("decode"):
+            schedule += (f",kernel="
+                         f"{kernel_instance(kernel, DECODE_KERNEL)}")
+        if name == "rmsnorm" or (schedule or "").startswith("decode"):
+            # a few us of device time: also without the host's dispatch
+            graphed = {"graph_ms": graph_ms(kernel, 10, timer.flush),
+                       "library_graph_ms": graph_ms(library, 10,
+                                                    timer.flush)}
         cases.setdefault(name, []).append((
             label, err, tol, timer(kernel), timer(plain, 3), timer(library),
-            bnd, schedule))
+            bnd, schedule, graphed))
 
     K = 5120
     for m, n in ((8, 5120), (8, 1024), (8, 17408), (512, 5120),
-                 (512, 7168), (512, 17408)):
+                 (512, 7168), (512, 17408), (1, 5120), (16, 5120)):
         x, s, w = randn(m, K), randn(K, scale=0.1), randn(K, n,
                                                            scale=K ** -0.5)
         case("rmsnorm_matmul", f"M{m}xK{K}xN{n}",
@@ -478,10 +549,10 @@ def kernel_phase() -> list[dict]:
              TOL if dt == torch.bfloat16 else F32_TOL)
 
     # matmul_bias_act: whisper-small's encoder MLP at 8 x 1500 frames (gelu
-    # in, none out) on the mainloop, and a decode-sized M on split-K
+    # in, none out) on the mainloop, and decode-sized M on the decode kernel
     for m, k, n, act in ((12000, 768, 3072, "gelu"),
                          (12000, 3072, 768, "none"),
-                         (5, 768, 3072, "silu")):
+                         (5, 768, 3072, "silu"), (8, 3072, 768, "none")):
         a, w, bias = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
         lib_act = {"none": lambda t: t,
                    "gelu": lambda t: F.gelu(t, approximate="tanh"),
@@ -495,16 +566,17 @@ def kernel_phase() -> list[dict]:
 
     records = []
     for name, rows in cases.items():
-        for label, err, tol, ms, plain, lib, (bms, by), sched in rows:
+        for label, err, tol, ms, plain, lib, (bms, by), sched, gr in rows:
             log("kernel", name=name, shape=label, max_abs_err=f"{err:.3g}",
                 tol=f"rtol={tol['rtol']},atol={tol['atol']}",
                 kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                 library_ms=f"{lib:.4f}", bound_ms=f"{bms:.4f}",
-                bound_by=by, **({"schedule": sched} if sched else {}))
+                bound_by=by, **{k: f"{v:.4f}" for k, v in gr.items()},
+                **({"schedule": sched} if sched else {}))
         # the record of a kernel is its first row: the decode shape of the
         # qwen3 projections, the prefill shape of the attention kernels,
         # rmsnorm's prefill rows, whisper's first MLP product
-        label, err, tol, ms, plain, lib, (bms, by), _ = rows[0]
+        label, err, tol, ms, plain, lib, (bms, by), _, _ = rows[0]
         records.append({
             "name": name, "route": "cuda",
             "source": f"{SRC}/{name}.cu", "replaces": REPLACES[name],
@@ -513,7 +585,7 @@ def kernel_phase() -> list[dict]:
             "library_ms": lib, "shape": label,
             "rows": [{"shape": r[0], "max_abs_err": r[1], "ms": r[3],
                       "plain_ms": r[4], "library_ms": r[5],
-                      "bound_ms": r[6][0], "bound_by": r[6][1],
+                      "bound_ms": r[6][0], "bound_by": r[6][1], **r[8],
                       **({"schedule": r[7]} if r[7] else {})}
                      for r in rows]})
     del cases, timer
@@ -532,14 +604,15 @@ SUITE_REPLACES = {
     "conv2d": "src/repro/kernels/conv2d.py:28",
     "dct8x8": "src/repro/kernels/dct8x8.py:17",
 }
-PAPER, CARD, RAGGED = "paper", "card", "ragged"
+PAPER, CARD, RAGGED, DECODE = "paper", "card", "ragged", "decode"
 
 
 def suite_cases():
     """(name, size, dtype, label, args, bytes, flops, library, tol) for
     every case: the paper's sizes (benchmarks/bench_table1_kernels.py),
-    card sizes (working sets >= 10x the 50 MB L2) and one ragged shape per
-    kernel (edges that divide no tile). tol: assert_close keywords, or for
+    card sizes (working sets >= 10x the 50 MB L2), one ragged shape per
+    kernel (edges that divide no tile) and, for bf16 matmul, qwen3-14b's
+    decode shape (M = 8 slots: the decode kernel). tol: assert_close keywords, or for
     dotp the absolute error allowed."""
     import torch.nn.functional as F
 
@@ -559,7 +632,8 @@ def suite_cases():
                               (CARD, 4096, 4096, 4096, bf16),
                               (RAGGED, 1000, 136, 200, f32),
                               (RAGGED, 1000, 136, 200, bf16),
-                              (RAGGED, 5, 520, 300, bf16)):
+                              (RAGGED, 5, 520, 300, bf16),
+                              (DECODE, 8, 5120, 5120, bf16)):
         a = rand(m, k, dtype=dt)
         b = rand(k, n, dtype=dt, scale=1.0 if dt == f32 else k ** -0.5)
         tol = (dict(rtol=0.0, atol=1e-4 * k ** 0.5) if dt == f32 else TOL)
@@ -671,6 +745,10 @@ def suite_phase(launches) -> list[dict]:
         else:
             times = [timer(lambda: kernel(*args)),
                      timer(lambda: plain(*args), 3), timer(lib)]
+            if size == DECODE:    # a few us: also without host dispatch
+                extra = {"graph_ms": graph_ms(lambda: kernel(*args), 10,
+                                              timer.flush),
+                         "library_graph_ms": graph_ms(lib, 10, timer.flush)}
         peak = F32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
         bms, by = bound(byts, flops, peak)
         sched = {}
@@ -679,7 +757,10 @@ def suite_phase(launches) -> list[dict]:
             sched = {"schedule": gemm_schedule(name, m, k, n)}
             if on_mainloop(sched["schedule"]):
                 sched["schedule"] += (
-                    f",kernel={mainloop_instance(lambda: kernel(*args))}")
+                    f",kernel={kernel_instance(lambda: kernel(*args))}")
+            elif sched["schedule"].startswith("decode"):
+                sched["schedule"] += (",kernel=" + kernel_instance(
+                    lambda: kernel(*args), DECODE_KERNEL))
         timing = "warm" if size == PAPER else "flushed"
         dts = str(dt).replace("torch.", "")
         log("suite", name=name, size=size, dtype=dts, shape=label,
@@ -1209,14 +1290,17 @@ def serve_phase(launches, cfg, params) -> dict:
     return counts, traced
 
 
-def profile_phase(cfg, params, steps_n: int = 4) -> None:
+def profile_phase(launches, cfg, params, steps_n: int = 4) -> None:
     """Where a decode step's time goes, run eagerly from Python and
     replayed as a CUDA graph. For each: the wall time per step on the host
-    clock, then the same steps under torch.profiler, whose kernel time
-    over that run's own wall time is the device's busy share (idle = 1 -
-    busy, not clamped), and the top kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    clock, then the same steps under torch.profiler (between sentinels,
+    after primers, as `traced` runs every trace), whose device busy time
+    (the union of the kernels' spans) over that run's own wall time is the
+    device's busy share (idle = 1 - busy), and the top kernels by the sum
+    of their spans (which overlap where a kernel waits for the one before
+    it). The trace must count each wrapper's launches a step as one eager
+    step's wrappers do, and no split-K kernel: every qwen3 decode product
+    is one decode-kernel launch."""
     from repro_torch.models import steps
 
     B, ps, npp = 8, 16, 17
@@ -1235,6 +1319,11 @@ def profile_phase(cfg, params, steps_n: int = 4) -> None:
         torch.cuda.synchronize()
 
     run(2)
+    launches.reset_counts()                # one eager step's launches
+    run(1)
+    per_step = {n: c for n, c in _check_counts(
+        launches, "profile", ("rmsnorm_matmul", "matmul_residual_add")
+    ).items() if c}
     graph = torch.cuda.CUDAGraph()         # the same step, replayed
     batch = {"tokens": tok.long(), "pos": pos, "pages": pages}
     side = torch.cuda.Stream()
@@ -1253,26 +1342,36 @@ def profile_phase(cfg, params, steps_n: int = 4) -> None:
         t0 = time.perf_counter()
         fn(steps_n)
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps_n
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        timed = {}
+
+        def timed_run():
             t0 = time.perf_counter()
             fn(steps_n)
-            traced_ms = (time.perf_counter() - t0) * 1e3 / steps_n
+            timed["ms"] = (time.perf_counter() - t0) * 1e3 / steps_n
+
+        prof = traced(f"profile_{mode}", timed_run)
+        traced_ms = timed["ms"]
+        seen = {n: c for n, c in launches.traced_launches(prof).items() if c}
+        split_k = sum(e.count for e in device_events(prof)
+                      if "skinny::" in e.key)
+        if seen != {n: c * steps_n for n, c in per_step.items()} or split_k:
+            raise AssertionError(
+                f"profile {mode}: {steps_n} steps traced {seen} and "
+                f"{split_k} split-K kernels; one eager step counted "
+                f"{per_step}")
         rows = [(e.key, e.device_time_total / 1e3 / steps_n,
                  e.count // steps_n)
-                for e in prof.key_averages() if e.device_time_total > 0
-                and "CUDA" in str(getattr(e, "device_type", ""))]
-        if not rows:
-            log("profile", mode=mode, step_wall_ms=f"{wall_ms:.2f}",
-                device_time="not measured (the profiler saw no kernels)")
-            continue
-        busy = sum(r[1] for r in rows)
+                for e in device_events(prof) if e.device_time_total > 0]
+        busy = device_busy_ms(prof) / steps_n
         rows.sort(key=lambda r: -r[1])
         log("profile", mode=mode, step_wall_ms=f"{wall_ms:.2f}",
             traced_step_wall_ms=f"{traced_ms:.2f}",
             device_busy_ms=f"{busy:.2f}",
+            kernel_span_sum_ms=f"{sum(r[1] for r in rows):.2f}",
             device_idle_pct=f"{100 * (1 - busy / traced_ms):.1f}",
-            launches_per_step=sum(r[2] for r in rows))
+            launches_per_step=sum(r[2] for r in rows),
+            traced_launches_per_step=json.dumps(
+                {n: c // steps_n for n, c in seen.items()}).replace(" ", ""))
         for key, ms, n in rows[:8]:
             log("profile", mode=mode, kernel=f"'{key[:60]}'",
                 ms_per_step=f"{ms:.3f}", launches_per_step=n)

@@ -37,16 +37,25 @@ SZ = ctypes.c_size_t
 # *_workspace_floats size the f32 scratch the wrapper allocates (split-K
 # partials, the bf16 operands the wgmma paths stage, dotp's block
 # partials); the libraries that include csrc/wgmma_gemm.cuh also export
-# `wgmma_plan` (M, N, int[3] out: the mainloop's BN, tiles and blocks).
+# `wgmma_plan` (M, N, int[3] out: the mainloop's BN, tiles and blocks),
+# and the four GEMM wrappers `<name>_decode_plan` (M, N, K, int[5] out:
+# the decode kernel's N tile, cluster size, CTAs, k rows a CTA, stages).
 WGMMA_PLAN = {"wgmma_plan": ([I, I, P], I)}
+
+
+def _decode_plan(name: str) -> dict:
+    return {f"{name}_decode_plan": ([I, I, I, P], I)}
+
+
 SIGNATURES = {
     "rmsnorm_matmul": {
         "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, P], I),
-        "rmsnorm_matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN},
+        "rmsnorm_matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN,
+        **_decode_plan("rmsnorm_matmul")},
     "matmul_residual_add": {
         "matmul_residual_add_bf16": ([P, P, P, P, P, I, I, I, P], I),
         "matmul_residual_add_workspace_floats": ([I, I, I], SZ),
-        **WGMMA_PLAN},
+        **WGMMA_PLAN, **_decode_plan("matmul_residual_add")},
     "flash_attention_proj": {
         "flash_attention_proj_bf16": (
             [P, P, P, P, P, P, I, I, I, I, I, I, I, P], I),
@@ -55,7 +64,8 @@ SIGNATURES = {
     "matmul": {
         "matmul_f32": ([P, P, P, I, I, I, P], I),
         "matmul_bf16": ([P, P, P, P, I, I, I, P], I),
-        "matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN},
+        "matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN,
+        **_decode_plan("matmul")},
     "axpy": {
         "axpy_f32": ([P, P, P, P, SZ, P], I),
         "axpy_bf16": ([P, P, P, P, SZ, P], I)},
@@ -71,7 +81,7 @@ SIGNATURES = {
     "matmul_bias_act": {
         "matmul_bias_act_bf16": ([P, P, P, P, P, I, I, I, I, P], I),
         "matmul_bias_act_workspace_floats": ([I, I, I], SZ),
-        **WGMMA_PLAN},
+        **WGMMA_PLAN, **_decode_plan("matmul_bias_act")},
     "flash_attention": {
         "flash_attention_bf16": ([P, P, P, P, I, I, I, I, I, I, F, P], I)},
 }

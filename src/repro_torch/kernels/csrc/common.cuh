@@ -1,12 +1,12 @@
 // Shared pieces of the port's Hopper kernels: bf16 tile loads and the two
-// matmul paths that `rmsnorm_matmul.cu`, `matmul_residual_add.cu`,
+// pre-Hopper matmul paths that `rmsnorm_matmul.cu`, `matmul_residual_add.cu`,
 // `matmul_bias_act.cu` and `matmul.cu` instantiate with their prologue and
-// epilogue (or none):
-//   * gemm::   a tiled tensor-core (wmma) matmul for M > 16 (prefill);
-//   * skinny:: a split-K CUDA-core matmul for M <= 16 (decode, M = slots),
-//     where the weight stream is the whole cost and 16-byte loads with
-//     many in flight matter more than tensor cores.
-// `launch_matmul` picks between them.
+// epilogue (or none), for the shapes the Hopper kernels do not take (K or
+// N not a multiple of 8):
+//   * gemm::   a tiled tensor-core (wmma) matmul for M > 16;
+//   * skinny:: a split-K CUDA-core matmul for M <= 16.
+// `launch_matmul` (decode_gemm.cuh) picks between them and the decode
+// kernel; wgmma_gemm.cuh holds the mainloop the wrappers call at M > 16.
 //
 // Every entry point has a plain C interface (loaded with ctypes by
 // kernels/build.py), launches on the stream it is given, allocates
@@ -252,7 +252,9 @@ tile_kernel(const bf16* __restrict__ a, const bf16* __restrict__ scale,
 }  // namespace gemm
 
 // ---------------------------------------------------------------------------
-// Skinny path (M <= 16): split-K weight streaming on the CUDA cores.
+// Skinny path (M <= 16 with K or N not a multiple of 8; every other M <= 16
+// product runs decode_gemm.cuh's kernel): split-K weight streaming on the
+// CUDA cores.
 //
 // Block (x, y, z) owns 256 columns (32 lanes x 8 adjacent columns, one
 // 16-byte weight load per lane per k row), the k range of split y, and 8
@@ -409,38 +411,4 @@ inline size_t split_k_workspace_floats(int M, int N, int K) {
   int splits, kps;
   skinny::plan(M, N, K, &splits, &kps);
   return (size_t)splits * M * N;
-}
-
-template <bool NORM, int EPI>
-int launch_matmul(const void* a, const void* scale, const void* b,
-                  const void* extra, void* out, float* workspace, int M, int N,
-                  int K, float eps, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (M <= skinny::MAX_M) {
-    if (workspace == nullptr) return (int)cudaErrorInvalidValue;
-    int splits, kps;
-    skinny::plan(M, N, K, &splits, &kps);
-    const size_t smem = skinny::smem_bytes(kps);
-    cudaError_t err = cudaFuncSetAttribute(
-        skinny::partial_kernel<NORM, EPI>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + skinny::COLS - 1) / skinny::COLS, splits,
-                    (M + skinny::MR - 1) / skinny::MR);
-    skinny::partial_kernel<NORM, EPI><<<grid, skinny::THREADS, smem, st>>>(
-        (const bf16*)a, (const bf16*)scale, (const bf16*)b, workspace, M, N,
-        K, kps, eps);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const size_t mn = (size_t)M * N;
-    skinny::finish_kernel<EPI><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        workspace, (const bf16*)extra, (bf16*)out, M, N, splits);
-    return (int)cudaGetLastError();
-  }
-  const dim3 grid((M + gemm::BM - 1) / gemm::BM, (N + gemm::BN - 1) / gemm::BN);
-  gemm::tile_kernel<NORM, EPI><<<grid, gemm::THREADS, 0, st>>>(
-      (const bf16*)a, (const bf16*)scale, (const bf16*)b, (const bf16*)extra,
-      (bf16*)out, M, N, K, eps);
-  return (int)cudaGetLastError();
 }

@@ -13,8 +13,11 @@
 //   * M > 16, K and N multiples of 8: the TMA + wgmma mainloop of
 //     wgmma_gemm.cuh, persistent when the tiles outnumber the SMs (4096^3
 //     at BN 256: 512 tiles on 132 blocks);
-//   * M <= 16: the split-K path of common.cuh (the weight stream);
-//   * any other M > 16: the 64 x 128 wmma tile of common.cuh.
+//   * M <= 16, K and N multiples of 8: the decode kernel of
+//     decode_gemm.cuh (`decode::tma_gemv_kernel<false,0>`: the weight
+//     stream by TMA, tensor-core MMAs, split-K inside a cluster);
+//   * any other shape: common.cuh's split-K path at M <= 16, the 64 x 128
+//     wmma tile at M > 16.
 //
 // f32: true f32 on the CUDA cores (no TF32, no operand rounding). A block
 // of 256 threads owns a 128 x 128 output tile and each thread an 8 x 8
@@ -22,7 +25,7 @@
 // time through two shared-memory buffers: the next step's A and B tiles
 // are loaded into registers while the current one is multiplied, A stored
 // transposed so that both operands are read as float4 along the tile.
-#include "wgmma_gemm.cuh"
+#include "decode_gemm.cuh"
 
 namespace sgemm {
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
@@ -123,7 +126,11 @@ matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }  // namespace sgemm
 
 extern "C" size_t matmul_workspace_floats(int M, int N, int K) {
-  return split_k_workspace_floats(M, N, K);
+  return decode_workspace_floats(M, N, K);
+}
+
+extern "C" int matmul_decode_plan(int M, int N, int K, int* plan) {
+  return decode::report<false, EPI_NONE>(M, N, K, plan);
 }
 
 extern "C" int matmul_f32(const void* a, const void* b, void* out, int M,

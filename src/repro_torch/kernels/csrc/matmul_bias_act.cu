@@ -19,14 +19,21 @@
 //     read 8 values a load and the activation applied in its register
 //     epilogue; at M 12000 it walks 1,316 tiles of 128 x 224 (N 3072) or
 //     470 of 128 x 160 (N 768) on 132 persistent blocks;
-//   * M <= 16 (decode): the split-K weight streaming of common.cuh, the
-//     bias and activation in the split-K finish;
-//   * any other M > 16: the 64 x 128 wmma tile of common.cuh.
+//   * M <= 16 (decode), K and N multiples of 8: the decode kernel of
+//     decode_gemm.cuh (`decode::tma_gemv_kernel<false,2..4>`), the bias
+//     and activation applied as the cluster's partials are reduced; one
+//     launch, no workspace;
+//   * any other shape: common.cuh's split-K path at M <= 16 (bias and
+//     activation in its finish), the 64 x 128 wmma tile at M > 16.
 // The pre-activation never round-trips device memory.
-#include "wgmma_gemm.cuh"
+#include "decode_gemm.cuh"
 
 extern "C" size_t matmul_bias_act_workspace_floats(int M, int N, int K) {
-  return split_k_workspace_floats(M, N, K);
+  return decode_workspace_floats(M, N, K);
+}
+
+extern "C" int matmul_bias_act_decode_plan(int M, int N, int K, int* plan) {
+  return decode::report<false, EPI_BIAS>(M, N, K, plan);
 }
 
 // act: 0 none, 1 gelu, 2 silu (the wrapper's ACTS order).

@@ -18,14 +18,23 @@
 //     of wgmma_gemm.cuh with the residual read in its register epilogue;
 //     qwen3's down projection at M 512 is 128 tiles of 128 x 160, one
 //     wave, 272 k steps each;
-//   * M <= 16 (decode): the split-K weight streaming of common.cuh, the
-//     residual added in the split-K finish;
-//   * any other M > 16: the 64 x 128 wmma tile of common.cuh.
+//   * M <= 16 (decode), K and N multiples of 8: the decode kernel of
+//     decode_gemm.cuh (`decode::tma_gemv_kernel<false,1>`, TMA weight
+//     stream, tensor-core MMAs, split-K inside a cluster), the residual
+//     added as the cluster's partials are reduced; one launch, no
+//     workspace;
+//   * any other shape: common.cuh's split-K path at M <= 16 (the residual
+//     added in its finish), the 64 x 128 wmma tile at M > 16.
 // The rounded matmul output never round-trips device memory as bf16.
-#include "wgmma_gemm.cuh"
+#include "decode_gemm.cuh"
 
 extern "C" size_t matmul_residual_add_workspace_floats(int M, int N, int K) {
-  return split_k_workspace_floats(M, N, K);
+  return decode_workspace_floats(M, N, K);
+}
+
+extern "C" int matmul_residual_add_decode_plan(int M, int N, int K,
+                                               int* plan) {
+  return decode::report<false, EPI_RESID>(M, N, K, plan);
 }
 
 extern "C" int matmul_residual_add_bf16(const void* a, const void* b,

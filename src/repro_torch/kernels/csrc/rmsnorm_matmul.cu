@@ -10,10 +10,12 @@
 // byte, above the card's ~295) it is bound by operations instead.
 //
 // Design, by shape:
-//   * M <= 16 (decode): the split-K skinny path of common.cuh. The weight
-//     is streamed once with 16-byte loads, f32 FMAs on the CUDA cores, a
-//     fixed-order reduction over warps and splits; the rows are normalised
-//     as they are staged.
+//   * M <= 16 (decode), K and N multiples of 8: the decode kernel of
+//     decode_gemm.cuh (`decode::tma_gemv_kernel<true,0>`): the weight
+//     streamed by TMA into tensor-core MMAs, split over k inside a thread
+//     block cluster; each CTA sums the squares of its slice of x, the
+//     cluster exchanges the sums through DSMEM and each CTA normalises its
+//     own slice. One launch, no workspace;
 //   * M > 16, K and N multiples of 8 (prefill): `norm_rows_kernel`, a warp
 //     a row, computes each row's 1/rms once and writes bf16((x * rstd) *
 //     (1 + scale)) into a bf16 (M, K) workspace (5.2 MB at M 512 K 5120,
@@ -21,9 +23,10 @@
 //     wgmma_gemm.cuh multiplies it by w. The reference rounds the
 //     normalised rows to bf16 before the product, so rstd cannot move into
 //     the epilogue; the workspace costs one write and one read of x's size.
-//   * any other M > 16 (K or N not a multiple of 8): gemm::tile_kernel of
-//     common.cuh, which normalises the A tile as it stages it.
-#include "wgmma_gemm.cuh"
+//   * any other shape (K or N not a multiple of 8): common.cuh's split-K
+//     path at M <= 16, gemm::tile_kernel at M > 16, which normalise the
+//     rows as they stage them.
+#include "decode_gemm.cuh"
 
 namespace {
 constexpr int ROWS = 4;                 // rows (warps) a block
@@ -70,12 +73,17 @@ norm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ scale,
 }
 }  // namespace
 
-// f32 workspace (in floats): the split-K partials at M <= 16, the bf16
-// normalised rows on the wgmma path, none on the tile path.
+// f32 workspace (in floats): the bf16 normalised rows on the wgmma path,
+// the split-K partials at M <= 16 with K or N % 8 != 0, none on the decode
+// kernel and on the tile path.
 extern "C" size_t rmsnorm_matmul_workspace_floats(int M, int N, int K) {
   if (M > 0 && K > 0 && hopper::takes_prefill(M, N, K))
     return ((size_t)M * K + 1) / 2;
-  return split_k_workspace_floats(M, N, K);
+  return decode_workspace_floats(M, N, K);
+}
+
+extern "C" int rmsnorm_matmul_decode_plan(int M, int N, int K, int* plan) {
+  return decode::report<true, EPI_NONE>(M, N, K, plan);
 }
 
 extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,

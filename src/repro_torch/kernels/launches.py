@@ -79,21 +79,27 @@ def _mainloop(wrapper: str, epi: int) -> tuple:
 # The device kernel that opens each launch of a wrapper (a split-K finish,
 # a partial-sum finish or the wgmma mainloop may follow it), as a profiler
 # names it, spaces removed. The five matmul entry points instantiate the
-# same templates with other flags (<prologue, epilogue code>, common.cuh;
-# <BN, epilogue code, owner>, wgmma_gemm.cuh), so each has names of its
-# own. matmul's, matmul_residual_add's and matmul_bias_act's M > 16 calls
-# open with the mainloop, counted by their own instantiations;
+# same templates with other flags (<prologue, epilogue code>, common.cuh
+# and decode_gemm.cuh; <BN, epilogue code, owner>, wgmma_gemm.cuh), so
+# each has names of its own: the M <= 16 products run
+# `decode::tma_gemv_kernel<NORM,EPI>` (one launch a call), and only shapes
+# with K or N % 8 != 0 run common.cuh's split-K pair. matmul's,
+# matmul_residual_add's and matmul_bias_act's M > 16 calls open with the
+# mainloop, counted by their own instantiations;
 # rmsnorm_matmul's and flash_attention_proj's open with a kernel of their
 # own (the row normalisation, the per-head attention), which counts them,
 # and their mainloop instantiations are named by no pattern.
 ENTRY_KERNELS = {
-    "rmsnorm_matmul": ("skinny::partial_kernel<true,0>",
+    "rmsnorm_matmul": ("decode::tma_gemv_kernel<true,0>",
+                       "skinny::partial_kernel<true,0>",
                        "gemm::tile_kernel<true,0>", "norm_rows_kernel"),
-    "matmul_residual_add": ("skinny::partial_kernel<false,1>",
+    "matmul_residual_add": ("decode::tma_gemv_kernel<false,1>",
+                            "skinny::partial_kernel<false,1>",
                             "gemm::tile_kernel<false,1>",
                             *_mainloop("matmul_residual_add", 1)),
     "flash_attention_proj": ("fa_proj_heads_kernel",),
-    "matmul": ("skinny::partial_kernel<false,0>",
+    "matmul": ("decode::tma_gemv_kernel<false,0>",
+               "skinny::partial_kernel<false,0>",
                "gemm::tile_kernel<false,0>", "matmul_f32_kernel",
                *_mainloop("matmul", 0)),
     "axpy": ("axpy_kernel_",),
@@ -103,7 +109,8 @@ ENTRY_KERNELS = {
     "rmsnorm": ("rmsnorm_kernel<",),
     "flash_attention": ("flash_attention_kernel<",),
     "matmul_bias_act": (*(f"{path}<false,{epi}>"
-                          for path in ("skinny::partial_kernel",
+                          for path in ("decode::tma_gemv_kernel",
+                                       "skinny::partial_kernel",
                                        "gemm::tile_kernel")
                           for epi in (2, 3, 4)),
                         *(k for epi in (2, 3, 4)

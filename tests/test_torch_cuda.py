@@ -77,7 +77,11 @@ def test_cuda_matmul_residual_add(cuda, m, k, n):
     (64, 520, 64),         # the mainloop, 9 k steps
     (2000, 16, 3000),      # persistent: 384 tiles, one k step each
     (2000, 520, 3000),     # persistent, 9 k steps a tile
-    (8, 16, 64)])          # split-K
+    (8, 16, 64),           # the decode kernel: one k box
+    (8, 5120, 5120),       # qwen3's out projection, split over a cluster
+    (8, 520, 264),         # the decode kernel at K and N no box divides
+    (16, 5128, 72),        # two slot tiles, K no cluster splits evenly
+    (5, 100, 36)])         # K % 8 != 0: split-K
 def test_cuda_matmul_residual_add_rounds_twice_like_the_kernel(cuda, m, k,
                                                                n):
     """The Pallas kernel's two roundings, bf16(f32(bf16(acc)) + f32(res)),
@@ -309,11 +313,11 @@ def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
 
     def run():
         for _ in range(3):
-            matmul.matmul(a, b)             # split-K path
+            matmul.matmul(a, b)             # the decode kernel
         matmul.matmul(big, b)               # the mainloop
         matmul.matmul(odd, b_odd)           # K % 8 != 0: the wmma tile
         matmul.matmul(af, bf)               # f32 tile
-        fused.matmul_residual_add(a, b, r)            # split-K
+        fused.matmul_residual_add(a, b, r)            # the decode kernel
         fused.matmul_residual_add(big, b, r_big)      # the mainloop
         fused.matmul_residual_add(big, b, r_big)
         fused.rmsnorm_matmul(big, s, b)               # norm + the mainloop
@@ -346,7 +350,13 @@ def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,d", [(8, 5120), (512, 5120), (512, 512),
-                                 (7, 100), (3, 13)])
+                                 (7, 100), (3, 13),
+                                 # a row a block on 1, 8, 132 and 4096
+                                 # blocks; rows longer than the 8192 a
+                                 # block holds (read twice); short rows,
+                                 # four a block
+                                 (1, 5120), (132, 5120), (4096, 5120),
+                                 (5, 8200), (129, 13), (33, 100)])
 def test_cuda_rmsnorm(cuda, dtype, m, d):
     g = torch.Generator(device=cuda).manual_seed(9)
     x = _randn(g, m, d, dtype=DT[dtype])
@@ -359,6 +369,27 @@ def test_cuda_rmsnorm(cuda, dtype, m, d):
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     torch.testing.assert_close(got.float(), rmsnorm_plain(x, s).float(),
                                **tol)
+    again = rmsnorm(x, s)                   # a fixed sum order: same bits
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(512, 5120), (64, 136), (20, 8200)])
+def test_cuda_rmsnorm_normalises_like_the_fused_prologue(cuda, m, k):
+    """rmsnorm sums the squares in the order of rmsnorm_matmul's prologue
+    (norm_rows_kernel): the composition matmul(rmsnorm(x), w) equals the
+    fused kernel bit for bit, on operands as large as the ops factories
+    make (unscaled weights, where a single flipped bf16 rounding of the
+    normalised rows would show)."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = _randn(g, m, k, dtype=torch.bfloat16)
+    s = _randn(g, k, dtype=torch.bfloat16, scale=0.1)
+    w = _randn(g, k, 264, dtype=torch.bfloat16)
+    fused_out = fused.rmsnorm_matmul(x, s, w)
+    composed = matmul.matmul(rmsnorm(x, s), w)
+    torch.cuda.synchronize()
+    assert torch.equal(fused_out, composed)
 
 
 @pytest.mark.cuda
@@ -422,7 +453,11 @@ def test_cuda_matmul_bias_act(cuda, m, k, n, act):
     (64, 520, 64),         # the mainloop, 9 k steps
     (2000, 16, 3000),      # persistent: 384 tiles, one k step each
     (2000, 520, 3000),     # persistent, 9 k steps a tile
-    (8, 16, 64)])          # split-K
+    (8, 16, 64),           # the decode kernel: one k box
+    (8, 3072, 768),        # whisper's second MLP product at decode
+    (8, 520, 264),         # the decode kernel at K and N no box divides
+    (12, 5128, 72),        # two slot tiles, K no cluster splits evenly
+    (5, 100, 36)])         # K % 8 != 0: split-K
 def test_cuda_matmul_bias_act_rounds_twice_like_the_kernel(cuda, m, k, n):
     """The Pallas kernel's two roundings, bf16(f32(bf16(acc)) + f32(bias)),
     bit for bit (act none: with small integers every f32 sum is exact in
@@ -502,6 +537,15 @@ def test_cuda_new_kernels_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError, match="act"):
         fused.matmul_bias_act(a.bfloat16(), a.t().contiguous().bfloat16(),
                               torch.zeros(16, device=cuda).bfloat16(), "relu")
+    # the decode kernel's operands (M <= 16): f32, and a strided weight
+    x8 = torch.randn(8, 64, device=cuda)
+    with pytest.raises(TypeError):
+        fused.rmsnorm_matmul(x8, torch.zeros(64, device=cuda),
+                             torch.randn(64, 64, device=cuda))
+    w = torch.randn(64, 128, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.matmul_residual_add(x8.bfloat16(), w[:, ::2],
+                                  torch.zeros(8, 64, device=cuda).bfloat16())
     counts = launches.counts()
     assert all(c == {"launches": 0, "plain_cuda_calls": 0}
                for c in counts.values()), counts
@@ -510,8 +554,8 @@ def test_cuda_new_kernels_raise_rather_than_fall_back(cuda):
 @pytest.mark.cuda
 def test_cuda_traced_launches_of_the_new_kernels(cuda):
     """A trace counts each new kernel's launches by its entry kernel:
-    matmul_bias_act's three activations on split-K and on the mainloop
-    apart from matmul's and matmul_residual_add's."""
+    matmul_bias_act's three activations on the decode kernel and on the
+    mainloop apart from matmul's and matmul_residual_add's."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=cuda).manual_seed(12)
@@ -524,7 +568,7 @@ def test_cuda_traced_launches_of_the_new_kernels(cuda):
 
     def run():
         for act in fused.ACTS:
-            fused.matmul_bias_act(small, w, bias, act)   # split-K path
+            fused.matmul_bias_act(small, w, bias, act)   # decode kernel
             fused.matmul_bias_act(big, w, bias, act)     # the mainloop
         matmul.matmul(big, w)
         rmsnorm(x, x[0])
@@ -556,8 +600,8 @@ def test_cuda_traced_launches_of_the_wgmma_paths(cuda):
     """rmsnorm_matmul's and flash_attention_proj's wgmma paths open with
     kernels of their own: a trace counts each launch on its own wrapper,
     beside flash_attention's and matmul's, and rmsnorm_matmul's three
-    paths (split-K, wgmma, the wmma tile for N % 8 != 0) all count as
-    rmsnorm_matmul's."""
+    paths (the decode kernel, wgmma, the wmma tile for N % 8 != 0) all
+    count as rmsnorm_matmul's."""
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=cuda).manual_seed(13)
@@ -573,7 +617,7 @@ def test_cuda_traced_launches_of_the_wgmma_paths(cuda):
     def run():
         fused.rmsnorm_matmul(x, s, w)                 # wgmma path
         fused.rmsnorm_matmul(x, s, w)
-        fused.rmsnorm_matmul(x[:8], s, w)             # split-K path
+        fused.rmsnorm_matmul(x[:8], s, w)             # the decode kernel
         fused.rmsnorm_matmul(x, s, w_odd)             # the wmma tile
         fused.flash_attention_proj(q, kv, kv, wo)
         flash_attention(q, kv, kv)
@@ -597,3 +641,227 @@ def test_cuda_traced_launches_of_the_wgmma_paths(cuda):
     assert traced["rmsnorm"] == 0, (traced, kernels)
     assert traced["matmul_residual_add"] == 0, (traced, kernels)
     assert any("tma_wgmma_kernel" in k for k in kernels), kernels
+
+
+# ----------------------------------------------------------------------------
+# the decode kernel (csrc/decode_gemm.cuh): every M <= 16 product with K and
+# N multiples of 8
+# ----------------------------------------------------------------------------
+
+# op -> (wrapper, the plain version's extra operand, act)
+DECODE_OPS = ("rmsnorm_matmul", "matmul_residual_add", "bias_none",
+              "bias_gelu", "bias_silu", "matmul")
+# qwen3-14b's decode products (k and v, q and o, gate and up, down) and
+# whisper-small's MLP pair, each under the op that runs it
+DECODE_MODEL = [(5120, 1024, "rmsnorm_matmul"), (5120, 5120, "rmsnorm_matmul"),
+                (5120, 5120, "matmul_residual_add"),
+                (5120, 17408, "rmsnorm_matmul"),
+                (17408, 5120, "matmul_residual_add"),
+                (768, 3072, "bias_gelu"), (3072, 768, "bias_none")]
+# K that no cluster splits evenly, N that no 64-column box divides
+DECODE_RAGGED = [(5128, 264), (5128, 72), (136, 72)]
+
+
+def _decode_case(cuda, seed, m, k, n, op):
+    """(call, plain call, wrapper name) of one decode product on seeded
+    bf16 operands."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf = torch.bfloat16
+    a = _randn(g, m, k, dtype=bf)
+    w = _randn(g, k, n, dtype=bf, scale=k ** -0.5)
+    if op == "rmsnorm_matmul":
+        s = _randn(g, k, dtype=bf, scale=0.1)
+        return (lambda: fused.rmsnorm_matmul(a, s, w),
+                lambda: fused.rmsnorm_matmul_plain(a, s, w), op)
+    if op == "matmul_residual_add":
+        r = _randn(g, m, n, dtype=bf)
+        return (lambda: fused.matmul_residual_add(a, w, r),
+                lambda: fused.matmul_residual_add_plain(a, w, r), op)
+    if op == "matmul":
+        return (lambda: matmul.matmul(a, w),
+                lambda: matmul.matmul_plain(a, w), op)
+    act = op.split("_")[1]
+    bias = _randn(g, n, dtype=bf)
+    return (lambda: fused.matmul_bias_act(a, w, bias, act),
+            lambda: fused.matmul_bias_act_plain(a, w, bias, act),
+            "matmul_bias_act")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 5, 8, 12, 16])
+@pytest.mark.parametrize("k,n,op", DECODE_MODEL)
+def test_cuda_decode_products_at_model_shapes(cuda, m, k, n, op):
+    """Each model shape against its plain version, one launch a call, no
+    workspace, the same bits on a second run."""
+    call, plain, name = _decode_case(cuda, 20, m, k, n, op)
+    wrapper = launches.WRAPPERS[name]
+    before = wrapper.launches
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), plain().float(), **BF16_TOL)
+    from repro_torch.kernels import build
+    assert build.entry(name, f"{name}_workspace_floats")(m, n, k) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 12])
+@pytest.mark.parametrize("op", DECODE_OPS)
+@pytest.mark.parametrize("k,n", DECODE_RAGGED)
+def test_cuda_decode_products_at_ragged_edges(cuda, k, n, op, m):
+    """Every prologue and epilogue at K no cluster splits evenly (a
+    cluster's last CTA streams fewer k boxes, zero-filled past K) and N no
+    box divides (columns past N zero-filled, not stored)."""
+    call, plain, name = _decode_case(cuda, 21, m, k, n, op)
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), plain().float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_graph_replay_equals_eager(cuda):
+    """The decode kernel captured in a CUDA graph (a cluster launch with
+    its tensor map passed by value) gives the eager call's bits."""
+    calls = [_decode_case(cuda, 22, 8, 5120, n, op)[0]
+             for n, op in ((5120, "rmsnorm_matmul"),
+                           (5120, "matmul_residual_add"),
+                           (3072, "bias_silu"), (1024, "matmul"))]
+    eager = [c() for c in calls]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        outs = [c() for c in calls]
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_runs_one_kernel_a_call(cuda):
+    """At M <= 16 (K, N % 8 == 0) each wrapper launches one
+    `decode::tma_gemv_kernel<NORM,EPI>` a call and no split-K kernel; at K
+    % 8 != 0 the split-K pair runs instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [_decode_case(cuda, 23, 8, 512, 256, op) for op in DECODE_OPS]
+    odd = _decode_case(cuda, 23, 8, 100, 256, "matmul_residual_add")
+
+    def run():
+        for call, _, _ in cases:
+            call()
+        odd[0]()
+
+    run()
+    torch.cuda.synchronize()
+    launches.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge = torch.zeros(8, device=cuda).sum()   # kernels at the edges
+        run()
+        edge = edge + torch.zeros(8, device=cuda).sum()
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        key = e.key.replace(" ", "")
+        for kind in ("decode::tma_gemv_kernel<", "skinny::partial_kernel<",
+                     "skinny::finish_kernel<"):
+            if kind in key:
+                inst = key[key.index(kind):key.index(">", key.index(kind)) + 1]
+                found[inst] = found.get(inst, 0) + e.count
+    assert found == {"decode::tma_gemv_kernel<true,0>": 1,
+                     "decode::tma_gemv_kernel<false,1>": 1,
+                     "decode::tma_gemv_kernel<false,2>": 1,
+                     "decode::tma_gemv_kernel<false,3>": 1,
+                     "decode::tma_gemv_kernel<false,4>": 1,
+                     "decode::tma_gemv_kernel<false,0>": 1,
+                     "skinny::partial_kernel<false,1>": 1,
+                     "skinny::finish_kernel<1>": 1}, found
+    traced = launches.traced_launches(prof)
+    assert traced["matmul_residual_add"] == 2
+    assert traced["matmul_bias_act"] == 3
+    assert traced["rmsnorm_matmul"] == traced["matmul"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_decode_chain_reads_what_the_kernel_before_wrote(cuda):
+    """Decode products chained back to back, eager and replayed from a
+    CUDA graph: each reads, as its weight, its x or its residual, the
+    output of the decode launch just before it (which lets it start early,
+    programmatic dependent launch). Each step equals its plain version on
+    the inputs the kernels gave it, so a load made before the kernel before
+    had finished shows as a wrong step."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    bf = torch.bfloat16
+    b = _randn(g, 16, 17408, dtype=bf)           # a long first launch
+    c = _randn(g, 17408, 256, dtype=bf, scale=17408 ** -0.5)
+    a = _randn(g, 8, 16, dtype=bf)
+    s = _randn(g, 256, dtype=bf, scale=0.1)
+    w2 = _randn(g, 256, 512, dtype=bf, scale=256 ** -0.5)
+    w3 = _randn(g, 512, 512, dtype=bf, scale=512 ** -0.5)
+    a4 = _randn(g, 4, 8, dtype=bf)
+    bias = _randn(g, 512, dtype=bf)
+
+    def chain():
+        w1 = matmul.matmul(b, c)                  # (16, 256)
+        y = matmul.matmul(a, w1)                  # w1 as the weight, K 16
+        z = fused.rmsnorm_matmul(y, s, w2)        # y as x
+        r = fused.matmul_residual_add(z, w3, z)   # z as x and residual
+        o = fused.matmul_bias_act(a4, r, bias, "silu")   # r as the weight
+        return w1, y, z, r, o
+
+    def check(outs):
+        w1, y, z, r, o = outs
+        want = (matmul.matmul_plain(b, c), matmul.matmul_plain(a, w1),
+                fused.rmsnorm_matmul_plain(y, s, w2),
+                fused.matmul_residual_add_plain(z, w3, z),
+                fused.matmul_bias_act_plain(a4, r, bias, "silu"))
+        for i, (got, ref) in enumerate(zip(outs, want)):
+            torch.testing.assert_close(got.float(), ref.float(), **BF16_TOL,
+                                       msg=lambda m, i=i: f"step {i}: {m}")
+
+    for _ in range(3):
+        eager = chain()
+        torch.cuda.synchronize()
+        check(eager)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        outs = chain()
+    for _ in range(3):
+        for t in outs:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(outs)
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_leaves_k_past_its_limit_to_split_k(cuda):
+    """Past K = 32768 x's slice no longer fits a CTA of an eight-CTA
+    cluster: such an M <= 16 product keeps the split-K pair (with its f32
+    workspace) and still matches the plain version."""
+    from repro_torch.kernels import build
+
+    k = 32768 + 8
+    for op in ("rmsnorm_matmul", "matmul_residual_add"):
+        call, plain, name = _decode_case(cuda, 25, 8, k, 64, op)
+        assert build.entry(name, f"{name}_workspace_floats")(8, 64, k) > 0
+        assert build.entry(name, f"{name}_workspace_floats")(8, 64,
+                                                             32768) == 0
+        torch.testing.assert_close(call().float(), plain().float(),
+                                   **BF16_TOL)

@@ -22,8 +22,12 @@ from repro_torch.kernels import build, launches
 CSRC = Path(build.__file__).resolve().parent / "csrc"
 WRAPPERS = sorted(launches.ENTRY_KERNELS)
 
-# common.cuh's `launch_matmul<NORM, EPI>` instantiates these kernels
-LAUNCH_MATMUL = ("gemm::tile_kernel<{n},{e}>", "skinny::partial_kernel<{n},{e}>",
+# decode_gemm.cuh's `launch_matmul<NORM, EPI>` instantiates these kernels:
+# the decode kernel (M <= 16, K and N % 8 == 0), common.cuh's split-K pair
+# (other M <= 16) and its wmma tile
+LAUNCH_MATMUL = ("decode::tma_gemv_kernel<{n},{e}>",
+                 "gemm::tile_kernel<{n},{e}>",
+                 "skinny::partial_kernel<{n},{e}>",
                  "skinny::finish_kernel<{e}>")
 # wgmma_gemm.cuh's `hopper::launch<EPI, OWNER>`, one per N tile
 MAINLOOP = "hopper::tma_wgmma_kernel<{bn},{e},{o}>"
@@ -218,10 +222,14 @@ def test_the_parser_reads_namespaces_and_templates():
     assert common == {"gemm::tile_kernel": True,
                       "skinny::partial_kernel": True,
                       "skinny::finish_kernel": True}
+    assert dict(kernels_of(CSRC / "decode_gemm.cuh")) == {
+        "decode::tma_gemv_kernel": True}
     assert dict(kernels_of(CSRC / "flash_attention_proj.cu")) == {
         "fa_proj_heads_kernel": False}
     assert owned("matmul_bias_act")[1] >= {"gemm::tile_kernel<false,3>",
-                                           "skinny::finish_kernel<4>"}
+                                           "skinny::finish_kernel<4>",
+                                           "decode::tma_gemv_kernel<false,4>"}
+    assert owned("rmsnorm_matmul")[1] >= {"decode::tma_gemv_kernel<true,0>"}
     assert owned("matmul_residual_add")[1] >= {
         "hopper::tma_wgmma_kernel<160,1,3>", "gemm::tile_kernel<false,1>"}
 
@@ -270,3 +278,32 @@ def test_the_attention_kernels_run_the_hopper_core(wrapper, kernel):
     traced = [w for w, patterns in launches.ENTRY_KERNELS.items()
               if any(p in shown for p in patterns)]
     assert traced == [wrapper]
+
+
+DECODE_WRAPPERS = ("rmsnorm_matmul", "matmul_residual_add", "matmul",
+                   "matmul_bias_act")
+
+
+@pytest.mark.parametrize("wrapper", DECODE_WRAPPERS)
+def test_each_decode_instantiation_counts_for_its_wrapper_only(wrapper):
+    """The four GEMM wrappers run their M <= 16 products on
+    `decode::tma_gemv_kernel<NORM,EPI>` (decode_gemm.cuh), each with flags
+    of its own: every instantiation the wrapper's source makes is named by
+    exactly one pattern of its own, and a trace's name of it (as
+    `traced_launches` matches it, by substring) counts for this wrapper
+    and no other."""
+    assert CSRC / "decode_gemm.cuh" in includes_of(CSRC / f"{wrapper}.cu")
+    insts = sorted(i for i in owned(wrapper)[1]
+                   if i.startswith("decode::tma_gemv_kernel<"))
+    assert insts, wrapper
+    for inst in insts:
+        mine = [p for p in launches.ENTRY_KERNELS[wrapper] if p in inst]
+        assert mine == [inst], (inst, mine)
+        shown = inst.replace(",", ", ") + "(CUtensorMap_st, decode::Args)"
+        key = shown.replace(" ", "")
+        matched = [w for w, patterns in launches.ENTRY_KERNELS.items()
+                   if any(p in key for p in patterns)]
+        assert matched == [wrapper], (inst, matched)
+    want = {"rmsnorm_matmul": 1, "matmul_residual_add": 1, "matmul": 1,
+            "matmul_bias_act": 3}[wrapper]
+    assert len(insts) == want, insts
