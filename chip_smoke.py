@@ -26,14 +26,20 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            split-K kernel)
   suite    matmul, axpy, dotp, conv2d_3x3 and dct8x8 through
            repro_torch.kernels.ops under the default policy, in f32 (and
-           bf16 for matmul and axpy; bf16 matmul rows name their
-           schedule), at the paper's sizes, at card sizes
-           (>= 10x the L2) and at one ragged shape each: every output vs
-           the plain version, kernel, plain and library times (warm, 200
-           launches, at the paper's sizes, also replayed as a CUDA graph;
-           L2 flushed at the others), the
-           bound (bytes, or operations at the f32 or bf16 peak), the
-           launches; TF32 off for the plain versions and the library calls
+           bf16 for matmul and axpy; matmul rows name their schedule and
+           the kernels a trace of one call shows: f32 with K, N % 4 == 0
+           the 3xTF32 product, after the split pass at M > 256; other f32
+           the CUDA-core tile), at the paper's sizes, at card sizes (>= 10x
+           the L2) and at one ragged shape each (f32 matmul: one on each
+           route): every output vs the plain version (f32 matmul also vs an f64
+           product: at most twice the plain version's error), kernel,
+           plain and library times (warm, 200 launches, at the paper's
+           sizes, also replayed as a CUDA graph; L2 flushed at the others,
+           and at card sizes also replayed as a CUDA graph, flushed), the
+           bound (bytes, or operations at the f32, TF32 or bf16 peak; the
+           3xTF32 route counts its three products, with the f32 CUDA-core
+           bound beside it), the launches; TF32 off for the plain versions
+           and the library calls
   compose  each fused op's composition (`ops.OPS[name].composition`,
            its unfused lane) vs the fused kernel at a model path's shape
            under the default policy: it must launch its primitive kernels
@@ -100,6 +106,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 QWEN_FUSED = ("rmsnorm_matmul", "matmul_residual_add",
               "flash_attention_proj")       # the fused route of qwen3-14b
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+TF32_FLOPS_PER_S = 495e12          # dense TF32 tensor-core peak
 F32_FLOPS_PER_S = 67e12            # f32 on the CUDA cores (no tensor cores)
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16: one output rounding + sum order
 F32_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 elementwise: sum order only
@@ -310,6 +317,32 @@ MAINLOOP_KERNEL = r"tma_wgmma_kernel<[^>]*>"
 DECODE_KERNEL = r"tma_gemv_kernel<[^>]*>"
 
 
+def f32_schedule(m: int, k: int, n: int) -> str:
+    """How the f32 matmul runs an (M, K, N) product (`matmul_f32_plan`): on
+    the tensor cores (K, N % 4 == 0) "tf32x3,split_pass" (the split pass,
+    then the product) or "tf32x3,fused" (the product splits b itself, M <=
+    256), with the N tile, cluster size, tiles, blocks, k a block walks and
+    ring stages; or "cuda_core_tile" (its 128 x 128 tiles)."""
+    from repro_torch.kernels import build
+
+    p = (ctypes.c_int * 7)()
+    build.check("matmul", build.entry("matmul", "matmul_f32_plan")(m, n, k,
+                                                                   p))
+    route, bn, cluster, tiles, blocks, k_cta, stages = p
+    if route == 0:
+        return f"cuda_core_tile,tiles={tiles}"
+    return (f"tf32x3,{'split_pass' if route == 1 else 'fused'},bn={bn},"
+            f"cluster={cluster},tiles={tiles},blocks={blocks},"
+            f"k_per_cta={k_cta},stages={stages}")
+
+
+# the kernels of each f32 matmul route, as traces name them
+F32_KERNELS = {"split_pass": (r"tf32x3::split_kernel",
+                              r"tf32x3::gemm_kernel<[^>]*>"),
+               "fused": (r"tf32x3::fused_kernel<[^>]*>",),
+               "cuda_core_tile": (r"matmul_f32_kernel",)}
+
+
 SENTINEL = "spin_kernel"          # torch.cuda._sleep's kernel
 PADS_S = (0.1, 1.0, 4.0)          # host time kept from a trace's ends, by try
 LOST_TRACES: list[str] = []       # traces taken again: "what:sentinels seen"
@@ -410,24 +443,30 @@ def traced(what: str, fn):
                          f"records (sentinels seen in the last: {seen} of 2)")
 
 
-def kernel_instance(fn, pattern: str = MAINLOOP_KERNEL) -> str:
-    """The kernel instantiation matching `pattern` (the mainloop's
-    `hopper::tma_wgmma_kernel<BN,EPI,OWNER>`, or the decode kernel's
-    `decode::tma_gemv_kernel<NORM,EPI>`) that one call of `fn` runs on the
-    card, as a torch.profiler trace names it; raises unless the trace shows
-    it exactly once and, for the decode kernel, no split-K kernel (one
-    launch a call, no finish)."""
+def kernel_instance(fn, patterns=(MAINLOOP_KERNEL,), banned=()) -> str:
+    """The kernels matching `patterns` (the mainloop's
+    `hopper::tma_wgmma_kernel<BN,EPI,OWNER>`, the decode kernel's
+    `decode::tma_gemv_kernel<NORM,EPI>`, or an f32 matmul route's
+    `F32_KERNELS`) that one call of `fn` runs on the card, as a
+    torch.profiler trace names them ("+" between); raises unless the trace
+    shows each exactly once and no kernel matching `banned` (the decode
+    kernel's split-K kernels, the other f32 routes' kernels)."""
     prof = traced("kernel_instance", fn)
     events = device_events(prof)
-    hits = [(m.group(0).replace(" ", ""), e.count) for e in events
-            for m in [re.search(pattern, e.key)] if m]
-    others = [e.key[:80] for e in events if "skinny::" in e.key]
-    if len(hits) != 1 or hits[0][1] != 1 or (
-            pattern == DECODE_KERNEL and others):
-        raise AssertionError(f"expected one {pattern} launch in the trace, "
-                             f"saw {hits} among "
-                             f"{[e.key[:80] for e in events]}")
-    return hits[0][0]
+    names = []
+    for pattern in patterns:
+        hits = [(m.group(0).replace(" ", ""), e.count) for e in events
+                for m in [re.search(pattern, e.key)] if m]
+        if len(hits) != 1 or hits[0][1] != 1:
+            raise AssertionError(f"expected one {pattern} launch in the "
+                                 f"trace, saw {hits} among "
+                                 f"{[e.key[:80] for e in events]}")
+        names.append(hits[0][0])
+    others = [e.key[:80] for e in events
+              if any(re.search(b, e.key) for b in banned)]
+    if others:
+        raise AssertionError(f"{names}: the trace also shows {others}")
+    return "+".join(names)
 
 
 def _compare(name, got, want, tol=TOL):
@@ -467,8 +506,8 @@ def kernel_phase() -> list[dict]:
         if schedule and on_mainloop(schedule):
             schedule += f",kernel={kernel_instance(kernel)}"
         elif schedule and schedule.startswith("decode"):
-            schedule += (f",kernel="
-                         f"{kernel_instance(kernel, DECODE_KERNEL)}")
+            schedule += ",kernel=" + kernel_instance(
+                kernel, (DECODE_KERNEL,), ("skinny::",))
         if name == "rmsnorm" or (schedule or "").startswith("decode"):
             # a few us of device time: also without the host's dispatch
             graphed = {"graph_ms": graph_ms(kernel, 10, timer.flush),
@@ -631,6 +670,7 @@ def suite_cases():
                               (CARD, 4096, 4096, 4096, f32),
                               (CARD, 4096, 4096, 4096, bf16),
                               (RAGGED, 1000, 136, 200, f32),
+                              (RAGGED, 1000, 135, 200, f32),  # K % 4 != 0
                               (RAGGED, 1000, 136, 200, bf16),
                               (RAGGED, 5, 520, 300, bf16),
                               (DECODE, 8, 5120, 5120, bf16)):
@@ -691,8 +731,10 @@ def suite_phase(launches) -> list[dict]:
     version on the same inputs and the three are timed: warm, 200
     launches between one pair of events, at the paper's sizes (and the
     same 200 replayed as a CUDA graph: device time without the host's
-    dispatch); L2 flushed before each launch at the others. The tensors
-    are freed at the end."""
+    dispatch); L2 flushed before each launch at the others (at card sizes
+    and the decode shape also replayed as a CUDA graph, flushed). Each f32
+    matmul row names its route and the kernels its trace shows, and is
+    held to an f64 product. The tensors are freed at the end."""
     from repro_torch.cluster.policy import use_policy
     from repro_torch.kernels import ops
 
@@ -745,13 +787,38 @@ def suite_phase(launches) -> list[dict]:
         else:
             times = [timer(lambda: kernel(*args)),
                      timer(lambda: plain(*args), 3), timer(lib)]
-            if size == DECODE:    # a few us: also without host dispatch
+            if size in (CARD, DECODE):    # also without host dispatch
                 extra = {"graph_ms": graph_ms(lambda: kernel(*args), 10,
                                               timer.flush),
                          "library_graph_ms": graph_ms(lib, 10, timer.flush)}
         peak = F32_FLOPS_PER_S if dt == torch.float32 else BF16_FLOPS_PER_S
         bms, by = bound(byts, flops, peak)
         sched = {}
+        if name == "matmul" and dt == torch.float32:
+            # 3xTF32 does three TF32 products of the work: its bound, and the
+            # f32 CUDA cores' beside it; held to an f64 product too
+            (m, k), n = args[0].shape, args[1].shape[1]
+            sched = {"schedule": f32_schedule(m, k, n)}
+            on_tc = sched["schedule"].startswith("tf32x3")
+            route = (sched["schedule"].split(",")[1] if on_tc
+                     else "cuda_core_tile")
+            sched["schedule"] += ",kernel=" + kernel_instance(
+                lambda: kernel(*args), F32_KERNELS[route],
+                [p for r, ps in F32_KERNELS.items() if r != route
+                 for p in ps])
+            sched["bound_f32_cores_ms"] = bms
+            if on_tc:
+                bms, by = bound(byts, 3 * flops, TF32_FLOPS_PER_S)
+            want64 = args[0].double() @ args[1].double()
+            sched["err_f64"] = (got.double() - want64).abs().max().item()
+            sched["plain_err_f64"] = (want.double()
+                                      - want64).abs().max().item()
+            del want64
+            if sched["err_f64"] > 2 * sched["plain_err_f64"]:
+                raise AssertionError(
+                    f"suite: matmul {label} f32 is {sched['err_f64']} from "
+                    f"an f64 product, the plain version "
+                    f"{sched['plain_err_f64']}")
         if name == "matmul" and dt == torch.bfloat16:
             (m, k), n = args[0].shape, args[1].shape[1]
             sched = {"schedule": gemm_schedule(name, m, k, n)}
@@ -760,7 +827,7 @@ def suite_phase(launches) -> list[dict]:
                     f",kernel={kernel_instance(lambda: kernel(*args))}")
             elif sched["schedule"].startswith("decode"):
                 sched["schedule"] += (",kernel=" + kernel_instance(
-                    lambda: kernel(*args), DECODE_KERNEL))
+                    lambda: kernel(*args), (DECODE_KERNEL,), ("skinny::",)))
         timing = "warm" if size == PAPER else "flushed"
         dts = str(dt).replace("torch.", "")
         log("suite", name=name, size=size, dtype=dts, shape=label,
@@ -768,7 +835,10 @@ def suite_phase(launches) -> list[dict]:
             plain_ms=f"{times[1]:.5f}", library_ms=f"{times[2]:.5f}",
             library=f"'{lib_name}'", bound_ms=f"{bms:.5f}", bound_by=by,
             timing=timing, launches=counts[name]["launches"],
-            **{k: f"{v:.5f}" for k, v in extra.items()}, **sched)
+            **{k: f"{v:.5f}" for k, v in extra.items()},
+            **{k: (f"{v:.5f}" if k.endswith("_ms") else
+                   f"{v:.3g}" if isinstance(v, float) else v)
+               for k, v in sched.items()})
         rows.setdefault(name, []).append({
             "size": size, "dtype": dts, "shape": label, "max_abs_err": err,
             "ms": times[0], "plain_ms": times[1], "library_ms": times[2],

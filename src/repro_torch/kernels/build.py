@@ -35,8 +35,10 @@ SZ = ctypes.c_size_t
 # the C functions of each library: name -> (argtypes, restype). Launchers
 # (one per dtype, `<name>_<f32|bf16>`) return cudaGetLastError();
 # *_workspace_floats size the f32 scratch the wrapper allocates (split-K
-# partials, the bf16 operands the wgmma paths stage, dotp's block
-# partials); the libraries that include csrc/wgmma_gemm.cuh also export
+# partials, the bf16 operands the wgmma paths stage, f32 matmul's split of
+# b, dotp's block partials); matmul also exports `matmul_f32_plan` (M, N,
+# K, int[7] out: the f32 route and its tile, cluster, tiles, blocks, k a
+# block, stages); the libraries that include csrc/wgmma_gemm.cuh also export
 # `wgmma_plan` (M, N, int[3] out: the mainloop's BN, tiles and blocks),
 # and the four GEMM wrappers `<name>_decode_plan` (M, N, K, int[5] out:
 # the decode kernel's N tile, cluster size, CTAs, k rows a CTA, stages).
@@ -62,10 +64,11 @@ SIGNATURES = {
         "flash_attention_proj_workspace_floats": ([I, I, I, I], SZ),
         **WGMMA_PLAN},
     "matmul": {
-        "matmul_f32": ([P, P, P, I, I, I, P], I),
+        "matmul_f32": ([P, P, P, P, I, I, I, P], I),
         "matmul_bf16": ([P, P, P, P, I, I, I, P], I),
-        "matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN,
-        **_decode_plan("matmul")},
+        "matmul_workspace_floats": ([I, I, I, I], SZ),
+        "matmul_f32_plan": ([I, I, I, P], I),
+        **WGMMA_PLAN, **_decode_plan("matmul")},
     "axpy": {
         "axpy_f32": ([P, P, P, P, SZ, P], I),
         "axpy_bf16": ([P, P, P, P, SZ, P], I)},

@@ -65,16 +65,14 @@
 //     any CTA streams, each further wave of clusters (cluster occupancy
 //     from cudaOccupancyMaxActiveClusters) counted as another pass.
 //
-// Launch: cudaLaunchKernelEx with a cluster dimension; the tensor map of
-// the weight is encoded on the host for every call and passed by value,
-// as the mainloop does; nothing in the launch synchronises or allocates,
-// so it is captured in a CUDA graph like any other launch.
+// Launch: `hopper::launch_ex` (a cluster dimension, programmatic
+// dependent launch); the tensor map of the weight is encoded on the host
+// for every call and passed by value, as the mainloop does; nothing in the
+// launch synchronises or allocates, so it is captured in a CUDA graph like
+// any other launch.
 #pragma once
 
 #include <atomic>
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #include "wgmma_gemm.cuh"
 
@@ -85,7 +83,7 @@ constexpr int THREADS = (CONSUMERS + 1) * 32;  // + the producer warp
 constexpr int BOX = hopper::BOX;             // 64 columns of the weight
 constexpr int BOX_K = 64;                    // k rows of a box
 constexpr int BOX_BYTES = hopper::B_BOX_BYTES;   // 8 KB
-constexpr int MAX_CLUSTER = 8;               // portable cluster size
+constexpr int MAX_CLUSTER = hopper::MAX_CLUSTER;   // 8
 constexpr int MAX_BOXES = 8;                 // boxes across a column tile
 constexpr int MIN_STAGES = 4, PAIR_STAGES = 12, SOLO_STAGES = 24;
 constexpr int MAX_STAGES = SOLO_STAGES;
@@ -117,39 +115,14 @@ struct Args {
 // PTX wrappers: cluster, DSMEM and the warp-level MMA
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_id() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
-  return r;
-}
-
-// The cluster barrier: every thread of the cluster arrives (release), and
-// a wait (acquire) returns once all have; what a CTA did before its arrive
-// (initialising its mbarriers) is visible to every CTA after the wait.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait;\n" ::: "memory");
-}
-
-// The address of the same shared-memory location in CTA `rank`.
-__device__ __forceinline__ uint32_t dsmem(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
+using hopper::cluster_arrive;
+using hopper::cluster_id;
+using hopper::cluster_rank;
+using hopper::cluster_size;
+using hopper::cluster_wait;
+using hopper::dsmem;
+using hopper::st_async;
+using hopper::st_async2;
 
 // A bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
 // from global to shared memory, completing on `bar`.
@@ -160,23 +133,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       ::"r"(hopper::smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
         "r"(bytes), "r"(hopper::smem_u32(bar))
-      : "memory");
-}
-
-// st.async: 4 or 8 bytes into (another) CTA's shared memory at cluster
-// address `addr`, completing their bytes on the mbarrier at cluster
-// address `bar`.
-__device__ __forceinline__ void st_async(uint32_t addr, float v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
-      "[%2];\n" ::"r"(addr), "f"(v), "r"(bar) : "memory");
-}
-__device__ __forceinline__ void st_async2(uint32_t addr, float v0, float v1,
-                                          uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
-      "{%1, %2}, [%3];\n" ::"r"(addr), "f"(v0), "f"(v1), "r"(bar)
       : "memory");
 }
 
@@ -538,25 +494,8 @@ const int (*active_clusters())[MAX_CLUSTER + 1] {
       cudaGetLastError();
       return;
     }
-    for (int two = 0; two < 2; ++two)
-      for (int c = 1; c <= MAX_CLUSTER; ++c) {
-        cudaLaunchConfig_t cfg = {};
-        cudaLaunchAttribute attr[1];
-        attr[0].id = cudaLaunchAttributeClusterDimension;
-        attr[0].val.clusterDim.x = c;
-        attr[0].val.clusterDim.y = 1;
-        attr[0].val.clusterDim.z = 1;
-        cfg.gridDim = dim3(c);
-        cfg.blockDim = dim3(THREADS);
-        cfg.dynamicSmemBytes = two ? PAIR_SMEM : SOLO_SMEM;
-        cfg.attrs = attr;
-        cfg.numAttrs = 1;
-        int n = 0;
-        if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess)
-          act[two][c] = n;
-        else
-          cudaGetLastError();
-      }
+    hopper::active_clusters(kernel, THREADS, SOLO_SMEM, act[0]);
+    hopper::active_clusters(kernel, THREADS, PAIR_SMEM, act[1]);
   });
   return act;
 }
@@ -636,13 +575,9 @@ Plan search(int M, int N, int K) {
 // shapes every call; the launch's host time is part of an eager step's).
 template <bool NORM, int EPI>
 Plan plan(int M, int N, int K) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, Plan> seen;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(M, N, K);
-  const auto hit = seen.find(key);
-  if (hit != seen.end()) return hit->second;
-  return seen[key] = search<NORM, EPI>(M, N, K);
+  return hopper::per_shape(M, N, K, [](int m, int n, int k) {
+    return search<NORM, EPI>(m, n, k);
+  });
 }
 
 // out = epilogue<EPI>(prologue<NORM>(x) @ w) in one launch on `st`; the
@@ -669,23 +604,8 @@ int launch(const void* x, const void* scale, const void* w, const void* extra,
   }
   const Args args = {(const bf16*)x, (const bf16*)scale, (const bf16*)extra,
                      (bf16*)out, M, N, K, p.boxes, p.kboxes, p.stages, eps};
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cfg.gridDim = dim3(p.tiles * p.cluster);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, kernel, map_w, args);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return (int)hopper::launch_ex(kernel, dim3(p.tiles * p.cluster), THREADS,
+                                p.smem, p.cluster, st, map_w, args);
 }
 
 // The plan as {N tile, cluster size, CTAs, k rows a CTA, ring stages} in

@@ -5,9 +5,10 @@
 // matmul: the paper's Table 1 `matmul`, an output tile held across the K
 // loop (MemPool's register tile) while operand tiles stream in.
 //
-// Bound on an H100 (67 TFLOP/s f32 on the CUDA cores, 989 TFLOP/s bf16 on
-// the tensor cores, 3.35 TB/s): operations-bound at every size the suite
-// runs; 4096^3 takes at least 2.05 ms in f32 and 0.139 ms in bf16.
+// Bound on an H100 (67 TFLOP/s f32 on the CUDA cores, 495 TFLOP/s TF32 and
+// 989 TFLOP/s bf16 on the tensor cores, 3.35 TB/s): operations-bound at
+// every size the suite runs; 4096^3 takes at least 0.833 ms in f32 as three
+// TF32 products (2.05 ms on the CUDA cores) and 0.139 ms in bf16.
 //
 // bf16, by shape (no prologue, no epilogue beyond the one rounding):
 //   * M > 16, K and N multiples of 8: the TMA + wgmma mainloop of
@@ -19,13 +20,21 @@
 //   * any other shape: common.cuh's split-K path at M <= 16, the 64 x 128
 //     wmma tile at M > 16.
 //
-// f32: true f32 on the CUDA cores (no TF32, no operand rounding). A block
-// of 256 threads owns a 128 x 128 output tile and each thread an 8 x 8
-// register tile (64 FMAs for 16 shared-memory loads). K is walked 8 at a
-// time through two shared-memory buffers: the next step's A and B tiles
-// are loaded into registers while the current one is multiplied, A stored
-// transposed so that both operands are read as float4 along the tile.
+// f32, by shape:
+//   * K and N multiples of 4: three TF32 products on the tensor cores
+//     (tf32x3_gemm.cuh: each operand split into a rounded TF32 part and a
+//     TF32 remainder; at M > 256 b is split once by a pass of its own into
+//     the workspace, at M <= 256 by the product itself), as accurate as an
+//     f32 product;
+//   * any other shape: true f32 on the CUDA cores (no TF32, no operand
+//     rounding), `sgemm::matmul_f32_kernel`. A block of 256 threads owns a
+//     128 x 128 output tile and each thread an 8 x 8 register tile (64 FMAs
+//     for 16 shared-memory loads). K is walked 8 at a time through two
+//     shared-memory buffers: the next step's A and B tiles are loaded into
+//     registers while the current one is multiplied, A stored transposed so
+//     that both operands are read as float4 along the tile.
 #include "decode_gemm.cuh"
+#include "tf32x3_gemm.cuh"
 
 namespace sgemm {
 constexpr int BM = 128, BN = 128, BK = 8, TM = 8, TN = 8, THREADS = 256;
@@ -125,7 +134,11 @@ matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }
 }  // namespace sgemm
 
-extern "C" size_t matmul_workspace_floats(int M, int N, int K) {
+// f32 workspace (in floats) of an (M, K) x (K, N) product: with `f32`,
+// b's hi and lo parts when the 3xTF32 route splits b in a pass of its own
+// (2NK), else none; in bf16, the decode path's (decode_workspace_floats).
+extern "C" size_t matmul_workspace_floats(int M, int N, int K, int f32) {
+  if (f32) return tf32x3::workspace_floats(M, N, K);
   return decode_workspace_floats(M, N, K);
 }
 
@@ -133,9 +146,40 @@ extern "C" int matmul_decode_plan(int M, int N, int K, int* plan) {
   return decode::report<false, EPI_NONE>(M, N, K, plan);
 }
 
-extern "C" int matmul_f32(const void* a, const void* b, void* out, int M,
-                          int N, int K, void* stream) {
+// How an f32 product runs, for reports: {route (1: 3xTF32 on the tensor
+// cores after the split pass, 2: the same with b split in the product, 0:
+// the CUDA-core tile), N tile, cluster size, tiles, blocks, k a block
+// walks, ring stages} in `plan` (the CUDA-core tile: {0, 128, 1, tiles,
+// tiles, K, 2}).
+extern "C" int matmul_f32_plan(int M, int N, int K, int* plan) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (!tf32x3::takes(N, K)) {
+    const int tiles = ((M + sgemm::BM - 1) / sgemm::BM) *
+                      ((N + sgemm::BN - 1) / sgemm::BN);
+    const int v[7] = {0, sgemm::BN, 1, tiles, tiles, K, 2};
+    for (int i = 0; i < 7; ++i) plan[i] = v[i];
+    return 0;
+  }
+  const tf32x3::Plan p = tf32x3::plan(M, N, K);
+  if (p.bn == 0) return (int)cudaErrorInvalidValue;
+  const int v[7] = {p.fused ? 2 : 1, p.bn, p.cluster, p.tiles, p.blocks,
+                    p.kper * tf32x3::BK, p.stages};
+  for (int i = 0; i < 7; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// f32: K % 4 == 0 and N % 4 == 0 on the tensor cores (tf32x3_gemm.cuh:
+// the split pass into `workspace` and the product, or at M <= 256 the
+// product alone), any other shape on the CUDA-core tile above. The route
+// is chosen on the shape alone; a failed launch is returned, never retried
+// on the other.
+extern "C" int matmul_f32(const void* a, const void* b, void* out,
+                          void* workspace, int M, int N, int K,
+                          void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (tf32x3::takes(N, K))
+    return tf32x3::launch(a, b, out, (float*)workspace, M, N, K,
+                          (cudaStream_t)stream);
   const dim3 grid((M + sgemm::BM - 1) / sgemm::BM,
                   (N + sgemm::BN - 1) / sgemm::BN);
   sgemm::matmul_f32_kernel<<<grid, sgemm::THREADS, 0, (cudaStream_t)stream>>>(

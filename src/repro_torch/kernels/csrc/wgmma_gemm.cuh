@@ -80,6 +80,11 @@
 
 #include <cuda.h>   // CUtensorMap and its enums; no driver symbol is linked
 
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <utility>
+
 #include "common.cuh"
 
 namespace hopper {
@@ -90,6 +95,7 @@ constexpr int B_BOX_BYTES = BK * BOX * 2;     // 8 KB
 constexpr int SMEM_CAP = 220 * 1024;          // of the 227 KB a block may use
 constexpr int TILE_N[] = {128, 160, 176, 224, 256};
 constexpr int GROUP = 8;                      // row tiles a band of the walk
+constexpr int MAX_CLUSTER = 8;                // portable cluster size
 
 // The wrapper that launches an instantiation (its OWNER argument).
 enum : int { OWNER_RMSNORM_MATMUL = 0, OWNER_FLASH_ATTENTION_PROJ = 1,
@@ -204,6 +210,60 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Thread-block clusters (the decode kernel's and the 3xTF32 product's
+// split K): a block's rank and its cluster, the cluster barrier, and
+// stores into another block's shared memory.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier: every thread of the cluster arrives (release), and
+// a wait (acquire) returns once all have; what a CTA did before its arrive
+// (initialising its mbarriers) is visible to every CTA after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in CTA `rank`.
+__device__ __forceinline__ uint32_t dsmem(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// st.async: 4 or 8 bytes into (another) CTA's shared memory at cluster
+// address `addr`, completing their bytes on the mbarrier at cluster
+// address `bar`.
+__device__ __forceinline__ void st_async(uint32_t addr, float v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr), "f"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async2(uint32_t addr, float v0, float v1,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr), "f"(v0), "f"(v1), "r"(bar)
+      : "memory");
 }
 
 // d (64 x BN, f32, the m64nBNk16 register layout) += a (64 x 16, K-major)
@@ -617,24 +677,30 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// The tensor map of a row-major (rows, cols) bf16 matrix read in boxes of
-// 64 columns by `box_rows` rows, 128-byte swizzled, zero past its edges.
-// With `slabs` > 0 the map is 3-D: `slabs` such matrices end to end, a box
-// reading rows of one slab only (zero past that slab's last row, where a
-// 2-D map over all the rows would read the next slab's).
-inline cudaError_t encode(CUtensorMap* map, const void* ptr, int rows,
-                          int cols, int box_rows, int slabs = 0) {
+// The tensor map of a row-major (rows, cols) matrix of `type` (bf16 unless
+// named; f32 for the 3xTF32 product, tf32x3_gemm.cuh) read in boxes of 128
+// bytes of a row (64 bf16, 32 f32) by `box_rows` rows, 128-byte swizzled,
+// zero past its edges. With `slabs` > 0 the map is 3-D: `slabs` such
+// matrices end to end, a box reading rows of one slab only (zero past that
+// slab's last row, where a 2-D map over all the rows would read the next
+// slab's).
+inline cudaError_t encode(
+    CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+    int slabs = 0,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled fn = encode_fn();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t size = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BOX, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * size,
+                                 (cuuint64_t)rows * cols * size};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / size), (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        slabs > 0 ? 3 : 2, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, type, slabs > 0 ? 3 : 2, const_cast<void*>(ptr),
+                        dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -646,6 +712,76 @@ inline int sm_count() {
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms;
+}
+
+// How many clusters of c blocks (c = 1..MAX_CLUSTER) of `kernel` the card
+// runs at once with `threads` threads and `smem` bytes of dynamic shared
+// memory a block (the kernel already allows that much), into act[c]; 0
+// where it runs none.
+template <typename Kernel>
+void active_clusters(Kernel kernel, int threads, int smem, int* act) {
+  for (int c = 1; c <= MAX_CLUSTER; ++c) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      n = 0;
+    }
+    act[c] = n;
+  }
+}
+
+// A launch on `st` with programmatic dependent launch (the kernel lets
+// the next begin early and waits for the one before it) in clusters of
+// `cluster` blocks (1 too: a kernel that runs cluster instructions, as
+// the decode kernel does at every cluster size, needs a cluster launch).
+template <typename... Params, typename... Actual>
+cudaError_t launch_ex(void (*kernel)(Params...), dim3 grid, int threads,
+                      size_t smem, int cluster, cudaStream_t st,
+                      Actual&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, std::forward<Actual>(args)...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// `search(M, N, K)`, kept for each shape: a plan is searched once and a
+// call's host time is a lookup. Each caller passes a lambda of its own
+// (a type of its own), so each has its own table.
+template <typename Search>
+auto per_shape(int M, int N, int K, Search search)
+    -> decltype(search(M, N, K)) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, decltype(search(M, N, K))> seen;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(M, N, K);
+  const auto hit = seen.find(key);
+  if (hit != seen.end()) return hit->second;
+  return seen[key] = search(M, N, K);
 }
 
 // The N tile whose tiles fill the SMs' waves best: least ceil(tiles /

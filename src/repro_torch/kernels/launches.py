@@ -88,7 +88,11 @@ def _mainloop(wrapper: str, epi: int) -> tuple:
 # mainloop, counted by their own instantiations;
 # rmsnorm_matmul's and flash_attention_proj's open with a kernel of their
 # own (the row normalisation, the per-head attention), which counts them,
-# and their mainloop instantiations are named by no pattern.
+# and their mainloop instantiations are named by no pattern. matmul's f32
+# calls with K, N % 4 == 0 open with `tf32x3::split_kernel` (its product,
+# `tf32x3::gemm_kernel<BN>`, is named by no pattern) or, at M <= 256, run
+# `tf32x3::fused_kernel<BN>` alone; other f32 calls run
+# `sgemm::matmul_f32_kernel` alone.
 ENTRY_KERNELS = {
     "rmsnorm_matmul": ("decode::tma_gemv_kernel<true,0>",
                        "skinny::partial_kernel<true,0>",
@@ -101,6 +105,7 @@ ENTRY_KERNELS = {
     "matmul": ("decode::tma_gemv_kernel<false,0>",
                "skinny::partial_kernel<false,0>",
                "gemm::tile_kernel<false,0>", "matmul_f32_kernel",
+               "tf32x3::split_kernel", "tf32x3::fused_kernel<",
                *_mainloop("matmul", 0)),
     "axpy": ("axpy_kernel_",),
     "dotp": ("dotp_partial_kernel",),

@@ -1,6 +1,11 @@
 """matmul — the paper's Table 1 `matmul`: wrapper, plain version, launch
 count. Replaces `repro/kernels/matmul.py` _matmul_kernel / matmul;
-the kernel is `csrc/matmul.cu` (bound and design in its notes).
+the kernel is `csrc/matmul.cu` (bound and design in its notes). f32 with
+K and N multiples of 4 runs as three TF32 products on the tensor cores
+(`csrc/tf32x3_gemm.cuh`: a split pass of b into the workspace, then the
+product, or at M <= 256 one product that splits b itself;
+`ref.matmul_tf32x3` emulates its arithmetic); other f32 shapes on the
+CUDA cores.
 
 The wrapper takes CPU tensors to the plain version and CUDA tensors to the
 kernel, or raises (see `fused.py` for the counting convention).
@@ -35,15 +40,11 @@ def matmul(a, b):
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
-    if a.dtype == torch.float32:
-        err = build.entry("matmul", "matmul_f32")(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-            build.stream())
-    else:
-        ws = build.workspace("matmul", a.device, m, n, k)
-        err = build.entry("matmul", "matmul_bf16")(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n,
-            k, build.stream())
+    ws = build.workspace("matmul", a.device, m, n, k,
+                         int(a.dtype == torch.float32))
+    err = build.entry("matmul", f"matmul_{build.SUFFIX[a.dtype]}")(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), m, n, k,
+        build.stream())
     build.check("matmul", err)
     matmul.launches += 1
     return out

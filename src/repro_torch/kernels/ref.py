@@ -32,6 +32,43 @@ def matmul(a, b):
     return (a.to(F32) @ b.to(F32)).to(a.dtype)
 
 
+def tf32_rna(x):
+    """x (f32) rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as `cvt.rna.tf32.f32` does: half of the 13 dropped
+    bits' weight is added to the magnitude (sign-magnitude bits), then
+    they are cleared."""
+    bits = x.to(F32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(F32)
+
+
+def tf32_split(x):
+    """(hi, lo) of x (f32) as the f32 matmul kernel splits it (`split` in
+    csrc/tf32x3_gemm.cuh): hi = tf32(x), lo = tf32(x - hi); a finite x
+    that rounds past FLT_MAX takes hi = x truncated to TF32; a non-finite
+    x is hi = +-1 (x's sign), lo = x."""
+    x = x.to(F32).contiguous()
+    finite = torch.isfinite(x)
+    hi = tf32_rna(x)
+    hi = torch.where(finite & ~torch.isfinite(hi),
+                     (x.view(torch.int32) & ~0x1FFF).view(F32), hi)
+    hi = torch.where(finite, hi, torch.copysign(torch.ones_like(x), x))
+    lo = torch.where(finite, tf32_rna(x - hi), x)
+    return hi, lo
+
+
+def matmul_tf32x3(a, b, passes: int = 3):
+    """a @ b as the f32 matmul kernel computes it (csrc/tf32x3_gemm.cuh),
+    for tests: each operand split into hi and lo (`tf32_split`), and the
+    three products lo_a.hi_b, hi_a.lo_b and hi_a.hi_b (exact in f32)
+    summed in f32. `passes=1` keeps hi_a.hi_b alone (one TF32 product),
+    which loses what the split is for. The plain version stays
+    `matmul`."""
+    (a_hi, a_lo), (b_hi, b_lo) = tf32_split(a), tf32_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
 def axpy(alpha, x, y):
     """alpha: a Python number or a tensor holding one value."""
     a = torch.as_tensor(alpha, dtype=F32, device=x.device)

@@ -5,8 +5,10 @@ kernels have no CPU mode). It imports no jax, so it runs on a machine
 with only PyTorch: `python -m pytest -q tests/test_torch_cuda.py`.
 Tolerance: bf16 outputs within 2e-2 absolute + relative (one output
 rounding, and f32 sums taken in another order); f32 within 1e-5 (sum
-order), matmul within 1e-4 * sqrt(K) absolute, dotp within 1e-5 of
-sum|x*y|.
+order), matmul within 1e-4 * sqrt(K) absolute (and, on its 3xTF32 route,
+at most twice the plain version's error against an f64 product; with
+inf, NaN and FLT_MAX inputs, the plain version's infs and NaNs and 1e-5
+relative at 1e38-size outputs), dotp within 1e-5 of sum|x*y|.
 """
 
 import pytest
@@ -225,6 +227,145 @@ def test_cuda_matmul_bf16_on_the_mainloop(cuda, m, k, n):
         a, b).float(), **BF16_TOL)
 
 
+def _f32_plan(m, k, n):
+    """matmul_f32_plan: [route (3xTF32 on the tensor cores, 1: after the
+    split pass, 2: b split in the product; 0: the CUDA-core tile), N tile,
+    cluster, tiles, blocks, k a block, stages]."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    plan = (ctypes.c_int * 7)()
+    build.check("matmul", build.entry("matmul", "matmul_f32_plan")(
+        m, n, k, plan))
+    return list(plan)
+
+
+def _traced_kernels(fn):
+    """{device kernel name (spaces removed): runs} of one call of `fn`
+    under torch.profiler, between two kernels that mark the trace's
+    edges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    edge = torch.ones(4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        edge = edge * 2.0
+        fn()
+        edge = edge * 2.0
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")):
+            key = e.key.replace(" ", "")
+            out[key] = out.get(key, 0) + e.count
+    return out, launches.traced_launches(prof)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,cluster", [
+    (4096, 4096, 4096, 1),    # the suite's card size: persistent
+    (2000, 512, 3000, 1),     # tiles no multiple of the 132 SMs
+    (300, 4096, 1000, 2),     # under a wave: K split in a cluster
+    (256, 256, 256, 2),       # the paper's size: K split in a cluster
+    (1000, 136, 200, 0),      # ragged M, N and K
+    # K and N 4 past a multiple of 8: a last k8 slice half past K, and a
+    # last 8-column group half past N, in the cluster's reduction ...
+    (256, 132, 260, 2),
+    # ... and in the store of a block alone
+    (2000, 132, 204, 1),
+    (1000, 132, 204, 0)])
+def test_cuda_matmul_f32_on_the_tensor_cores(cuda, m, k, n, cluster):
+    """f32 with K, N % 4 == 0 runs three TF32 products: within 1e-4 *
+    sqrt(K) of the plain version, at most twice the plain version's error
+    against an f64 product, and the same bits twice. `cluster`: 1, the
+    plan splits no K; 2, it splits K in a cluster; 0, either."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    plan = _f32_plan(m, k, n)
+    assert plan[0] == (2 if m <= 256 else 1)
+    assert cluster == 0 or (plan[2] > 1) == (cluster == 2), plan
+    g = torch.Generator(device=cuda).manual_seed(19)
+    a = _randn(g, m, k)
+    b = _randn(g, k, n)
+    before = matmul.matmul.launches
+    got = matmul.matmul(a, b)
+    again = matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.matmul.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    plain = matmul.matmul_plain(a, b)
+    torch.testing.assert_close(got, plain, rtol=0.0, atol=1e-4 * k ** 0.5)
+    want = a.double() @ b.double()
+    err = (got.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    assert err <= 2 * plain_err, (err, plain_err)
+    assert torch.equal(got, again)
+
+
+def _nonfinite_operands(g, m, k, n):
+    """Unit normal (m, k) and (k, n) f32 operands with +-inf, NaN, FLT_MAX
+    and 3.4e38 entries: inf against a b value TF32 holds exactly (1.0, so
+    its lo part is 0) and against 0.0 (NaN in f32), inf against inf of
+    either sign, NaN, and the two largest values against b rows of 0.25
+    (a finite 1e38-size output) and 2.0 (inf in f32)."""
+    a, b = _randn(g, m, k), _randn(g, k, n)
+    big = torch.tensor([0.25, 2.0, -0.5, -3.0], device="cuda").repeat(
+        (n + 3) // 4)[:n]
+    inf = float("inf")
+    a[0, 3], b[3, 0], b[3, 1] = inf, 1.0, 0.0
+    a[1, 5] = -inf
+    a[2, 7] = float("nan")
+    b[9, 2], a[3, 9] = inf, -inf
+    a[4, 11], b[11] = torch.finfo(torch.float32).max, big
+    a[5, 13], b[13] = 3.4e38, big
+    return a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(130, 132, 260), (600, 132, 260)])
+def test_cuda_matmul_f32_keeps_inf_and_nan_like_f32(cuda, m, k, n):
+    """With +-inf, NaN and near-FLT_MAX entries the 3xTF32 route (b split
+    in the product at M 130, by the split pass at M 600) gives the plain
+    f32 product's NaNs and infs, with their signs, and its finite outputs
+    within 1e-4 * sqrt(K), or 1e-5 relative for the 1e38-size ones."""
+    assert _f32_plan(m, k, n)[0] == (2 if m <= 256 else 1)
+    g = torch.Generator(device=cuda).manual_seed(21)
+    a, b = _nonfinite_operands(g, m, k, n)
+    plain = matmul.matmul_plain(a, b)
+    assert plain.isnan().any() and (plain == float("inf")).any()
+    assert (plain == -float("inf")).any()
+    assert (plain[torch.isfinite(plain)].abs() > 1e37).any()
+    got = matmul.matmul(a, b)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-4 * k ** 0.5,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,kernels", [
+    (1000, 256, 256, ("tf32x3::split_kernel", "tf32x3::gemm_kernel<")),
+    (256, 256, 256, ("tf32x3::fused_kernel<",)),
+    (130, 7, 129, ("matmul_f32_kernel",))])
+def test_cuda_matmul_f32_routes_by_shape(cuda, m, k, n, kernels):
+    """An f32 call runs its route's kernels once each and no other f32
+    kernel, and a trace counts it once: K, N % 4 == 0 on the tensor cores
+    (the split pass and the product, or at M <= 256 the product that
+    splits b itself), (130, 7, 129) on `matmul_f32_kernel`."""
+    route = _f32_plan(m, k, n)[0]
+    assert route == {"tf32x3::split_kernel": 1, "tf32x3::fused_kernel<": 2,
+                     "matmul_f32_kernel": 0}[kernels[0]]
+    g = torch.Generator(device=cuda).manual_seed(20)
+    a, b = _randn(g, m, k), _randn(g, k, n)
+    names, traced = _traced_kernels(lambda: matmul.matmul(a, b))
+    assert traced["matmul"] == 1, (traced, names)
+    f32 = ("tf32x3::", "matmul_f32_kernel")
+    ran = {k: v for k, v in names.items() if any(f in k for f in f32)}
+    assert len(ran) == len(kernels), names
+    for kernel in kernels:
+        assert [v for k, v in ran.items() if kernel in k] == [1], names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (3, 5)])
@@ -316,7 +457,7 @@ def test_cuda_traced_matmul_launches_stay_apart_from_the_fused(cuda):
             matmul.matmul(a, b)             # the decode kernel
         matmul.matmul(big, b)               # the mainloop
         matmul.matmul(odd, b_odd)           # K % 8 != 0: the wmma tile
-        matmul.matmul(af, bf)               # f32 tile
+        matmul.matmul(af, bf)               # f32: split pass + 3xTF32
         fused.matmul_residual_add(a, b, r)            # the decode kernel
         fused.matmul_residual_add(big, b, r_big)      # the mainloop
         fused.matmul_residual_add(big, b, r_big)
@@ -546,6 +687,24 @@ def test_cuda_new_kernels_raise_rather_than_fall_back(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused.matmul_residual_add(x8.bfloat16(), w[:, ::2],
                                   torch.zeros(8, 64, device=cuda).bfloat16())
+    # f32 matmul on the tensor-core route with the split pass (M > 256): a
+    # launch that fails (a tensor map refused for a misaligned workspace)
+    # raises; nothing falls back to the CUDA-core tile or the plain version
+    from repro_torch.kernels import build
+
+    real = build.workspace
+
+    def misaligned(*args):
+        return real(*args)[1:]
+
+    a32, b32 = torch.randn(600, 64, device=cuda), torch.randn(64, 32,
+                                                              device=cuda)
+    build.workspace = misaligned
+    try:
+        with pytest.raises(RuntimeError, match="matmul"):
+            matmul.matmul(a32, b32)
+    finally:
+        build.workspace = real
     counts = launches.counts()
     assert all(c == {"launches": 0, "plain_cuda_calls": 0}
                for c in counts.values()), counts

@@ -8,7 +8,9 @@ the CUDA kernels implement (`test_torch_cuda.py` holds the kernels to
 those plain versions on a GPU).
 
 Tolerances: f32 1e-5 elementwise (sum order only); matmul 1e-4 * sqrt(K)
-absolute (a K-long f32 sum in another order); dotp 1e-5 relative to
+absolute (a K-long f32 sum in another order; the CUDA kernel's 3xTF32
+route, emulated by `ref.matmul_tf32x3`, is held to the same and to twice
+the f32 product's error against f64); dotp 1e-5 relative to
 sum|x*y| (the same, over every element); bf16 2e-2 (sum order can flip
 one output rounding).
 """
@@ -67,6 +69,124 @@ def test_matmul_matches_pallas(dtype, m, k, n):
     tol = (dict(rtol=0.0, atol=1e-4 * k ** 0.5) if dtype == "float32"
            else TOL[dtype])
     np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+MATMUL_SHAPES = [(64, 64, 64), (128, 96, 40), (24, 200, 72), (40, 80, 40),
+                 (130, 200, 200)]
+
+
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_matmul_tf32x3_emulation_matches_pallas(m, k, n):
+    """The arithmetic of the f32 kernel's tensor-core route (three TF32
+    products of split operands, `ref.matmul_tf32x3`) against the Pallas
+    kernel, to the suite's f32 matmul tolerance 1e-4 * sqrt(K)."""
+    aj, at = _pair(_normal(m, m, k))
+    bj, bt = _pair(_normal(k, k, n))
+    with juse("interpret"):
+        want = jops.matmul(aj, bj)
+    got = ref.matmul_tf32x3(at, bt)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0.0,
+                               atol=1e-4 * k ** 0.5)
+
+
+def _err64(got, a, b):
+    want = a.double() @ b.double()
+    return (got.double() - want).abs().max().item()
+
+
+def test_matmul_tf32x3_is_as_accurate_as_f32_at_k4096():
+    """Against an f64 product, the 3xTF32 emulation's error is at most
+    twice the f32 product's at K = 4096 (unit normal operands)."""
+    a = torch.from_numpy(_normal(21, 64, 4096))
+    b = torch.from_numpy(_normal(22, 4096, 48))
+    f32 = _err64(ref.matmul(a, b), a, b)
+    assert 0 < _err64(ref.matmul_tf32x3(a, b), a, b) <= 2 * f32
+
+
+def test_one_tf32_product_fails_the_f32_tolerances_at_k4096():
+    """One TF32 product (hi_a.hi_b alone) misses both checks the f32
+    route is held to, so they can fail: 1e-4 * sqrt(K) against the plain
+    version, and twice the f32 product's error against f64."""
+    k = 4096
+    a = torch.from_numpy(_normal(23, 64, k))
+    b = torch.from_numpy(_normal(24, k, 48))
+    one = ref.matmul_tf32x3(a, b, passes=1)
+    assert (one - ref.matmul(a, b)).abs().max().item() > 1e-4 * k ** 0.5
+    assert _err64(one, a, b) > 2 * _err64(ref.matmul(a, b), a, b)
+
+
+def test_tf32_rounds_to_nearest_with_ties_away():
+    """`ref.tf32_rna` keeps 10 mantissa bits like cvt.rna.tf32.f32: below
+    half an ulp (2^-10 at 1) down, at half away from zero, above up; the
+    split's parts sum back to x within 2^-22 |x|."""
+    u = 2.0 ** -10
+    x = torch.tensor([1 + 0.49 * u, 1 + 0.5 * u, -(1 + 0.5 * u),
+                      1 + 1.5 * u, 1 + 0.51 * u, 3.0, -0.0])
+    want = [1.0, 1 + u, -(1 + u), 1 + 2 * u, 1 + u, 3.0, -0.0]
+    assert ref.tf32_rna(x).tolist() == want
+    v = torch.from_numpy(_normal(25, 4096))
+    hi = ref.tf32_rna(v)
+    lo = ref.tf32_rna(v - hi)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((v.double() - hi.double() - lo.double()).abs()
+            <= 2.0 ** -22 * v.double().abs()).all()
+
+
+def _nonfinite_operands(seed: int, m: int, k: int, n: int):
+    """Unit normal (m, k) and (k, n) f32 operands with +-inf, NaN, FLT_MAX
+    and 3.4e38 entries: inf against a b value TF32 holds exactly (1.0, so
+    its lo part is 0) and against 0.0 (NaN in f32), inf against inf of
+    either sign, NaN, and the two largest values against b rows of 0.25
+    (a finite 1e38-size output) and 2.0 (inf in f32)."""
+    a, b = _normal(seed, m, k), _normal(seed + 1, k, n)
+    big = np.resize(np.float32([0.25, 2.0, -0.5, -3.0]), n)
+    a[0, 3], b[3, 0], b[3, 1] = np.inf, 1.0, 0.0
+    a[1, 5] = -np.inf
+    a[2, 7] = np.nan
+    b[9, 2], a[3, 9] = np.inf, -np.inf
+    a[4, 11], b[11] = np.finfo(np.float32).max, big
+    a[5, 13], b[13] = 3.4e38, big
+    return a, b
+
+
+def test_tf32_split_keeps_inf_nan_and_the_largest_values():
+    """`ref.tf32_split` as the kernel splits: a finite x keeps finite
+    parts that sum back to it within 2^-22 |x|, also where TF32 rounding
+    would pass FLT_MAX; inf and NaN become (+-1, x)."""
+    fmax = float(np.finfo(np.float32).max)
+    x = torch.tensor([fmax, -fmax, 3.4e38, 1.0, -2.5e-3])
+    hi, lo = ref.tf32_split(x)
+    assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((x.double() - hi.double() - lo.double()).abs()
+            <= 2.0 ** -22 * x.double().abs()).all()
+    assert not torch.isfinite(ref.tf32_rna(torch.tensor([fmax]))).any()
+    y = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    hi, lo = ref.tf32_split(y)
+    assert hi.tolist() == [1.0, -1.0, 1.0]
+    assert torch.equal(lo[:2], y[:2]) and lo[2].isnan()
+
+
+def test_matmul_tf32x3_emulation_keeps_inf_and_nan_like_f32():
+    """With +-inf, NaN and near-FLT_MAX entries the 3xTF32 arithmetic
+    gives the f32 product's NaNs and infs (with their signs), and its
+    finite outputs within 1e-4 * sqrt(K), or 1e-5 relative for the
+    1e38-size ones, of the plain version and of the Pallas kernel."""
+    m, k, n = 40, 80, 40
+    a, b = _nonfinite_operands(26, m, k, n)
+    aj, at = _pair(a)
+    bj, bt = _pair(b)
+    with juse("interpret"):
+        pallas = torch.from_numpy(np.array(_np(jops.matmul(aj, bj))))
+    plain = ref.matmul(at, bt)
+    assert plain.isnan().any() and (plain == float("inf")).any()
+    assert (plain == -float("inf")).any()
+    assert (plain[torch.isfinite(plain)].abs() > 1e37).any()
+    got = ref.matmul_tf32x3(at, bt)
+    for want in (plain, pallas):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-4 * k ** 0.5, equal_nan=True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
