@@ -38,8 +38,16 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            and at card sizes also replayed as a CUDA graph, flushed), the
            bound (bytes, or operations at the f32, TF32 or bf16 peak; the
            3xTF32 route counts its three products, with the f32 CUDA-core
-           bound beside it), the launches; TF32 off for the plain versions
-           and the library calls
+           bound beside it), the launches (axpy and dotp rows: their
+           blocks); TF32 off for the plain versions and the library calls;
+           then a host line at the paper's size for axpy (a number alpha,
+           a tensor alpha) and dotp: the mean host wall a call over 1,000
+           calls through ops, through the wrapper and of the library call,
+           the wrapper split into checks, allocation, stream lookup and
+           the C call with its launch, and the one device kernel a trace
+           of one call shows; and a host profile (torch.profiler) of the
+           wrapper and the library call, split into operators, CUDA
+           runtime calls and the rest
   compose  each fused op's composition (`ops.OPS[name].composition`,
            its unfused lane) vs the fused kernel at a model path's shape
            under the default policy: it must launch its primitive kernels
@@ -736,7 +744,7 @@ def suite_phase(launches) -> list[dict]:
     matmul row names its route and the kernels its trace shows, and is
     held to an f64 product. The tensors are freed at the end."""
     from repro_torch.cluster.policy import use_policy
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     # the plain versions and the library calls must compute in f32, not
     # TF32 (cuDNN's convolutions allow TF32 by default)
@@ -828,6 +836,11 @@ def suite_phase(launches) -> list[dict]:
             elif sched["schedule"].startswith("decode"):
                 sched["schedule"] += (",kernel=" + kernel_instance(
                     lambda: kernel(*args), (DECODE_KERNEL,), ("skinny::",)))
+        if name in ("axpy", "dotp"):      # the launch's blocks (its plan)
+            y = args[-1]
+            sched = {"schedule": "blocks=" + str(build.entry(
+                name, f"{name}_grid")(y.numel(), int(dt == torch.bfloat16),
+                                      y.get_device()))}
         timing = "warm" if size == PAPER else "flushed"
         dts = str(dt).replace("torch.", "")
         log("suite", name=name, size=size, dtype=dts, shape=label,
@@ -858,7 +871,163 @@ def suite_phase(launches) -> list[dict]:
             "rows": rs})
     del cases, outs, timer
     torch.cuda.empty_cache()
+    host_phase()
     return records
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Mean host wall per call of `fn` over `calls` calls issued back to
+    back (after 100 to warm up; the card keeps up at these sizes, so this
+    is the host's time to issue a call)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def host_spans(fn, calls: int = 200) -> tuple[float, dict, dict]:
+    """A host profile of `fn`: `calls` calls, each in a `record_function`
+    span, under one torch.profiler trace (after 100 calls to warm up).
+    Returns the mean host us a call of the whole span; by name, of the
+    host events directly inside it (operators such as aten::empty_like,
+    CUDA runtime calls such as cudaLaunchKernel, the profiler's own buffer
+    requests; the whole less their sum is Python and ctypes); and, by
+    name, of the CUDA runtime calls at any depth (a library call's launch
+    sits inside its operator). The profiler's own cost inflates each
+    span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            with record_function("host_call"):
+                fn()
+        torch.cuda.synchronize()
+    host = sorted(((e.time_range.start, -e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CPU
+                   and e.name != "cudaDeviceSynchronize"))
+    whole, spans, runtime, end, inner_end = 0.0, {}, {}, None, None
+    for start, neg_end, name in host:       # by start; outer spans first
+        stop = -neg_end
+        if name == "host_call":
+            whole += stop - start
+            end, inner_end = stop, None
+            continue
+        if end is None or stop > end:
+            end = None
+            continue
+        if inner_end is None or start >= inner_end:       # not nested
+            spans[name] = spans.get(name, 0.0) + stop - start
+            inner_end = stop
+        if name.startswith("cu"):
+            runtime[name] = runtime.get(name, 0.0) + stop - start
+    return (whole / calls, {k: v / calls for k, v in spans.items()},
+            {k: v / calls for k, v in runtime.items()})
+
+
+def one_kernel_a_call(what: str, fn, name: str) -> str:
+    """The one device kernel a call of `fn` runs, from a torch.profiler
+    trace (`traced`); raises unless the trace holds exactly one kernel and
+    it is wrapper `name`'s entry kernel."""
+    from repro_torch.kernels import launches
+
+    events = device_events(traced(what, fn))
+    kernels = [(e.key.replace(" ", ""), e.count) for e in events]
+    if (sum(c for _, c in kernels) != 1 or not any(
+            p in kernels[0][0] for p in launches.ENTRY_KERNELS[name])):
+        raise AssertionError(f"host: {what} ran {kernels}, not one "
+                             f"{launches.ENTRY_KERNELS[name]}")
+    return re.search(name + r"_kernel<[^>]*>", kernels[0][0]).group(0)
+
+
+def host_phase() -> None:
+    """The host's side of a call at the paper's size (768 x 128 f32), for
+    axpy with a number alpha and with a tensor alpha, and for dotp: the
+    mean host wall a call over 1,000 calls (`host_us`) through
+    `repro_torch.kernels.ops`, through the wrapper, and of the library
+    call (`torch.add(y, x, alpha=)`, `torch.dot`), and the wrapper's
+    pieces timed alone the same way: the operand and alpha checks, the
+    output's allocation, the stream lookup, and the C call with its launch
+    (`rest` is the wrapper less the four; `ctypes` is a call of a C
+    function of three ints that launches nothing, `axpy_grid`: ctypes' own
+    cost). Each is the median of three such means, taken in turn; timed
+    alone, the pieces need not add up to the wrapper (`rest` may be
+    negative). A `[host_spans]` line a case splits the wrapper's and the
+    library call's time from one torch.profiler trace each (`host_spans`),
+    where the pieces do add up. A trace of one call shows one device
+    kernel, the wrapper's (`one_kernel_a_call`). One line a case."""
+    from repro_torch.kernels import axpy, build, dotp, ops
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn(768, 128, generator=g, device="cuda")
+    y = torch.randn(768, 128, generator=g, device="cuda")
+    xf, yf = x.view(-1), y.view(-1)
+    dev, n, st = x.get_device(), x.numel(), build.stream(x.get_device())
+    xp, yp = x.data_ptr(), y.data_ptr()
+    f_axpy, f_dotp = axpy.launchers()[0], dotp.launchers()[0]
+    f_grid = build.launcher("axpy", "axpy_grid")[0]
+    out_a, out_d = torch.empty_like(x), torch.empty((), device="cuda")
+    tensor_alpha = torch.tensor(2.0, device="cuda")
+    cases = {}
+    for kind, alpha in (("number", 2.0), ("tensor", tensor_alpha)):
+        ptr = alpha.data_ptr() if kind == "tensor" else None
+        cases["axpy", kind] = dict(
+            ops=lambda alpha=alpha: ops.axpy(alpha, x, y),
+            wrapper=lambda alpha=alpha: axpy.axpy(alpha, x, y),
+            library=lambda: torch.add(y, x, alpha=2.0),
+            checks=lambda alpha=alpha: (
+                build.check_operands("axpy", x, y, dtypes=axpy.DTYPES),
+                axpy.alpha_arg(alpha, x)),
+            alloc=lambda: torch.empty_like(x),
+            stream=lambda: build.stream(dev),
+            ctypes=lambda: f_grid(n, 0, dev),
+            launch=lambda ptr=ptr: f_axpy(ptr, 2.0, xp, yp,
+                                          out_a.data_ptr(), n, dev, st))
+    cases["dotp", "-"] = dict(
+        ops=lambda: ops.dotp(x, y), wrapper=lambda: dotp.dotp(x, y),
+        library=lambda: torch.dot(xf, yf),
+        checks=lambda: build.check_operands("dotp", x, y,
+                                            dtypes=dotp.DTYPES),
+        alloc=lambda: x.new_empty((), dtype=torch.float32),
+        stream=lambda: build.stream(dev),
+        ctypes=lambda: f_grid(n, 0, dev),
+        launch=lambda: f_dotp(xp, yp, out_d.data_ptr(), n, dev, st))
+    for (name, kind), fns in cases.items():
+        kernel = one_kernel_a_call(f"host {name} {kind}", fns["wrapper"],
+                                   name)
+        if fns["launch"]() != 0:
+            raise AssertionError(f"host: {name} launch failed")
+        runs = {k: [] for k in fns}
+        for _ in range(3):
+            for k, fn in fns.items():
+                runs[k].append(host_us(fn))
+        us = {k: sorted(v)[1] for k, v in runs.items()}
+        rest = us["wrapper"] - sum(us[k] for k in ("checks", "alloc",
+                                                   "stream", "launch"))
+        log("host", name=name, alpha=kind, shape="768x128", kernel=kernel,
+            traced_kernels=1, **{f"{k}_us": f"{v:.3f}" for k, v in us.items()},
+            rest_us=f"{rest:.3f}",
+            wrapper_over_library=f"{us['wrapper'] / us['library']:.3f}",
+            ops_over_library=f"{us['ops'] / us['library']:.3f}")
+        for who in ("wrapper", "library"):
+            whole, spans, runtime = host_spans(fns[who])
+            log("host_spans", name=name, alpha=kind, call=who,
+                whole_us=f"{whole:.3f}",
+                rest_us=f"{whole - sum(spans.values()):.3f}",
+                spans=json.dumps({k: round(v, 3) for k, v in spans.items()},
+                                 separators=(",", ":")),
+                runtime=json.dumps({k: round(v, 3)
+                                    for k, v in runtime.items()},
+                                   separators=(",", ":")))
 
 
 # ----------------------------------------------------------------------------

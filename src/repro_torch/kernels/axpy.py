@@ -3,7 +3,10 @@ count. Replaces `repro/kernels/axpy.py` _axpy_kernel / axpy; the kernel is
 `csrc/axpy.cu` (bound and design in its notes).
 
 The wrapper takes CPU tensors to the plain version and CUDA tensors to the
-kernel, or raises (see `fused.py` for the counting convention).
+kernel, or raises (see `fused.py` for the counting convention). Its call
+path is lean: the C launchers are resolved once and kept, the operands
+checked in one pass (`build.check_operands`), the stream read as a raw
+handle, and a Python-number alpha passed by value.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ import torch
 from . import build, ref
 
 F32 = torch.float32
-DTYPES = (torch.float32, torch.bfloat16)
+BF16 = torch.bfloat16
+DTYPES = (F32, BF16)
+_launchers = None     # (axpy_f32, axpy_bf16), resolved at the first launch
 
 
 def axpy_plain(alpha, x, y):
@@ -23,18 +28,28 @@ def axpy_plain(alpha, x, y):
     return ref.axpy(alpha, x, y)
 
 
-def _alpha(alpha, device) -> torch.Tensor:
-    """alpha as the 1-element f32 device tensor the kernel reads: a 0-d or
-    1-element f32 tensor on `device` as it is (no host sync), a Python
-    number written into a new one."""
+def alpha_arg(alpha, x) -> tuple[int | None, float]:
+    """alpha as the launcher takes it, (pointer, value): a 0-d or 1-element
+    f32 tensor on x's device by its pointer (the kernel reads it: no host
+    sync), anything else as a number, by value (pointer None: no
+    allocation, no launch)."""
     if isinstance(alpha, torch.Tensor):
         if alpha.numel() != 1:
             raise ValueError(f"axpy: alpha holds {alpha.numel()} values")
-        if alpha.dtype != F32 or alpha.device != device:
+        if alpha.dtype != F32 or alpha.get_device() != x.get_device():
             raise TypeError(f"axpy: alpha must be an f32 tensor on "
-                            f"{device}, got {alpha.dtype} on {alpha.device}")
-        return alpha
-    return torch.full((1,), float(alpha), dtype=F32, device=device)
+                            f"{x.device}, got {alpha.dtype} on "
+                            f"{alpha.device}")
+        return alpha.data_ptr(), 0.0
+    return None, float(alpha)
+
+
+def launchers() -> tuple:
+    """The C launchers (f32, bf16), resolved once."""
+    global _launchers
+    if _launchers is None:
+        _launchers = build.launcher("axpy", "axpy_f32", "axpy_bf16")
+    return _launchers
 
 
 def axpy(alpha, x, y):
@@ -44,14 +59,15 @@ def axpy(alpha, x, y):
         raise ValueError(f"axpy: shapes {tuple(x.shape)}, {tuple(y.shape)}")
     if not x.is_cuda:
         return axpy_plain(alpha, x, y)
-    dev = build.check_operands("axpy", x, y, dtypes=DTYPES)
-    a = _alpha(alpha, dev)
+    dev, (xp, yp) = build.check_operands("axpy", x, y, dtypes=DTYPES)
+    a_ptr, a_val = alpha_arg(alpha, x)
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return out
-    err = build.entry("axpy", f"axpy_{build.SUFFIX[x.dtype]}")(
-        a.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
-        build.stream())
-    build.check("axpy", err)
+    err = (_launchers or launchers())[x.dtype is BF16](
+        a_ptr, a_val, xp, yp, out.data_ptr(), n, dev, build.stream(dev))
+    if err:
+        build.check("axpy", err)
     axpy.launches += 1
     return out

@@ -36,10 +36,12 @@ SZ = ctypes.c_size_t
 # (one per dtype, `<name>_<f32|bf16>`) return cudaGetLastError();
 # *_workspace_floats size the f32 scratch the wrapper allocates (split-K
 # partials, the bf16 operands the wgmma paths stage, f32 matmul's split of
-# b, dotp's block partials); matmul also exports `matmul_f32_plan` (M, N,
-# K, int[7] out: the f32 route and its tile, cluster, tiles, blocks, k a
-# block, stages); the libraries that include csrc/wgmma_gemm.cuh also export
-# `wgmma_plan` (M, N, int[3] out: the mainloop's BN, tiles and blocks),
+# b); axpy and dotp take the device index before the stream and export
+# `<name>_grid` (n, 1 for bf16, device: the blocks a launch takes); matmul
+# also exports `matmul_f32_plan` (M, N, K, int[7] out: the f32 route and
+# its tile, cluster, tiles, blocks, k a block, stages); the libraries
+# that include csrc/wgmma_gemm.cuh also export `wgmma_plan` (M, N, int[3]
+# out: the mainloop's BN, tiles and blocks),
 # and the four GEMM wrappers `<name>_decode_plan` (M, N, K, int[5] out:
 # the decode kernel's N tile, cluster size, CTAs, k rows a CTA, stages).
 WGMMA_PLAN = {"wgmma_plan": ([I, I, P], I)}
@@ -70,12 +72,13 @@ SIGNATURES = {
         "matmul_f32_plan": ([I, I, I, P], I),
         **WGMMA_PLAN, **_decode_plan("matmul")},
     "axpy": {
-        "axpy_f32": ([P, P, P, P, SZ, P], I),
-        "axpy_bf16": ([P, P, P, P, SZ, P], I)},
+        "axpy_f32": ([P, F, P, P, P, SZ, I, P], I),
+        "axpy_bf16": ([P, F, P, P, P, SZ, I, P], I),
+        "axpy_grid": ([SZ, I, I], I)},
     "dotp": {
-        "dotp_f32": ([P, P, P, P, SZ, P], I),
-        "dotp_bf16": ([P, P, P, P, SZ, P], I),
-        "dotp_workspace_floats": ([SZ], SZ)},
+        "dotp_f32": ([P, P, P, SZ, I, P], I),
+        "dotp_bf16": ([P, P, P, SZ, I, P], I),
+        "dotp_grid": ([SZ, I, I], I)},
     "conv2d": {"conv2d_3x3_f32": ([P, P, P, I, I, P], I)},
     "dct8x8": {"dct8x8_f32": ([P, P, P, SZ, P], I)},
     "rmsnorm": {
@@ -196,9 +199,19 @@ def check(name: str, err: int) -> None:
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def stream() -> int:
-    """The current CUDA stream, as the launchers take it."""
-    return torch.cuda.current_stream().cuda_stream
+def stream(device: int | None = None) -> int:
+    """The current CUDA stream of `device` (an index; default the current
+    device) as the launchers take it: its raw handle, read without building
+    a torch.cuda.Stream."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device is None else device)
+
+
+def launcher(name: str, *fns: str) -> tuple:
+    """C functions `fns` of kernel `name`'s library, for a wrapper to keep:
+    resolved once, they are called with no lock or lookup."""
+    lib = library(name)
+    return tuple(getattr(lib, fn) for fn in fns)
 
 
 def workspace(name: str, device, *sizes: int) -> torch.Tensor:
@@ -210,21 +223,32 @@ def workspace(name: str, device, *sizes: int) -> torch.Tensor:
 
 
 def check_operands(name: str, *tensors: torch.Tensor,
-                   dtypes=(torch.bfloat16,)) -> torch.device:
+                   dtypes=(torch.bfloat16,)) -> tuple[int, list[int]]:
     """Raise unless the operands share one device and a dtype of `dtypes`
     (nothing is cast) and are contiguous and 32-byte aligned; return the
-    device."""
-    dev, dt = tensors[0].device, tensors[0].dtype
+    device's index and the operands' data pointers. Operands that pass
+    take one lean pass; the detailed one runs only to say what is wrong."""
+    first = tensors[0]
+    dev, dt = first.get_device(), first.dtype
+    ok, ptrs = dt in dtypes, []
+    for t in tensors:
+        p = t.data_ptr()
+        ptrs.append(p)
+        ok = (ok and not p & 31 and t.dtype is dt and t.get_device() == dev
+              and t.is_contiguous())
+    if ok:
+        return dev, ptrs
     if dt not in dtypes:
         raise TypeError(f"{name}: the CUDA kernel takes "
                         f"{' or '.join(map(str, dtypes))}, got {dt}")
     for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if t.device != first.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{first.device}")
         if t.dtype != dt:
             raise TypeError(f"{name}: operands of {t.dtype} and {dt}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
         if t.data_ptr() % 32:
             raise ValueError(f"{name}: operands must be 32-byte aligned")
-    return dev
+    return dev, ptrs

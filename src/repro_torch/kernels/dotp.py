@@ -3,7 +3,9 @@ count. Replaces `repro/kernels/dotp.py` _dotp_kernel / dotp; the kernel is
 `csrc/dotp.cu` (bound and design in its notes).
 
 The wrapper takes CPU tensors to the plain version and CUDA tensors to the
-kernel, or raises (see `fused.py` for the counting convention).
+kernel, or raises (see `fused.py` for the counting convention). A call is
+one launch with no workspace (the kernel keeps its partial sums in its
+library's device memory); its call path is lean as axpy's is.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ import torch
 
 from . import build, ref
 
-DTYPES = (torch.float32, torch.bfloat16)
+F32 = torch.float32
+BF16 = torch.bfloat16
+DTYPES = (F32, BF16)
+_launchers = None     # (dotp_f32, dotp_bf16), resolved at the first launch
 
 
 def dotp_plain(x, y):
@@ -22,6 +27,14 @@ def dotp_plain(x, y):
     return ref.dotp(x, y)
 
 
+def launchers() -> tuple:
+    """The C launchers (f32, bf16), resolved once."""
+    global _launchers
+    if _launchers is None:
+        _launchers = build.launcher("dotp", "dotp_f32", "dotp_bf16")
+    return _launchers
+
+
 def dotp(x, y):
     """x, y: same shape -> a 0-d f32 tensor on their device, whatever
     their dtype. Two runs on the card give the same bits."""
@@ -29,15 +42,14 @@ def dotp(x, y):
         raise ValueError(f"dotp: shapes {tuple(x.shape)}, {tuple(y.shape)}")
     if not x.is_cuda:
         return dotp_plain(x, y)
-    build.check_operands("dotp", x, y, dtypes=DTYPES)
-    out = torch.empty((), dtype=torch.float32, device=x.device)
+    dev, (xp, yp) = build.check_operands("dotp", x, y, dtypes=DTYPES)
+    out = x.new_empty((), dtype=F32)
     n = x.numel()
     if n == 0:
         return out.zero_()
-    ws = build.workspace("dotp", x.device, n)
-    err = build.entry("dotp", f"dotp_{build.SUFFIX[x.dtype]}")(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), ws.data_ptr(), n,
-        build.stream())
-    build.check("dotp", err)
+    err = (_launchers or launchers())[x.dtype is BF16](
+        xp, yp, out.data_ptr(), n, dev, build.stream(dev))
+    if err:
+        build.check("dotp", err)
     dotp.launches += 1
     return out

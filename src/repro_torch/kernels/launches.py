@@ -76,14 +76,14 @@ def _mainloop(wrapper: str, epi: int) -> tuple:
                  f"{MAINLOOP_OWNER[wrapper]}>" for bn in TILE_N)
 
 
-# The device kernel that opens each launch of a wrapper (a split-K finish,
-# a partial-sum finish or the wgmma mainloop may follow it), as a profiler
-# names it, spaces removed. The five matmul entry points instantiate the
-# same templates with other flags (<prologue, epilogue code>, common.cuh
-# and decode_gemm.cuh; <BN, epilogue code, owner>, wgmma_gemm.cuh), so
-# each has names of its own: the M <= 16 products run
-# `decode::tma_gemv_kernel<NORM,EPI>` (one launch a call), and only shapes
-# with K or N % 8 != 0 run common.cuh's split-K pair. matmul's,
+# The device kernel that opens each launch of a wrapper (a split-K finish
+# or the wgmma mainloop may follow it; axpy and dotp run one kernel a
+# call), as a profiler names it, spaces removed. The five matmul entry
+# points instantiate the same templates with other flags (<prologue,
+# epilogue code>, common.cuh and decode_gemm.cuh; <BN, epilogue code,
+# owner>, wgmma_gemm.cuh), so each has names of its own: the M <= 16
+# products run `decode::tma_gemv_kernel<NORM,EPI>` (one launch a call),
+# and only shapes with K or N % 8 != 0 run common.cuh's split-K pair. matmul's,
 # matmul_residual_add's and matmul_bias_act's M > 16 calls open with the
 # mainloop, counted by their own instantiations;
 # rmsnorm_matmul's and flash_attention_proj's open with a kernel of their
@@ -107,8 +107,8 @@ ENTRY_KERNELS = {
                "gemm::tile_kernel<false,0>", "matmul_f32_kernel",
                "tf32x3::split_kernel", "tf32x3::fused_kernel<",
                *_mainloop("matmul", 0)),
-    "axpy": ("axpy_kernel_",),
-    "dotp": ("dotp_partial_kernel",),
+    "axpy": ("axpy_kernel<",),
+    "dotp": ("dotp_kernel<",),
     "conv2d": ("conv2d_3x3_kernel",),
     "dct8x8": ("dct8x8_kernel",),
     "rmsnorm": ("rmsnorm_kernel<",),

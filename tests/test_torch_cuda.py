@@ -8,7 +8,9 @@ rounding, and f32 sums taken in another order); f32 within 1e-5 (sum
 order), matmul within 1e-4 * sqrt(K) absolute (and, on its 3xTF32 route,
 at most twice the plain version's error against an f64 product; with
 inf, NaN and FLT_MAX inputs, the plain version's infs and NaNs and 1e-5
-relative at 1e38-size outputs), dotp within 1e-5 of sum|x*y|.
+relative at 1e38-size outputs), dotp within 1e-5 of sum|x*y|; axpy's
+card tests ask for the plain version's bits (the kernel rounds the product
+and the sum apart, as the plain version does).
 """
 
 import pytest
@@ -366,25 +368,33 @@ def test_cuda_matmul_f32_routes_by_shape(cuda, m, k, n, kernels):
         assert [v for k, v in ran.items() if kernel in k] == [1], names
 
 
+# lengths below one 16-byte vector, each remainder past the last vector (4
+# f32 or 8 bf16 a vector), 8k+5 for bf16, and more than a wave's rounds
+TAILS = [(1,), (3,), (5,), (7,), (4001,), (4002,), (4003,), (8005,),
+         ((1 << 20) + 7,)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (3, 5)])
+@pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (3, 5), *TAILS])
 def test_cuda_axpy(cuda, dtype, shape):
+    """The plain version's bits, alpha a number and a device f32 (the
+    kernel rounds the product and the sum apart, as the plain version
+    does)."""
     g = torch.Generator(device=cuda).manual_seed(4)
     x = _randn(g, *shape, dtype=DT[dtype])
     y = _randn(g, *shape, dtype=DT[dtype])
-    tol = F32_TOL if dtype == "float32" else BF16_TOL
     want = axpy.axpy_plain(1.7, x, y)
     for alpha in (1.7, torch.tensor(1.7, device=cuda)):
         got = axpy.axpy(alpha, x, y)
         torch.cuda.synchronize()
-        assert got.dtype == x.dtype
-        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert got.dtype == x.dtype and got.shape == x.shape
+        assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (2, 3)])
+@pytest.mark.parametrize("shape", [(1001, 77), (768, 128), (2, 3), *TAILS])
 def test_cuda_dotp_is_deterministic(cuda, dtype, shape):
     g = torch.Generator(device=cuda).manual_seed(5)
     x = _randn(g, *shape, dtype=DT[dtype])
@@ -392,9 +402,279 @@ def test_cuda_dotp_is_deterministic(cuda, dtype, shape):
     first, second = dotp.dotp(x, y), dotp.dotp(x, y)
     torch.cuda.synchronize()
     assert first.shape == () and first.dtype == torch.float32
-    assert first.item() == second.item()        # no atomics: same bits
+    assert torch.equal(_bits(first), _bits(second))    # the same bits
     scale = (x.float() * y.float()).abs().sum().item()
     assert abs(first.item() - dotp.dotp_plain(x, y).item()) <= 1e-5 * scale
+
+
+def _bits(t):
+    """t's bits as integers (NaN payloads and the sign of zero count)."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("alpha", [1.7, -0.0, float("inf"), -float("inf"),
+                                   float("nan"), 1e-40, 3.4e38], ids=repr)
+def test_cuda_axpy_number_and_tensor_alpha_give_the_same_bits(cuda, dtype,
+                                                              alpha):
+    """alpha by value and alpha read from a device f32 give the same bits,
+    and the plain version's values (NaN where it has NaN; 1e-40 is an f32
+    subnormal, which the kernel keeps)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = _randn(g, 1001, 77, dtype=DT[dtype])
+    y = _randn(g, 1001, 77, dtype=DT[dtype])
+    by_value = axpy.axpy(alpha, x, y)
+    by_pointer = axpy.axpy(torch.tensor(alpha, device=cuda), x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(by_value), _bits(by_pointer))
+    torch.testing.assert_close(by_value, axpy.axpy_plain(alpha, x, y),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+def _kernels_of_one_call(fn):
+    """[device kernel name (spaces removed)] one call of `fn` runs, from a
+    torch.profiler trace: the kernels between two edge kernels, after
+    primer kernels (a trace's first device records can go missing on the
+    H100); taken again, up to three times, when an edge is missing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                torch.zeros(1, dtype=torch.float64, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if "CUDA" in str(getattr(e, "device_type", ""))),
+                     key=lambda e: e.time_range.start)
+        edges = [i for i, e in enumerate(dev) if "spin_kernel" in e.name]
+        if len(edges) == 2:
+            return [e.name.replace(" ", "") for e in dev[edges[0] + 1:
+                                                          edges[1]]]
+    raise AssertionError("three traces each lost an edge kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["axpy_number", "axpy_tensor", "dotp",
+                                  "axpy_bf16", "dotp_bf16"])
+def test_cuda_axpy_and_dotp_run_one_kernel_a_call(cuda, case):
+    """No fill for a number alpha, no second pass for dotp: one traced
+    device kernel a call, the wrapper's entry kernel."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    dt = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    x, y = _randn(g, 768, 128, dtype=dt), _randn(g, 768, 128, dtype=dt)
+    alpha = torch.tensor(2.0, device=cuda) if case == "axpy_tensor" else 2.0
+    name = case.split("_")[0]
+    call = ((lambda: axpy.axpy(alpha, x, y)) if name == "axpy"
+            else (lambda: dotp.dotp(x, y)))
+    kernels = _kernels_of_one_call(call)
+    assert len(kernels) == 1, kernels
+    assert any(p in kernels[0] for p in launches.ENTRY_KERNELS[name]), kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dotp_same_bits_in_graph_replays_and_on_two_streams(cuda,
+                                                                  dtype):
+    """The same bits eager, in two replays of a captured graph, and from
+    two streams running dotp at once (each stream, and each capture, has
+    partials and a counter of its own)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    xs = [_randn(g, 1 << 22, dtype=DT[dtype]) for _ in range(2)]
+    ys = [_randn(g, 1 << 22, dtype=DT[dtype]) for _ in range(2)]
+    want = [dotp.dotp(x, y) for x, y in zip(xs, ys)]
+    again = [dotp.dotp(x, y) for x, y in zip(xs, ys)]
+    torch.cuda.synchronize()
+    assert [w.item() for w in want] != [0.0, 0.0]
+    assert all(torch.equal(_bits(a), _bits(w)) for a, w in zip(again, want))
+
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        outs = [dotp.dotp(x, y) for x, y in zip(xs, ys)]
+    for _ in range(2):
+        for o in outs:
+            o.fill_(7.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(o), _bits(w))
+                   for o, w in zip(outs, want))
+
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = [[], []]
+    for _ in range(20):            # interleaved: the two streams overlap
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                got[i].append(dotp.dotp(xs[i], ys[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(_bits(r), _bits(want[i])) for r in got[i])
+
+
+def _cudart():
+    """The CUDA runtime this process loaded, for the stream calls torch
+    keeps to itself: raw captures (its own capture also arms its RNG) and
+    streams outside its pool."""
+    import ctypes
+
+    with open("/proc/self/maps") as maps:
+        for line in maps:
+            if "libcudart.so" in line:
+                rt = ctypes.CDLL(line.split()[-1])
+                break
+        else:
+            raise AssertionError("no libcudart in this process")
+    P = ctypes.c_void_p
+    for fn, args in (("cudaStreamBeginCapture", [P, ctypes.c_int]),
+                     ("cudaStreamCreateWithFlags",
+                      [ctypes.POINTER(P), ctypes.c_uint]),
+                     ("cudaStreamDestroy", [P]),
+                     ("cudaStreamSynchronize", [P]),
+                     ("cudaStreamEndCapture", [P, ctypes.POINTER(P)]),
+                     ("cudaGraphDestroy", [P]), ("cudaGetLastError", [])):
+        getattr(rt, fn).argtypes = args
+        getattr(rt, fn).restype = ctypes.c_int
+    return rt
+
+
+@pytest.mark.cuda
+def test_cuda_dotp_works_after_a_refused_launch(cuda):
+    """A launch the runtime refuses (on a stream whose capture a forbidden
+    call invalidated) raises, never runs, and leaves no counter that spoils
+    the next call: the calls after it give the first call's bits."""
+    import ctypes
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x, y = _randn(g, 1 << 20), _randn(g, 1 << 20)
+    want = dotp.dotp(x, y)
+    side = torch.cuda.Stream()            # this test's own capture stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # its 0-d output block, cached
+        dotp.dotp(x, y)
+    torch.cuda.synchronize()
+    rt, handle = _cudart(), ctypes.c_void_p(side.cuda_stream)
+    assert rt.cudaStreamBeginCapture(handle, 2) == 0      # relaxed mode
+    assert rt.cudaStreamSynchronize(handle) != 0  # forbidden: invalidates
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="dotp: CUDA launch failed"):
+            dotp.dotp(x, y)
+    graph = ctypes.c_void_p()
+    assert rt.cudaStreamEndCapture(handle, ctypes.byref(graph)) != 0
+    if graph.value:
+        rt.cudaGraphDestroy(graph)
+    rt.cudaGetLastError()
+    for stream in (side, torch.cuda.current_stream()):
+        with torch.cuda.stream(stream):
+            got = dotp.dotp(x, y)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_cuda_dotp_on_more_streams_than_slots_never_shares_a_slot(cuda):
+    """80 streams of their own (torch's pool holds 32 a priority), more
+    than dotp's 64 slots for streams, each holding a dotp behind a long
+    sleep so that all of them are in flight at once: the streams past the
+    64th wait for a slot's old holder instead of sharing its partials and
+    counter, so every result has its own inputs' bits (two input pairs,
+    alternating). Twice, so that evicted streams come back."""
+    import ctypes
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    xs = [_randn(g, 1 << 20) for _ in range(2)]
+    ys = [_randn(g, 1 << 20) for _ in range(2)]
+    want = [dotp.dotp(x, y) for x, y in zip(xs, ys)]
+    torch.cuda.synchronize()
+    assert not torch.equal(want[0], want[1])
+    rt, handles = _cudart(), []
+    try:
+        for _ in range(80):
+            handle = ctypes.c_void_p()
+            assert rt.cudaStreamCreateWithFlags(ctypes.byref(handle), 1) == 0
+            handles.append(handle)
+        streams = [torch.cuda.ExternalStream(h.value) for h in handles]
+        assert len({s.cuda_stream for s in streams}) == 80
+        for _ in range(2):
+            got = []
+            for i, s in enumerate(streams):
+                s.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(20_000_000)
+                    got.append(dotp.dotp(xs[i % 2], ys[i % 2]))
+            torch.cuda.synchronize()
+            assert all(torch.equal(_bits(r), _bits(want[i % 2]))
+                       for i, r in enumerate(got))
+    finally:
+        torch.cuda.synchronize()
+        for handle in handles:
+            rt.cudaStreamDestroy(handle)
+
+
+@pytest.mark.cuda
+def test_cuda_dotp_refuses_a_capture_when_every_graph_slot_is_held(cuda):
+    """Each capture of a dotp holds a slot of its own until its graph is
+    destroyed: with every slot held by a live graph the next capture's
+    dotp raises (never shares a slot), and once a graph is destroyed a
+    capture runs again."""
+    import ctypes
+    import time
+
+    g = torch.Generator(device=cuda).manual_seed(17)
+    x, y = _randn(g, 4096), _randn(g, 4096)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # its outputs' pool, cached
+        dotp.dotp(x, y)
+    torch.cuda.synchronize()
+    rt, handle = _cudart(), ctypes.c_void_p(side.cuda_stream)
+
+    def capture():
+        """(graph, whether its dotp raised)"""
+        assert rt.cudaStreamBeginCapture(handle, 2) == 0     # relaxed mode
+        try:
+            with torch.cuda.stream(side):
+                dotp.dotp(x, y)
+            refused = False
+        except RuntimeError as e:
+            assert "dotp: CUDA launch failed" in str(e)
+            refused = True
+        graph = ctypes.c_void_p()
+        assert rt.cudaStreamEndCapture(handle, ctypes.byref(graph)) == 0
+        return graph, refused
+
+    graphs = []
+    try:
+        for _ in range(256):
+            graph, refused = capture()
+            if refused:
+                rt.cudaGraphDestroy(graph)
+                break
+            graphs.append(graph)
+        assert refused and 0 < len(graphs) <= 192, len(graphs)
+        rt.cudaGraphDestroy(graphs.pop())
+        for _ in range(200):              # its slot, freed once released
+            graph, refused = capture()
+            rt.cudaGraphDestroy(graph)
+            if not refused:
+                break
+            time.sleep(0.01)
+        assert not refused
+    finally:
+        for graph in graphs:
+            rt.cudaGraphDestroy(graph)
+    want = dotp.dotp(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(want), _bits(dotp.dotp(x, y)))
 
 
 @pytest.mark.cuda
