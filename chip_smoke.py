@@ -2,8 +2,9 @@
 each against its plain PyTorch version, run the paper's Table 1 kernel
 suite and the fused ops' compositions through `repro_torch.kernels.ops`,
 run whisper-small's prefill and decode, then qwen3-14b at full width:
-its one-shot prefill on the fused and on the "pallas" route, and serving
-through the port's paged ServeSession.
+its one-shot prefill on the fused and on the "pallas" route (eager and as
+CUDA graphs), serving through the port's paged ServeSession, and the
+fixed batch's execution engine (`ServeProgram`, K-step CUDA graphs).
 
     python3 chip_smoke.py
 
@@ -58,18 +59,27 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            whisper-small (2 + 2 layers at full width) under "fused"
   whisper  whisper-small at full width (12 + 12 layers), random weights,
            under "fused": make_prefill_step on 8 x 32 tokens and 8 x 1500
-           stub frames (its encoder MLPs launch matmul_bias_act 24 times),
-           then make_decode_step for 16 greedy steps on a private cache of
-           448; the prefill again under torch.profiler: its mainloop
-           instantiations and five device kernels with the most time
+           stub frames, run eagerly (its encoder MLPs launch
+           matmul_bias_act 24 times) and under torch.profiler (its
+           mainloop instantiations and five device kernels with the most
+           time); then as a CUDA graph (a `mode=cuda_graph` line: the
+           replay's token equal to the eager one, one traced replay's
+           launches equal to the eager counts, the replay's wall by CUDA
+           events and by the host clock, mean of 10, beside its traced
+           device time and the eager wall); then ServeProgram(batch=8,
+           max_seq=448, max_new=16) with the prefill's tokens as a
+           one-token prompt at chunk 16 and chunk 1 (equal tokens, finite
+           caches; ms a step of each, one chunk's traced device time)
   prefill  qwen3-14b, all 40 layers, random weights from a seeded
-           generator on the card, make_prefill_step on B=1, S=512; then
-           the same prefill under torch.profiler, whose five device
-           kernels with the most time it prints
+           generator on the card, make_prefill_step on B=1, S=512, run
+           eagerly; then the same prefill under torch.profiler, whose five
+           device kernels with the most time it prints; then as a CUDA
+           graph (a `mode=cuda_graph` line, as whisper's)
   pallas_prefill  the same prefill under the default "tuned" policy with
            attn_schedule="pallas": flash_attention 40 times, projections
            as torch products; counted, traced (its five device kernels
-           with the most time), its token set beside the fused prefill's
+           with the most time), its token set beside the fused prefill's;
+           then as a CUDA graph (flash_attention 40 times a replay)
   serve    Cluster("qwen3-14b") ServeSessionProgram(slots=8, max_seq=256,
            max_prompt=64, chunk=16, paged=True, page_size=16) under the
            "fused" policy: 12 requests, half sharing a 32-token preamble,
@@ -81,10 +91,19 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            the device's busy and idle shares in each, time by kernel; the
            traced launches a step must equal one eager step's wrapper
            counts, with no split-K kernel
+  engine   Cluster("qwen3-14b").compile(ServeProgram(batch=8, max_seq=256,
+           max_new=64)) under "fused" with an 8 x 32 prompt, at chunk 16
+           (one CUDA graph of 16 steps a chunk) and chunk 1 (a step's
+           graph a token), each run twice (the second compile hits the
+           cache, its run captures nothing): equal tokens, 4 and 64 host
+           syncs, equal EOS results; tokens_per_s_per_slot, p50_ms,
+           stall_pct, dispatch_gap_s and device_wait_s of each; one steady
+           chunk traced: 16 x one eager step's launches of each kernel,
+           its device busy time against its wall
 
 The kernel launch counts are set to 0 before each of the suite, compose,
-whisper, prefill, pallas_prefill, serve and profile runs and read right
-after; every kernel of a phase must have launched and no plain version
+whisper, prefill, pallas_prefill, serve, profile and engine runs and read
+right after; every kernel of a phase must have launched and no plain version
 may have run on a CUDA tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
 trace (`launches.traced_launches`). Every trace but the serve phase's
@@ -242,17 +261,20 @@ def main() -> int:
     pallas_counts = pallas_prefill_phase(launches, cfg, params, token)
     serve_counts, serve_traced = serve_phase(launches, cfg, params)
     profile_phase(launches, cfg, params)
+    engine_traced = engine_phase(launches, cfg, params)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
-        # count) and the traced serve run's, graph replays included;
-        # wrapper_launches: the wrappers' own counts over the same two
-        # runs. flash_attention: the "pallas" prefill's; matmul_bias_act:
-        # the whisper prefill's; rmsnorm: rmsnorm_matmul's composition's.
-        # A suite kernel's record already holds the suite phase's counts.
+        # count), the traced serve run's and the engine's traced chunk's,
+        # graph replays included; wrapper_launches: the wrappers' own
+        # counts over the prefill and serve runs. flash_attention: the
+        # "pallas" prefill's; matmul_bias_act: the whisper prefill's;
+        # rmsnorm: rmsnorm_matmul's composition's. A suite kernel's record
+        # already holds the suite phase's counts.
         name = rec["name"]
         if name in QWEN_FUSED:
-            rec["launches"] = prefill_counts[name] + serve_traced[name]
+            rec["launches"] = (prefill_counts[name] + serve_traced[name]
+                               + engine_traced[name])
             rec["wrapper_launches"] = prefill_counts[name] + \
                 serve_counts[name]
         else:
@@ -1186,12 +1208,17 @@ def whisper_phase(launches) -> dict:
     """whisper-small, all 12 + 12 layers, random weights from a seeded
     generator on the card, under "fused": make_prefill_step on 8 x 32
     tokens with 8 x 1500 stub frame embeddings (from a seeded generator,
-    as the reference's `_encode` takes them), counted and traced (exactly
-    24 matmul_bias_act launches: 12 encoder MLPs x 2 products, the
-    decoder takes none); then make_decode_step for 16 greedy steps on a
-    private cache of 448, fed its own tokens from the prefill's. Its
-    weights are freed at the end."""
+    as the reference's `_encode` takes them), run eagerly, counted and
+    traced (exactly 24 matmul_bias_act launches: 12 encoder MLPs x 2
+    products, the decoder takes none); then the same step as a CUDA graph
+    (`graph_replay`: its token, its traced launches, its walls). Then
+    `ServeProgram(batch=8, max_seq=448, max_new=16)` on whisper-small with
+    the prefill's tokens as a one-token prompt, at chunk 16 (one graph of
+    16 steps) and chunk 1 (a step's graph a token): equal tokens, ms a
+    step of a second run of each, one chunk's traced device time. Its
+    graphs and weights are freed at the end."""
     from repro_torch.cluster.policy import use_policy
+    from repro_torch.cluster.session import Cluster, ServeProgram
     from repro_torch.configs import get
     from repro_torch.models import steps
 
@@ -1206,9 +1233,9 @@ def whisper_phase(launches) -> dict:
         0, cfg.vocab, (B, S))).cuda()
     batch = {"tokens": tokens, "enc_embeds": frames}
     prefill = steps.make_prefill_step(cfg, policy="fused")
-    prefill(params, batch)                                # warm-up
+    prefill.eager(params, batch)                          # warm-up
     counted, tok, dt, top = _counted_and_traced(
-        launches, "whisper", lambda: prefill(params, batch),
+        launches, "whisper", lambda: prefill.eager(params, batch),
         ("matmul_bias_act",))
     want = {n: 0 for n in counted} | {"matmul_bias_act": 2 * cfg.n_enc_layers}
     if counted != want:
@@ -1220,27 +1247,40 @@ def whisper_phase(launches) -> dict:
         raise AssertionError("whisper: logits not finite or misshapen")
     if not torch.equal(lg.argmax(-1).to(torch.int32), tok):
         raise AssertionError("whisper: argmax disagrees with the step")
+    graph = graph_replay(launches, "whisper", lambda: prefill(params, batch),
+                         counted, tok)
+    del prefill
 
-    cache = steps.init_cache(cfg, B, MAX_SEQ, device="cuda")
-    step = steps.make_decode_step(cfg, max_seq=MAX_SEQ, policy="fused")
-    cur, out = tok[:, None], []
-    step(params, steps.init_cache(cfg, B, 8, device="cuda"),
-         {"tokens": cur, "pos": 0})                      # warm-up
-    launches.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for pos in range(STEPS):
-        cache, cur = step(params, cache, {"tokens": cur, "pos": pos})
-        out.append(cur)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
-    _check_counts(launches, "whisper decode", ())
-    dec = torch.cat(out, dim=1).cpu()
-    if dec.shape != (B, STEPS) or dec.min() < 0 or dec.max() >= cfg.vocab:
+    cluster = Cluster("whisper-small")
+    prompt = tok.cpu().numpy().astype(np.int32)[:, None]
+    runs = {}
+    for chunk in (16, 1):
+        with cluster.policy("fused"):
+            prog = cluster.compile(ServeProgram(batch=B, max_seq=MAX_SEQ,
+                                                max_new=STEPS, chunk=chunk))
+        launches.reset_counts()
+        first = prog.run(params=params, prompt=prompt)
+        _check_counts(launches, f"whisper decode chunk {chunk}", ())
+        again = prog.run(params=params, prompt=prompt)
+        if not np.array_equal(first["tokens"], again["tokens"]):
+            raise AssertionError(f"whisper: chunk {chunk} reruns differ")
+        runs[chunk] = (prog, again)
+    dec = runs[16][1]["tokens"]
+    if not np.array_equal(dec, runs[1][1]["tokens"]):
+        raise AssertionError(f"whisper: chunk 16 tokens {dec} differ from "
+                             f"chunk 1's {runs[1][1]['tokens']}")
+    if dec.shape != (B, 1 + STEPS) or dec.min() < 0 or dec.max() >= cfg.vocab:
         raise AssertionError(f"whisper: decode tokens {dec}")
-    for name, c in cache.items():
-        if not torch.isfinite(c).all():
-            raise AssertionError(f"whisper: non-finite {name} cache")
+    for prog, _ in runs.values():
+        for name, c in prog.cache.items():
+            if not torch.isfinite(c).all():
+                raise AssertionError(f"whisper: non-finite {name} cache")
+    prog16 = runs[16][0]
+    step_ms = {16: prog16.engine.chunk_latencies[0][0] * 1e3 / STEPS,
+               1: runs[1][1]["stats"]["p50_ms"]}
+    prof = traced("whisper_chunk", lambda: prog16.engine.generate(
+        params, prog16.cache, dec[:, -1:], STEPS, start_pos=1 + STEPS))
+    chunk_device_ms = device_busy_ms(prof)
     # the MLP products' mainloop instantiations in the trace, and the
     # prefill's five device kernels with the most time
     mainloop = {m.group(0): n for key, _, n in top
@@ -1248,19 +1288,86 @@ def whisper_phase(launches) -> dict:
                                     key.replace(" ", ""))] if m}
     log("whisper", B=B, S=S, enc_frames=cfg.enc_seq,
         layers=f"{cfg.n_enc_layers}+{cfg.n_layers}", policy="fused",
-        prefill_ms=f"{dt * 1e3:.1f}", decode_ms_per_step=f"{step_ms:.2f}",
+        prefill_ms=f"{dt * 1e3:.1f}",
         traced_device_ms=f"{sum(r[1] for r in top):.1f}",
         mainloop=json.dumps(mainloop).replace(" ", ""),
         prefill_tokens=",".join(map(str, tok.tolist())),
-        decode_tokens_slot0=",".join(map(str, dec[0].tolist())),
         launches=_nonzero(counted), traced_launches=_nonzero(counted),
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    log("whisper", mode="cuda_graph", **graph_fields(graph, dt))
+    log("whisper", decode="ServeProgram", B=B, max_seq=MAX_SEQ,
+        steps=STEPS, ms_per_step_chunk16=f"{step_ms[16]:.2f}",
+        ms_per_step_chunk1=f"{step_ms[1]:.2f}",
+        chunk16_device_ms=f"{chunk_device_ms:.2f}",
+        chunk16_device_ms_per_step=f"{chunk_device_ms / STEPS:.2f}",
+        tokens_equal_chunk16_chunk1=True,
+        decode_tokens_slot0=",".join(map(str, dec[0].tolist())))
     for key, ms, n in top[:5]:
         log("whisper", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
             launches=n)
-    del params, cache, frames
+    del params, frames, batch, runs, prog, prog16, cluster
     torch.cuda.empty_cache()
     return counted
+
+
+def graph_replay(launches, phase: str, fn, eager_counts: dict,
+                 eager_out: torch.Tensor) -> dict:
+    """`fn`, a call of a `Graphed` step on the card: its first call runs
+    eagerly and captures, the next replays, and the replay's output must
+    equal `eager_out`. One replay, traced between sentinels, must launch
+    each kernel as often as the eager run's wrappers counted, through no
+    wrapper (the counts set to 0 just before, read just after). Returns
+    the replay's mean wall over 10 (CUDA events from before the input
+    copies to after the output's copy, and the host clock to a
+    synchronize), the traced replay's device time (the sum of its
+    kernels' times, as the eager lines add them, and the union of their
+    spans) and its counts."""
+    fn()                                                  # capture
+    got = fn()                                            # replay
+    if not torch.equal(got, eager_out):
+        raise AssertionError(f"{phase}: the graph replay gave {got}, the "
+                             f"eager step {eager_out}")
+
+    def counted_fn():
+        launches.reset_counts()
+        fn()
+
+    prof = traced(f"{phase}_graph", counted_fn)
+    seen = launches.traced_launches(prof)
+    wrapped = _check_counts(launches, phase, ())
+    if seen != eager_counts or any(wrapped.values()):
+        raise AssertionError(f"{phase}: a traced replay launched {seen} "
+                             f"(through wrappers {wrapped}); the eager run "
+                             f"counted {eager_counts}")
+    events, host = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        events.append(s.elapsed_time(e))
+    return {"event_ms": float(np.mean(events)),
+            "host_ms": float(np.mean(host)) * 1e3,
+            "device_ms": sum(e.device_time_total
+                             for e in device_events(prof)) / 1e3,
+            "busy_ms": device_busy_ms(prof), "launches": seen}
+
+
+def graph_fields(graph: dict, eager_s: float) -> dict:
+    """A graph_replay result as a log line's fields, the eager wall
+    beside it."""
+    return {"replay_wall_ms": f"{graph['event_ms']:.2f}",
+            "replay_host_ms": f"{graph['host_ms']:.2f}",
+            "replay_traced_device_ms": f"{graph['device_ms']:.2f}",
+            "replay_busy_ms": f"{graph['busy_ms']:.2f}",
+            "eager_wall_ms": f"{eager_s * 1e3:.1f}",
+            "token_equal_to_eager": True,
+            "traced_launches": _nonzero(graph["launches"])}
 
 
 # ----------------------------------------------------------------------------
@@ -1280,9 +1387,10 @@ def _check_counts(launches, phase: str, must_launch) -> dict:
 
 
 def prefill_phase(launches):
-    """One full-width prefill, timed with the counts set to 0 just before
-    it; then the same prefill traced, whose device kernels must match the
-    wrappers' counts (eager: one launch per wrapper call)."""
+    """One full-width prefill run eagerly (`.eager`), timed with the
+    counts set to 0 just before it; then the same prefill traced, whose
+    device kernels must match the wrappers' counts (eager: one launch per
+    wrapper call); then as a CUDA graph (`graph_replay`), freed after."""
     from repro_torch.cluster.policy import use_policy
     from repro_torch.cluster.session import Cluster
     from repro_torch.models import steps
@@ -1299,10 +1407,10 @@ def prefill_phase(launches):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(cfg, policy="fused")
-    prefill(params, {"tokens": tokens[:, :16]})          # warm-up
+    prefill.eager(params, {"tokens": tokens[:, :16]})    # warm-up
     counted, tok, dt, top = _counted_and_traced(
-        launches, "prefill", lambda: prefill(params, {"tokens": tokens}),
-        QWEN_FUSED)
+        launches, "prefill",
+        lambda: prefill.eager(params, {"tokens": tokens}), QWEN_FUSED)
     if counted["flash_attention_proj"] != cfg.n_layers:
         raise AssertionError(f"prefill: launches {counted}")
     with torch.inference_mode():
@@ -1320,6 +1428,12 @@ def prefill_phase(launches):
     for key, ms, n in top[:5]:
         log("prefill", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
             launches=n)
+    graph = graph_replay(launches, "prefill",
+                         lambda: prefill(params, {"tokens": tokens}),
+                         counted, tok)
+    log("prefill", mode="cuda_graph", **graph_fields(graph, dt))
+    del prefill
+    torch.cuda.empty_cache()
     return cfg, params, counted, int(tok[0])
 
 
@@ -1363,18 +1477,20 @@ def pallas_prefill_phase(launches, cfg, params, fused_token: int) -> dict:
     """qwen3-14b's prefill (B=1, S=512) under the default "tuned" policy
     with attn_schedule="pallas": attention through flash_attention, the
     projections as torch products (the reference computes them outside
-    any Pallas kernel). Its token beside the fused prefill's is a finding,
-    not a check: bf16 near-ties can part the two routes."""
+    any Pallas kernel), eager and then as a CUDA graph. Its token beside
+    the fused prefill's is a finding, not a check: bf16 near-ties can
+    part the two routes."""
     from repro_torch.models import steps
 
     pcfg = dataclasses.replace(cfg, attn_schedule="pallas")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (1, 512))).cuda()
     prefill = steps.make_prefill_step(pcfg, policy="tuned")
-    prefill(params, {"tokens": tokens[:, :16]})          # warm-up
+    prefill.eager(params, {"tokens": tokens[:, :16]})    # warm-up
     counted, tok, dt, top = _counted_and_traced(
         launches, "pallas_prefill",
-        lambda: prefill(params, {"tokens": tokens}), ("flash_attention",))
+        lambda: prefill.eager(params, {"tokens": tokens}),
+        ("flash_attention",))
     want = {n: 0 for n in counted} | {"flash_attention": pcfg.n_layers}
     if counted != want:
         raise AssertionError(f"pallas_prefill: launches {counted}")
@@ -1389,6 +1505,12 @@ def pallas_prefill_phase(launches, cfg, params, fused_token: int) -> dict:
     for key, ms, n in top[:5]:
         log("pallas_prefill", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
             launches=n)
+    graph = graph_replay(launches, "pallas_prefill",
+                         lambda: prefill(params, {"tokens": tokens}),
+                         counted, tok)
+    log("pallas_prefill", mode="cuda_graph", **graph_fields(graph, dt))
+    del prefill
+    torch.cuda.empty_cache()
     return counted
 
 
@@ -1615,6 +1737,132 @@ def profile_phase(launches, cfg, params, steps_n: int = 4) -> None:
             log("profile", mode=mode, kernel=f"'{key[:60]}'",
                 ms_per_step=f"{ms:.3f}", launches_per_step=n)
     del graph
+
+
+def engine_phase(launches, cfg, params) -> dict:
+    """The fixed batch's execution engine at full width: qwen3-14b under
+    "fused" through `Cluster.compile(ServeProgram(batch=8, max_seq=256,
+    max_new=64))` with an 8 x 32 prompt from a seeded generator, at chunk
+    16 (the K-step engine, one CUDA graph of 16 steps a chunk) and chunk 1
+    (one step's graph a token). The counts are set to 0 just before the
+    first run and read just after. Each program runs twice: a second
+    compile of the spec is a cache hit, and its run captures nothing.
+    Tokens must be equal across chunks, with 4 and 64 host syncs; with an
+    EOS id that slot 0 emits, tokens, emitted_per_slot and finished_slots
+    too (the EOS id: a token slot 0 first emits at column 20 or later).
+    One steady chunk, traced, must launch each decode kernel 16 times one
+    eager step's count. Returns that chunk's traced launches."""
+    from repro_torch.cluster.session import Cluster, ServeProgram
+
+    cluster = Cluster("qwen3-14b")
+    prompt = np.random.default_rng(11).integers(1, cfg.vocab, (8, 32))
+    base = ServeProgram(batch=8, max_seq=256, max_new=64, chunk=16)
+
+    def compiled(**kw):
+        with cluster.policy("fused"):
+            return cluster.compile(dataclasses.replace(base, **kw))
+
+    launches.reset_counts()
+    prog = compiled()
+    first = prog.run(params=params, prompt=prompt)
+    counts = _check_counts(launches, "engine",
+                           ("rmsnorm_matmul", "matmul_residual_add"))
+    captured = prog.captures()
+    hits = cluster.compile_cache.hits
+    if compiled() is not prog or cluster.compile_cache.hits != hits + 1:
+        raise AssertionError("engine: a second compile missed the cache")
+    runs = {16: prog.run(params=params, prompt=prompt)}
+    steady_chunk_ms = np.mean([dt for dt, _ in
+                               prog.engine.chunk_latencies]) * 1e3
+    if prog.captures() != captured or captured != 2:
+        raise AssertionError(f"engine: captures {captured} then "
+                             f"{prog.captures()} (want 2, then none)")
+    per_token = compiled(chunk=1)
+    per_token.run(params=params, prompt=prompt)
+    runs[1] = per_token.run(params=params, prompt=prompt)
+    toks = runs[16]["tokens"]
+    if not (np.array_equal(toks, first["tokens"])
+            and np.array_equal(toks, runs[1]["tokens"])):
+        raise AssertionError("engine: chunk 16 and chunk 1 tokens differ")
+    syncs = {k: r["stats"]["stall"]["host_syncs"] for k, r in runs.items()}
+    if syncs != {16: 4, 1: 64}:
+        raise AssertionError(f"engine: host syncs {syncs}")
+    if toks.shape != (8, 65) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        raise AssertionError(f"engine: tokens {toks.shape}")
+    # EOS: the first token slot 0 emits from column 20 on that it did not
+    # emit before, so that slot 0 ends mid-run, inside a chunk
+    eos_id = next((int(t) for c, t in enumerate(toks[0]) if c >= 20
+                   and t not in toks[0, 1:c]), int(toks[0, 20]))
+    eos = {k: compiled(chunk=k, eos_id=eos_id).run(params=params,
+                                                   prompt=prompt)
+           for k in (16, 1)}
+    for key in ("emitted_per_slot", "finished_slots"):
+        if eos[16]["stats"][key] != eos[1]["stats"][key]:
+            raise AssertionError(f"engine: EOS {key} differs: "
+                                 f"{eos[16]['stats'][key]} vs "
+                                 f"{eos[1]['stats'][key]}")
+    if (not np.array_equal(eos[16]["tokens"], eos[1]["tokens"])
+            or eos[16]["stats"]["finished_slots"] < 1
+            or eos[16]["stats"]["emitted_per_slot"][0] >= 64):
+        raise AssertionError("engine: EOS tokens differ or slot 0 did not "
+                             "end early")
+
+    # one eager step's launches, then one steady chunk replayed, traced
+    with torch.inference_mode():
+        tok = torch.as_tensor(toks[:, -1:], device="cuda")
+        launches.reset_counts()
+        prog.decode.eager(params, prog.cache, {"tokens": tok, "pos": 96})
+        torch.cuda.synchronize()
+    per_step = {n: c for n, c in _check_counts(launches, "engine step",
+                                               ()).items() if c}
+    eng = prog.engine
+
+    def one_chunk():
+        launches.reset_counts()
+        eng.generate(params, prog.cache, toks[:, -1:], 16, start_pos=97)
+
+    prof = traced("engine_chunk", one_chunk)
+    traced_chunk = launches.traced_launches(prof)
+    wrapped = _check_counts(launches, "engine chunk", ())
+    seen = {n: c for n, c in traced_chunk.items() if c}
+    if seen != {n: 16 * c for n, c in per_step.items()} or any(
+            wrapped.values()):
+        raise AssertionError(f"engine: a traced chunk launched {seen} "
+                             f"(wrappers {wrapped}); one eager step "
+                             f"{per_step}")
+    busy = device_busy_ms(prof)
+    chunk_wall = np.mean([dt for dt, _ in eng.chunk_latencies])
+    for k, r in runs.items():
+        st = r["stats"]
+        log("engine", B=8, prompt=32, max_new=64, chunk=k, policy="fused",
+            tokens_per_s_per_slot=f"{st['tokens_per_s_per_slot']:.2f}",
+            tokens_per_s=f"{8 * st['tokens_per_s_per_slot']:.2f}",
+            p50_ms=f"{st['p50_ms']:.2f}", p99_ms=f"{st['p99_ms']:.2f}",
+            decode_steps=st["decode_steps"],
+            stall_pct=f"{st['stall']['stall_pct']:.3f}",
+            dispatch_gap_s=f"{st['stall']['dispatch_gap_s']:.4f}",
+            device_wait_s=f"{st['stall']['device_wait_s']:.3f}",
+            wall_s=f"{st['stall']['wall_s']:.3f}",
+            host_syncs=st["stall"]["host_syncs"],
+            captures=(prog if k == 16 else per_token).captures())
+    log("engine", chunk=16, traced_chunk_device_busy_ms=f"{busy:.2f}",
+        traced_chunk_wall_ms=f"{chunk_wall * 1e3:.2f}",
+        steady_chunk_wall_ms=f"{steady_chunk_ms:.2f}",
+        traced_launches_per_chunk=json.dumps(seen).replace(" ", ""),
+        eager_step_launches=json.dumps(per_step).replace(" ", ""),
+        wrapper_launches_first_run=_nonzero(counts),
+        eos_id=eos_id, eos_finished_slots=eos[16]["stats"][
+            "finished_slots"],
+        eos_emitted_per_slot=json.dumps(eos[16]["stats"][
+            "emitted_per_slot"]).replace(" ", ""),
+        tokens_equal_chunk16_chunk1=True,
+        compile_cache=json.dumps({"hits": cluster.compile_cache.hits,
+                                  "misses": cluster.compile_cache.misses}
+                                 ).replace(" ", ""),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}")
+    del prog, per_token, eng, cluster, eos
+    torch.cuda.empty_cache()
+    return traced_chunk
 
 
 if __name__ == "__main__":

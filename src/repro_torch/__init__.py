@@ -6,9 +6,9 @@ with nvcc on first use. Entry points run on the GPU unless the caller
 passes ``device="cpu"``.
 """
 
-from repro_torch.cluster import (Cluster, KernelPolicy, ServeSessionProgram,
-                                 use_policy)
+from repro_torch.cluster import (Cluster, KernelPolicy, ServeProgram,
+                                 ServeSessionProgram, use_policy)
 from repro_torch.configs import ARCHS, ArchConfig, get
 
 __all__ = ["ARCHS", "ArchConfig", "Cluster", "KernelPolicy",
-           "ServeSessionProgram", "get", "use_policy"]
+           "ServeProgram", "ServeSessionProgram", "get", "use_policy"]

@@ -75,6 +75,21 @@ class KernelPolicy:
     def bump(self, key: str) -> None:
         self.stats[key] = self.stats.get(key, 0) + 1
 
+    def describe(self) -> dict:
+        """JSON-able snapshot: knobs + traffic counters (for program
+        reports and compile-cache fingerprints)."""
+        return {
+            "mode": self.mode,
+            "overrides": dict(sorted(self.overrides.items())),
+            "stats": dict(self.stats),
+        }
+
+    def fingerprint(self) -> str:
+        """Stable key component (knobs only — stats excluded)."""
+        d = self.describe()
+        d.pop("stats")
+        return repr(sorted((k, repr(v)) for k, v in d.items()))
+
 
 _STACK: list[KernelPolicy] = []
 

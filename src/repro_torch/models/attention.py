@@ -19,6 +19,8 @@ in the reference. GQA is computed in grouped form throughout.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 NEG = -1e30
@@ -152,6 +154,16 @@ def cross_attention(q, k, v, *, n_kv: int, chunk: int = 1024):
     return torch.cat(outs, dim=1)
 
 
+def per_slot(pos, b: int, device) -> torch.Tensor:
+    """`pos` (an int, a 0-d or a (B,) tensor) as a (B,) tensor. An int is
+    filled on the device, not copied from the host: a CUDA graph may be
+    capturing, and a capture takes no copy from pageable host memory."""
+    if isinstance(pos, numbers.Integral):
+        return torch.full((b,), int(pos), dtype=torch.int64, device=device)
+    pos = torch.as_tensor(pos, device=device)
+    return pos.expand(b) if pos.ndim == 0 else pos
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,
                      window: int | None = None, rolling: bool = False):
     """Single-token decode. q: (B,1,H,hd); caches: (B, S_c, KV, hd);
@@ -163,9 +175,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,
     scores = torch.einsum("bkgd,bskd->bkgs", qg.to(F32),
                           k_cache.to(F32)) * scale
     idx = torch.arange(sc, device=q.device)
-    pos_b = torch.as_tensor(pos, device=q.device)
-    if pos_b.ndim == 0:
-        pos_b = pos_b.expand(b)
+    pos_b = per_slot(pos, b, q.device)
     if rolling:
         ok = idx[None, :] < torch.clamp(pos_b, max=sc)[:, None]
     else:
@@ -187,9 +197,7 @@ def update_cache(k_cache, v_cache, k_new, v_new, pos, *,
     reference donates these buffers; returns the caches."""
     sc = k_cache.shape[1]
     b = k_new.shape[0]
-    pos_b = torch.as_tensor(pos, device=k_cache.device)
-    if pos_b.ndim == 0:
-        pos_b = pos_b.expand(b)
+    pos_b = per_slot(pos, b, k_cache.device)
     slot = pos_b % sc if rolling else pos_b
     rows = torch.arange(b, device=k_cache.device)
     k_cache[rows, slot] = k_new[:, 0]
@@ -208,9 +216,7 @@ def paged_update_cache(k_pool, v_pool, k_new, v_new, pos, pages):
     slots' tables point at the trash page 0."""
     ps = k_pool.shape[1]
     b = k_new.shape[0]
-    pos_b = torch.as_tensor(pos, device=k_pool.device)
-    if pos_b.ndim == 0:
-        pos_b = pos_b.expand(b)
+    pos_b = per_slot(pos, b, k_pool.device)
     page_idx = torch.gather(pages, 1, (pos_b // ps)[:, None].long())[:, 0]
     off = pos_b % ps
     k_pool[page_idx.long(), off.long()] = k_new[:, 0]

@@ -12,11 +12,16 @@ Layout differences from the reference, all for PyTorch idiom:
   is updated in place where the reference donates its buffers.
 * an encoder-decoder model's encoder blocks are the list
   ``params["enc"]["blocks"]`` (the reference stacks them too).
+* the reference's callers `jax.jit` the prefill step; the port's prefill
+  step is `Graphed` (`runtime/compile_cache.py`): on the card it runs as a
+  captured CUDA graph per batch shape.
 
 Training (`loss_fn`, `make_train_step`) waits for ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
+
+import numbers
 
 import torch
 
@@ -25,6 +30,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.blocks import BLOCKS, _norm, _norm_specs
 from repro_torch.models.layers import ParamSpec, layer_norm
+from repro_torch.runtime.compile_cache import Graphed
 
 F32 = torch.float32
 
@@ -254,10 +260,18 @@ def forward(cfg, params, tokens, *, cross_embeds=None):
     return _final_norm(cfg, params, x), aux
 
 
-def make_prefill_step(cfg, *, policy=None):
+def make_prefill_step(cfg, *, policy=None) -> Graphed:
     """`prefill_step(params, batch) -> (B,) int32` greedy next tokens.
     `batch["enc_embeds"]` (or "img_embeds") is the cross context.
-    `policy` pins the kernel policy (None -> the ambient one)."""
+    `policy` pins the kernel policy (None -> the ambient one).
+
+    On CUDA inputs the step runs as captured CUDA graphs (`Graphed`), one
+    per key: the batch's shapes and dtypes and the identity of the
+    parameter tensors. The first call with a key runs eagerly and
+    captures; later calls copy the batch into the graph's inputs and
+    replay, and return a fresh token tensor. The graphs (`.graphs`) are
+    the step's own and go with it; `.eager` is the step run from Python.
+    CPU inputs run eagerly."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
 
     @torch.inference_mode()
@@ -269,7 +283,7 @@ def make_prefill_step(cfg, *, policy=None):
             lg = logits(params, hidden[:, -1])
             return torch.argmax(lg, dim=-1).to(torch.int32)
 
-    return prefill_step
+    return Graphed(prefill_step, copied=(1,))
 
 
 def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
@@ -289,7 +303,13 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
         with kpolicy.scoped(pol):
             tokens = batch["tokens"]
             B = tokens.shape[0]
-            pos = torch.as_tensor(batch["pos"], device=tokens.device)
+            pos = batch["pos"]
+            if isinstance(pos, numbers.Integral):
+                # filled on the device: a graph capture takes no host copy
+                pos = torch.full((), int(pos), dtype=torch.int64,
+                                 device=tokens.device)
+            else:
+                pos = torch.as_tensor(pos, device=tokens.device)
             x = params["tok_embed"][tokens.long()]                # (B,1,d)
             positions = (pos.expand(B) if pos.ndim == 0 else pos)[:, None]
             if encdec:
@@ -306,3 +326,14 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
             return cache, token
 
     return decode_step
+
+
+def make_decode_chunk(cfg, chunk: int, max_seq: int = 1 << 30, *,
+                      eos_id: int | None = None, policy=None):
+    """The K-token decode program (the execution engine's entry):
+    `make_decode_step` rolled into `chunk` steps with on-device EOS
+    masking, one CUDA graph on the card. See
+    `runtime/engine.make_decode_chunk` for the calling convention."""
+    from repro_torch.runtime import engine
+    step = make_decode_step(cfg, max_seq=max_seq, policy=policy)
+    return engine.make_decode_chunk(step, chunk, eos_id=eos_id)

@@ -1,8 +1,11 @@
-from .engine import StallClock, init_session_state
+from .compile_cache import CompileCache
+from .engine import (DecodeEngine, StallClock, init_session_state,
+                     make_decode_chunk)
 from .kvpool import PagedKV, PagePool, PoolExhausted, PrefixCache
 from .scheduler import QueueFull, Request, RequestHandle, SlotScheduler
-from .serve_loop import ServeSession
+from .serve_loop import ServeLoop, ServeSession
 
-__all__ = ["PagePool", "PagedKV", "PoolExhausted", "PrefixCache",
-           "QueueFull", "Request", "RequestHandle", "ServeSession",
-           "SlotScheduler", "StallClock", "init_session_state"]
+__all__ = ["CompileCache", "DecodeEngine", "PagePool", "PagedKV",
+           "PoolExhausted", "PrefixCache", "QueueFull", "Request",
+           "RequestHandle", "ServeLoop", "ServeSession", "SlotScheduler",
+           "StallClock", "init_session_state", "make_decode_chunk"]

@@ -1,26 +1,38 @@
-"""Execution engine of the serving session (the port of the session half
-of `repro.runtime.engine`).
+"""Execution engine (the port of `repro.runtime.engine`): the K-step
+decode of a fixed batch (`DecodeEngine`) and the session cell of
+continuous batching (`session_chunk_fn`).
 
 The reference compiles K decode steps into one `lax.scan` program with
-the slot-pool state donated through it. Here the K steps are a Python
-loop over the same per-slot state tensors, updated in place where the
-reference donates them; the host reads the device once at the start of a
-chunk (how many steps any slot still needs) and once at its end
-(`ServeSession.poll` harvests the tokens), so the host still syncs once
-per K tokens.
+its buffers donated through it. On the CPU the port runs the K steps as a
+Python loop over the same tensors, updated in place where the reference
+donates them. On the card it captures one step once as a CUDA graph
+(`compile_cache.Captured`) and replays it: what the reference gets from
+compiling the scan. Either way the host syncs once per K tokens.
+
+`DecodeEngine` captures one step of the chunk as a graph, per scan length
+K (the steady chunk and a shorter tail), over tensors it keeps: the last
+token (B, 1), the per-slot `finished` and `emitted`, the position `pos`
+(a 0-d tensor, advanced on the card), `remaining`, the step index, the
+step count and the (B, K) token block, and the caller's cache. A chunk
+is K replays of that graph, back to back. (One graph of all K steps was
+the other design: `tools/engine_chunk_graphs.py` times both; PERF.md.)
 
 The reference skips the model body with `lax.cond` on each step at which
-every slot is done. Without a device-side conditional the port bounds the
-chunk at its start instead: it runs the steps the slowest live slot still
-needs (its remaining prompt plus its remaining budget) and none once
-every slot is done. A chunk in which EOS ends every slot early still runs
-its remaining steps; those steps emit nothing and change no slot's
-tokens, position or counters, exactly as skipped steps do. (A per-step
-device skip needs CUDA-graph conditional nodes: a later PR.)
-
-On the GPU one session step is captured as a CUDA graph and replayed: the
-step's ~1,800 launches from Python become one, which is what the
-reference gets from compiling the scan.
+every slot is done; a graph has no device-side skip (that needs CUDA-graph
+conditional nodes, which the port does not build). So the engine's steps
+after every slot hit EOS inside a chunk still run the model. They change
+no returned token, `emitted`, `finished`, `pos` or the step count `n`,
+and may write the cache row at the frozen `pos`: tokens, `emitted`,
+`finished` and cache rows [0, pos) equal the reference's bit for bit,
+rows at and past `pos` may differ, and no later step reads them before it
+overwrites them (decode writes its row before it attends). The session
+instead bounds the chunk at its start: it runs the steps the slowest live
+slot still needs (its remaining prompt plus its remaining budget) and
+none once every slot is done; a chunk in which EOS ends every slot early
+still runs its remaining steps, which emit nothing and change no slot's
+tokens, position or counters, exactly as skipped steps do. On the GPU one
+session step is captured and replayed: the step's ~1,800 launches from
+Python become one.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.runtime.compile_cache import (Captured, Graphed,
+                                               tensor_leaves)
 
 I64 = torch.int64
 
@@ -77,6 +91,230 @@ class StallClock:
             "wall_s": wall,
             "stall_pct": 100.0 * self.dispatch_gap_s / max(wall, 1e-12),
         }
+
+
+# ----------------------------------------------------------------------------
+# K-step decode of a fixed batch
+# ----------------------------------------------------------------------------
+
+def _chunk_step(decode_step: Callable, eos_id: int | None) -> Callable:
+    """One step of the K-step decode program, in place on the state `s`
+    (tok, finished, emitted, pos, remaining; the chunk's step index `t`,
+    its step count `n` and its (B, K) token block `toks`). No host read,
+    so that the step can be captured as a CUDA graph."""
+
+    def step(params, cache, s):
+        tok, finished = s["tok"], s["finished"]
+        stop = s["remaining"] <= s["t"]
+        if eos_id is not None:
+            stop = stop | torch.all(finished)
+        active = ~stop
+        _, raw = decode_step(params, cache, {"tokens": tok, "pos": s["pos"]})
+        raw = torch.where(active, raw.to(tok.dtype), tok)
+        if eos_id is not None:
+            # finished slots (and stop steps) hold EOS regardless of the
+            # argmax: the host loop's masking order
+            out = torch.where((finished | stop)[:, None], eos_id, raw)
+            new_finished = torch.where(
+                active, finished | (out[:, 0] == eos_id), finished)
+        else:
+            out, new_finished = raw, finished
+        s["emitted"].add_((active & ~finished).to(s["emitted"].dtype))
+        finished.copy_(new_finished)
+        tok.copy_(out)
+        s["pos"].add_(active.to(s["pos"].dtype))
+        s["n"].add_(active.to(I64))
+        s["toks"].index_copy_(1, s["t"].view(1), out)
+        s["t"].add_(1)
+
+    return step
+
+
+def _chunk_state(tok, width: int) -> dict:
+    """A chunk's own tensors: step index, step count, (B, width) tokens."""
+    return {"t": torch.zeros((), dtype=I64, device=tok.device),
+            "n": torch.zeros((), dtype=I64, device=tok.device),
+            "toks": torch.zeros((tok.shape[0], width), dtype=tok.dtype,
+                                device=tok.device)}
+
+
+def decode_chunk_fn(decode_step: Callable, chunk: int,
+                    eos_id: int | None = None) -> Callable:
+    """The K-step decode program, eager (see `make_decode_chunk`)::
+
+        chunk_fn(params, cache, tok, finished, emitted, pos, remaining)
+          -> (cache, tok, finished, emitted, pos, n_steps, all_done, tokens)
+
+    `tok` (B, 1) is the last sampled token, `finished` / `emitted` the
+    per-slot EOS flags and emitted-token counters, `pos` the decode
+    position and `remaining` how many tokens the caller still wants (both
+    0-d tensors). `cache`, `tok`, `finished`, `emitted` and `pos` are
+    updated in place (what the reference donates) and returned; `n_steps`,
+    `all_done` (0-d) and `tokens` (B, K) are new. Only the first `n_steps`
+    columns of `tokens` are valid. Nothing reads the device from the host.
+    (A `DecodeChunk` whose steps all run eagerly.)
+
+    Step semantics replicate the per-token host loop bit for bit:
+    `emitted` counts a slot's tokens up to and including its EOS; a
+    finished slot's tokens are masked to EOS before being fed back and
+    recorded. A step past `remaining`, or after every slot finished, is a
+    stop step: it runs the model (see the module docstring), its column
+    holds EOS (or the last token) and nothing else moves."""
+    return DecodeChunk(decode_step, chunk, eos_id=eos_id, cuda_graph=False)
+
+
+class DecodeChunk:
+    """The K-step decode program of `make_decode_chunk`, with
+    `decode_chunk_fn`'s calling convention and results.
+
+    Its step is `Graphed`: on the card the first step runs eagerly and is
+    captured (over the program's own step index, count and token block and
+    the caller's in-place tensors), and every later step replays that one
+    graph, K replays a chunk back to back with no host read between.
+    `tools/engine_chunk_graphs.py` times this against one graph of all K
+    steps. The in-place arguments must be the same tensors from call to
+    call, as the reference's donated buffers are threaded forward: other
+    tensors capture anew. On CPU tensors, or with ``cuda_graph=False``,
+    every step runs eagerly."""
+
+    def __init__(self, decode_step: Callable, chunk: int, *,
+                 eos_id: int | None = None, cuda_graph: bool = True):
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.chunk = chunk
+        self.eos_id = eos_id
+        self.step = Graphed(_chunk_step(getattr(decode_step, "eager",
+                                                decode_step), eos_id),
+                            cuda_graph=cuda_graph)
+        self._own: dict | None = None
+
+    @property
+    def graphs(self):
+        """The step's captured graphs (a `CompileCache`)."""
+        return self.step.graphs
+
+    @torch.inference_mode()
+    def __call__(self, params, cache, tok, finished, emitted, pos,
+                 remaining):
+        own = self._own
+        if (own is None or own["toks"].shape[0] != tok.shape[0]
+                or own["toks"].device != tok.device
+                or own["toks"].dtype != tok.dtype):
+            own = self._own = _chunk_state(tok, self.chunk)
+        own["t"].zero_()
+        own["n"].zero_()
+        s = dict(own, tok=tok, finished=finished, emitted=emitted, pos=pos,
+                 remaining=remaining)
+        for _ in range(self.chunk):
+            self.step(params, cache, s)
+        all_done = (torch.all(finished) if self.eos_id is not None
+                    else torch.zeros((), dtype=torch.bool, device=tok.device))
+        return (cache, tok, finished, emitted, pos, own["n"].clone(),
+                all_done, own["toks"].clone())
+
+
+def make_decode_chunk(decode_step: Callable, chunk: int, *,
+                      eos_id: int | None = None,
+                      cuda_graph: bool = True) -> DecodeChunk:
+    """The K-step decode program: `decode_chunk_fn`'s K steps with one CUDA
+    graph of a step replayed K times on the card (`DecodeChunk`).
+    `cuda_graph=False` runs every step eagerly (to check the graph
+    against)."""
+    return DecodeChunk(decode_step, chunk, eos_id=eos_id,
+                       cuda_graph=cuda_graph)
+
+
+class DecodeEngine:
+    """Drives the K-step decode program chunk by chunk.
+
+    One `generate` produces up to `max_new` tokens with `ceil(T / K)` host
+    syncs instead of `T`. Per-chunk wall times land in `chunk_latencies`
+    as `(seconds, steps)` pairs and the stall ledger in `clock`. The
+    engine keeps the chunk's token, flag, counter and position tensors
+    (one set per batch size and device), so on the card each chunk length
+    (the steady chunk K and a tail chunk of `max_new % K` steps) captures
+    its step graph once, and every later chunk replays it. The cache is
+    the caller's, used in place; pass the same cache tensors to every
+    `generate` (zeroed between generations) to replay the same graphs. A
+    `Graphed` decode step is unwrapped: the chunk captures its eager
+    kernels itself."""
+
+    def __init__(self, decode_step: Callable, chunk: int = 16, *,
+                 eos_id: int | None = None, cuda_graph: bool = True):
+        self.chunk = chunk
+        self.eos_id = eos_id
+        self.cuda_graph = cuda_graph
+        self._decode_step = decode_step
+        # programs keyed by scan length: the steady chunk is K; a tail
+        # chunk (max_new % K) gets a short variant, built once and reused
+        self._chunk_fns: dict[int, DecodeChunk] = {
+            chunk: make_decode_chunk(decode_step, chunk, eos_id=eos_id,
+                                     cuda_graph=cuda_graph)}
+        self._state: dict | None = None
+        self.clock = StallClock()
+        self.chunk_latencies: list[tuple[float, int]] = []
+
+    def _fn_for(self, k: int) -> DecodeChunk:
+        fn = self._chunk_fns.get(k)
+        if fn is None:
+            fn = make_decode_chunk(self._decode_step, k, eos_id=self.eos_id,
+                                   cuda_graph=self.cuda_graph)
+            self._chunk_fns[k] = fn
+        return fn
+
+    def _static(self, b: int, device: torch.device) -> dict:
+        s = self._state
+        if s is None or s["tok"].shape[0] != b or s["tok"].device != device:
+            with torch.inference_mode():
+                s = self._state = {
+                    "tok": torch.zeros((b, 1), dtype=I64, device=device),
+                    "finished": torch.zeros(b, dtype=torch.bool,
+                                            device=device),
+                    "emitted": torch.zeros(b, dtype=I64, device=device),
+                    "pos": torch.zeros((), dtype=I64, device=device),
+                    "remaining": torch.zeros((), dtype=I64, device=device)}
+        return s
+
+    def generate(self, params, cache, start_tok: np.ndarray, max_new: int,
+                 start_pos: int = 0):
+        """Returns (out (B, 1 + T) np.int32, cache, finished, emitted).
+
+        `out[:, 0]` is the start token; T <= max_new generation columns
+        follow (shorter when every slot hits EOS early). `cache` is the
+        caller's cache, updated in place."""
+        start_tok = np.asarray(start_tok)
+        B = start_tok.shape[0]
+        out = np.empty((B, 1 + max_new), np.int32)       # one host buffer
+        out[:, 0] = start_tok[:, 0]
+        dev = next(tensor_leaves(cache)).device
+        s = self._static(B, dev)
+        with torch.inference_mode():
+            s["tok"].copy_(torch.as_tensor(start_tok.astype(np.int64)))
+            s["finished"].zero_()
+            s["emitted"].zero_()
+            s["pos"].fill_(start_pos)
+        self.clock = StallClock()
+        self.chunk_latencies = []
+        w = 0
+        while w < max_new:
+            remaining = max_new - w
+            k = min(self.chunk, remaining)      # tail chunk: short variant
+            t0 = self.clock.dispatch()
+            with torch.inference_mode():
+                s["remaining"].fill_(remaining)
+            (cache, _, _, _, _, n, all_done, toks) = self._fn_for(k)(
+                params, cache, s["tok"], s["finished"], s["emitted"],
+                s["pos"], s["remaining"])
+            self.clock.sync(n, all_done, toks)
+            dt = time.perf_counter() - t0
+            n, all_done = int(n), bool(all_done)
+            self.chunk_latencies.append((dt, n))
+            out[:, 1 + w:1 + w + n] = toks[:, :n].cpu().numpy()
+            w += n
+            if n < k or all_done:
+                break
+        return (out[:, :1 + w], cache, s["finished"].cpu().numpy(),
+                s["emitted"].cpu().numpy().astype(np.int64))
 
 
 # ----------------------------------------------------------------------------
@@ -155,34 +393,6 @@ def _session_step(decode_step, params, s, eos_id):
     return raw[:, 0], em, live
 
 
-class _StepGraph:
-    """One session step captured as a CUDA graph over a session's state
-    tensors (every update keeps them in place), replayed for each later
-    step: one launch instead of the ~1,800 the step issues from Python.
-
-    Construction runs one step eagerly on a side stream (the warm-up
-    capture needs, and a real step of the session), then captures the next
-    one without running it. A kernel wrapper counts a launch when it is
-    called, so it counts the captured launches once; their executions in
-    the replays are seen only by a device trace
-    (`kernels.launches.traced_launches`)."""
-
-    def __init__(self, decode_step, params, state, eos_id):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.first = _session_step(decode_step, params, state, eos_id)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
-            self.out = _session_step(decode_step, params, state, eos_id)
-
-    def replay(self):
-        self.graph.replay()
-        return self.out
-
-
 def session_chunk_fn(decode_step: Callable, chunk: int,
                      eos_id: int | None = None, *,
                      cuda_graph: bool = True) -> Callable:
@@ -198,8 +408,9 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
     each slot was live for; `all_done` is a 0-d bool tensor.
 
     On CUDA state the session's step is captured as a CUDA graph at its
-    first step (kept in ``state["step_graph"]``) and replayed for every
-    later step: the same kernels on the same tensors, so the same results.
+    first step (a `Captured`, kept in ``state["step_graph"]``; the first
+    step is its warm-up) and replayed for every later step: the same
+    kernels on the same tensors, so the same results.
     `cuda_graph=False` runs every step eagerly (to check the graph
     against)."""
     if chunk < 1:
@@ -218,8 +429,8 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
                 raw, em, live = _session_step(decode_step, params, state,
                                               eos_id)
             elif "step_graph" not in state:
-                state["step_graph"] = _StepGraph(decode_step, params, state,
-                                                 eos_id)
+                state["step_graph"] = Captured(lambda: _session_step(
+                    decode_step, params, state, eos_id))
                 raw, em, live = state["step_graph"].first
             else:
                 raw, em, live = state["step_graph"].replay()

@@ -1,7 +1,12 @@
-"""Request-level serving: continuous batching over a slot pool (the core
-of `repro.runtime.serve_loop.ServeSession`).
+"""Serving loops: batch programs (`ServeLoop`) and request-level
+continuous batching (`ServeSession`; the core of
+`repro.runtime.serve_loop`).
 
-A fixed slot pool is stepped by the session chunk (`engine.py`); between
+`ServeLoop` is the fixed-batch loop: one rectangular batch of prompts
+runs to completion, one host sync a token (`chunk=1`) or one a K-step
+chunk of the `DecodeEngine` (`engine.py`).
+
+`ServeSession` steps a fixed slot pool by the session chunk; between
 chunks the host harvests emitted tokens, frees finished slots, admits
 queued requests and refills their slots — installing page tables under a
 paged KV pool, with copy-on-write prefix reuse. Private and paged caches
@@ -19,14 +24,159 @@ from collections import deque
 from typing import Callable, Iterator
 
 import numpy as np
+import torch
 
-from repro_torch.runtime.engine import StallClock
+from repro_torch.runtime.compile_cache import Graphed, tensor_leaves
+from repro_torch.runtime.engine import DecodeEngine, StallClock
 from repro_torch.runtime.kvpool import PagedKV, PoolExhausted
 from repro_torch.runtime.scheduler import (DONE, QUEUED, REASON_POOL,
                                            RUNNING, RequestHandle,
                                            SlotScheduler)
 
 HISTORY = 4096          # sliding-window length for session stats records
+
+
+def chunked_latency_stats(samples) -> dict:
+    """Per-token latency stats from `(seconds, steps)` chunk samples.
+
+    The first sample is dropped (it carries the warm-up and the graph's
+    capture); with zero post-warm-up samples the figures report 0.0 rather
+    than fake `1/epsilon` numbers. Shared by `ServeLoop.stats` (engine
+    path) and the session's legacy-shaped one-shot stats."""
+    samples = list(samples)
+    lat = np.asarray([dt for dt, _ in samples[1:]], np.float64)
+    steps = np.asarray([n for _, n in samples[1:]], np.int64)
+    tokens = int(steps.sum())
+    if lat.size == 0 or tokens == 0:
+        return {"decode_steps": 0, "p50_ms": 0.0, "p99_ms": 0.0,
+                "tokens_per_s_per_slot": 0.0}
+    per_tok = lat / np.maximum(steps, 1)
+    return {"decode_steps": tokens,
+            "p50_ms": float(np.percentile(per_tok, 50) * 1e3),
+            "p99_ms": float(np.percentile(per_tok, 99) * 1e3),
+            "tokens_per_s_per_slot": float(tokens / max(lat.sum(), 1e-9))}
+
+
+class ServeLoop:
+    """Greedy batched decoding of one fixed batch.
+
+    `decode_step(params, cache, batch) -> (cache, token (B, 1))`. On the
+    card the per-token path replays one captured step (the step is wrapped
+    in `Graphed` unless it is one already: the reference's callers jit it).
+
+    `eos_id` (None disables): a slot that emits EOS is *finished* — its
+    subsequent tokens are masked to EOS, it stops counting toward emitted
+    lengths, and the loop stops early once every slot has finished.
+
+    `chunk` picks the execution engine: 1 (default) is the per-token host
+    loop — one dispatch + one host sync per token; K > 1 runs K decode
+    steps as one program of the `DecodeEngine` (one CUDA graph on the
+    card), so the host syncs once per K tokens. Both paths produce
+    bit-identical tokens, EOS behaviour and emitted counts. The cache is
+    updated in place on both.
+    """
+
+    def __init__(self, decode_step: Callable, params, cache, batch_size: int,
+                 eos_id: int | None = None, chunk: int = 1,
+                 engine: DecodeEngine | None = None):
+        if not isinstance(decode_step, Graphed):
+            decode_step = Graphed(decode_step, copied=(2,))
+        self.decode_step = decode_step
+        self.params = params
+        self.cache = cache
+        self.batch_size = batch_size
+        self.eos_id = eos_id
+        self.latencies: list[float] = []
+        self.emitted_lengths: np.ndarray | None = None
+        self._finished: np.ndarray | None = None
+        self._chunk_steps: list[int] | None = None
+        self.clock = StallClock()
+        # a prebuilt engine (kept on a compiled program so that its graphs
+        # are captured once, not per generate) wins over `chunk`
+        if engine is None and chunk > 1:
+            engine = DecodeEngine(decode_step, chunk, eos_id=eos_id)
+        self._engine = engine
+        self.chunk = engine.chunk if engine is not None else chunk
+
+    def generate(self, prompt_tokens: np.ndarray, max_new: int,
+                 start_pos: int = 0) -> np.ndarray:
+        """prompt_tokens: (B, 1) last prompt token per slot."""
+        if self._engine is not None:
+            return self._generate_chunked(prompt_tokens, max_new, start_pos)
+        prompt_tokens = np.asarray(prompt_tokens, np.int32)
+        B = prompt_tokens.shape[0]
+        out = np.empty((B, 1 + max_new), np.int32)       # one host buffer
+        out[:, 0] = prompt_tokens[:, 0]
+        dev = next(tensor_leaves(self.cache)).device
+        tok = torch.as_tensor(prompt_tokens, device=dev)
+        finished = np.zeros(B, bool)
+        emitted = np.zeros(B, np.int64)
+        pos = start_pos
+        self.latencies = []
+        self.clock = StallClock()
+        w = 0
+        for _ in range(max_new):
+            t0 = self.clock.dispatch()
+            self.cache, tok = self.decode_step(self.params, self.cache,
+                                               {"tokens": tok, "pos": pos})
+            self.clock.sync(tok)
+            self.latencies.append(time.perf_counter() - t0)
+            step_tok = tok.cpu().numpy().astype(np.int32)
+            emitted += ~finished
+            if self.eos_id is not None:
+                # already-finished slots hold EOS regardless of the argmax
+                step_tok = np.where(finished[:, None], self.eos_id, step_tok)
+                finished |= step_tok[:, 0] == self.eos_id
+                tok = torch.as_tensor(step_tok.astype(np.int32), device=dev)
+            out[:, 1 + w] = step_tok[:, 0]
+            w += 1
+            pos += 1
+            if self.eos_id is not None and finished.all():
+                break
+        self.emitted_lengths = emitted
+        self._finished = finished
+        self._chunk_steps = None
+        return out[:, :1 + w]
+
+    def _generate_chunked(self, prompt_tokens, max_new: int,
+                          start_pos: int) -> np.ndarray:
+        out, cache, finished, emitted = self._engine.generate(
+            self.params, self.cache, prompt_tokens, max_new, start_pos)
+        self.cache = cache
+        self.clock = self._engine.clock
+        self.latencies = [dt for dt, _ in self._engine.chunk_latencies]
+        self._chunk_steps = [n for _, n in self._engine.chunk_latencies]
+        self.emitted_lengths = emitted
+        self._finished = finished
+        return out
+
+    def stats(self) -> dict:
+        """Latency stats over the post-warm-up steps (the first step, or
+        the first chunk on the engine path, is dropped: it carries the
+        warm-up and the capture). With zero or one recorded sample there
+        are no measured steps, so throughput and percentiles report 0.0;
+        `decode_steps` counts the decode steps the measured samples cover.
+        After a `generate`, `emitted_per_slot` reports how many tokens each
+        slot emitted before (and including) its EOS, and `finished_slots`
+        how many slots hit EOS. `stall` carries the StallClock ledger."""
+        lat = np.asarray(self.latencies[1:], np.float64)
+        if self._chunk_steps is not None:
+            st = chunked_latency_stats(zip(self.latencies, self._chunk_steps))
+        elif lat.size == 0:
+            st = {"decode_steps": 0, "p50_ms": 0.0, "p99_ms": 0.0,
+                  "tokens_per_s_per_slot": 0.0}
+        else:
+            st = {"decode_steps": int(lat.size),
+                  "p50_ms": float(np.percentile(lat, 50) * 1e3),
+                  "p99_ms": float(np.percentile(lat, 99) * 1e3),
+                  "tokens_per_s_per_slot": float(1.0 / max(lat.mean(), 1e-9))}
+        st["chunk"] = self.chunk
+        st["stall"] = self.clock.report()
+        if self.emitted_lengths is not None:
+            st["emitted_per_slot"] = [int(n) for n in self.emitted_lengths]
+            if self.eos_id is not None:
+                st["finished_slots"] = int(self._finished.sum())
+        return st
 
 
 class ServeSession:

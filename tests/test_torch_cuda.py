@@ -181,6 +181,159 @@ def test_cuda_graph_session_matches_eager(cuda):
 
 
 # ----------------------------------------------------------------------------
+# the execution engine and the prefill as CUDA graphs
+# ----------------------------------------------------------------------------
+
+def _smoke(cuda, seed=1, max_seq=64):
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+
+    cfg = get("qwen3-14b-smoke")
+    return cfg, steps.init_params(cfg, seed, device=cuda, max_seq=max_seq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eos", [False, True], ids=["no_eos", "eos"])
+def test_cuda_engine_graph_equals_eager(cuda, eos):
+    """`DecodeEngine` replaying its chunks as CUDA graphs gives the eager
+    engine's tokens, finished, emitted and cache rows [0, pos) bit for
+    bit, in a first generate (each chunk length's first chunk runs eagerly
+    and captures) and a second one (replays only); the steady chunk and
+    the tail are captured once each."""
+    import numpy as np
+
+    from repro_torch.models import steps
+    from repro_torch.runtime.engine import DecodeEngine
+
+    cfg, params = _smoke(cuda)
+    step = steps.make_decode_step(cfg, max_seq=64, policy="fused")
+    start = np.random.default_rng(0).integers(1, cfg.vocab, (4, 1))
+
+    def generate_twice(eng):
+        cache = steps.init_cache(cfg, 4, 64, device=cuda)
+        runs = []
+        for _ in range(2):
+            for c in cache.values():
+                c.zero_()
+            out, cache, fin, em = eng.generate(params, cache, start, 20,
+                                               start_pos=3)
+            end = 3 + out.shape[1] - 1
+            runs.append((out, fin, em, {k: c[:, :, :end].clone()
+                                        for k, c in cache.items()}))
+        return runs
+
+    eos_id = None
+    if eos:                                         # slot 0 ends mid-run
+        eos_id = int(generate_twice(DecodeEngine(
+            step, 8, cuda_graph=False))[0][0][0, 5])
+    eager_eng = DecodeEngine(step, 8, eos_id=eos_id, cuda_graph=False)
+    graph_eng = DecodeEngine(step, 8, eos_id=eos_id)
+    eager, graphed = generate_twice(eager_eng), generate_twice(graph_eng)
+    assert all(fn.graphs.misses == 0 for fn in eager_eng._chunk_fns.values())
+    if not eos:
+        assert {k: fn.graphs.misses
+                for k, fn in graph_eng._chunk_fns.items()} == {8: 1, 4: 1}
+    for (o1, f1, e1, c1), (o2, f2, e2, c2) in zip(eager, graphed):
+        np.testing.assert_array_equal(o1, o2)
+        np.testing.assert_array_equal(f1, f2)
+        np.testing.assert_array_equal(e1, e2)
+        for k in c1:
+            assert torch.equal(c1[k], c2[k]), k
+    if eos:
+        assert graphed[0][1][0]                     # slot 0 finished
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_serve_reruns_without_capturing(cuda):
+    """A compiled `ServeProgram` captures its graphs (the prompt's step,
+    the steady chunk, the tail) in its first run only; a second run and a
+    second compile of the same spec capture nothing and give the same
+    tokens; chunk 1 gives chunk 8's tokens with one host sync a token."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.cluster.session import Cluster, ServeProgram
+
+    cluster = Cluster("qwen3-14b-smoke")
+    params = _smoke(cuda)[1]
+    prompt = np.random.default_rng(2).integers(1, 256, (4, 6))
+    spec = ServeProgram(batch=4, max_seq=64, max_new=20, chunk=8)
+    with cluster.policy("fused"):
+        prog = cluster.compile(spec)
+    first = prog.run(params=params, prompt=prompt)
+    assert prog.captures() == 3
+    again = prog.run(params=params, prompt=prompt)
+    with cluster.policy("fused"):
+        assert cluster.compile(spec) is prog
+        per_token = cluster.compile(dataclasses.replace(spec, chunk=1))
+    assert prog.captures() == 3
+    np.testing.assert_array_equal(first["tokens"], again["tokens"])
+    one = per_token.run(params=params, prompt=prompt)
+    np.testing.assert_array_equal(one["tokens"], first["tokens"])
+    assert again["stats"]["stall"]["host_syncs"] == 3
+    assert one["stats"]["stall"]["host_syncs"] == 20
+    assert per_token.captures() == 1
+
+
+def _prefill_cases(cuda):
+    import dataclasses as dc
+
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+
+    wide = dc.replace(get("qwen3-14b"), n_layers=2, d_model=256, n_heads=4,
+                      n_kv_heads=2, head_dim=128, d_ff=512, vocab=512)
+    return {"smoke_tuned": (get("qwen3-14b-smoke"), "tuned"),
+            "hd128_fused": (wide, "fused"),
+            "hd128_pallas": (dc.replace(wide, attn_schedule="pallas"),
+                             "tuned")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["smoke_tuned", "hd128_fused",
+                                  "hd128_pallas"])
+def test_cuda_graphed_prefill_equals_eager(cuda, case):
+    """The prefill step replays a graph per batch shape and parameter
+    tree: its tokens equal the eager step's for two shapes; a shape seen
+    before replays, a new one or a new parameter tree captures anew (the
+    old tree's graphs dropped); a replay's tokens survive the next
+    replay."""
+    import numpy as np
+
+    from repro_torch.models import steps
+
+    cfg, policy = _prefill_cases(cuda)[case]
+    params = steps.init_params(cfg, 0, device=cuda)
+    prefill = steps.make_prefill_step(cfg, policy=policy)
+    rng = np.random.default_rng(0)
+
+    def batch(shape):
+        return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape),
+                                          device=cuda)}
+
+    for shape in ((2, 16), (1, 40)):
+        b = batch(shape)
+        want = prefill.eager(params, b)
+        assert torch.equal(prefill(params, b), want)      # capture
+        assert torch.equal(prefill(params, b), want)      # replay
+    assert prefill.graphs.misses == 2 and len(prefill.graphs) == 2
+    b1, b2 = batch((2, 16)), batch((2, 16))
+    t1 = prefill(params, b1)
+    kept = t1.clone()
+    t2 = prefill(params, b2)
+    torch.cuda.synchronize()
+    assert prefill.graphs.misses == 2
+    assert torch.equal(t1, kept) and t1.data_ptr() != t2.data_ptr()
+    assert torch.equal(t2, prefill.eager(params, b2))
+    params2 = steps.init_params(cfg, 1, device=cuda)
+    want = prefill.eager(params2, b1)
+    assert torch.equal(prefill(params2, b1), want)
+    assert torch.equal(prefill(params2, b1), want)
+    assert prefill.graphs.misses == 3 and len(prefill.graphs) == 1
+
+
+# ----------------------------------------------------------------------------
 # the Table 1 suite
 # ----------------------------------------------------------------------------
 
