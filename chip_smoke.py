@@ -4,7 +4,9 @@ suite and the fused ops' compositions through `repro_torch.kernels.ops`,
 run whisper-small's prefill and decode, then qwen3-14b at full width:
 its one-shot prefill on the fused and on the "pallas" route (eager and as
 CUDA graphs), serving through the port's paged ServeSession, and the
-fixed batch's execution engine (`ServeProgram`, K-step CUDA graphs).
+fixed batch's execution engine (`ServeProgram`, K-step CUDA graphs);
+then mixtral-8x7b at full width (8 of its 32 layers): its MoE prefill on
+the banded schedule and its decode on rolling caches.
 
     python3 chip_smoke.py
 
@@ -55,8 +57,10 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            (rmsnorm, matmul, flash_attention) and no fused one; both timed
   agree    reduced models through the kernels on the card vs the plain
            versions on the CPU: qwen3 (2 layers, 4 heads of 128) under
-           "fused" and under "tuned" with attn_schedule="pallas", and
-           whisper-small (2 + 2 layers at full width) under "fused"
+           "fused" and under "tuned" with attn_schedule="pallas",
+           whisper-small (2 + 2 layers at full width) under "fused", and
+           the MoE smoke configs under "fused" in both dispatch modes
+           (grok-1-314b-smoke with heads of 128, mixtral-8x7b-smoke)
   whisper  whisper-small at full width (12 + 12 layers), random weights,
            under "fused": make_prefill_step on 8 x 32 tokens and 8 x 1500
            stub frames, run eagerly (its encoder MLPs launch
@@ -100,10 +104,22 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            stall_pct, dispatch_gap_s and device_wait_s of each; one steady
            chunk traced: 16 x one eager step's launches of each kernel,
            its device busy time against its wall
+  moe      mixtral-8x7b at full width (d_model 4096, 32 / 8 heads of 128,
+           8 experts top-2, d_ff 14336, window 4096), 8 of its 32 layers
+           (~23.7 GB; qwen3's weights are freed first), under "fused":
+           make_prefill_step on B=1, S=8192 (the banded schedule, chunk
+           1024, 5 bands; rmsnorm_matmul 3 times a layer,
+           matmul_residual_add once, no plain version on the card; the
+           experts are plain bf16 products), eager, traced and as a CUDA
+           graph, beside its least time; then ServeProgram(batch=8,
+           max_seq=8192, max_new=64) from an 8 x 32 prompt on rolling
+           4096-row caches at chunk 16 and chunk 1: equal tokens, finite
+           caches, tokens_per_s_per_slot, p50_ms, stall_pct, the step's
+           least time, one steady chunk's traced device busy time
 
 The kernel launch counts are set to 0 before each of the suite, compose,
-whisper, prefill, pallas_prefill, serve, profile and engine runs and read
-right after; every kernel of a phase must have launched and no plain version
+whisper, prefill, pallas_prefill, serve, profile, engine and moe runs and
+read right after; every kernel of a phase must have launched and no plain version
 may have run on a CUDA tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
 trace (`launches.traced_launches`). Every trace but the serve phase's
@@ -119,6 +135,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -262,11 +279,17 @@ def main() -> int:
     serve_counts, serve_traced = serve_phase(launches, cfg, params)
     profile_phase(launches, cfg, params)
     engine_traced = engine_phase(launches, cfg, params)
+    del params                        # qwen3-14b's 29.5 GB: mixtral is next
+    gc.collect()                      # reference cycles may still hold them
+    torch.cuda.empty_cache()
+    moe_counts, _ = moe_phase(launches)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
         # count), the traced serve run's and the engine's traced chunk's,
-        # graph replays included; wrapper_launches: the wrappers' own
+        # graph replays included, and mixtral's eager prefill's (none for
+        # flash_attention_proj: mixtral's window keeps it off the path);
+        # wrapper_launches: the wrappers' own
         # counts over the prefill and serve runs. flash_attention: the
         # "pallas" prefill's; matmul_bias_act: the whisper prefill's;
         # rmsnorm: rmsnorm_matmul's composition's. A suite kernel's record
@@ -274,7 +297,7 @@ def main() -> int:
         name = rec["name"]
         if name in QWEN_FUSED:
             rec["launches"] = (prefill_counts[name] + serve_traced[name]
-                               + engine_traced[name])
+                               + engine_traced[name] + moe_counts[name])
             rec["wrapper_launches"] = prefill_counts[name] + \
                 serve_counts[name]
         else:
@@ -558,8 +581,19 @@ def kernel_phase() -> list[dict]:
              lambda: torch.matmul(x, w),
              bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n),
              schedule=gemm_schedule("rmsnorm_matmul", m, K, n))
-    for m, k in ((8, 5120), (8, 17408), (512, 17408)):
-        n = 5120
+    # mixtral-8x7b's prefill projections (B=1, S=8192): q and k / v
+    K = 4096
+    for m, n in ((8192, 4096), (8192, 1024)):
+        x, s, w = randn(m, K), randn(K, scale=0.1), randn(K, n,
+                                                           scale=K ** -0.5)
+        case("rmsnorm_matmul", f"M{m}xK{K}xN{n}",
+             lambda: fused.rmsnorm_matmul(x, s, w),
+             lambda: fused.rmsnorm_matmul_plain(x, s, w),
+             lambda: torch.matmul(x, w),
+             bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n),
+             schedule=gemm_schedule("rmsnorm_matmul", m, K, n))
+    for m, k, n in ((8, 5120, 5120), (8, 17408, 5120), (512, 17408, 5120),
+                    (8192, 4096, 4096)):
         a, w, r = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
         case("matmul_residual_add", f"M{m}xK{k}xN{n}",
              lambda: fused.matmul_residual_add(a, w, r),
@@ -1061,9 +1095,11 @@ def agree_phase() -> None:
     CPU (policy "interpret"), logits within 5e-2 absolute + relative (a
     2-layer bf16 model: sum order flips single bf16 roundings, which the
     next layer carries on): qwen3 through the fused kernels, qwen3 through
-    flash_attention ("tuned", attn_schedule="pallas"), and whisper-small
+    flash_attention ("tuned", attn_schedule="pallas"), whisper-small
     (2 + 2 layers at full width) through matmul_bias_act ("fused"), its
-    attention weights rescaled to their true fan-in (`_true_fan_in`)."""
+    attention weights rescaled to their true fan-in (`_true_fan_in`), and
+    the MoE smoke configs (grok-1-314b with heads of 128, mixtral-8x7b)
+    under "fused" in global and in per-row dispatch."""
     from repro_torch.configs import get
 
     qwen = dataclasses.replace(get("qwen3-14b"), name="qwen3-14b-narrow",
@@ -1081,6 +1117,16 @@ def agree_phase() -> None:
     _agree("whisper", whisper, "fused",
            torch.from_numpy(rng.integers(0, whisper.vocab, (1, 16))),
            frames, max_seq=448, rescale=True)
+    # the MoE block at smoke size, both dispatch modes: grok (no window:
+    # flash_attention_proj, whose kernel takes heads of 128, so grok's 4
+    # smoke heads are 128 wide) and mixtral (window 16 < S = 40: banded)
+    for name, hd in (("grok-1-314b-smoke", 128), ("mixtral-8x7b-smoke", 16)):
+        for local in (False, True):
+            cfg = dataclasses.replace(get(name), moe_local_dispatch=local,
+                                      head_dim=hd)
+            _agree(f"{name}:hd{hd}:{'local' if local else 'global'}", cfg,
+                   "fused",
+                   torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))))
 
 
 def _true_fan_in(tree):
@@ -1863,6 +1909,217 @@ def engine_phase(launches, cfg, params) -> dict:
     del prog, per_token, eng, cluster, eos
     torch.cuda.empty_cache()
     return traced_chunk
+
+
+# ----------------------------------------------------------------------------
+# mixtral-8x7b at full width: the MoE block, banded attention, rolling caches
+# ----------------------------------------------------------------------------
+
+MOE_LAYERS = 8            # of mixtral-8x7b's 32: ~23.7 GB of bf16 weights
+
+
+def moe_cfg():
+    from repro_torch.configs import get
+    return dataclasses.replace(get("mixtral-8x7b"), n_layers=MOE_LAYERS)
+
+
+def moe_prefill_bound(cfg, S: int) -> tuple[float, str, float]:
+    """The least time of the B=1 prefill (ms, what sets it, TFLOP): every
+    weight read once (the token embedding only at the prompt's rows), the
+    tokens read and the token written; per layer the q/k/v and out
+    projections, the causal windowed attention's pairs (QK and PV), the
+    f32 router at the f32 peak, the expert SwiGLU over the E x C capacity
+    rows the batched product computes (C = int(K * S * 1.25 / E)), and the
+    last token's vocabulary projection."""
+    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.d_ff
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(int(K * S * cfg.capacity_factor / E), 1)
+    w = cfg.window or S
+    pairs = sum(min(i + 1, w) for i in range(S))
+    per_layer = (2.0 * S * d * (H + 2 * KV) * hd + 4.0 * H * hd * pairs
+                 + 2.0 * S * H * hd * d + 3 * 2.0 * E * C * d * f)
+    bf16 = cfg.n_layers * per_layer + 2.0 * d * cfg.vocab
+    f32 = cfg.n_layers * 2.0 * S * d * E
+    weights = (cfg.n_params() - cfg.vocab * d) * 2 + S * d * 2 \
+        - cfg.n_layers * d * E * 2        # the router is f32: counted below
+    bytes_moved = weights + cfg.n_layers * d * E * 4 + S * 8 + 4
+    t_ops = bf16 / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", bf16 / 1e12)
+
+
+def moe_decode_bound(cfg, B: int, live: float) -> tuple[float, str]:
+    """The least time of one decode step (ms, what sets it): every weight
+    read once (the reference's batched expert product reads all E experts
+    at T = B; the token embedding at B rows), the K/V rows of `live`
+    positions a slot read and one row a slot written, each layer."""
+    d = cfg.d_model
+    weights = (cfg.n_params() - cfg.vocab * d) * 2 + B * d * 2 \
+        + cfg.n_layers * d * cfg.n_experts * 2   # f32 router: 4 bytes
+    row = 2 * cfg.n_kv_heads * cfg.hd * 2         # k and v, bf16
+    kv = cfg.n_layers * B * (live + 1) * row
+    return bound(weights + kv, 0.0)
+
+
+def moe_phase(launches) -> tuple[dict, dict]:
+    """mixtral-8x7b at full width (d_model 4096, 32 / 8 heads of 128, 8
+    experts top-2, d_ff 14336, window 4096, vocab 32000), 8 of its 32
+    layers, random weights from a seeded generator on the card, under
+    "fused". The prefill (B=1, S=8192: the window binds, so attention runs
+    the banded schedule, chunk 1024, 5 bands) eagerly, counted and traced:
+    rmsnorm_matmul 3 times a layer (q, k, v), matmul_residual_add once (the
+    out-projection), no other kernel and no plain version on the card (the
+    experts are plain bf16 products, as the reference's einsums are); then
+    as a CUDA graph (`graph_replay`). Then `ServeProgram(batch=8,
+    max_seq=8192, max_new=64)` from an 8 x 32 seeded prompt at chunk 16 and
+    chunk 1 (rolling private caches of 4096 rows: max_seq passes the
+    window), each run twice: equal tokens, finite caches, tokens/s a slot,
+    p50, stall_pct, one steady chunk's traced device busy time. Returns
+    the prefill's counts and the traced chunk's."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.cluster.session import Cluster, ServeProgram
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import steps
+
+    cfg = moe_cfg()
+    S, B, P, NEW = 8192, 8, 32, 64
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log("moe", arch=cfg.name, layers=f"{cfg.n_layers}/32", params=n_params,
+        gb=f"{torch.cuda.memory_allocated() / 1e9:.1f}",
+        init_s=f"{time.perf_counter() - t0:.1f}")
+    schedule = attn_lib.resolve_schedule(S, window=cfg.window,
+                                         chunk=cfg.attn_chunk,
+                                         schedule=cfg.attn_schedule)
+    if schedule != "banded":
+        raise AssertionError(f"moe: S={S} takes {schedule}, not banded")
+
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (1, S))).cuda()
+    batch = {"tokens": tokens}
+    prefill = steps.make_prefill_step(cfg, policy="fused")
+    prefill.eager(params, batch)                          # warm-up
+    must = ("rmsnorm_matmul", "matmul_residual_add")
+    counted, tok, dt, top = _counted_and_traced(
+        launches, "moe_prefill", lambda: prefill.eager(params, batch), must)
+    want = {n: 0 for n in counted} | {"rmsnorm_matmul": 3 * cfg.n_layers,
+                                      "matmul_residual_add": cfg.n_layers}
+    if counted != want:
+        raise AssertionError(f"moe: prefill launches {counted}")
+    with torch.inference_mode():
+        with use_policy("fused"):
+            hidden, aux = steps.forward(cfg, params, tokens)
+        lg = steps.logits(params, hidden[:, -1])
+    if not torch.isfinite(lg).all() or tuple(lg.shape) != (1, cfg.vocab) \
+            or not torch.isfinite(torch.as_tensor(aux)):
+        raise AssertionError("moe: logits or aux not finite or misshapen")
+    if int(lg.argmax(-1)) != int(tok[0]):
+        raise AssertionError("moe: argmax disagrees with the step")
+    del hidden
+    bms, by, tflop = moe_prefill_bound(cfg, S)
+    log("moe", part="prefill", B=1, S=S, schedule=schedule,
+        chunk=cfg.attn_chunk,
+        bands=min(cfg.window // cfg.attn_chunk + 1, S // cfg.attn_chunk),
+        policy="fused", eager_ms=f"{dt * 1e3:.1f}", token=int(tok[0]),
+        aux=f"{float(aux):.4f}", launches=_nonzero(counted),
+        traced_device_ms=f"{sum(r[1] for r in top):.1f}",
+        bound_ms=f"{bms:.2f}", bound_by=by, tflop=f"{tflop:.2f}")
+    for key, ms, n in top[:6]:
+        log("moe", part="prefill", kernel=f"'{key[:70]}'",
+            device_ms=f"{ms:.2f}", launches=n)
+    graph = graph_replay(launches, "moe_prefill",
+                         lambda: prefill(params, batch), counted, tok)
+    log("moe", part="prefill", mode="cuda_graph", **graph_fields(graph, dt),
+        bound_ms=f"{bms:.2f}")
+    del prefill, batch, lg
+    torch.cuda.empty_cache()
+
+    cluster = Cluster(cfg)
+    prompt = np.random.default_rng(17).integers(1, cfg.vocab, (B, P))
+    runs, progs = {}, {}
+    for chunk in (16, 1):
+        with cluster.policy("fused"):
+            prog = cluster.compile(ServeProgram(batch=B, max_seq=S,
+                                                max_new=NEW, chunk=chunk))
+        launches.reset_counts()
+        first = prog.run(params=params, prompt=prompt)
+        _check_counts(launches, f"moe decode chunk {chunk}", ())
+        again = prog.run(params=params, prompt=prompt)
+        if not np.array_equal(first["tokens"], again["tokens"]):
+            raise AssertionError(f"moe: chunk {chunk} reruns differ")
+        runs[chunk], progs[chunk] = again, prog
+    toks = runs[16]["tokens"]
+    if not np.array_equal(toks, runs[1]["tokens"]):
+        raise AssertionError("moe: chunk 16 and chunk 1 tokens differ")
+    if toks.shape != (B, 1 + NEW) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        raise AssertionError(f"moe: decode tokens {toks.shape}")
+    for prog in progs.values():
+        if prog.cache["k"].shape[2] != cfg.window:
+            raise AssertionError("moe: the decode cache does not roll")
+        for name, c in prog.cache.items():
+            if not torch.isfinite(c).all():
+                raise AssertionError(f"moe: non-finite {name} cache")
+
+    # one eager step's launches (none: the reference's MoE decode takes the
+    # plain projections), then one steady chunk replayed, traced
+    prog = progs[16]
+    with torch.inference_mode():
+        launches.reset_counts()
+        prog.decode.eager(params, prog.cache, {
+            "tokens": torch.as_tensor(toks[:, -1:], device="cuda"),
+            "pos": P + NEW})
+        torch.cuda.synchronize()
+    per_step = {n: c for n, c in _check_counts(launches, "moe step",
+                                               ()).items() if c}
+    eng = prog.engine
+
+    def one_chunk():
+        launches.reset_counts()
+        eng.generate(params, prog.cache, toks[:, -1:], 16,
+                     start_pos=P + NEW + 1)
+
+    prof = traced("moe_chunk", one_chunk)
+    traced_chunk = launches.traced_launches(prof)
+    seen = {n: c for n, c in traced_chunk.items() if c}
+    if seen != {n: 16 * c for n, c in per_step.items()}:
+        raise AssertionError(f"moe: a traced chunk launched {seen}; one "
+                             f"eager step {per_step}")
+    busy = device_busy_ms(prof)
+    chunk_wall = np.mean([d for d, _ in eng.chunk_latencies]) * 1e3
+    dbms, dby = moe_decode_bound(cfg, B, P + NEW / 2)
+    top = sorted(((e.key, e.device_time_total / 1e3 / 16, e.count // 16)
+                  for e in device_events(prof) if e.device_time_total > 0),
+                 key=lambda r: -r[1])
+    for k, r in runs.items():
+        st = r["stats"]
+        log("moe", part="decode", B=B, prompt=P, max_new=NEW, max_seq=S,
+            cache_rows=cfg.window, chunk=k, policy="fused",
+            tokens_per_s_per_slot=f"{st['tokens_per_s_per_slot']:.2f}",
+            tokens_per_s=f"{B * st['tokens_per_s_per_slot']:.2f}",
+            p50_ms=f"{st['p50_ms']:.2f}", p99_ms=f"{st['p99_ms']:.2f}",
+            stall_pct=f"{st['stall']['stall_pct']:.3f}",
+            host_syncs=st["stall"]["host_syncs"],
+            step_bound_ms=f"{dbms:.2f}", step_bound_by=dby)
+    log("moe", part="decode", chunk=16,
+        traced_chunk_device_busy_ms=f"{busy:.2f}",
+        traced_chunk_device_ms_per_step=f"{busy / 16:.2f}",
+        traced_chunk_wall_ms=f"{chunk_wall:.2f}",
+        traced_launches_per_chunk=json.dumps(seen).replace(" ", ""),
+        tokens_equal_chunk16_chunk1=True,
+        decode_tokens_slot0=",".join(map(str, toks[0, :17].tolist())),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}")
+    for key, ms, n in top[:6]:
+        log("moe", part="decode", kernel=f"'{key[:70]}'",
+            ms_per_step=f"{ms:.3f}", launches_per_step=n)
+    del params, runs, progs, prog, eng, cluster
+    torch.cuda.empty_cache()
+    return counted, traced_chunk
 
 
 if __name__ == "__main__":

@@ -114,11 +114,26 @@ class Cluster:
         self._policy = as_policy(policy)
         self.compile_cache = CompileCache()
 
-    def policy(self, policy: "KernelPolicy | str | None" = None):
-        """Scope a kernel policy on this cluster: inside the block it is
-        the ambient policy and the default that `compile` captures."""
-        return _PolicyScope(self, as_policy(policy) if policy is not None
-                            else self._policy)
+    @property
+    def kernel_policy(self) -> KernelPolicy:
+        return self._policy
+
+    def policy(self, policy: "KernelPolicy | str | None" = None, **kwargs):
+        """Scope a kernel policy on this cluster::
+
+            with cluster.policy("fused"):              # a mode string
+            with cluster.policy(mode="tuned", overrides={"matmul": "reference"}):
+
+        Inside the block the policy is both the ambient one and the
+        default that `compile` captures. Keywords are KernelPolicy fields
+        (block overrides still raise: ROADMAP Queue 1 item 12)."""
+        if policy is None:
+            pol = KernelPolicy(**kwargs) if kwargs else self._policy
+        else:
+            pol = as_policy(policy)
+            if kwargs:
+                pol = dataclasses.replace(pol, **kwargs)
+        return _PolicyScope(self, pol)
 
     def compile(self, spec) -> "Program":
         """Program spec -> compiled Program, memoized in the compile cache

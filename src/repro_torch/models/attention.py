@@ -3,18 +3,30 @@
   direct   — materialise the (S x S) scores; small S.
   masked   — q-chunk x kv-chunk blocks with causal masking and an online
              softmax; the same function as `direct` in bounded memory.
+  folded   — exact causal: q chunk i folded with q chunk nq-1-i, so each
+             fold scans nq+1 kv blocks and no block above the diagonal
+             (an even chunk count, no window shorter than S; else masked).
+  banded   — sliding window: each q chunk scans the window/chunk + 1 kv
+             blocks of its band (O(S*w) instead of O(S^2)).
   pallas   — the flash_attention kernel (`kernels/flash_attention.py`,
              hand-written CUDA on the GPU) for causal attention without a
              window; anything else falls back to "auto", as the reference
-             does. (The reference's folded and banded schedules compute
-             the same function again and wait in ROADMAP Queue 1 item 3,
-             as does the flash custom VJP, which comes with training.)
+             does.
+
+The chunked schedules are the reference's scans written as Python loops,
+forward only (the flash custom VJP comes with training, ROADMAP Queue 1
+item 11). Where the reference's band clips a block index below 0 and
+masks the duplicate block whole, the port skips it: a block that masks
+every key adds exactly nothing once a later block holds a live key, which
+the diagonal block always does.
 
 `cross_attention` is non-causal attention against a short context
 (whisper's encoder output), chunked over q when q is long.
 
 Decode attention over a private or a paged cache is plain tensor code, as
-in the reference. GQA is computed in grouped form throughout.
+in the reference. GQA is computed in grouped form throughout. Every
+product goes through `layers.product`: scores in f32, p rounded to v's
+dtype before p @ v, as the reference rounds.
 """
 
 from __future__ import annotations
@@ -22,6 +34,8 @@ from __future__ import annotations
 import numbers
 
 import torch
+
+from .layers import dense, product
 
 NEG = -1e30
 F32 = torch.float32
@@ -37,8 +51,7 @@ def _softmax_pv(scores, v):
     """softmax over the last axis in f32, p rounded to v.dtype before p@v
     (f32 accumulation, output in v.dtype). scores: (B,KV,G,q,s)."""
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(F32),
-                        v.to(F32)).to(v.dtype)
+    return product("bkgqs,bskd->bqkgd", p.to(v.dtype), v, v.dtype)
 
 
 def direct_attention(q, k, v, *, n_kv: int, causal: bool = True,
@@ -46,7 +59,7 @@ def direct_attention(q, k, v, *, n_kv: int, causal: bool = True,
     b, s, h, hd = q.shape
     scale = hd ** -0.5
     qg = _group(q, n_kv)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32)) * scale
+    scores = product("bqkgd,bskd->bkgqs", qg, k, F32) * scale
     if causal:
         qpos = torch.arange(s, device=q.device)[:, None]
         kpos = torch.arange(s, device=q.device)[None, :]
@@ -57,46 +70,107 @@ def direct_attention(q, k, v, *, n_kv: int, causal: bool = True,
     return _softmax_pv(scores, v).reshape(b, s, h, hd)
 
 
+def _causal_bias(c: int, qi: int, kj: int, window, device):
+    """(c, c) additive f32 bias of q chunk qi against kv chunk kj."""
+    ar = torch.arange(c, device=device)
+    qpos = qi * c + ar[:, None]
+    kpos = kj * c + ar[None, :]
+    ok = kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG).to(F32)
+
+
+class _Online:
+    """The online-softmax state of one q chunk (the reference's m, l, acc
+    and `_block_attn` / `_finish`)."""
+
+    def __init__(self, q_blk, scale: float):
+        b, c, kv, g, hd = q_blk.shape
+        self.q, self.scale = q_blk, scale
+        self.m = torch.full((b, kv, g, c), NEG, dtype=F32,
+                            device=q_blk.device)
+        self.l = torch.zeros_like(self.m)
+        self.acc = torch.zeros((b, kv, g, c, hd), dtype=F32,
+                               device=q_blk.device)
+
+    def update(self, k_blk, v_blk, bias) -> None:
+        s_blk = product("bqkgd,bskd->bkgqs", self.q, k_blk, F32)
+        s_blk = s_blk * self.scale + bias
+        m_new = torch.maximum(self.m, s_blk.amax(dim=-1))
+        p = torch.exp(s_blk - m_new[..., None])
+        alpha = torch.exp(self.m - m_new)
+        self.l = self.l * alpha + p.sum(dim=-1)
+        pv = product("bkgqs,bskd->bkgqd", p.to(v_blk.dtype), v_blk, F32)
+        self.acc = self.acc * alpha[..., None] + pv
+        self.m = m_new
+
+    def finish(self, dtype) -> torch.Tensor:
+        """-> (B, c, H, hd) in `dtype`."""
+        out = self.acc / torch.clamp(self.l, min=1e-30)[..., None]
+        b, kv, g, c, hd = out.shape
+        return out.permute(0, 3, 1, 2, 4).reshape(b, c, kv * g, hd).to(dtype)
+
+
+def _chunks(q, k, v, n_kv: int, chunk: int):
+    """q grouped and split in q chunks, k/v split in kv chunks."""
+    qg = _group(q, n_kv)
+    nq = q.shape[1] // chunk
+    sl = [slice(i * chunk, (i + 1) * chunk) for i in range(nq)]
+    return ([qg[:, x] for x in sl], [k[:, x] for x in sl],
+            [v[:, x] for x in sl])
+
+
 def _masked(q, k, v, n_kv: int, chunk: int, window):
-    """Chunked causal attention: a loop over q chunks and, inside, over kv
-    chunks with the online-softmax update (the reference's `_fwd_masked`
-    scan, written as Python loops)."""
-    b, s, h, hd = q.shape
-    scale = hd ** -0.5
-    g = h // n_kv
-    nq = s // chunk
-    qg = _group(q, n_kv).to(F32)
-    kf, vf = k.to(F32), v
+    """Chunked causal attention: every q chunk against every kv chunk with
+    the online-softmax update (the reference's `_fwd_masked` scan)."""
+    scale = q.shape[-1] ** -0.5
+    qc, kc, vc = _chunks(q, k, v, n_kv, chunk)
     outs = []
-    ar = torch.arange(chunk, device=q.device)
-    for qi in range(nq):
-        q_blk = qg[:, qi * chunk:(qi + 1) * chunk]
-        m = torch.full((b, n_kv, g, chunk), NEG, dtype=F32, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((b, n_kv, g, chunk, hd), dtype=F32,
-                          device=q.device)
-        for kj in range(nq):
-            k_blk = kf[:, kj * chunk:(kj + 1) * chunk]
-            v_blk = vf[:, kj * chunk:(kj + 1) * chunk]
-            qpos = qi * chunk + ar[:, None]
-            kpos = kj * chunk + ar[None, :]
-            ok = kpos <= qpos
-            if window is not None:
-                ok &= kpos > qpos - window
-            bias = torch.where(ok, 0.0, NEG).to(F32)
-            s_blk = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk) * scale
-            s_blk = s_blk + bias
-            m_new = torch.maximum(m, s_blk.amax(dim=-1))
-            p = torch.exp(s_blk - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).to(F32),
-                              v_blk.to(F32))
-            acc = acc * alpha[..., None] + pv
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,KV,G,c,hd)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, chunk, h, hd)
-                    .to(q.dtype))
+    for qi, q_blk in enumerate(qc):
+        st = _Online(q_blk, scale)
+        for kj in range(len(kc)):
+            st.update(kc[kj], vc[kj],
+                      _causal_bias(chunk, qi, kj, window, q.device))
+        outs.append(st.finish(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _banded(q, k, v, n_kv: int, chunk: int, window: int):
+    """Sliding-window attention (the reference's `_fwd_banded`): q chunk
+    qi against the kv chunks qi - nband + 1 .. qi, nband = min(window //
+    chunk + 1, nq); band slots below chunk 0 are skipped (see above)."""
+    scale = q.shape[-1] ** -0.5
+    qc, kc, vc = _chunks(q, k, v, n_kv, chunk)
+    nq = len(qc)
+    nband = min(window // chunk + 1, nq)
+    outs = []
+    for qi, q_blk in enumerate(qc):
+        st = _Online(q_blk, scale)
+        for kj in range(max(qi - nband + 1, 0), qi + 1):
+            st.update(kc[kj], vc[kj],
+                      _causal_bias(chunk, qi, kj, window, q.device))
+        outs.append(st.finish(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _folded(q, k, v, n_kv: int, chunk: int):
+    """Exact causal attention (the reference's `_fwd_folded`): fold f
+    pairs q chunk lo = f with hi = nq-1-f and walks t = 0..nq, block t of
+    lo while t <= lo, then block t-lo-1 of hi: nq+1 blocks a fold, none
+    above the diagonal. nq must be even."""
+    scale = q.shape[-1] ** -0.5
+    qc, kc, vc = _chunks(q, k, v, n_kv, chunk)
+    nq = len(qc)
+    outs = [None] * nq
+    for f in range(nq // 2):
+        lo, hi = f, nq - 1 - f
+        st = {lo: _Online(qc[lo], scale), hi: _Online(qc[hi], scale)}
+        for t in range(nq + 1):
+            qi, kj = (lo, t) if t <= lo else (hi, t - lo - 1)
+            st[qi].update(kc[kj], vc[kj],
+                          _causal_bias(chunk, qi, kj, None, q.device))
+        outs[lo], outs[hi] = st[lo].finish(q.dtype), st[hi].finish(q.dtype)
     return torch.cat(outs, dim=1)
 
 
@@ -105,35 +179,59 @@ def pallas_flash_attention(q, k, v, *, causal: bool = True):
     H, hd), k/v (B, S, KV, hd), made dense in the kernel's (B, H, S, hd)
     layout and transposed back. Forward only."""
     from repro_torch.kernels import ops
-    from repro_torch.models.layers import dense
     o = ops.flash_attention(dense(q.transpose(1, 2)),
                             dense(k.transpose(1, 2)),
                             dense(v.transpose(1, 2)), causal=causal)
     return o.transpose(1, 2)
 
 
-def attention(q, k, v, *, n_kv: int, causal: bool = True,
-              window: int | None = None, chunk: int = 1024,
-              schedule: str = "auto"):
-    """Prefill attention. q: (B,S,H,hd); k/v: (B,S,KV,hd)."""
-    s = q.shape[1]
-    if schedule not in ("auto", "direct", "masked", "pallas"):
-        raise NotImplementedError(
-            f"attention schedule {schedule!r}: the port has direct, masked "
-            f"and pallas so far (folded and banded are ROADMAP Queue 1 "
-            f"item 3)")
-    if schedule == "pallas" and causal and window is None:
-        return pallas_flash_attention(q, k, v, causal=True)
-    if schedule == "pallas":      # the kernel has no window or full path here
-        schedule = "auto"
+SCHEDULES = ("auto", "direct", "masked", "folded", "banded", "pallas")
+
+
+def resolve_schedule(s: int, *, causal: bool = True,
+                     window: int | None = None, chunk: int = 1024,
+                     schedule: str = "auto") -> str:
+    """The schedule `attention` runs for S = `s`, by the reference's
+    rules: "pallas" for causal input without a window (else "auto");
+    "auto" takes direct for short, ragged or non-causal input, banded for
+    a window shorter than S, else masked; folded needs an even chunk count
+    and no such window (else masked); non-causal input is direct."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"attention schedule {schedule!r}: expected one "
+                         f"of {SCHEDULES}")
+    if schedule == "pallas":
+        if causal and window is None:
+            return "pallas"
+        schedule = "auto"         # the kernel has no window or full path
     if schedule == "auto":
         if s <= 2 * chunk or s % chunk or not causal:
             schedule = "direct"
+        elif window is not None and window < s:
+            schedule = "banded"
         else:
             schedule = "masked"
-    if schedule == "direct" or not causal:
+    if schedule == "folded" and ((s // chunk) % 2
+                                 or (window and window < s)):
+        schedule = "masked"
+    return "direct" if not causal else schedule
+
+
+def attention(q, k, v, *, n_kv: int, causal: bool = True,
+              window: int | None = None, chunk: int = 1024,
+              schedule: str = "auto"):
+    """Prefill attention. q: (B,S,H,hd); k/v: (B,S,KV,hd); the schedule
+    as `resolve_schedule` picks it."""
+    schedule = resolve_schedule(q.shape[1], causal=causal, window=window,
+                                chunk=chunk, schedule=schedule)
+    if schedule == "pallas":
+        return pallas_flash_attention(q, k, v, causal=True)
+    if schedule == "direct":
         return direct_attention(q, k, v, n_kv=n_kv, causal=causal,
                                 window=window)
+    if schedule == "folded":
+        return _folded(q, k, v, n_kv, chunk)
+    if schedule == "banded":
+        return _banded(q, k, v, n_kv, chunk, window)
     return _masked(q, k, v, n_kv, chunk, window)
 
 
@@ -144,12 +242,10 @@ def cross_attention(q, k, v, *, n_kv: int, chunk: int = 1024):
     b, s, h, hd = q.shape
     if s <= 2 * chunk or s % chunk:
         return direct_attention(q, k, v, n_kv=n_kv, causal=False)
-    kf = k.to(F32)
     outs = []
     for q0 in range(0, s, chunk):
         qg = _group(q[:, q0:q0 + chunk], n_kv)
-        scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), kf) \
-            * hd ** -0.5
+        scores = product("bqkgd,bskd->bkgqs", qg, k, F32) * hd ** -0.5
         outs.append(_softmax_pv(scores, v).reshape(b, chunk, h, hd))
     return torch.cat(outs, dim=1)
 
@@ -167,13 +263,22 @@ def per_slot(pos, b: int, device) -> torch.Tensor:
 def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,
                      window: int | None = None, rolling: bool = False):
     """Single-token decode. q: (B,1,H,hd); caches: (B, S_c, KV, hd);
-    pos: int or (B,) tensor — the number of tokens already cached."""
+    pos: int or (B,) tensor — the number of tokens already cached.
+
+    The caches are read where they lie. A batch of (slot, kv head) pairs
+    cannot step through a (B, S_c, KV, hd) cache with one stride, so the
+    grouped product as one batched GEMM would copy the whole cache every
+    step. Instead each slot's queries of every kv head meet the keys (and
+    the probabilities the values) of every kv head, in one product a slot
+    that reads the cache in place, and the kv-head diagonal is kept: the
+    same sums, for KV times the multiply-adds of a product bound by the
+    cache's bytes."""
     b, sc, kv, hd = k_cache.shape
     h = q.shape[2]
     scale = hd ** -0.5
     qg = _group(q, n_kv)[:, 0]                       # (B, KV, G, hd)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(F32),
-                          k_cache.to(F32)) * scale
+    pairs = product("bkgd,bsjd->bkgsj", qg, k_cache, F32)
+    scores = torch.diagonal(pairs, dim1=1, dim2=4).movedim(-1, 1) * scale
     idx = torch.arange(sc, device=q.device)
     pos_b = per_slot(pos, b, q.device)
     if rolling:
@@ -185,8 +290,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,
     scores = torch.where(ok[:, None, None, :], scores,
                          torch.full_like(scores, NEG))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).to(F32),
-                       v_cache.to(F32)).to(v_cache.dtype)
+    pairs = product("bkgs,bsjd->bkgjd", p.to(v_cache.dtype), v_cache,
+                    v_cache.dtype)
+    out = torch.diagonal(pairs, dim1=1, dim2=3).movedim(-1, 1)
     return out.reshape(b, 1, h, hd)
 
 

@@ -2,11 +2,14 @@
 
 Ported: the dense attention + FFN block ("attn": specs, full-sequence
 `apply`, `cache_specs` and one-token `decode`, on the plain route and on
-the fused route of KernelPolicy mode "fused", with the paged-KV switch),
-and whisper's two kinds: the encoder block ("enc_attn", bidirectional,
-its gelu MLP on the fused route under "fused") and the decoder block
+the fused route of KernelPolicy mode "fused", with the paged-KV switch);
+whisper's two kinds: the encoder block ("enc_attn", bidirectional, its
+gelu MLP on the fused route under "fused") and the decoder block
 ("attn_cross": causal self-attention, cross-attention to the encoder
-output, the MLP; decode on private caches). Every other kind raises
+output, the MLP; decode on private caches or with its self K/V paged);
+and the MoE block ("attn_moe": the attn block's attention, then a top-k
+expert SwiGLU with capacity, in global or per-row dispatch; a windowed
+arch keeps private rolling caches). Every other kind raises
 NotImplementedError (ROADMAP Queue 1 item 10).
 """
 
@@ -21,7 +24,8 @@ from . import attention as attn_lib
 from .layers import (ParamSpec, _mm, apply_ffn, attn_specs, ffn_specs,
                      fused_attention_proj, fused_matmul_bias_act,
                      fused_matmul_residual, fused_norm_matmul, layer_norm,
-                     out_project, qkv_postprocess, qkv_project, rms_norm)
+                     out_project, product, qkv_postprocess, qkv_project,
+                     rms_norm)
 
 F32 = torch.float32
 
@@ -245,18 +249,23 @@ def attn_cross_cache_specs(cfg, B: int, cache_len: int) -> dict:
 
 
 def attn_cross_block_decode(cfg, p, x, cache, pos, ctx):
-    """One token through the decoder block on private caches, updated in
-    place. The cross K/V are read from the cache as they stand: nothing
+    """One token through the decoder block, its cache updated in place.
+    Under a page table (`ctx["pages"]`) the self K/V go through the shared
+    pool; the cross K/V stay private and are read as they stand: nothing
     fills them from the encoder (zeros from init, as in the reference;
     ROADMAP Queue 3)."""
-    if ctx.get("pages") is not None:
-        raise NotImplementedError(
-            "attn_cross decode through the paged pool (whisper in the paged "
-            "session) is not ported yet (ROADMAP Queue 1 item 10)")
     q, k, v = _self_qkv(cfg, p, x, ctx)
-    kc, vc = attn_lib.update_cache(cache["self_k"], cache["self_v"], k, v,
-                                   pos)
-    o = attn_lib.decode_attention(q, kc, vc, pos + 1, n_kv=cfg.n_kv_heads)
+    if _paged(ctx, None):
+        kc, vc = attn_lib.paged_update_cache(cache["self_k"],
+                                             cache["self_v"], k, v, pos,
+                                             ctx["pages"])
+        o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1, ctx["pages"],
+                                            n_kv=cfg.n_kv_heads)
+    else:
+        kc, vc = attn_lib.update_cache(cache["self_k"], cache["self_v"], k,
+                                       v, pos)
+        o = attn_lib.decode_attention(q, kc, vc, pos + 1,
+                                      n_kv=cfg.n_kv_heads)
     x = x + out_project(p["self"], o)
     o = attn_lib.decode_attention(_cross_q(cfg, p, x), cache["cross_k"],
                                   cache["cross_v"], cfg.enc_seq,
@@ -282,6 +291,162 @@ def enc_attn_block_apply(cfg, p, x, ctx):
     return _ffn_residual(cfg, p, x), 0.0
 
 
+# ----------------------------------------------------------------------------
+# MoE block ("attn_moe"): attention + top-k expert FFN (scatter dispatch)
+# ----------------------------------------------------------------------------
+
+def moe_specs(cfg) -> dict:
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {
+        "router": ParamSpec((d, E), ("embed", None), dtype=F32),
+        "w_gate": ParamSpec((E, d, f), ("expert", "embed", "ffn")),
+        "w_up": ParamSpec((E, d, f), ("expert", "embed", "ffn")),
+        "w_down": ParamSpec((E, f, d), ("expert", "ffn", "embed")),
+    }
+
+
+def moe_block_specs(cfg) -> dict:
+    s = {}
+    s |= _norm_specs(cfg, "ln_attn")
+    s["attn"] = attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+    s |= _norm_specs(cfg, "ln_ffn")
+    s["moe"] = moe_specs(cfg)
+    return s
+
+
+def _route(cfg, p, x):
+    """Router logits in f32, softmax, then top-k renormalised with a floor
+    of 1e-9. x: (..., d) -> probs (..., E), top_p and top_e (..., K)."""
+    logits = product("...d,de->...e", x.to(F32), p["router"], F32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.topk(probs, cfg.top_k, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
+def _slots(e_flat, E: int, C: int):
+    """Each (token, k) slot's place in its expert's capacity: the count of
+    earlier slots routed to the same expert (an exclusive cumsum over the
+    slots), and whether it is under the capacity C. The one-hot is laid
+    out expert-major, (..., E, slots), so that the cumsum runs along the
+    contiguous axis: down 16,384 rows of 8 columns (mixtral's S=8192
+    prefill) the scan took 2.8 ms a layer on an H100."""
+    onehot = (e_flat[..., None, :] == torch.arange(
+        E, device=e_flat.device)[:, None]).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=-1, dtype=torch.int32) - onehot
+    pos = torch.gather(pos, -2, e_flat[..., None, :].long())[..., 0, :]
+    return pos.long(), pos < C
+
+
+def _experts(p, xe, eq_in: str, eq_out: str):
+    """The expert SwiGLU, batched over the experts, in xe's dtype."""
+    g = product(eq_in, xe, p["w_gate"], xe.dtype)
+    u = product(eq_in, xe, p["w_up"], xe.dtype)
+    h = F.silu(g.to(F32)).to(xe.dtype) * u
+    return product(eq_out, h, p["w_down"], xe.dtype)
+
+
+def _aux(cfg, probs, top_e, dims):
+    """The Switch load-balancing loss: E * sum_e f_e / K * p_e."""
+    E, K = cfg.n_experts, cfg.top_k
+    routed = (top_e[..., None] == torch.arange(E, device=top_e.device)
+              ).to(F32).sum(-2)
+    f_e = routed.mean(dim=dims)
+    p_e = probs.mean(dim=dims)
+    return E * torch.sum(f_e / K * p_e)
+
+
+def moe_apply(cfg, p, x):
+    """Top-k MoE with capacity; dispatch by scatter and gather (the
+    reference's `moe_apply`). Global dispatch (the default) takes capacity
+    over the flattened B*S tokens; `cfg.moe_local_dispatch` takes it per
+    batch row (`_moe_apply_local`).
+
+    Every shape is static and nothing leaves the device, so a CUDA graph
+    can capture it: a slot at or past the capacity C is written to a
+    scratch column C of the (E, C + 1) table and dropped with it (the
+    reference's out-of-range scatter), and row T of the token table is a
+    pad row of zeros."""
+    if cfg.moe_local_dispatch:
+        return _moe_apply_local(cfg, p, x)
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    C = max(int(K * T * cfg.capacity_factor / E), 1)
+    xt = x.reshape(T, d)
+    probs, top_p, top_e = _route(cfg, p, xt)
+    e_flat = top_e.reshape(-1)                                   # (T*K,)
+    pos, keep = _slots(e_flat, E, C)
+    tok_idx = torch.arange(T * K, device=x.device) // K          # (T*K,)
+    dispatch = torch.full((E, C + 1), T, dtype=torch.int64, device=x.device)
+    dispatch[e_flat, torch.clamp(pos, max=C)] = tok_idx
+    xp = torch.cat([xt, xt.new_zeros(1, d)])                     # pad row
+    ye = _experts(p, xp[dispatch[:, :C]], "ecd,edf->ecf",
+                  "ecf,efd->ecd")                                # (E, C, d)
+    ys = ye[e_flat, torch.clamp(pos, max=C - 1)]                 # (T*K, d)
+    w_slot = (top_p.reshape(-1) * keep).to(ys.dtype)
+    y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add_(
+        0, tok_idx, ys * w_slot[:, None])
+    return y.reshape(B, S, d), _aux(cfg, probs, top_e, (0,))
+
+
+def _moe_apply_local(cfg, p, x):
+    """Grouped dispatch: capacity, table and combine per batch row."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(int(K * S * cfg.capacity_factor / E), 1)
+    probs, top_p, top_e = _route(cfg, p, x)                      # (B, S, .)
+    e_flat = top_e.reshape(B, S * K)
+    pos, keep = _slots(e_flat, E, C)
+    tok_idx = torch.arange(S * K, device=x.device) // K          # (S*K,)
+    rows = torch.arange(B, device=x.device)[:, None]
+    table = torch.full((B, E, C + 1), S, dtype=torch.int64, device=x.device)
+    table[rows, e_flat, torch.clamp(pos, max=C)] = tok_idx.expand(B, -1)
+    xp = torch.cat([x, x.new_zeros(B, 1, d)], dim=1)             # pad rows
+    xe = xp[rows[:, :, None], table[:, :, :C]]                   # (B,E,C,d)
+    ye = _experts(p, xe, "becd,edf->becf", "becf,efd->becd")
+    ys = ye[rows, e_flat, torch.clamp(pos, max=C - 1)]           # (B,S*K,d)
+    w_slot = (top_p.reshape(B, S * K) * keep).to(ye.dtype)
+    flat = (rows * S + tok_idx).reshape(-1)
+    y = torch.zeros((B * S, d), dtype=ye.dtype, device=x.device).index_add_(
+        0, flat, (ys * w_slot[..., None]).reshape(-1, d))
+    return y.reshape(B, S, d).to(x.dtype), _aux(cfg, probs, top_e, (0, 1))
+
+
+def moe_block_apply(cfg, p, x, ctx):
+    x = _self_attention(cfg, p, x, ctx, window=cfg.window)
+    y, aux = moe_apply(cfg, p["moe"], _norm(cfg, p, "ln_ffn", x))
+    return x + y, aux
+
+
+def moe_block_decode(cfg, p, x, cache, pos, ctx):
+    """One token: the plain qkv and out projections under every policy,
+    as the reference's `moe_block_decode` has them, then the MoE FFN with
+    T = B tokens."""
+    paged = _paged(ctx, cfg.window)
+    rolling = (not paged and bool(cfg.window)
+               and cache["k"].shape[1] < ctx["max_seq"])
+    q, k, v = qkv_project(p["attn"], _norm(cfg, p, "ln_attn", x),
+                          ctx["positions"], n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                          qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                          theta=cfg.rope_theta)
+    if paged:
+        kc, vc = attn_lib.paged_update_cache(cache["k"], cache["v"], k, v,
+                                             pos, ctx["pages"])
+        o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1, ctx["pages"],
+                                            n_kv=cfg.n_kv_heads)
+    else:
+        kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos,
+                                       rolling=rolling)
+        o = attn_lib.decode_attention(q, kc, vc, pos + 1, n_kv=cfg.n_kv_heads,
+                                      window=cfg.window, rolling=rolling)
+    x = x + out_project(p["attn"], o)
+    y, _ = moe_apply(cfg, p["moe"], _norm(cfg, p, "ln_ffn", x))
+    return x + y, {"k": kc, "v": vc}
+
+
 def _not_ported(kind: str):
     def fail(*_, **__):
         raise NotImplementedError(
@@ -301,8 +466,10 @@ BLOCKS = {
     # qk-norm and an MLP)
     "enc_attn": dict(specs=attn_block_specs, apply=enc_attn_block_apply,
                      cache=None, decode=None),
+    "attn_moe": dict(specs=moe_block_specs, apply=moe_block_apply,
+                     cache=attn_cache_specs, decode=moe_block_decode),
 }
-for _kind in ("local_attn", "attn_moe", "cross", "rglru", "mlstm", "slstm"):
+for _kind in ("local_attn", "cross", "rglru", "mlstm", "slstm"):
     BLOCKS[_kind] = dict(specs=_not_ported(_kind), apply=_not_ported(_kind),
                          cache=_not_ported(_kind),
                          decode=_not_ported(_kind))

@@ -2,7 +2,8 @@
 
 Numerics follow the reference: bf16 parameters and activations, f32
 inside norms, softmax and rotary embeddings, f32 accumulation in every
-product with the result rounded back to the activation dtype.
+product with the result rounded back to the activation dtype (`product`:
+bf16 tensor-core products on the card, f32 products elsewhere).
 """
 
 from __future__ import annotations
@@ -69,9 +70,68 @@ def layer_norm(x, scale, bias, eps: float = 1e-5):
     return (y * scale.to(F32) + bias.to(F32)).to(dt)
 
 
+# ----------------------------------------------------------------------------
+# Products outside any kernel (the reference's einsums)
+# ----------------------------------------------------------------------------
+
+def product(eq: str, a, b, out_dtype) -> torch.Tensor:
+    """`einsum(eq, a, b)` with f32 accumulation and one rounding, to
+    `out_dtype`: the reference's einsum on bf16 operands (f32 out where it
+    asks for `preferred_element_type=F32`, the operand dtype elsewhere).
+
+    On CUDA, bf16 operands run on the tensor cores as one `mm` / `bmm`:
+    cuBLAS accumulates in f32 and rounds once to a bf16 output, or writes
+    an f32 output (`out_dtype=`) when f32 is asked for. PyTorch's
+    `allow_bf16_reduced_precision_reduction` is left as the caller has it
+    (True by default: a split-K kernel may then add partial sums in bf16;
+    `tools/plain_products.py` checks the paths' shapes for that).
+    Elsewhere both operands are upcast and multiplied in f32 (the same
+    function: a product of bf16 values is exact in f32)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return _tensor_core_product(eq, a, b, out_dtype).to(out_dtype)
+    return torch.einsum(eq, a.to(F32), b.to(F32)).to(out_dtype)
+
+
+def _tensor_core_product(eq: str, a, b, out_dtype) -> torch.Tensor:
+    """Two-operand einsum lowered to one `mm` / `bmm` with a bf16 result
+    (an f32 one for any other `out_dtype`): the indices of all three terms
+    are the batch, those of a or of b alone with the output the rows or
+    the columns, those of both operands alone the contraction."""
+    ins, out = eq.replace(" ", "").split("->")
+    ia, ib = ins.split(",")
+    if "..." in ia:
+        extra = "".join(c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+                        if c not in eq)[:a.ndim - len(ia) + 3]
+        ia, out = ia.replace("...", extra), out.replace("...", extra)
+    size = dict(zip(ia, a.shape)) | dict(zip(ib, b.shape))
+    batch = [c for c in out if c in ia and c in ib]
+    rows = [c for c in out if c in ia and c not in ib]
+    cols = [c for c in out if c in ib and c not in ia]
+    red = [c for c in ia if c in ib and c not in out]
+    if sorted(batch + rows + red) != sorted(ia) or \
+            sorted(batch + cols + red) != sorted(ib):
+        raise ValueError(f"product: {eq!r} sums an index of one operand")
+
+    def n(idx):
+        k = 1
+        for c in idx:
+            k *= size[c]
+        return k
+
+    am = a.permute([ia.index(c) for c in batch + rows + red]).reshape(
+        n(batch), n(rows), n(red))
+    bm = b.permute([ib.index(c) for c in batch + red + cols]).reshape(
+        n(batch), n(red), n(cols))
+    kw = {} if out_dtype == torch.bfloat16 else {"out_dtype": F32}
+    y = torch.bmm(am, bm, **kw) if batch else torch.mm(am[0], bm[0], **kw)
+    order = batch + rows + cols
+    y = y.reshape([size[c] for c in order])
+    return y.permute([order.index(c) for c in out])
+
+
 def _mm(x, w, eq: str):
     """einsum with f32 accumulation, rounded back to x's dtype."""
-    return torch.einsum(eq, x.to(F32), w.to(F32)).to(x.dtype)
+    return product(eq, x, w, x.dtype)
 
 
 def swiglu(x, w_gate, w_up, w_down):

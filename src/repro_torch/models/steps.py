@@ -149,21 +149,47 @@ def decode_cache_len(cfg, seq_len: int) -> int:
     return seq_len
 
 
+# Under a paged session the positional K/V leaves stop being per-slot
+# rectangles (L, B, S, KV, hd) and become one shared pool (L, n_pages,
+# page_size, KV, hd) addressed through per-slot page tables. Rolling-window
+# buffers and static context (whisper's cross K/V) are not pageable and
+# stay private (L, B, ...) leaves; the two kinds coexist in one cache dict
+# and every per-slot op routes each leaf by `paged_cache_mask`.
+
+def _kind_paged(cfg, kind: str) -> bool:
+    """Does this block kind route K/V through the pool? Positional
+    attention pages, windowed attention keeps a private rolling buffer
+    (the `_paged(ctx, window)` gate of the blocks)."""
+    if kind in ("attn", "attn_moe"):
+        return not cfg.window
+    return kind == "attn_cross"        # self_k/self_v (cross_* is static)
+
+
+def _pageable_leaf(spec: ParamSpec) -> bool:
+    return tuple(spec.logical[:2]) == ("batch", "kv_seq")
+
+
+def paged_cache_mask(cfg, B: int, cache_len: int) -> dict:
+    """{cache leaf: True on a pool leaf} — the routing fact every paged
+    per-slot op shares."""
+    kind = layer_kinds(cfg)[0]
+    paged = _kind_paged(cfg, kind)
+    return {k: paged and _pageable_leaf(s)
+            for k, s in BLOCKS[kind]["cache"](cfg, B, cache_len).items()}
+
+
 def paged_cache_specs(cfg, B: int, cache_len: int, *, n_pages: int,
                       page_size: int) -> dict:
-    """`cache_specs` with every K/V leaf replaced by the shared pool
-    (L, n_pages, page_size, KV, hd)."""
-    if cfg.window:
-        raise ValueError(f"arch {cfg.name!r} keeps windowed (rolling) "
-                         f"caches — paged serving needs positional attention")
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"arch {cfg.name!r}: the paged cache of the attn_cross kind "
-            f"(whisper in the paged session) is not ported yet (ROADMAP "
-            f"Queue 1 item 10)")
-    return {k: ParamSpec((s.shape[0], n_pages, page_size, *s.shape[3:]),
-                         ("layers", None, None, *s.logical[3:]), s.dtype,
-                         s.init)
+    """`cache_specs` with every pageable K/V leaf replaced by the shared
+    pool (L, n_pages, page_size, KV, hd); private leaves as they are."""
+    mask = paged_cache_mask(cfg, B, cache_len)
+    if not any(mask.values()):
+        raise ValueError(
+            f"arch {cfg.name!r} has no pageable KV leaves (recurrent or "
+            f"fully windowed) — paged serving needs positional attention")
+    return {k: (ParamSpec((s.shape[0], n_pages, page_size, *s.shape[3:]),
+                          ("layers", None, None, *s.logical[3:]), s.dtype,
+                          s.init) if mask[k] else s)
             for k, s in cache_specs(cfg, B, cache_len).items()}
 
 
@@ -174,22 +200,28 @@ def init_paged_cache(cfg, B: int, cache_len: int, *, n_pages: int,
 
 
 def make_paged_cache_ops(cfg, B: int, cache_len: int):
-    """The per-slot / per-page device ops of a paged cache, in place:
+    """The per-slot / per-page device ops of a paged cache, in place,
+    routed by `paged_cache_mask`:
 
-    * ``zero_slots(cache, mask)`` — refill zeroing of private leaves; the
-      attention block has none (pool pages are deliberately not zeroed:
-      stale data is masked out by decode attention);
+    * ``zero_slots(cache, mask)`` — refill zeroing of the private leaves
+      only (pool pages are deliberately not zeroed: stale data is masked
+      out by decode attention);
     * ``copy_pages(cache, src, dst)`` — pool page copy (the COW fork);
     * ``zero_pages(cache, pages)`` — pool page scrub.
 
     The NaN scan, fault and integrity ops wait for ROADMAP item 8."""
     paged_cache_specs(cfg, B, cache_len, n_pages=2, page_size=1)  # validate
+    mask = paged_cache_mask(cfg, B, cache_len)
+    pools = [k for k, m in mask.items() if m]
+    private = [k for k, m in mask.items() if not m]
 
     def zero_slots(cache, slot_mask):
+        zero_cache_slots({k: cache[k] for k in private}, slot_mask)
         return cache
 
     def copy_pages(cache, src, dst):
-        for c in cache.values():
+        for key in pools:
+            c = cache[key]
             s = torch.as_tensor(src, device=c.device).long()
             d = torch.as_tensor(dst, device=c.device).long()
             for pool in c:                      # one layer's pool
@@ -197,8 +229,8 @@ def make_paged_cache_ops(cfg, B: int, cache_len: int):
         return cache
 
     def zero_pages(cache, pages):
-        for c in cache.values():
-            for pool in c:
+        for key in pools:
+            for pool in cache[key]:
                 attn_lib.zero_pages(pool, pages)
         return cache
 

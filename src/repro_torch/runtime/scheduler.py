@@ -95,6 +95,14 @@ class RequestHandle:
         return self._req.state == DONE
 
     @property
+    def cancelled(self) -> bool:
+        return self._req.state == CANCELLED
+
+    @property
+    def failed(self) -> bool:
+        return self._req.state == FAILED
+
+    @property
     def fail_reason(self) -> str | None:
         r = self._req
         return (REASON_CANCELLED if r.state == CANCELLED

@@ -57,6 +57,13 @@ def chunked_latency_stats(samples) -> dict:
             "tokens_per_s_per_slot": float(tokens / max(lat.sum(), 1e-9))}
 
 
+def _no_watchdog(timeout_s) -> None:
+    if timeout_s is not None:
+        raise NotImplementedError(
+            "timeout_s bounds the device wait through the watchdog, which "
+            "is ROADMAP Queue 1 item 8")
+
+
 class ServeLoop:
     """Greedy batched decoding of one fixed batch.
 
@@ -346,10 +353,14 @@ class ServeSession:
                                              pbuf, plen, budget)
         self._pending_deactivate.clear()
 
-    def poll(self) -> list[tuple[RequestHandle, np.ndarray, bool]]:
+    def poll(self, timeout_s: float | None = None
+             ) -> list[tuple[RequestHandle, np.ndarray, bool]]:
         """Advance the session by one chunk. Returns the chunk's events,
         `(handle, new_tokens, done)` per request that emitted or finished.
-        A no-op (empty list) when no request is queued or running."""
+        A no-op (empty list) when no request is queued or running.
+        `timeout_s` (the watchdog's bound on the device wait) is ROADMAP
+        Queue 1 item 8: any value but None raises."""
+        _no_watchdog(timeout_s)
         events: list = []
         self._admit_and_refill(events)
         if self.scheduler.running == 0 and self.scheduler.queued:
@@ -400,14 +411,19 @@ class ServeSession:
     def busy(self) -> bool:
         return self.scheduler.busy
 
-    def stream(self) -> Iterator[tuple[RequestHandle, np.ndarray, bool]]:
+    def stream(self, timeout_s: float | None = None
+               ) -> Iterator[tuple[RequestHandle, np.ndarray, bool]]:
         """Yield `(handle, new_tokens, done)` events until the queue and
-        every slot run dry. Submitting more work mid-stream extends it."""
+        every slot run dry. Submitting more work mid-stream extends it.
+        `timeout_s` as in `poll`."""
+        _no_watchdog(timeout_s)
         while self.scheduler.busy:
             yield from self.poll()
 
-    def drain(self) -> dict:
-        """Run until every submitted request completes; returns stats()."""
+    def drain(self, timeout_s: float | None = None) -> dict:
+        """Run until every submitted request completes; returns stats().
+        `timeout_s` as in `poll`."""
+        _no_watchdog(timeout_s)
         for _ in self.stream():
             pass
         return self.stats()

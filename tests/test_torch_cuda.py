@@ -1457,3 +1457,141 @@ def test_cuda_decode_leaves_k_past_its_limit_to_split_k(cuda):
                                                              32768) == 0
         torch.testing.assert_close(call().float(), plain().float(),
                                    **BF16_TOL)
+
+
+# ----------------------------------------------------------------------------
+# the plain route's products on the tensor cores, and the MoE step's graph
+# ----------------------------------------------------------------------------
+
+def _narrow(schedule="auto"):
+    import dataclasses
+
+    from repro_torch.configs import get
+    return dataclasses.replace(get("qwen3-14b"), n_layers=2, d_model=256,
+                               n_heads=4, n_kv_heads=2, d_ff=512, vocab=512,
+                               attn_chunk=8, attn_schedule=schedule)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["auto", "direct"])
+def test_cuda_plain_route_runs_bf16_products(cuda, schedule, monkeypatch):
+    """The plain route ("tuned"; at S = 40 and chunk 8 "auto" is the
+    masked schedule) on the card: every product outside a kernel is one
+    `mm` / `bmm` on bf16 operands (no einsum, no f32 operand), and the
+    logits agree with the CPU's f32 products within the agree lines'
+    5e-2; so do a decode step's cache rows, at 2e-2 (one layer's bf16
+    rounding)."""
+    import numpy as np
+
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.models import steps
+
+    cfg = _narrow(schedule)
+    params = steps.init_params(cfg, 1, device="cpu")
+    gpu = _to_cuda(params, cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))
+    with torch.inference_mode(), use_policy("tuned"):
+        want = steps.logits(params, steps.forward(cfg, params, tokens)[0])
+        seen = []
+        for name in ("mm", "bmm", "einsum"):
+            real = getattr(torch, name)
+
+            def spy(*a, _real=real, _name=name, **kw):
+                ts = [t for t in a if isinstance(t, torch.Tensor)]
+                seen.append((_name, tuple(t.dtype for t in ts),
+                             ts[0].is_cuda if ts else False))
+                return _real(*a, **kw)
+
+            monkeypatch.setattr(torch, name, spy)
+        got = steps.logits(gpu, steps.forward(cfg, gpu, tokens.to(cuda))[0])
+        monkeypatch.undo()
+    on_card = [s for s in seen if s[2]]
+    assert on_card and all(n in ("mm", "bmm") for n, _, _ in on_card)
+    # the vocabulary projection takes f32 hidden states nowhere: bf16 only
+    assert all(d == (torch.bfloat16, torch.bfloat16) for _, d, _ in on_card)
+    torch.testing.assert_close(got.cpu(), want, rtol=5e-2, atol=5e-2)
+
+    with torch.inference_mode(), use_policy("tuned"):
+        step = steps.make_decode_step(cfg, max_seq=16)
+        caches = [steps.init_cache(cfg, 2, 16, device=d)
+                  for d in ("cpu", cuda)]
+        for pos in range(5):
+            for c, p in zip(caches, (params, gpu)):
+                step(p, c, {"tokens": tokens[:, pos:pos + 1].to(
+                    c["k"].device), "pos": pos})
+    for key in ("k", "v"):
+        torch.testing.assert_close(caches[1][key].cpu().float(),
+                                   caches[0][key].float(), **BF16_TOL)
+
+
+def _to_cuda(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v, device) for k, v in tree.items()}
+    return [_to_cuda(v, device) for v in tree]
+
+
+@pytest.mark.cuda
+def test_cuda_score_product_has_an_f32_result(cuda):
+    """The scores' product (`preferred_element_type=F32` in the
+    reference) on bf16 operands: an f32 tensor equal to the f64 product
+    of the same values within 1e-5 (bf16 products are exact in f32; sum
+    order only); asked for bf16, the rounded result (one bf16 rounding)."""
+    from repro_torch.models.layers import product
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(2, 64, 2, 4, 128, generator=g, device=cuda).bfloat16()
+    k = torch.randn(2, 96, 2, 128, generator=g, device=cuda).bfloat16()
+    eq = "bqkgd,bskd->bkgqs"
+    s = product(eq, q, k, torch.float32)
+    assert s.dtype == torch.float32 and s.shape == (2, 2, 4, 64, 96)
+    want = torch.einsum(eq, q.double(), k.double())
+    torch.testing.assert_close(s.double(), want, rtol=1e-5, atol=1e-5)
+    b = product(eq, q, k, torch.bfloat16)
+    assert b.dtype == torch.bfloat16
+    torch.testing.assert_close(b.float(), s.bfloat16().float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local", [False, True], ids=["global", "local"])
+def test_cuda_graphed_moe_step_equals_eager(cuda, local):
+    """mixtral-8x7b-smoke's decode step (the MoE dispatch: top-k, the
+    capacity scatter to a scratch column, the gathers and the index_add
+    combine) captured as a CUDA graph gives the eager step's tokens and
+    caches bit for bit, over 24 positions (the 16-row cache rolls); so
+    does its 24-token prefill (banded attention) under "fused"."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+    from repro_torch.runtime.compile_cache import Graphed
+
+    cfg = dataclasses.replace(get("mixtral-8x7b-smoke"),
+                              moe_local_dispatch=local)
+    params = steps.init_params(cfg, 0, device=cuda, max_seq=64)
+    step = steps.make_decode_step(cfg, max_seq=64, policy="fused")
+    graphed = Graphed(step, copied=(2,))
+    clen = steps.decode_cache_len(cfg, 64)
+    assert clen == 16
+    caches = [steps.init_cache(cfg, 4, clen, device=cuda) for _ in range(2)]
+    rng = np.random.default_rng(0)
+    toks = [torch.as_tensor(rng.integers(1, cfg.vocab, (4, 1)),
+                            dtype=torch.int32, device=cuda)] * 2
+    for pos in range(24):
+        _, a = step(params, caches[0], {"tokens": toks[0], "pos": pos})
+        _, b = graphed(params, caches[1], {"tokens": toks[1], "pos": pos})
+        assert torch.equal(a, b)
+        toks = [a, b]
+    assert graphed.graphs.misses == 1
+    for key in ("k", "v"):
+        assert torch.equal(caches[0][key], caches[1][key])
+    prefill = steps.make_prefill_step(cfg, policy="fused")
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab, (2, 24)),
+                                       device=cuda)}
+    eager = prefill.eager(params, batch)
+    prefill(params, batch)                          # capture
+    assert torch.equal(prefill(params, batch), eager)

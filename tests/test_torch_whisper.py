@@ -201,13 +201,28 @@ def test_decode_tokens_f32(model, policy):
 
 
 def test_paged_decode_waits(model):
-    """Whisper through the paged session is not ported: the paged cache
-    specs and a page table in the decode step both raise."""
-    _, tcfg, _, (_, tp), tokens, _ = model
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tsteps.paged_cache_specs(tcfg, B, 16, n_pages=9, page_size=4)
-    cache = tsteps.init_cache(tcfg, B, 16, device="cpu")
+    """Whisper through the paged session: the paged cache pages the self
+    K/V and keeps the cross K/V private, as the reference's does, and a
+    decode step under a page table gives the private-cache step's tokens
+    (f32). (Until the paged cache was ported both raised, hence the
+    name.)"""
+    jcfg, tcfg, _, (_, tp), tokens, _ = model
+    specs = tsteps.paged_cache_specs(tcfg, B, 16, n_pages=9, page_size=4)
+    jspecs = jsteps.paged_cache_specs(jcfg, B, 16, n_pages=9, page_size=4)
+    assert {k: s.shape for k, s in specs.items()} == {
+        k: (tcfg.n_layers, *s.shape[1:])
+        for k, s in jspecs["blocks"]["sub0"].items()}
+    assert tsteps.paged_cache_mask(tcfg, B, 16) == {
+        "self_k": True, "self_v": True, "cross_k": False, "cross_v": False}
     step = tsteps.make_decode_step(tcfg, max_seq=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        step(tp, cache, {"tokens": torch.from_numpy(tokens[:, :1]), "pos": 0,
-                         "pages": torch.ones(B, 4, dtype=torch.long)})
+    private = {k: v.float() for k, v in
+               tsteps.init_cache(tcfg, B, 16, device="cpu").items()}
+    paged = {k: v.float() for k, v in tsteps.init_paged_cache(
+        tcfg, B, 16, n_pages=9, page_size=4, device="cpu").items()}
+    pages = (1 + torch.arange(B * 4)).reshape(B, 4)
+    tok_a = tok_b = torch.from_numpy(tokens[:, :1])
+    for pos in range(6):
+        private, tok_a = step(tp, private, {"tokens": tok_a, "pos": pos})
+        paged, tok_b = step(tp, paged, {"tokens": tok_b, "pos": pos,
+                                        "pages": pages})
+        assert torch.equal(tok_a, tok_b)
