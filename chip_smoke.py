@@ -6,7 +6,9 @@ its one-shot prefill on the fused and on the "pallas" route (eager and as
 CUDA graphs), serving through the port's paged ServeSession, and the
 fixed batch's execution engine (`ServeProgram`, K-step CUDA graphs);
 then mixtral-8x7b at full width (8 of its 32 layers): its MoE prefill on
-the banded schedule and its decode on rolling caches.
+the banded schedule and its decode on rolling caches; then the three
+mixed-kind archs: recurrentgemma-9b at full width and depth, xlstm-125m
+whole, and llama-3.2-vision-90b at full width (10 of its 100 layers).
 
     python3 chip_smoke.py
 
@@ -58,9 +60,14 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
   agree    reduced models through the kernels on the card vs the plain
            versions on the CPU: qwen3 (2 layers, 4 heads of 128) under
            "fused" and under "tuned" with attn_schedule="pallas",
-           whisper-small (2 + 2 layers at full width) under "fused", and
-           the MoE smoke configs under "fused" in both dispatch modes
-           (grok-1-314b-smoke with heads of 128, mixtral-8x7b-smoke)
+           whisper-small (2 + 2 layers at full width) under "fused", the
+           MoE smoke configs under "fused" in both dispatch modes
+           (grok-1-314b-smoke with heads of 128, mixtral-8x7b-smoke), and
+           the mixed-kind smoke configs under "fused", their attention
+           weights at the true fan-in: recurrentgemma-9b-smoke,
+           xlstm-125m-smoke (no kernel on its path) and
+           llama-3.2-vision-90b-smoke (heads of 128, cross gates open,
+           8 image embeddings)
   whisper  whisper-small at full width (12 + 12 layers), random weights,
            under "fused": make_prefill_step on 8 x 32 tokens and 8 x 1500
            stub frames, run eagerly (its encoder MLPs launch
@@ -116,10 +123,38 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            4096-row caches at chunk 16 and chunk 1: equal tokens, finite
            caches, tokens_per_s_per_slot, p50_ms, stall_pct, the step's
            least time, one steady chunk's traced device busy time
+  hybrid   recurrentgemma-9b, all 38 layers (26 rglru, 12 local_attn;
+           heads of 256 over one KV head, window 2048, lru_width 4096,
+           geglu d_ff 12288, vocab 256000; ~20.9 GB; mixtral's weights
+           are freed first), under "fused": make_prefill_step on B=1,
+           S=8192 (banded, chunk 1024; rmsnorm_matmul 3 times a local_attn
+           layer and twice a layer, matmul_residual_add once a local_attn
+           layer and once a layer, no plain version on the card), eager,
+           traced and as a CUDA graph, beside its least time
+           (`prefill_bound`); ServeProgram(batch=8, max_seq=8192,
+           max_new=64) from an 8 x 32 prompt at chunk 16 and chunk 1
+           (rolling 2048-row local caches, the recurrent state written in
+           place), as the moe phase's decode (`serve_program_check`,
+           beside `decode_bound`); then a non-paged
+           ServeSessionProgram(slots=8) over the serve phase's 12
+           requests, replayed and eager, tokens equal
+  xlstm    xlstm-125m, all 12 layers (9 mlstm, 3 slstm; ~0.24 GB): its
+           prefill on B=8, S=512 (no kernel on its path, in the reference
+           as in the port) eager, traced and as a CUDA graph; then
+           ServeProgram(batch=8, max_seq=512, max_new=64) at chunk 16 and
+           chunk 1
+  vlm      llama-3.2-vision-90b at full width (d_model 8192, 64 / 8 heads
+           of 128, d_ff 28672), 10 of its 100 layers (8 attn, 2 cross;
+           ~21.3 GB), cross gates open: the prefill on B=1, S=512 with
+           1,601 image embeddings (flash_attention_proj, rmsnorm_matmul 5
+           times and matmul_residual_add once an attn layer; the cross
+           layers plain), eager, traced and as a CUDA graph; then
+           ServeProgram(batch=8, max_seq=256, max_new=64) at chunk 16 and
+           chunk 1 (the cross K/V: the zero cache, as in the reference)
 
 The kernel launch counts are set to 0 before each of the suite, compose,
-whisper, prefill, pallas_prefill, serve, profile, engine and moe runs and
-read right after; every kernel of a phase must have launched and no plain version
+whisper, prefill, pallas_prefill, serve, profile, engine, moe, hybrid,
+xlstm and vlm runs and read right after; every kernel of a phase must have launched and no plain version
 may have run on a CUDA tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
 trace (`launches.traced_launches`). Every trace but the serve phase's
@@ -283,13 +318,17 @@ def main() -> int:
     gc.collect()                      # reference cycles may still hold them
     torch.cuda.empty_cache()
     moe_counts, _ = moe_phase(launches)
+    hybrid_counts = hybrid_phase(launches)
+    xlstm_phase(launches)
+    vlm_counts = vlm_phase(launches)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
         # count), the traced serve run's and the engine's traced chunk's,
-        # graph replays included, and mixtral's eager prefill's (none for
-        # flash_attention_proj: mixtral's window keeps it off the path);
-        # wrapper_launches: the wrappers' own
+        # graph replays included, and the eager prefills of mixtral,
+        # recurrentgemma-9b and llama-3.2-vision (none for
+        # flash_attention_proj from the first two: the window keeps it off
+        # their paths); wrapper_launches: the wrappers' own
         # counts over the prefill and serve runs. flash_attention: the
         # "pallas" prefill's; matmul_bias_act: the whisper prefill's;
         # rmsnorm: rmsnorm_matmul's composition's. A suite kernel's record
@@ -297,7 +336,8 @@ def main() -> int:
         name = rec["name"]
         if name in QWEN_FUSED:
             rec["launches"] = (prefill_counts[name] + serve_traced[name]
-                               + engine_traced[name] + moe_counts[name])
+                               + engine_traced[name] + moe_counts[name]
+                               + hybrid_counts[name] + vlm_counts[name])
             rec["wrapper_launches"] = prefill_counts[name] + \
                 serve_counts[name]
         else:
@@ -581,9 +621,18 @@ def kernel_phase() -> list[dict]:
              lambda: torch.matmul(x, w),
              bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n),
              schedule=gemm_schedule("rmsnorm_matmul", m, K, n))
-    # mixtral-8x7b's prefill projections (B=1, S=8192): q and k / v
-    K = 4096
-    for m, n in ((8192, 4096), (8192, 1024)):
+    # mixtral-8x7b's prefill projections (B=1, S=8192): q and k / v (q is
+    # also recurrentgemma-9b's); recurrentgemma-9b (K 4096): k / v of one
+    # head of 256 and the geglu gate / up (N 12288) at its prefill's M
+    # 8192, and q, k / v, gate / up at its decode's M 8; llama-3.2-vision
+    # (K 8192): q (N 8192), k / v (N 1024), gate / up (N 28672) at its
+    # prefill's M 512 and its decode's M 8
+    for m, K, n in ((8192, 4096, 4096), (8192, 4096, 1024),
+                    (8192, 4096, 256), (8192, 4096, 12288),
+                    (8, 4096, 4096), (8, 4096, 256), (8, 4096, 12288),
+                    (512, 8192, 8192), (512, 8192, 1024),
+                    (512, 8192, 28672), (8, 8192, 8192), (8, 8192, 1024),
+                    (8, 8192, 28672)):
         x, s, w = randn(m, K), randn(K, scale=0.1), randn(K, n,
                                                            scale=K ** -0.5)
         case("rmsnorm_matmul", f"M{m}xK{K}xN{n}",
@@ -592,8 +641,14 @@ def kernel_phase() -> list[dict]:
              lambda: torch.matmul(x, w),
              bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n),
              schedule=gemm_schedule("rmsnorm_matmul", m, K, n))
+    # qwen3-14b's decode and prefill rows, mixtral's out-projection (also
+    # recurrentgemma's), recurrentgemma's down projection (K 12288) and
+    # its decode rows, llama-3.2-vision's out (K 8192) and down (K 28672)
+    # at M 512 and M 8
     for m, k, n in ((8, 5120, 5120), (8, 17408, 5120), (512, 17408, 5120),
-                    (8192, 4096, 4096)):
+                    (8192, 4096, 4096), (8192, 12288, 4096),
+                    (8, 4096, 4096), (8, 12288, 4096), (512, 8192, 8192),
+                    (512, 28672, 8192), (8, 8192, 8192), (8, 28672, 8192)):
         a, w, r = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
         case("matmul_residual_add", f"M{m}xK{k}xN{n}",
              lambda: fused.matmul_residual_add(a, w, r),
@@ -601,23 +656,31 @@ def kernel_phase() -> list[dict]:
              lambda: torch.addmm(r, a, w),
              bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n),
              schedule=gemm_schedule("matmul_residual_add", m, k, n))
-    B, H, KV, S, HD, DM = 1, 40, 8, 512, 128, 5120
-    q, k, v = randn(B, H, S, HD), randn(B, KV, S, HD), randn(B, KV, S, HD)
-    wo = randn(H, HD, DM, scale=(H * HD) ** -0.5)
-    causal_pairs = S * (S + 1) // 2             # key positions this run needs
-    kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+    # qwen3-14b's prefill, and llama-3.2-vision-90b's (64 / 8 heads of 128,
+    # d_model 8192)
+    for B, H, KV, S, HD, DM in ((1, 40, 8, 512, 128, 5120),
+                                (1, 64, 8, 512, 128, 8192)):
+        q, k, v = (randn(B, H, S, HD), randn(B, KV, S, HD),
+                   randn(B, KV, S, HD))
+        wo = randn(H, HD, DM, scale=(H * HD) ** -0.5)
+        causal_pairs = S * (S + 1) // 2         # key positions this run needs
+        kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
 
-    def library_fa():       # SDPA on the GQA-expanded k/v, then the product
-        o = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
-        return torch.einsum("bhsk,hkd->bsd", o, wo)
+        def library_fa():   # SDPA on the GQA-expanded k/v, then the product
+            o = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+            return torch.einsum("bhsk,hkd->bsd", o, wo)
 
-    case("flash_attention_proj", f"B{B}xH{H}xKV{KV}xS{S}xhd{HD}xdm{DM}",
-         lambda: fused.flash_attention_proj(q, k, v, wo),
-         lambda: fused.flash_attention_proj_plain(q, k, v, wo), library_fa,
-         bound((q.numel() + k.numel() + v.numel() + wo.numel()
-                + B * S * DM) * 2,
-               4.0 * B * H * HD * causal_pairs + 2.0 * B * S * H * HD * DM),
-         schedule=gemm_schedule("flash_attention_proj", B * S, H * HD, DM))
+        case("flash_attention_proj", f"B{B}xH{H}xKV{KV}xS{S}xhd{HD}xdm{DM}",
+             lambda: fused.flash_attention_proj(q, k, v, wo),
+             lambda: fused.flash_attention_proj_plain(q, k, v, wo),
+             library_fa,
+             bound((q.numel() + k.numel() + v.numel() + wo.numel()
+                    + B * S * DM) * 2,
+                   4.0 * B * H * HD * causal_pairs
+                   + 2.0 * B * S * H * HD * DM),
+             schedule=gemm_schedule("flash_attention_proj", B * S, H * HD,
+                                    DM))
+        del q, k, v, wo, kr, vr
 
     # flash_attention: qwen3-14b's "pallas" prefill (causal, and full), and
     # 12 heads of 64 at a length no tile divides
@@ -1127,6 +1190,36 @@ def agree_phase() -> None:
             _agree(f"{name}:hd{hd}:{'local' if local else 'global'}", cfg,
                    "fused",
                    torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))))
+    # the three mixed-kind smoke configs under "fused", their attention
+    # weights at the true fan-in (none has a qk-norm on its self-attention):
+    # recurrentgemma (rglru, local_attn with a window of 16 < S = 40, the
+    # geglu MLP on rmsnorm_matmul and matmul_residual_add), xlstm (mlstm
+    # and slstm call no kernel, in the reference as in the port) and the
+    # vision arch with heads of 128 (flash_attention_proj takes no other)
+    # and its cross gates open, against 8 image embeddings
+    for name, hd in (("recurrentgemma-9b-smoke", 16),
+                     ("xlstm-125m-smoke", 16),
+                     ("llama-3.2-vision-90b-smoke", 128)):
+        cfg = dataclasses.replace(get(name), head_dim=hd)
+        img = None
+        if cfg.n_img_tokens:
+            img = torch.from_numpy(rng.standard_normal(
+                (2, cfg.n_img_tokens, cfg.d_model)).astype(
+                    np.float32)).bfloat16()
+        _agree(f"{name}:hd{hd}", cfg, "fused",
+               torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))), img,
+               rescale=True, kernels=cfg.family != "ssm")
+
+
+def open_gates(params):
+    """The cross blocks' tanh gates are drawn as zeros, which would leave
+    the blocks out of the model: open them, in place, to fixed values
+    (tanh(0.7) for the attention, tanh(-0.4) for the FFN)."""
+    for p in params["blocks"]:
+        if "gate_attn" in p:
+            p["gate_attn"].fill_(0.7)
+            p["gate_ffn"].fill_(-0.4)
+    return params
 
 
 def _true_fan_in(tree):
@@ -1152,12 +1245,15 @@ def _true_fan_in(tree):
 
 
 def _agree(label, cfg, policy, tokens, frames=None, max_seq=4096,
-           rescale=False) -> None:
+           rescale=False, kernels=True) -> None:
+    """`kernels`: whether the model's path launches a kernel (xlstm's
+    does not)."""
     from repro_torch.cluster.policy import use_policy
     from repro_torch.kernels import launches
     from repro_torch.models import steps
 
-    params = steps.init_params(cfg, 1, device="cpu", max_seq=max_seq)
+    params = open_gates(steps.init_params(cfg, 1, device="cpu",
+                                          max_seq=max_seq))
     if rescale:
         params = _true_fan_in(params)
     gpu = _to(params, "cuda")
@@ -1174,7 +1270,7 @@ def _agree(label, cfg, policy, tokens, frames=None, max_seq=4096,
                if c}
         lg_cpu = steps.logits(params, h_cpu)
         lg_gpu = steps.logits(gpu, h_gpu).cpu()
-    if not ran:
+    if kernels and not ran:
         raise AssertionError(f"agree {label}: no kernel launched")
     err = (lg_cpu - lg_gpu).abs().max().item()
     torch.testing.assert_close(lg_gpu, lg_cpu, rtol=5e-2, atol=5e-2)
@@ -1912,6 +2008,279 @@ def engine_phase(launches, cfg, params) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# full-width models: bounds, weights on the card, the prefill and decode
+# checks (mixtral-8x7b and the mixed-kind archs)
+# ----------------------------------------------------------------------------
+
+def weight_bytes(params, rows: int) -> int:
+    """The bytes of every weight, the token embedding counted only at the
+    `rows` rows a run reads."""
+    emb = params["tok_embed"]
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return total - emb.numel() * emb.element_size() \
+        + rows * emb.shape[1] * emb.element_size()
+
+
+def prefill_bound(cfg, params, B: int, S: int,
+                  n_img: int = 0) -> tuple[float, str, float]:
+    """The least time of a prefill of B x S tokens (ms, what sets it,
+    TFLOP of bf16 products): every weight read once (the token embedding
+    at the prompt's rows), the image embeddings read, per layer the
+    products its kind makes over the keys this run needs (causal, and
+    within the window), the MoE expert SwiGLU over the E x C capacity rows
+    the batched product computes (C = int(K * T * 1.25 / E)), the f32
+    router and the mLSTM's and sLSTM's f32 products at the f32 peak (the
+    mLSTM chunks' causal halves), and the last tokens' vocabulary
+    projection. Elementwise work (the scans, norms, gates) is not
+    counted."""
+    from repro_torch.models import steps
+
+    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.d_ff
+    r, di, T = cfg.lru_width, cfg.n_heads * cfg.hd, B * S
+    ffn = 3 * 2.0 * T * d * f
+
+    def pairs(w):
+        return sum(min(i + 1, w) for i in range(S))
+
+    c = min(cfg.attn_chunk, S)
+    bf16 = f32 = 0.0
+    for kind in steps.layer_kinds(cfg):
+        if kind in ("attn", "local_attn", "attn_moe"):
+            bf16 += (2.0 * T * d * (H + 2 * KV) * hd
+                     + 4.0 * B * H * hd * pairs(cfg.window or S)
+                     + 2.0 * T * H * hd * d)
+            if kind != "attn_moe":
+                bf16 += ffn
+            else:
+                E = cfg.n_experts
+                C = max(int(cfg.top_k * T * cfg.capacity_factor / E), 1)
+                bf16 += 3 * 2.0 * E * C * d * f
+                f32 += 2.0 * T * d * E
+        elif kind == "cross":
+            bf16 += (2.0 * T * d * H * hd + 2.0 * B * n_img * d * 2 * KV * hd
+                     + 4.0 * B * H * hd * S * n_img + 2.0 * T * H * hd * d
+                     + ffn)
+        elif kind == "rglru":
+            bf16 += 2 * 2.0 * T * d * r + 2 * 2.0 * T * r * r \
+                + 2.0 * T * r * d + ffn
+        elif kind == "mlstm":
+            bf16 += 2.0 * T * d * 2 * di + 3 * 2.0 * T * di * di \
+                + 2.0 * T * di * d
+            f32 += 2 * 2.0 * T * di * H + (S // c) * (
+                3 * 2.0 * B * H * hd * c * (c + 1) / 2
+                + 2 * 2.0 * B * c * H * hd * hd)
+        elif kind == "slstm":
+            bf16 += 2.0 * T * d * 4 * di + 2.0 * T * di * d
+            f32 += 2.0 * T * 4 * H * hd * hd
+    bf16 += 2.0 * B * d * cfg.vocab
+    moved = weight_bytes(params, T) + B * n_img * d * 2 + T * 8 + B * 4
+    t_ops = bf16 / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S
+    t_bytes = moved / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", bf16 / 1e12)
+
+
+def decode_bound(cfg, params, cache, B: int, live: float) -> tuple[float,
+                                                                   str]:
+    """The least time of one decode step (ms, what sets it): every weight
+    read once (the token embedding at B rows) and its products' operations;
+    per layer the K/V rows of `live` positions a slot read and one
+    written, the recurrent states read and written, the cross blocks'
+    image K/V read."""
+    from repro_torch.models import steps
+    from repro_torch.models.blocks import BLOCKS
+
+    moved = weight_bytes(params, B)
+    for prefix, kind, _ in steps.cache_groups(cfg):
+        for leaf, spec in BLOCKS[kind]["cache"](cfg, B, 1).items():
+            c = cache[prefix + leaf]
+            if steps._pageable_leaf(spec):
+                rows = min(int(live) + 1, c.shape[2])
+                moved += c[:, :, :rows].numel() * c.element_size()
+            else:
+                moved += c.numel() * c.element_size() * (
+                    1 if kind == "cross" else 2)
+    weights = sum(t.numel() for t in _leaves(params)) \
+        - params["tok_embed"].numel()
+    return bound(moved, 2.0 * B * weights)
+
+
+def init_on_card(tag: str, cfg):
+    """Random weights from a seeded generator on the card (the cross
+    gates opened), and a line with their count and size."""
+    from repro_torch.models import steps
+
+    gc.collect()                      # the last model's weights go first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = open_gates(steps.init_params(cfg, 0, device="cuda"))
+    torch.cuda.synchronize()
+    log(tag, arch=cfg.name, layers=cfg.n_layers,
+        params=sum(t.numel() for t in _leaves(params)),
+        gb=f"{torch.cuda.memory_allocated() / 1e9:.1f}",
+        init_s=f"{time.perf_counter() - t0:.1f}")
+    return params
+
+
+def prefill_check(launches, tag: str, cfg, params, batch, must,
+                  want: dict, bnd, **fields) -> dict:
+    """make_prefill_step under "fused": eagerly, counted and traced
+    (`_counted_and_traced`: the counts must equal `want`, other kernels
+    0), its token equal to the argmax of finite logits of the right shape
+    (and a finite MoE aux loss); then as a CUDA graph (`graph_replay`).
+    Logs the times beside the bound (and `fields`) and the six device
+    kernels with the most time; returns the eager counts."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.models import steps
+
+    prefill = steps.make_prefill_step(cfg, policy="fused")
+    prefill.eager(params, batch)                          # warm-up
+    counted, tok, dt, top = _counted_and_traced(
+        launches, f"{tag}_prefill", lambda: prefill.eager(params, batch),
+        must)
+    if counted != {n: 0 for n in counted} | want:
+        raise AssertionError(f"{tag}: prefill launches {counted}, want "
+                             f"{want}")
+    with torch.inference_mode():
+        with use_policy("fused"):
+            hidden, aux = steps.forward(cfg, params, batch["tokens"],
+                                        cross_embeds=batch.get("img_embeds"))
+        lg = steps.logits(params, hidden[:, -1])
+    B = batch["tokens"].shape[0]
+    if not torch.isfinite(lg).all() or tuple(lg.shape) != (B, cfg.vocab) \
+            or not torch.isfinite(torch.as_tensor(aux)):
+        raise AssertionError(f"{tag}: logits or aux not finite or "
+                             f"misshapen")
+    if cfg.n_experts:
+        fields["aux"] = f"{float(aux):.4f}"
+    if not torch.equal(lg.argmax(-1).to(torch.int32), tok):
+        raise AssertionError(f"{tag}: argmax disagrees with the step")
+    del hidden, lg
+    bms, by, tflop = bnd
+    log(tag, part="prefill", B=B, S=batch["tokens"].shape[1], **fields,
+        policy="fused", eager_ms=f"{dt * 1e3:.1f}",
+        tokens=",".join(map(str, tok.tolist()[:8])),
+        launches=_nonzero(counted),
+        traced_device_ms=f"{sum(r[1] for r in top):.1f}",
+        bound_ms=f"{bms:.2f}", bound_by=by, tflop=f"{tflop:.2f}")
+    for key, ms, n in top[:6]:
+        log(tag, part="prefill", kernel=f"'{key[:70]}'",
+            device_ms=f"{ms:.2f}", launches=n)
+    graph = graph_replay(launches, f"{tag}_prefill",
+                         lambda: prefill(params, batch), counted, tok)
+    log(tag, part="prefill", mode="cuda_graph", **graph_fields(graph, dt),
+        bound_ms=f"{bms:.2f}")
+    del prefill
+    torch.cuda.empty_cache()
+    return counted
+
+
+def serve_program_check(launches, tag: str, cfg, params, *, B: int,
+                        S: int, P: int, NEW: int) -> dict:
+    """`Cluster.compile(ServeProgram(batch=B, max_seq=S, max_new=NEW))`
+    under "fused" from a B x P seeded prompt at chunk 16 and chunk 1, each
+    run twice (equal tokens; the counts set to 0 before the first run, no
+    plain version on the card): tokens equal across chunks, in range,
+    every cache leaf finite, the K/V leaves `decode_cache_len` rows (a
+    window's, rolling, where S passes it); tokens/s a slot, p50, stall_pct and the
+    step's least time; then one eager step's launches and one steady
+    chunk replayed and traced (16 x the eager step's launches), its device
+    busy time and top kernels. Returns the traced chunk's launches."""
+    from repro_torch.cluster.session import Cluster, ServeProgram
+    from repro_torch.models import steps
+    from repro_torch.models.blocks import BLOCKS
+
+    cluster = Cluster(cfg)
+    prompt = np.random.default_rng(17).integers(1, cfg.vocab, (B, P))
+    runs, progs = {}, {}
+    for chunk in (16, 1):
+        with cluster.policy("fused"):
+            prog = cluster.compile(ServeProgram(batch=B, max_seq=S,
+                                                max_new=NEW, chunk=chunk))
+        launches.reset_counts()
+        first = prog.run(params=params, prompt=prompt)
+        _check_counts(launches, f"{tag} decode chunk {chunk}", ())
+        again = prog.run(params=params, prompt=prompt)
+        if not np.array_equal(first["tokens"], again["tokens"]):
+            raise AssertionError(f"{tag}: chunk {chunk} reruns differ")
+        runs[chunk], progs[chunk] = again, prog
+    toks = runs[16]["tokens"]
+    if not np.array_equal(toks, runs[1]["tokens"]):
+        raise AssertionError(f"{tag}: chunk 16 and chunk 1 tokens differ")
+    if toks.shape != (B, 1 + NEW) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{tag}: decode tokens {toks.shape}")
+    # K/V leaves hold decode_cache_len rows: the window's, where max_seq
+    # passes it (the cache rolls)
+    rows = steps.decode_cache_len(cfg, S)
+    kv = [prefix + leaf for prefix, kind, _ in steps.cache_groups(cfg)
+          for leaf, spec in BLOCKS[kind]["cache"](cfg, B, 1).items()
+          if steps._pageable_leaf(spec)]
+    for prog in progs.values():
+        for name, c in prog.cache.items():
+            if not torch.isfinite(c).all():
+                raise AssertionError(f"{tag}: non-finite {name} cache")
+            if name in kv and c.shape[2] != rows:
+                raise AssertionError(f"{tag}: the {name} cache holds "
+                                     f"{c.shape[2]} rows, not {rows}")
+
+    prog = progs[16]
+    with torch.inference_mode():
+        launches.reset_counts()
+        prog.decode.eager(params, prog.cache, {
+            "tokens": torch.as_tensor(toks[:, -1:], device="cuda"),
+            "pos": P + NEW})
+        torch.cuda.synchronize()
+    per_step = {n: c for n, c in _check_counts(launches, f"{tag} step",
+                                               ()).items() if c}
+    eng = prog.engine
+
+    def one_chunk():
+        launches.reset_counts()
+        eng.generate(params, prog.cache, toks[:, -1:], 16,
+                     start_pos=P + NEW + 1)
+
+    prof = traced(f"{tag}_chunk", one_chunk)
+    traced_chunk = launches.traced_launches(prof)
+    seen = {n: c for n, c in traced_chunk.items() if c}
+    if seen != {n: 16 * c for n, c in per_step.items()}:
+        raise AssertionError(f"{tag}: a traced chunk launched {seen}; one "
+                             f"eager step {per_step}")
+    busy = device_busy_ms(prof)
+    chunk_wall = np.mean([d for d, _ in eng.chunk_latencies]) * 1e3
+    dbms, dby = decode_bound(cfg, params, prog.cache, B, P + NEW / 2)
+    top = sorted(((e.key, e.device_time_total / 1e3 / 16, e.count // 16)
+                  for e in device_events(prof) if e.device_time_total > 0),
+                 key=lambda r: -r[1])
+    for k, r in runs.items():
+        st = r["stats"]
+        log(tag, part="decode", B=B, prompt=P, max_new=NEW, max_seq=S,
+            **({"cache_rows": rows} if kv else {}), chunk=k, policy="fused",
+            tokens_per_s_per_slot=f"{st['tokens_per_s_per_slot']:.2f}",
+            tokens_per_s=f"{B * st['tokens_per_s_per_slot']:.2f}",
+            p50_ms=f"{st['p50_ms']:.2f}", p99_ms=f"{st['p99_ms']:.2f}",
+            stall_pct=f"{st['stall']['stall_pct']:.3f}",
+            host_syncs=st["stall"]["host_syncs"],
+            step_bound_ms=f"{dbms:.2f}", step_bound_by=dby)
+    log(tag, part="decode", chunk=16,
+        traced_chunk_device_busy_ms=f"{busy:.2f}",
+        traced_chunk_device_ms_per_step=f"{busy / 16:.2f}",
+        traced_chunk_wall_ms=f"{chunk_wall:.2f}",
+        traced_launches_per_chunk=json.dumps(seen).replace(" ", ""),
+        tokens_equal_chunk16_chunk1=True, caches_finite=True,
+        decode_tokens_slot0=",".join(map(str, toks[0, :17].tolist())),
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}")
+    for key, ms, n in top[:6]:
+        log(tag, part="decode", kernel=f"'{key[:70]}'",
+            ms_per_step=f"{ms:.3f}", launches_per_step=n)
+    del runs, progs, prog, eng, cluster
+    torch.cuda.empty_cache()
+    return traced_chunk
+
+
+# ----------------------------------------------------------------------------
 # mixtral-8x7b at full width: the MoE block, banded attention, rolling caches
 # ----------------------------------------------------------------------------
 
@@ -1923,46 +2292,6 @@ def moe_cfg():
     return dataclasses.replace(get("mixtral-8x7b"), n_layers=MOE_LAYERS)
 
 
-def moe_prefill_bound(cfg, S: int) -> tuple[float, str, float]:
-    """The least time of the B=1 prefill (ms, what sets it, TFLOP): every
-    weight read once (the token embedding only at the prompt's rows), the
-    tokens read and the token written; per layer the q/k/v and out
-    projections, the causal windowed attention's pairs (QK and PV), the
-    f32 router at the f32 peak, the expert SwiGLU over the E x C capacity
-    rows the batched product computes (C = int(K * S * 1.25 / E)), and the
-    last token's vocabulary projection."""
-    d, H, KV, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
-        cfg.d_ff
-    E, K = cfg.n_experts, cfg.top_k
-    C = max(int(K * S * cfg.capacity_factor / E), 1)
-    w = cfg.window or S
-    pairs = sum(min(i + 1, w) for i in range(S))
-    per_layer = (2.0 * S * d * (H + 2 * KV) * hd + 4.0 * H * hd * pairs
-                 + 2.0 * S * H * hd * d + 3 * 2.0 * E * C * d * f)
-    bf16 = cfg.n_layers * per_layer + 2.0 * d * cfg.vocab
-    f32 = cfg.n_layers * 2.0 * S * d * E
-    weights = (cfg.n_params() - cfg.vocab * d) * 2 + S * d * 2 \
-        - cfg.n_layers * d * E * 2        # the router is f32: counted below
-    bytes_moved = weights + cfg.n_layers * d * E * 4 + S * 8 + 4
-    t_ops = bf16 / BF16_FLOPS_PER_S + f32 / F32_FLOPS_PER_S
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", bf16 / 1e12)
-
-
-def moe_decode_bound(cfg, B: int, live: float) -> tuple[float, str]:
-    """The least time of one decode step (ms, what sets it): every weight
-    read once (the reference's batched expert product reads all E experts
-    at T = B; the token embedding at B rows), the K/V rows of `live`
-    positions a slot read and one row a slot written, each layer."""
-    d = cfg.d_model
-    weights = (cfg.n_params() - cfg.vocab * d) * 2 + B * d * 2 \
-        + cfg.n_layers * d * cfg.n_experts * 2   # f32 router: 4 bytes
-    row = 2 * cfg.n_kv_heads * cfg.hd * 2         # k and v, bf16
-    kv = cfg.n_layers * B * (live + 1) * row
-    return bound(weights + kv, 0.0)
-
-
 def moe_phase(launches) -> tuple[dict, dict]:
     """mixtral-8x7b at full width (d_model 4096, 32 / 8 heads of 128, 8
     experts top-2, d_ff 14336, window 4096, vocab 32000), 8 of its 32
@@ -1972,155 +2301,253 @@ def moe_phase(launches) -> tuple[dict, dict]:
     rmsnorm_matmul 3 times a layer (q, k, v), matmul_residual_add once (the
     out-projection), no other kernel and no plain version on the card (the
     experts are plain bf16 products, as the reference's einsums are); then
-    as a CUDA graph (`graph_replay`). Then `ServeProgram(batch=8,
+    as a CUDA graph (`prefill_check`). Then `ServeProgram(batch=8,
     max_seq=8192, max_new=64)` from an 8 x 32 seeded prompt at chunk 16 and
     chunk 1 (rolling private caches of 4096 rows: max_seq passes the
     window), each run twice: equal tokens, finite caches, tokens/s a slot,
-    p50, stall_pct, one steady chunk's traced device busy time. Returns
-    the prefill's counts and the traced chunk's."""
-    from repro_torch.cluster.policy import use_policy
-    from repro_torch.cluster.session import Cluster, ServeProgram
+    p50, stall_pct, one steady chunk's traced device busy time
+    (`serve_program_check`). Returns the prefill's counts and the traced
+    chunk's."""
     from repro_torch.models import attention as attn_lib
-    from repro_torch.models import steps
 
     cfg = moe_cfg()
-    S, B, P, NEW = 8192, 8, 32, 64
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = steps.init_params(cfg, 0, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log("moe", arch=cfg.name, layers=f"{cfg.n_layers}/32", params=n_params,
-        gb=f"{torch.cuda.memory_allocated() / 1e9:.1f}",
-        init_s=f"{time.perf_counter() - t0:.1f}")
+    S = 8192
+    params = init_on_card("moe", cfg)
     schedule = attn_lib.resolve_schedule(S, window=cfg.window,
                                          chunk=cfg.attn_chunk,
                                          schedule=cfg.attn_schedule)
     if schedule != "banded":
         raise AssertionError(f"moe: S={S} takes {schedule}, not banded")
-
-    tokens = torch.from_numpy(np.random.default_rng(13).integers(
-        0, cfg.vocab, (1, S))).cuda()
-    batch = {"tokens": tokens}
-    prefill = steps.make_prefill_step(cfg, policy="fused")
-    prefill.eager(params, batch)                          # warm-up
-    must = ("rmsnorm_matmul", "matmul_residual_add")
-    counted, tok, dt, top = _counted_and_traced(
-        launches, "moe_prefill", lambda: prefill.eager(params, batch), must)
-    want = {n: 0 for n in counted} | {"rmsnorm_matmul": 3 * cfg.n_layers,
-                                      "matmul_residual_add": cfg.n_layers}
-    if counted != want:
-        raise AssertionError(f"moe: prefill launches {counted}")
-    with torch.inference_mode():
-        with use_policy("fused"):
-            hidden, aux = steps.forward(cfg, params, tokens)
-        lg = steps.logits(params, hidden[:, -1])
-    if not torch.isfinite(lg).all() or tuple(lg.shape) != (1, cfg.vocab) \
-            or not torch.isfinite(torch.as_tensor(aux)):
-        raise AssertionError("moe: logits or aux not finite or misshapen")
-    if int(lg.argmax(-1)) != int(tok[0]):
-        raise AssertionError("moe: argmax disagrees with the step")
-    del hidden
-    bms, by, tflop = moe_prefill_bound(cfg, S)
-    log("moe", part="prefill", B=1, S=S, schedule=schedule,
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (1, S))).cuda()}
+    counted = prefill_check(
+        launches, "moe", cfg, params, batch,
+        ("rmsnorm_matmul", "matmul_residual_add"),
+        {"rmsnorm_matmul": 3 * cfg.n_layers,
+         "matmul_residual_add": cfg.n_layers},
+        prefill_bound(cfg, params, 1, S), schedule=schedule,
         chunk=cfg.attn_chunk,
-        bands=min(cfg.window // cfg.attn_chunk + 1, S // cfg.attn_chunk),
-        policy="fused", eager_ms=f"{dt * 1e3:.1f}", token=int(tok[0]),
-        aux=f"{float(aux):.4f}", launches=_nonzero(counted),
-        traced_device_ms=f"{sum(r[1] for r in top):.1f}",
-        bound_ms=f"{bms:.2f}", bound_by=by, tflop=f"{tflop:.2f}")
-    for key, ms, n in top[:6]:
-        log("moe", part="prefill", kernel=f"'{key[:70]}'",
-            device_ms=f"{ms:.2f}", launches=n)
-    graph = graph_replay(launches, "moe_prefill",
-                         lambda: prefill(params, batch), counted, tok)
-    log("moe", part="prefill", mode="cuda_graph", **graph_fields(graph, dt),
-        bound_ms=f"{bms:.2f}")
-    del prefill, batch, lg
-    torch.cuda.empty_cache()
-
-    cluster = Cluster(cfg)
-    prompt = np.random.default_rng(17).integers(1, cfg.vocab, (B, P))
-    runs, progs = {}, {}
-    for chunk in (16, 1):
-        with cluster.policy("fused"):
-            prog = cluster.compile(ServeProgram(batch=B, max_seq=S,
-                                                max_new=NEW, chunk=chunk))
-        launches.reset_counts()
-        first = prog.run(params=params, prompt=prompt)
-        _check_counts(launches, f"moe decode chunk {chunk}", ())
-        again = prog.run(params=params, prompt=prompt)
-        if not np.array_equal(first["tokens"], again["tokens"]):
-            raise AssertionError(f"moe: chunk {chunk} reruns differ")
-        runs[chunk], progs[chunk] = again, prog
-    toks = runs[16]["tokens"]
-    if not np.array_equal(toks, runs[1]["tokens"]):
-        raise AssertionError("moe: chunk 16 and chunk 1 tokens differ")
-    if toks.shape != (B, 1 + NEW) or toks.min() < 0 \
-            or toks.max() >= cfg.vocab:
-        raise AssertionError(f"moe: decode tokens {toks.shape}")
-    for prog in progs.values():
-        if prog.cache["k"].shape[2] != cfg.window:
-            raise AssertionError("moe: the decode cache does not roll")
-        for name, c in prog.cache.items():
-            if not torch.isfinite(c).all():
-                raise AssertionError(f"moe: non-finite {name} cache")
-
-    # one eager step's launches (none: the reference's MoE decode takes the
-    # plain projections), then one steady chunk replayed, traced
-    prog = progs[16]
-    with torch.inference_mode():
-        launches.reset_counts()
-        prog.decode.eager(params, prog.cache, {
-            "tokens": torch.as_tensor(toks[:, -1:], device="cuda"),
-            "pos": P + NEW})
-        torch.cuda.synchronize()
-    per_step = {n: c for n, c in _check_counts(launches, "moe step",
-                                               ()).items() if c}
-    eng = prog.engine
-
-    def one_chunk():
-        launches.reset_counts()
-        eng.generate(params, prog.cache, toks[:, -1:], 16,
-                     start_pos=P + NEW + 1)
-
-    prof = traced("moe_chunk", one_chunk)
-    traced_chunk = launches.traced_launches(prof)
-    seen = {n: c for n, c in traced_chunk.items() if c}
-    if seen != {n: 16 * c for n, c in per_step.items()}:
-        raise AssertionError(f"moe: a traced chunk launched {seen}; one "
-                             f"eager step {per_step}")
-    busy = device_busy_ms(prof)
-    chunk_wall = np.mean([d for d, _ in eng.chunk_latencies]) * 1e3
-    dbms, dby = moe_decode_bound(cfg, B, P + NEW / 2)
-    top = sorted(((e.key, e.device_time_total / 1e3 / 16, e.count // 16)
-                  for e in device_events(prof) if e.device_time_total > 0),
-                 key=lambda r: -r[1])
-    for k, r in runs.items():
-        st = r["stats"]
-        log("moe", part="decode", B=B, prompt=P, max_new=NEW, max_seq=S,
-            cache_rows=cfg.window, chunk=k, policy="fused",
-            tokens_per_s_per_slot=f"{st['tokens_per_s_per_slot']:.2f}",
-            tokens_per_s=f"{B * st['tokens_per_s_per_slot']:.2f}",
-            p50_ms=f"{st['p50_ms']:.2f}", p99_ms=f"{st['p99_ms']:.2f}",
-            stall_pct=f"{st['stall']['stall_pct']:.3f}",
-            host_syncs=st["stall"]["host_syncs"],
-            step_bound_ms=f"{dbms:.2f}", step_bound_by=dby)
-    log("moe", part="decode", chunk=16,
-        traced_chunk_device_busy_ms=f"{busy:.2f}",
-        traced_chunk_device_ms_per_step=f"{busy / 16:.2f}",
-        traced_chunk_wall_ms=f"{chunk_wall:.2f}",
-        traced_launches_per_chunk=json.dumps(seen).replace(" ", ""),
-        tokens_equal_chunk16_chunk1=True,
-        decode_tokens_slot0=",".join(map(str, toks[0, :17].tolist())),
-        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}")
-    for key, ms, n in top[:6]:
-        log("moe", part="decode", kernel=f"'{key[:70]}'",
-            ms_per_step=f"{ms:.3f}", launches_per_step=n)
-    del params, runs, progs, prog, eng, cluster
+        bands=min(cfg.window // cfg.attn_chunk + 1, S // cfg.attn_chunk))
+    del batch
+    traced_chunk = serve_program_check(launches, "moe", cfg, params, B=8,
+                                       S=S, P=32, NEW=64)
+    del params
+    gc.collect()
     torch.cuda.empty_cache()
     return counted, traced_chunk
 
+
+# ----------------------------------------------------------------------------
+# the mixed-kind archs: recurrentgemma-9b, xlstm-125m, llama-3.2-vision-90b
+# ----------------------------------------------------------------------------
+
+VLM_LAYERS = 10           # of llama-3.2-vision-90b's 100: two periods of
+#                           4 attn + 1 cross, ~21.3 GB of bf16 weights
+
+
+def session_check(launches, tag: str, cfg, params) -> None:
+    """A non-paged ServeSessionProgram(slots=8, max_seq=256,
+    max_prompt=64, chunk=16) under "fused" over `serve_requests`' 12
+    requests (slots refilled, their recurrent state zeroed at admission):
+    the session step replayed as a CUDA graph (the counts set to 0 just
+    before the requests go in: rmsnorm_matmul and matmul_residual_add
+    must launch, through the eager first step and the capture), then run
+    eagerly from Python; tokens equal, every request its length, the
+    caches finite."""
+    from repro_torch.cluster.session import Cluster, ServeSessionProgram
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
+
+    reqs = serve_requests(cfg.vocab)
+    spec = ServeSessionProgram(slots=8, max_seq=256, max_prompt=64,
+                               chunk=16, paged=False)
+    cluster = Cluster(cfg)
+    results = {}
+    for mode in ("cuda_graph", "eager"):
+        with cluster.policy("fused"):
+            prog = cluster.compile(spec)
+        if mode == "eager":
+            prog._chunk_fn = engine.session_chunk_fn(
+                steps.make_decode_step(cfg, max_seq=spec.max_seq,
+                                       policy="fused"),
+                spec.chunk, eos_id=spec.eos_id, cuda_graph=False)
+        sess = prog.open(params=params)
+        torch.cuda.synchronize()
+        launches.reset_counts()
+        t0 = time.perf_counter()
+        handles = [sess.submit(p, n) for p, n in reqs]
+        stats = sess.drain()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _check_counts(launches, f"{tag} session",
+                               ("rmsnorm_matmul", "matmul_residual_add"))
+        for h, (_, n) in zip(handles, reqs):
+            if not (h.result().size == n
+                    or (h.hit_eos and h.result().size <= n)):
+                raise AssertionError(f"{tag}: request {h.id} "
+                                     f"{h.result().size} of {n}")
+        for name, c in sess.state["cache"].items():
+            if not torch.isfinite(c).all():
+                raise AssertionError(f"{tag}: non-finite {name} cache")
+        results[mode] = [h.result() for h in handles]
+        log(tag, part="session", mode=mode, slots=8, paged=False,
+            requests=len(reqs), wall_s=f"{dt:.2f}",
+            tokens_per_s=f"{stats['tokens_per_s']:.2f}",
+            emitted=stats["emitted_total"],
+            ttft_p50_ms=f"{stats['ttft_ms']['p50']:.1f}",
+            occupancy_pct=f"{stats['occupancy_pct']:.1f}",
+            stall_pct=f"{stats['stall']['stall_pct']:.2f}",
+            wrapper_launches=_nonzero(counts))
+        del sess, prog
+    same = all(np.array_equal(a, b) for a, b in zip(results["cuda_graph"],
+                                                    results["eager"]))
+    if not same:
+        raise AssertionError(f"{tag}: the session's graph and eager tokens "
+                             f"differ")
+    log(tag, part="session", tokens_equal_graph_eager=True)
+    torch.cuda.empty_cache()
+
+
+def split_prefill(cfg, S: int) -> None:
+    """Two of the prefill's plain parts alone, at its shapes, with seeded
+    inputs (CUDA events, mean of 10): one rglru layer's doubling scan over
+    (1, S, lru_width) f32 (`blocks.linear_scan`, the two input copies it
+    consumes timed apart and taken off) and one local_attn layer's banded
+    attention (16 heads of 256 over one KV head, window 2048, chunk
+    1024), each also times its layers."""
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import blocks, steps
+
+    timer = Timer()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    shape = (1, S, cfg.lru_width)
+    a = torch.rand(shape, generator=g, device="cuda")
+    b = torch.randn(shape, generator=g, device="cuda")
+    copies = timer(lambda: (a.clone(), b.clone()))
+    scan = timer(lambda: blocks.linear_scan(a.clone(), b.clone())) - copies
+    q = torch.randn((1, S, cfg.n_heads, cfg.hd), generator=g,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn((1, S, cfg.n_kv_heads, cfg.hd), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    attn = timer(lambda: attn_lib.attention(
+        q, k, v, n_kv=cfg.n_kv_heads, window=cfg.window,
+        chunk=cfg.attn_chunk, schedule=cfg.attn_schedule))
+    kinds = steps.layer_kinds(cfg)
+    log("hybrid", part="split", scan_ms_a_layer=f"{scan:.3f}",
+        scan_ms_all=f"{scan * kinds.count('rglru'):.1f}",
+        banded_attention_ms_a_layer=f"{attn:.3f}",
+        banded_attention_ms_all=f"{attn * kinds.count('local_attn'):.1f}")
+    del a, b, q, k, v, timer
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(launches) -> dict:
+    """recurrentgemma-9b at full width and full depth (38 layers: 26
+    rglru, 12 local_attn; d_model 4096, 16 heads of 256 over one KV head,
+    window 2048, lru_width 4096, geglu d_ff 12288, vocab 256000), random
+    weights, under "fused". The prefill (B=1, S=8192: the window binds,
+    so attention runs the banded schedule, chunk 1024, 3 bands; the
+    recurrence a log-depth doubling scan) eagerly, counted and traced:
+    rmsnorm_matmul 3 times a local_attn layer (q, k, v) and twice a layer
+    (gate, up), matmul_residual_add once a local_attn layer (out) and once
+    a layer (down), nothing else (flash_attention_proj stays off: the
+    window), no plain version on the card; then as a CUDA graph. Then
+    `ServeProgram(batch=8, max_seq=8192, max_new=64)` from an 8 x 32
+    prompt at chunk 16 and chunk 1 (rolling 2048-row local caches, the
+    recurrent state in place), and a non-paged session over 12 requests.
+    Returns the prefill's counts."""
+    from repro_torch.configs import get
+    from repro_torch.models import attention as attn_lib
+
+    cfg = get("recurrentgemma-9b")
+    S = 8192
+    params = init_on_card("hybrid", cfg)
+    schedule = attn_lib.resolve_schedule(S, window=cfg.window,
+                                         chunk=cfg.attn_chunk,
+                                         schedule=cfg.attn_schedule)
+    if schedule != "banded":
+        raise AssertionError(f"hybrid: S={S} takes {schedule}, not banded")
+    n_attn = cfg.n_layers // 3
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(19).integers(
+        0, cfg.vocab, (1, S))).cuda()}
+    counted = prefill_check(
+        launches, "hybrid", cfg, params, batch,
+        ("rmsnorm_matmul", "matmul_residual_add"),
+        {"rmsnorm_matmul": 3 * n_attn + 2 * cfg.n_layers,
+         "matmul_residual_add": n_attn + cfg.n_layers},
+        prefill_bound(cfg, params, 1, S))
+    del batch
+    split_prefill(cfg, S)
+    serve_program_check(launches, "hybrid", cfg, params, B=8, S=S, P=32,
+                        NEW=64)
+    session_check(launches, "hybrid", cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
+
+
+def xlstm_phase(launches) -> None:
+    """xlstm-125m, the whole config (12 layers: 9 mlstm, 3 slstm; d_model
+    768, 4 heads of 192), random weights, under "fused", which its blocks
+    do not take (none of them calls a fused op, in the reference as in the
+    port): the prefill on B=8, S=512 (the mLSTM in one chunk of 512, the
+    sLSTM a sequential scan of 512 steps), eager, traced and as a CUDA
+    graph; then ServeProgram(batch=8, max_seq=512, max_new=64) from an 8 x
+    32 prompt at chunk 16 and chunk 1."""
+    from repro_torch.configs import get
+
+    cfg = get("xlstm-125m")
+    B, S = 8, 512
+    params = init_on_card("xlstm", cfg)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab, (B, S))).cuda()}
+    prefill_check(launches, "xlstm", cfg, params, batch, (), {},
+                  prefill_bound(cfg, params, B, S))
+    del batch
+    serve_program_check(launches, "xlstm", cfg, params, B=8, S=512, P=32,
+                        NEW=64)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vlm_phase(launches) -> dict:
+    """llama-3.2-vision-90b at full width (d_model 8192, 64 / 8 heads of
+    128, d_ff 28672, vocab 128256, 1,601 image tokens), 10 of its 100
+    layers (two periods of 4 attn + 1 cross), random weights with the
+    cross gates open, under "fused": the prefill on B=1, S=512 with 1,601
+    seeded image embeddings (cross-attention direct), eagerly, counted and
+    traced: flash_attention_proj once an attn layer, rmsnorm_matmul 5
+    times (q, k, v, gate, up) and matmul_residual_add once (down) an attn
+    layer, the cross layers on the plain route; then as a CUDA graph.
+    Then ServeProgram(batch=8, max_seq=256, max_new=64) from an 8 x 32
+    prompt at chunk 16 and chunk 1 (the cross K/V: the zero cache, as in
+    the reference). Returns the prefill's counts."""
+    from repro_torch.configs import get
+
+    cfg = dataclasses.replace(get("llama-3.2-vision-90b"),
+                              n_layers=VLM_LAYERS)
+    S = 512
+    params = init_on_card("vlm", cfg)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab, (1, S))).cuda(),
+        "img_embeds": torch.randn((1, cfg.n_img_tokens, cfg.d_model),
+                                  generator=g, device="cuda").bfloat16()}
+    n_attn = VLM_LAYERS - VLM_LAYERS // cfg.cross_every
+    counted = prefill_check(
+        launches, "vlm", cfg, params, batch, QWEN_FUSED,
+        {"flash_attention_proj": n_attn, "rmsnorm_matmul": 5 * n_attn,
+         "matmul_residual_add": n_attn},
+        prefill_bound(cfg, params, 1, S, cfg.n_img_tokens))
+    del batch
+    serve_program_check(launches, "vlm", cfg, params, B=8, S=256, P=32,
+                        NEW=64)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counted
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -141,6 +141,15 @@ def swiglu(x, w_gate, w_up, w_down):
     return _mm(h, w_down, "...f,fd->...d")
 
 
+def geglu(x, w_gate, w_up, w_down):
+    """recurrentgemma's MLP: swiglu with gelu (the tanh form) in place of
+    silu."""
+    g = _mm(x, w_gate, "...d,df->...f")
+    u = _mm(x, w_up, "...d,df->...f")
+    h = ACTIVATIONS["gelu"](g.to(F32)).to(x.dtype) * u
+    return _mm(h, w_down, "...f,fd->...d")
+
+
 def gelu_mlp(x, w_in, b_in, w_out, b_out):
     """Whisper's MLP: b_in is added in x's dtype to the rounded product,
     then gelu (the tanh form, jax.nn.gelu's default) in f32."""
@@ -200,7 +209,7 @@ def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
 
 def ffn_specs(d_model: int, d_ff: int, *, kind: str = "swiglu",
               dtype=torch.bfloat16) -> dict:
-    if kind == "swiglu":
+    if kind in ("swiglu", "geglu"):
         return {
             "w_gate": ParamSpec((d_model, d_ff), ("embed", "ffn"), dtype),
             "w_up": ParamSpec((d_model, d_ff), ("embed", "ffn"), dtype),
@@ -213,18 +222,18 @@ def ffn_specs(d_model: int, d_ff: int, *, kind: str = "swiglu",
             "w_out": ParamSpec((d_ff, d_model), ("ffn", "embed"), dtype),
             "b_out": ParamSpec((d_model,), ("embed",), dtype, init="zeros"),
         }
-    raise NotImplementedError(
-        f"ffn kind {kind!r}: swiglu and gelu are ported so far (geglu comes "
-        f"with its block kinds, ROADMAP Queue 1 item 10)")
+    raise ValueError(kind)
 
 
 def apply_ffn(params: dict, x, *, kind: str = "swiglu"):
     if kind == "swiglu":
         return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    if kind == "geglu":
+        return geglu(x, params["w_gate"], params["w_up"], params["w_down"])
     if kind == "gelu":
         return gelu_mlp(x, params["w_in"], params["b_in"], params["w_out"],
                         params["b_out"])
-    raise NotImplementedError(f"ffn kind {kind!r} (ROADMAP Queue 1 item 10)")
+    raise ValueError(kind)
 
 
 def qkv_postprocess(params: dict, q, k, v, positions, *, qkv_bias=False,

@@ -6,10 +6,17 @@ Layout differences from the reference, all for PyTorch idiom:
 * ``params["blocks"]`` is a list of per-layer parameter dicts (the
   reference stacks them on a leading axis for `lax.scan`); `forward`
   and the decode step loop over it in Python.
-* the decode cache stacks layers on a leading axis, ``{"k": (L, B, S,
-  KV, hd), "v": ...}`` (paged: ``(L, n_pages, page_size, KV, hd)``;
-  whisper's decoder: ``self_k``/``self_v``/``cross_k``/``cross_v``), and
-  is updated in place where the reference donates its buffers.
+* the decode cache is one flat dict of tensors, a group of leaves for
+  each kind of layer, each leaf stacking that kind's layers on a leading
+  axis (batch at axis 1): a single-kind arch has ``{"k": (L, B, S, KV,
+  hd), "v": ...}`` (paged: ``(L, n_pages, page_size, KV, hd)``;
+  whisper's decoder: ``self_k``/``self_v``/``cross_k``/``cross_v``); a
+  mixed pattern prefixes each leaf with its kind (recurrentgemma:
+  ``rglru.h``, ``rglru.conv``, ``local_attn.k``, ...), where the
+  reference groups its stacked leaves by pattern position (``sub{i}`` /
+  ``rem{i}``). A layer reads its kind's leaves at its place among that
+  kind's layers (`cache_groups`, `layer_caches`). Every leaf is updated
+  in place where the reference donates its buffers.
 * an encoder-decoder model's encoder blocks are the list
   ``params["enc"]["blocks"]`` (the reference stacks them too).
 * the reference's callers `jax.jit` the prefill step; the port's prefill
@@ -119,10 +126,34 @@ def _stack(spec: ParamSpec, n: int) -> ParamSpec:
                      spec.init, spec.scale)
 
 
-def cache_specs(cfg, B: int, cache_len: int) -> dict:
+def cache_groups(cfg) -> list[tuple[str, str, list[int]]]:
+    """(key prefix, kind, layers) for each kind of layer, in the order the
+    kinds first appear: one group without a prefix when every layer is of
+    one kind, else a group a kind whose leaves are named "<kind>.<leaf>"."""
     kinds = layer_kinds(cfg)
-    one = BLOCKS[kinds[0]]["cache"](cfg, B, cache_len)
-    return {k: _stack(s, len(kinds)) for k, s in one.items()}
+    order = list(dict.fromkeys(kinds))
+    return [("" if len(order) == 1 else f"{kind}.", kind,
+             [i for i, k in enumerate(kinds) if k == kind])
+            for kind in order]
+
+
+def cache_specs(cfg, B: int, cache_len: int) -> dict:
+    specs = {}
+    for prefix, kind, layers in cache_groups(cfg):
+        one = BLOCKS[kind]["cache"](cfg, B, cache_len)
+        specs |= {prefix + k: _stack(s, len(layers)) for k, s in one.items()}
+    return specs
+
+
+def layer_caches(cfg) -> list[tuple[dict, int]]:
+    """For each layer: {its block's cache leaf: the cache key} and its
+    index on those keys' leading axis."""
+    out = [None] * cfg.n_layers
+    for prefix, kind, layers in cache_groups(cfg):
+        leaves = BLOCKS[kind]["cache"](cfg, 1, 1)
+        for j, i in enumerate(layers):
+            out[i] = ({k: prefix + k for k in leaves}, j)
+    return out
 
 
 def _zeros(specs: dict, device) -> dict:
@@ -171,11 +202,14 @@ def _pageable_leaf(spec: ParamSpec) -> bool:
 
 def paged_cache_mask(cfg, B: int, cache_len: int) -> dict:
     """{cache leaf: True on a pool leaf} — the routing fact every paged
-    per-slot op shares."""
-    kind = layer_kinds(cfg)[0]
-    paged = _kind_paged(cfg, kind)
-    return {k: paged and _pageable_leaf(s)
-            for k, s in BLOCKS[kind]["cache"](cfg, B, cache_len).items()}
+    per-slot op shares, decided for each kind's group of leaves (the
+    reference decides it for each `sub{i}` / `rem{i}`)."""
+    mask = {}
+    for prefix, kind, _ in cache_groups(cfg):
+        paged = _kind_paged(cfg, kind)
+        mask |= {prefix + k: paged and _pageable_leaf(s)
+                 for k, s in BLOCKS[kind]["cache"](cfg, B, cache_len).items()}
+    return mask
 
 
 def paged_cache_specs(cfg, B: int, cache_len: int, *, n_pages: int,
@@ -274,7 +308,9 @@ def logits(params, hidden):
 def forward(cfg, params, tokens, *, cross_embeds=None):
     """Token ids (B, S) -> final hidden states (B, S, d) and aux loss. An
     encoder-decoder model encodes `cross_embeds` (its stub frame
-    embeddings) first and adds its learned decoder positions."""
+    embeddings) first and adds its learned decoder positions; a vision
+    model's cross blocks take `cross_embeds` (its image embeddings) as
+    they come."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
     x = params["tok_embed"][tokens.long()]
@@ -328,6 +364,7 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
     adds its learned position `dec_pos[pos]` and takes no rope."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
     kinds = layer_kinds(cfg)
+    slots = layer_caches(cfg)
     encdec = cfg.family == "encdec"
 
     @torch.inference_mode()
@@ -348,8 +385,8 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
                 x = x + params["dec_pos"][positions.long()].to(x.dtype)
             ctx = {"positions": positions, "rope": not encdec,
                    "max_seq": max_seq, "pages": batch.get("pages")}
-            for i, (kind, p) in enumerate(zip(kinds, params["blocks"])):
-                layer_cache = {k: c[i] for k, c in cache.items()}
+            for kind, p, (keys, j) in zip(kinds, params["blocks"], slots):
+                layer_cache = {k: cache[key][j] for k, key in keys.items()}
                 x, _ = BLOCKS[kind]["decode"](cfg, p, x, layer_cache, pos,
                                               ctx)
             x = _final_norm(cfg, params, x)

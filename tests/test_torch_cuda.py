@@ -39,6 +39,9 @@ BF16_TOL = dict(rtol=2e-2, atol=2e-2)
     # the wgmma path: qwen3-14b's prefill (qkv, gate/up), a ragged M, and
     # edges of M, K and N that divide no tile
     (512, 5120, 7168), (512, 5120, 17408), (1000, 5120, 5120),
+    # recurrentgemma-9b's k / v of one head of 256 and its gate / up, at
+    # prefill and decode M
+    (1000, 4096, 256), (8, 4096, 256), (8, 4096, 12288),
     (17, 136, 72), (64, 136, 136), (200, 136, 72),
     # K or N not a multiple of 8: the wmma tile
     (70, 256, 130), (100, 136, 134), (40, 130, 72)])
@@ -62,6 +65,8 @@ def test_cuda_rmsnorm_matmul(cuda, m, k, n):
                                    # the mainloop: qwen3-14b's down
                                    # projection, and edges no tile divides
                                    (512, 17408, 5120), (130, 200, 200),
+                                   # recurrentgemma-9b's down projection
+                                   (300, 12288, 4096), (8, 12288, 4096),
                                    # K % 8 != 0: the wmma tile
                                    (64, 100, 96)])
 def test_cuda_matmul_residual_add(cuda, m, k, n):
@@ -1592,6 +1597,68 @@ def test_cuda_graphed_moe_step_equals_eager(cuda, local):
     prefill = steps.make_prefill_step(cfg, policy="fused")
     batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab, (2, 24)),
                                        device=cuda)}
+    eager = prefill.eager(params, batch)
+    prefill(params, batch)                          # capture
+    assert torch.equal(prefill(params, batch), eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b-smoke",
+                                  "xlstm-125m-smoke",
+                                  "llama-3.2-vision-90b-smoke"])
+def test_cuda_graphed_recurrent_step_equals_eager(cuda, arch):
+    """The decode step of each mixed-kind arch (rglru + local_attn;
+    mlstm + slstm; attn + cross) captured as a CUDA graph gives the eager
+    step's tokens and caches bit for bit over 24 positions (recurrentgemma's
+    16-row local caches roll), under "fused". The graph writes every state
+    in place: each cache tensor keeps its address, and the recurrent
+    leaves change from replay to replay. The 24-token prefill (with 8
+    image embeddings for the vision arch, its heads widened to 128 for
+    flash_attention_proj) replays the eager tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+    from repro_torch.runtime.compile_cache import Graphed
+
+    cfg = get(arch)
+    if cfg.n_img_tokens:        # flash_attention_proj takes heads of 128
+        cfg = dataclasses.replace(cfg, head_dim=128)
+    params = steps.init_params(cfg, 0, device=cuda, max_seq=64)
+    step = steps.make_decode_step(cfg, max_seq=64, policy="fused")
+    graphed = Graphed(step, copied=(2,))
+    clen = steps.decode_cache_len(cfg, 64)
+    caches = [steps.init_cache(cfg, 4, clen, device=cuda) for _ in range(2)]
+    ptrs = {k: v.data_ptr() for k, v in caches[1].items()}
+    rng = np.random.default_rng(0)
+    toks = [torch.as_tensor(rng.integers(1, cfg.vocab, (4, 1)),
+                            dtype=torch.int32, device=cuda)] * 2
+    before = None
+    for pos in range(24):
+        _, a = step(params, caches[0], {"tokens": toks[0], "pos": pos})
+        _, b = graphed(params, caches[1], {"tokens": toks[1], "pos": pos})
+        assert torch.equal(a, b)
+        toks = [a, b]
+        now = {k: v.clone() for k, v in caches[1].items()}
+        if before is not None and pos > 2:
+            moved = [k for k in now if not torch.equal(now[k], before[k])]
+            assert moved, f"position {pos}: no cache leaf changed"
+        before = now
+    assert graphed.graphs.misses == 1
+    assert {k: v.data_ptr() for k, v in caches[1].items()} == ptrs
+    for key in caches[0]:
+        assert torch.equal(caches[0][key], caches[1][key]), key
+    state = [k for k in caches[1] if k.split(".")[-1] in
+             ("h", "conv", "C", "n", "m", "c")]
+    assert all(caches[1][k].abs().sum() > 0 for k in state)
+    prefill = steps.make_prefill_step(cfg, policy="fused")
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab, (2, 24)),
+                                       device=cuda)}
+    if cfg.n_img_tokens:
+        batch["img_embeds"] = torch.randn(
+            2, cfg.n_img_tokens, cfg.d_model, device=cuda).bfloat16()
     eager = prefill.eager(params, batch)
     prefill(params, batch)                          # capture
     assert torch.equal(prefill(params, batch), eager)
