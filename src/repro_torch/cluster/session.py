@@ -50,49 +50,53 @@ class ServeProgram:
 class ServeSessionProgram:
     """Request-level serving: a slot pool with continuous batching.
 
+    Compiles to a `CompiledServeSession`; `open()` returns a live
+    `ServeSession`. The SLO and robustness knobs configure its priority
+    admission (`admission`, `shed_watermark`, `aging_rounds`), slot
+    preemption (`preempt`), the per-chunk watchdog (`watchdog_s` ->
+    `SessionWedged`), fault recovery (`max_retries`, `retry_backoff_s`)
+    and the NaN scan (`nan_check`); `open(faults=FaultPlan(...))` arms
+    scripted faults, `open(durable_dir=...)` the journal and snapshots.
+
     `paged=True` swaps the per-slot private KV layout for the shared paged
-    pool with copy-on-write prefix reuse (`runtime/kvpool.py`).
+    pool with copy-on-write prefix reuse (`runtime/kvpool.py`). A paged
+    session runs with preemption off (slot snapshots do not carry page
+    tables), as the reference's does."""
 
-    The SLO and robustness knobs of the reference program (shedding,
-    preemption, watchdog, NaN scan, snapshots) are ROADMAP Queue 1 item 8:
-    they are declared here so that a spec written for the reference fails
-    loudly, and any value that would engage one raises NotImplementedError
-    when the program is compiled."""
-
-    slots: int = 4
+    slots: int = 4                         # slot-pool size (batch rows)
     max_seq: int = 64
-    max_prompt: int = 8
-    max_new: int = 16
+    max_prompt: int = 8                    # per-slot prompt buffer length
+    max_new: int = 16                      # one-shot run() / submit default
     seed: int = 0
     eos_id: int | None = None
-    chunk: int = 16
-    max_queue: int | None = None
-    admission: str = "fifo"
-    paged: bool = False
-    page_size: int = 16
+    chunk: int = 16                        # decode steps per host sync
+    max_queue: int | None = None           # bounded-queue backpressure
+    admission: str = "fifo"                # or "longest_prefix"
+    shed_watermark: int | None = None      # total queue depth that sheds
+    #   best-effort work (latency/throughput get QueueFull instead)
+    aging_rounds: int = 8                  # anti-starvation: +1 effective
+    #   class rank per this many admission rounds waited
+    preempt: bool = True                   # latency may snapshot + evict a
+    #   lower-class running slot (bit-identical resume)
+    watchdog_s: float | None = None        # per-chunk device-wait bound;
+    #   None = wait forever (poll(timeout_s=...) still overrides)
+    max_retries: int = 2                   # fault-recovery restarts per
+    #   request before it fails with "retries_exhausted"
+    retry_backoff_s: float = 0.05          # base of the exponential
+    #   re-admission backoff after a fault restart
+    nan_check: bool = False                # scan cache rows for NaN every
+    #   chunk (on by itself when a FaultPlan scripts corruption)
+    paged: bool = False                    # shared paged KV pool with COW
+    #   prefix reuse (forces preempt off)
+    page_size: int = 16                    # tokens per KV page
     n_pages: int | None = None             # None -> slots * pages_per_slot
     #   + 1 (the trash page)
     prefix_cache: bool = True
-    shed_watermark: int | None = None      # item 8
-    preempt: bool = False                  # item 8
-    watchdog_s: float | None = None        # item 8
-    nan_check: bool = False                # item 8
-    snapshot_every: int | None = None      # item 8
-
-    def check_ported(self) -> None:
-        engaged = [k for k, off in (("shed_watermark", None),
-                                    ("preempt", False),
-                                    ("watchdog_s", None),
-                                    ("nan_check", False),
-                                    ("snapshot_every", None))
-                   if getattr(self, k) != off]
-        if self.admission != "fifo":
-            engaged.append(f"admission={self.admission!r}")
-        if engaged:
-            raise NotImplementedError(
-                f"{', '.join(engaged)}: shedding, preemption, priority "
-                f"admission, the watchdog, fault scans and snapshots are "
-                f"ROADMAP Queue 1 item 8")
+    snapshot_every: int | None = None      # chunks between bit-exact
+    #   session snapshots (needs open(durable_dir=...)); None = journal only
+    journal_fsync: bool | int = True       # True/False/every-K (`Journal`)
+    scrub_pages: int = 2                   # stamped pages re-verified per
+    #   boundary by the integrity scrub (paged; 0 disables)
 
 
 # the reference's program specs the port does not define yet, and the
@@ -314,16 +318,18 @@ class CompiledServeSession(Program):
 
     def __init__(self, cluster: Cluster, spec: ServeSessionProgram,
                  policy: KernelPolicy):
-        spec.check_ported()
         super().__init__(cluster, spec, policy)
+        if spec.admission not in ("fifo", "longest_prefix"):
+            raise ValueError(f"unknown admission policy {spec.admission!r}")
         self._last_session = None
         cfg = cluster.arch
         step = steps.make_decode_step(cfg, max_seq=spec.max_seq,
                                       policy=policy)
         self._chunk_fn = engine.session_chunk_fn(step, spec.chunk,
                                                  eos_id=spec.eos_id)
-        self._page_copy_fn = None
         if spec.paged:
+            # the fault programs route pool leaves by table; snapshot and
+            # restore stay None: preemption is off under paging
             pps = -((spec.max_seq + 1) // -spec.page_size)   # ceil
             self._pages_per_slot = pps
             self._n_pages = (spec.n_pages if spec.n_pages is not None
@@ -332,10 +338,32 @@ class CompiledServeSession(Program):
                 cfg, spec.slots, steps.decode_cache_len(cfg, spec.max_seq))
             self._refill_fn = engine.make_paged_session_refill(
                 cache_zero=ops["zero_slots"])
+            self._snapshot_fn = None
+            self._restore_fn = None
+            self._nan_scan_fn = engine.make_paged_nan_scan(ops["nan_slots"])
+            self._corrupt_fn = engine.make_paged_slot_corrupt(
+                ops["corrupt_slots"])
             self._page_copy_fn = engine.make_page_copy(ops["copy_pages"])
+            self._page_scrub_fn = engine.make_page_scrub(ops["zero_pages"])
+            # the page readback feeds the publish-time checksums and the
+            # scrub; the page flip is the scripted silent corruption
+            self._page_read_fn = engine.make_page_read(ops["read_pages"])
+            self._page_flip_fn = engine.make_page_flip(ops["flip_pages"])
         else:
             self._refill_fn = engine.make_session_refill(
                 cache_zero=steps.zero_cache_slots)
+            self._snapshot_fn = engine.make_slot_snapshot(
+                cache_take=steps.take_cache_slot)
+            self._restore_fn = engine.make_slot_restore(
+                cache_put=steps.put_cache_slot)
+            self._nan_scan_fn = engine.make_nan_scan(
+                cache_nan=steps.nan_cache_slots)
+            self._corrupt_fn = engine.make_slot_corrupt(
+                cache_fill=steps.fill_cache_slots)
+            self._page_copy_fn = None
+            self._page_scrub_fn = None
+            self._page_read_fn = None
+            self._page_flip_fn = None
 
     def _make_state(self):
         cfg, spec = self.cluster.arch, self.spec
@@ -352,32 +380,76 @@ class CompiledServeSession(Program):
         return engine.init_session_state(cache, spec.slots, spec.max_prompt,
                                          device=self.device)
 
-    def open(self, params=None, faults=None, durable_dir=None):
-        """A fresh `ServeSession` over this cell (own slot pool, queue and
-        stall clock). Fault plans and durable directories are ROADMAP
-        Queue 1 item 8."""
+    def open(self, params=None, faults=None, durable_dir=None,
+             resume: bool = False, crash_hook=None, snapshot_every=None,
+             journal_fsync=None, device=None, journal_group=None):
+        """A fresh `ServeSession` over this cell (own slot pool, queue,
+        scheduler and stall clock). `faults` arms a `FaultPlan`.
+
+        `durable_dir` turns on the durability layer: the request journal
+        (committed once a poll) and, with ``snapshot_every``, periodic
+        bit-exact session snapshots; `resume=True` recovers from an
+        existing `durable_dir` after a crash (see `restore()`).
+        `snapshot_every` / `journal_fsync` override the spec's values for
+        this session (None keeps them). `crash_hook(chunk)` runs when a
+        scripted crash fires (the default raises `SessionCrashed`).
+        `device` places the session's parameters and state on another
+        device than the cluster's; `journal_group` tags every journal
+        event with a serving group id."""
         from repro_torch.runtime.kvpool import PagedKV
         from repro_torch.runtime.serve_loop import ServeSession
 
-        if faults is not None or durable_dir is not None:
-            raise NotImplementedError("fault injection and durable serving "
-                                      "are ROADMAP Queue 1 item 8")
         spec = self.spec
         if params is None:
             params = self.init_params()
+        make_state = self._make_state
+        if device is not None:
+            device = resolve_device(device)
+            params = _to_device(params, device)
+            make_state = lambda: _to_device(self._make_state(), device)
         kv = None
         if spec.paged:
             kv = PagedKV(self._n_pages, spec.page_size, spec.slots,
                          self._pages_per_slot,
                          prefix_cache=spec.prefix_cache)
-        sess = ServeSession(self._chunk_fn, self._refill_fn, params,
-                            self._make_state(), n_slots=spec.slots,
-                            chunk=spec.chunk, max_prompt=spec.max_prompt,
-                            max_seq=spec.max_seq, eos_id=spec.eos_id,
-                            max_queue=spec.max_queue, kv=kv,
-                            page_copy_fn=self._page_copy_fn)
+        sess = ServeSession(
+            self._chunk_fn, self._refill_fn, params, make_state(),
+            n_slots=spec.slots, chunk=spec.chunk,
+            max_prompt=spec.max_prompt, max_seq=spec.max_seq,
+            eos_id=spec.eos_id, max_queue=spec.max_queue,
+            admission=spec.admission, shed_watermark=spec.shed_watermark,
+            aging_rounds=spec.aging_rounds,
+            preempt=spec.preempt and not spec.paged,
+            snapshot_fn=self._snapshot_fn, restore_fn=self._restore_fn,
+            nan_scan_fn=self._nan_scan_fn, corrupt_fn=self._corrupt_fn,
+            state_factory=make_state, watchdog_s=spec.watchdog_s,
+            max_retries=spec.max_retries,
+            retry_backoff_s=spec.retry_backoff_s,
+            nan_check=spec.nan_check, kv=kv,
+            page_copy_fn=self._page_copy_fn,
+            page_scrub_fn=self._page_scrub_fn, faults=faults,
+            durable_dir=durable_dir,
+            snapshot_every=(spec.snapshot_every if snapshot_every is None
+                            else snapshot_every),
+            journal_fsync=(spec.journal_fsync if journal_fsync is None
+                           else journal_fsync),
+            page_read_fn=self._page_read_fn,
+            page_flip_fn=self._page_flip_fn, scrub_pages=spec.scrub_pages,
+            crash_hook=crash_hook, resume=resume,
+            journal_group=journal_group)
         self._last_session = sess
         return sess
+
+    def restore(self, durable_dir, params=None, faults=None, **kwargs):
+        """Resume a crashed session from its `durable_dir`: the latest
+        snapshot (if any) is copied into a fresh state in place, the
+        journal tail replayed, and a live session returned. Requests that
+        finished before the crash surface on `sess.recovered`; in-flight
+        ones resume (bit for bit from the snapshot, or by a new prefill
+        with the journal-committed prefix suppressed): delivery stays
+        exactly once. `kwargs` go to `open`."""
+        return self.open(params=params, faults=faults,
+                         durable_dir=durable_dir, resume=True, **kwargs)
 
     def run(self, params=None, prompt=None, max_new: int | None = None):
         """One-shot: one request per slot (the start token 0, or row i of
@@ -436,3 +508,13 @@ class CompiledServeSession(Program):
         if self._last_session is not None:
             out["session"] = self._last_session.stats()
         return out
+
+
+def _to_device(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree

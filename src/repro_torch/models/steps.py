@@ -28,6 +28,7 @@ Training (`loss_fn`, `make_train_step`) waits for ROADMAP Queue 1 item 11.
 
 from __future__ import annotations
 
+import math
 import numbers
 
 import torch
@@ -166,11 +167,53 @@ def init_cache(cfg, B: int, cache_len: int, *, device=None):
     return _zeros(cache_specs(cfg, B, cache_len), device)
 
 
+def fill_cache_slots(cache, mask, value):
+    """Fill the masked batch rows (mask: (B,) bool tensor) of every leaf
+    with `value`, in place. Integer leaves are left untouched when `value`
+    is not finite (NaN fault injection must not touch integer state)."""
+    finite = math.isfinite(value)
+    for c in cache.values():
+        if finite or c.is_floating_point():
+            c[:, mask] = value
+    return cache
+
+
 def zero_cache_slots(cache, mask):
     """Zero the masked batch rows (mask: (B,) bool tensor), in place."""
-    for c in cache.values():
-        c[:, mask] = 0
+    return fill_cache_slots(cache, mask, 0.0)
+
+
+def take_cache_slot(cache, slot):
+    """A copy of slot `slot`'s rows of every leaf (the device half of a slot
+    snapshot). A copy, not a view: a captured session step overwrites the
+    live rows at its next replay."""
+    return {k: c.select(1, slot).clone() for k, c in cache.items()}
+
+
+def put_cache_slot(cache, slot, rows):
+    """Write `rows` (a `take_cache_slot` result) back into slot `slot`, in
+    place and bit for bit."""
+    for k, c in cache.items():
+        c.select(1, slot).copy_(rows[k])
     return cache
+
+
+def _nan_along(c, axis: int):
+    """(c.shape[axis],) bool: any NaN in each index of `axis` (one
+    reduction over the other axes, no copy of the mask)."""
+    return torch.isnan(c).any(dim=tuple(d for d in range(c.ndim)
+                                        if d != axis))
+
+
+def nan_cache_slots(cache):
+    """(B,) bool tensor: any NaN in a slot's rows of any float leaf (the
+    corruption sentinel the session scans after a chunk)."""
+    out = None
+    for c in cache.values():
+        if c.is_floating_point():
+            f = _nan_along(c, 1)
+            out = f if out is None else out | f
+    return out
 
 
 def decode_cache_len(cfg, seq_len: int) -> int:
@@ -241,9 +284,16 @@ def make_paged_cache_ops(cfg, B: int, cache_len: int):
       only (pool pages are deliberately not zeroed: stale data is masked
       out by decode attention);
     * ``copy_pages(cache, src, dst)`` — pool page copy (the COW fork);
-    * ``zero_pages(cache, pages)`` — pool page scrub.
-
-    The NaN scan, fault and integrity ops wait for ROADMAP item 8."""
+    * ``zero_pages(cache, pages)`` — pool page scrub;
+    * ``nan_slots(cache, tables)`` — (B,) bool: a NaN in a slot's private
+      rows or in a pool page its table maps (trash-page entries ignored,
+      so one poisoned slot does not flag its retired neighbours);
+    * ``corrupt_slots(cache, mask, tables)`` — NaN into the masked slots'
+      private rows and every page their tables map (fault injection);
+    * ``read_pages(cache, pages)`` — the listed pages of every pool leaf,
+      page axis first ((n, L, page_size, ...)), for the checksums;
+    * ``flip_pages(cache, pages)`` — +1 on the listed pages' float values
+      (the silent, finite `bit_flip` fault)."""
     paged_cache_specs(cfg, B, cache_len, n_pages=2, page_size=1)  # validate
     mask = paged_cache_mask(cfg, B, cache_len)
     pools = [k for k, m in mask.items() if m]
@@ -268,8 +318,50 @@ def make_paged_cache_ops(cfg, B: int, cache_len: int):
                 attn_lib.zero_pages(pool, pages)
         return cache
 
+    def nan_slots(cache, tables):
+        tables = tables.long()
+        live = tables != 0                       # trash-page entries
+        out = None
+        for key, paged in mask.items():
+            c = cache[key]
+            if not c.is_floating_point():
+                continue
+            if paged:
+                f = (_nan_along(c, 1)[tables] & live).any(1)
+            else:
+                f = _nan_along(c, 1)
+            out = f if out is None else out | f
+        return out
+
+    def corrupt_slots(cache, slot_mask, tables):
+        rows = tables.long()[slot_mask]
+        hit = rows[rows != 0]
+        for key, paged in mask.items():
+            c = cache[key]
+            if c.is_floating_point():
+                c[:, hit if paged else slot_mask] = float("nan")
+        return cache
+
+    def read_pages(cache, pages):
+        out = []
+        for key in pools:
+            c = cache[key]
+            idx = torch.as_tensor(pages, device=c.device).long()
+            out.append(c[:, idx].movedim(1, 0))
+        return tuple(out)
+
+    def flip_pages(cache, pages):
+        for key in pools:
+            c = cache[key]
+            if c.is_floating_point():
+                idx = torch.as_tensor(pages, device=c.device).long()
+                c[:, idx] += 1
+        return cache
+
     return {"zero_slots": zero_slots, "copy_pages": copy_pages,
-            "zero_pages": zero_pages}
+            "zero_pages": zero_pages, "nan_slots": nan_slots,
+            "corrupt_slots": corrupt_slots, "read_pages": read_pages,
+            "flip_pages": flip_pages}
 
 
 # ----------------------------------------------------------------------------

@@ -82,6 +82,16 @@ class StallClock:
         self._last_sync_end = now
         return now
 
+    def sync_done(self, t_wait_start: float) -> float:
+        """Record a sync whose device wait happened elsewhere (the
+        session's watchdog polls an event): the wait ran from
+        `t_wait_start` to now."""
+        now = time.perf_counter()
+        self.host_syncs += 1
+        self.device_wait_s += now - t_wait_start
+        self._last_sync_end = now
+        return now
+
     def report(self) -> dict:
         wall = time.perf_counter() - self._t_start
         return {
@@ -533,3 +543,141 @@ def make_page_scrub(cache_scrub: Callable) -> Callable:
         return state
 
     return page_scrub
+
+
+def _as_index(a, device, dtype=torch.int64):
+    return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+
+def make_paged_nan_scan(cache_nan: Callable) -> Callable:
+    """Paged corruption sentinel: `nan_scan(state) -> (B,) bool` tensor.
+    `cache_nan(cache, tables)` is `make_paged_cache_ops["nan_slots"]`:
+    pool leaves are attributed to slots through the page tables."""
+
+    @torch.inference_mode()
+    def nan_scan(state):
+        return cache_nan(state["cache"], state["pages"])
+
+    return nan_scan
+
+
+def make_paged_slot_corrupt(cache_corrupt: Callable) -> Callable:
+    """Paged fault injection: `corrupt(state, mask) -> state`, in place,
+    NaNs the masked slots' private rows and their table-addressed pool
+    pages (`make_paged_cache_ops["corrupt_slots"]`)."""
+
+    @torch.inference_mode()
+    def corrupt(state, mask):
+        cache_corrupt(state["cache"], _as_index(mask, state["tok"].device,
+                                                torch.bool), state["pages"])
+        return state
+
+    return corrupt
+
+
+def make_page_read(cache_read: Callable) -> Callable:
+    """Pool page readback for the integrity checksums: `page_read(state,
+    pages) -> tuple` of host numpy arrays, one a pool leaf, page axis
+    first, holding the pages' raw bytes (bf16 has no numpy type)."""
+
+    @torch.inference_mode()
+    def page_read(state, pages):
+        return tuple(t.contiguous().view(torch.uint8).cpu().numpy()
+                     for t in cache_read(state["cache"], pages))
+
+    return page_read
+
+
+def make_page_flip(cache_flip: Callable) -> Callable:
+    """Silent page corruption for the `bit_flip` fault: `page_flip(state,
+    pages) -> state` adds 1 to the pages' float content in place: finite
+    values the NaN scan cannot see, so only the checksum catches them."""
+
+    @torch.inference_mode()
+    def page_flip(state, pages):
+        cache_flip(state["cache"], pages)
+        return state
+
+    return page_flip
+
+
+# ----------------------------------------------------------------------------
+# Slot-granular checkpoint/resume + fault detection
+# ----------------------------------------------------------------------------
+#
+# A slot must be individually checkpointable (preemption snapshots its
+# cache rows and decode counters and requeues the request for a
+# bit-identical resume) and individually condemnable (a dead or corrupted
+# slot is quarantined and the pool degrades instead of crashing). These
+# are the device half; `ServeSession` drives them. Every write is in
+# place: a captured session step replays on the addresses it captured.
+#
+# The per-request device rows that travel with a slot snapshot. `active`
+# and `age` are slot properties: restore sets active and bumps age like
+# any other admission.
+SLOT_FIELDS = ("tok", "pos", "consumed", "prompt_len", "prompt_buf",
+               "budget", "emitted", "finished")
+
+
+def make_slot_snapshot(*, cache_take: Callable) -> Callable:
+    """The slot checkpoint: `snapshot(state, slot) -> rows`, a copy on the
+    state's device of slot `slot`'s cache rows (`cache_take`, e.g.
+    `steps.take_cache_slot`) and every `SLOT_FIELDS` entry. The pool
+    state is left as it is."""
+
+    @torch.inference_mode()
+    def snapshot(state, slot):
+        slot = int(slot)
+        # the cache rows first: their copy runs while the host dispatches
+        # the small fields
+        rows = {"cache": cache_take(state["cache"], slot)}
+        rows.update((k, state[k][slot].clone()) for k in SLOT_FIELDS)
+        return rows
+
+    return snapshot
+
+
+def make_slot_restore(*, cache_put: Callable) -> Callable:
+    """The slot resume: `restore(state, slot, rows) -> state` writes a
+    snapshot's rows back into slot `slot` in place and bit for bit
+    (`cache_put`, e.g. `steps.put_cache_slot`), marks the slot active
+    and bumps its `age` (a resume is an admission)."""
+
+    @torch.inference_mode()
+    def restore(state, slot, rows):
+        slot = int(slot)
+        cache_put(state["cache"], slot, rows["cache"])
+        for k in SLOT_FIELDS:
+            state[k][slot].copy_(rows[k])
+        state["active"][slot].fill_(True)
+        state["age"][slot].add_(1)
+        return state
+
+    return restore
+
+
+def make_nan_scan(*, cache_nan: Callable) -> Callable:
+    """The corruption sentinel: `nan_scan(state) -> (B,) bool` tensor, true
+    for a slot whose cache rows hold a NaN (`cache_nan`, e.g.
+    `steps.nan_cache_slots`). One pass over the cache a chunk when the
+    session runs with `nan_check`."""
+
+    @torch.inference_mode()
+    def nan_scan(state):
+        return cache_nan(state["cache"])
+
+    return nan_scan
+
+
+def make_slot_corrupt(*, cache_fill: Callable) -> Callable:
+    """Fault injection: `corrupt(state, mask) -> state` sets the masked
+    slots' float cache rows to NaN in place (`cache_fill`, e.g.
+    `steps.fill_cache_slots`; integer rows untouched)."""
+
+    @torch.inference_mode()
+    def corrupt(state, mask):
+        cache_fill(state["cache"], _as_index(mask, state["tok"].device,
+                                             torch.bool), float("nan"))
+        return state
+
+    return corrupt

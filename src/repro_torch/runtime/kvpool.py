@@ -13,10 +13,18 @@ page tables (the port of `repro.runtime.kvpool`, host numpy throughout).
   LRU-first under memory pressure.
 * `PagedKV` — the session's façade: `admit` builds a slot's table row
   (shared + fresh pages, prefill skip, pending COW copies), `publish`
-  seeds the prefix cache, `release` returns the pages.
+  seeds the prefix cache (stamping each published page's content
+  checksum), `release` returns the pages (marking them dirty when they
+  come from a corrupted slot, so that the session scrubs them before
+  reuse), `verify` / `quarantine_page` / `scrub_candidates` are the
+  integrity layer, and `snapshot` / `load_snapshot` round-trip every
+  host-side structure through JSON for session snapshots.
 
-Page checksums, the integrity scrub, quarantine and snapshots belong to
-durable serving (ROADMAP Queue 1 item 8).
+Reads from stale pages are harmless (masked attention gives them
+exactly-zero weight); only NaN survives the mask (0 * NaN), which is why
+pages freed from a corrupted slot are scrubbed on device before reuse.
+Page digests (`page_digests`) follow the port's own cache leaf order, so
+they are compared within one package only.
 """
 
 from __future__ import annotations
@@ -53,6 +61,12 @@ class PagePool:
         self.refcount = np.zeros(n_pages, np.int32)
         self.refcount[TRASH_PAGE] = 1          # pinned forever
         self._free: list[int] = list(range(n_pages - 1, 0, -1))
+        # pages that may hold NaN (freed from a corrupted slot): scrubbed
+        # on device before they are handed out again
+        self.dirty: set[int] = set()
+        # pages whose content failed an integrity check: never re-enter
+        # the free list (they count as used capacity)
+        self.quarantined: set[int] = set()
         self.allocs = 0
         self.alloc_failures = 0
 
@@ -98,9 +112,31 @@ class PagePool:
                 raise RuntimeError(f"release of free page {p}")
             self.refcount[p] -= 1
             if self.refcount[p] == 0:
+                if p in self.quarantined:
+                    continue               # fenced off: never reallocated
                 self._free.append(p)
                 freed.append(p)
         return freed
+
+    def quarantine(self, page: int) -> None:
+        """Fence a page off permanently: it never re-enters the free list
+        (current holders drop their references normally)."""
+        page = int(page)
+        if page == TRASH_PAGE:
+            return
+        self.quarantined.add(page)
+        if self.refcount[page] == 0 and page in self._free:
+            self._free.remove(page)
+
+    def mark_dirty(self, pages) -> None:
+        self.dirty.update(int(p) for p in pages if p != TRASH_PAGE)
+
+    def take_dirty_free(self) -> list[int]:
+        """Dirty pages that are currently free — the scrub set. Clears
+        the returned pages' dirty marks."""
+        out = [p for p in sorted(self.dirty) if self.refcount[p] == 0]
+        self.dirty.difference_update(out)
+        return out
 
     def stats(self) -> dict:
         return {"n_pages": self.n_pages, "page_size": self.page_size,
@@ -109,7 +145,8 @@ class PagePool:
                 "occupancy_pct": 100.0 * self.used_pages /
                 max(self.n_pages - 1, 1),
                 "allocs": self.allocs,
-                "alloc_failures": self.alloc_failures}
+                "alloc_failures": self.alloc_failures,
+                "quarantined_pages": len(self.quarantined)}
 
 
 def _page_key(prev_key: bytes, tokens: np.ndarray) -> bytes:
@@ -117,6 +154,21 @@ def _page_key(prev_key: bytes, tokens: np.ndarray) -> bytes:
     h = hashlib.blake2b(prev_key, digest_size=16)
     h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
     return h.digest()
+
+
+def page_digests(arrays, n: int) -> list[bytes]:
+    """Content checksum per page from a page-major host readback: `arrays`
+    holds one numpy array per pool leaf, page axis first (what the
+    session's `page_read_fn` returns). The digest of page j folds page j
+    of every leaf, so any single leaf's corruption changes it."""
+    host = [np.asarray(a) for a in arrays]
+    out = []
+    for j in range(n):
+        h = hashlib.blake2b(digest_size=16)
+        for a in host:
+            h.update(np.ascontiguousarray(a[j]).tobytes())
+        out.append(h.digest())
+    return out
 
 
 @dataclasses.dataclass
@@ -161,7 +213,7 @@ class PrefixCache:
                 self._chain[key].last_used = self._touch()
                 continue
             page = int(pages[k])
-            if page == TRASH_PAGE:
+            if page == TRASH_PAGE or page in self.pool.quarantined:
                 break
             self.pool.ref([page])
             self._chain[key] = _PrefixEntry(page, page_toks.copy(), parent,
@@ -230,6 +282,28 @@ class PrefixCache:
             freed += self.pool.release([e.page])
         return freed
 
+    def drop_page(self, page: int) -> list[int]:
+        """Remove every chain entry routed through `page`, and every entry
+        downstream of one (a suffix is meaningless without its prefix).
+        Releases their cache references; returns the pages that became
+        free. Not an eviction: the eviction counter is left alone."""
+        doomed = {k for k, e in self._chain.items() if e.page == page}
+        changed = bool(doomed)
+        while changed:
+            changed = False
+            for k, e in self._chain.items():
+                if k not in doomed and e.parent in doomed:
+                    doomed.add(k)
+                    changed = True
+        freed: list[int] = []
+        for k in doomed:
+            e = self._chain.pop(k)
+            freed += self.pool.release([e.page])
+        return freed
+
+    def clear(self) -> list[int]:
+        return self.evict(len(self._chain))
+
 
 @dataclasses.dataclass
 class SlotAlloc:
@@ -242,7 +316,12 @@ class SlotAlloc:
 
 
 class PagedKV:
-    """Per-session paged-KV manager: pool + prefix cache + slot tables."""
+    """Per-session paged-KV manager: pool + prefix cache + slot tables.
+
+    The session calls `admit` at refill boundaries (may raise
+    `PoolExhausted`), `release` whenever a slot retires and `publish`
+    when a request completes cleanly. Host-side numpy throughout; the
+    device only sees the table rows."""
 
     def __init__(self, n_pages: int, page_size: int, n_slots: int,
                  pages_per_slot: int, *, prefix_cache: bool = True):
@@ -258,13 +337,25 @@ class PagedKV:
         self.pages_shared_total = 0
         self.prefill_skipped_tokens = 0
         self.cow_forks = 0
+        # per-page content checksums, stamped at publish (integrity)
+        self.checksums: dict[int, bytes] = {}
+        self.integrity_checks = 0
+        self.integrity_violations = 0
+        self.integrity_repairs = 0
+        self._scrub_cursor = 0
 
-    def admit(self, slot: int, prompt: np.ndarray,
-              max_new: int) -> SlotAlloc:
+    def admit(self, slot: int, prompt: np.ndarray, max_new: int, *,
+              verify=None) -> SlotAlloc:
         """Build the slot's page table for `prompt` + up to `max_new`
         output tokens: shared prefix pages read-only, the rest fresh.
         Raises `PoolExhausted` (allocating nothing) when the pool cannot
-        cover the fresh pages even after evicting prefix-cache entries."""
+        cover the fresh pages even after evicting prefix-cache entries.
+
+        `verify(pages) -> bad_pages` is the integrity hook: matched pages
+        are checked against their publish checksums before they are
+        shared. A corrupt page is quarantined (its chain dropped), the
+        match is retried (it now stops at the clean prefix) and the rest
+        is prefilled anew: repair by recompute."""
         if self._slot_owned[slot]:
             raise RuntimeError(f"slot {slot} already mapped")
         ps = self.pool.page_size
@@ -276,6 +367,13 @@ class PagedKV:
                 f"{self.pages_per_slot} (prompt {prompt.size} + "
                 f"max_new {max_new}, page_size {ps})")
         shared = self.prefix.match(prompt) if self.prefix else []
+        if shared and verify is not None:
+            bad = list(verify(shared))
+            if bad:
+                for p in bad:
+                    self.quarantine_page(p)
+                shared = self.prefix.match(prompt) if self.prefix else []
+                self.integrity_repairs += 1
         # the final prompt token is always re-fed (its forward pass emits
         # the first token); an exact full-coverage hit COW-forks the page
         # that token writes into
@@ -288,7 +386,8 @@ class PagedKV:
             fresh = self.pool.alloc(n_fresh)
         except PoolExhausted:
             if self.prefix is not None:
-                self.prefix.evict(n_fresh - self.pool.free_pages)
+                evicted = self.prefix.evict(n_fresh - self.pool.free_pages)
+                self._purge_checksums(evicted)
             try:
                 fresh = self.pool.alloc(n_fresh)
             except PoolExhausted:
@@ -313,34 +412,205 @@ class PagedKV:
         return SlotAlloc(table=table, prefill_skip=skip,
                          shared_pages=len(shared), cow_copies=cow)
 
-    def publish(self, slot: int) -> int:
+    def publishable_pages(self, slot: int) -> list[int]:
+        """The slot's fully written prompt pages: what `publish` would
+        seed the prefix cache with, and what the session digests for the
+        integrity stamp."""
+        if self.prefix is None or self._slot_prompt[slot] is None:
+            return []
+        ps = self.pool.page_size
+        prompt = self._slot_prompt[slot]
+        n_full = min(prompt.size // ps, len(self._slot_table[slot]))
+        return [p for p in self._slot_table[slot][:n_full]
+                if p != TRASH_PAGE]
+
+    def publish(self, slot: int, *,
+                digests: "dict[int, bytes] | None" = None) -> int:
         """Seed the prefix cache with the slot's fully written prompt
-        pages (on clean completion, before `release`)."""
+        pages (on clean completion, before `release`). `digests` stamps
+        each page's content checksum; a page that already carries a stamp
+        keeps it (re-stamping a shared page from possibly corrupted
+        content would mask the corruption)."""
         if self.prefix is None or self._slot_prompt[slot] is None:
             return 0
-        return self.prefix.insert(self._slot_prompt[slot],
-                                  self._slot_table[slot])
+        published = self.prefix.insert(self._slot_prompt[slot],
+                                       self._slot_table[slot])
+        for page, digest in (digests or {}).items():
+            if int(page) not in self.pool.quarantined:
+                self.checksums.setdefault(int(page), digest)
+        return published
 
-    def release(self, slot: int) -> list[int]:
+    def release(self, slot: int, *, dirty: bool = False) -> list[int]:
         """Return the slot's pages (shared pages survive while referenced).
-        Returns the freed page ids."""
+        `dirty=True` marks the freed pages for a device scrub before reuse
+        (NaN corruption). Returns the freed page ids."""
         owned = self._slot_owned[slot]
         self._slot_owned[slot] = []
         self._slot_table[slot] = []
         self._slot_prompt[slot] = None
-        return self.pool.release(owned)
+        freed = self.pool.release(owned)
+        self._purge_checksums(freed)
+        if dirty:
+            self.pool.mark_dirty(freed)
+        return freed
+
+    # -- integrity -----------------------------------------------------------
+    def _purge_checksums(self, pages) -> None:
+        """Stamps die with the content: a freed page's next occupant has
+        other bytes, and a stale stamp would read as corruption."""
+        for p in pages:
+            self.checksums.pop(int(p), None)
+
+    def verify(self, pages, digests) -> list[int]:
+        """The pages whose current digest differs from its publish stamp
+        (unstamped pages are skipped)."""
+        bad = []
+        for p, d in zip(pages, digests):
+            want = self.checksums.get(int(p))
+            if want is None:
+                continue
+            self.integrity_checks += 1
+            if d != want:
+                bad.append(int(p))
+        return bad
+
+    def quarantine_page(self, page: int) -> list[int]:
+        """Detected corruption on `page`: fence it off in the pool, drop
+        every prefix chain routed through it and purge dead stamps. Slots
+        mapping it keep running (new sharers are what this protects).
+        Returns the pages the chain drop freed."""
+        page = int(page)
+        self.integrity_violations += 1
+        self.pool.quarantine(page)         # before the drop: release()
+        freed = []                         # then routes around the free list
+        if self.prefix is not None:
+            freed = self.prefix.drop_page(page)
+        self._purge_checksums(freed)
+        self.checksums.pop(page, None)
+        return freed
+
+    def scrub_candidates(self, limit: int) -> list[int]:
+        """A round-robin slice of the stamped pages for the background
+        integrity scrub (a few a chunk boundary: bounded cost, every
+        published page re-checked in turn)."""
+        pages = sorted(self.checksums)
+        if not pages or limit <= 0:
+            return []
+        n = min(int(limit), len(pages))
+        out = [pages[(self._scrub_cursor + i) % len(pages)]
+               for i in range(n)]
+        self._scrub_cursor = (self._scrub_cursor + n) % len(pages)
+        return out
+
+    def reset(self) -> None:
+        """Forget everything (wedge recovery: the device pool was rebuilt,
+        so every table, page and prefix entry is void)."""
+        for s in range(self.n_slots):
+            self._slot_owned[s] = []
+            self._slot_table[s] = []
+            self._slot_prompt[s] = None
+        self.pool = PagePool(self.pool.n_pages, self.pool.page_size)
+        if self.prefix is not None:
+            evictions = self.prefix.evictions   # lifetime counter survives
+            self.prefix = PrefixCache(self.pool)
+            self.prefix.evictions = evictions
+        self.checksums = {}
+        self._scrub_cursor = 0
 
     def slot_pages(self, slot: int) -> list[int]:
+        """The page ids the slot's device table addresses (table order)."""
         return list(self._slot_table[slot])
 
     def match_len(self, prompt) -> int:
+        """Reusable prefix length in tokens: the scheduler's page-level
+        admission score (peek only)."""
         return self.prefix.match_len(prompt) if self.prefix else 0
+
+    def match_pages(self, prompt) -> int:
+        """`match_len` in pages."""
+        return self.match_len(prompt) // self.pool.page_size
+
+    # -- durability ----------------------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-able image of every host-side structure (the reference's
+        keys): pool refcounts, free list, dirty and quarantine sets, slot
+        tables and prompts, the prefix chain, checksums, counters.
+        Bit-exact round trip with `load_snapshot`."""
+        pre = self.prefix
+        return {
+            "refcount": self.pool.refcount.tolist(),
+            "free": list(self.pool._free),
+            "dirty": sorted(self.pool.dirty),
+            "quarantined": sorted(self.pool.quarantined),
+            "allocs": self.pool.allocs,
+            "alloc_failures": self.pool.alloc_failures,
+            "slot_owned": [list(o) for o in self._slot_owned],
+            "slot_table": [list(t) for t in self._slot_table],
+            "slot_prompt": [None if p is None else p.tolist()
+                            for p in self._slot_prompt],
+            "chain": None if pre is None else [
+                {"key": k.hex(), "parent": e.parent.hex(), "page": e.page,
+                 "tokens": e.tokens.tolist(), "hits": e.hits,
+                 "last_used": e.last_used}
+                for k, e in pre._chain.items()],
+            "prefix_hits": 0 if pre is None else pre.hits,
+            "prefix_misses": 0 if pre is None else pre.misses,
+            "prefix_evictions": 0 if pre is None else pre.evictions,
+            "prefix_tick": 0 if pre is None else pre._tick,
+            "checksums": {str(p): d.hex()
+                          for p, d in sorted(self.checksums.items())},
+            "pages_shared_total": self.pages_shared_total,
+            "prefill_skipped_tokens": self.prefill_skipped_tokens,
+            "cow_forks": self.cow_forks,
+            "integrity_checks": self.integrity_checks,
+            "integrity_violations": self.integrity_violations,
+            "integrity_repairs": self.integrity_repairs,
+            "scrub_cursor": self._scrub_cursor,
+        }
+
+    def load_snapshot(self, d: dict) -> None:
+        """Rebuild the pool, cache and tables in place from `snapshot()`."""
+        pool = self.pool
+        pool.refcount = np.asarray(d["refcount"], np.int32)
+        pool._free = [int(p) for p in d["free"]]
+        pool.dirty = {int(p) for p in d["dirty"]}
+        pool.quarantined = {int(p) for p in d.get("quarantined", [])}
+        pool.allocs = int(d["allocs"])
+        pool.alloc_failures = int(d["alloc_failures"])
+        self._slot_owned = [[int(p) for p in o] for o in d["slot_owned"]]
+        self._slot_table = [[int(p) for p in t] for t in d["slot_table"]]
+        self._slot_prompt = [None if p is None else np.asarray(p, np.int32)
+                             for p in d["slot_prompt"]]
+        pre = self.prefix
+        if pre is not None:
+            pre._chain = {
+                bytes.fromhex(rec["key"]): _PrefixEntry(
+                    int(rec["page"]), np.asarray(rec["tokens"], np.int32),
+                    bytes.fromhex(rec["parent"]), int(rec["hits"]),
+                    last_used=int(rec.get("last_used", 0)))
+                for rec in (d["chain"] or [])}
+            pre.hits = int(d.get("prefix_hits", 0))
+            pre.misses = int(d.get("prefix_misses", 0))
+            pre.evictions = int(d.get("prefix_evictions", 0))
+            pre._tick = int(d.get("prefix_tick", 0))
+        self.checksums = {int(p): bytes.fromhex(h)
+                          for p, h in d.get("checksums", {}).items()}
+        self.pages_shared_total = int(d["pages_shared_total"])
+        self.prefill_skipped_tokens = int(d["prefill_skipped_tokens"])
+        self.cow_forks = int(d["cow_forks"])
+        self.integrity_checks = int(d.get("integrity_checks", 0))
+        self.integrity_violations = int(d.get("integrity_violations", 0))
+        self.integrity_repairs = int(d.get("integrity_repairs", 0))
+        self._scrub_cursor = int(d.get("scrub_cursor", 0))
 
     def stats(self) -> dict:
         out = dict(self.pool.stats())
         out.update(pages_shared=self.pages_shared_total,
                    prefill_skipped_tokens=self.prefill_skipped_tokens,
-                   cow_forks=self.cow_forks)
+                   cow_forks=self.cow_forks,
+                   integrity_checks=self.integrity_checks,
+                   integrity_violations=self.integrity_violations,
+                   integrity_repairs=self.integrity_repairs)
         if self.prefix is not None:
             out.update(prefix_entries=len(self.prefix),
                        prefix_hits=self.prefix.hits,

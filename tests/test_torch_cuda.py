@@ -186,6 +186,156 @@ def test_cuda_graph_session_matches_eager(cuda):
 
 
 # ----------------------------------------------------------------------------
+# the robustness layer on a captured session: every write in place
+# ----------------------------------------------------------------------------
+
+def _chaos_session(paged, **kw):
+    """A 2-layer qwen3-shaped session under "fused" on the card (4 slots,
+    chunk 8) with four requests in; the first poll captures the step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.cluster.session import Cluster, ServeSessionProgram
+    from repro_torch.configs import get
+
+    cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2, d_model=256,
+                              n_heads=4, n_kv_heads=2, d_ff=512, vocab=512)
+    cluster = Cluster(cfg)
+    extra = dict(paged=True, page_size=8) if paged else {}
+    with cluster.policy("fused"):
+        prog = cluster.compile(ServeSessionProgram(
+            slots=4, max_seq=64, max_prompt=16, chunk=8,
+            retry_backoff_s=0.0, **extra, **kw))
+    rng = np.random.default_rng(2)
+    reqs = [(rng.integers(1, 512, 3 + i), 20 + i) for i in range(4)]
+    return prog, prog.init_params(5), reqs
+
+
+def _serve(sess, reqs):
+    handles = [sess.submit(p, n) for p, n in reqs]
+    sess.drain()
+    return [h.result().tolist() for h in handles]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_nan_corruption_seen_by_the_next_replay_in_its_slot(cuda,
+                                                                 paged):
+    """NaN written into slot 2 of a captured session's state (rows, or the
+    pages its table maps) is what the next graph replay reads: the NaN
+    scan after it flags slot 2 and no other."""
+    import numpy as np
+
+    prog, params, reqs = _chaos_session(paged)
+    sess = prog.open(params=params)
+    for p, n in reqs:
+        sess.submit(p, n)
+    sess.poll()
+    assert sess.captures == 1
+    mask = np.array([False, False, True, False])
+    sess._fault_fn("corrupt_fn")(sess.state, mask)
+    sess._chunk_fn(sess.params, sess.state)         # a replay
+    assert sess.captures == 1 and "step_graph" in sess.state
+    flags = sess._fault_fn("nan_scan_fn")(sess.state).cpu().numpy()
+    np.testing.assert_array_equal(flags, mask)
+
+
+@pytest.mark.cuda
+def test_cuda_slot_snapshot_restore_across_replays(cuda):
+    """Snapshot every slot of a captured private session, replay a chunk,
+    restore the snapshots in place, replay again: the second chunk's
+    tokens equal the first's (the uninterrupted run), and no state
+    tensor moved."""
+    prog, params, reqs = _chaos_session(False)
+    sess = prog.open(params=params)
+    for p, n in reqs:
+        sess.submit(p, n)
+    sess.poll()
+    ptrs = [t.data_ptr() for k, t in sess.state.items()
+            if isinstance(t, torch.Tensor)]
+    snaps = [sess._fault_fn("snapshot_fn")(sess.state, s) for s in range(4)]
+    age = sess.state["age"].clone()
+    _, want, emit, _, _ = sess._chunk_fn(sess.params, sess.state)
+    for s, rows in enumerate(snaps):
+        sess._fault_fn("restore_fn")(sess.state, s, rows)
+    assert torch.equal(sess.state["age"], age + 1)
+    _, got, emit2, _, _ = sess._chunk_fn(sess.params, sess.state)
+    assert torch.equal(got, want) and torch.equal(emit2, emit)
+    assert sess.captures == 1 and ptrs == [
+        t.data_ptr() for k, t in sess.state.items()
+        if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_restore_session_keeps_data_ptrs(cuda, tmp_path, paged):
+    """`restore_session` into a captured session's state writes every
+    leaf in place (its data_ptr kept) and skips the step graph; a crash
+    then `restore` on the card delivers every token once, equal to a
+    fault-free run."""
+    from repro_torch.runtime import FaultPlan, SessionCrashed
+    from repro_torch.runtime.journal import read_events, replay
+
+    prog, params, reqs = _chaos_session(paged)
+    want = _serve(prog.open(params=params), reqs)
+    sess = prog.open(params=params, durable_dir=tmp_path / "a",
+                     snapshot_every=1)
+    for p, n in reqs:
+        sess.submit(p, n)
+    sess.poll()
+    sess.poll()
+    saved = {k: t.clone() for k, t in sess.state["cache"].items()}
+    ptrs = {k: t.data_ptr() for k, t in sess.state["cache"].items()}
+    ckpt = sess._get_ckpt()
+    for t in sess.state["cache"].values():
+        t.zero_()
+    out, _ = ckpt.restore_session(ckpt.latest_session_step(),
+                                  like=sess.state)
+    assert out["step_graph"] is sess.state["step_graph"]
+    for k, t in sess.state["cache"].items():
+        assert t.data_ptr() == ptrs[k] and torch.equal(t, saved[k])
+    sess.close()
+    d = tmp_path / "b"
+    sess = prog.open(params=params, durable_dir=d, snapshot_every=2,
+                     faults=FaultPlan().crash(at_chunk=2))
+    for p, n in reqs:
+        sess.submit(p, n)
+    with pytest.raises(SessionCrashed):
+        sess.drain()
+    final = {rid: list(r.committed) for rid, r in replay(
+        read_events(d / "journal.jsonl")).requests.items()}
+    restored = prog.restore(d, params=params)
+    assert restored.stats()["durability"]["restored_step"] == 2
+    for h, toks, _ in restored.stream():
+        final[h.id].extend(int(t) for t in toks)
+    assert [final[i] for i in range(4)] == want
+
+
+@pytest.mark.cuda
+def test_cuda_recover_wedged_captures_a_new_graph(cuda):
+    """A scripted wedge on the card: the watchdog raises SessionWedged,
+    `recover_wedged` gives up the wedged buffers, the next chunk captures
+    a new graph over the fresh state, and every request's tokens equal a
+    fresh session's."""
+    from repro_torch.runtime import FaultPlan, SessionWedged
+
+    prog, params, reqs = _chaos_session(True, watchdog_s=5.0)
+    want = _serve(prog.open(params=params), reqs)
+    sess = prog.open(params=params, faults=FaultPlan().wedge(at_chunk=1))
+    handles = [sess.submit(p, n) for p, n in reqs]
+    sess.poll()
+    old = sess.state
+    with pytest.raises(SessionWedged):
+        sess.poll()
+    sess.recover_wedged()
+    assert sess.state is not old and "step_graph" not in sess.state
+    sess.drain()
+    assert sess.captures == 2
+    assert [h.result().tolist() for h in handles] == want
+
+
+# ----------------------------------------------------------------------------
 # the execution engine and the prefill as CUDA graphs
 # ----------------------------------------------------------------------------
 

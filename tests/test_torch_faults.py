@@ -7,9 +7,9 @@
   `cluster/session.py`): a keyword scope builds a KernelPolicy, is the
   cluster's policy inside the block and is captured by `compile`; block
   overrides still raise (ROADMAP Queue 1 item 12).
-* `ServeSession.poll`, `stream` and `drain` take `timeout_s`: None serves
-  as before; any other value is the watchdog's and raises
-  NotImplementedError until ROADMAP Queue 1 item 8.
+* `ServeSession.poll`, `stream` and `drain` take `timeout_s`: None, or a
+  bound the device meets, serves as before; a scripted wedge raises
+  `SessionWedged` once the bound has passed.
 """
 
 import numpy as np
@@ -18,6 +18,7 @@ import pytest
 from repro.cluster.session import Cluster as JCluster
 from repro_torch.cluster.policy import current_policy
 from repro_torch.cluster.session import Cluster, ServeSessionProgram
+from repro_torch.runtime import FaultPlan, SessionWedged
 
 ARCH = "qwen3-14b-smoke"
 
@@ -59,15 +60,33 @@ def test_cluster_kernel_policy_and_keyword_scopes():
 
 
 def test_session_calls_take_timeout_s():
-    sess = Cluster(ARCH, device="cpu").compile(ServeSessionProgram(
-        slots=2, max_seq=16, max_prompt=8, chunk=4)).open()
+    prog = Cluster(ARCH, device="cpu").compile(ServeSessionProgram(
+        slots=2, max_seq=16, max_prompt=8, chunk=4))
+    sess = prog.open()
     h = sess.submit(np.arange(1, 4), 3)
     assert sess.poll(timeout_s=None) is not None
     for _ in sess.stream(timeout_s=None):
         pass
     assert sess.drain(timeout_s=None)["requests_done"] == 1 and h.ok
-    for call in (lambda: sess.poll(timeout_s=1.0),
-                 lambda: next(sess.stream(timeout_s=1.0)),
-                 lambda: sess.drain(timeout_s=0.5)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    # a bound the device meets serves as before, on each call
+    h2 = sess.submit(np.arange(1, 4), 3)
+    assert sess.poll(timeout_s=30.0) is not None
+    for _ in sess.stream(timeout_s=30.0):
+        pass
+    assert sess.drain(timeout_s=30.0)["requests_done"] == 2
+    np.testing.assert_array_equal(h2.result(), h.result())
+    # a scripted wedge raises SessionWedged from each call, the
+    # StallClock ledger attached, and the session recovers
+    for call in (lambda s: s.poll(timeout_s=0.05),
+                 lambda s: next(s.stream(timeout_s=0.05)),
+                 lambda s: s.drain(timeout_s=0.05)):
+        sess = prog.open(faults=FaultPlan().wedge(at_chunk=0))
+        h = sess.submit(np.arange(1, 4), 3)
+        with pytest.raises(SessionWedged) as e:
+            call(sess)
+        assert e.value.chunk == 0 and "host_syncs" in e.value.stall
+        with pytest.raises(RuntimeError, match="wedged"):
+            sess.poll()
+        sess.recover_wedged()
+        sess.drain(timeout_s=30.0)
+        assert h.ok and h.result().tolist() == h2.result().tolist()

@@ -1,8 +1,9 @@
 """repro_torch stands alone: no jax, no repro, no CUDA tooling at import.
 
-* an AST scan of every module of `src/repro_torch/` and of
-  `chip_smoke.py` finds no import of `jax` or `repro` (or their
-  submodules);
+* an AST scan of every module of `src/repro_torch/`, of `chip_smoke.py`
+  and of `examples/serve_chaos_torch.py` finds no import of `jax`,
+  `repro` or `ml_dtypes` (or their submodules; the GPU machine has no
+  `ml_dtypes`);
 * importing `repro_torch` in a fresh interpreter leaves `jax` out of
   `sys.modules`;
 * importing it works with no `nvcc` on the PATH and `triton` blocked.
@@ -18,8 +19,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "repro")
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_chaos_torch.py"]
+BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imports(path: Path):
@@ -57,7 +58,10 @@ def test_import_leaves_jax_out():
              "repro_torch.kernels.flash_attention, "
              "repro_torch.kernels.rmsnorm\n"
              "import repro_torch.cluster.session\n"
+             "import repro_torch.runtime.faults, repro_torch.runtime.journal\n"
+             "import repro_torch.checkpoint.manager\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
+             "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'\n"
              "assert not any(m == 'repro' or m.startswith('repro.') "
              "for m in sys.modules), 'repro imported'\n")
     assert r.returncode == 0, r.stderr

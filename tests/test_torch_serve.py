@@ -189,11 +189,44 @@ def _tensor_leaves(tree):
 
 
 def test_unported_knobs_raise():
-    tc = TCluster(ARCH, device="cpu")
-    for knob in (dict(preempt=True), dict(shed_watermark=4),
+    """The SLO knobs that raised NotImplementedError until the robustness
+    layer was ported (preempt, shed_watermark, nan_check,
+    admission="longest_prefix", a non-latency class) are accepted, and
+    each acts as the reference's does: one script of mixed classes
+    through both packages' sessions with the knob on gives the same
+    events, tokens and counters (timings aside). f32 parameters and
+    caches, as above; `retry_backoff_s=0` on both sides."""
+    from torch_parity import counters, drive, f32_state_factory
+
+    jp, tp = _f32_params()
+    rng = np.random.default_rng(3)
+    classes = ("throughput", "best_effort", "latency", "throughput")
+    arrivals = {0: [(rng.integers(1, 200, int(rng.integers(2, 12))).astype(
+        np.int32), int(rng.integers(3, 9)), classes[i % 4])
+        for i in range(7)],
+        1: [(np.arange(1, 6, dtype=np.int32), 4, "latency")]}
+    acted = {}
+    for knob in (dict(preempt=True), dict(shed_watermark=2),
                  dict(nan_check=True), dict(admission="longest_prefix")):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tc.compile(TProgram(**COMMON, **knob))
-    sess = tc.compile(TProgram(**COMMON)).open()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sess.submit(np.arange(1, 4), 4, klass="best_effort")
+        spec = dict(COMMON, retry_backoff_s=0.0, **knob)
+        jprog = f32_state_factory(JCluster(ARCH).compile(JProgram(**spec)))
+        tprog = f32_state_factory(TCluster(ARCH, device="cpu").compile(
+            TProgram(**spec)))
+        jev, jh = drive(jprog.open(params=jp), arrivals)
+        tev, th = drive(tprog.open(params=tp), arrivals)
+        assert tev == jev, knob
+        assert counters(tprog._last_session.stats()) == counters(
+            jprog._last_session.stats()), knob
+        assert [h.klass for h in th.values()] == [h.klass
+                                                  for h in jh.values()]
+        st = tprog._last_session.stats()
+        acted[next(iter(knob))] = (st["preemptions"], st["requests_shed"])
+    assert acted["preempt"][0] > 0 and acted["shed_watermark"][1] > 0
+    assert TProgram().preempt is True
+
+
+def _f32_params():
+    jp = JCluster(ARCH).compile(JProgram(**COMMON)).init_params()
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    return jp, weights.from_jax_params(jax.tree.map(np.asarray, jp),
+                                       device="cpu")

@@ -138,3 +138,72 @@ def serve(prog, p, reqs):
     handles = [sess.submit(prompt, n) for prompt, n in reqs]
     stats = sess.drain()
     return [h.result() for h in handles], stats
+
+
+# ----------------------------------------------------------------------------
+# the robustness layer: sessions of both packages driven by one script
+# ----------------------------------------------------------------------------
+
+TIMING_KEYS = ("stall", "ttft_ms", "latency_ms", "tokens_per_s", "restore_s",
+               "journal_bytes")
+
+
+def f32_state_factory(prog):
+    """Make `prog` (either package's compiled session) build its session
+    states with the cache cast to f32, for `open`, `recover_wedged` and
+    `restore` alike (bf16 near-ties would part the packages)."""
+    orig = prog._make_state
+
+    def make():
+        st = orig()
+        cache = st["cache"]
+        if isinstance(next(iter(cache.values())), torch.Tensor):
+            st["cache"] = {k: v.float() for k, v in cache.items()}
+            return st
+        return dict(st, cache=jax.tree.map(
+            lambda c: c.astype(jnp.float32), cache))
+
+    prog._make_state = make
+    return prog
+
+
+def drive(sess, arrivals: dict, wedged=()):
+    """Serve a script: `arrivals` maps a poll index to the requests
+    [(prompt, max_new, klass)] submitted just before that poll. Polls
+    until every arrival is in and the session is idle; a `wedged`
+    exception is recorded and recovered from. Returns (events: per poll
+    [(rid, tokens, done)] or "wedged", {rid: handle})."""
+    events, handles, i = [], {}, 0
+    last = max(arrivals, default=0)
+    while i <= last or sess.busy:
+        for prompt, n, klass in arrivals.get(i, ()):
+            h = sess.submit(prompt, n, klass=klass)
+            handles[h.id] = h
+        i += 1
+        try:
+            evs = sess.poll()
+        except wedged:
+            events.append("wedged")
+            sess.recover_wedged()
+            continue
+        events.append([(h.id, np.asarray(t).tolist(), bool(d))
+                       for h, t, d in evs])
+    return events, handles
+
+
+def counters(stats):
+    """`stats()` without its timings (wall clocks part the packages)."""
+    if isinstance(stats, dict):
+        return {k: counters(v) for k, v in stats.items()
+                if k not in TIMING_KEYS}
+    return stats
+
+
+def key_set(stats, prefix=""):
+    """Every key path of a stats dict."""
+    out = set()
+    for k, v in stats.items():
+        out.add(prefix + k)
+        if isinstance(v, dict) and k not in ("by_kind",):
+            out |= key_set(v, prefix + k + ".")
+    return out
