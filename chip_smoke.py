@@ -1,6 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: build the CUDA kernels, hold
 each against its plain PyTorch version, run the paper's Table 1 kernel
 suite and the fused ops' compositions through `repro_torch.kernels.ops`,
+race each kernel's plan knobs through the tuning layer (`tuned_call`, a
+TuneDB, a second process warm-starting from it),
 run whisper-small's prefill and decode, then qwen3-14b at full width:
 its one-shot prefill on the fused and on the "pallas" route (eager and as
 CUDA graphs), serving through the port's paged ServeSession, and the
@@ -55,6 +57,28 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            of one call shows; and a host profile (torch.profiler) of the
            wrapper and the library call, split into operators, CUDA
            runtime calls and the rest
+  tune     the tuning layer: a kernel-only Cluster(None, tune_db=<a
+           temporary directory>/tunes.json) under KernelPolicy(mode=
+           "fused", tuning="timed"); every (kernel, shape) cell of
+           qwen3-14b's fused path (rmsnorm_matmul M512 / M8 K5120,
+           matmul_residual_add M512 / M8, flash_attention_proj S512),
+           whisper-small's matmul_bias_act (M12000, K3072 N768 and K768
+           N3072), f32 matmul 4096^3 on the 3xTF32 route and the Table 1
+           suite at the reference bench's tune sizes go through
+           ops.tuned_call: each miss races the top 3 modeled plans of the
+           kernel's own knobs (tile_n; boxes, cluster), the kernel's own
+           plan and, for a fused op, its composition (3 reps, CUDA
+           events, L2 flushed). One [tune] line a cell: lanes, the picked
+           knobs and the kernel's own, modeled / raced us, the route, the
+           winner and the default re-timed (flushed; the least of 3 means
+           of 10, in turn), held to tuned <= default x 1.15
+           (benchmarks/check_gate.py's tuned check); every tuned output
+           against its plain version; on the
+           mainloop a pinned tile_n in the traced kernel's name and in
+           wgmma_plan, the Python model's tile_n equal to wgmma_plan's; a
+           pin the kernel cannot take raises. Then a fresh process
+           importing only repro_torch warm-starts every cell from the DB:
+           all hits, no race
   compose  each fused op's composition (`ops.OPS[name].composition`,
            its unfused lane) vs the fused kernel at a model path's shape
            under the default policy: it must launch its primitive kernels
@@ -182,10 +206,11 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            ServeProgram(batch=8, max_seq=256, max_new=64) at chunk 16 and
            chunk 1 (the cross K/V: the zero cache, as in the reference)
 
-The kernel launch counts are set to 0 before each of the suite, compose,
-whisper, prefill, pallas_prefill, serve, profile, engine, chaos, moe,
-hybrid, xlstm and vlm runs and read right after; every kernel of a phase must have launched and no plain version
-may have run on a CUDA tensor. A wrapper counts the launches it makes;
+The kernel launch counts are set to 0 before each of the suite, tune,
+compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
+moe, hybrid, xlstm and vlm runs and read right after; every kernel of a
+phase must have launched and no plain version may have run on a CUDA
+tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
 trace (`launches.traced_launches`). Every trace but the serve phase's
 holds its work between two sentinel kernels (`torch.cuda._sleep`), after
@@ -211,12 +236,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.core import mesh as hw  # noqa: E402  (H100 data sheet)
+
+HBM_BYTES_PER_S = hw.HBM_BW
 QWEN_FUSED = ("rmsnorm_matmul", "matmul_residual_add",
               "flash_attention_proj")       # the fused route of qwen3-14b
-BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
-TF32_FLOPS_PER_S = 495e12          # dense TF32 tensor-core peak
-F32_FLOPS_PER_S = 67e12            # f32 on the CUDA cores (no tensor cores)
+BF16_FLOPS_PER_S = hw.PEAK_FLOPS_BF16     # dense bf16 tensor-core peak
+TF32_FLOPS_PER_S = hw.PEAK_FLOPS_TF32     # dense TF32 tensor-core peak
+F32_FLOPS_PER_S = hw.PEAK_FLOPS_F32       # f32 on the CUDA cores
 TOL = dict(rtol=2e-2, atol=2e-2)   # bf16: one output rounding + sum order
 F32_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 elementwise: sum order only
 
@@ -320,7 +348,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build, launches
 
     t_start = time.perf_counter()
@@ -336,6 +363,7 @@ def main() -> int:
 
     records = kernel_phase()
     suite_records = suite_phase(launches)
+    tune_results = tune_phase(launches)
     compose_counts = compose_phase(launches)
     agree_phase()
     whisper_counts = whisper_phase(launches)
@@ -376,6 +404,8 @@ def main() -> int:
                                "matmul_bias_act": whisper_counts,
                                "rmsnorm": compose_counts}[name][name]
     records += suite_records
+    for rec in records:           # each kernel's cells of the tune phase
+        rec["tune"] = tune_results.get(rec["name"], [])
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         traces_taken_again=json.dumps(LOST_TRACES).replace(" ", ""))
     print(gpu_line())
@@ -419,14 +449,14 @@ def gemm_schedule(name: str, m: int, k: int, n: int) -> str:
                 return "split_k"
             dp = (ctypes.c_int * 5)()
             build.check(name, build.entry(name, f"{name}_decode_plan")(
-                m, n, k, dp))
+                m, n, k, 0, 0, dp))
             bn, cluster, ctas, k_cta, stages = dp
             return (f"decode,bn={bn},cluster={cluster},ctas={ctas},"
                     f"k_per_cta={k_cta},stages={stages}")
         if k % 8 or n % 8:
             return "wmma_tile"
     plan = (ctypes.c_int * 3)()
-    build.check(name, build.entry(name, "wgmma_plan")(m, n, plan))
+    build.check(name, build.entry(name, "wgmma_plan")(m, n, 0, plan))
     bn, tiles, blocks = plan
     kind = "persistent" if tiles > blocks else "one_tile_per_block"
     return f"{kind},bn={bn},tiles={tiles},blocks={blocks}"
@@ -450,8 +480,8 @@ def f32_schedule(m: int, k: int, n: int) -> str:
     from repro_torch.kernels import build
 
     p = (ctypes.c_int * 7)()
-    build.check("matmul", build.entry("matmul", "matmul_f32_plan")(m, n, k,
-                                                                   p))
+    build.check("matmul", build.entry("matmul", "matmul_f32_plan")(
+        m, n, k, 0, 0, p))
     route, bn, cluster, tiles, blocks, k_cta, stages = p
     if route == 0:
         return f"cuda_core_tile,tiles={tiles}"
@@ -1178,6 +1208,274 @@ def host_phase() -> None:
                 runtime=json.dumps({k: round(v, 3)
                                     for k, v in runtime.items()},
                                    separators=(",", ":")))
+
+
+# ----------------------------------------------------------------------------
+# the tuning layer: each kernel's plan knobs raced through tuned_call
+# ----------------------------------------------------------------------------
+
+BF16, F32 = "bfloat16", "float32"
+# (kernel, shape dict, dtype): every (kernel, shape) cell of qwen3-14b's
+# fused path (prefill M512 and decode M8; PERF.md §6 rows 1-3), whisper-
+# small's encoder MLP (matmul_bias_act, where pick_bn is known to miss)
+# and f32 matmul 4096^3 on the 3xTF32 route; the Table 1 suite follows
+# (`table1.tune_operands`, the reference bench's sizes)
+TUNE_CELLS = (
+    *(("rmsnorm_matmul", {"m": 512, "k": 5120, "n": n}, BF16)
+      for n in (5120, 7168, 17408)),
+    *(("rmsnorm_matmul", {"m": 8, "k": 5120, "n": n}, BF16)
+      for n in (1024, 5120, 17408)),
+    ("matmul_residual_add", {"m": 512, "k": 17408, "n": 5120}, BF16),
+    ("matmul_residual_add", {"m": 8, "k": 5120, "n": 5120}, BF16),
+    ("matmul_residual_add", {"m": 8, "k": 17408, "n": 5120}, BF16),
+    ("flash_attention_proj", {"b": 1, "h": 40, "kv": 8, "s": 512,
+                              "hd": 128, "dm": 5120}, BF16),
+    ("matmul_bias_act", {"m": 12000, "k": 3072, "n": 768}, BF16),
+    ("matmul_bias_act", {"m": 12000, "k": 768, "n": 3072}, BF16),
+    ("matmul", {"m": 4096, "k": 4096, "n": 4096}, F32),
+)
+GATE_TOL = 0.15          # benchmarks/check_gate.py's --tol default
+BAD_PIN = {"mainloop": {"tile_n": 192}, "decode": {"boxes": 9},
+           "tf32x3": {"tile_n": 96}}
+
+
+def _gemm_dims(name: str, s: dict) -> tuple[int, int, int] | None:
+    """(M, K, N) of a cell's product on a GEMM kernel, else None."""
+    if name == "flash_attention_proj":
+        return s["b"] * s["s"], s["h"] * s["hd"], s["dm"]
+    if {"m", "k", "n"} <= set(s):
+        return s["m"], s["k"], s["n"]
+    return None
+
+
+def _tune_operands(name: str, shapes: dict, dtype) -> tuple:
+    """A cell's operands for the tuned call, its check and its timing: the
+    race's own factory (`ops.OPS[name].operands`), with a bf16 weight
+    scaled by its fan-in so that outputs stay near 1 (the race makes its
+    own operands)."""
+    from repro_torch.kernels import ops
+
+    args = list(ops.OPS[name].operands(shapes, dtype, "cuda"))
+    if dtype == torch.bfloat16:
+        w = {"rmsnorm_matmul": 2, "matmul": 1, "matmul_residual_add": 1,
+             "matmul_bias_act": 1, "flash_attention_proj": 3}[name]
+        fan_in = shapes["k"] if "k" in shapes else shapes["h"] * shapes["hd"]
+        args[w] = (args[w].float() * fan_in ** -0.5).to(dtype)
+    return tuple(args)
+
+
+def _retime(timer, winner, default, rounds: int = 3) -> tuple[float, float]:
+    """The winner's and the default's ms, each the least of `rounds` means
+    of 10 flushed launches, taken in turn after a burst of 50 launches
+    (a trace's host pauses before leave the clocks low, and a kernel of a
+    few us timed first would pay for it)."""
+    for _ in range(50):
+        default()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for _ in range(rounds):
+        for t, fn in zip(times, (default, winner)):
+            t.append(timer(fn))
+    return min(times[1]), min(times[0])
+
+
+def tune_phase(launches, cells=TUNE_CELLS) -> dict[str, list[dict]]:
+    """The tuning layer on the card: a kernel-only Cluster with a TuneDB in
+    a temporary directory, under KernelPolicy(mode="fused",
+    tuning="timed"). Each cell goes through `ops.tuned_call` (a miss: the
+    race of the top 3 modeled plans, the kernel's own plan and, for a
+    fused op, its composition, 3 flushed reps each), then the Table 1
+    suite through `table1.tuned_rows`. Counts are set to 0 before the
+    races and read after: every cell's kernel launched, no plain version
+    ran. Then each cell's tuned output is held against its plain version,
+    the winner (its knobs pinned, or the composition) and the kernel's own
+    plan are timed again (`_retime`: flushed, means of 10) and held to the
+    gate's tuned <= default x 1.15; on a mainloop
+    cell a pinned tile_n must show in the traced kernel's name and in
+    `wgmma_plan`, and the Python model's tile_n must equal the kernel's
+    own; a pin the kernel cannot take must raise. Last, a fresh process
+    importing only repro_torch opens the same DB: every cell is warm-
+    started, every tuned_call hits, and nothing is raced. Returns
+    {kernel: [cell result, ...]}."""
+    import os
+    import tempfile
+
+    from repro_torch.cluster import Cluster, KernelPolicy, use_policy
+    from repro_torch.configs import registry
+    from repro_torch.kernels import gemm_plans, ops, table1, tunedb
+    from repro_torch.kernels import pipeline as pp
+
+    t0 = time.perf_counter()
+    os.environ["REPRO_TUNE_TOPN"] = "3"
+    os.environ["REPRO_TUNE_REPS"] = "3"
+    dtypes = {BF16: torch.bfloat16, F32: torch.float32}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_tune_")
+    db_path = str(Path(tmp.name) / "tunes.json")
+    pol = KernelPolicy(mode="fused", tuning="timed")
+    cluster = Cluster(None, policy=pol, tune_db=db_path)
+    if cluster.tune_db_warm != 0:
+        raise AssertionError(f"tune: a new DB warm-started "
+                             f"{cluster.tune_db_warm} records")
+    suite_ops = table1.tune_operands(device="cuda")
+    # the card's flash attention kernel takes bf16 only
+    suite_ops["flash_attention"] = tuple(
+        t.bfloat16() for t in suite_ops["flash_attention"])
+    runs = [(name, shapes, dtypes[dt], _tune_operands(name, shapes,
+                                                      dtypes[dt]))
+            for name, shapes, dt in cells]
+    torch.cuda.synchronize()
+    launches.reset_counts()
+    with use_policy(pol):
+        outs = [ops.tuned_call(name, *args) for name, _, _, args in runs]
+        rows = table1.tuned_rows(device="cuda", operands=suite_ops)
+        torch.cuda.synchronize()
+    counts = launches.counts()
+    race_s = time.perf_counter() - t0
+    for name, shapes, dt, args in [
+            *runs, *((n, ops.kernel_shapes(n, *a), a[-1].dtype, a)
+                     for n, a in suite_ops.items())]:
+        if counts[name]["launches"] <= 0 or counts[name]["plain_cuda_calls"]:
+            raise AssertionError(f"tune: {name} counts {counts[name]}")
+    if pol.stats.get("tune_races") != len(runs) + len(rows) or \
+            pol.stats.get("tune_misses") != len(runs) + len(rows):
+        raise AssertionError(f"tune: policy stats {pol.stats}")
+    with use_policy(pol):
+        outs += [ops.tuned_call(n, *a) for n, a in suite_ops.items()]
+    runs += [(n, ops.kernel_shapes(n, *a), a[-1].dtype, a)
+             for n, a in suite_ops.items()]
+
+    timer = Timer()
+    results: dict[str, list[dict]] = {}
+    failed = []                   # cells the gate's tuned check refuses
+    for (name, shapes, dt, args), got in zip(runs, outs):
+        db = torch.tensor([], dtype=dt).element_size()
+        key = pp.shape_key(shapes, db)
+        rec = registry.get_kernel_tune(name, key)
+        res = pp.TUNE_RESULTS[(name, key)]
+        if rec is None or rec.source != "timed":
+            raise AssertionError(f"tune: {name} {key} record {rec}")
+        wrapper = ops.wrapper_for(name)
+        plain = launches.PLAIN[name]
+        want = plain(*args)
+        if name == "dotp":
+            err = abs(got.item() - want.item())
+            if err > 1e-5 * (args[0] * args[1]).abs().sum().item():
+                raise AssertionError(f"tune: dotp err {err}")
+        else:
+            k = shapes.get("k", shapes.get("d", 1))
+            tol = (TOL if dt == torch.bfloat16 else
+                   dict(rtol=0.0, atol=1e-4 * k ** 0.5) if name == "matmul"
+                   else F32_TOL)
+            err = _compare(f"tune {name} {key}", got, want, tol)
+        picked, own = dict(rec.blocks), dict(rec.default_blocks)
+        if rec.route == "unfused":
+            def winner():
+                return ops.OPS[name].composition(*args)
+        else:
+            def winner():
+                return wrapper(*args, **picked)
+        tuned_ms, default_ms = _retime(timer, winner, lambda: wrapper(*args))
+        if tuned_ms > default_ms * (1 + GATE_TOL):
+            failed.append(f"{name} {key} ({rec.route}, {dict(rec.blocks)}) "
+                          f"tuned {tuned_ms:.5f} ms > default "
+                          f"{default_ms:.5f} ms x {1 + GATE_TOL}")
+        extra = {}
+        dims = _gemm_dims(name, shapes)
+        kind = ("mainloop" if name == "flash_attention_proj" and own else
+                gemm_plans.route(*dims, db) if dims else "fixed")
+        if kind == "mainloop":
+            m, _, n = dims
+            if gemm_plans.pick_tile_n(m, n) != own["tile_n"]:
+                raise AssertionError(
+                    f"tune: {name} {key} model tile_n "
+                    f"{gemm_plans.pick_tile_n(m, n)} != wgmma_plan "
+                    f"{own['tile_n']}")
+            pin = 128 if own["tile_n"] != 128 else 256
+            inst = kernel_instance(lambda: wrapper(*args, tile_n=pin))
+            planned = gemm_plans.wgmma_plan(name, m, n, pin)[0]
+            if not inst.startswith(f"tma_wgmma_kernel<{pin},") or \
+                    planned != pin:
+                raise AssertionError(f"tune: {name} pinned tile_n {pin} "
+                                     f"ran {inst}, plan {planned}")
+            extra = {"pinned_tile_n": pin, "pinned_kernel": inst}
+        if kind in BAD_PIN:
+            try:
+                wrapper(*args, **BAD_PIN[kind])
+                torch.cuda.synchronize()
+            except RuntimeError:
+                extra["bad_pin_raised"] = BAD_PIN[kind]
+            else:
+                raise AssertionError(f"tune: {name} took the pin "
+                                     f"{BAD_PIN[kind]}")
+        cell = {"shape_key": key, "lanes": res.raced, "picked": picked,
+                "own_plan": own, "route": rec.route,
+                "modeled_us": rec.modeled_seconds * 1e6,
+                "default_modeled_us": rec.default_modeled_seconds * 1e6,
+                "measured_us": rec.measured_us, "default_us": rec.default_us,
+                "tuned_ms": tuned_ms, "default_ms": default_ms,
+                "max_abs_err": err, **extra}
+        results.setdefault(name, []).append(cell)
+        fmt = {k: (f"{v:.5f}" if k.endswith("_ms") else f"{v:.2f}"
+                   if isinstance(v, float) else
+                   json.dumps(v, separators=(",", ":"))
+                   if isinstance(v, dict) else v) for k, v in cell.items()}
+        log("tune", kernel=name, **fmt)
+    del outs, runs, timer
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("tune: the gate's tuned check failed: "
+                             + "; ".join(failed))
+
+    # a fresh process: the same DB warm-starts every cell, zero races
+    cells_json = json.dumps([[n, s, dt] for n, s, dt in cells]
+                            + [[n, None, None] for n in suite_ops])
+    code = f"""
+import json, sys
+sys.path.insert(0, {str(Path(__file__).resolve().parent / 'src')!r})
+import torch
+from repro_torch.cluster import Cluster, KernelPolicy, use_policy
+from repro_torch.kernels import ops, table1
+pol = KernelPolicy(mode="fused", tuning="timed")
+c = Cluster(None, policy=pol, tune_db={db_path!r})
+suite = table1.tune_operands(device="cuda")
+suite["flash_attention"] = tuple(t.bfloat16() for t in
+                                 suite["flash_attention"])
+dt = {{"bfloat16": torch.bfloat16, "float32": torch.float32}}
+with use_policy(pol):
+    for name, shapes, d in json.loads({cells_json!r}):
+        args = (suite[name] if shapes is None else
+                ops.OPS[name].operands(shapes, dt[d], "cuda"))
+        ops.tuned_call(name, *args)
+torch.cuda.synchronize()
+print(json.dumps({{"warm": c.tune_db_warm, "stats": pol.stats,
+                  "jax": "jax" in sys.modules,
+                  "repro": "repro" in sys.modules}}))
+"""
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"tune: the fresh process failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    n_cells = len(cells) + len(suite_ops)
+    st = fresh["stats"]
+    if (fresh["warm"] != n_cells or st.get("tune_hits") != n_cells
+            or st.get("tune_races", 0) or st.get("tune_misses", 0)
+            or fresh["jax"] or fresh["repro"]):
+        raise AssertionError(f"tune: fresh process {fresh}, {n_cells} "
+                             f"cells")
+    log("tune", part="fresh_process", warm_started=fresh["warm"],
+        tune_hits=st.get("tune_hits"), tune_races=st.get("tune_races", 0),
+        tune_misses=st.get("tune_misses", 0),
+        seconds=f"{time.perf_counter() - t1:.1f}")
+    log("tune", part="done", cells=n_cells, race_seconds=f"{race_s:.1f}",
+        seconds=f"{time.perf_counter() - t0:.1f}",
+        db_records=len(cluster.tune_db))
+    cluster.tune_db = None            # the DB's directory goes next
+    tunedb.set_active_db(None)
+    tmp.cleanup()
+    return results
 
 
 # ----------------------------------------------------------------------------

@@ -11,8 +11,11 @@
 Entry points run on the card: `Cluster(arch)` with no `device` means
 "cuda" and raises when CUDA is absent; tests pass ``device="cpu"``.
 `Cluster.compile` memoizes programs in the cluster's `CompileCache`, keyed
-on (spec, arch, device, policy knobs). Training, dry-run, bench and
-sharded-session programs wait for later slices (ROADMAP Queue 1 H-K).
+on (spec, arch, device, policy knobs). `Cluster(None, tune_db=path)` is a
+kernel-only cluster (a policy and the tune records, no model): it
+warm-starts the tuning layer from a `kernels.tunedb.TuneDB`. Training,
+dry-run, bench and sharded-session programs wait for later slices
+(ROADMAP Queue 1 H-K).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import torch
 from repro_torch.cluster.policy import KernelPolicy, as_policy, use_policy
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.registry import ArchConfig
+from repro_torch.configs.registry import kernel_tunes
 from repro_torch.device import resolve_device
+from repro_torch.kernels import pipeline, tunedb
 from repro_torch.models import steps
 from repro_torch.runtime import engine
 from repro_torch.runtime.compile_cache import CompileCache, Graphed
@@ -108,15 +113,49 @@ UNPORTED = {"TrainProgram": "H (item 11, training)",
 
 
 class Cluster:
-    """The substrate: arch + device + kernel policy + compiled programs."""
+    """The substrate: arch + device + kernel policy + tune records +
+    compiled programs.
 
-    def __init__(self, arch: "str | ArchConfig", *, device=None,
-                 policy: "KernelPolicy | str | None" = None):
-        self.arch: ArchConfig = get_arch(arch) if isinstance(arch, str) \
-            else arch
+    `arch` may be an arch name, an ArchConfig, or None for a kernel-only
+    cluster (policy and tunes, no model: `compile` then raises).
+
+    `tune_db` is the persistent timed-tune database: a
+    `kernels.tunedb.TuneDB`, a path to open one, or None for the
+    ``REPRO_TUNE_DB`` default (which may be unset: no persistence). When a
+    DB resolves, the cluster warm-starts KERNEL_TUNES from its records of
+    this device's backend ("cuda" or "torch_cpu") and the policy's mode,
+    so `tuned_call` hits instead of racing, and installs it as the active
+    write-through target; ``tune_db_warm`` counts the warm start and
+    `Program.report()` shows it.
+    """
+
+    def __init__(self, arch: "str | ArchConfig | None" = None, *,
+                 device=None, policy: "KernelPolicy | str | None" = None,
+                 tune_db: "tunedb.TuneDB | str | None" = None):
+        self.arch: ArchConfig | None = (
+            get_arch(arch) if isinstance(arch, str) else arch)
         self.device = resolve_device(device)
         self._policy = as_policy(policy)
         self.compile_cache = CompileCache()
+        self.tune_db = tunedb.resolve_db(tune_db)
+        self.tune_db_warm = 0
+        if self.tune_db is not None:
+            self.tune_db_warm = self.tune_db.warm_start(
+                backend=pipeline.backend_of(self.device),
+                mode=self._policy.mode)
+            tunedb.set_active_db(self.tune_db)
+
+    def set_active_db(self) -> None:
+        """Install this cluster's DB as the active write-through target
+        (another cluster may have installed its own since)."""
+        tunedb.set_active_db(self.tune_db)
+
+    def tunes(self, kernel: str | None = None) -> list:
+        """This cluster's view of the tune records (KERNEL_TUNES)."""
+        recs = kernel_tunes()
+        if kernel is not None:
+            recs = [r for r in recs if r.kernel == kernel]
+        return recs
 
     @property
     def kernel_policy(self) -> KernelPolicy:
@@ -129,8 +168,8 @@ class Cluster:
             with cluster.policy(mode="tuned", overrides={"matmul": "reference"}):
 
         Inside the block the policy is both the ambient one and the
-        default that `compile` captures. Keywords are KernelPolicy fields
-        (block overrides still raise: ROADMAP Queue 1 item 12)."""
+        default that `compile` captures. Keywords are KernelPolicy fields,
+        ``tuning`` and dict overrides (a pinned plan) included."""
         if policy is None:
             pol = KernelPolicy(**kwargs) if kwargs else self._policy
         else:
@@ -145,6 +184,9 @@ class Cluster:
         builders = {ServeProgram: CompiledServe,
                     ServeSessionProgram: CompiledServeSession}
         name = type(spec).__name__
+        if self.arch is None:
+            raise ValueError(f"{name} needs an arch; this cluster was "
+                             f"built without one (Cluster(arch=...))")
         if name in UNPORTED:
             raise NotImplementedError(
                 f"{name}: the port does not define it yet (ROADMAP Queue 1 "
@@ -217,6 +259,9 @@ class Program:
             "compile_cache": {"hits": self.cluster.compile_cache.hits,
                               "misses": self.cluster.compile_cache.misses},
         }
+        if self.cluster.tune_db is not None:
+            out["tunedb"] = dict(self.cluster.tune_db.describe(),
+                                 warm_started=self.cluster.tune_db_warm)
         if self._last_run is not None:
             out["result"] = {k: v for k, v in self._last_run.items()
                              if k != "params"}

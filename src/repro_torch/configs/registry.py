@@ -3,8 +3,9 @@
 A copy of `repro.configs.registry` without its JAX half (the reference
 module imports jax at the top, so the port cannot import it): the same
 `ArchConfig` fields, the same ten architectures with the same numbers, and
-the same `smoke()` reduction. The dry-run `input_specs` and the kernel
-tune records stay with the tuning and dry-run slices.
+the same `smoke()` reduction, and the kernel tune records
+(`KernelTuneRecord`, `KERNEL_TUNES`) the tuning layer writes. The dry-run
+`input_specs` stay with the dry-run slice.
 """
 
 from __future__ import annotations
@@ -167,3 +168,63 @@ def get(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return smoke(ARCHS[name.removesuffix("-smoke")])
     return ARCHS[name]
+
+
+# ----------------------------------------------------------------------------
+# Kernel tune records (written by kernels/pipeline.autotune)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KernelTuneRecord:
+    """One tuned plan for a (kernel, shape) cell — the reference's record.
+
+    `blocks` / `default_blocks` are sorted (knob, value) tuples: on the
+    card the Hopper kernels' own plan knobs (``tile_n``; ``boxes`` and
+    ``cluster``), empty for a kernel whose tune space is one point.
+    `modeled_seconds` are the cost-model scores the autotuner ranked the
+    candidates with; `measured_us` / `default_us` the raced times of the
+    winner and of the kernel's own plan, and `measured_speedup` their
+    ratio. `source` is "timed" (raced), "modeled" (score-only) or "db"
+    (warm-started from a TuneDB). `route` is "fused" (the kernel won) or
+    "unfused" (the op's composition of primitive kernels won the race).
+    """
+
+    kernel: str
+    shape_key: str
+    blocks: tuple[tuple[str, int], ...]
+    modeled_seconds: float
+    default_blocks: tuple[tuple[str, int], ...] = ()
+    default_modeled_seconds: float = 0.0
+    saved_bytes: float = 0.0
+    measured_us: float = 0.0
+    default_us: float = 0.0
+    source: str = "modeled"
+    route: str = "fused"
+
+    @property
+    def timed(self) -> bool:
+        return self.measured_us > 0.0
+
+    @property
+    def measured_speedup(self) -> float:
+        """Raced speedup of the tuned plan over the default: >= 1.0 by
+        construction for timed records, 1.0 for modeled ones."""
+        if not self.timed:
+            return 1.0
+        return self.default_us / max(self.measured_us, 1e-30)
+
+
+KERNEL_TUNES: dict[tuple[str, str], KernelTuneRecord] = {}
+
+
+def register_kernel_tune(rec: KernelTuneRecord) -> KernelTuneRecord:
+    KERNEL_TUNES[(rec.kernel, rec.shape_key)] = rec
+    return rec
+
+
+def get_kernel_tune(kernel: str, shape_key: str) -> KernelTuneRecord | None:
+    return KERNEL_TUNES.get((kernel, shape_key))
+
+
+def kernel_tunes() -> list[KernelTuneRecord]:
+    return [KERNEL_TUNES[k] for k in sorted(KERNEL_TUNES)]

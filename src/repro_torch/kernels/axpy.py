@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, pipeline, ref
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -71,3 +71,12 @@ def axpy(alpha, x, y):
         build.check("axpy", err)
     axpy.launches += 1
     return out
+
+
+# One-point tune space: the launch plan is set by `csrc/stream.cuh`'s
+# compile-time THREADS / UNROLL and the wave queried once per device.
+pipeline.register(pipeline.KernelDef(
+    "axpy", lambda s, knobs, db: pipeline.Traffic(
+        flops=2.0 * s["m"] * s["n"], hbm_bytes=3.0 * s["m"] * s["n"] * db,
+        ideal_bytes=3.0 * s["m"] * s["n"] * db, grid_steps=1, smem_bytes=0),
+    pipeline.one_point))

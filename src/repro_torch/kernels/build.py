@@ -37,39 +37,45 @@ SZ = ctypes.c_size_t
 # *_workspace_floats size the f32 scratch the wrapper allocates (split-K
 # partials, the bf16 operands the wgmma paths stage, f32 matmul's split of
 # b); axpy and dotp take the device index before the stream and export
-# `<name>_grid` (n, 1 for bf16, device: the blocks a launch takes); matmul
-# also exports `matmul_f32_plan` (M, N, K, int[7] out: the f32 route and
-# its tile, cluster, tiles, blocks, k a block, stages); the libraries
-# that include csrc/wgmma_gemm.cuh also export `wgmma_plan` (M, N, int[3]
-# out: the mainloop's BN, tiles and blocks),
-# and the four GEMM wrappers `<name>_decode_plan` (M, N, K, int[5] out:
-# the decode kernel's N tile, cluster size, CTAs, k rows a CTA, stages).
-WGMMA_PLAN = {"wgmma_plan": ([I, I, P], I)}
+# `<name>_grid` (n, 1 for bf16, device: the blocks a launch takes). The
+# four GEMM launchers take the pinned plan (tile_n, boxes, cluster) before
+# the stream, flash_attention_proj its projection's tile_n (0: the
+# kernel's own pick; a pin the kernel cannot take is an error). matmul
+# also exports `matmul_f32_plan` (M, N, K, tile_n, cluster, int[7] out:
+# the f32 route and its tile, cluster, tiles, blocks, k a block, stages);
+# the libraries that include csrc/wgmma_gemm.cuh also export `wgmma_plan`
+# (M, N, tile_n, int[3] out: the mainloop's BN, tiles and blocks), and the
+# four GEMM wrappers `<name>_decode_plan` (M, N, K, boxes, cluster, int[5]
+# out: the decode kernel's N tile, cluster size, CTAs, k rows a CTA,
+# stages). The plan reports take the same pins as the launches.
+WGMMA_PLAN = {"wgmma_plan": ([I, I, I, P], I)}
+PINS = [I, I, I]                  # tile_n, boxes, cluster
 
 
 def _decode_plan(name: str) -> dict:
-    return {f"{name}_decode_plan": ([I, I, I, P], I)}
+    return {f"{name}_decode_plan": ([I, I, I, I, I, P], I)}
 
 
 SIGNATURES = {
     "rmsnorm_matmul": {
-        "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, P], I),
+        "rmsnorm_matmul_bf16": ([P, P, P, P, P, I, I, I, F, *PINS, P], I),
         "rmsnorm_matmul_workspace_floats": ([I, I, I], SZ), **WGMMA_PLAN,
         **_decode_plan("rmsnorm_matmul")},
     "matmul_residual_add": {
-        "matmul_residual_add_bf16": ([P, P, P, P, P, I, I, I, P], I),
+        "matmul_residual_add_bf16": (
+            [P, P, P, P, P, I, I, I, *PINS, P], I),
         "matmul_residual_add_workspace_floats": ([I, I, I], SZ),
         **WGMMA_PLAN, **_decode_plan("matmul_residual_add")},
     "flash_attention_proj": {
         "flash_attention_proj_bf16": (
-            [P, P, P, P, P, P, I, I, I, I, I, I, I, P], I),
+            [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P], I),
         "flash_attention_proj_workspace_floats": ([I, I, I, I], SZ),
         **WGMMA_PLAN},
     "matmul": {
-        "matmul_f32": ([P, P, P, P, I, I, I, P], I),
-        "matmul_bf16": ([P, P, P, P, I, I, I, P], I),
+        "matmul_f32": ([P, P, P, P, I, I, I, *PINS, P], I),
+        "matmul_bf16": ([P, P, P, P, I, I, I, *PINS, P], I),
         "matmul_workspace_floats": ([I, I, I, I], SZ),
-        "matmul_f32_plan": ([I, I, I, P], I),
+        "matmul_f32_plan": ([I, I, I, I, I, P], I),
         **WGMMA_PLAN, **_decode_plan("matmul")},
     "axpy": {
         "axpy_f32": ([P, F, P, P, P, SZ, I, P], I),
@@ -85,7 +91,8 @@ SIGNATURES = {
         "rmsnorm_f32": ([P, P, P, I, I, F, P], I),
         "rmsnorm_bf16": ([P, P, P, I, I, F, P], I)},
     "matmul_bias_act": {
-        "matmul_bias_act_bf16": ([P, P, P, P, P, I, I, I, I, P], I),
+        "matmul_bias_act_bf16": (
+            [P, P, P, P, P, I, I, I, I, *PINS, P], I),
         "matmul_bias_act_workspace_floats": ([I, I, I], SZ),
         **WGMMA_PLAN, **_decode_plan("matmul_bias_act")},
     "flash_attention": {

@@ -11,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from repro_torch.core import mesh as hw
+
+from . import build, pipeline, ref
 
 
 def conv2d_3x3_plain(x, w):
@@ -39,3 +41,13 @@ def conv2d_3x3(x, w):
     build.check("conv2d", err)
     conv2d_3x3.launches += 1
     return out
+
+
+# One-point tune space: the tile (TW x TH, TY rows a thread) is
+# compile-time in `csrc/conv2d.cu`.
+pipeline.register(pipeline.KernelDef(
+    "conv2d", lambda s, knobs, db: pipeline.Traffic(
+        flops=18.0 * s["h"] * s["w"], hbm_bytes=2.0 * s["h"] * s["w"] * db,
+        ideal_bytes=2.0 * s["h"] * s["w"] * db, grid_steps=1, smem_bytes=0,
+        peak_flops=hw.PEAK_FLOPS_F32),
+    pipeline.one_point))

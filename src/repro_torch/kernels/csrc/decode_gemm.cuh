@@ -543,8 +543,11 @@ inline Plan fit(int M, int N, int K, int boxes, int cluster, int kboxes) {
 // streamed meanwhile) plus the boxes its busiest CTA streams, boxes x k
 // boxes. Ties go to the smaller cluster (a shorter DSMEM reduction), then
 // the narrower tile. No rank of a cluster is left without k boxes.
+// `boxes` / `cluster` other than 0 pin that knob (the tuning layer's race):
+// the search then runs over the other alone, and finds nothing ({0, ...})
+// when the pinned value cannot run.
 template <bool NORM, int EPI>
-Plan search(int M, int N, int K) {
+Plan search(int M, int N, int K, int boxes = 0, int cluster = 0) {
   Plan best = {0, 0, 0, 0, 0, 0, 0};
   if (!takes(M, N, K)) return best;
   const int sms = hopper::sm_count();
@@ -552,9 +555,11 @@ Plan search(int M, int N, int K) {
   const int kbox = (K + BOX_K - 1) / BOX_K;
   long best_cost = -1;
   for (int c = 1; c <= MAX_CLUSTER; ++c) {
+    if (cluster != 0 && c != cluster) continue;
     const int kbc = (kbox + c - 1) / c;
     if ((c - 1) * kbc >= kbox) continue;
     for (int b = 1; b <= MAX_BOXES; ++b) {
+      if (boxes != 0 && b != boxes) continue;
       const Plan p = fit(M, N, K, b, c, kbc);
       if (p.boxes == 0) break;
       const int slots = p.per_sm * sms / c, avail = act[p.per_sm - 1][c];
@@ -572,20 +577,26 @@ Plan search(int M, int N, int K) {
 }
 
 // `search`'s plan, kept for each shape (a decode step asks for the same few
-// shapes every call; the launch's host time is part of an eager step's).
+// shapes every call; the launch's host time is part of an eager step's). A
+// pinned plan (`boxes` or `cluster` not 0) is searched each call and kept
+// nowhere.
 template <bool NORM, int EPI>
-Plan plan(int M, int N, int K) {
+Plan plan(int M, int N, int K, int boxes = 0, int cluster = 0) {
+  if (boxes != 0 || cluster != 0)
+    return search<NORM, EPI>(M, N, K, boxes, cluster);
   return hopper::per_shape(M, N, K, [](int m, int n, int k) {
     return search<NORM, EPI>(m, n, k);
   });
 }
 
 // out = epilogue<EPI>(prologue<NORM>(x) @ w) in one launch on `st`; the
-// caller has checked `takes`.
+// caller has checked `takes`. A pinned plan the kernel cannot take is
+// refused, never replaced by the searched one.
 template <bool NORM, int EPI>
 int launch(const void* x, const void* scale, const void* w, const void* extra,
-           void* out, int M, int N, int K, float eps, cudaStream_t st) {
-  const Plan p = plan<NORM, EPI>(M, N, K);
+           void* out, int M, int N, int K, float eps, cudaStream_t st,
+           int boxes = 0, int cluster = 0) {
+  const Plan p = plan<NORM, EPI>(M, N, K, boxes, cluster);
   if (p.boxes == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_w;
   cudaError_t err = hopper::encode(&map_w, w, K, N, BOX_K);
@@ -611,8 +622,8 @@ int launch(const void* x, const void* scale, const void* w, const void* extra,
 // The plan as {N tile, cluster size, CTAs, k rows a CTA, ring stages} in
 // `out`, for reports (each wrapper exports it as `<wrapper>_decode_plan`).
 template <bool NORM, int EPI>
-int report(int M, int N, int K, int* out) {
-  const Plan p = plan<NORM, EPI>(M, N, K);
+int report(int M, int N, int K, int boxes, int cluster, int* out) {
+  const Plan p = plan<NORM, EPI>(M, N, K, boxes, cluster);
   if (p.boxes == 0) return (int)cudaErrorInvalidValue;
   out[0] = p.boxes * BOX;
   out[1] = p.cluster;
@@ -634,16 +645,19 @@ inline size_t decode_workspace_floats(int M, int N, int K) {
 // 16 with K, N % 8 == 0 and K <= 32768 on the decode kernel above; any
 // other M <= 16 on common.cuh's split-K path (partials in `workspace`,
 // then its finish); the rest (M > 16, K or N % 8 != 0) on the 64 x 128
-// wmma tile.
+// wmma tile. `boxes` / `cluster` pin the decode kernel's plan; the other
+// paths have no plan to pin and refuse a pin.
 template <bool NORM, int EPI>
 int launch_matmul(const void* a, const void* scale, const void* b,
                   const void* extra, void* out, float* workspace, int M, int N,
-                  int K, float eps, void* stream) {
+                  int K, float eps, void* stream, int boxes = 0,
+                  int cluster = 0) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (decode::takes(M, N, K))
     return decode::launch<NORM, EPI>(a, scale, b, extra, out, M, N, K, eps,
-                                     st);
+                                     st, boxes, cluster);
+  if (boxes != 0 || cluster != 0) return (int)cudaErrorInvalidValue;
   if (M <= skinny::MAX_M) {
     if (workspace == nullptr) return (int)cudaErrorInvalidValue;
     int splits, kps;

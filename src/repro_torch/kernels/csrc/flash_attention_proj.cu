@@ -59,9 +59,13 @@ extern "C" int flash_attention_proj_bf16(const void* q, const void* k,
                                          const void* v, const void* wo,
                                          void* out, void* workspace, int B,
                                          int H, int KV, int S, int hd,
-                                         int dm, int causal, void* stream) {
+                                         int dm, int causal, int tile_n,
+                                         void* stream) {
+  // `tile_n` pins the projection's N tile (0: the mainloop's own pick); a
+  // tile outside TILE_N is refused before anything is launched
   if (hd != HD || B <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      dm <= 0 || !hopper::takes(dm, H * HD) || workspace == nullptr)
+      dm <= 0 || !hopper::takes(dm, H * HD) || workspace == nullptr ||
+      hopper::plan(B * S, dm, tile_n).bn == 0)
     return (int)cudaErrorInvalidValue;
   attn::Maps maps;
   cudaError_t err = attn::encode_maps<HD>(&maps, q, k, v, B, H, KV, S);
@@ -77,5 +81,5 @@ extern "C" int flash_attention_proj_bf16(const void* q, const void* k,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return hopper::launch<EPI_NONE, hopper::OWNER_FLASH_ATTENTION_PROJ>(
-      o, wo, nullptr, out, B * S, dm, H * HD, stream);
+      o, wo, nullptr, out, B * S, dm, H * HD, stream, tile_n);
 }

@@ -142,25 +142,29 @@ extern "C" size_t matmul_workspace_floats(int M, int N, int K, int f32) {
   return decode_workspace_floats(M, N, K);
 }
 
-extern "C" int matmul_decode_plan(int M, int N, int K, int* plan) {
-  return decode::report<false, EPI_NONE>(M, N, K, plan);
+extern "C" int matmul_decode_plan(int M, int N, int K, int boxes,
+                                  int cluster, int* plan) {
+  return decode::report<false, EPI_NONE>(M, N, K, boxes, cluster, plan);
 }
 
 // How an f32 product runs, for reports: {route (1: 3xTF32 on the tensor
 // cores after the split pass, 2: the same with b split in the product, 0:
 // the CUDA-core tile), N tile, cluster size, tiles, blocks, k a block
 // walks, ring stages} in `plan` (the CUDA-core tile: {0, 128, 1, tiles,
-// tiles, K, 2}).
-extern "C" int matmul_f32_plan(int M, int N, int K, int* plan) {
+// tiles, K, 2}), under the pinned `tile_n` / `cluster` (0: searched; the
+// CUDA-core tile takes no pin).
+extern "C" int matmul_f32_plan(int M, int N, int K, int tile_n, int cluster,
+                               int* plan) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   if (!tf32x3::takes(N, K)) {
+    if (tile_n != 0 || cluster != 0) return (int)cudaErrorInvalidValue;
     const int tiles = ((M + sgemm::BM - 1) / sgemm::BM) *
                       ((N + sgemm::BN - 1) / sgemm::BN);
     const int v[7] = {0, sgemm::BN, 1, tiles, tiles, K, 2};
     for (int i = 0; i < 7; ++i) plan[i] = v[i];
     return 0;
   }
-  const tf32x3::Plan p = tf32x3::plan(M, N, K);
+  const tf32x3::Plan p = tf32x3::plan(M, N, K, tile_n, cluster);
   if (p.bn == 0) return (int)cudaErrorInvalidValue;
   const int v[7] = {p.fused ? 2 : 1, p.bn, p.cluster, p.tiles, p.blocks,
                     p.kper * tf32x3::BK, p.stages};
@@ -172,14 +176,18 @@ extern "C" int matmul_f32_plan(int M, int N, int K, int* plan) {
 // the split pass into `workspace` and the product, or at M <= 256 the
 // product alone), any other shape on the CUDA-core tile above. The route
 // is chosen on the shape alone; a failed launch is returned, never retried
-// on the other.
+// on the other. `tile_n` / `cluster` pin the 3xTF32 plan (0: searched);
+// `boxes` belongs to the bf16 decode kernel, and the CUDA-core tile takes
+// no pin: both are refused.
 extern "C" int matmul_f32(const void* a, const void* b, void* out,
-                          void* workspace, int M, int N, int K,
-                          void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+                          void* workspace, int M, int N, int K, int tile_n,
+                          int boxes, int cluster, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || boxes != 0)
+    return (int)cudaErrorInvalidValue;
   if (tf32x3::takes(N, K))
     return tf32x3::launch(a, b, out, (float*)workspace, M, N, K,
-                          (cudaStream_t)stream);
+                          (cudaStream_t)stream, tile_n, cluster);
+  if (tile_n != 0 || cluster != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((M + sgemm::BM - 1) / sgemm::BM,
                   (N + sgemm::BN - 1) / sgemm::BN);
   sgemm::matmul_f32_kernel<<<grid, sgemm::THREADS, 0, (cudaStream_t)stream>>>(
@@ -187,13 +195,19 @@ extern "C" int matmul_f32(const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
+// bf16: `tile_n` pins the mainloop's N tile, `boxes` / `cluster` the
+// decode kernel's plan (0: the kernel's own); a pin the shape's path does
+// not have is refused.
 extern "C" int matmul_bf16(const void* a, const void* b, void* out,
-                           void* workspace, int M, int N, int K,
-                           void* stream) {
-  if (hopper::takes_prefill(M, N, K))
-    return hopper::launch<EPI_NONE, hopper::OWNER_MATMUL>(a, b, nullptr, out,
-                                                          M, N, K, stream);
+                           void* workspace, int M, int N, int K, int tile_n,
+                           int boxes, int cluster, void* stream) {
+  if (hopper::takes_prefill(M, N, K)) {
+    if (boxes != 0 || cluster != 0) return (int)cudaErrorInvalidValue;
+    return hopper::launch<EPI_NONE, hopper::OWNER_MATMUL>(
+        a, b, nullptr, out, M, N, K, stream, tile_n);
+  }
+  if (tile_n != 0) return (int)cudaErrorInvalidValue;
   return launch_matmul<false, EPI_NONE>(a, nullptr, b, nullptr, out,
                                         (float*)workspace, M, N, K, 0.f,
-                                        stream);
+                                        stream, boxes, cluster);
 }

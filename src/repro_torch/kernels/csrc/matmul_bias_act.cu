@@ -32,36 +32,44 @@ extern "C" size_t matmul_bias_act_workspace_floats(int M, int N, int K) {
   return decode_workspace_floats(M, N, K);
 }
 
-extern "C" int matmul_bias_act_decode_plan(int M, int N, int K, int* plan) {
-  return decode::report<false, EPI_BIAS>(M, N, K, plan);
+extern "C" int matmul_bias_act_decode_plan(int M, int N, int K, int boxes,
+                                           int cluster, int* plan) {
+  return decode::report<false, EPI_BIAS>(M, N, K, boxes, cluster, plan);
 }
 
-// act: 0 none, 1 gelu, 2 silu (the wrapper's ACTS order).
+// act: 0 none, 1 gelu, 2 silu (the wrapper's ACTS order). `tile_n` pins
+// the mainloop's N tile, `boxes` / `cluster` the decode kernel's plan (0:
+// the kernel's own); a pin the shape's path does not have is refused.
 extern "C" int matmul_bias_act_bf16(const void* a, const void* b,
                                     const void* bias, void* out,
                                     void* workspace, int M, int N, int K,
-                                    int act, void* stream) {
+                                    int act, int tile_n, int boxes,
+                                    int cluster, void* stream) {
   float* ws = (float*)workspace;
   const bool mainloop = hopper::takes_prefill(M, N, K);
+  if (mainloop ? (boxes != 0 || cluster != 0) : tile_n != 0)
+    return (int)cudaErrorInvalidValue;
   switch (act) {
     case 0:
       return mainloop
           ? hopper::launch<EPI_BIAS, hopper::OWNER_MATMUL_BIAS_ACT>(
-                a, b, bias, out, M, N, K, stream)
+                a, b, bias, out, M, N, K, stream, tile_n)
           : launch_matmul<false, EPI_BIAS>(a, nullptr, b, bias, out, ws, M,
-                                           N, K, 0.f, stream);
+                                           N, K, 0.f, stream, boxes, cluster);
     case 1:
       return mainloop
           ? hopper::launch<EPI_BIAS_GELU, hopper::OWNER_MATMUL_BIAS_ACT>(
-                a, b, bias, out, M, N, K, stream)
+                a, b, bias, out, M, N, K, stream, tile_n)
           : launch_matmul<false, EPI_BIAS_GELU>(a, nullptr, b, bias, out, ws,
-                                                M, N, K, 0.f, stream);
+                                                M, N, K, 0.f, stream, boxes,
+                                                cluster);
     case 2:
       return mainloop
           ? hopper::launch<EPI_BIAS_SILU, hopper::OWNER_MATMUL_BIAS_ACT>(
-                a, b, bias, out, M, N, K, stream)
+                a, b, bias, out, M, N, K, stream, tile_n)
           : launch_matmul<false, EPI_BIAS_SILU>(a, nullptr, b, bias, out, ws,
-                                                M, N, K, 0.f, stream);
+                                                M, N, K, 0.f, stream, boxes,
+                                                cluster);
     default:
       return (int)cudaErrorInvalidValue;
   }

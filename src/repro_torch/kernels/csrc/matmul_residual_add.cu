@@ -33,18 +33,26 @@ extern "C" size_t matmul_residual_add_workspace_floats(int M, int N, int K) {
 }
 
 extern "C" int matmul_residual_add_decode_plan(int M, int N, int K,
+                                               int boxes, int cluster,
                                                int* plan) {
-  return decode::report<false, EPI_RESID>(M, N, K, plan);
+  return decode::report<false, EPI_RESID>(M, N, K, boxes, cluster, plan);
 }
 
+// `tile_n` pins the mainloop's N tile, `boxes` / `cluster` the decode
+// kernel's plan (0: the kernel's own); a pin the shape's path does not have
+// is refused.
 extern "C" int matmul_residual_add_bf16(const void* a, const void* b,
                                         const void* res, void* out,
                                         void* workspace, int M, int N, int K,
+                                        int tile_n, int boxes, int cluster,
                                         void* stream) {
-  if (hopper::takes_prefill(M, N, K))
+  if (hopper::takes_prefill(M, N, K)) {
+    if (boxes != 0 || cluster != 0) return (int)cudaErrorInvalidValue;
     return hopper::launch<EPI_RESID, hopper::OWNER_MATMUL_RESIDUAL_ADD>(
-        a, b, res, out, M, N, K, stream);
+        a, b, res, out, M, N, K, stream, tile_n);
+  }
+  if (tile_n != 0) return (int)cudaErrorInvalidValue;
   return launch_matmul<false, EPI_RESID>(a, nullptr, b, res, out,
                                          (float*)workspace, M, N, K, 0.f,
-                                         stream);
+                                         stream, boxes, cluster);
 }

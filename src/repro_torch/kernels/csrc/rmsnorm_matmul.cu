@@ -82,20 +82,28 @@ extern "C" size_t rmsnorm_matmul_workspace_floats(int M, int N, int K) {
   return decode_workspace_floats(M, N, K);
 }
 
-extern "C" int rmsnorm_matmul_decode_plan(int M, int N, int K, int* plan) {
-  return decode::report<true, EPI_NONE>(M, N, K, plan);
+extern "C" int rmsnorm_matmul_decode_plan(int M, int N, int K, int boxes,
+                                          int cluster, int* plan) {
+  return decode::report<true, EPI_NONE>(M, N, K, boxes, cluster, plan);
 }
 
+// `tile_n` pins the mainloop's N tile, `boxes` / `cluster` the decode
+// kernel's plan (0: the kernel's own); a pin the shape's path does not have
+// is refused.
 extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,
                                    const void* w, void* out, void* workspace,
-                                   int M, int N, int K, float eps,
-                                   void* stream) {
+                                   int M, int N, int K, float eps, int tile_n,
+                                   int boxes, int cluster, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (!hopper::takes_prefill(M, N, K))
+  if (!hopper::takes_prefill(M, N, K)) {
+    if (tile_n != 0) return (int)cudaErrorInvalidValue;
     return launch_matmul<true, EPI_NONE>(x, scale, w, nullptr, out,
                                          (float*)workspace, M, N, K, eps,
-                                         stream);
-  if (workspace == nullptr) return (int)cudaErrorInvalidValue;
+                                         stream, boxes, cluster);
+  }
+  if (workspace == nullptr || boxes != 0 || cluster != 0 ||
+      hopper::plan(M, N, tile_n).bn == 0)
+    return (int)cudaErrorInvalidValue;
   bf16* xn = static_cast<bf16*>(workspace);
   norm_rows_kernel<<<(M + ROWS - 1) / ROWS, ROWS * 32, 0,
                      (cudaStream_t)stream>>>(
@@ -103,5 +111,5 @@ extern "C" int rmsnorm_matmul_bf16(const void* x, const void* scale,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return hopper::launch<EPI_NONE, hopper::OWNER_RMSNORM_MATMUL>(
-      xn, w, nullptr, out, M, N, K, stream);
+      xn, w, nullptr, out, M, N, K, stream, tile_n);
 }

@@ -623,16 +623,20 @@ inline Plan fit(int M, int N, int K, int bn, int c, bool fused) {
 // block + TILE_FIXED), plus, with a cluster, a wave's exchange
 // (REDUCE_FIXED + bn / 2). Waves: tiles over SMs (c == 1, persistent), or
 // over the clusters the card runs at once. Every rank of a cluster walks
-// at least one k block.
-inline Plan search(int M, int N, int K) {
+// at least one k block. `tile_n` / `cluster` other than 0 pin that knob
+// (the tuning layer's race): the search runs over the other alone, and
+// finds nothing ({0, ...}) when the pinned value cannot run.
+inline Plan search(int M, int N, int K, int tile_n = 0, int cluster = 0) {
   Plan best = {0, 0, 0, 0, 0, 0, false, 0};
   const int sms = hopper::sm_count();
   const int kb = (K + BK - 1) / BK;
   long best_cost = -1;
   for (int bn : TILE_N) {
+    if (tile_n != 0 && bn != tile_n) continue;
     const int* act = active(bn);
     if (act[0] == 0) continue;
     for (int c = 1; c <= MAX_CLUSTER; ++c) {
+      if (cluster != 0 && c != cluster) continue;
       const int kper = (kb + c - 1) / c;
       if ((c - 1) * kper >= kb || bn / 8 < c) continue;
       const Plan p = fit(M, N, K, bn, c, M <= FUSED_MAX_M);
@@ -651,8 +655,10 @@ inline Plan search(int M, int N, int K) {
   return best;
 }
 
-// `search`'s plan, kept for each shape.
-inline Plan plan(int M, int N, int K) {
+// `search`'s plan, kept for each shape; a pinned plan is searched each
+// call and kept nowhere.
+inline Plan plan(int M, int N, int K, int tile_n = 0, int cluster = 0) {
+  if (tile_n != 0 || cluster != 0) return search(M, N, K, tile_n, cluster);
   return hopper::per_shape(M, N, K,
                            [](int m, int n, int k) { return search(m, n, k); });
 }
@@ -702,11 +708,15 @@ inline int run(const Plan& p, const void* a, const void* b, void* out,
 }
 
 // out (M,N) = a (M,K) @ b (K,N) in f32 on the tensor cores; the caller has
-// checked `takes`. `workspace` holds 2NK floats (b's parts).
+// checked `takes`. `workspace` holds 2NK floats (b's parts). `tile_n` /
+// `cluster` pin the plan (0: searched); a pinned plan that cannot run is
+// refused, never replaced.
 inline int launch(const void* a, const void* b, void* out, float* workspace,
-                  int M, int N, int K, cudaStream_t st) {
+                  int M, int N, int K, cudaStream_t st, int tile_n = 0,
+                  int cluster = 0) {
   if (M <= 0 || N <= 0 || K <= 0 || !takes(N, K))
     return (int)cudaErrorInvalidValue;
-  return run(plan(M, N, K), a, b, out, workspace, M, N, K, st);
+  return run(plan(M, N, K, tile_n, cluster), a, b, out, workspace, M, N, K,
+             st);
 }
 }  // namespace tf32x3

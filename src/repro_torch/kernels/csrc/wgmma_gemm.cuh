@@ -807,9 +807,20 @@ struct Plan {
   int bn, tiles, blocks;
 };
 
-inline Plan plan(int M, int N) {
+// Whether `bn` is one of the N tiles `launch` instantiates.
+inline bool is_tile_n(int bn) {
+  for (int t : TILE_N)
+    if (t == bn) return true;
+  return false;
+}
+
+// The plan of N tile `tile_n`, or of `pick_bn`'s when it is 0 (a tuned
+// caller pins the tile the tuning layer's race chose); {0, 0, 0} when
+// `tile_n` is not one of TILE_N.
+inline Plan plan(int M, int N, int tile_n = 0) {
   const int sms = sm_count();
-  const int bn = pick_bn(M, N, sms);
+  if (tile_n != 0 && !is_tile_n(tile_n)) return {0, 0, 0};
+  const int bn = tile_n != 0 ? tile_n : pick_bn(M, N, sms);
   const int tiles = ((M + BM - 1) / BM) * ((N + bn - 1) / bn);
   return {bn, tiles, tiles < sms ? tiles : sms};
 }
@@ -828,18 +839,20 @@ cudaError_t launch_bn(const CUtensorMap& map_a, const CUtensorMap& map_b,
 }
 
 // out (M,N) = epilogue(a (M,K) @ b (K,N)); the caller has checked `takes`
-// and names itself in OWNER.
+// and names itself in OWNER. `tile_n` pins the N tile (0: `pick_bn`'s); a
+// tile outside TILE_N is refused, never replaced.
 template <int EPI, int OWNER>
 int launch(const void* a, const void* b, const void* extra, void* out, int M,
-           int N, int K, void* stream) {
+           int N, int K, void* stream, int tile_n = 0) {
   if (M <= 0 || N <= 0 || K <= 0 || !takes(N, K))
     return (int)cudaErrorInvalidValue;
+  const Plan p = plan(M, N, tile_n);
+  if (p.bn == 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
   cudaError_t err = encode(&map_a, a, M, K, BM);
   if (err == cudaSuccess) err = encode(&map_b, b, K, N, BK);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  const Plan p = plan(M, N);
   switch (p.bn) {
     case 128:
       err = launch_bn<128, EPI, OWNER>(map_a, map_b, extra, out, M, N, K,
@@ -865,12 +878,14 @@ int launch(const void* a, const void* b, const void* extra, void* out, int M,
 }
 }  // namespace hopper
 
-// The mainloop's plan for an (M, N) output on the current device, as
-// {BN, tiles, blocks} in `plan` (the walk is persistent when tiles >
-// blocks); for reports, not for launching.
-extern "C" int wgmma_plan(int M, int N, int* plan) {
+// The mainloop's plan for an (M, N) output on the current device under the
+// pinned N tile `tile_n` (0: the kernel's own pick), as {BN, tiles,
+// blocks} in `plan` (the walk is persistent when tiles > blocks); for
+// reports, not for launching.
+extern "C" int wgmma_plan(int M, int N, int tile_n, int* plan) {
   if (M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const hopper::Plan p = hopper::plan(M, N);
+  const hopper::Plan p = hopper::plan(M, N, tile_n);
+  if (p.bn == 0) return (int)cudaErrorInvalidValue;
   plan[0] = p.bn;
   plan[1] = p.tiles;
   plan[2] = p.blocks;

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from repro_torch.core import mesh as hw
+
+from . import build, pipeline, ref
 
 F32 = torch.float32
 _C = torch.from_numpy(ref.dct_matrix(8))
@@ -53,3 +55,13 @@ def dct8x8(blocks):
     build.check("dct8x8", err)
     dct8x8.launches += 1
     return out
+
+
+# One-point tune space: THREADS and the blocks a step are compile-time in
+# `csrc/dct8x8.cu`.
+pipeline.register(pipeline.KernelDef(
+    "dct8x8", lambda s, knobs, db: pipeline.Traffic(
+        flops=4.0 * s["n"] * 8 ** 3, hbm_bytes=2.0 * s["n"] * 64 * db,
+        ideal_bytes=2.0 * s["n"] * 64 * db, grid_steps=1, smem_bytes=0,
+        peak_flops=hw.PEAK_FLOPS_F32),
+    pipeline.one_point))

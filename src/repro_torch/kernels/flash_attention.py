@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, pipeline
 
 F32 = torch.float32
 NEG = -1e30
@@ -71,3 +71,17 @@ def flash_attention(q, k, v, causal: bool = True):
     build.check("flash_attention", err)
     flash_attention.launches += 1
     return out
+
+
+# One-point tune space: the attention core's BQ / BKV / STAGES are
+# compile-time (`csrc/attention.cuh`).
+def _traffic(s, knobs, db):
+    b, h, kv, sq, hd = (s[k] for k in ("b", "h", "kv", "s", "hd"))
+    byts = (2.0 * b * h * sq * hd + 2.0 * b * kv * sq * hd) * db
+    return pipeline.Traffic(flops=2.0 * b * h * sq * sq * hd, hbm_bytes=byts,
+                            ideal_bytes=byts, grid_steps=1, smem_bytes=0,
+                            transcendentals=0.5 * b * h * sq * sq)
+
+
+pipeline.register(pipeline.KernelDef("flash_attention", _traffic,
+                                     pipeline.one_point))

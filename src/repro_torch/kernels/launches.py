@@ -16,6 +16,7 @@ from . import dct8x8 as _dct8x8
 from . import dotp as _dotp
 from . import flash_attention as _fa
 from . import fused as _fused
+from . import gemm_plans
 from . import matmul as _matmul
 from . import rmsnorm as _rmsnorm
 
@@ -61,9 +62,10 @@ def counts() -> dict:
             for name in WRAPPERS}
 
 
-# The Hopper mainloop's N tiles (`hopper::TILE_N`) and the OWNER argument
-# each wrapper instantiates it with (`hopper::OWNER_*`, csrc/wgmma_gemm.cuh).
-TILE_N = (128, 160, 176, 224, 256)
+# The Hopper mainloop's N tiles (`hopper::TILE_N`, mirrored in
+# gemm_plans.py) and the OWNER argument each wrapper instantiates it with
+# (`hopper::OWNER_*`, csrc/wgmma_gemm.cuh).
+TILE_N = gemm_plans.TILE_N
 MAINLOOP_OWNER = {"rmsnorm_matmul": 0, "flash_attention_proj": 1,
                   "matmul": 2, "matmul_residual_add": 3,
                   "matmul_bias_act": 4}

@@ -10,19 +10,23 @@ Under the active `KernelPolicy`:
   * otherwise        -> the kernel wrapper: the Hopper kernel for CUDA
                         tensors, its plain version for CPU tensors.
 
-The block arguments of the unfused ops (``bm``/``bn``/``bk``,
-``block_rows``, ``block_n``, ``bq``/``bk``) are the reference's Pallas
-grid blocking. Outside the "reference" mode they are checked as the
-reference checks them (an explicit block, capped at its dimension, must
-divide it) and are passed to no kernel: the CUDA kernels choose their own
-tiles.
+The block arguments (``bm``/``bn``/``bk``, ``block_rows``, ``block_n``,
+``bq``/``bk``; `REFERENCE_BLOCKS`) are the reference's Pallas grid
+blocking. Outside the "reference" mode they are checked as the reference
+checks them (an explicit block, capped at its dimension, must divide it)
+and are passed to no kernel. The GEMM ops also take the Hopper kernels'
+own plan knobs (``tile_n``; ``boxes`` and ``cluster``; see
+`kernels/pipeline.py`), which they pass to the kernel: 0 leaves it its
+own pick, a pin it cannot take raises, and the plain versions ignore them.
 
 Every ported kernel registers one `OpDescriptor` in `OPS`, under the
 reference's name (the convolution is "conv2d"). Each fused op's
 `composition` is its unfused route, built from the policy-dispatched
 primitives (`rmsnorm`, `matmul`, `flash_attention`) with PyTorch
-epilogues, as the reference's `_comp_*` are. `tuned_call` and the timed
-race between the two come with the tuning layer.
+epilogues, as the reference's `_comp_*` are. `tuned_call` runs an op under
+`KernelPolicy.call`: a pinned plan, or the tuned one (registry-cached,
+raced on a miss against the kernel's own plan and, for a fused op, its
+composition).
 """
 
 from __future__ import annotations
@@ -75,12 +79,24 @@ def _check_blocks(**dims_and_blocks: tuple[int, int | None]) -> None:
                 f"pass a divisor or omit it for the snapped default")
 
 
+# the reference's Pallas block keywords of each op (checked, never passed on)
+REFERENCE_BLOCKS = {
+    "matmul": ("bm", "bn", "bk"), "axpy": ("block_rows",),
+    "dotp": ("block_rows",), "conv2d": ("block_rows",),
+    "dct8x8": ("block_n",), "rmsnorm": ("block_rows",),
+    "flash_attention": ("bq", "bk"), "rmsnorm_matmul": ("bm", "bn"),
+    "matmul_bias_act": ("bm", "bn", "bk"),
+    "matmul_residual_add": ("bm", "bn", "bk"),
+    "flash_attention_proj": ("bq", "bk")}
+
+
 # ----------------------------------------------------------------------------
 # The paper's Table 1 suite
 # ----------------------------------------------------------------------------
 
 def matmul(a, b, *, bm: int | None = None, bn: int | None = None,
-           bk: int | None = None):
+           bk: int | None = None, tile_n: int = 0, boxes: int = 0,
+           cluster: int = 0):
     """a (M, K) @ b (K, N), f32 accumulator, output in a.dtype."""
     route = _route("matmul")
     if route == "reference":
@@ -89,7 +105,7 @@ def matmul(a, b, *, bm: int | None = None, bn: int | None = None,
                   bk=(a.shape[1], bk))
     if route == "plain":
         return _matmul.matmul_plain(a, b)
-    return _matmul.matmul(a, b)
+    return _matmul.matmul(a, b, tile_n=tile_n, boxes=boxes, cluster=cluster)
 
 
 def axpy(alpha, x, y, *, block_rows: int | None = None):
@@ -170,44 +186,65 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int | None = None,
 # The fused kernels
 # ----------------------------------------------------------------------------
 
-def rmsnorm_matmul(x, scale, w):
+def rmsnorm_matmul(x, scale, w, *, bm: int | None = None,
+                   bn: int | None = None, tile_n: int = 0, boxes: int = 0,
+                   cluster: int = 0):
     """matmul(rmsnorm(x, scale), w); the normed x never round-trips HBM."""
     route = _route("rmsnorm_matmul")
     if route == "reference":
         return _ref.rmsnorm_matmul(x, scale, w)
+    if bm is not None or bn is not None:
+        _check_blocks(bm=(x.shape[0], bm), bn=(w.shape[1], bn))
     if route == "plain":
         return _fused.rmsnorm_matmul_plain(x, scale, w)
-    return _fused.rmsnorm_matmul(x, scale, w)
+    return _fused.rmsnorm_matmul(x, scale, w, tile_n=tile_n, boxes=boxes,
+                                 cluster=cluster)
 
 
-def matmul_bias_act(a, b, bias, *, act: str = "gelu"):
+def matmul_bias_act(a, b, bias, *, act: str = "gelu", bm: int | None = None,
+                    bn: int | None = None, bk: int | None = None,
+                    tile_n: int = 0, boxes: int = 0, cluster: int = 0):
     """act(a @ b + bias) with the epilogue applied before writeback."""
     route = _route("matmul_bias_act")
     if route == "reference":
         return _ref.matmul_bias_act(a, b, bias, act)
+    if bm is not None or bn is not None or bk is not None:
+        _check_blocks(bm=(a.shape[0], bm), bn=(b.shape[1], bn),
+                      bk=(a.shape[1], bk))
     if route == "plain":
         return _fused.matmul_bias_act_plain(a, b, bias, act)
-    return _fused.matmul_bias_act(a, b, bias, act)
+    return _fused.matmul_bias_act(a, b, bias, act, tile_n=tile_n,
+                                  boxes=boxes, cluster=cluster)
 
 
-def matmul_residual_add(a, b, res):
+def matmul_residual_add(a, b, res, *, bm: int | None = None,
+                        bn: int | None = None, bk: int | None = None,
+                        tile_n: int = 0, boxes: int = 0, cluster: int = 0):
     """a @ b + res; the matmul output never round-trips HBM."""
     route = _route("matmul_residual_add")
     if route == "reference":
         return _ref.matmul_residual_add(a, b, res)
+    if bm is not None or bn is not None or bk is not None:
+        _check_blocks(bm=(a.shape[0], bm), bn=(b.shape[1], bn),
+                      bk=(a.shape[1], bk))
     if route == "plain":
         return _fused.matmul_residual_add_plain(a, b, res)
-    return _fused.matmul_residual_add(a, b, res)
+    return _fused.matmul_residual_add(a, b, res, tile_n=tile_n, boxes=boxes,
+                                      cluster=cluster)
 
 
-def flash_attention_proj(q, k, v, wo, *, causal: bool = True):
+def flash_attention_proj(q, k, v, wo, *, causal: bool = True,
+                         bq: int | None = None, bk: int | None = None,
+                         tile_n: int = 0):
     """Flash attention with the output projection fused across heads."""
     route = _route("flash_attention_proj")
     if route == "reference":
         return _ref.flash_attention_proj(q, k, v, wo, causal=causal)
+    if bq is not None or bk is not None:
+        _check_blocks(bq=(q.shape[2], bq), bk=(q.shape[2], bk))
     if route == "plain":
         return _fused.flash_attention_proj_plain(q, k, v, wo, causal)
-    return _fused.flash_attention_proj(q, k, v, wo, causal)
+    return _fused.flash_attention_proj(q, k, v, wo, causal, tile_n=tile_n)
 
 
 # ----------------------------------------------------------------------------
@@ -256,6 +293,13 @@ def kernel_shapes(name: str, *operands) -> dict:
     """The pipeline-layer shape dict for a kernel's operands, in the
     public wrapper's operand order."""
     return OPS[name].shapes(*operands)
+
+
+def tuned_call(name: str, *operands, **kwargs):
+    """Run a kernel under the active KernelPolicy: reference short-circuit,
+    a pinned plan (dict override), or the tuned plan, raced on a miss —
+    see `KernelPolicy.call`."""
+    return current_policy().call(name, *operands, **kwargs)
 
 
 def _shapes_mn(*xs):

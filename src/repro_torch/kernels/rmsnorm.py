@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from repro_torch.core import mesh as hw
+
+from . import build, pipeline, ref
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -41,3 +43,14 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     build.check("rmsnorm", err)
     rmsnorm.launches += 1
     return out
+
+
+# One-point tune space: the values a thread holds and the block sizes are
+# compile-time in `csrc/rmsnorm.cu` (a knob for them is open work).
+pipeline.register(pipeline.KernelDef(
+    "rmsnorm", lambda s, knobs, db: pipeline.Traffic(
+        flops=4.0 * s["m"] * s["d"],
+        hbm_bytes=(2.0 * s["m"] * s["d"] + s["d"]) * db,
+        ideal_bytes=(2.0 * s["m"] * s["d"] + s["d"]) * db, grid_steps=1,
+        smem_bytes=0, peak_flops=hw.PEAK_FLOPS_F32),
+    pipeline.one_point))

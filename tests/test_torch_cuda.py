@@ -547,7 +547,7 @@ def _f32_plan(m, k, n):
 
     plan = (ctypes.c_int * 7)()
     build.check("matmul", build.entry("matmul", "matmul_f32_plan")(
-        m, n, k, plan))
+        m, n, k, 0, 0, plan))
     return list(plan)
 
 
@@ -1812,3 +1812,180 @@ def test_cuda_graphed_recurrent_step_equals_eager(cuda, arch):
     eager = prefill.eager(params, batch)
     prefill(params, batch)                          # capture
     assert torch.equal(prefill(params, batch), eager)
+
+
+# ----------------------------------------------------------------------------
+# the tuning layer: pinned plans reach the launch
+# ----------------------------------------------------------------------------
+
+GEMMS = ("matmul", "rmsnorm_matmul", "matmul_residual_add",
+         "matmul_bias_act")
+
+
+def _gemm_call(name, m, k, n, g):
+    """(kernel call taking the plan knobs, plain version) of GEMM `name`
+    on seeded bf16 operands."""
+    x = _randn(g, m, k, dtype=torch.bfloat16)
+    w = _randn(g, k, n, dtype=torch.bfloat16, scale=k ** -0.5)
+    extra = {"rmsnorm_matmul": _randn(g, k, dtype=torch.bfloat16, scale=0.1),
+             "matmul_residual_add": _randn(g, m, n, dtype=torch.bfloat16),
+             "matmul_bias_act": _randn(g, n, dtype=torch.bfloat16)}.get(name)
+    if name == "matmul":
+        return (lambda **kw: matmul.matmul(x, w, **kw),
+                lambda: matmul.matmul_plain(x, w))
+    if name == "rmsnorm_matmul":
+        return (lambda **kw: fused.rmsnorm_matmul(x, extra, w, **kw),
+                lambda: fused.rmsnorm_matmul_plain(x, extra, w))
+    fn, plain = {"matmul_residual_add": (fused.matmul_residual_add,
+                                         fused.matmul_residual_add_plain),
+                 "matmul_bias_act": (fused.matmul_bias_act,
+                                     fused.matmul_bias_act_plain)}[name]
+    return (lambda **kw: fn(x, w, extra, **kw), lambda: plain(x, w, extra))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GEMMS)
+def test_cuda_pinned_tile_n_reaches_the_launch(cuda, name):
+    """Every N tile of the mainloop's tune space, pinned, runs that tile
+    (the traced instantiation and `wgmma_plan` name it) and equals the
+    plain version; a tile outside TILE_N raises."""
+    from repro_torch.kernels import gemm_plans, pipeline
+
+    m, k, n = 512, 1024, 1280
+    g = torch.Generator(device="cuda").manual_seed(3)
+    call, plain = _gemm_call(name, m, k, n, g)
+    want = plain()
+    space = list(pipeline.KERNELS[name].tune_space(
+        {"m": m, "k": k, "n": n}, 2))
+    assert [c["tile_n"] for c in space] == list(gemm_plans.TILE_N)
+    for cand in space:
+        torch.testing.assert_close(call(**cand).float(), want.float(),
+                                   **BF16_TOL)
+        names, _ = _traced_kernels(lambda: call(**cand))
+        mainloop = [k for k in names if "tma_wgmma_kernel<" in k]
+        assert len(mainloop) == 1 and \
+            f"tma_wgmma_kernel<{cand['tile_n']}," in mainloop[0], names
+        assert gemm_plans.wgmma_plan(name, m, n, cand["tile_n"])[0] == \
+            cand["tile_n"]
+    for bad in ({"tile_n": 192}, {"boxes": 2}, {"cluster": 2}):
+        with pytest.raises(RuntimeError):
+            call(**bad)
+            torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        gemm_plans.wgmma_plan(name, m, n, 192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GEMMS)
+def test_cuda_pinned_decode_plan_reaches_the_launch(cuda, name):
+    """Each (boxes, cluster) of the decode kernel's tune space runs with
+    the N tile and cluster the plan report names and equals the plain
+    version; a plan `fit` rejects, or a mainloop knob, raises."""
+    from repro_torch.kernels import gemm_plans, pipeline
+
+    m, k, n = 8, 2048, 1024
+    g = torch.Generator(device="cuda").manual_seed(4)
+    call, plain = _gemm_call(name, m, k, n, g)
+    want = plain()
+    space = list(pipeline.KERNELS[name].tune_space(
+        {"m": m, "k": k, "n": n}, 2))
+    assert len(space) > 8
+    for cand in space:
+        torch.testing.assert_close(call(**cand).float(), want.float(),
+                                   **BF16_TOL)
+        bn, cluster = gemm_plans.decode_plan(name, m, k, n, **cand)[:2]
+        assert (bn, cluster) == (cand["boxes"] * 64, cand["cluster"])
+    own = pipeline.KERNELS[name].own_plan({"m": m, "k": k, "n": n}, 2)
+    assert own in space
+    for bad in ({"boxes": 9}, {"cluster": 9}, {"tile_n": 128}):
+        with pytest.raises(RuntimeError):
+            call(**bad)
+            torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_f32_plan_and_projection(cuda):
+    """The 3xTF32 product's (tile_n, cluster) and flash_attention_proj's
+    projection tile, pinned, equal their plain versions; pins the kernel
+    cannot take raise."""
+    from repro_torch.kernels import gemm_plans, pipeline
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a, b = _randn(g, 256, 512), _randn(g, 512, 256)
+    want = matmul.matmul_plain(a, b)
+    shapes = {"m": 256, "k": 512, "n": 256}
+    for cand in pipeline.KERNELS["matmul"].tune_space(shapes, 4):
+        torch.testing.assert_close(matmul.matmul(a, b, **cand), want,
+                                   rtol=0, atol=1e-4 * 512 ** 0.5)
+        plan = gemm_plans.f32_plan(256, 512, 256, **cand)
+        assert (plan[1], plan[2]) == (cand["tile_n"], cand["cluster"])
+    for bad in ({"tile_n": 96}, {"boxes": 1}, {"cluster": 9}):
+        with pytest.raises(RuntimeError):
+            matmul.matmul(a, b, **bad)
+    q = _randn(g, 1, 4, 128, 128, dtype=torch.bfloat16)
+    kv = [_randn(g, 1, 2, 128, 128, dtype=torch.bfloat16) for _ in range(2)]
+    wo = _randn(g, 4, 128, 256, dtype=torch.bfloat16, scale=0.05)
+    want = fused.flash_attention_proj_plain(q, *kv, wo)
+    for bn in gemm_plans.TILE_N:
+        torch.testing.assert_close(
+            fused.flash_attention_proj(q, *kv, wo, tile_n=bn).float(),
+            want.float(), **BF16_TOL)
+    with pytest.raises(RuntimeError):
+        fused.flash_attention_proj(q, *kv, wo, tile_n=100)
+
+
+@pytest.mark.cuda
+def test_cuda_tuned_call_races_then_hits_and_refuses_a_capture_miss(cuda):
+    """A timed tuned_call on the card races (CUDA events), keeps a record
+    naming the kernel's own plan as its default, matches the plain
+    version, and hits inside a CUDA-graph capture; a miss inside a
+    capture raises."""
+    from repro_torch.cluster import KernelPolicy, use_policy
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops, pipeline
+
+    registry.KERNEL_TUNES.clear()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    call, plain = _gemm_call("matmul_residual_add", 256, 512, 768, g)
+    x = _randn(g, 256, 512, dtype=torch.bfloat16)
+    w = _randn(g, 512, 768, dtype=torch.bfloat16, scale=512 ** -0.5)
+    r = _randn(g, 256, 768, dtype=torch.bfloat16)
+    pol = KernelPolicy(mode="fused", tuning="timed")
+    with use_policy(pol):
+        got = ops.tuned_call("matmul_residual_add", x, w, r)
+    torch.testing.assert_close(
+        got.float(), fused.matmul_residual_add_plain(x, w, r).float(),
+        **BF16_TOL)
+    rec = registry.get_kernel_tune("matmul_residual_add", pipeline.shape_key(
+        {"m": 256, "k": 512, "n": 768}, 2))
+    assert rec.source == "timed" and pol.stats["tune_races"] == 1
+    assert dict(rec.default_blocks) == pipeline.KERNELS[
+        "matmul_residual_add"].own_plan({"m": 256, "k": 512, "n": 768}, 2)
+    assert rec.measured_us <= rec.default_us
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with use_policy(pol), torch.cuda.graph(graph, stream=side,
+                                           capture_error_mode="thread_local"):
+        out = ops.tuned_call("matmul_residual_add", x, w, r)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, got)
+    assert pol.stats["tune_hits"] == 1
+    # a miss inside a capture (a raw one: a failed torch capture leaves
+    # torch's generator capturing) raises before anything is captured
+    import ctypes
+
+    x2, r2 = x[:128].contiguous(), r[:128].contiguous()
+    rt, handle = _cudart(), ctypes.c_void_p(side.cuda_stream)
+    torch.cuda.synchronize()
+    assert rt.cudaStreamBeginCapture(handle, 2) == 0      # relaxed mode
+    with torch.cuda.stream(side), use_policy(pol):
+        with pytest.raises(RuntimeError, match="capture"):
+            ops.tuned_call("matmul_residual_add", x2, w, r2)
+    raw = ctypes.c_void_p()
+    assert rt.cudaStreamEndCapture(handle, ctypes.byref(raw)) == 0
+    if raw.value:
+        rt.cudaGraphDestroy(raw)
+    assert pol.stats["tune_misses"] == 1         # the refused miss: none
+    registry.KERNEL_TUNES.clear()

@@ -25,6 +25,7 @@ import torch
 
 from repro import api as japi
 from repro.cluster import session as jsession
+from repro.kernels import tunedb as jtunedb
 from repro.models import steps as jsteps
 from repro.runtime import serve_loop as jserve_loop
 from repro.runtime.engine import DecodeEngine as JEngine
@@ -32,6 +33,7 @@ from repro_torch import api as tapi
 from repro_torch import weights
 from repro_torch.cluster import session as tsession
 from repro_torch.configs import get as tget
+from repro_torch.kernels import tunedb as ttunedb
 from repro_torch.models import steps as tsteps
 from repro_torch.runtime import serve_loop as tserve_loop
 from repro_torch.runtime.engine import DecodeEngine, make_decode_chunk
@@ -383,8 +385,10 @@ def test_unported_program_specs_name_their_roadmap_item(spec, item):
         tsession.Cluster(ARCH, device="cpu").compile(spec)
 
 
+@pytest.mark.parametrize("with_db", [False, True])
 @pytest.mark.parametrize("kind", ["serve", "serve_session"])
-def test_program_report_keys_match_reference(params, kind):
+def test_program_report_keys_match_reference(params, kind, with_db,
+                                             tmp_path):
     jspec, tspec = {
         "serve": (jsession.ServeProgram(chunk=4, **SERVE),
                   tsession.ServeProgram(chunk=4, **SERVE)),
@@ -394,11 +398,17 @@ def test_program_report_keys_match_reference(params, kind):
                           tsession.ServeSessionProgram(slots=4, max_seq=48,
                                                        max_new=6, chunk=4))}[
         kind]
-    jprog = jsession.Cluster(ARCH).compile(jspec)
-    tprog = tsession.Cluster(ARCH, device="cpu").compile(tspec)
-    # the reference's mesh and tune database are the port's device
+    db = {"tune_db": str(tmp_path / "tunes.json")} if with_db else {}
+    for tunedb in (jtunedb, ttunedb):     # no DB left active by another test
+        tunedb.set_active_db(None)
+    jprog = jsession.Cluster(ARCH, **db).compile(jspec)
+    tprog = tsession.Cluster(ARCH, device="cpu", **db).compile(tspec)
+    for tunedb in (jtunedb, ttunedb):
+        tunedb.reset_active_db()
+    # the reference's mesh is the port's device; with a tune database both
+    # report it ("tunedb"), without one neither does
     port_only = {"device"} | ({"captures"} if kind == "serve" else set())
-    ref_only = {"mesh", "tunedb"}
+    ref_only = {"mesh"}
     for ran in (False, True):
         if ran:
             jprog.run(params=params["jax_bf16"])
@@ -410,6 +420,10 @@ def test_program_report_keys_match_reference(params, kind):
         assert trep["device"] == "cpu"
         assert trep["compile_cache"] == {"hits": 0, "misses": 1}
         assert trep["policy"]["mode"] == jrep["policy"]["mode"]
+        assert ("tunedb" in trep) == ("tunedb" in jrep) == with_db
+        if with_db:
+            assert trep["tunedb"].keys() == jrep["tunedb"].keys()
+            assert trep["tunedb"]["warm_started"] == 0
         assert ("result" in trep) == ran
         if ran:
             assert set(trep["result"]) == set(jrep["result"])

@@ -55,8 +55,15 @@ def test_cluster_kernel_policy_and_keyword_scopes():
         cluster.kernel_policy is not pol
     with cluster.policy("fused", overrides={"matmul": "interpret"}) as pol:
         assert pol.fused and pol.mode_for("matmul") == "interpret"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cluster.policy(mode="tuned", overrides={"matmul": {"bm": 64}})
+    # a pinned plan (the tuning layer): the policy takes it and
+    # blocks_for returns it, as the reference's does
+    with cluster.policy(mode="tuned",
+                        overrides={"matmul": {"bm": 64}}) as pol:
+        assert pol.blocks_for("matmul") == {"bm": 64}
+        assert cluster.kernel_policy is pol
+    with JCluster(ARCH).policy(mode="tuned",
+                               overrides={"matmul": {"bm": 64}}) as jpol:
+        assert jpol.blocks_for("matmul") == {"bm": 64}
 
 
 def test_session_calls_take_timeout_s():

@@ -154,7 +154,7 @@ def main() -> int:
         outs, calls = {}, {}
         for name, lib in libs.items():
             plan = (ctypes.c_int * 7)()
-            assert lib.matmul_f32_plan(m, n, k, plan) == 0
+            assert lib.matmul_f32_plan(m, n, k, 0, 0, plan) == 0
             row[f"{name}_plan"] = list(plan)
             ws = torch.empty(max(int(lib.matmul_workspace_floats(m, n, k, 1)),
                                  1), device="cuda")
@@ -163,6 +163,7 @@ def main() -> int:
             def call(lib=lib, ws=ws, out=out):
                 err = lib.matmul_f32(a.data_ptr(), b.data_ptr(),
                                      out.data_ptr(), ws.data_ptr(), m, n, k,
+                                     0, 0, 0,
                                      torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"matmul_f32: error {err}")
