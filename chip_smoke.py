@@ -12,7 +12,10 @@ the robustness and durability layer on its graphed paged session
 then mixtral-8x7b at full width (8 of its 32 layers): its MoE prefill on
 the banded schedule and its decode on rolling caches; then the three
 mixed-kind archs: recurrentgemma-9b at full width and depth, xlstm-125m
-whole, and llama-3.2-vision-90b at full width (10 of its 100 layers).
+whole, and llama-3.2-vision-90b at full width (10 of its 100 layers);
+then trains qwen3-14b at full width (4 of its 40 layers) through
+`TrainProgram` under "fused", and a reduced qwen3 through
+`TrainProgram.run()` with checkpoint, preemption and resume.
 
     python3 chip_smoke.py
 
@@ -21,7 +24,8 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
   device   the card's name and power limit (nvidia-smi)
   build    nvcc of every source in src/repro_torch/kernels/csrc (parallel)
   kernels  each kernel of the model paths vs its plain version at those
-           paths' shapes, in bf16 (rmsnorm also in f32): max abs error
+           paths' shapes (qwen3-14b's train microbatch among them: M 1024,
+           B 2), in bf16 (rmsnorm also in f32): max abs error
            against the stated tolerance, kernel, plain and library times
            (CUDA events, L2 flushed before each launch; for rmsnorm and
            the decode kernel's rows also the kernel's and the library's
@@ -68,10 +72,11 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            ops.tuned_call: each miss races the top 3 modeled plans of the
            kernel's own knobs (tile_n; boxes, cluster), the kernel's own
            plan and, for a fused op, its composition (3 reps, CUDA
-           events, L2 flushed). One [tune] line a cell: lanes, the picked
+           events, each behind a ~1 ms spin, L2 flushed). One [tune] line a cell: lanes, the picked
            knobs and the kernel's own, modeled / raced us, the route, the
-           winner and the default re-timed (flushed; the least of 3 means
-           of 10, in turn), held to tuned <= default x 1.15
+           winner and the default re-timed (flushed, each launch behind
+           a ~1 ms spin; the least of 3 means of 10, in turn), held to
+           tuned <= default x 1.15
            (benchmarks/check_gate.py's tuned check); every tuned output
            against its plain version; on the
            mainloop a pinned tile_n in the traced kernel's name and in
@@ -205,10 +210,31 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            layers plain), eager, traced and as a CUDA graph; then
            ServeProgram(batch=8, max_seq=256, max_new=64) at chunk 16 and
            chunk 1 (the cross K/V: the zero cache, as in the reference)
+  train    qwen3-14b at full width, 4 of its 40 layers (2.88B parameters;
+           bf16 weights, f32 moments and gradient accumulator, peak
+           ~48 GB; the vision model's weights are freed first), under
+           "fused", batch 8 x 512, grad_accum 4, remat "nothing":
+           part=step, 4 steps through CompiledTrain.step (counted: rows
+           1-3 launch 7 times a layer a microbatch, twice under
+           recomputation; no plain version on the card), then the state
+           made again and the same batches through .chunk (losses equal
+           bit for bit); the step's median wall and tokens/s, its halves
+           (forward + backward, AdamW) and a forward alone by CUDA
+           events, the peak memory, the model FLOPs' bound at the bf16
+           peak and the optimizer's byte bound, one step traced (launches
+           equal to the count, the device's idle share, the kernels with
+           the most time); part=grads, one microbatch's gradients through
+           the kernel route and the "reference" route: every leaf finite
+           and non-zero, within 2e-2 relative L2; part=run, a reduced
+           qwen3 (2 layers, d_model 1024, 8 / 2 heads of 128, vocab 8192)
+           through TrainProgram.run() with the double-buffered feed and
+           checkpoints, a second run preempted by SIGTERM after step 6 and
+           a third resumed from it: its losses equal the uninterrupted
+           run's, and the loss falls; then api.train on qwen3-14b-smoke
 
 The kernel launch counts are set to 0 before each of the suite, tune,
 compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
-moe, hybrid, xlstm and vlm runs and read right after; every kernel of a
+moe, hybrid, xlstm, vlm and train runs and read right after; every kernel of a
 phase must have launched and no plain version may have run on a CUDA
 tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
@@ -274,16 +300,22 @@ def bound(bytes_moved: float, flops: float,
 class Timer:
     """Mean device time of `fn` over `iters` launches, with the 50 MB L2
     flushed before each launch (the decode path streams its weights from
-    device memory, so a warm L2 would flatter small weights)."""
+    device memory, so a warm L2 would flatter small weights). Given
+    `spin_cycles`, a spin kernel of that many cycles runs before each
+    flush, so that a pause of the host's (its cores are shared) before the
+    launch is queued does not reach the timed span."""
 
-    def __init__(self):
+    def __init__(self, spin_cycles: int = 0):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.spin_cycles = spin_cycles
 
     def __call__(self, fn, iters: int = 10) -> float:
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(iters):
+            if self.spin_cycles:
+                torch.cuda._sleep(self.spin_cycles)
             self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -380,6 +412,7 @@ def main() -> int:
     hybrid_counts = hybrid_phase(launches)
     xlstm_phase(launches)
     vlm_counts = vlm_phase(launches)
+    train_counts = train_phase(launches)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
@@ -391,12 +424,16 @@ def main() -> int:
         # counts over the prefill and serve runs. flash_attention: the
         # "pallas" prefill's; matmul_bias_act: the whisper prefill's;
         # rmsnorm: rmsnorm_matmul's composition's. A suite kernel's record
-        # already holds the suite phase's counts.
+        # already holds the suite phase's counts. train_launches: the
+        # qwen3 fused kernels' launches in one full-width train step
+        # (counted and traced).
         name = rec["name"]
         if name in QWEN_FUSED:
             rec["launches"] = (prefill_counts[name] + serve_traced[name]
                                + engine_traced[name] + moe_counts[name]
-                               + hybrid_counts[name] + vlm_counts[name])
+                               + hybrid_counts[name] + vlm_counts[name]
+                               + train_counts[name])
+            rec["train_launches"] = train_counts[name]
             rec["wrapper_launches"] = prefill_counts[name] + \
                 serve_counts[name] + chaos_counts[name]
         else:
@@ -673,7 +710,8 @@ def kernel_phase() -> list[dict]:
 
     K = 5120
     for m, n in ((8, 5120), (8, 1024), (8, 17408), (512, 5120),
-                 (512, 7168), (512, 17408), (1, 5120), (16, 5120)):
+                 (512, 7168), (512, 17408), (1, 5120), (16, 5120),
+                 (1024, 5120), (1024, 1024), (1024, 17408)):
         x, s, w = randn(m, K), randn(K, scale=0.1), randn(K, n,
                                                            scale=K ** -0.5)
         case("rmsnorm_matmul", f"M{m}xK{K}xN{n}",
@@ -702,12 +740,13 @@ def kernel_phase() -> list[dict]:
              lambda: torch.matmul(x, w),
              bound((m * K + K + K * n + m * n) * 2, 2.0 * m * K * n),
              schedule=gemm_schedule("rmsnorm_matmul", m, K, n))
-    # qwen3-14b's decode and prefill rows, mixtral's out-projection (also
+    # qwen3-14b's decode, prefill and train rows (a train microbatch is
+    # 2 x 512 = 1,024 rows), mixtral's out-projection (also
     # recurrentgemma's), recurrentgemma's down projection (K 12288) and
     # its decode rows, llama-3.2-vision's out (K 8192) and down (K 28672)
     # at M 512 and M 8
     for m, k, n in ((8, 5120, 5120), (8, 17408, 5120), (512, 17408, 5120),
-                    (8192, 4096, 4096), (8192, 12288, 4096),
+                    (1024, 17408, 5120), (8192, 4096, 4096), (8192, 12288, 4096),
                     (8, 4096, 4096), (8, 12288, 4096), (512, 8192, 8192),
                     (512, 28672, 8192), (8, 8192, 8192), (8, 28672, 8192)):
         a, w, r = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
@@ -717,10 +756,11 @@ def kernel_phase() -> list[dict]:
              lambda: torch.addmm(r, a, w),
              bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n),
              schedule=gemm_schedule("matmul_residual_add", m, k, n))
-    # qwen3-14b's prefill, and llama-3.2-vision-90b's (64 / 8 heads of 128,
-    # d_model 8192)
+    # qwen3-14b's prefill, llama-3.2-vision-90b's (64 / 8 heads of 128,
+    # d_model 8192) and qwen3-14b's train microbatch (B 2)
     for B, H, KV, S, HD, DM in ((1, 40, 8, 512, 128, 5120),
-                                (1, 64, 8, 512, 128, 8192)):
+                                (1, 64, 8, 512, 128, 8192),
+                                (2, 40, 8, 512, 128, 5120)):
         q, k, v = (randn(B, H, S, HD), randn(B, KV, S, HD),
                    randn(B, KV, S, HD))
         wo = randn(H, HD, DM, scale=(H * HD) ** -0.5)
@@ -1268,7 +1308,10 @@ def _retime(timer, winner, default, rounds: int = 3) -> tuple[float, float]:
     """The winner's and the default's ms, each the least of `rounds` means
     of 10 flushed launches, taken in turn after a burst of 50 launches
     (a trace's host pauses before leave the clocks low, and a kernel of a
-    few us timed first would pay for it)."""
+    few us timed first would pay for it). `timer` is a Timer with a spin
+    before each launch: without it a busy host's pauses reach the timed
+    span, and equal plans (the same launch on both sides) part by up to
+    1.8x (`tools/tune_timing.py --stress`)."""
     for _ in range(50):
         default()
     torch.cuda.synchronize()
@@ -1344,7 +1387,7 @@ def tune_phase(launches, cells=TUNE_CELLS) -> dict[str, list[dict]]:
     runs += [(n, ops.kernel_shapes(n, *a), a[-1].dtype, a)
              for n, a in suite_ops.items()]
 
-    timer = Timer()
+    timer = Timer(spin_cycles=pp.SPIN_CYCLES)
     results: dict[str, list[dict]] = {}
     failed = []                   # cells the gate's tuned check refuses
     for (name, shapes, dt, args), got in zip(runs, outs):
@@ -3552,6 +3595,337 @@ def vlm_phase(launches) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counted
+
+
+# ----------------------------------------------------------------------------
+# train: qwen3-14b at full width through TrainProgram under "fused"
+# ----------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4          # of qwen3-14b's 40: 2.88B parameters, ~46 GB of
+                          # train state (bf16 weights, f32 moments and the
+                          # f32 gradient accumulator)
+TRAIN_B, TRAIN_S = 8, 512  # the global batch: grad_accum 4 microbatches of
+                           # 2 x 512 = 1,024 rows
+TRAIN_STEPS = 4           # steps through .step, then one chunk of as many
+TRAIN_TOL = 2e-2          # relative L2 error of a leaf's gradient between
+                          # the kernel route and the "reference" route: two
+                          # bf16 computations of a 4-layer model
+
+
+def train_cfg():
+    from repro_torch.configs import get
+    return dataclasses.replace(get("qwen3-14b"), n_layers=TRAIN_LAYERS)
+
+
+def train_launches(cfg, microbatches: int) -> dict:
+    """Rows 1-3's launches in a train step's `microbatches` forward passes:
+    per layer q, k, v, gate and up (rmsnorm_matmul), the attention
+    (flash_attention_proj) and down (matmul_residual_add), each twice
+    under cfg.remat "nothing": the forward, then the recompute in
+    backward; the backward itself launches none of them."""
+    n = 2 * cfg.n_layers * microbatches
+    return {"rmsnorm_matmul": 5 * n, "flash_attention_proj": n,
+            "matmul_residual_add": n}
+
+
+def train_bound(cfg, B: int, S: int, n_params: int) -> tuple[float, float,
+                                                             float]:
+    """(model FLOPs, its bound in ms, the optimizer's bound in ms) of one
+    train step on B x S tokens: 6 x the product parameters (every layer
+    weight and the unembedding; the embedding is a gather) x tokens, plus
+    the recomputed forward of the layers (2 x their weights x tokens),
+    plus causal attention (4 x B x H x hd x S(S+1)/2 a forward, taken
+    four times: forward, recompute, and a backward of twice the forward),
+    at the bf16 peak; the optimizer reads each parameter (bf16), its f32
+    gradient and f32 moments and writes the parameter and moments back:
+    24 bytes a parameter at HBM's rate."""
+    d, hd, L = cfg.d_model, cfg.hd, cfg.n_layers
+    layer = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+    tokens = B * S
+    attn = 4 * (4.0 * B * cfg.n_heads * hd * S * (S + 1) / 2) * L
+    flops = (6.0 * (L * layer + d * cfg.vocab) * tokens
+             + 2.0 * L * layer * tokens + attn)
+    return (flops, flops / BF16_FLOPS_PER_S * 1e3,
+            24.0 * n_params / HBM_BYTES_PER_S * 1e3)
+
+
+def _stream_batches(cfg, B: int, S: int, n: int, seed: int = 0) -> list:
+    """Batches 0..n-1 of the synthetic stream on the card (the feed
+    `CompiledTrain` reads without double buffering)."""
+    import itertools
+
+    from repro_torch.data import (BatchSpec, Distributor, Splitter,
+                                  SyntheticLMStream, stream_batches)
+    stream = SyntheticLMStream(BatchSpec(B, S, cfg.vocab), seed=seed)
+    dist = Distributor(["cuda"], Splitter(["cuda"]))
+    return list(itertools.islice(stream_batches(stream, dist, "cuda"), n))
+
+
+def train_phase(launches) -> dict:
+    """qwen3-14b trained at full width on the card (part=step, part=grads)
+    and a reduced qwen3 through TrainProgram.run() with checkpoint and
+    resume (part=run). Returns part=step's counts a step."""
+    counts = train_step_part(launches)
+    train_grads_part(launches)
+    train_run_part(launches)
+    return counts
+
+
+def train_step_part(launches) -> dict:
+    """TrainProgram(batch=8, seq=512, steps_per_sync=4) on qwen3-14b at
+    full width, TRAIN_LAYERS layers, "fused": TRAIN_STEPS steps through
+    `.step` from the seeded initial state, counted (rows 1-3 launched the
+    counts `train_launches` gives, no plain version on the card); the
+    state made again from the seed and the same batches through `.chunk`
+    (one host sync): its losses equal the steps' bit for bit. Then one
+    step's halves timed with CUDA events (`accumulate`: the four
+    microbatches' forward and backward; `update`: AdamW) beside a
+    forward-only pass of the same microbatches, and one step traced (its
+    launches equal to the count, the device's busy share, its kernels
+    with the most time)."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.cluster.session import Cluster, TrainProgram
+    from repro_torch.models import steps
+    from repro_torch.runtime.engine import stack_batches
+
+    cfg = train_cfg()
+    k = TRAIN_STEPS
+    prog = Cluster(cfg, policy="fused").compile(TrainProgram(
+        num_steps=2 * k, batch=TRAIN_B, seq=TRAIN_S, steps_per_sync=k,
+        warmup=2))
+    batches = _stream_batches(cfg, TRAIN_B, TRAIN_S, k + 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = prog.init_state(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    log("train", part="state", arch=cfg.name, layers=cfg.n_layers,
+        params=n_params, state_gb=f"{torch.cuda.memory_allocated() / 1e9:.1f}",
+        init_s=f"{time.perf_counter() - t0:.1f}",
+        grad_accum=cfg.grad_accum, remat=cfg.remat)
+
+    want = {n: c * k for n, c in train_launches(cfg, cfg.grad_accum).items()}
+    launches.reset_counts()
+    walls, losses = [], []
+    for b in batches[:k]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = prog.step(state, b)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    counted = _check_counts(launches, "train", QWEN_FUSED)
+    if {n: counted[n] for n in QWEN_FUSED} != want:
+        raise AssertionError(f"train: launches {counted}, expected {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    del state
+    gc.collect()
+    state = prog.init_state(0)
+    stacked = stack_batches(batches[:k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, mc = prog.chunk(state, stacked)
+    chunk_losses = mc["loss"].tolist()                # the one host sync
+    chunk_wall = time.perf_counter() - t0
+    if chunk_losses != losses:
+        raise AssertionError(f"train: chunk losses {chunk_losses} against "
+                             f"the steps' {losses}")
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    _, _, grads = prog.step.accumulate(state["params"], batches[k])
+    ev[1].record()
+    prog.step.update(state, grads)
+    ev[2].record()
+    del grads
+    micro = {key: v.reshape(cfg.grad_accum, -1, *v.shape[1:])
+             for key, v in batches[k].items()}
+    with torch.no_grad(), use_policy(prog.policy):
+        ev[3].record()
+        for i in range(cfg.grad_accum):
+            steps.loss_fn(cfg, state["params"],
+                          {key: v[i] for key, v in micro.items()})
+        ev[4].record()
+    torch.cuda.synchronize()
+    fwd_bwd, opt = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    fwd = ev[3].elapsed_time(ev[4])
+
+    def one_step():
+        launches.reset_counts()
+        prog.step(state, batches[0])
+
+    prof = traced("train_step", one_step)
+    seen = {n: launches.traced_launches(prof)[n] for n in QWEN_FUSED}
+    per_step = train_launches(cfg, cfg.grad_accum)
+    if seen != per_step or _check_counts(
+            launches, "train", QWEN_FUSED) != {
+                **{n: 0 for n in launches.WRAPPERS}, **per_step}:
+        raise AssertionError(f"train: the trace saw {seen}, expected "
+                             f"{per_step}")
+    busy = device_busy_ms(prof)
+    wall = float(np.median(walls)) * 1e3
+    flops, bound_ms, opt_bound = train_bound(cfg, TRAIN_B, TRAIN_S, n_params)
+    log("train", part="step", B=TRAIN_B, S=TRAIN_S, steps=k,
+        wall_ms_median=f"{wall:.2f}",
+        wall_ms=json.dumps([round(w * 1e3, 2) for w in walls]).replace(
+            " ", ""),
+        tokens_per_s=f"{TRAIN_B * TRAIN_S / (wall / 1e3):.1f}",
+        fwd_bwd_ms=f"{fwd_bwd:.2f}", optimizer_ms=f"{opt:.2f}",
+        forward_ms=f"{fwd:.2f}", peak_gb=f"{peak:.1f}",
+        model_tflop=f"{flops / 1e12:.2f}", bound_ms=f"{bound_ms:.2f}",
+        bound_share=f"{bound_ms / wall:.3f}",
+        optimizer_bound_ms=f"{opt_bound:.2f}",
+        optimizer_bound_share=f"{opt_bound / opt:.3f}",
+        device_busy_ms=f"{busy:.2f}",
+        idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
+        device_kernels=sum(e.count for e in device_events(prof)),
+        launches=json.dumps(want).replace(" ", ""),
+        traced_step=json.dumps(seen).replace(" ", ""),
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""))
+    log("train", part="chunk", steps=k, wall_ms=f"{chunk_wall * 1e3:.2f}",
+        ms_a_step=f"{chunk_wall * 1e3 / k:.2f}", losses_equal=True)
+    top = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                  for e in device_events(prof) if e.device_time_total > 0),
+                 key=lambda r: -r[1])
+    for key, ms, n in top[:8]:
+        log("train", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
+            launches=n)
+    del state, prog, batches, stacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def train_grads_part(launches) -> None:
+    """One microbatch (2 x 512) at full width, TRAIN_LAYERS layers, from
+    one set of seeded weights: gradients through the kernel route
+    ("fused": rows 1-3 and their autograd Functions) and through the
+    "reference" route (the plain products, plain autograd). Every leaf's
+    gradient is finite and non-zero on both, and within TRAIN_TOL
+    relative L2 error of the other route's."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models import steps
+
+    cfg = dataclasses.replace(train_cfg(), grad_accum=1)
+    params = steps.init_params(cfg, 0, device="cuda")
+    batch = _stream_batches(cfg, 2, TRAIN_S, 1, seed=1)[0]
+    launches.reset_counts()
+    lk, _, gk = steps.make_train_step(cfg, policy="fused").accumulate(
+        params, batch)
+    counted = _check_counts(launches, "train", QWEN_FUSED)
+    want = train_launches(cfg, 1)
+    if {n: counted[n] for n in QWEN_FUSED} != want:
+        raise AssertionError(f"train grads: launches {counted}")
+    lr_, _, gr = steps.make_train_step(cfg, policy="reference").accumulate(
+        params, batch)
+    worst, n_leaves = ("", 0.0), 0
+    for (path, a), b in zip(pytree.tree_flatten_with_path(gk)[0],
+                            pytree.tree_leaves(gr)):
+        name = pytree.keystr(path)
+        a, b = a.float(), b.float()
+        for tag, t in (("fused", a), ("reference", b)):
+            if not torch.isfinite(t).all() or not t.abs().max() > 0:
+                raise AssertionError(f"train grads: {tag} gradient of "
+                                     f"{name} not finite or all zero")
+        rel = float((a - b).norm() / b.norm())
+        if rel > worst[1]:
+            worst = (name, rel)
+        n_leaves += 1
+    if worst[1] > TRAIN_TOL:
+        raise AssertionError(f"train grads: {worst[0]} differs by "
+                             f"{worst[1]:.3g} (relative L2) between routes")
+    log("train", part="grads", B=2, S=TRAIN_S, leaves=n_leaves,
+        loss_fused=f"{float(lk):.5f}", loss_reference=f"{float(lr_):.5f}",
+        worst_leaf=f"'{worst[0]}'", worst_rel_l2=f"{worst[1]:.3g}",
+        tol=TRAIN_TOL, launches=json.dumps(want).replace(" ", ""))
+    del params, gk, gr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run_part(launches) -> None:
+    """A reduced qwen3 (2 layers, d_model 1024, 8 heads of 128 over 2 KV
+    heads, d_ff 3456, vocab 8192; flash_attention_proj takes heads of 128)
+    through Cluster.compile(TrainProgram(...)).run() under "fused":
+    12 steps of 8 x 256 tokens with the double-buffered feed and a
+    checkpoint every 4 steps; the same program again in another directory,
+    preempted by SIGTERM after step 6 (the loop's final checkpoint), then
+    a third with resume=True from there. The resumed run's losses (steps
+    7-12) equal the uninterrupted run's bit for bit, and the loss falls.
+    Then api.train on qwen3-14b-smoke (the default policy) as the one-call
+    entry point."""
+    import os
+    import signal
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.cluster.session import Cluster, TrainProgram
+    from repro_torch.configs import get
+
+    cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2, d_model=1024,
+                              n_heads=8, n_kv_heads=2, head_dim=128,
+                              d_ff=3456, vocab=8192)
+    kw = dict(num_steps=12, batch=8, seq=256, warmup=2, log_every=1,
+              checkpoint_every=4, double_buffer=True)
+    cluster = Cluster(cfg, policy="fused")
+    with tempfile.TemporaryDirectory() as root:
+        launches.reset_counts()
+        t0 = time.perf_counter()
+        full = cluster.compile(TrainProgram(
+            checkpoint_dir=f"{root}/full", **kw)).run()
+        wall = time.perf_counter() - t0
+        counted = _check_counts(launches, "train", QWEN_FUSED)
+        cut = cluster.compile(TrainProgram(checkpoint_dir=f"{root}/cut",
+                                           **kw))
+        step, calls = cut.step, []
+
+        def preempted_after_6(state, batch):
+            out = step(state, batch)
+            calls.append(1)
+            if len(calls) == 6:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        cut.step = preempted_after_6
+        first = cut.run()
+        resumed = cluster.compile(TrainProgram(
+            checkpoint_dir=f"{root}/cut", resume=True, **kw)).run()
+        one_call = api.train("qwen3-14b", num_steps=2, batch=2, seq=32,
+                             checkpoint_dir=f"{root}/api")
+    whole = {m["step"]: m["loss"] for m in full["metrics"]}
+    parts = {m["step"]: m["loss"] for m in first["metrics"]
+             + resumed["metrics"]}
+    if not (first["preempted"] and first["final_step"] == 6
+            and resumed["final_step"] == 12 and full["final_step"] == 12):
+        raise AssertionError(f"train run: final steps {first['final_step']}"
+                             f" / {resumed['final_step']}")
+    if parts != whole:
+        raise AssertionError(f"train run: resumed losses {parts} against "
+                             f"{whole}")
+    if not all(np.isfinite(list(whole.values()))) or not whole[12] < whole[1]:
+        raise AssertionError(f"train run: losses {whole}")
+    if one_call["final_step"] != 2 or not np.isfinite(
+            one_call["metrics"][-1]["loss"]):
+        raise AssertionError(f"train run: api.train {one_call}")
+    feed = full["feed"]
+    log("train", part="run", arch="qwen3-14b-reduced", layers=2, d=1024,
+        heads="8/2x128", vocab=8192, steps=12, B=8, S=256,
+        wall_s=f"{wall:.2f}", loss_first=f"{whole[1]:.4f}",
+        loss_last=f"{whole[12]:.4f}", preempted_at=first["final_step"],
+        resumed_losses_equal=True,
+        feed_overlap_pct=f"{feed['overlap_pct']:.1f}",
+        feed_produce_s=f"{feed['produce_s']:.3f}",
+        feed_wait_s=f"{feed['consumer_wait_s']:.3f}",
+        host_syncs=full["stall"]["host_syncs"],
+        launches=_nonzero({n: counted[n] for n in QWEN_FUSED}),
+        api_train_loss=f"{one_call['metrics'][-1]['loss']:.4f}")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -7,8 +7,10 @@ passes ``device="cpu"``.
 """
 
 from repro_torch.cluster import (Cluster, KernelPolicy, ServeProgram,
-                                 ServeSessionProgram, use_policy)
+                                 ServeSessionProgram, TrainProgram,
+                                 use_policy)
 from repro_torch.configs import ARCHS, ArchConfig, get
 
 __all__ = ["ARCHS", "ArchConfig", "Cluster", "KernelPolicy",
-           "ServeProgram", "ServeSessionProgram", "get", "use_policy"]
+           "ServeProgram", "ServeSessionProgram", "TrainProgram", "get",
+           "use_policy"]

@@ -8,7 +8,13 @@ the CPU.
 
 from __future__ import annotations
 
-from repro_torch.cluster import Cluster, ServeSessionProgram
+import os
+import tempfile
+import warnings
+
+from repro_torch.cluster import Cluster, ServeSessionProgram, TrainProgram
+
+_UNSET = object()
 
 
 def plan(arch: str, mesh=None):
@@ -17,10 +23,32 @@ def plan(arch: str, mesh=None):
                               "K (item 14, the XLA-only modules)")
 
 
-def train(arch: str, **kwargs):
-    """Training has no port yet."""
-    raise NotImplementedError("train: training is ROADMAP Queue 1 H "
-                              "(item 11)")
+def train(arch: str, *, num_steps: int | None = None, steps_=_UNSET,
+          batch: int = 4, seq: int = 128, smoke: bool = True,
+          checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
+                                             "repro_torch-api-train"),
+          mesh=None, seed: int = 0, device=None) -> dict:
+    """One-call training on the synthetic stream. Returns the loop report.
+
+    Shim over `Cluster(...).compile(TrainProgram(...)).run()`. `steps_` is
+    a deprecated alias for `num_steps` (kept for one release). `mesh`
+    takes only None: meshes come with ROADMAP Queue 1 I (groups) and K
+    (the XLA-only modules)."""
+    if mesh is not None:
+        raise NotImplementedError("train(mesh=...): the port has no mesh "
+                                  "yet (ROADMAP Queue 1 I / K)")
+    if steps_ is not _UNSET:
+        warnings.warn("api.train(steps_=...) is deprecated; use num_steps=",
+                      DeprecationWarning, stacklevel=2)
+        if num_steps is None:
+            num_steps = steps_
+    if num_steps is None:
+        num_steps = 100
+    cluster = Cluster(arch + ("-smoke" if smoke else ""), device=device)
+    program = cluster.compile(TrainProgram(
+        num_steps=num_steps, batch=batch, seq=seq, seed=seed,
+        checkpoint_dir=checkpoint_dir))
+    return program.run()
 
 
 def serve(arch: str, params=None, *, batch: int = 4, max_seq: int = 64,

@@ -69,14 +69,16 @@ def _items(tree, prefix=()):
 
 
 def _encode(leaf) -> tuple[np.ndarray, str]:
-    """A host array holding the leaf's bits, and its true dtype's name."""
+    """A host copy of the leaf's bits, and its true dtype's name. A copy
+    also for a leaf already on the host: an async save writes it while the
+    caller goes on updating its state in place."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         if t.dtype in _VIEW_DTYPES:
             name, view, tview = _VIEW_DTYPES[t.dtype]
             return t.view(tview).numpy().view(view), name
         return t.numpy(), str(t.numpy().dtype)
-    arr = np.ascontiguousarray(leaf)
+    arr = np.array(leaf, order="C", copy=True)
     return arr, str(arr.dtype)
 
 
@@ -120,9 +122,11 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state, *, block: bool = False):
-        """The host copy is taken now; serialization runs on a thread
-        unless `block` or ``async_save=False``. A failed write of the
-        previous save raises here (and on `wait()`)."""
+        """The host copy is taken now (every leaf copied, a host leaf
+        too, so the caller may update its state in place as soon as this
+        returns); serialization runs on a thread unless `block` or
+        ``async_save=False``. A failed write of the previous save raises
+        here (and on `wait()`)."""
         self.wait()
         snapshot = {k: _encode(v) for k, v in _items(state)}
 

@@ -1,26 +1,31 @@
-"""Cluster/Session façade for the port (the serving half of
+"""Cluster/Session façade for the port (the train and serve halves of
 `repro.cluster.session`):
 
     cluster = Cluster("qwen3-14b")                  # device defaults to cuda
     with cluster.policy("fused"):
         prog = cluster.compile(ServeSessionProgram(slots=8, paged=True))
+        train = cluster.compile(TrainProgram(num_steps=100))
     sess = prog.open()                              # a live ServeSession
     batch = cluster.compile(ServeProgram(batch=8, max_new=64, chunk=16))
     out = batch.run()                               # tokens + stats
+    report = train.run()                            # the TrainLoop's report
 
 Entry points run on the card: `Cluster(arch)` with no `device` means
 "cuda" and raises when CUDA is absent; tests pass ``device="cpu"``.
 `Cluster.compile` memoizes programs in the cluster's `CompileCache`, keyed
 on (spec, arch, device, policy knobs). `Cluster(None, tune_db=path)` is a
 kernel-only cluster (a policy and the tune records, no model): it
-warm-starts the tuning layer from a `kernels.tunedb.TuneDB`. Training,
-dry-run, bench and sharded-session programs wait for later slices
-(ROADMAP Queue 1 H-K).
+warm-starts the tuning layer from a `kernels.tunedb.TuneDB`. Dry-run,
+bench and sharded-session programs wait for later slices (ROADMAP Queue 1
+I-K).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
+from typing import Callable
 
 import numpy as np
 import torch
@@ -35,6 +40,26 @@ from repro_torch.models import steps
 from repro_torch.runtime import engine
 from repro_torch.runtime.compile_cache import CompileCache, Graphed
 from repro_torch.runtime.serve_loop import ServeLoop, chunked_latency_stats
+from repro_torch.runtime.train_loop import TrainLoop, TrainLoopConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainProgram:
+    """A training run on the synthetic stream."""
+
+    num_steps: int = 100
+    batch: int = 4
+    seq: int = 128
+    seed: int = 0
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
+                                       "repro_torch-train")
+    checkpoint_every: int | None = None    # None -> max(num_steps // 2, 1)
+    log_every: int | None = None           # None -> max(num_steps // 10, 1)
+    warmup: int | None = None              # None -> max(num_steps // 10, 1)
+    resume: bool = False                   # restore latest checkpoint first
+    double_buffer: bool = False            # prefetch feed (DMA analogue)
+    steps_per_sync: int = 1                # steps a host sync (> 1: the
+    #   K-step train chunk; straggler/logging sample at chunk granularity)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +131,7 @@ class ServeSessionProgram:
 
 # the reference's program specs the port does not define yet, and the
 # ROADMAP Queue 1 item that brings each
-UNPORTED = {"TrainProgram": "H (item 11, training)",
-            "ShardedServeSessionProgram": "I (item 9, groups)",
+UNPORTED = {"ShardedServeSessionProgram": "I (item 9, groups)",
             "BenchProgram": "J (item 13, benchmarks)",
             "DryRunProgram": "K (item 14, the XLA-only modules)"}
 
@@ -182,7 +206,8 @@ class Cluster:
         """Program spec -> compiled Program, memoized in the compile cache
         keyed on (spec, arch, device, policy knobs)."""
         builders = {ServeProgram: CompiledServe,
-                    ServeSessionProgram: CompiledServeSession}
+                    ServeSessionProgram: CompiledServeSession,
+                    TrainProgram: CompiledTrain}
         name = type(spec).__name__
         if self.arch is None:
             raise ValueError(f"{name} needs an arch; this cluster was "
@@ -266,6 +291,92 @@ class Program:
             out["result"] = {k: v for k, v in self._last_run.items()
                              if k != "params"}
         return out
+
+
+class CompiledTrain(Program):
+    """A training run: `step` (`steps.make_train_step` under the program's
+    policy, warmup-cosine over `num_steps`), `chunk` (the K-step train
+    chunk, when ``steps_per_sync > 1``), `init_state(seed)` and `run()`,
+    which drives a `TrainLoop` over the synthetic stream with checkpoints
+    in ``checkpoint_dir``.
+
+    With ``resume=True`` the run restores the latest checkpoint and the
+    stream continues at its step (a batch is a pure function of (seed,
+    step)), so a resumed run's losses are those of an uninterrupted one.
+    (The reference's run restores the state but feeds the stream from
+    batch 0 again.)"""
+
+    kind = "train"
+
+    def __init__(self, cluster, spec: TrainProgram, policy):
+        super().__init__(cluster, spec, policy)
+        n = spec.num_steps
+        warmup = spec.warmup if spec.warmup is not None else max(n // 10, 1)
+        self.step: Callable = steps.make_train_step(
+            cluster.arch, schedule_kwargs={"warmup": warmup, "total": n},
+            policy=policy)
+        self.chunk: Callable | None = (
+            engine.make_train_chunk(self.step)
+            if spec.steps_per_sync > 1 else None)
+
+    def init_state(self, seed: int | None = None):
+        """A fresh train state on the cluster's device: parameters from
+        `steps.init_params(cfg, seed)` (the spec's seed by default), zero
+        moments, step 0."""
+        seed = self.spec.seed if seed is None else seed
+        return steps.init_train_state(self.cluster.arch, seed,
+                                      device=self.device,
+                                      max_seq=self.spec.seq)
+
+    def _feed(self, start: int):
+        from repro_torch.data import (BatchSpec, Distributor,
+                                      DoubleBufferedFeed, Splitter,
+                                      SyntheticLMStream, stream_batches)
+
+        cfg, spec, device = self.cluster.arch, self.spec, self.device
+        stream = SyntheticLMStream(BatchSpec(spec.batch, spec.seq, cfg.vocab),
+                                   seed=spec.seed)
+        dist = Distributor([device], Splitter([device]))
+        if spec.double_buffer:
+            # a chunk drains steps_per_sync batches a dispatch; the ring
+            # holds a whole chunk so the drain does not wait on the producer
+            return DoubleBufferedFeed(
+                lambda s: dist.materialize(stream, s, device),
+                depth=max(2, spec.steps_per_sync), start_step=start)
+        return stream_batches(stream, dist, device, start)
+
+    def run(self) -> dict:
+        """The TrainLoop's report (final_step, preempted, wall_seconds,
+        straggler_events, stall, steps_per_sync, metrics), plus "feed"
+        (the double-buffered feed's stall report) and "params" (the
+        trained parameters)."""
+        spec = self.spec
+        n = spec.num_steps
+        cfg = TrainLoopConfig(
+            total_steps=n,
+            checkpoint_every=(spec.checkpoint_every
+                              if spec.checkpoint_every is not None
+                              else max(n // 2, 1)),
+            log_every=(spec.log_every if spec.log_every is not None
+                       else max(n // 10, 1)),
+            checkpoint_dir=spec.checkpoint_dir,
+            steps_per_sync=spec.steps_per_sync)
+        loop = TrainLoop(cfg, self.step, self.init_state(), None,
+                         train_chunk=self.chunk)
+        start = 0
+        if spec.resume:
+            start = loop.maybe_resume()
+        feed = loop.batch_iter = self._feed(start)
+        try:
+            report = loop.run(start_step=start)
+        finally:
+            if hasattr(feed, "close"):
+                feed.close()
+        if hasattr(feed, "stall_report"):
+            report["feed"] = feed.stall_report()
+        report["params"] = loop.state["params"]
+        self._last_run = report
+        return report
 
 
 class CompiledServe(Program):

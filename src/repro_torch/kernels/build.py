@@ -234,7 +234,16 @@ def check_operands(name: str, *tensors: torch.Tensor,
     """Raise unless the operands share one device and a dtype of `dtypes`
     (nothing is cast) and are contiguous and 32-byte aligned; return the
     device's index and the operands' data pointers. Operands that pass
-    take one lean pass; the detailed one runs only to say what is wrong."""
+    take one lean pass; the detailed one runs only to say what is wrong.
+    An operand that requires grad, with grad on, raises too: a launch
+    carries no gradient, so the op must run inside its autograd Function
+    (`ops.py`), which launches with grad off."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an operand requires grad, and a kernel launch would "
+            f"return a result with none; call the op through "
+            f"repro_torch.kernels.ops (its autograd Function) or under "
+            f"torch.no_grad()")
     first = tensors[0]
     dev, dt = first.get_device(), first.dtype
     ok, ptrs = dt in dtypes, []

@@ -1,7 +1,7 @@
 """Policy-dispatched kernel ops — the port's `repro.kernels.ops`: the
 paper's Table 1 suite (`matmul`, `axpy`, `dotp`, `conv2d_3x3`, `dct8x8`),
-`rmsnorm` and `flash_attention`, and the four fused kernels (forward
-only; the custom-VJP backward comes with the training slice).
+`rmsnorm` and `flash_attention`, and the four fused kernels, each with
+the reference's custom VJP as a `torch.autograd.Function`.
 
 Under the active `KernelPolicy`:
 
@@ -27,11 +27,31 @@ epilogues, as the reference's `_comp_*` are. `tuned_call` runs an op under
 `KernelPolicy.call`: a pinned plan, or the tuned one (registry-cached,
 raced on a miss against the kernel's own plan and, for a fused op, its
 composition).
+
+Gradients. The "reference" mode is plain autograd through the oracles,
+as the reference's is. On the kernel and plain routes a fused op whose
+input requires grad runs through its `torch.autograd.Function`
+(`RmsnormMatmulFn`, `MatmulBiasActFn`, `MatmulResidualAddFn`,
+`FlashAttentionProjFn`): the forward is the route's (the Hopper kernel on
+the card, the plain version on the CPU), the inputs are the residuals,
+and the backward is the VJP of the reference's composition (`_ref_*` of
+the reference's `ops.py`) recomputed from them, as the reference's
+`custom_vjp` is; the composition's last product, dead in the VJP, is not
+rerun. The VJPs take their products through `models.layers.product`
+(bf16 on the tensor cores on the card). Where the tuning race picked a
+fused op's unfused composition, the composition is the forward of the
+same Function under grad. No TPU kernel has a backward kernel, so
+neither has the port. `flash_attention` has no VJP in the reference
+(`jax.grad` through its Pallas call fails): on those routes it raises
+under grad. A kernel wrapper given an operand that requires grad
+outside these Functions raises (`build.check_operands`): a launch
+carries no gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -172,10 +192,17 @@ def _ref_flash_attention(q, k, v, *, causal: bool = True):
 def flash_attention(q, k, v, *, causal: bool = True, bq: int | None = None,
                     bk: int | None = None):
     """Attention, causal or full, GQA head h -> kv head h // (H/KV).
-    q: (B, H, S, hd); k/v: (B, KV, S, hd)."""
+    q: (B, H, S, hd); k/v: (B, KV, S, hd). Forward only outside the
+    "reference" mode, as in the reference."""
     route = _route("flash_attention")
     if route == "reference":
         return _ref_flash_attention(q, k, v, causal=causal)
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention has no VJP: the reference's Pallas call has "
+            "none either (jax.grad through it fails). Train through the "
+            "fused route (flash_attention_proj) or the chunked schedules' "
+            "flash VJP (models/attention.py)")
     _check_blocks(bq=(q.shape[2], bq), bk=(q.shape[2], bk))
     if route == "plain":
         return _fa.flash_attention_plain(q, k, v, causal)
@@ -183,8 +210,143 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int | None = None,
 
 
 # ----------------------------------------------------------------------------
-# The fused kernels
+# The fused kernels: the route's forward, the reference composition's VJP
 # ----------------------------------------------------------------------------
+
+def _needs_grad(*tensors) -> bool:
+    """Will autograd record an op on these inputs?"""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+class _FusedVJP(torch.autograd.Function):
+    """`run(*inputs)` forward (the route's: the Hopper kernel on the card,
+    the plain version on the CPU, or the race's unfused composition) with
+    the inputs saved as residuals; the backward is `vjp(grad, need,
+    *inputs)`, the VJP of the reference's composition recomputed from
+    them (the reference's `_*_fwd` / `_*_bwd` pair)."""
+
+    @staticmethod
+    def forward(ctx, run, vjp, *inputs):
+        ctx.vjp = vjp
+        ctx.save_for_backward(*inputs)
+        return run(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, None, *ctx.vjp(grad, ctx.needs_input_grad[2:],
+                                     *ctx.saved_tensors))
+
+
+class RmsnormMatmulFn(_FusedVJP):
+    """rmsnorm_matmul's VJP (reference `ops.py:241-261`)."""
+
+
+class MatmulBiasActFn(_FusedVJP):
+    """matmul_bias_act's VJP (reference `ops.py:278-299`)."""
+
+
+class MatmulResidualAddFn(_FusedVJP):
+    """matmul_residual_add's VJP (reference `ops.py:318-339`)."""
+
+
+class FlashAttentionProjFn(_FusedVJP):
+    """flash_attention_proj's VJP (reference `ops.py:357-383`)."""
+
+
+def _fused_call(fn_cls, run, vjp, *inputs):
+    """`run(*inputs)`, through `fn_cls` when autograd records it."""
+    if _needs_grad(*inputs):
+        return fn_cls.apply(run, vjp, *inputs)
+    return run(*inputs)
+
+
+# The VJPs of the reference's `_ref_*` compositions: every product through
+# `models.layers.product` (f32 accumulation; bf16 on the tensor cores on
+# the card), rounded where the reference rounds. A composition's last
+# product is not rerun where its value is dead in the VJP: its two
+# transposed products are written out, and autograd takes the part of the
+# composition before it (the rmsnorm, the attention). matmul_bias_act's
+# activation reads its product's value, so it is recomputed.
+
+def _leaves(xs, need):
+    """Detached copies of `xs`, each requiring grad where `need` says."""
+    return [x.detach().requires_grad_(n) for x, n in zip(xs, need)]
+
+
+def _grads(out, xs, need, cot):
+    """The VJP of `out` (recorded from `xs`) at `cot`, None where not
+    needed."""
+    if not any(need):
+        return [None] * len(xs)
+    got = iter(torch.autograd.grad(
+        out, [x for x, n in zip(xs, need) if n], cot))
+    return [next(got) if n else None for n in need]
+
+
+def _vjp_rmsnorm_matmul(g, need, x, scale, w):
+    """out = product(rmsnorm(x, scale), w), rounded to x's dtype."""
+    from repro_torch.models.layers import product
+    with torch.enable_grad():
+        xs = _leaves((x, scale), need[:2])
+        xn = _ref.rmsnorm(*xs)
+    dw = product("mk,mn->kn", xn.detach(), g, w.dtype) if need[2] else None
+    dxn = product("mn,kn->mk", g, w, xn.dtype) if any(need[:2]) else None
+    return (*_grads(xn, xs, need[:2], dxn), dw)
+
+
+def _vjp_matmul_bias_act(act, g, need, a, b, bias):
+    """out = act(product(a, b, f32) + bias), rounded to a's dtype."""
+    from repro_torch.models.layers import product
+
+    def composition(a, b, bias):
+        h = product("mk,kn->mn", a, b, F32) + bias.to(F32)
+        return _ref.ACTIVATIONS[act](h).to(a.dtype)
+
+    with torch.enable_grad():
+        xs = _leaves((a, b, bias), need)
+        out = composition(*xs)
+    return _grads(out, xs, need, g)
+
+
+def _vjp_matmul_residual_add(g, need, a, b, res):
+    """out = (product(a, b, f32) + res), rounded to a's dtype: the f32
+    cotangent rounded to the operands' dtype for both products, as
+    `layers.F32Product` rounds it."""
+    from repro_torch.models.layers import product
+    g32 = g.to(F32)
+    ga = g32.to(a.dtype)
+    return (product("mn,kn->mk", ga, b, a.dtype) if need[0] else None,
+            product("mk,mn->kn", a, ga, b.dtype) if need[1] else None,
+            g32.to(res.dtype) if need[2] else None)
+
+
+def _attention(causal, q, k, v):
+    """The reference composition's attention (GQA repeated, f32 scores,
+    the probabilities rounded to v's dtype for p @ v)."""
+    from repro_torch.models.layers import product
+    g = q.shape[1] // k.shape[1]
+    kr, vr = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    s, hd = q.shape[2], q.shape[3]
+    scores = product("bhqd,bhkd->bhqk", q, kr, F32) * hd ** -0.5
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask, scores, _ref.NEG)
+    p = torch.softmax(scores, dim=-1)
+    return product("bhqk,bhkd->bhqd", p.to(v.dtype), vr, v.dtype)
+
+
+def _vjp_flash_attention_proj(causal, g, need, q, k, v, wo):
+    """out = product(attention(q, k, v), wo), rounded to q's dtype."""
+    from repro_torch.models.layers import product
+    with torch.enable_grad():
+        xs = _leaves((q, k, v), need[:3])
+        o = _attention(causal, *xs)
+    dwo = (product("bhsk,bsd->hkd", o.detach(), g, wo.dtype) if need[3]
+           else None)
+    do = product("bsd,hkd->bhsk", g, wo, o.dtype) if any(need[:3]) else None
+    return (*_grads(o, xs, need[:3], do), dwo)
+
 
 def rmsnorm_matmul(x, scale, w, *, bm: int | None = None,
                    bn: int | None = None, tile_n: int = 0, boxes: int = 0,
@@ -196,9 +358,12 @@ def rmsnorm_matmul(x, scale, w, *, bm: int | None = None,
     if bm is not None or bn is not None:
         _check_blocks(bm=(x.shape[0], bm), bn=(w.shape[1], bn))
     if route == "plain":
-        return _fused.rmsnorm_matmul_plain(x, scale, w)
-    return _fused.rmsnorm_matmul(x, scale, w, tile_n=tile_n, boxes=boxes,
-                                 cluster=cluster)
+        run = _fused.rmsnorm_matmul_plain
+    else:
+        run = functools.partial(_fused.rmsnorm_matmul, tile_n=tile_n,
+                                boxes=boxes, cluster=cluster)
+    return _fused_call(RmsnormMatmulFn, run, _vjp_rmsnorm_matmul,
+                       x, scale, w)
 
 
 def matmul_bias_act(a, b, bias, *, act: str = "gelu", bm: int | None = None,
@@ -212,9 +377,13 @@ def matmul_bias_act(a, b, bias, *, act: str = "gelu", bm: int | None = None,
         _check_blocks(bm=(a.shape[0], bm), bn=(b.shape[1], bn),
                       bk=(a.shape[1], bk))
     if route == "plain":
-        return _fused.matmul_bias_act_plain(a, b, bias, act)
-    return _fused.matmul_bias_act(a, b, bias, act, tile_n=tile_n,
-                                  boxes=boxes, cluster=cluster)
+        run = functools.partial(_fused.matmul_bias_act_plain, act=act)
+    else:
+        run = functools.partial(_fused.matmul_bias_act, act=act,
+                                tile_n=tile_n, boxes=boxes, cluster=cluster)
+    return _fused_call(MatmulBiasActFn, run,
+                       functools.partial(_vjp_matmul_bias_act, act),
+                       a, b, bias)
 
 
 def matmul_residual_add(a, b, res, *, bm: int | None = None,
@@ -228,9 +397,12 @@ def matmul_residual_add(a, b, res, *, bm: int | None = None,
         _check_blocks(bm=(a.shape[0], bm), bn=(b.shape[1], bn),
                       bk=(a.shape[1], bk))
     if route == "plain":
-        return _fused.matmul_residual_add_plain(a, b, res)
-    return _fused.matmul_residual_add(a, b, res, tile_n=tile_n, boxes=boxes,
-                                      cluster=cluster)
+        run = _fused.matmul_residual_add_plain
+    else:
+        run = functools.partial(_fused.matmul_residual_add, tile_n=tile_n,
+                                boxes=boxes, cluster=cluster)
+    return _fused_call(MatmulResidualAddFn, run, _vjp_matmul_residual_add,
+                       a, b, res)
 
 
 def flash_attention_proj(q, k, v, wo, *, causal: bool = True,
@@ -243,8 +415,14 @@ def flash_attention_proj(q, k, v, wo, *, causal: bool = True,
     if bq is not None or bk is not None:
         _check_blocks(bq=(q.shape[2], bq), bk=(q.shape[2], bk))
     if route == "plain":
-        return _fused.flash_attention_proj_plain(q, k, v, wo, causal)
-    return _fused.flash_attention_proj(q, k, v, wo, causal, tile_n=tile_n)
+        run = functools.partial(_fused.flash_attention_proj_plain,
+                                causal=causal)
+    else:
+        run = functools.partial(_fused.flash_attention_proj, causal=causal,
+                                tile_n=tile_n)
+    return _fused_call(FlashAttentionProjFn, run,
+                       functools.partial(_vjp_flash_attention_proj, causal),
+                       q, k, v, wo)
 
 
 # ----------------------------------------------------------------------------
@@ -410,25 +588,43 @@ def _mk_flash_attention_proj(s, dt, device=None):
 
 # -- unfused compositions (the fused kernels' race opponents) ----------------
 # The reference's `_comp_*`: the primitive wrappers above under the active
-# policy, with the epilogue written in PyTorch.
+# policy, with the epilogue written in PyTorch. Under grad a composition
+# runs as the forward of its fused op's Function, whose backward is the
+# fused op's VJP: the primitive launches carry no gradient.
 
 def _comp_rmsnorm_matmul(x, scale, w):
-    return matmul(rmsnorm(x, scale), w)
+    return _fused_call(RmsnormMatmulFn,
+                       lambda x, scale, w: matmul(rmsnorm(x, scale), w),
+                       _vjp_rmsnorm_matmul, x, scale, w)
 
 
 def _comp_matmul_bias_act(a, b, bias, *, act: str = "gelu"):
-    h = matmul(a, b).to(F32) + bias.to(F32)
-    return _ref.ACTIVATIONS[act](h).to(a.dtype)
+    def run(a, b, bias):
+        h = matmul(a, b).to(F32) + bias.to(F32)
+        return _ref.ACTIVATIONS[act](h).to(a.dtype)
+
+    return _fused_call(MatmulBiasActFn, run,
+                       functools.partial(_vjp_matmul_bias_act, act),
+                       a, b, bias)
 
 
 def _comp_matmul_residual_add(a, b, res):
-    return (matmul(a, b).to(F32) + res.to(F32)).to(a.dtype)
+    def run(a, b, res):
+        return (matmul(a, b).to(F32) + res.to(F32)).to(a.dtype)
+
+    return _fused_call(MatmulResidualAddFn, run, _vjp_matmul_residual_add,
+                       a, b, res)
 
 
 def _comp_flash_attention_proj(q, k, v, wo, *, causal: bool = True):
-    o = flash_attention(q, k, v, causal=causal)
-    return torch.einsum("bhsk,hkd->bsd", o.to(F32),
-                        wo.to(F32)).to(q.dtype)
+    def run(q, k, v, wo):
+        o = flash_attention(q, k, v, causal=causal)
+        return torch.einsum("bhsk,hkd->bsd", o.to(F32),
+                            wo.to(F32)).to(q.dtype)
+
+    return _fused_call(FlashAttentionProjFn, run,
+                       functools.partial(_vjp_flash_attention_proj, causal),
+                       q, k, v, wo)
 
 
 for _desc in (

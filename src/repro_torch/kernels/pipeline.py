@@ -247,6 +247,12 @@ def _env_int(name: str, default: int) -> int:
 
 _FLUSH: dict[int, torch.Tensor] = {}
 
+# a spin kernel of ~1 ms (clock cycles) queued before each timed rep: the
+# host has that long to queue the launch before the card reaches the start
+# event, so a host that is descheduled (its cores shared) does not add its
+# pause to the kernel's time (tools/tune_timing.py --stress measures both)
+SPIN_CYCLES = 2_000_000
+
 
 def _l2_flush(device: torch.device) -> torch.Tensor:
     """A buffer of 5x the 50 MB L2, zeroed before each timed rep."""
@@ -261,8 +267,8 @@ def _l2_flush(device: torch.device) -> torch.Tensor:
 def median_time(fn: Callable[[], Any], *, reps: int = 3, warmup: int = 1,
                 device=None) -> float:
     """Median seconds per call of `fn()` after `warmup` discarded runs.
-    On a CUDA `device` each rep is timed with CUDA events after the L2 is
-    flushed; otherwise by the wall clock."""
+    On a CUDA `device` each rep is timed with CUDA events after a spin of
+    `SPIN_CYCLES` and the L2 flushed; otherwise by the wall clock."""
     dev = torch.device(device) if device is not None else None
     if dev is None or dev.type != "cuda":
         for _ in range(max(warmup, 0)):
@@ -278,6 +284,8 @@ def median_time(fn: Callable[[], Any], *, reps: int = 3, warmup: int = 1,
         fn()
     times = []
     for _ in range(max(reps, 1)):
+        if SPIN_CYCLES:
+            torch.cuda._sleep(SPIN_CYCLES)
         flush.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)

@@ -13,12 +13,15 @@
              window; anything else falls back to "auto", as the reference
              does.
 
-The chunked schedules are the reference's scans written as Python loops,
-forward only (the flash custom VJP comes with training, ROADMAP Queue 1
-item 11). Where the reference's band clips a block index below 0 and
-masks the duplicate block whole, the port skips it: a block that masks
-every key adds exactly nothing once a later block holds a live key, which
-the diagonal block always does.
+The chunked schedules are the reference's scans written as Python loops.
+They share one flash-style VJP (`FlashFn`, the reference's `_flash`):
+the forward saves only (q, k, v, out, lse), and the backward recomputes
+each (q chunk, kv chunk) score block. `direct` is plain autograd, as in
+the reference. Where the reference's band clips a block index below 0
+and masks the duplicate block whole, the port skips it, forward and
+backward: a block that masks every key adds exactly nothing (its
+probabilities are exp(-1e30 - lse) = 0) once a later block holds a live
+key, which the diagonal block always does.
 
 `cross_attention` is non-causal attention against a short context
 (whisper's encoder output), chunked over q when q is long.
@@ -105,11 +108,13 @@ class _Online:
         self.acc = self.acc * alpha[..., None] + pv
         self.m = m_new
 
-    def finish(self, dtype) -> torch.Tensor:
-        """-> (B, c, H, hd) in `dtype`."""
-        out = self.acc / torch.clamp(self.l, min=1e-30)[..., None]
+    def finish(self, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> out (B, c, H, hd) in `dtype`, lse (B, KV, G, c) in f32."""
+        l = torch.clamp(self.l, min=1e-30)
+        out = self.acc / l[..., None]
         b, kv, g, c, hd = out.shape
-        return out.permute(0, 3, 1, 2, 4).reshape(b, c, kv * g, hd).to(dtype)
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, c, kv * g, hd).to(dtype)
+        return out, self.m + torch.log(l)
 
 
 def _chunks(q, k, v, n_kv: int, chunk: int):
@@ -119,6 +124,13 @@ def _chunks(q, k, v, n_kv: int, chunk: int):
     sl = [slice(i * chunk, (i + 1) * chunk) for i in range(nq)]
     return ([qg[:, x] for x in sl], [k[:, x] for x in sl],
             [v[:, x] for x in sl])
+
+
+def _joined(finished):
+    """[(out, lse)] of the q chunks in order -> out (B, S, H, hd), lse
+    (nq, B, KV, G, c)."""
+    return (torch.cat([o for o, _ in finished], dim=1),
+            torch.stack([lse for _, lse in finished]))
 
 
 def _masked(q, k, v, n_kv: int, chunk: int, window):
@@ -133,7 +145,13 @@ def _masked(q, k, v, n_kv: int, chunk: int, window):
             st.update(kc[kj], vc[kj],
                       _causal_bias(chunk, qi, kj, window, q.device))
         outs.append(st.finish(q.dtype))
-    return torch.cat(outs, dim=1)
+    return _joined(outs)
+
+
+def _band(qi: int, nband: int):
+    """The kv chunks q chunk qi visits in a band of `nband` blocks: qi -
+    nband + 1 .. qi, the clipped duplicates below 0 skipped."""
+    return range(max(qi - nband + 1, 0), qi + 1)
 
 
 def _banded(q, k, v, n_kv: int, chunk: int, window: int):
@@ -147,11 +165,11 @@ def _banded(q, k, v, n_kv: int, chunk: int, window: int):
     outs = []
     for qi, q_blk in enumerate(qc):
         st = _Online(q_blk, scale)
-        for kj in range(max(qi - nband + 1, 0), qi + 1):
+        for kj in _band(qi, nband):
             st.update(kc[kj], vc[kj],
                       _causal_bias(chunk, qi, kj, window, q.device))
         outs.append(st.finish(q.dtype))
-    return torch.cat(outs, dim=1)
+    return _joined(outs)
 
 
 def _folded(q, k, v, n_kv: int, chunk: int):
@@ -171,13 +189,92 @@ def _folded(q, k, v, n_kv: int, chunk: int):
             st[qi].update(kc[kj], vc[kj],
                           _causal_bias(chunk, qi, kj, None, q.device))
         outs[lo], outs[hi] = st[lo].finish(q.dtype), st[hi].finish(q.dtype)
-    return torch.cat(outs, dim=1)
+    return _joined(outs)
+
+
+def _flash_fwd(q, k, v, n_kv: int, chunk: int, window, schedule: str):
+    """(out, lse) of a chunked schedule (the reference's
+    `_flash_fwd_inner`)."""
+    if schedule == "folded":
+        return _folded(q, k, v, n_kv, chunk)
+    if schedule == "banded":
+        return _banded(q, k, v, n_kv, chunk, window)
+    return _masked(q, k, v, n_kv, chunk, window)
+
+
+def _flash_bwd(q, k, v, out, lse, dout, n_kv: int, chunk: int, window,
+               schedule: str):
+    """The reference's `_flash_bwd`: for each q chunk, D = rowsum(dout *
+    out), then for each kv block of its band the score block recomputed
+    from the saved lse; dk / dv accumulate into full-length f32 buffers, dq
+    a q chunk at a time. Products and roundings are the reference's."""
+    b, s, h, hd = q.shape
+    scale = hd ** -0.5
+    qc, kc, vc = _chunks(q, k, v, n_kv, chunk)
+    og, dog = _group(out, n_kv), _group(dout, n_kv)
+    nq = len(qc)
+    nband = (min(window // chunk + 1, nq)
+             if window is not None and schedule == "banded" else nq)
+    dk = torch.zeros((b, s, n_kv, hd), dtype=F32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for qi, q_blk in enumerate(qc):
+        rows = slice(qi * chunk, (qi + 1) * chunk)
+        o_blk, do_blk = og[:, rows], dog[:, rows]
+        D = torch.einsum("bqkgd,bqkgd->bkgq", do_blk.to(F32), o_blk.to(F32))
+        dq = torch.zeros(q_blk.shape, dtype=F32, device=q.device)
+        for kj in (_band(qi, nband) if nband < nq else range(nq)):
+            k_blk, v_blk = kc[kj], vc[kj]
+            s_blk = (product("bqkgd,bskd->bkgqs", q_blk, k_blk, F32) * scale
+                     + _causal_bias(chunk, qi, kj, window, q.device))
+            p = torch.exp(s_blk - lse[qi][..., None])
+            dv_c = product("bkgqs,bqkgd->bskd", p, do_blk.to(F32), F32)
+            dp = product("bqkgd,bskd->bkgqs", do_blk, v_blk, F32)
+            ds = p * (dp - D[..., None]) * scale
+            dq = dq + product("bkgqs,bskd->bqkgd", ds.to(k.dtype), k_blk,
+                              F32)
+            dk_c = product("bkgqs,bqkgd->bskd", ds, q_blk.to(F32), F32)
+            cols = slice(kj * chunk, (kj + 1) * chunk)
+            dk[:, cols] += dk_c
+            dv[:, cols] += dv_c
+        dqs.append(dq)
+    dq = torch.cat(dqs, dim=1).reshape(b, s, h, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashFn(torch.autograd.Function):
+    """The chunked schedules' flash VJP (the reference's `_flash`
+    custom_vjp): forward `_flash_fwd`, residuals (q, k, v, out, lse),
+    backward `_flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_kv, chunk, window, schedule):
+        out, lse = _flash_fwd(q, k, v, n_kv, chunk, window, schedule)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.plan = (n_kv, chunk, window, schedule)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = _flash_bwd(*ctx.saved_tensors, dout.contiguous(),
+                           *ctx.plan)
+        return (*grads, None, None, None, None)
+
+
+def flash(q, k, v, *, n_kv: int, chunk: int, window, schedule: str):
+    """A chunked schedule's output, through `FlashFn` when autograd
+    records it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashFn.apply(q, k, v, n_kv, chunk, window, schedule)
+    return _flash_fwd(q, k, v, n_kv, chunk, window, schedule)[0]
 
 
 def pallas_flash_attention(q, k, v, *, causal: bool = True):
     """Model-layout attention through the flash_attention kernel: q (B, S,
     H, hd), k/v (B, S, KV, hd), made dense in the kernel's (B, H, S, hd)
-    layout and transposed back. Forward only."""
+    layout and transposed back. Forward only, as in the reference
+    (`ops.flash_attention` raises under grad)."""
     from repro_torch.kernels import ops
     o = ops.flash_attention(dense(q.transpose(1, 2)),
                             dense(k.transpose(1, 2)),
@@ -228,11 +325,8 @@ def attention(q, k, v, *, n_kv: int, causal: bool = True,
     if schedule == "direct":
         return direct_attention(q, k, v, n_kv=n_kv, causal=causal,
                                 window=window)
-    if schedule == "folded":
-        return _folded(q, k, v, n_kv, chunk)
-    if schedule == "banded":
-        return _banded(q, k, v, n_kv, chunk, window)
-    return _masked(q, k, v, n_kv, chunk, window)
+    return flash(q, k, v, n_kv=n_kv, chunk=chunk, window=window,
+                 schedule=schedule)
 
 
 def cross_attention(q, k, v, *, n_kv: int, chunk: int = 1024):

@@ -86,7 +86,9 @@ def product(eq: str, a, b, out_dtype) -> torch.Tensor:
     (True by default: a split-K kernel may then add partial sums in bf16;
     `tools/plain_products.py` checks the paths' shapes for that).
     Elsewhere both operands are upcast and multiplied in f32 (the same
-    function: a product of bf16 values is exact in f32)."""
+    function: a product of bf16 values is exact in f32). Under grad the f32
+    result's product is `F32Product`; every other path is plain
+    autograd."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return _tensor_core_product(eq, a, b, out_dtype).to(out_dtype)
     return torch.einsum(eq, a.to(F32), b.to(F32)).to(out_dtype)
@@ -122,11 +124,47 @@ def _tensor_core_product(eq: str, a, b, out_dtype) -> torch.Tensor:
         n(batch), n(rows), n(red))
     bm = b.permute([ib.index(c) for c in batch + red + cols]).reshape(
         n(batch), n(red), n(cols))
-    kw = {} if out_dtype == torch.bfloat16 else {"out_dtype": F32}
-    y = torch.bmm(am, bm, **kw) if batch else torch.mm(am[0], bm[0], **kw)
+    if not batch:
+        am, bm = am[0], bm[0]
+    if out_dtype == torch.bfloat16:
+        y = torch.bmm(am, bm) if batch else torch.mm(am, bm)
+    elif torch.is_grad_enabled() and (am.requires_grad or bm.requires_grad):
+        y = F32Product.apply(am, bm)
+    else:
+        y = _mm_f32(am, bm)
     order = batch + rows + cols
     y = y.reshape([size[c] for c in order])
     return y.permute([order.index(c) for c in out])
+
+
+def _mm_f32(a, b):
+    """`mm` / `bmm` of bf16 operands with an f32 result (cuBLAS, f32
+    accumulation, no rounding)."""
+    return (torch.bmm if a.ndim == 3 else torch.mm)(a, b, out_dtype=F32)
+
+
+class F32Product(torch.autograd.Function):
+    """`_mm_f32` with its VJP written out (the out_dtype overloads' own
+    derivative is not relied on): the f32 cotangent is rounded to the
+    operands' dtype and both transposed products run on the tensor cores,
+    f32 accumulation, each gradient rounded to its operand's dtype as the
+    reference rounds it. The reference transposes an f32 cotangent
+    without that first rounding; its relative size, 2^-9 an element, is
+    that of the gradient's own rounding."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        mm = torch.bmm if a.ndim == 3 else torch.mm
+        da = mm(g, b.transpose(-1, -2)) if ctx.needs_input_grad[0] else None
+        db = mm(a.transpose(-1, -2), g) if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 def _mm(x, w, eq: str):

@@ -23,24 +23,45 @@ Layout differences from the reference, all for PyTorch idiom:
   step is `Graphed` (`runtime/compile_cache.py`): on the card it runs as a
   captured CUDA graph per batch shape.
 
-Training (`loss_fn`, `make_train_step`) waits for ROADMAP Queue 1 item 11.
+* training (`loss_fn`, `make_train_step`) differentiates with autograd
+  where the reference uses `jax.value_and_grad`; the fused kernels carry
+  their VJPs as `torch.autograd.Function`s (`kernels/ops.py`), the chunked
+  attention schedules theirs (`attention.FlashFn`). Per-layer
+  recomputation (`cfg.remat`) is `torch.utils.checkpoint`; the train
+  step updates its state in place where the reference donates it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import numbers
 
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cluster import policy as kpolicy
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.blocks import BLOCKS, _norm, _norm_specs
-from repro_torch.models.layers import ParamSpec, layer_norm
+from repro_torch.models.layers import ParamSpec, layer_norm, product
+from repro_torch.optim import (AdamConfig, adam_init, adam_update,
+                               warmup_cosine)
 from repro_torch.runtime.compile_cache import Graphed
 
 F32 = torch.float32
+
+AUX_COEF = 1e-2     # MoE load-balance loss weight
+Z_COEF = 1e-4       # z-loss weight
+LOSS_CHUNK = 512    # sequence chunk for the fused CE
+
+# cfg.remat values forward takes under grad: "nothing" keeps each layer's
+# input and recomputes the layer in backward (the reference's
+# `nothing_saveable`), "none" and "everything" (everything saveable)
+# recompute nothing. The reference's "dots" / "dots_no_batch" (save the
+# products' outputs) have no port yet.
+REMAT = ("nothing", "none", "everything")
 
 
 # ----------------------------------------------------------------------------
@@ -372,6 +393,28 @@ def _final_norm(cfg, params, x):
     return _norm(cfg, params, "ln_f", x)
 
 
+def _remat(cfg) -> bool:
+    """Does forward recompute each layer in backward? Only under grad, and
+    only for cfg.remat "nothing" (see REMAT)."""
+    if not torch.is_grad_enabled():
+        return False
+    if cfg.remat not in REMAT:
+        raise NotImplementedError(
+            f"remat policy {cfg.remat!r}: the port takes {REMAT}; the "
+            f"selective policies wait in ROADMAP Queue 1 (after H)")
+    return cfg.remat == "nothing"
+
+
+def _layer(remat: bool, apply, *args):
+    """One layer, `apply(*args)`: under `remat`, only its inputs are kept
+    and backward runs it again (the policy scope of the step is still
+    active then, so the recompute takes the same kernels)."""
+    if remat:
+        return checkpoint(apply, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return apply(*args)
+
+
 def _encode(cfg, params, enc_embeds):
     """Whisper's encoder over stub frame embeddings (B, enc_seq, d)."""
     enc = params["enc"]
@@ -379,8 +422,9 @@ def _encode(cfg, params, enc_embeds):
     B, S = x.shape[:2]
     ctx = {"positions": torch.arange(S, device=x.device).expand(B, S),
            "rope": False}
+    remat = _remat(cfg)
     for p in enc["blocks"]:
-        x, _ = BLOCKS["enc_attn"]["apply"](cfg, p, x, ctx)
+        x, _ = _layer(remat, BLOCKS["enc_attn"]["apply"], cfg, p, x, ctx)
     return layer_norm(x, enc["ln_s"], enc["ln_b"])
 
 
@@ -391,9 +435,7 @@ def logits(params, hidden):
     product of the upcast operands (the same function)."""
     w = params["unembed"]
     if hidden.is_cuda and hidden.dtype == w.dtype == torch.bfloat16:
-        flat = hidden.reshape(-1, hidden.shape[-1])
-        return torch.mm(flat, w, out_dtype=F32).reshape(
-            *hidden.shape[:-1], w.shape[1])
+        return product("...d,dv->...v", hidden, w, F32)
     return hidden.to(F32) @ w.to(F32)
 
 
@@ -414,10 +456,151 @@ def forward(cfg, params, tokens, *, cross_embeds=None):
     ctx = {"positions": positions, "rope": not encdec,
            "cross_embeds": cross_embeds, "max_seq": S}
     aux = 0.0
+    remat = _remat(cfg)
     for kind, p in zip(kinds, params["blocks"]):
-        x, a = BLOCKS[kind]["apply"](cfg, p, x, ctx)
+        x, a = _layer(remat, BLOCKS[kind]["apply"], cfg, p, x, ctx)
         aux = aux + a
     return _final_norm(cfg, params, x), aux
+
+
+# ----------------------------------------------------------------------------
+# Loss (chunked over the sequence; the logits never exist at (B, S, V))
+# ----------------------------------------------------------------------------
+
+def _ce_block(unembed, h, y):
+    """One chunk's summed NLL and z-loss; h (B, c, d), y (B, c)."""
+    lg = logits({"unembed": unembed}, h)                   # (B, c, V) f32
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, y.long()[..., None])[..., 0]
+    return (lse - ll).sum(), Z_COEF * torch.square(lse).sum()
+
+
+def _chunked_ce(cfg, unembed, hidden, labels):
+    """Mean cross-entropy plus z-loss over (B, S), LOSS_CHUNK positions at
+    a time (S when S is not a multiple). Under grad each chunk is
+    recomputed in backward, so one chunk's f32 logits are all that ever
+    exists (the reference's `jax.checkpoint` scan body)."""
+    B, S, _ = hidden.shape
+    c = min(LOSS_CHUNK, S)
+    if S % c:
+        c = S
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=F32, device=hidden.device)
+    for i in range(S // c):
+        cols = slice(i * c, (i + 1) * c)
+        nll, z = _layer(remat, _ce_block, unembed, hidden[:, cols],
+                        labels[:, cols])
+        total = total + nll + z
+    return total / (B * S)
+
+
+def loss_fn(cfg, params, batch):
+    """(loss, {"ce", "aux"}) of one batch: the chunked CE plus AUX_COEF x
+    the MoE load-balance loss (0 without MoE layers)."""
+    cross = batch.get("enc_embeds", batch.get("img_embeds"))
+    hidden, aux = forward(cfg, params, batch["tokens"], cross_embeds=cross)
+    ce = _chunked_ce(cfg, params["unembed"], hidden, batch["labels"])
+    aux = torch.as_tensor(aux, device=ce.device).to(F32)
+    return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
+
+
+# ----------------------------------------------------------------------------
+# Train step
+# ----------------------------------------------------------------------------
+
+def _on(device, batch: dict) -> dict:
+    """The batch's arrays as tensors on `device`."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def make_train_step(cfg, *, adam: AdamConfig | None = None,
+                    schedule_kwargs: dict | None = None, policy=None):
+    """`train_step(state, batch) -> (state, metrics)`, the state updated
+    in place (the reference donates it). `policy` pins the kernel policy
+    (None -> the ambient one); its scope covers the forward and the
+    backward, so a recomputed layer takes the forward's kernels.
+
+    With cfg.grad_accum = k > 1 the batch is cut into k microbatches along
+    its rows, each one's gradients taken with `torch.autograd.grad` and
+    added into an accumulator of `acc_dtype` (f32, bf16 when the moments
+    are bf16), which is divided by k: the metrics are the mean loss, the
+    learning-rate scale and the gradient norm. With k = 1 the metrics also
+    hold the loss's parts ("ce", "aux"). Metrics are 0-d tensors on the
+    device; nothing is read back to the host. The step's halves are
+    `train_step.accumulate(params, batch) -> (loss, parts, grads)` and
+    `train_step.update(state, grads) -> (opt, metrics)`, each in the
+    policy's scope."""
+    pol = kpolicy.as_policy(policy) if policy is not None else None
+    adam = adam or AdamConfig(moment_dtype=cfg.moment_dtype)
+    sched = functools.partial(warmup_cosine, **(schedule_kwargs or {}))
+    acc_dtype = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else F32
+
+    def grads_of(params, batch):
+        leaves, spec = pytree.tree_flatten(params)
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss, parts = loss_fn(cfg, pytree.tree_unflatten(live, spec), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                    materialize_grads=True)
+        return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+                pytree.tree_unflatten(list(grads), spec))
+
+    def accumulate(params, batch):
+        """(loss, parts, grads) of the batch, over its k microbatches."""
+        batch = _on(pytree.tree_leaves(params)[0].device, batch)
+        k = cfg.grad_accum
+        if k <= 1:
+            return grads_of(params, batch)
+        micro = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])
+                 for key, v in batch.items()}
+        gacc, lsum = None, torch.zeros((), dtype=F32,
+                                       device=batch["tokens"].device)
+        for i in range(k):
+            l, _, g = grads_of(params, {key: v[i] for key, v in micro.items()})
+            if gacc is None:
+                gacc = pytree.tree_map(lambda x: x.to(acc_dtype), g)
+            else:
+                for a, b in zip(pytree.tree_leaves(gacc),
+                                pytree.tree_leaves(g)):
+                    a.add_(b)
+            lsum = lsum + l
+            del g
+        for a in pytree.tree_leaves(gacc):
+            a.div_(k)
+        return lsum / k, {}, gacc
+
+    def update(state, grads):
+        """AdamW on the state, in place -> (opt state, metrics)."""
+        lr_scale = sched(state["opt"]["step"] + 1)
+        _, opt, om = adam_update(state["params"], grads, state["opt"], adam,
+                                 lr_scale)
+        return opt, {"lr_scale": lr_scale, **om}
+
+    def scoped(fn):
+        def run(*args):
+            with kpolicy.scoped(pol):
+                return fn(*args)
+        return run
+
+    @scoped
+    def train_step(state, batch):
+        loss, parts, grads = accumulate(state["params"], batch)
+        opt, om = update(state, grads)
+        metrics = {"loss": loss, "lr_scale": om.pop("lr_scale"), **om}
+        return {"params": state["params"], "opt": opt}, metrics | parts
+
+    # the two halves, for timing them apart (chip_smoke.py's train phase)
+    train_step.accumulate = scoped(accumulate)
+    train_step.update = scoped(update)
+    return train_step
+
+
+def init_train_state(cfg, seed: int = 0, *, device=None,
+                     max_seq: int = 4096, adam: AdamConfig | None = None):
+    """{"params", "opt": {"m", "v", "step"}} on `device` (None: the GPU);
+    the parameters from `init_params(cfg, seed)`."""
+    adam = adam or AdamConfig(moment_dtype=cfg.moment_dtype)
+    params = init_params(cfg, seed, device=device, max_seq=max_seq)
+    return {"params": params, "opt": adam_init(params, adam)}
 
 
 def make_prefill_step(cfg, *, policy=None) -> Graphed:

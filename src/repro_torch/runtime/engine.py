@@ -1,6 +1,7 @@
 """Execution engine (the port of `repro.runtime.engine`): the K-step
-decode of a fixed batch (`DecodeEngine`) and the session cell of
-continuous batching (`session_chunk_fn`).
+decode of a fixed batch (`DecodeEngine`), the session cell of
+continuous batching (`session_chunk_fn`) and the K-step train chunk
+(`make_train_chunk`).
 
 The reference compiles K decode steps into one `lax.scan` program with
 its buffers donated through it. On the CPU the port runs the K steps as a
@@ -681,3 +682,35 @@ def make_slot_corrupt(*, cache_fill: Callable) -> Callable:
         return state
 
     return corrupt
+
+
+# ----------------------------------------------------------------------------
+# Multi-step training
+# ----------------------------------------------------------------------------
+
+def make_train_chunk(train_step: Callable) -> Callable:
+    """`chunk(state, batches) -> (state, metrics)`: one `train_step` for
+    each leading-axis slice of the stacked `batches`, every metric stacked
+    to shape (K, ...). The reference scans the steps in one compiled
+    program with the state donated; the port runs them back to back on
+    the card, the state updated in place, and reads nothing back to the
+    host: the loop syncs once a chunk, when it reads the loss. (A captured
+    train step, one CUDA graph, is not part of the port yet: ROADMAP.)"""
+
+    def chunk(state, batches):
+        rows = []
+        for i in range(len(next(iter(batches.values())))):
+            state, m = train_step(state, {k: v[i]
+                                          for k, v in batches.items()})
+            rows.append(m)
+        return state, {k: torch.stack([torch.as_tensor(r[k]) for r in rows])
+                       for k in rows[0]}
+
+    return chunk
+
+
+def stack_batches(batches: list) -> dict:
+    """Stack K batches (dicts of tensors or arrays) on a new leading step
+    axis, as tensors."""
+    return {k: torch.stack([torch.as_tensor(b[k]) for b in batches])
+            for k in batches[0]}

@@ -8,6 +8,9 @@ unstacked into the list of per-layer dicts `repro_torch.models.steps`
 uses, and likewise an encoder-decoder tree's ``tree["enc"]["blocks"]``.
 bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits. A
 dict-valued key the port does not know raises: nothing is dropped.
+`from_jax_train_state(state)` does the same for a reference train state
+(``{"params", "opt": {"m", "v", "step"}}``): the moments have the
+parameters' layout.
 
 Nothing of the reference package is imported here.
 """
@@ -66,6 +69,19 @@ def from_jax_params(tree: dict, *, device=None) -> dict:
         out["enc"]["blocks"] = [_layer(enc["blocks"], i, device)
                                 for i in range(_depth(enc["blocks"]))]
     return out
+
+
+def from_jax_train_state(state: dict, *, device=None) -> dict:
+    """Reference train state of numpy leaves -> the port's
+    ``{"params", "opt": {"m", "v", "step"}}`` on `device` (None: the GPU),
+    the step count a 0-d int32 tensor."""
+    device = resolve_device(device)
+    opt = state["opt"]
+    return {"params": from_jax_params(state["params"], device=device),
+            "opt": {"m": from_jax_params(opt["m"], device=device),
+                    "v": from_jax_params(opt["v"], device=device),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}
 
 
 def _depth(stacked) -> int:

@@ -1989,3 +1989,314 @@ def test_cuda_tuned_call_races_then_hits_and_refuses_a_capture_miss(cuda):
         rt.cudaGraphDestroy(raw)
     assert pol.stats["tune_misses"] == 1         # the refused miss: none
     registry.KERNEL_TUNES.clear()
+
+
+# ----------------------------------------------------------------------------
+# Training: the fused ops' autograd Functions, the f32-result product's
+# VJP, a train step at qwen3-14b's width
+# ----------------------------------------------------------------------------
+
+def _fused_case(name, cuda):
+    """(op, its operands: bf16 on the card, requiring grad) at a shape of
+    the train path's kind (flash_attention_proj: heads of 128)."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * scale).bfloat16().requires_grad_()
+
+    if name == "rmsnorm_matmul":
+        return ops.rmsnorm_matmul, (r(256, 512), r(512, scale=0.1),
+                                    r(512, 384, scale=512 ** -0.5))
+    if name == "matmul_residual_add":
+        return ops.matmul_residual_add, (r(256, 768),
+                                         r(768, 512, scale=768 ** -0.5),
+                                         r(256, 512))
+    if name == "matmul_bias_act":
+        return (lambda a, b, bias: ops.matmul_bias_act(a, b, bias,
+                                                       act="silu"),
+                (r(256, 512), r(512, 384, scale=512 ** -0.5), r(384)))
+    return ops.flash_attention_proj, (r(2, 8, 256, 128), r(2, 2, 256, 128),
+                                      r(2, 2, 256, 128),
+                                      r(8, 128, 512, scale=1024 ** -0.5))
+
+
+_FUSED_FN = {"rmsnorm_matmul": "RmsnormMatmulFn",
+             "matmul_residual_add": "MatmulResidualAddFn",
+             "matmul_bias_act": "MatmulBiasActFn",
+             "flash_attention_proj": "FlashAttentionProjFn"}
+
+
+def _composition(name):
+    """The reference's `_ref_*` composition of `name` through
+    `layers.product` (the function the fused op's VJP differentiates)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.layers import product
+    f32 = torch.float32
+    return {
+        "rmsnorm_matmul": lambda x, s, w: product(
+            "mk,kn->mn", kref.rmsnorm(x, s), w, x.dtype),
+        "matmul_residual_add": lambda a, b, r: (
+            product("mk,kn->mn", a, b, f32) + r.to(f32)).to(a.dtype),
+        "matmul_bias_act": lambda a, b, bias: kref.ACTIVATIONS["silu"](
+            product("mk,kn->mn", a, b, f32) + bias.to(f32)).to(a.dtype),
+        "flash_attention_proj": lambda q, k, v, wo: product(
+            "bhsk,hkd->bsd", ops._attention(True, q, k, v), wo, q.dtype),
+    }[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention_proj", "matmul_bias_act",
+                                  "matmul_residual_add", "rmsnorm_matmul"])
+def test_cuda_fused_op_backward_is_its_composition(cuda, name):
+    """Under "fused" the op launches its kernel once, its output's grad_fn
+    is its autograd Function's, and its gradients are the VJP of the
+    reference composition on the card: bit for bit the Function's `vjp`,
+    within 1e-2 relative L2 of autograd through the composition itself
+    (the VJP's transposed products are other cuBLAS calls than autograd's
+    of the forward one), and within bf16 tolerance (2e-2) of f32 autograd
+    through the plain oracle on the upcast inputs."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    op, xs = _fused_case(name, cuda)
+    fn_cls = getattr(ops, _FUSED_FN[name])
+    vjp = {"rmsnorm_matmul": ops._vjp_rmsnorm_matmul,
+           "matmul_residual_add": ops._vjp_matmul_residual_add,
+           "matmul_bias_act": lambda *a: ops._vjp_matmul_bias_act("silu", *a),
+           "flash_attention_proj": lambda *a: ops._vjp_flash_attention_proj(
+               True, *a)}[name]
+    oracle = {"rmsnorm_matmul": kref.rmsnorm_matmul,
+              "matmul_residual_add": kref.matmul_residual_add,
+              "matmul_bias_act": lambda *a: kref.matmul_bias_act(*a, "silu"),
+              "flash_attention_proj": kref.flash_attention_proj}[name]
+    launches.reset_counts()
+    with use_policy("fused"):
+        out = op(*xs)
+    torch.cuda.synchronize()
+    c = launches.counts()[name]
+    assert c == {"launches": 1, "plain_cuda_calls": 0}, c
+    assert type(out.grad_fn).__name__ == fn_cls.__name__ + "Backward"
+    gout = torch.randn(out.shape, generator=torch.Generator(
+        device=cuda).manual_seed(8), device=cuda).bfloat16()
+    got = torch.autograd.grad(out, xs, gout)
+    own = vjp(gout, (True,) * len(xs), *[x.detach() for x in xs])
+    comp = torch.autograd.grad(_composition(name)(*xs), xs, gout)
+    x32 = [x.detach().float().requires_grad_() for x in xs]
+    f32 = torch.autograd.grad(oracle(*x32), x32, gout.float())
+    for a, b, c, d in zip(got, own, comp, f32):
+        assert torch.equal(a, b)
+        assert float((a.float() - c.float()).norm() / c.float().norm()) \
+            < 1e-2
+        assert torch.isfinite(a).all() and a.abs().max() > 0
+        rel = float((a.float() - d).norm() / d.norm())
+        assert rel < 2e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention_proj", "matmul_bias_act",
+                                  "matmul_residual_add", "rmsnorm_matmul"])
+def test_cuda_unfused_route_under_grad(cuda, name, monkeypatch):
+    """A tune record whose race picked the composition: `tuned_call` under
+    grad launches the composition's primitive kernels inside the op's
+    Function (no refusal, no plain version on the card), and its
+    gradients equal the fused route's bit for bit (the same VJP of the
+    same inputs)."""
+    from repro_torch.cluster.policy import KernelPolicy, use_policy
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+
+    def unfused(kernel, key):
+        route = "unfused" if ops.OPS[kernel].fused else "fused"
+        return registry.KernelTuneRecord(kernel, key, (), 0.0, route=route)
+
+    monkeypatch.setattr(registry, "get_kernel_tune", unfused)
+    op, xs = _fused_case(name, cuda)
+    kw = {"act": "silu"} if name == "matmul_bias_act" else {}
+    gout = None
+    grads = []
+    for tuned in (True, False):
+        x = [t.detach().clone().requires_grad_() for t in xs]
+        pol = KernelPolicy(mode="tuned" if tuned else "fused")
+        launches.reset_counts()
+        with use_policy(pol):
+            out = ops.tuned_call(name, *x, **kw) if tuned else op(*x)
+        torch.cuda.synchronize()
+        counts = launches.counts()
+        assert not any(c["plain_cuda_calls"] for c in counts.values())
+        assert type(out.grad_fn).__name__ == _FUSED_FN[name] + "Backward"
+        if tuned:
+            assert pol.stats["unfused_routes"] == 1
+            assert counts[name]["launches"] == 0
+            prims = ("flash_attention",) if name == "flash_attention_proj" \
+                else ("matmul",) + (("rmsnorm",) if name == "rmsnorm_matmul"
+                                    else ())
+            assert all(counts[p]["launches"] == 1 for p in prims), counts
+        if gout is None:
+            gout = torch.randn(out.shape, generator=torch.Generator(
+                device=cuda).manual_seed(8), device=cuda).bfloat16()
+        grads.append(torch.autograd.grad(out, x, gout))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_wrapper_refuses_operands_that_require_grad(cuda):
+    """A launch outside its autograd Function would return a result with
+    no gradient: the wrapper raises instead (and launches nothing)."""
+    x = torch.randn(32, 64, device=cuda).bfloat16().requires_grad_()
+    s = torch.zeros(64, device=cuda).bfloat16()
+    w = torch.randn(64, 32, device=cuda).bfloat16()
+    before = fused.rmsnorm_matmul.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused.rmsnorm_matmul(x, s, w)
+    assert fused.rmsnorm_matmul.launches == before
+    with torch.no_grad():
+        assert fused.rmsnorm_matmul(x, s, w).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eq,sa,sb", [
+    ("...d,dv->...v", (2, 64, 256), (256, 1000)),        # the logits
+    ("bqkgd,bskd->bkgqs", (2, 32, 2, 3, 64), (2, 48, 2, 64))])  # scores
+def test_cuda_f32_result_product_derivative(cuda, eq, sa, sb):
+    """`layers.product` with an f32 result from bf16 operands runs
+    `F32Product` under grad: its gradients match f32 autograd of the
+    upcast operands (relative L2 1e-2: the cotangent is rounded to bf16
+    before the tensor-core products, the gradients to bf16 after). What
+    the out_dtype `mm` overload itself does under autograd is recorded:
+    a derivative that matches, or an error naming the missing one."""
+    from repro_torch.models.layers import product
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randn(sa, generator=g, device=cuda).bfloat16().requires_grad_()
+    b = (torch.randn(sb, generator=g, device=cuda)
+         * sb[-1] ** -0.5).bfloat16().requires_grad_()
+    y = product(eq, a, b, torch.float32)
+    assert y.dtype == torch.float32
+    seen, todo = {}, [y.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and id(node) not in seen:
+            seen[id(node)] = type(node).__name__
+            todo.extend(n for n, _ in node.next_functions)
+    assert "F32ProductBackward" in seen.values(), seen
+    gy = torch.randn(y.shape, generator=g, device=cuda)
+    got = torch.autograd.grad(y, (a, b), gy)
+    a32, b32 = (t.detach().float().requires_grad_() for t in (a, b))
+    want = torch.autograd.grad(torch.einsum(eq, a32, b32), (a32, b32), gy)
+    for x, w in zip(got, want):
+        assert x.dtype == torch.bfloat16
+        assert float((x.float() - w).norm() / w.norm()) < 1e-2
+    a2 = a.detach().reshape(-1, sa[-1]).requires_grad_()
+    b2 = b.detach().reshape(sb[0], -1).requires_grad_() if eq.startswith(
+        "...") else None
+    if b2 is not None:
+        try:
+            own = torch.autograd.grad(
+                torch.mm(a2, b2, out_dtype=torch.float32),
+                (a2, b2), gy.reshape(-1, sb[-1]))
+        except RuntimeError as e:
+            assert "derivative" in str(e) or "not implemented" in str(e)
+        else:
+            for x, w in zip(own, want):
+                assert float((x.float() - w.reshape(x.shape)).norm()
+                             / w.norm()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_flash_vjp_matches_direct_attention(cuda):
+    """The chunked schedules' FlashFn on the card, f32: gradients equal
+    direct attention's autograd within 1e-4 (sum order)."""
+    from repro_torch.models import attention as attn
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).requires_grad_()
+               for s in ((2, 64, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32)))
+    gy = torch.randn((2, 64, 4, 32), generator=g, device=cuda)
+    want = torch.autograd.grad(attn.direct_attention(q, k, v, n_kv=2,
+                                                     window=32),
+                               (q, k, v), gy)
+    for schedule in ("masked", "banded"):
+        out = attn.attention(q, k, v, n_kv=2, window=32, chunk=16,
+                             schedule=schedule)
+        assert type(out.grad_fn).__name__ == "FlashFnBackward"
+        for x, w in zip(torch.autograd.grad(out, (q, k, v), gy), want):
+            torch.testing.assert_close(x, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_qwen3_width_two_layers(cuda):
+    """qwen3-14b at full width, 2 layers, one microbatch (1 x 256) under
+    "fused": rows 1-3 launch (5, 1 and 1 a layer, twice: the forward and
+    its recompute), no plain version runs on the card, and every
+    parameter leaf gets a finite, non-zero gradient."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+
+    cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2, grad_accum=1)
+    params = steps.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    batch = {k: torch.randint(0, cfg.vocab, (1, 256), generator=gen,
+                              device=cuda) for k in ("tokens", "labels")}
+    launches.reset_counts()
+    loss, _, grads = steps.make_train_step(cfg, policy="fused").accumulate(
+        params, batch)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    assert {n: counts[n]["launches"] for n in
+            ("rmsnorm_matmul", "flash_attention_proj",
+             "matmul_residual_add")} == {"rmsnorm_matmul": 20,
+                                         "flash_attention_proj": 4,
+                                         "matmul_residual_add": 4}
+    assert not any(c["plain_cuda_calls"] for c in counts.values())
+    assert torch.isfinite(loss)
+    for path, g in pytree.tree_flatten_with_path(grads)[0]:
+        assert torch.isfinite(g).all() and g.abs().max() > 0, \
+            pytree.keystr(path)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_tuned_is_the_plain_route(cuda):
+    """qwen3-14b at full width, 2 layers, one microbatch of 2 x 512 (the
+    train phase's M1024) under "tuned": the model's forward takes the
+    plain product route, so no fused op, race or composition runs and no
+    kernel of rows 1-7 launches; every leaf's gradient is finite, non-zero
+    and within 2e-2 relative L2 of the "fused" route's."""
+    import dataclasses
+
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.cluster.policy import KernelPolicy
+    from repro_torch.configs import get
+    from repro_torch.models import steps
+
+    cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2, grad_accum=1)
+    params = steps.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 512), generator=gen,
+                              device=cuda) for k in ("tokens", "labels")}
+    pol = KernelPolicy(mode="tuned")
+    launches.reset_counts()
+    loss, _, grads = steps.make_train_step(cfg, policy=pol).accumulate(
+        params, batch)
+    torch.cuda.synchronize()
+    counts = launches.counts()
+    assert not any(c["launches"] or c["plain_cuda_calls"]
+                   for c in counts.values()), counts
+    assert not {"unfused_routes", "tune_hits", "tune_misses"} & set(
+        pol.stats), pol.stats
+    assert torch.isfinite(loss)
+    _, _, want = steps.make_train_step(cfg, policy="fused").accumulate(
+        params, batch)
+    for (path, g), w in zip(pytree.tree_flatten_with_path(grads)[0],
+                            pytree.tree_leaves(want)):
+        assert torch.isfinite(g).all() and g.abs().max() > 0, \
+            pytree.keystr(path)
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        assert rel < 2e-2, (pytree.keystr(path), rel)

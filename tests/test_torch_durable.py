@@ -193,6 +193,40 @@ def test_checkpoint_atomic_keep_and_async_errors(tmp_path, monkeypatch):
     assert m.latest_step() == 7
 
 
+def test_async_save_holds_the_state_it_was_given(tmp_path, monkeypatch):
+    """An async save of host tensors (and a numpy leaf) writes the values
+    they held when `save` returned, though the caller updates them in
+    place before the writer runs: the snapshot is a copy."""
+    import threading
+    state = dict(_state(), host=np.arange(6, dtype=np.float32))
+    want = {"params": {k: v.clone() for k, v in state["params"].items()},
+            "step": state["step"].clone(), "blocks": [state["blocks"][0]
+                                                      .clone()],
+            "host": state["host"].copy()}
+    m = TManager(tmp_path, async_save=True)
+    go = threading.Event()
+    write = m._write_step
+
+    def held(step, snapshot):
+        assert go.wait(30)
+        write(step, snapshot)
+
+    monkeypatch.setattr(m, "_write_step", held)
+    m.save(1, state)
+    for leaf in jax.tree.leaves({k: v for k, v in state.items()
+                                 if k != "host"}):
+        leaf.add_(1)
+    state["host"] += 1.0
+    go.set()
+    m.wait()
+    got = m.restore(1, state)
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert torch.equal(_bits(a), _bits(b))
+
+
 def test_session_snapshot_in_place_and_across_packages(tmp_path):
     state = dict(_state(), step_graph=object())
     m = TManager(tmp_path, keep=2, async_save=False)

@@ -1,7 +1,8 @@
 """repro_torch stands alone: no jax, no repro, no CUDA tooling at import.
 
-* an AST scan of every module of `src/repro_torch/`, of `chip_smoke.py`
-  and of `examples/serve_chaos_torch.py` finds no import of `jax`,
+* an AST scan of every module of `src/repro_torch/`, of `chip_smoke.py`,
+  `examples/serve_chaos_torch.py` and `examples/train_lm_torch.py` finds
+  no import of `jax`,
   `repro` or `ml_dtypes` (or their submodules; the GPU machine has no
   `ml_dtypes`);
 * importing `repro_torch` in a fresh interpreter leaves `jax` out of
@@ -19,7 +20,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_chaos_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_chaos_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -60,6 +62,9 @@ def test_import_leaves_jax_out():
              "import repro_torch.cluster.session\n"
              "import repro_torch.runtime.faults, repro_torch.runtime.journal\n"
              "import repro_torch.checkpoint.manager\n"
+             "import repro_torch.data, repro_torch.optim\n"
+             "import repro_torch.runtime.train_loop\n"
+             "import repro_torch.launch.train\n"
              "assert 'jax' not in sys.modules, 'jax imported'\n"
              "assert 'ml_dtypes' not in sys.modules, 'ml_dtypes imported'\n"
              "assert not any(m == 'repro' or m.startswith('repro.') "
