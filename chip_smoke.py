@@ -6,9 +6,12 @@ TuneDB, a second process warm-starting from it),
 run whisper-small's prefill and decode, then qwen3-14b at full width:
 its one-shot prefill on the fused and on the "pallas" route (eager and as
 CUDA graphs), serving through the port's paged ServeSession, and the
-fixed batch's execution engine (`ServeProgram`, K-step CUDA graphs) and
+fixed batch's execution engine (`ServeProgram`, K-step CUDA graphs),
 the robustness and durability layer on its graphed paged session
-(scripted faults, preemption, the journal, snapshots, crash and restore);
+(scripted faults, preemption, the journal, snapshots, crash and restore)
+and serving groups (`ShardedServeSessionProgram`: two session cells on
+one card behind one session, quarantine, a crash of a durable root, the
+locality example, gradient compression);
 then mixtral-8x7b at full width (8 of its 32 layers): its MoE prefill on
 the banded schedule and its decode on rolling caches; then the three
 mixed-kind archs: recurrentgemma-9b at full width and depth, xlstm-125m
@@ -170,6 +173,35 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            journal and the snapshot call for, the time to restore;
            part=drill, examples/serve_chaos_torch.py --crash (its child
            SIGKILLed, its parent exit 0)
+  groups   serving groups on qwen3-14b at 40 layers (after chaos, on its
+           weights), "fused", ShardedServeSessionProgram with the serve
+           phase's spec for each group and its 12 requests:
+           part=one, groups=1 against the plain ServeSessionProgram
+           (tokens and kv counters bit-equal); part=two, groups=2 from a
+           cold start (each group's first poll captures its step graph
+           on a worker thread) in two waves (the first 6 drained, then
+           the last 6), traced: one card and one parameter tree (every
+           leaf's data_ptr) for both groups, a locality hit in the
+           second wave, each group's tokens equal to a plain session fed
+           its requests in the same waves and order, the fused kernels'
+           traced launches equal to a step's launches times both groups'
+           warm-ups and replays; placements, locality rate, merged and
+           per-group stall_pct, tokens handed out over the wall against
+           the summed windowed tokens_per_s, the pooled and serial (one
+           group at a time) walls; part=quarantine, a FaultPlan wedges
+           group 1 (the watchdog), the session quarantines it, group 0
+           finishes with fault-free tokens, recover_group(1) and group 1's
+           finish with theirs; part=crash, a durable groups=2 session
+           (journal only) crashes at group 0's chunk 4 and
+           program.restore reads manifest.json, group00/ and group01/:
+           every token once, equal to the uncrashed run's;
+           part=locality, examples/locality_pipeline_torch.py's main
+           (conv2d through ops.tuned_call under a kernel-only Cluster,
+           within 1e-5 of conv2d_3x3_plain, launched at least once);
+           part=compress, one full-width qwen3 layer's shapes as an f32
+           gradient tree: quantize_int8 and compress_decompress bit-equal
+           to the CPU's, compressed_psum over an NCCL group of one equal
+           to compress_decompress(g + e) and its error state
   moe      mixtral-8x7b at full width (d_model 4096, 32 / 8 heads of 128,
            8 experts top-2, d_ff 14336, window 4096), 8 of its 32 layers
            (~23.7 GB; qwen3's weights are freed first), under "fused":
@@ -234,7 +266,8 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
 
 The kernel launch counts are set to 0 before each of the suite, tune,
 compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
-moe, hybrid, xlstm, vlm and train runs and read right after; every kernel of a
+groups (part=two and part=locality), moe, hybrid, xlstm, vlm and train
+runs and read right after; every kernel of a
 phase must have launched and no plain version may have run on a CUDA
 tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
@@ -264,6 +297,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import mesh as hw  # noqa: E402  (H100 data sheet)
+from repro_torch.kernels.pipeline import SPIN_CYCLES  # noqa: E402  (~1 ms)
 
 HBM_BYTES_PER_S = hw.HBM_BW
 QWEN_FUSED = ("rmsnorm_matmul", "matmul_residual_add",
@@ -405,6 +439,7 @@ def main() -> int:
     profile_phase(launches, cfg, params)
     engine_traced = engine_phase(launches, cfg, params)
     chaos_counts = chaos_phase(launches, params)
+    groups = groups_phase(launches, params)
     del params                        # qwen3-14b's 29.5 GB: mixtral is next
     gc.collect()                      # reference cycles may still hold them
     torch.cuda.empty_cache()
@@ -432,14 +467,23 @@ def main() -> int:
             rec["launches"] = (prefill_counts[name] + serve_traced[name]
                                + engine_traced[name] + moe_counts[name]
                                + hybrid_counts[name] + vlm_counts[name]
-                               + train_counts[name])
+                               + train_counts[name]
+                               + groups["traced"][name])
             rec["train_launches"] = train_counts[name]
+            rec["groups_launches"] = groups["traced"][name]
             rec["wrapper_launches"] = prefill_counts[name] + \
-                serve_counts[name] + chaos_counts[name]
+                serve_counts[name] + chaos_counts[name] + \
+                groups["counts"][name]
         else:
             rec["launches"] = {"flash_attention": pallas_counts,
                                "matmul_bias_act": whisper_counts,
                                "rmsnorm": compose_counts}[name][name]
+    for rec in suite_records:
+        if rec["name"] == "conv2d":
+            # the suite phase's own launches and those of the groups
+            # phase's locality example (one record per kernel)
+            rec["groups_launches"] = groups["conv2d"]
+            rec["launches"] += groups["conv2d"]
     records += suite_records
     for rec in records:           # each kernel's cells of the tune phase
         rec["tune"] = tune_results.get(rec["name"], [])
@@ -601,13 +645,17 @@ def close_record(pad_s: float) -> None:
     time.sleep(pad_s)
 
 
-def traced(what: str, fn):
+def traced(what: str, fn, raw: bool = False):
     """Run `fn` under torch.profiler between two sentinel kernels and
     return the profile. A trace that lost device records shows itself by a
     sentinel gone missing: it is logged (and noted in LOST_TRACES) and
     taken again with a longer pad, once for each of PADS_S; no whole trace
-    in that many raises. `fn` runs once a trace."""
+    in that many raises. `fn` runs once a trace. `raw` counts the
+    sentinels from the raw device records (`launches.device_kernels`),
+    for a trace too long to parse into events."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launches
 
     for pad_s in PADS_S:
         torch.cuda.synchronize()
@@ -616,7 +664,8 @@ def traced(what: str, fn):
             open_record(pad_s)
             fn()
             close_record(pad_s)
-        seen = sentinels(prof)
+        seen = (sum(n for k, n in launches.device_kernels(prof).items()
+                    if SENTINEL in k) if raw else sentinels(prof))
         if seen == 2:
             return prof
         LOST_TRACES.append(f"{what}:{seen}")
@@ -679,7 +728,7 @@ def kernel_phase() -> list[dict]:
                                                      flash_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
-    timer = Timer()
+    timer = Timer(spin_cycles=SPIN_CYCLES)
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -988,7 +1037,7 @@ def suite_phase(launches) -> list[dict]:
     if pol.stats != {"kernel_calls": len(cases)}:
         raise AssertionError(f"suite: policy routed {pol.stats}")
 
-    timer = Timer()
+    timer = Timer(spin_cycles=SPIN_CYCLES)
     rows = {}
     for (name, size, dt, label, args, byts, flops, (lib_name, lib), tol), \
             got in zip(cases, outs):
@@ -1685,7 +1734,7 @@ def compose_phase(launches) -> dict:
     from repro_torch.cluster.policy import use_policy
     from repro_torch.kernels import ops
 
-    timer = Timer()
+    timer = Timer(spin_cycles=SPIN_CYCLES)
     total = dict.fromkeys(launches.WRAPPERS, 0)
     for name, (shapes, parts) in COMPOSE.items():
         desc = ops.OPS[name]
@@ -3052,6 +3101,437 @@ def chaos_phase(launches, params) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ----------------------------------------------------------------------------
+# serving groups: ShardedServeSessionProgram on qwen3-14b, the interconnect
+# model's example, gradient compression
+# ----------------------------------------------------------------------------
+
+GROUP_SPEC = dict(slots=8, max_seq=256, max_prompt=64, chunk=16, paged=True,
+                  page_size=16, prefix_cache=True, retry_backoff_s=0.0)
+GROUPS_WATCHDOG_S = 2.0           # part=quarantine: the wedged group's wait
+                                  # (a chunk of both groups takes < 1 s)
+
+
+def groups_program(cluster, groups: int, **kw):
+    """qwen3-14b's paged session under "fused" (the serve phase's spec, for
+    each group): `groups` 0 is the plain ServeSessionProgram."""
+    from repro_torch.cluster.session import (ServeSessionProgram,
+                                             ShardedServeSessionProgram)
+
+    spec = (ShardedServeSessionProgram(groups=groups, **GROUP_SPEC, **kw)
+            if groups else ServeSessionProgram(**GROUP_SPEC, **kw))
+    with cluster.policy("fused"):
+        return cluster.compile(spec)
+
+
+def groups_waves(sess, waves):
+    """Submit each wave of requests and stream the session dry before the
+    next. Returns (handles by wave, tokens handed out, wall s)."""
+    handles, delivered = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves:
+        handles.append([sess.submit(p, n) for p, n in wave])
+        for _, toks, _ in sess.stream():
+            delivered += len(toks)
+    torch.cuda.synchronize()
+    return handles, delivered, time.perf_counter() - t0
+
+
+def _tokens(handles) -> list:
+    return [h.tokens.copy() for wave in handles for h in wave]
+
+
+def groups_alone(plain, params, waves, handles, gid):
+    """The tokens of a plain session fed the requests that group `gid`
+    took, in the same waves and order."""
+    mine = [[r for r, h in zip(wave, hs) if h.group == gid]
+            for wave, hs in zip(waves, handles)]
+    sess = plain.open(params=params)
+    alone, _, _ = groups_waves(sess, mine)
+    del sess
+    return _tokens(alone), [[h for h in hs if h.group == gid]
+                            for hs in handles]
+
+
+def groups_one(cluster, params, reqs, card) -> None:
+    """part=one: groups=1 against the plain session, tokens and kv
+    counters bit-equal."""
+    plain, one = groups_program(cluster, 0), groups_program(cluster, 1)
+    ps = plain.open(params=params)
+    hp, _, plain_s = groups_waves(ps, [reqs])
+    pst = ps.stats()
+    ss = one.open(params=params)
+    hs, delivered, wall = groups_waves(ss, [reqs])
+    sst = ss.stats()
+    equal = all(np.array_equal(a, b) for a, b in zip(_tokens(hp),
+                                                     _tokens(hs)))
+    kv_equal = sst["groups"][0]["kv"] == pst["kv"]
+    if not (equal and kv_equal) or ss.plan.degraded:
+        raise AssertionError(f"groups one: tokens equal {equal}, kv equal "
+                             f"{kv_equal}, degraded {ss.plan.degraded}")
+    log("groups", part="one", gpu=f"'{card}'", requests=len(reqs),
+        tokens_equal=equal, kv_equal=kv_equal, wall_s=f"{wall:.2f}",
+        plain_wall_s=f"{plain_s:.2f}", delivered=delivered)
+    del ps, ss
+
+
+def groups_two(launches, cluster, params, reqs, card) -> dict:
+    """part=two: groups=2 from a cold start (fresh session states, so each
+    group's first poll captures its step graph from a worker thread), two
+    waves, traced. Returns the traced launches of the fused kernels and
+    the wave-1 tokens by request (for part=quarantine)."""
+    two, plain = groups_program(cluster, 2), groups_program(cluster, 0)
+    waves = [reqs[:6], reqs[6:]]
+    run = {}
+
+    def drive():
+        gc.collect()
+        run["sess"] = sess = two.open(params=params)
+        launches.reset_counts()            # the main path's run, counted
+        run["out"] = groups_waves(sess, waves)
+        run["counts"] = _check_counts(launches, "groups two",
+                                      ("rmsnorm_matmul",
+                                       "matmul_residual_add"))
+
+    # ~250,000 device kernels, counted from the raw records: counted from
+    # the parsed events, the traced run took 153 s (its run: ~7 s; NVIDIA
+    # H100 80GB HBM3, 700 W)
+    t_trace = time.perf_counter()
+    prof = traced("groups two", drive, raw=True)
+    seen = launches.launch_counts(launches.device_kernels(prof))
+    trace_s = time.perf_counter() - t_trace
+    sess, (handles, delivered, traced_wall) = run["sess"], run["out"]
+    counts = run["counts"]
+    st = sess.stats()
+    pl = st["placement"]
+    if not sess.plan.degraded or distinct_ptrs(sess) != 1:
+        raise AssertionError("groups two: the groups must share one card "
+                             "and one parameter tree")
+    # Wrappers count a step's warm-up and its capture (both under the
+    # capture lock, one thread at a time); the trace sees the warm-up and
+    # every replay. So each kernel's traced launches are its launches a
+    # step times the groups' warm-ups and replays, which holds only if
+    # both groups' replays ran the fused kernels.
+    graphs = [g.session.state["step_graph"] for g in sess.groups]
+    replays = [gr.replays for gr in graphs]
+    captures = sum(g.session.captures for g in sess.groups)
+    expect = {}
+    for name in ("rmsnorm_matmul", "matmul_residual_add"):
+        per_step, rest = divmod(counts[name], 2 * captures)
+        expect[name] = per_step * sum(1 + r for r in replays)
+        if rest or per_step <= 0 or seen[name] != expect[name]:
+            raise AssertionError(f"groups two: {name} traced {seen[name]}, "
+                                 f"want {expect[name]} ({per_step} a step, "
+                                 f"replays {replays}, captures {captures})")
+    if min(replays) <= 0 or captures != 2:
+        raise AssertionError(f"groups two: replays {replays}, captures "
+                             f"{captures}")
+    if pl["locality_hits"] <= 0:
+        raise AssertionError(f"groups two: no locality hit: {pl}")
+    same = {}
+    for gid in (0, 1):
+        alone, mine = groups_alone(plain, params, waves, handles, gid)
+        same[gid] = (len(alone) == sum(map(len, mine)) and all(
+            np.array_equal(a, b) for a, b in zip(alone, _tokens(mine))))
+    if not all(same.values()):
+        raise AssertionError(f"groups two: a group's tokens differ from a "
+                             f"plain session's: {same}")
+    want = _tokens(handles)
+    walls = {}
+    for mode in ("pooled", "serial"):
+        s2 = two.open(params=params)
+        if mode == "serial":
+            s2._pool.shutdown()
+            s2._pool = None            # poll the groups one after the other
+        h2, d2, walls[mode] = groups_waves(s2, waves)
+        if not all(np.array_equal(a, b) for a, b in zip(_tokens(h2), want)):
+            raise AssertionError(f"groups two: the {mode} run's tokens "
+                                 f"differ from the traced run's")
+        if mode == "pooled":
+            pst = s2.stats()
+        s2.close()
+        del s2
+    log("groups", part="two", gpu=f"'{card}'", cold_start=True,
+        placements=json.dumps([[h.group for h in hs] for hs in handles]
+                              ).replace(" ", ""),
+        placed=json.dumps(pl["placed"]).replace(" ", ""),
+        locality_hits=pl["locality_hits"],
+        locality_rate=f"{pl['locality_rate']:.3f}",
+        tokens_equal_to_plain=json.dumps(same).replace(" ", ""),
+        traced=json.dumps({n: seen[n] for n in expect}).replace(" ", ""),
+        per_group_replays=json.dumps(replays).replace(" ", ""),
+        stall_pct_merged=f"{pst['stall']['stall_pct']:.2f}",
+        stall_pct_groups=json.dumps(
+            [round(g["stall"]["stall_pct"], 2)
+             for g in pst["groups"].values()]).replace(" ", ""),
+        delivered=delivered,
+        delivered_per_s_pooled=f"{delivered / walls['pooled']:.1f}",
+        tokens_per_s_summed=f"{pst['tokens_per_s']:.1f}",
+        pooled_wall_s=f"{walls['pooled']:.3f}",
+        serial_wall_s=f"{walls['serial']:.3f}",
+        traced_wall_s=f"{traced_wall:.2f}", trace_s=f"{trace_s:.1f}")
+    wave1 = {i: t for i, t in enumerate(_tokens(handles[:1]))}
+    sess.close()
+    del sess, run
+    return {"traced": seen, "counts": counts, "wave1": wave1,
+            "groups1": [h.group for h in handles[0]]}
+
+
+def distinct_ptrs(sess) -> int:
+    """How many different parameter trees a sharded session's groups
+    hold, by the data_ptr of every leaf."""
+    from repro_torch.runtime.compile_cache import tensor_leaves
+
+    return len({tuple(t.data_ptr() for t in tensor_leaves(g.session.params))
+                for g in sess.groups})
+
+
+def groups_quarantine(cluster, params, reqs, two, card) -> None:
+    """part=quarantine: a FaultPlan wedges group 1 at its first chunk; the
+    watchdog raises in its worker, the session quarantines it, group 0
+    finishes its requests with their fault-free tokens (part=two's first
+    wave, placed the same way), `recover_group(1)` folds group 1 back and
+    its requests finish with theirs."""
+    from repro_torch.runtime import FaultPlan
+
+    prog = groups_program(cluster, 2, watchdog_s=GROUPS_WATCHDOG_S)
+    sess = prog.open(params=params,
+                     faults=[None, FaultPlan().wedge(at_chunk=0)])
+    hs = [sess.submit(p, n) for p, n in reqs[:6]]
+    if [h.group for h in hs] != two["groups1"]:
+        raise AssertionError("groups quarantine: placed otherwise than the "
+                             "fault-free run")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while sess.busy:
+        sess.poll()
+    torch.cuda.synchronize()
+    t_live = time.perf_counter() - t0
+    quarantined = sess.mesh.stats()["quarantined_groups"]
+    g0 = [i for i, h in enumerate(hs) if h.group == 0]
+    g1 = [i for i, h in enumerate(hs) if h.group == 1]
+    ok0 = all(hs[i].done and np.array_equal(hs[i].tokens, two["wave1"][i])
+              for i in g0)
+    if quarantined != [1] or not ok0 or any(hs[i].done for i in g1):
+        raise AssertionError(f"groups quarantine: quarantined {quarantined}, "
+                             f"group 0 fault-free {ok0}")
+    t1 = time.perf_counter()
+    sess.recover_group(1)
+    sess.drain()
+    torch.cuda.synchronize()
+    t_recover = time.perf_counter() - t1
+    ok1 = all(hs[i].done and np.array_equal(hs[i].tokens, two["wave1"][i])
+              for i in g1)
+    if not ok1 or sess.mesh.stats()["quarantined_groups"]:
+        raise AssertionError(f"groups quarantine: group 1 after recovery "
+                             f"fault-free {ok1}")
+    log("groups", part="quarantine", gpu=f"'{card}'", wedged_group=1,
+        quarantined=json.dumps(quarantined).replace(" ", ""),
+        group0_tokens_fault_free=ok0, group1_recovered_fault_free=ok1,
+        watchdog_s=GROUPS_WATCHDOG_S, serve_with_one_group_s=f"{t_live:.2f}",
+        recover_and_drain_s=f"{t_recover:.2f}",
+        group1_captures=sess.groups[1].session.captures)
+    sess.close()
+
+
+def groups_crash(cluster, params, reqs, root, card, crash_at: int = 4):
+    """part=crash: a groups=2 durable session (journal only) crashes at the
+    end of group 0's chunk `crash_at`; `program.restore(root)` reads the
+    manifest and group00/ and group01/, and the tokens committed before the
+    crash plus those delivered after the restore are the uncrashed run's,
+    every token once."""
+    from repro_torch.runtime import FaultPlan, SessionCrashed
+    from repro_torch.runtime.journal import read_events, replay
+
+    prog = groups_program(cluster, 2)
+    sess = prog.open(params=params)
+    hs = [sess.submit(p, n) for p, n in reqs]
+    sess.drain()
+    want = {(h.group, h.id): h.tokens.tolist() for h in hs}
+    sess.close()
+    d = root / "groups-crash"
+    sess = prog.open(params=params, durable_dir=d,
+                     faults=FaultPlan().crash(at_chunk=crash_at))
+    for p, n in reqs:
+        sess.submit(p, n)
+    delivered = {}
+    try:
+        while sess.busy:
+            for h, toks, _ in sess.poll():
+                delivered.setdefault((h.group, h.id), []).extend(
+                    int(t) for t in toks)
+        raise AssertionError("groups crash: the crash never fired")
+    except SessionCrashed:
+        pass
+    sess._pool.shutdown()
+    del sess
+    layout = sorted(x.name for x in d.iterdir())
+    if layout != ["group00", "group01", "manifest.json"]:
+        raise AssertionError(f"groups crash: root holds {layout}")
+    committed = {}
+    for g in (0, 1):
+        evs = read_events(d / f"group{g:02d}" / "journal.jsonl")
+        if any(e.get("group") != g for e in evs if e.get("ev") != "restore"):
+            raise AssertionError(f"groups crash: group {g}'s journal tags")
+        for rid, r in replay(evs).requests.items():
+            committed[(g, rid)] = list(r.committed)
+    if any(committed[k][:len(t)] != t for k, t in delivered.items()):
+        raise AssertionError("groups crash: a token was handed out before "
+                             "its commit")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = prog.restore(d, params=params)
+    final = {k: list(t) for k, t in committed.items()}
+    for h, toks, _ in sess.stream():
+        final.setdefault((h.group, h.id), []).extend(int(t) for t in toks)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    exact = final == want
+    if not exact:
+        raise AssertionError("groups crash: delivery not exactly once")
+    du = [g["durability"] for g in sess.stats()["groups"].values()]
+    log("groups", part="crash", gpu=f"'{card}'", crash_at=crash_at,
+        root=",".join(layout), exactly_once=exact,
+        delivered_pre_crash=sum(map(len, delivered.values())),
+        committed_pre_crash=sum(map(len, committed.values())),
+        replayed=json.dumps([x["replayed_requests"] for x in du]
+                            ).replace(" ", ""),
+        restore_s=json.dumps([round(x["restore_s"], 4) for x in du]
+                             ).replace(" ", ""),
+        restore_and_drain_s=f"{drain_s:.2f}")
+    sess.close()
+
+
+def groups_locality(launches, card) -> int:
+    """part=locality: examples/locality_pipeline_torch.py's main on the
+    card: its conv2d (ops.tuned_call under a kernel-only Cluster) within
+    the suite's f32 tolerance of conv2d_3x3_plain, the wrapper counting
+    at least one launch. Returns the conv2d launches."""
+    import importlib.util
+
+    from repro_torch.kernels.conv2d import conv2d_3x3_plain
+
+    path = Path(__file__).resolve().parent / "examples" / \
+        "locality_pipeline_torch.py"
+    spec = importlib.util.spec_from_file_location("locality_pipeline_torch",
+                                                  path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    launches.reset_counts()
+    out = ex.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = _check_counts(launches, "groups locality", ("conv2d",))
+    err = _compare("locality conv2d", out["smoothed"],
+                   conv2d_3x3_plain(out["conv_input"], out["weights"]),
+                   F32_TOL)
+    log("groups", part="locality", gpu=f"'{card}'",
+        image=f"{out['image'].shape[0]}x{out['image'].shape[1]}",
+        conv2d_launches=counts["conv2d"], max_abs_err=f"{err:.3g}",
+        top_h=json.dumps({k: [round(v, 4) for v in lv] for k, lv in
+                          out["model"].items()}).replace(" ", ""))
+    return counts["conv2d"]
+
+
+def groups_compress(params, card) -> None:
+    """part=compress: one full-width qwen3 layer's parameter shapes as an
+    f32 gradient tree on the card. quantize_int8 and compress_decompress
+    there are bit-equal to the same calls on the CPU copy; compressed_psum
+    over an NCCL group of one (a HashStore) returns compress_decompress(g
+    + e) and the matching error state, bit for bit."""
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch.optim import compress as oc
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layer = params["blocks"][0]
+    grads = {k: {n: torch.randn(t.shape, generator=gen, device="cuda")
+                 * 1e-3 for n, t in v.items()} if isinstance(v, dict)
+             else torch.randn(v.shape, generator=gen, device="cuda") * 1e-3
+             for k, v in layer.items()}
+    err0 = {k: ({n: torch.randn(t.shape, generator=gen, device="cuda")
+                 * 1e-6 for n, t in v.items()} if isinstance(v, dict)
+                else torch.randn(v.shape, generator=gen, device="cuda")
+                * 1e-6) for k, v in grads.items()}
+    flat = tree_leaves(grads)
+    flat_e = tree_leaves(err0)
+    n_elems = sum(g.numel() for g in flat)
+    t_cpu = time.perf_counter()
+    for g in flat:
+        q, sc = oc.quantize_int8(g)
+        qc, scc = oc.quantize_int8(g.cpu())
+        if not (torch.equal(q.cpu(), qc) and same_bits(sc.cpu(), scc)):
+            raise AssertionError("groups compress: int8 codes differ from "
+                                 "the CPU's")
+        for method in oc.METHODS:
+            if not same_bits(oc.compress_decompress(g, method).cpu(),
+                             oc.compress_decompress(g.cpu(), method)):
+                raise AssertionError(f"groups compress: {method} differs "
+                                     f"from the CPU's")
+    cpu_s = time.perf_counter() - t_cpu
+    store = dist.HashStore()
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        for method in oc.METHODS:
+            red, err = oc.compressed_psum(grads, dist.group.WORLD, method,
+                                          err0)
+            torch.cuda.synchronize()
+            for g, e, r, ne in zip(flat, flat_e, tree_leaves(red),
+                                   tree_leaves(err)):
+                sent = oc.compress_decompress(g + e, method)
+                if not (same_bits(r, sent) and same_bits(ne, g + e - sent)):
+                    raise AssertionError(f"groups compress: psum {method} "
+                                         f"differs")
+        psum_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    log("groups", part="compress", gpu=f"'{card}'", leaves=len(flat),
+        elements=n_elems, bits_equal_to_cpu=True, psum_equal=True,
+        wire_bytes=json.dumps({m: oc.wire_bytes(grads, m) for m in
+                               ("none",) + oc.METHODS}).replace(" ", ""),
+        nccl_world=1, psum_both_methods_s=f"{psum_s:.3f}",
+        cpu_compare_s=f"{cpu_s:.1f}")
+
+
+def groups_phase(launches, params) -> dict:
+    """Serving groups on qwen3-14b at full width and depth (see the module
+    docstring's groups line). Returns the traced launches of part=two (the
+    main path's run), the wrappers' counts there and the conv2d launches
+    of part=locality."""
+    import tempfile
+
+    from repro_torch.cluster.session import Cluster
+
+    card = gpu_line()
+    cluster = Cluster("qwen3-14b")
+    reqs = serve_requests(cluster.arch.vocab)
+    t0 = time.perf_counter()
+    parts = {}
+
+    def timed(part, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[part] = round(time.perf_counter() - t, 1)
+        return out
+
+    timed("one", groups_one, cluster, params, reqs, card)
+    two = timed("two", groups_two, launches, cluster, params, reqs, card)
+    timed("quarantine", groups_quarantine, cluster, params, reqs, two, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("crash", groups_crash, cluster, params, reqs, Path(tmp), card)
+    conv2d_launches = timed("locality", groups_locality, launches, card)
+    timed("compress", groups_compress, params, card)
+    log("groups", seconds=f"{time.perf_counter() - t0:.1f}",
+        parts_s=json.dumps(parts).replace(" ", ""), gpu=f"'{card}'",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.1f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"traced": two["traced"], "counts": two["counts"],
+            "conv2d": conv2d_launches}
 
 
 # ----------------------------------------------------------------------------

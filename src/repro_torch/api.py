@@ -32,11 +32,12 @@ def train(arch: str, *, num_steps: int | None = None, steps_=_UNSET,
 
     Shim over `Cluster(...).compile(TrainProgram(...)).run()`. `steps_` is
     a deprecated alias for `num_steps` (kept for one release). `mesh`
-    takes only None: meshes come with ROADMAP Queue 1 I (groups) and K
-    (the XLA-only modules)."""
+    takes only None: a data-parallel step over a process group is ROADMAP
+    Queue 1 L, the mesh itself K (the XLA-only modules)."""
     if mesh is not None:
-        raise NotImplementedError("train(mesh=...): the port has no mesh "
-                                  "yet (ROADMAP Queue 1 I / K)")
+        raise NotImplementedError("train(mesh=...): the port has no "
+                                  "data-parallel train step yet (ROADMAP "
+                                  "Queue 1 L, after K)")
     if steps_ is not _UNSET:
         warnings.warn("api.train(steps_=...) is deprecated; use num_steps=",
                       DeprecationWarning, stacklevel=2)

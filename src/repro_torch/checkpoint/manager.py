@@ -21,9 +21,12 @@ Dtypes numpy lacks are stored as unsigned views of the same width with
 the true dtype in the manifest: bf16 as uint16, read back through
 torch's 16-bit view, so the bits round-trip without `ml_dtypes`.
 `restore_session` writes into the tensors of `like` in place: a captured
-session step keeps the addresses it replays on. Elastic resharding on
-restore (`shardings=`) belongs to the groups and training layers (ROADMAP
-Queue 1 I / K).
+session step keeps the addresses it replays on. `restore(...,
+shardings=)` puts each restored leaf on the device it names (one device
+for all, or a tree of them): the elastic restore onto the survivors'
+devices, the port's counterpart of the reference's per-leaf
+`device_put`. Splitting a leaf across devices (DTensor placements) waits
+for the data-parallel train step (ROADMAP Queue 1 L).
 """
 
 from __future__ import annotations
@@ -108,6 +111,29 @@ def _rebuild(like, leaves: dict, prefix=()):
     if key not in leaves:
         raise KeyError(f"checkpoint missing leaf {key}")
     return leaves[key]
+
+
+def _placements(like, shardings) -> dict:
+    """{leaf key: torch.device} from `restore`'s `shardings`."""
+    if shardings is None:
+        return {}
+    if isinstance(shardings, (str, torch.device)):
+        dev = torch.device(shardings)
+        return {key: dev for key, _ in _items(like)}
+    out = {}
+
+    def walk(tree, sh, prefix):
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], sh[k], prefix + (str(k),))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                walk(v, sh[i], prefix + (str(i),))
+        elif _is_leaf(tree) and sh is not None:
+            out[_SEP.join(prefix)] = torch.device(sh)
+
+    walk(like, shardings, ())
+    return out
 
 
 class CheckpointManager:
@@ -254,16 +280,27 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, shardings=None):
         """`like`'s tree with the step's values: tensors (on each `like`
-        leaf's device) where `like` holds tensors, else numpy arrays."""
+        leaf's device) where `like` holds tensors, else numpy arrays.
+
+        `shardings` says where each leaf goes instead: one device (a
+        `torch.device` or its name) for every leaf, or a tree of `like`'s
+        structure with a device (or None: `like`'s own) at each leaf. A
+        leaf given a device comes back as a tensor on it, also where
+        `like` holds a numpy array."""
         d = self.dir / f"step-{step:09d}"
         data = np.load(d / "leaves.npz")
         manifest = json.loads((d / "manifest.json").read_text())
+        where = _placements(like, shardings)
         leaves = {}
         for key, leaf in _items(like):
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            leaves[key] = _decode(data[key],
-                                  manifest["leaves"][key]["dtype"], leaf)
+            value = _decode(data[key], manifest["leaves"][key]["dtype"],
+                            leaf)
+            dev = where.get(key)
+            if dev is not None:
+                value = torch.as_tensor(value).to(dev)
+            leaves[key] = value
         return _rebuild(like, leaves)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 from typing import Any, Iterator, Mapping
 
 MODES = ("tuned", "fused", "reference", "interpret")
@@ -188,7 +189,20 @@ class KernelPolicy:
         return repr(sorted((k, repr(v)) for k, v in d.items()))
 
 
+# The main thread's scopes. Another thread (a serving group's poll worker)
+# pushes onto a stack of its own, so that scopes entered on two threads at
+# once never pop each other's; a thread with no scope of its own sees the
+# main thread's.
 _STACK: list[KernelPolicy] = []
+_LOCAL = threading.local()
+
+
+def _stack() -> list[KernelPolicy]:
+    if threading.current_thread() is threading.main_thread():
+        return _STACK
+    if not hasattr(_LOCAL, "stack"):
+        _LOCAL.stack = []
+    return _LOCAL.stack
 
 
 def default_policy() -> KernelPolicy:
@@ -197,6 +211,9 @@ def default_policy() -> KernelPolicy:
 
 
 def current_policy() -> KernelPolicy:
+    own = _stack()
+    if own:
+        return own[-1]
     return _STACK[-1] if _STACK else default_policy()
 
 
@@ -215,11 +232,12 @@ def as_policy(p: "KernelPolicy | str | None") -> KernelPolicy:
 def use_policy(p: "KernelPolicy | str | None") -> Iterator[KernelPolicy]:
     """Scope `p` as the active policy (nests; innermost wins)."""
     pol = as_policy(p)
-    _STACK.append(pol)
+    stack = _stack()
+    stack.append(pol)
     try:
         yield pol
     finally:
-        _STACK.pop()
+        stack.pop()
 
 
 @contextlib.contextmanager

@@ -15,9 +15,10 @@ Entry points run on the card: `Cluster(arch)` with no `device` means
 `Cluster.compile` memoizes programs in the cluster's `CompileCache`, keyed
 on (spec, arch, device, policy knobs). `Cluster(None, tune_db=path)` is a
 kernel-only cluster (a policy and the tune records, no model): it
-warm-starts the tuning layer from a `kernels.tunedb.TuneDB`. Dry-run,
-bench and sharded-session programs wait for later slices (ROADMAP Queue 1
-I-K).
+warm-starts the tuning layer from a `kernels.tunedb.TuneDB`.
+`ShardedServeSessionProgram(groups=G)` compiles to G session cells behind
+one `runtime.ShardedServeSession` (serving groups). Dry-run and bench
+programs wait for later slices (ROADMAP Queue 1 J-K).
 """
 
 from __future__ import annotations
@@ -129,10 +130,32 @@ class ServeSessionProgram:
     #   boundary by the integrity scrub (paged; 0 disables)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedServeSessionProgram(ServeSessionProgram):
+    """Cluster-of-clusters serving: `groups` full session cells behind
+    one `submit/poll/stream/cancel/drain` surface.
+
+    Mirrors MemPool's tiles -> groups -> cluster hierarchy: each serving
+    group owns a complete session cell (slot pool, paged KV pool + prefix
+    cache, stall ledger, journal) on its own device, and a two-level
+    scheduler places each request in a group (locality-aware: warm
+    prefix-cache overlap + load, scored with the paper's topology model)
+    before the group's own slot scheduler takes over. All
+    `ServeSessionProgram` knobs apply *per group*: `slots=4, groups=2` is
+    8 slots in all, two pools of 4.
+
+    `open()` returns a `runtime.ShardedServeSession`; with `groups=1` it
+    is token for token `ServeSessionProgram.open()` (same cell, same
+    scheduler, a trivial placement layer) and its durable directory stays
+    restorable by either program. `run()` (the one-shot legacy path) is
+    not defined for sharded sessions."""
+
+    groups: int = 2                        # serving groups (session cells)
+
+
 # the reference's program specs the port does not define yet, and the
 # ROADMAP Queue 1 item that brings each
-UNPORTED = {"ShardedServeSessionProgram": "I (item 9, groups)",
-            "BenchProgram": "J (item 13, benchmarks)",
+UNPORTED = {"BenchProgram": "J (item 13, benchmarks)",
             "DryRunProgram": "K (item 14, the XLA-only modules)"}
 
 
@@ -207,6 +230,7 @@ class Cluster:
         keyed on (spec, arch, device, policy knobs)."""
         builders = {ServeProgram: CompiledServe,
                     ServeSessionProgram: CompiledServeSession,
+                    ShardedServeSessionProgram: CompiledShardedServeSession,
                     TrainProgram: CompiledTrain}
         name = type(spec).__name__
         if self.arch is None:
@@ -664,6 +688,122 @@ class CompiledServeSession(Program):
         if self._last_session is not None:
             out["session"] = self._last_session.stats()
         return out
+
+
+SHARD_MANIFEST = "manifest.json"
+SHARD_MANIFEST_KIND = "repro-sharded-serve"
+
+
+class CompiledShardedServeSession(CompiledServeSession):
+    """N serving groups over one compiled session cell.
+
+    The chunk, refill and fault programs are built once (inherited from
+    `CompiledServeSession`); `open()` instantiates them `spec.groups`
+    times — each group's parameters and state on its device from
+    `cells.group_devices` — and wires the cells behind a
+    `runtime.ShardedServeSession` with a locality-aware `MeshScheduler`.
+    Groups that share a device share one parameter tree (the same
+    tensors); each group's state and its captured step graph are its own.
+
+    Durable layout: the root directory holds a ``manifest.json``
+    (`{"kind": "repro-sharded-serve", "version": 1, "groups": G}`) and
+    one complete per-session durable dir per group (``group00/`` ...),
+    each journal tagged with its group id. With ``groups=1`` the root
+    directory *is* the group's durable dir — a plain
+    `ServeSessionProgram` restore reads it unchanged, and a sharded
+    restore accepts a plain session's manifest-less directory. The
+    reference's package reads and writes the same layout."""
+
+    kind = "serve_session_sharded"
+
+    def __init__(self, cluster, spec: ShardedServeSessionProgram, policy):
+        if spec.groups < 1:
+            raise ValueError(f"groups must be >= 1, got {spec.groups}")
+        super().__init__(cluster, spec, policy)
+
+    def _group_dirs(self, durable_dir, resume: bool) -> list:
+        """Per-group durable dirs under the root, manifest-checked."""
+        import json
+        from pathlib import Path
+
+        spec = self.spec
+        root = Path(durable_dir)
+        root.mkdir(parents=True, exist_ok=True)
+        mpath = root / SHARD_MANIFEST
+        if resume and mpath.exists():
+            m = json.loads(mpath.read_text(encoding="utf-8"))
+            if (m.get("kind") != SHARD_MANIFEST_KIND
+                    or m.get("groups") != spec.groups):
+                raise ValueError(
+                    f"durable dir {root} was written by "
+                    f"{m.get('kind')!r} with groups={m.get('groups')}; "
+                    f"this program has groups={spec.groups}")
+        elif resume and spec.groups != 1:
+            # manifest-less dir: a plain single session wrote it; only a
+            # 1-group sharded session can adopt it
+            raise ValueError(
+                f"durable dir {root} has no {SHARD_MANIFEST} — it holds a "
+                f"single-session journal; restore it with groups=1 (or "
+                f"ServeSessionProgram), not groups={spec.groups}")
+        else:
+            mpath.write_text(json.dumps(
+                {"kind": SHARD_MANIFEST_KIND, "version": 1,
+                 "groups": spec.groups}) + "\n", encoding="utf-8")
+        if spec.groups == 1:
+            return [root]
+        return [root / f"group{g:02d}" for g in range(spec.groups)]
+
+    def open(self, params=None, faults=None, durable_dir=None,
+             resume: bool = False, crash_hook=None,
+             snapshot_every=None, journal_fsync=None):
+        """A live `runtime.ShardedServeSession`: `spec.groups` session
+        cells, each on its own device, behind the single-session API.
+        `faults` arms group 0 when given one `FaultPlan`, or each group
+        when given a sequence (None entries skip a group)."""
+        from repro_torch.cluster import cells
+        from repro_torch.device import distinct_devices
+        from repro_torch.runtime.groups import (GroupPlan, GroupRuntime,
+                                                MeshScheduler,
+                                                ShardedServeSession)
+
+        spec = self.spec
+        G = spec.groups
+        if params is None:
+            params = self.init_params()
+        devices = cells.group_devices(self.cluster, G)
+        # one distinct device (one card, the CPU): the groups keep the
+        # cluster's parameter tree as it is, bit-identical to the
+        # unsharded session's and never copied
+        distinct = distinct_devices(devices) > 1
+        plans = (list(faults) if isinstance(faults, (list, tuple))
+                 else [faults] + [None] * (G - 1))
+        if len(plans) != G:
+            raise ValueError(f"faults: expected {G} plans, got {len(plans)}")
+        dirs = (self._group_dirs(durable_dir, resume)
+                if durable_dir is not None else [None] * G)
+        groups = []
+        for g in range(G):
+            sess = super().open(
+                params=params, faults=plans[g],
+                durable_dir=(str(dirs[g]) if dirs[g] is not None else None),
+                resume=resume, crash_hook=crash_hook,
+                snapshot_every=snapshot_every,
+                journal_fsync=journal_fsync,
+                device=devices[g] if distinct else None,
+                journal_group=g)
+            groups.append(GroupRuntime(gid=g, session=sess,
+                                       device=devices[g]))
+        mesh = MeshScheduler(
+            G, page_size=spec.page_size if spec.paged else 16)
+        plan = GroupPlan(n_groups=G, devices=devices)
+        sharded = ShardedServeSession(groups, mesh=mesh, plan=plan)
+        self._last_session = sharded
+        return sharded
+
+    def run(self, params=None, prompt=None, max_new=None) -> dict:
+        raise NotImplementedError(
+            "the one-shot legacy path is not defined for sharded "
+            "sessions; use open() + submit/drain")
 
 
 def _to_device(tree, device):

@@ -1,1 +1,3 @@
-"""Hardware constants of the card the port runs on (`mesh.py`)."""
+"""The card's hardware constants and machine hierarchy (`mesh.py`) and the
+interconnect models (`interconnect.py`: MemPool's Top_1 / Top_4 / Top_H
+and the collective cost model)."""

@@ -11,8 +11,8 @@ k), drawn with numpy exactly as the reference draws it (bit for bit), so
 a restored checkpoint needs no loader state and a resumed run continues
 the stream at its step. Where the reference takes a JAX mesh and its
 batch axes, the port takes its devices (one card here; data parallelism
-over several is the groups slice, ROADMAP Queue 1 I). The slicing
-arithmetic is the reference's.
+over several is the data-parallel train step, ROADMAP Queue 1 L). The
+slicing arithmetic is the reference's.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ plain version counts the calls it served with CUDA tensors in
 ``<plain>.cuda_calls``. `reset_counts` sets all of them to 0, `counts`
 reads them, and `traced_launches` counts each kernel's device runs in a
 torch.profiler trace, which also sees the launches a replayed CUDA graph
-makes (the wrappers do not run then).
+makes (the wrappers do not run then); `launch_counts` does the same from
+the raw device records `device_kernels` reads, for traces too long to
+parse.
 """
 
 from __future__ import annotations
@@ -128,14 +130,31 @@ ENTRY_KERNELS = {
 def traced_launches(prof) -> dict:
     """{name: n}: how often each wrapper's kernel ran on the device in the
     torch.profiler trace `prof`, counted by its entry kernel."""
+    return launch_counts({e.key: e.count for e in prof.key_averages()
+                          if "CUDA" in str(getattr(e, "device_type", ""))})
+
+
+def device_kernels(prof) -> dict:
+    """{device kernel name: runs} read from the profiler's raw records,
+    without the Python event tree that `key_averages` builds first: for a
+    trace of a few hundred thousand kernels that parse is most of the
+    trace's cost."""
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            out[e.name()] = out.get(e.name(), 0) + 1
+    return out
+
+
+def launch_counts(kernels: dict) -> dict:
+    """{name: n} from {device kernel name: runs}: each wrapper's launches,
+    counted by its entry kernel."""
     out = dict.fromkeys(WRAPPERS, 0)
-    for e in prof.key_averages():
-        if "CUDA" not in str(getattr(e, "device_type", "")):
-            continue
-        key = e.key.replace(" ", "")
+    for kernel, runs in kernels.items():
+        key = kernel.replace(" ", "")
         for name, entries in ENTRY_KERNELS.items():
             if any(k in key for k in entries):
-                out[name] += e.count
+                out[name] += runs
     return out
 
 

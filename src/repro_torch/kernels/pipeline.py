@@ -22,7 +22,9 @@ registered beside its wrapper (`kernels/{matmul,fused,...}.py`):
     kernels' own plan searches count. A candidate whose shared memory does
     not fit a block's 227 KB is dropped (the reference's VMEM budget).
     There is no MemPool Top_H locality factor on the card: `locality` is
-    1.0 (the interconnect model comes with ROADMAP Queue 1 I).
+    1.0, since the Top_H model (`core/interconnect.py`) describes
+    MemPool's L1 banks, not the card's memory, and the race measures the
+    card.
 
 `autotune` ranks the candidates by `score` and, under the "timed" tune
 mode, races the top `REPRO_TUNE_TOPN` (default 3) plus the default — and,
@@ -92,7 +94,8 @@ class CostBreakdown:
 def score(traffic: Traffic) -> CostBreakdown:
     """Modeled seconds of one invocation: the roofline's compute and
     memory terms overlapped, scaled by the plan's wave quantisation, plus
-    its fixed time. `locality` stays 1.0 (no Top_H model on the card)."""
+    its fixed time. `locality` stays 1.0: the Top_H model describes
+    MemPool's L1 banks, not the card's memory."""
     from repro_torch.launch.roofline import kernel_roofline
 
     r = kernel_roofline(traffic.flops, traffic.hbm_bytes, traffic.peak_flops)

@@ -33,7 +33,7 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--data-axis", type=int, default=0,
                     help="data axis size (0 = all devices; the port runs "
-                         "on one device until ROADMAP Queue 1 I)")
+                         "on one device until ROADMAP Queue 1 L)")
     ap.add_argument("--policy", default=None, choices=MODES,
                     help="kernel policy mode (default: env-derived)")
     ap.add_argument("--no-resume", action="store_true",
@@ -43,7 +43,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.data_axis not in (0, 1):
         ap.error(f"--data-axis {args.data_axis}: the port trains on one "
-                 f"device (data parallelism is ROADMAP Queue 1 I)")
+                 f"device (the data-parallel train step is ROADMAP Queue "
+                 f"1 L)")
 
     cfg = get(args.arch + ("-smoke" if args.smoke else ""))
     cluster = Cluster(cfg, device=args.device, policy=args.policy)

@@ -1,0 +1,111 @@
+"""Gradient compression for the data-parallel reduction (the port of
+`repro.optim.compress`).
+
+Across nodes the data-parallel gradient all-reduce crosses the network
+(`core.mesh`'s 50 GB/s a card against NVLink's 450); compressing it is a
+first-order lever. Two schemes:
+
+  bf16     — cast-to-bf16 reduce (2x wire saving, negligible quality loss;
+             the default).
+  int8_ef  — per-tensor scaled int8 quantization with error feedback: the
+             quantization residual is carried and added to the next step's
+             gradient, making the scheme unbiased over time (1-bit-Adam
+             style). 4x wire saving.
+
+`quantize_int8`, `dequantize_int8`, `compress_decompress` and `wire_bytes`
+are plain tensor functions whose codes, scales and round trips are the
+reference's bit for bit. `compressed_psum` reduces over the
+`torch.distributed` process group it is given (the reference's runs
+under `shard_map` over a mesh axis). The train step that calls it over
+several cards is ROADMAP Queue 1 L.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+METHODS = ("bf16", "int8_ef")
+
+
+def quantize_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int8 codes, f32 scale): the scale is max |g| / 127 (at least
+    1e-12 / 127), the codes g / scale rounded half to even."""
+    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def compress_decompress(g: torch.Tensor, method: str = "bf16"
+                        ) -> torch.Tensor:
+    """Local lossy round trip (what the wire sees), for the error
+    feedback."""
+    if method == "bf16":
+        return g.to(torch.bfloat16).to(g.dtype)
+    if method == "int8_ef":
+        q, s = quantize_int8(g)
+        return dequantize_int8(q, s).to(g.dtype)
+    raise ValueError(method)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=str) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    raise TypeError(f"gradient trees hold tensors, dicts, lists and "
+                    f"tuples, not {type(tree).__name__}")
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        vals = {k: _rebuild(tree[k], it) for k in sorted(tree, key=str)}
+        return {k: vals[k] for k in tree}
+    return type(tree)(_rebuild(v, it) for v in tree)
+
+
+def compressed_psum(grads: Any, group, method: str = "bf16",
+                    error_state: Any = None):
+    """(sum over `group` of compress(g + e), new error state e' = (g + e)
+    - compress(g + e)), leaf by leaf over the gradient tree. bf16 goes on
+    the wire as bf16 and comes back in each leaf's dtype; int8_ef sends
+    the dequantized values. `group` is a `torch.distributed` process
+    group (NCCL on the card, gloo on the CPU), and is required."""
+    if group is None:
+        raise ValueError("compressed_psum: `group` is required — a "
+                         "torch.distributed process group to reduce over")
+    if method not in METHODS:
+        raise ValueError(method)
+    flat_g = _leaves(grads)
+    flat_e = (_leaves(error_state) if error_state is not None
+              else [torch.zeros_like(g) for g in flat_g])
+    if len(flat_e) != len(flat_g):
+        raise ValueError(f"error_state holds {len(flat_e)} leaves, the "
+                         f"gradients {len(flat_g)}")
+    reduced, new_err = [], []
+    for g, e in zip(flat_g, flat_e):
+        corrected = g + e
+        sent = compress_decompress(corrected, method)
+        new_err.append(corrected - sent)
+        wire = (sent.to(torch.bfloat16) if method == "bf16"
+                else sent.clone())
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+        reduced.append(wire.to(g.dtype))
+    return (_rebuild(grads, iter(reduced)), _rebuild(grads, iter(new_err)))
+
+
+def wire_bytes(grads, method: str) -> float:
+    """Bytes each card puts on the wire per all-reduce (for the PERF
+    tables)."""
+    per = {"none": 4.0, "bf16": 2.0, "int8_ef": 1.0}[method]
+    return sum(g.numel() * per for g in _leaves(grads))

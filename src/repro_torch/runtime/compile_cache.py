@@ -18,11 +18,18 @@ from __future__ import annotations
 
 import hashlib
 import json
+import threading
 from typing import Any, Callable
 
 import torch
 
 _NOTHING = object()
+# Held across a warm-up and its capture: serving groups poll from worker
+# threads, and each group's first chunk captures its step. Captures from
+# two threads at once would share the caching allocator's capture pools
+# and the CUDA generator's graph-safe state; taken one at a time, a
+# capture sees only its own thread's work (the mode is thread_local).
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _fingerprint(*parts: Any) -> str:
@@ -69,22 +76,27 @@ class Captured:
 
     A kernel wrapper counts a launch when Python calls it, so the warm-up
     and the capture each count once and a replay counts nothing; a device
-    trace (`kernels.launches.traced_launches`) sees the replays' launches.
-    A capture that fails raises: nothing falls back to eager."""
+    trace (`kernels.launches.traced_launches`) sees the replays' launches,
+    and `replays` counts them.
+    A capture that fails raises: nothing falls back to eager. Warm-ups
+    and captures of several threads take turns (`_CAPTURE_LOCK`)."""
 
     def __init__(self, fn: Callable[[], Any]):
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.first = fn()
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
-            self.out = fn()
+        with _CAPTURE_LOCK:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.first = fn()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.out = fn()
+        self.replays = 0
 
     def replay(self):
         self.graph.replay()
+        self.replays += 1
         return self.out
 
 

@@ -103,6 +103,30 @@ class StallClock:
             "stall_pct": 100.0 * self.dispatch_gap_s / max(wall, 1e-12),
         }
 
+    @staticmethod
+    def merge(clocks) -> "StallClock":
+        """Fold per-group ledgers into one aggregate clock.
+
+        Counters (syncs, gaps, device waits) sum; the wall does not:
+        concurrent ledgers cover the same span, so the merged clock keeps
+        the earliest member's start and `report()` divides the summed gap
+        by one shared wall. The merged `stall_pct` is host-idle
+        device-seconds per wall second and can pass 100% when several
+        groups stall at once (at most 100% x the number of groups). An
+        empty merge is a fresh clock."""
+        clocks = list(clocks)
+        if not clocks:
+            return StallClock()
+        out = StallClock(
+            host_syncs=sum(c.host_syncs for c in clocks),
+            dispatch_gap_s=sum(c.dispatch_gap_s for c in clocks),
+            device_wait_s=sum(c.device_wait_s for c in clocks),
+            _t_start=min(c._t_start for c in clocks))
+        ends = [c._last_sync_end for c in clocks
+                if c._last_sync_end is not None]
+        out._last_sync_end = max(ends) if ends else None
+        return out
+
 
 # ----------------------------------------------------------------------------
 # K-step decode of a fixed batch

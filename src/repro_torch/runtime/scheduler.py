@@ -29,8 +29,8 @@ or by the paged pool's measured prefix reuse, within a rank); shedding
 only fails best-effort requests; a quarantined slot is never assigned
 again. `serialize_request` keeps the reference's keys, so a session
 snapshot of either package holds requests the other can read.
-`SlotScheduler.load_view` belongs to the groups layer (ROADMAP Queue 1
-I).
+`SlotScheduler.load_view` is what the serving groups' placement
+(`runtime/groups.py`) reads of a pool.
 """
 
 from __future__ import annotations
@@ -473,6 +473,19 @@ class SlotScheduler:
     @property
     def busy(self) -> bool:
         return self.queued > 0 or self.running > 0
+
+    def load_view(self) -> dict:
+        """Host-side load snapshot for the two-level placement layer
+        (`runtime/groups.py`): how much of this slot pool's capacity is
+        spoken for, in plain scalars, so that `MeshScheduler` scores
+        groups without touching the scheduler's internals."""
+        usable = self.usable_slots
+        return {"usable_slots": usable,
+                "free_slots": len(self.free_slots()),
+                "running": self.running,
+                "queued": self.queued,
+                "max_queue": self.max_queue,
+                "occupancy": self.running / max(usable, 1)}
 
 
 # ----------------------------------------------------------------------------

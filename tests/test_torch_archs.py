@@ -16,6 +16,7 @@ that bf16 roundings part the two packages' logits by up to 0.4 (where
 f32 agrees within 5e-6).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ chunk count or with a window shorter than S) are held to the reference's
 by name.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ sources in `csrc/` (a declaration that disagrees with its C function
 passes garbage or cuts a pointer; nothing here needs nvcc or a card).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import ctypes
 import math
 import re

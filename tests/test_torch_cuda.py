@@ -13,6 +13,7 @@ card tests ask for the plain version's bits (the kernel rounds the product
 and the sum apart, as the plain version does).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import pytest
 import torch
 
@@ -551,27 +552,52 @@ def _f32_plan(m, k, n):
     return list(plan)
 
 
+SENTINEL = "spin_kernel"           # torch.cuda._sleep's kernel
+PRIMER = "FillFunctor<double>"     # a float64 fill: nothing else launches it
+PADS_S = (0.1, 1.0, 4.0)           # host time kept from a trace's ends
+
+
 def _traced_kernels(fn):
     """{device kernel name (spaces removed): runs} of one call of `fn`
-    under torch.profiler, between two kernels that mark the trace's
-    edges."""
+    under torch.profiler, and the wrappers' traced launches. As
+    chip_smoke.py's `traced`: 64 primer kernels first (on the H100 a
+    trace's first kernel records can go missing), then the call between
+    two sentinel kernels; a trace that lost a sentinel or shows no device
+    event is taken again with a longer host pad at its ends, and after
+    the last pad the test fails. Primers and sentinels are left out of
+    the names."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
-    edge = torch.ones(4, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        edge = edge * 2.0
-        fn()
-        edge = edge * 2.0
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if "CUDA" in str(getattr(e, "device_type", "")):
-            key = e.key.replace(" ", "")
-            out[key] = out.get(key, 0) + e.count
-    return out, launches.traced_launches(prof)
+    for pad_s in PADS_S:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad_s)
+            for _ in range(64):
+                torch.zeros(1, dtype=torch.float64, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
+        out, seen = {}, 0
+        for e in prof.key_averages():
+            if "CUDA" not in str(getattr(e, "device_type", "")):
+                continue
+            if SENTINEL in e.key:
+                seen += e.count
+            elif PRIMER not in e.key:
+                key = e.key.replace(" ", "")
+                out[key] = out.get(key, 0) + e.count
+        if seen == 2 and out:
+            return out, launches.traced_launches(prof)
+    raise AssertionError(f"{len(PADS_S)} traces lost device records "
+                         f"(sentinels in the last: {seen} of 2, kernels: "
+                         f"{sorted(out)})")
 
 
 @pytest.mark.cuda
@@ -650,6 +676,29 @@ def test_cuda_matmul_f32_keeps_inf_and_nan_like_f32(cuda, m, k, n):
     got = matmul.matmul(a, b)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-4 * k ** 0.5,
                                equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 600])
+def test_cuda_matmul_f32_inf_times_tiny_subnormal_is_nan(cuda, m):
+    """inf times an f32 subnormal below 2^-137 (2^-140 here) on the
+    3xTF32 route (the fused product at M 4, after the split pass at M
+    600) gives NaN: TF32 rounds the subnormal to 0 and inf * 0 is NaN.
+    The reference's f32 product on XLA's CPU, which flushes subnormals,
+    gives NaN too (tests/test_torch_suite.py); torch's f32 product on the
+    card keeps the subnormal and gives inf."""
+    k, n = 8, 4
+    assert _f32_plan(m, k, n)[0] == (2 if m <= 256 else 1)
+    a = torch.full((m, k), float("inf"), device=cuda)
+    b = torch.full((k, n), 2.0 ** -140, device=cuda)
+    assert b[0, 0].item() == 2.0 ** -140          # a subnormal, kept
+    got = matmul.matmul(a, b)
+    torch.cuda.synchronize()
+    assert got.isnan().all()
+    assert (matmul.matmul_plain(a, b) == float("inf")).all()
+    # a subnormal TF32 keeps (2^-130) meets inf as f32 does
+    b2 = torch.full((k, n), 2.0 ** -130, device=cuda)
+    assert (matmul.matmul(a, b2) == float("inf")).all()
 
 
 @pytest.mark.cuda
@@ -2300,3 +2349,71 @@ def test_cuda_train_step_tuned_is_the_plain_route(cuda):
             pytree.keystr(path)
         rel = float((g.float() - w.float()).norm() / w.float().norm())
         assert rel < 2e-2, (pytree.keystr(path), rel)
+
+
+# ----------------------------------------------------------------------------
+# serving groups and the elastic restore on the card
+# ----------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_sharded_session_shares_one_parameter_tree(cuda):
+    """ShardedServeSessionProgram(groups=2) on one card: the plan is
+    degraded (two device objects, one card), both groups hold the same
+    parameter tensors (data_ptr for data_ptr), each its own state, and a
+    group's tokens equal a plain session's fed the same requests in the
+    same order."""
+    import numpy as np
+
+    from repro_torch.cluster.session import (Cluster, ServeSessionProgram,
+                                             ShardedServeSessionProgram)
+    from repro_torch.runtime.compile_cache import tensor_leaves
+
+    spec = dict(slots=2, max_seq=32, max_prompt=12, chunk=4, paged=True,
+                page_size=4)
+    cluster = Cluster("qwen3-14b-smoke")
+    with cluster.policy("fused"):
+        sharded = cluster.compile(ShardedServeSessionProgram(groups=2,
+                                                             **spec))
+        plain = cluster.compile(ServeSessionProgram(**spec))
+    params = sharded.init_params()
+    sess = sharded.open(params=params)
+    assert sess.plan.degraded
+    assert sess.plan.devices == (torch.device("cuda", 0),) * 2
+    ptrs = [[t.data_ptr() for t in tensor_leaves(g.session.params)]
+            for g in sess.groups]
+    assert ptrs[0] == ptrs[1] == [t.data_ptr() for t in
+                                  tensor_leaves(params)]
+    assert sess.groups[0].session.state["tok"].data_ptr() != \
+        sess.groups[1].session.state["tok"].data_ptr()
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(1, 200, int(rng.integers(2, 12))).astype(
+        np.int32), int(rng.integers(2, 9))) for _ in range(6)]
+    hs = [sess.submit(p, n) for p, n in reqs]
+    sess.drain()
+    for gid in (0, 1):
+        mine = [(h, r) for h, r in zip(hs, reqs) if h.group == gid]
+        alone = plain.open(params=params)
+        ha = [alone.submit(p, n) for _, (p, n) in mine]
+        alone.drain()
+        for (h, _), a in zip(mine, ha):
+            assert np.array_equal(h.tokens, a.tokens)
+    sess.close()
+
+
+@pytest.mark.cuda
+def test_cuda_restore_places_leaves_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    state = {"w": torch.randn(4, 3).bfloat16(), "step": torch.tensor(5)}
+    mgr = CheckpointManager(tmp_path, async_save=False)
+    mgr.save(1, state)
+    like = {"w": torch.empty(4, 3, dtype=torch.bfloat16),
+            "step": torch.empty((), dtype=torch.int64)}
+    for shardings in (torch.device("cuda", 0), "cuda:0",
+                      {"w": "cuda:0", "step": None}):
+        got = mgr.restore(1, like, shardings=shardings)
+        assert got["w"].device == torch.device("cuda", 0)
+        assert torch.equal(got["w"].cpu().view(torch.int16),
+                           state["w"].view(torch.int16))
+    assert got["step"].device == torch.device("cpu")
+

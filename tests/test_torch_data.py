@@ -4,6 +4,7 @@ distributor's batches, and the double-buffered feed's error relay,
 close() and stall report (the reference's own checks, as in
 `tests/test_data_pipeline.py`)."""
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import time
 import types
 

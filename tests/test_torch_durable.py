@@ -24,6 +24,7 @@ prompts and tensors; the reference's parameters and caches in f32
 (`torch_parity.f32_state_factory`); `retry_backoff_s=0` on both sides.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import json
 

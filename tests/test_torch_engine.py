@@ -17,6 +17,7 @@ Everything runs on the CPU (``device="cpu"``); the CUDA-graph path is
 held to the eager one by the card tests in `test_torch_cuda.py`.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -337,12 +338,14 @@ def test_api_serve_matches_reference(params, chunk):
 
 
 @pytest.mark.parametrize("name,kwargs,item", [
-    ("train", {"mesh": object(), "device": "cpu"}, "Queue 1 I"),
+    # the id keeps the name this case had while meshes were Queue 1 I
+    pytest.param("train", {"mesh": object(), "device": "cpu"}, "Queue 1 L",
+                 id="train-kwargs0-Queue 1 I"),
     ("plan", {}, "Queue 1 K")])
 def test_api_unported_entry_points_raise(name, kwargs, item):
     """What the port's entry points still refuse names its ROADMAP item:
     `plan` (the addressing plan) and, since training is ported,
-    `train`'s `mesh=` (meshes come with groups)."""
+    `train`'s `mesh=` (the data-parallel train step)."""
     with pytest.raises(NotImplementedError, match=item):
         getattr(tapi, name)("qwen3-14b", **kwargs)
 
@@ -380,17 +383,23 @@ def test_cluster_rejects_unknown_program():
 
 @pytest.mark.parametrize("spec,item", [
     (tsession.TrainProgram(num_steps=1), None),
-    (jsession.ShardedServeSessionProgram(), "Queue 1 I"),
+    # the id keeps the name this case had before Queue 1 I was ported
+    pytest.param(tsession.ShardedServeSessionProgram(), None,
+                 id="ShardedServeSessionProgram-Queue 1 I"),
     (jsession.BenchProgram(), "Queue 1 J"),
     (jsession.DryRunProgram(), "Queue 1 K")],
     ids=lambda x: type(x).__name__ if not isinstance(x, str) else x)
 def test_unported_program_specs_name_their_roadmap_item(spec, item):
     """Each spec the port does not define names its ROADMAP item;
-    TrainProgram is ported (Queue 1 H) and compiles to a CompiledTrain."""
+    TrainProgram (Queue 1 H) and ShardedServeSessionProgram (Queue 1 I)
+    are ported and compile to their programs."""
     cluster = tsession.Cluster(ARCH, device="cpu")
     if item is None:
         assert type(spec).__name__ not in tsession.UNPORTED
-        assert isinstance(cluster.compile(spec), tsession.CompiledTrain)
+        want = {tsession.TrainProgram: tsession.CompiledTrain,
+                tsession.ShardedServeSessionProgram:
+                    tsession.CompiledShardedServeSession}[type(spec)]
+        assert type(cluster.compile(spec)) is want
         return
     with pytest.raises(NotImplementedError, match=item):
         cluster.compile(spec)

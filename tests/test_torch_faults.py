@@ -12,6 +12,7 @@
   `SessionWedged` once the bound has passed.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -1,8 +1,7 @@
 """repro_torch stands alone: no jax, no repro, no CUDA tooling at import.
 
-* an AST scan of every module of `src/repro_torch/`, of `chip_smoke.py`,
-  `examples/serve_chaos_torch.py` and `examples/train_lm_torch.py` finds
-  no import of `jax`,
+* an AST scan of every module of `src/repro_torch/`, of `chip_smoke.py`
+  and of every `examples/*_torch.py` finds no import of `jax`,
   `repro` or `ml_dtypes` (or their submodules; the GPU machine has no
   `ml_dtypes`);
 * importing `repro_torch` in a fresh interpreter leaves `jax` out of
@@ -10,6 +9,7 @@
 * importing it works with no `nvcc` on the PATH and `triton` blocked.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import ast
 import os
 import subprocess
@@ -20,8 +20,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_chaos_torch.py",
-    ROOT / "examples" / "train_lm_torch.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 

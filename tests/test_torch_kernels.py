@@ -14,6 +14,7 @@ The CUDA kernels themselves run only on a GPU: `test_torch_cuda.py`
 compares them with these plain versions there.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ and strings stripped, namespaces followed by their braces); nothing is
 compiled, so this runs without nvcc.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import re
 from pathlib import Path
 
@@ -307,3 +308,17 @@ def test_each_decode_instantiation_counts_for_its_wrapper_only(wrapper):
     want = {"rmsnorm_matmul": 1, "matmul_residual_add": 1, "matmul": 1,
             "matmul_bias_act": 3}[wrapper]
     assert len(insts) == want, insts
+
+
+@pytest.mark.parametrize("name", sorted(launches.ENTRY_KERNELS))
+def test_launch_counts_credit_each_entry_kernel_to_its_wrapper(name):
+    """`launch_counts` (the raw-record count of a long trace) credits a
+    run of each of a wrapper's entry kernels to that wrapper alone, as
+    `traced_launches` does; kernels of no wrapper count nowhere."""
+    kernels = {f"void {k.rstrip('<')}<128, 1>(float const*)" if k.endswith("<")
+               else f"void {k}(float const*)": 2
+               for k in launches.ENTRY_KERNELS[name]}
+    kernels["void at::native::vectorized_elementwise_kernel<4>()"] = 5
+    got = launches.launch_counts(kernels)
+    assert got[name] == 2 * len(launches.ENTRY_KERNELS[name])
+    assert all(v == 0 for k, v in got.items() if k != name)

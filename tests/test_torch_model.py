@@ -14,6 +14,7 @@ are compared with parameters and caches cast to f32 on both sides, where
 the two models agree to ~1e-5 and no argmax is near a tie.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 
 import jax

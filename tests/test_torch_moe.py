@@ -22,6 +22,7 @@ max(int(2 * B * 1.25 / 4), 1) slots an expert, so tokens are dropped, as
 in the reference.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 
 import jax

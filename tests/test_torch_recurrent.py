@@ -22,6 +22,7 @@ session) must be equal; they are compared with parameters and caches
 cast to f32 on both sides, where no argmax sits near a tie.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -30,6 +30,7 @@ which would make admission timing-dependent. `watchdog_s=0.5` bounds the
 device wait; only the scripted wedge reaches it.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ reference's, and parameters and KV caches are cast to f32 on both sides
 so that no greedy argmax sits near a tie.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ sum|x*y| (the same, over every element); bf16 2e-2 (sum order can flip
 one output rounding).
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -187,6 +188,31 @@ def test_matmul_tf32x3_emulation_keeps_inf_and_nan_like_f32():
     for want in (plain, pallas):
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-4 * k ** 0.5, equal_nan=True)
+
+
+def test_inf_times_tiny_subnormal_is_the_references_nan():
+    """inf times an f32 subnormal below 2^-137 (2^-140): XLA's CPU flushes
+    the subnormal to 0, so the JAX package's f32 products give NaN
+    (`jnp.dot` at every precision, `ops.matmul` on its plain route and
+    through the Pallas kernel); the card's 3xTF32 route rounds it to 0 in
+    TF32 and gives NaN as well (`ref.matmul_tf32x3` here, the card test
+    `test_cuda_matmul_f32_inf_times_tiny_subnormal_is_nan`). The port's
+    CPU plain product is torch's f32 product, which keeps subnormals:
+    inf. Recorded behaviour: the card's route matches the reference."""
+    a = np.full((4, 8), np.inf, np.float32)
+    b = np.full((8, 4), 2.0 ** -140, np.float32)
+    assert b[0, 0] != 0
+    aj, bj = jnp.asarray(a), jnp.asarray(b)
+    for precision in (None, "highest"):
+        assert np.isnan(_np(jnp.dot(aj, bj, precision=precision))).all()
+    assert np.isnan(_np(jops.matmul(aj, bj))).all()
+    with juse("interpret"):
+        assert np.isnan(_np(jops.matmul(aj, bj))).all()
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    assert ref.matmul_tf32x3(at, bt).isnan().all()
+    assert (ref.matmul(at, bt) == float("inf")).all()
+    with use_policy("tuned"):
+        assert (ops.matmul(at, bt) == float("inf")).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

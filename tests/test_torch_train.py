@@ -22,6 +22,7 @@ element by about lr x sign(g), which a near-zero gradient's sum order can
 flip). Losses of a bf16 run within 2e-2.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import os
 import shutil
@@ -744,7 +745,7 @@ def test_api_train_matches_reference_keys(tmp_path):
                          checkpoint_dir=str(tmp_path / "alias"),
                          device="cpu")
     assert rep["final_step"] == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 I"):
+    with pytest.raises(NotImplementedError, match="Queue 1 L"):
         tapi.train("qwen3-14b", mesh=object(), device="cpu")
 
 

@@ -14,6 +14,7 @@ plain versions, the TuneDB backend key "torch_cpu".
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import sys
 from pathlib import Path

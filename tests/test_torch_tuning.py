@@ -17,6 +17,7 @@
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import json
 import re
 from pathlib import Path

@@ -18,6 +18,7 @@ cast to f32 on both sides. The decode cross-attends to the zero cache
 (nothing in the reference fills it), as whisper's decoder does.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -19,6 +19,7 @@ the logits. Greedy tokens are compared in f32, where no argmax is near a
 tie.
 """
 
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
