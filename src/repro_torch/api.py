@@ -17,10 +17,15 @@ from repro_torch.cluster import Cluster, ServeSessionProgram, TrainProgram
 _UNSET = object()
 
 
-def plan(arch: str, mesh=None):
-    """The reference's hybrid addressing plan has no port yet."""
-    raise NotImplementedError("plan: the addressing plan is ROADMAP Queue 1 "
-                              "K (item 14, the XLA-only modules)")
+def plan(arch: str, mesh, *, device=None) -> dict:
+    """The hybrid addressing plan for an architecture on a mesh (a
+    `core.addressing.MeshSpec` such as `launch.mesh.make_production_mesh()`,
+    or a live DeviceMesh): {tree path: {logical, spec, region, shape}} for
+    every parameter.
+
+    Shim over `Cluster(arch, mesh).plan()`; planning allocates nothing.
+    `device` is the cluster's (the card unless ``device="cpu"``)."""
+    return Cluster(arch, mesh, device=device).plan()
 
 
 def train(arch: str, *, num_steps: int | None = None, steps_=_UNSET,
@@ -31,13 +36,10 @@ def train(arch: str, *, num_steps: int | None = None, steps_=_UNSET,
     """One-call training on the synthetic stream. Returns the loop report.
 
     Shim over `Cluster(...).compile(TrainProgram(...)).run()`. `steps_` is
-    a deprecated alias for `num_steps` (kept for one release). `mesh`
-    takes only None: a data-parallel step over a process group is ROADMAP
-    Queue 1 L, the mesh itself K (the XLA-only modules)."""
-    if mesh is not None:
-        raise NotImplementedError("train(mesh=...): the port has no "
-                                  "data-parallel train step yet (ROADMAP "
-                                  "Queue 1 L, after K)")
+    a deprecated alias for `num_steps` (kept for one release). `mesh` (a
+    live DeviceMesh, or a `MeshSpec` made into one over the initialised
+    process group) trains data-parallel over its "data" axis, this
+    process one rank of it."""
     if steps_ is not _UNSET:
         warnings.warn("api.train(steps_=...) is deprecated; use num_steps=",
                       DeprecationWarning, stacklevel=2)
@@ -45,7 +47,8 @@ def train(arch: str, *, num_steps: int | None = None, steps_=_UNSET,
             num_steps = steps_
     if num_steps is None:
         num_steps = 100
-    cluster = Cluster(arch + ("-smoke" if smoke else ""), device=device)
+    cluster = Cluster(arch + ("-smoke" if smoke else ""), mesh,
+                      device=device)
     program = cluster.compile(TrainProgram(
         num_steps=num_steps, batch=batch, seq=seq, seed=seed,
         checkpoint_dir=checkpoint_dir))

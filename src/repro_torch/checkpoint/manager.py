@@ -25,8 +25,12 @@ session step keeps the addresses it replays on. `restore(...,
 shardings=)` puts each restored leaf on the device it names (one device
 for all, or a tree of them): the elastic restore onto the survivors'
 devices, the port's counterpart of the reference's per-leaf
-`device_put`. Splitting a leaf across devices (DTensor placements) waits
-for the data-parallel train step (ROADMAP Queue 1 L).
+`device_put`. A tree of `core.addressing.LeafShard`s instead restores
+each rank's shard of every leaf (the data-parallel step's state), and
+`save(..., shardings=)` gathers such a state's leaves whole (a
+collective every rank joins) before the one manager with ``writer=True``
+writes them: a checkpoint holds whole leaves whatever the world size
+that wrote it, as the reference's global arrays do.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.core.addressing import LeafShard
 
 _SEP = "/"
 
@@ -114,7 +120,7 @@ def _rebuild(like, leaves: dict, prefix=()):
 
 
 def _placements(like, shardings) -> dict:
-    """{leaf key: torch.device} from `restore`'s `shardings`."""
+    """{leaf key: torch.device or LeafShard} from `shardings`."""
     if shardings is None:
         return {}
     if isinstance(shardings, (str, torch.device)):
@@ -130,7 +136,8 @@ def _placements(like, shardings) -> dict:
             for i, v in enumerate(tree):
                 walk(v, sh[i], prefix + (str(i),))
         elif _is_leaf(tree) and sh is not None:
-            out[_SEP.join(prefix)] = torch.device(sh)
+            out[_SEP.join(prefix)] = (sh if isinstance(sh, LeafShard)
+                                      else torch.device(sh))
 
     walk(like, shardings, ())
     return out
@@ -138,23 +145,36 @@ def _placements(like, shardings) -> dict:
 
 class CheckpointManager:
     def __init__(self, directory: str | Path, *, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, writer: bool = True):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.async_save = async_save
+        self.writer = writer
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, state, *, block: bool = False):
+    def save(self, step: int, state, *, block: bool = False,
+             shardings=None):
         """The host copy is taken now (every leaf copied, a host leaf
         too, so the caller may update its state in place as soon as this
         returns); serialization runs on a thread unless `block` or
         ``async_save=False``. A failed write of the previous save raises
-        here (and on `wait()`)."""
+        here (and on `wait()`). With `shardings` (a tree of `LeafShard`s
+        like `state`) every split leaf is gathered whole first; a manager
+        with ``writer=False`` joins the gathers and writes nothing."""
         self.wait()
-        snapshot = {k: _encode(v) for k, v in _items(state)}
+        where = _placements(state, shardings)
+        snapshot = {}
+        for k, v in _items(state):
+            sh = where.get(k)
+            if isinstance(sh, LeafShard):
+                v = sh.gather(v)
+            if self.writer:
+                snapshot[k] = _encode(v)
+        if not self.writer:
+            return
 
         def _write():
             try:
@@ -288,7 +308,8 @@ class CheckpointManager:
         `torch.device` or its name) for every leaf, or a tree of `like`'s
         structure with a device (or None: `like`'s own) at each leaf. A
         leaf given a device comes back as a tensor on it, also where
-        `like` holds a numpy array."""
+        `like` holds a numpy array. A `LeafShard` there restores this
+        rank's shard of the leaf, on the shard's device."""
         d = self.dir / f"step-{step:09d}"
         data = np.load(d / "leaves.npz")
         manifest = json.loads((d / "manifest.json").read_text())
@@ -297,10 +318,14 @@ class CheckpointManager:
         for key, leaf in _items(like):
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            value = _decode(data[key], manifest["leaves"][key]["dtype"],
-                            leaf)
             dev = where.get(key)
-            if dev is not None:
-                value = torch.as_tensor(value).to(dev)
+            dtype = manifest["leaves"][key]["dtype"]
+            if isinstance(dev, LeafShard):         # cut on the host side
+                value = dev.take(_decode(data[key], dtype,
+                                         torch.empty(0)))
+            else:
+                value = _decode(data[key], dtype, leaf)
+                if dev is not None:
+                    value = torch.as_tensor(value).to(dev)
             leaves[key] = value
         return _rebuild(like, leaves)

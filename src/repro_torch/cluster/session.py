@@ -17,8 +17,18 @@ on (spec, arch, device, policy knobs). `Cluster(None, tune_db=path)` is a
 kernel-only cluster (a policy and the tune records, no model): it
 warm-starts the tuning layer from a `kernels.tunedb.TuneDB`.
 `ShardedServeSessionProgram(groups=G)` compiles to G session cells behind
-one `runtime.ShardedServeSession` (serving groups). Dry-run and bench
-programs wait for later slices (ROADMAP Queue 1 J-K).
+one `runtime.ShardedServeSession` (serving groups).
+
+`Cluster(arch, mesh)` carries the addressing plan: `mesh` is a plain
+description (`core.addressing.MeshSpec`, e.g. `launch.mesh.
+make_production_mesh()`: a 256-rank mesh planned with no ranks) or a live
+DeviceMesh, and `rules` the hybrid addressing rules on it. `plan()` is
+the reference's {tree path: {logical, spec, region, shape}}. A
+`TrainProgram` compiled on a cluster with a mesh runs the data-parallel
+step over the mesh's "data" axis (`steps.make_sharded_train_step`), on a
+DeviceMesh, or on one made of the description over the initialised
+process group. Dry-run and bench programs wait for later slices (ROADMAP
+Queue 1 K2, and J with the port's benchmark).
 """
 
 from __future__ import annotations
@@ -30,11 +40,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.cluster.policy import KernelPolicy, as_policy, use_policy
 from repro_torch.configs import get as get_arch
 from repro_torch.configs.registry import ArchConfig
 from repro_torch.configs.registry import kernel_tunes
+from repro_torch.core import addressing
 from repro_torch.device import resolve_device
 from repro_torch.kernels import pipeline, tunedb
 from repro_torch.models import steps
@@ -155,8 +167,14 @@ class ShardedServeSessionProgram(ServeSessionProgram):
 
 # the reference's program specs the port does not define yet, and the
 # ROADMAP Queue 1 item that brings each
-UNPORTED = {"BenchProgram": "J (item 13, benchmarks)",
-            "DryRunProgram": "K (item 14, the XLA-only modules)"}
+UNPORTED = {"BenchProgram": "J (item 13, the benches; waits for the "
+                            "port's benchmark PR)",
+            "DryRunProgram": "K2 (item 14, the dry run)"}
+
+# the regions of `Cluster.plan`: a leaf split over any mesh axis is
+# INTERLEAVED when one of its logical axes is a weight axis, else
+# SEQUENTIAL; a leaf split over none is REPLICATED
+_WEIGHT_AXES = ("embed", "ffn", "heads", "kv_heads", "vocab", "expert")
 
 
 class Cluster:
@@ -176,12 +194,18 @@ class Cluster:
     `Program.report()` shows it.
     """
 
-    def __init__(self, arch: "str | ArchConfig | None" = None, *,
+    def __init__(self, arch: "str | ArchConfig | None" = None, mesh=None, *,
                  device=None, policy: "KernelPolicy | str | None" = None,
                  tune_db: "tunedb.TuneDB | str | None" = None):
         self.arch: ArchConfig | None = (
             get_arch(arch) if isinstance(arch, str) else arch)
         self.device = resolve_device(device)
+        self._mesh = mesh
+        self.mesh = mesh if mesh is not None else addressing.MeshSpec(
+            (1, 1), ("data", "model"))
+        self.rules = addressing.default_rules(
+            self.mesh, overrides=self.arch.rules_overrides if self.arch
+            else ())
         self._policy = as_policy(policy)
         self.compile_cache = CompileCache()
         self.tune_db = tunedb.resolve_db(tune_db)
@@ -225,9 +249,55 @@ class Cluster:
                 pol = dataclasses.replace(pol, **kwargs)
         return _PolicyScope(self, pol)
 
+    # -- addressing plan ------------------------------------------------------
+    def plan(self) -> dict:
+        """The hybrid addressing plan for this cluster's arch on its mesh:
+        {tree path: {logical, spec, region, shape}} for every parameter,
+        over the reference's stacked layout (`steps.abstract_params`)."""
+        cfg = self._require_arch("plan")
+        p_sds, p_log = steps.abstract_params(cfg)
+        logical = dict(steps.tree_paths(p_log))
+        out = {}
+        for key, sds in steps.tree_paths(p_sds):
+            log = logical[key]
+            spec = self.rules.spec_for(log, sds.shape, self.mesh)
+            region = ("REPLICATED" if not [s for s in spec if s] else
+                      "INTERLEAVED" if any(n in _WEIGHT_AXES
+                                           for n in log if n) else
+                      "SEQUENTIAL")
+            out[key] = {"logical": log, "spec": spec, "region": region,
+                        "shape": sds.shape}
+        return out
+
+    def state_shardings(self, tree_sds, tree_logical):
+        """`cells.shardings_for` on this cluster's mesh and rules."""
+        from repro_torch.cluster import cells
+        return cells.shardings_for(tree_sds, tree_logical, self.mesh,
+                                   self.rules)
+
+    def device_mesh(self):
+        """The live DeviceMesh a data-parallel program runs on: the one
+        the cluster was given, or one made of its description over the
+        initialised process group (`launch.mesh.make_device_mesh`, which
+        raises without one). None when the cluster was built without a
+        mesh: programs then run on the cluster's device alone."""
+        if self._mesh is None:
+            return None
+        if not isinstance(self._mesh, addressing.MeshSpec):
+            return self._mesh
+        from repro_torch.launch.mesh import make_device_mesh
+        self._mesh = make_device_mesh(self._mesh, self.device.type)
+        return self._mesh
+
+    def _require_arch(self, what: str) -> ArchConfig:
+        if self.arch is None:
+            raise ValueError(f"{what} needs an architecture; this is a "
+                             f"kernel-only Cluster (arch=None)")
+        return self.arch
+
     def compile(self, spec) -> "Program":
         """Program spec -> compiled Program, memoized in the compile cache
-        keyed on (spec, arch, device, policy knobs)."""
+        keyed on (spec, arch, device, mesh, policy knobs)."""
         builders = {ServeProgram: CompiledServe,
                     ServeSessionProgram: CompiledServeSession,
                     ShardedServeSessionProgram: CompiledShardedServeSession,
@@ -246,7 +316,7 @@ class Cluster:
             raise TypeError(f"Cluster.compile expects a program spec, got "
                             f"{name}") from None
         key = (name, spec, self.arch.name, str(self.device),
-               self._policy.fingerprint())
+               addressing.describe(self.mesh), self._policy.fingerprint())
         return self.compile_cache.get(
             key, lambda: builder(self, spec, self._policy))
 
@@ -285,6 +355,9 @@ class Program:
 
     def run(self, **kwargs) -> dict:
         raise NotImplementedError
+
+    def plan(self) -> dict:
+        return self.cluster.plan()
 
     @property
     def device(self) -> torch.device:
@@ -328,7 +401,15 @@ class CompiledTrain(Program):
     stream continues at its step (a batch is a pure function of (seed,
     step)), so a resumed run's losses are those of an uninterrupted one.
     (The reference's run restores the state but feeds the stream from
-    batch 0 again.)"""
+    batch 0 again.)
+
+    On a cluster with a mesh the program is data-parallel over the mesh's
+    "data" axis (the reference's `CompiledTrain` on a mesh): `step` is
+    `steps.make_sharded_train_step`, the state holds this rank's shards
+    as the plan places them (`shards`), the feed materializes this rank's
+    rows of each global batch (the plan's ("batch", "seq") spec), and the
+    checkpoints hold whole leaves, gathered and written by rank 0 alone,
+    restored onto any world size's shards."""
 
     kind = "train"
 
@@ -336,9 +417,21 @@ class CompiledTrain(Program):
         super().__init__(cluster, spec, policy)
         n = spec.num_steps
         warmup = spec.warmup if spec.warmup is not None else max(n // 10, 1)
-        self.step: Callable = steps.make_train_step(
-            cluster.arch, schedule_kwargs={"warmup": warmup, "total": n},
-            policy=policy)
+        kw = {"schedule_kwargs": {"warmup": warmup, "total": n},
+              "policy": policy}
+        if cluster._mesh is not None:
+            steps.check_data_parallel(cluster.mesh)
+        self.mesh = cluster.device_mesh()
+        self.shards = None
+        if self.mesh is None:
+            self.step: Callable = steps.make_train_step(cluster.arch, **kw)
+        else:
+            self.step = steps.make_sharded_train_step(
+                cluster.arch, self.mesh, rules=cluster.rules,
+                max_seq=spec.seq, **kw)
+            self.shards = steps.state_shards(
+                cluster.arch, self.mesh, cluster.rules, device=self.device,
+                max_seq=spec.seq)
         self.chunk: Callable | None = (
             engine.make_train_chunk(self.step)
             if spec.steps_per_sync > 1 else None)
@@ -346,11 +439,20 @@ class CompiledTrain(Program):
     def init_state(self, seed: int | None = None):
         """A fresh train state on the cluster's device: parameters from
         `steps.init_params(cfg, seed)` (the spec's seed by default), zero
-        moments, step 0."""
+        moments, step 0; on a mesh, this rank's shards of it."""
         seed = self.spec.seed if seed is None else seed
         return steps.init_train_state(self.cluster.arch, seed,
                                       device=self.device,
-                                      max_seq=self.spec.seq)
+                                      max_seq=self.spec.seq,
+                                      shards=self.shards)
+
+    def batch_sharding(self):
+        """The plan's sharding of the global batch (None off a mesh)."""
+        if self.mesh is None:
+            return None
+        spec, mesh = self.spec, self.mesh
+        return addressing.Sharding(mesh, self.cluster.rules.spec_for(
+            ("batch", "seq"), (spec.batch, spec.seq), mesh))
 
     def _feed(self, start: int):
         from repro_torch.data import (BatchSpec, Distributor,
@@ -360,7 +462,10 @@ class CompiledTrain(Program):
         cfg, spec, device = self.cluster.arch, self.spec, self.device
         stream = SyntheticLMStream(BatchSpec(spec.batch, spec.seq, cfg.vocab),
                                    seed=spec.seed)
-        dist = Distributor([device], Splitter([device]))
+        if self.mesh is None:
+            dist = Distributor([device], Splitter([device]))
+        else:
+            dist = Distributor(self.mesh, sharding=self.batch_sharding())
         if spec.double_buffer:
             # a chunk drains steps_per_sync batches a dispatch; the ring
             # holds a whole chunk so the drain does not wait on the producer
@@ -385,8 +490,12 @@ class CompiledTrain(Program):
                        else max(n // 10, 1)),
             checkpoint_dir=spec.checkpoint_dir,
             steps_per_sync=spec.steps_per_sync)
+        group = None if self.mesh is None else self.mesh.get_group("data")
         loop = TrainLoop(cfg, self.step, self.init_state(), None,
-                         train_chunk=self.chunk)
+                         train_chunk=self.chunk,
+                         state_shardings=self.shards,
+                         writer=group is None or
+                         torch.distributed.get_rank(group) == 0)
         start = 0
         if spec.resume:
             start = loop.maybe_resume()
@@ -396,6 +505,9 @@ class CompiledTrain(Program):
         finally:
             if hasattr(feed, "close"):
                 feed.close()
+        if group is not None:
+            # every rank returns with the final checkpoint on disk
+            torch.distributed.barrier(group=group)
         if hasattr(feed, "stall_report"):
             report["feed"] = feed.stall_report()
         report["params"] = loop.state["params"]

@@ -1,3 +1,5 @@
-from .registry import ARCHS, ArchConfig, get, smoke
+from .registry import (ARCHS, SHAPES, ArchConfig, ShapeConfig, TensorSpec,
+                       cell_supported, get, input_specs, smoke)
 
-__all__ = ["ARCHS", "ArchConfig", "get", "smoke"]
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "TensorSpec",
+           "cell_supported", "get", "input_specs", "smoke"]

@@ -3,14 +3,19 @@
 A copy of `repro.configs.registry` without its JAX half (the reference
 module imports jax at the top, so the port cannot import it): the same
 `ArchConfig` fields, the same ten architectures with the same numbers, and
-the same `smoke()` reduction, and the kernel tune records
-(`KernelTuneRecord`, `KERNEL_TUNES`) the tuning layer writes. The dry-run
-`input_specs` stay with the dry-run slice.
+the same `smoke()` reduction, the workload shapes (`SHAPES`), and the kernel
+tune records (`KernelTuneRecord`, `KERNEL_TUNES`) the tuning layer writes.
+`input_specs` returns a shape and torch dtype record (`TensorSpec`) for
+every model input of a workload, allocating nothing: the planner and the
+program cells read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +76,41 @@ class ArchConfig:
                 n *= d
             total += n
         return total
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE discounts inactive experts)."""
+        total = self.n_params()
+        if self.n_experts and self.top_k:
+            from repro_torch.models import steps
+            expert = 0
+            for spec in steps.iter_specs(steps.param_specs(self)["blocks"]):
+                if "expert" in (spec.logical or ()):
+                    n = 1
+                    for d in spec.shape:
+                        n *= d
+                    expert += n
+            total = total - expert + expert * self.top_k // self.n_experts
+        return total
+
+
+# ----------------------------------------------------------------------------
+# Workload shapes (assignment)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 ARCHS: dict[str, ArchConfig] = {}
@@ -168,6 +208,49 @@ def get(name: str) -> ArchConfig:
     if name.endswith("-smoke"):
         return smoke(ARCHS[name.removesuffix("-smoke")])
     return ARCHS[name]
+
+
+# ----------------------------------------------------------------------------
+# input_specs: abstract inputs per (arch x shape), no allocation
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and dtype, with nothing allocated (the port's
+    `jax.ShapeDtypeStruct`)."""
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """A `TensorSpec` for every model input of this workload."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        batch = {"tokens": TensorSpec((B, S), i32),
+                 "labels": TensorSpec((B, S), i32)}
+    elif shape.kind == "prefill":
+        batch = {"tokens": TensorSpec((B, S), i32)}
+    elif shape.kind == "decode":
+        batch = {"tokens": TensorSpec((B, 1), i32),
+                 "pos": TensorSpec((), i32)}
+    else:
+        raise ValueError(shape.kind)
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = TensorSpec((B, cfg.enc_seq, cfg.d_model),
+                                         torch.bfloat16)
+    if cfg.family == "vlm":
+        batch["img_embeds"] = TensorSpec((B, cfg.n_img_tokens, cfg.d_model),
+                                         torch.bfloat16)
+    return batch
+
+
+def cell_supported(cfg: ArchConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Is this (arch x shape) cell runnable? (per assignment skip rules)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full quadratic attention at 524288 tokens; skipped per "
+                       "assignment (noted in DESIGN.md §5)")
+    return True, ""
 
 
 # ----------------------------------------------------------------------------

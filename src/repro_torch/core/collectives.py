@@ -1,0 +1,116 @@
+"""The collectives of the data-parallel train step, each counted where it
+is issued.
+
+`all_gather_dim` makes a whole leaf from every rank's chunk along a dim,
+`reduce_scatter_dim` sums a whole gradient over the ranks and hands each
+its chunk, `all_reduce` sums a tensor over the ranks in place, and
+`sum_over_ranks` is that sum as an autograd function (its backward sums
+the gradient over the ranks in turn: the MoE dispatch's load-balance
+sums, which every rank's loss reads). Each takes
+the process group it runs on: there is no default group and no
+single-process shortcut. On a group of one rank each is a copy (or
+nothing), carried out by the backend all the same (NCCL on the card, gloo
+on the CPU).
+
+`counts()` holds the calls made since `reset_counts()`, by name, and the
+bytes each call's whole tensor holds (``<name>_bytes``). A call counts
+under its collective's name unless its caller names it otherwise (the
+MoE dispatch's counts under ``dispatch_*``, the step's exchange of batch
+rows under ``batch_all_gather``).
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.distributed as dist
+
+NAMES = ("all_gather", "reduce_scatter", "all_reduce")
+
+_COUNTS: collections.Counter = collections.Counter()
+
+
+def reset_counts() -> None:
+    _COUNTS.clear()
+
+
+def counts() -> dict[str, int]:
+    out = {n: 0 for n in NAMES} | {f"{n}_bytes": 0 for n in NAMES}
+    return out | dict(_COUNTS)
+
+
+def _count(name: str, whole: torch.Tensor) -> None:
+    """One call of `name` on a whole tensor like `whole`."""
+    _COUNTS[name] += 1
+    _COUNTS[f"{name}_bytes"] += whole.numel() * whole.element_size()
+
+
+def _need(group):
+    if group is None:
+        raise ValueError("a collective needs its process group")
+    return group
+
+
+# torch 2.13 names the flat collectives *_single (the *_tensor names
+# warn there); earlier releases have only the *_tensor names
+_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def all_gather_dim(local: torch.Tensor, dim: int, group, *,
+                   name: str = "all_gather") -> torch.Tensor:
+    """Every rank's `local` concatenated along `dim` in rank order (a new
+    tensor)."""
+    group = _need(group)
+    n = dist.get_world_size(group)
+    front = local.movedim(dim, 0).contiguous()
+    out = torch.empty((n * front.shape[0], *front.shape[1:]),
+                      dtype=local.dtype, device=local.device)
+    _count(name, out)
+    _GATHER(out, front, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(whole: torch.Tensor, dim: int,
+                       group) -> torch.Tensor:
+    """The sum over the ranks of `whole`, cut along `dim` into one chunk a
+    rank: this rank's chunk (a new tensor)."""
+    group = _need(group)
+    n = dist.get_world_size(group)
+    front = whole.movedim(dim, 0).contiguous()
+    out = torch.empty((front.shape[0] // n, *front.shape[1:]),
+                      dtype=whole.dtype, device=whole.device)
+    _count("reduce_scatter", front)
+    _SCATTER(out, front, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_reduce(t: torch.Tensor, group, *,
+               name: str = "all_reduce") -> torch.Tensor:
+    """The sum of `t` over the ranks, in place."""
+    group = _need(group)
+    _count(name, t)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _SumOverRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, name):
+        ctx.group, ctx.name = group, name
+        return all_reduce(t.clone(), group, name=name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), ctx.group, name=ctx.name), None, None
+
+
+def sum_over_ranks(t: torch.Tensor, group, *,
+                   name: str = "all_reduce") -> torch.Tensor:
+    """The sum of `t` over the ranks (a new tensor), differentiable: when
+    every rank's loss reads the sum, the gradient of `t` on a rank is the
+    sum of the ranks' gradients of the sum."""
+    return _SumOverRanks.apply(t, _need(group), name)

@@ -15,9 +15,9 @@ The constants are the H100 SXM data sheet's; `launch/roofline.py`, the
 tuning layer's cost model (`kernels/pipeline.score`), `chip_smoke.py`'s
 bounds and `core/interconnect.CollectiveModel` read them from here, so
 there is one copy. The levels' latencies are the α–β model's assumptions,
-not data-sheet figures and not measurements. Meshes themselves (device
-placement and shardings) are XLA's in the reference and stay in ROADMAP
-Queue 1 K.
+not data-sheet figures and not measurements. Meshes themselves (axis
+names and sizes, the shardings a plan gives them) are
+`core/addressing.py`'s and `launch/mesh.py`'s.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Transfer-vs-compute overlap ledger (the port of
 `repro.core.overlap.overlap_report`, for the data feed's
 `stall_report`). The rest of the reference module (layer scans with
-remat, sharding constraints) is XLA's: ROADMAP Queue 1 K."""
+remat, sharding constraints) is XLA's: ROADMAP Queue 1 K2."""
 
 from __future__ import annotations
 

@@ -9,21 +9,28 @@ distributed DMA (paper §5.3) mapped to host feeding.
 The stream is stateless-resumable: batch k is a pure function of (seed,
 k), drawn with numpy exactly as the reference draws it (bit for bit), so
 a restored checkpoint needs no loader state and a resumed run continues
-the stream at its step. Where the reference takes a JAX mesh and its
-batch axes, the port takes its devices (one card here; data parallelism
-over several is the data-parallel train step, ROADMAP Queue 1 L). The
-slicing arithmetic is the reference's.
+the stream at its step. The slicing arithmetic is the reference's.
+
+The splitter cuts at the shard boundaries of a mesh's batch axes
+(`Splitter(mesh, ("data",))`, the reference's call) or, on one process,
+of a list of devices. Over a live DeviceMesh the distributor is the
+backend of one rank: it materializes only the rows the plan's batch
+sharding gives this rank (all of them where the plan replicates the
+batch), as the reference's sharded `device_put` hands them to that
+device. A row's draw depends only on (seed, step, row), so the rows are
+the same however the batch is cut.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Iterator, Sequence
+from typing import Iterator
 
 import numpy as np
 import torch
 
+from repro_torch.core import addressing
 from repro_torch.device import resolve_device
 
 
@@ -61,11 +68,15 @@ class SyntheticLMStream:
 
 class Splitter:
     """Cut a global batch request at shard boundaries (the paper's
-    splitter): one shard a device of `devices`."""
+    splitter): one shard a device of `devices`, or one a position of the
+    mesh's `batch_axes` (the reference's signature)."""
 
-    def __init__(self, devices: Sequence):
-        self.devices = list(devices)
-        self.n_shards = max(len(self.devices), 1)
+    def __init__(self, mesh_or_devices, batch_axes: tuple[str, ...] = ()):
+        if isinstance(mesh_or_devices, (list, tuple)):
+            self.n_shards = max(len(mesh_or_devices), 1)
+            return
+        sizes = addressing.mesh_axes(mesh_or_devices)
+        self.n_shards = math.prod(sizes[a] for a in batch_axes if a in sizes)
 
     def slices(self, global_batch: int) -> list[tuple[int, int]]:
         n = self.n_shards
@@ -76,24 +87,40 @@ class Splitter:
 
 
 class Distributor:
-    """Route shard slices to their owning devices (the paper's distributor
-    tree). In one process every device is local, so each slice is
-    materialized here; the routing (slice i -> device i) is the
-    reference's."""
+    """Route shard slices to their owners (the paper's distributor tree).
 
-    def __init__(self, devices: Sequence, splitter: Splitter):
-        self.devices = list(devices)
+    Off a live mesh (devices, or a mesh description: one process holds
+    every device) each of the `splitter`'s slices is materialized here.
+    Given instead the batch's `sharding` on a live DeviceMesh (an
+    `addressing.Sharding` of the (batch, seq) spec), this process is one
+    rank: it materializes its block of the batch's rows, and nothing
+    else. `mesh_or_devices` is the owners, the reference's first
+    argument."""
+
+    def __init__(self, mesh_or_devices, splitter: Splitter | None = None,
+                 *, sharding=None):
+        if (splitter is None) == (sharding is None):
+            raise ValueError("a Distributor takes a splitter (one process) "
+                             "or a rank's batch sharding, not both")
         self.splitter = splitter
+        self.sharding = sharding
 
     def local_slices(self, global_batch: int) -> list[tuple[int, int]]:
-        return list(self.splitter.slices(global_batch))
+        if self.sharding is None:
+            return list(self.splitter.slices(global_batch))
+        mesh = self.sharding.mesh
+        coords = dict(zip(addressing.mesh_axes(mesh), mesh.get_coordinate()))
+        rows = addressing.local_block(self.sharding.spec, (global_batch,),
+                                      mesh, coords)[0]
+        return [(rows.start, rows.stop)]
 
     def materialize(self, stream: SyntheticLMStream, step: int,
                     device=None) -> dict:
-        """The global batch `step` from its per-slice parts, as int32
-        tensors on `device` (None: the GPU). The copy is a plain one on
-        the calling thread's current stream, so it is ordered with any
-        work already queued there."""
+        """The batch `step`'s local rows from their per-slice parts (the
+        whole batch off a DeviceMesh), as int32 tensors on `device`
+        (None: the GPU). The copy is a plain one on the calling thread's
+        current stream, so it is ordered with any work already queued
+        there."""
         device = resolve_device(device)
         parts = [stream.batch(step, lo, hi)
                  for lo, hi in self.local_slices(stream.spec.global_batch)]

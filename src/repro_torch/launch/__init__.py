@@ -1,1 +1,3 @@
-"""Launch-side models of the port (`roofline.py`)."""
+"""Launch side of the port: the roofline model (`roofline.py`), the
+production and test meshes (`mesh.py`) and the training launcher
+(`train.py`)."""

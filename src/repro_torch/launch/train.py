@@ -3,9 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen3-14b --smoke --steps 50 --batch 4 --seq 128
 
-A thin wrapper over the Cluster façade: one `Cluster` (device and kernel
-policy) compiling a `TrainProgram`. It runs on the GPU unless `--device
-cpu` is given.
+A thin wrapper over the Cluster façade: one `Cluster` (device, mesh and
+kernel policy) compiling a `TrainProgram`. It runs on the GPU unless
+`--device cpu` is given.
+
+Data parallelism: under ``torchrun --nproc-per-node N`` (which sets
+``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and the rendezvous address)
+each process is one rank, on ``cuda:LOCAL_RANK``, and the mesh is
+``(data, N // data)`` over ("data", "model") with ``--data-axis`` data
+(0: all N), as the reference's launcher builds it; the step then reduces
+gradients over the data axis (`steps.make_sharded_train_step`). A model
+axis above 1 raises (the tensor-parallel step is a later item). A single
+process given ``--data-axis`` without torchrun makes its own one-rank
+group (NCCL on the card, gloo on the CPU) over a file store in a
+temporary directory: no network. Without ``--data-axis`` and outside
+torchrun the run is the plain single-device one.
 """
 
 from __future__ import annotations
@@ -14,9 +26,27 @@ import argparse
 import os
 import tempfile
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.cluster import Cluster, TrainProgram
 from repro_torch.cluster.policy import MODES
 from repro_torch.configs import get
+from repro_torch.core.addressing import MeshSpec
+from repro_torch.device import resolve_device
+
+
+def _start_group(device: torch.device) -> str | None:
+    """Join torchrun's process group, or start a one-rank group of this
+    process; -> the file store's directory to remove (None: torchrun's)."""
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)            # torchrun's env://
+        return None
+    root = tempfile.mkdtemp(prefix="repro_torch-group-")
+    store = dist.FileStore(os.path.join(root, "store"), 1)
+    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    return root
 
 
 def main(argv=None):
@@ -31,9 +61,10 @@ def main(argv=None):
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch-train"))
     ap.add_argument("--checkpoint-every", type=int, default=25)
-    ap.add_argument("--data-axis", type=int, default=0,
-                    help="data axis size (0 = all devices; the port runs "
-                         "on one device until ROADMAP Queue 1 L)")
+    ap.add_argument("--data-axis", type=int, default=None,
+                    help="data axis size (0 = all ranks); given, or under "
+                         "torchrun, the run is data-parallel over a "
+                         "process group")
     ap.add_argument("--policy", default=None, choices=MODES,
                     help="kernel policy mode (default: env-derived)")
     ap.add_argument("--no-resume", action="store_true",
@@ -41,19 +72,35 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.data_axis not in (0, 1):
-        ap.error(f"--data-axis {args.data_axis}: the port trains on one "
-                 f"device (the data-parallel train step is ROADMAP Queue "
-                 f"1 L)")
 
     cfg = get(args.arch + ("-smoke" if args.smoke else ""))
-    cluster = Cluster(cfg, device=args.device, policy=args.policy)
-    program = cluster.compile(TrainProgram(
-        num_steps=args.steps, batch=args.batch, seq=args.seq,
-        checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every,
-        resume=not args.no_resume))
-    report = program.run()
+    device = resolve_device(args.device)
+    mesh, store_dir = None, None
+    if args.data_axis is not None or "WORLD_SIZE" in os.environ:
+        n_dev = int(os.environ.get("WORLD_SIZE", 1))
+        data = args.data_axis or n_dev
+        if n_dev % data:
+            ap.error(f"--data-axis {data} does not divide the {n_dev} ranks")
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+        store_dir = _start_group(device)
+        mesh = MeshSpec((data, n_dev // data), ("data", "model"))
+    try:
+        cluster = Cluster(cfg, mesh, device=device, policy=args.policy)
+        program = cluster.compile(TrainProgram(
+            num_steps=args.steps, batch=args.batch, seq=args.seq,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            resume=not args.no_resume))
+        report = program.run()
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
+        if store_dir is not None:
+            import shutil
+            shutil.rmtree(store_dir, ignore_errors=True)
 
     print(f"\nfinal step {report['final_step']} "
           f"in {report['wall_seconds']:.1f}s; "

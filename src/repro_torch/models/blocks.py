@@ -11,7 +11,8 @@ full-sequence `apply`, `cache_specs` and one-token `decode`:
   and "attn_cross" (causal self-attention, cross-attention to the encoder
   output, the MLP; decode on private caches or with its self K/V paged);
 * "attn_moe": the attn block's attention, then a top-k expert SwiGLU with
-  capacity, in global or per-row dispatch;
+  capacity, in global or per-row dispatch; inside `dispatch_group` (the
+  data-parallel step) the dispatch spans the tokens of every rank;
 * "cross" (llama-3.2-vision): tanh-gated cross-attention to the image
   embeddings with q/k norms, and its gated FFN, both on the plain route
   under every policy, as in the reference;
@@ -27,10 +28,14 @@ addresses it was captured on, so no decode allocates a state tensor.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.cluster.policy import current_policy
+from repro_torch.core import collectives
 from repro_torch.kernels.ref import ACTIVATIONS
 
 from . import attention as attn_lib
@@ -339,18 +344,32 @@ def _route(cfg, p, x):
     return probs, top_p, top_e
 
 
-def _slots(e_flat, E: int, C: int):
-    """Each (token, k) slot's place in its expert's capacity: the count of
-    earlier slots routed to the same expert (an exclusive cumsum over the
-    slots), and whether it is under the capacity C. The one-hot is laid
-    out expert-major, (..., E, slots), so that the cumsum runs along the
-    contiguous axis: down 16,384 rows of 8 columns (mixtral's S=8192
-    prefill) the scan took 2.8 ms a layer on an H100."""
+def _slots(e_flat, E: int, C: int, earlier=None):
+    """Each (token, k) slot's place among this rank's slots of its expert
+    (an exclusive cumsum over the slots), and whether its place in the
+    expert's capacity C is under C: that place is the local one plus
+    `earlier`, each expert's count of slots on the ranks before this one
+    (None: no other ranks). The one-hot is laid out expert-major,
+    (..., E, slots), so that the cumsum runs along the contiguous axis:
+    down 16,384 rows of 8 columns (mixtral's S=8192 prefill) the scan took
+    2.8 ms a layer on an H100."""
     onehot = (e_flat[..., None, :] == torch.arange(
         E, device=e_flat.device)[:, None]).to(torch.int32)
     pos = torch.cumsum(onehot, dim=-1, dtype=torch.int32) - onehot
     pos = torch.gather(pos, -2, e_flat[..., None, :].long())[..., 0, :]
-    return pos.long(), pos < C
+    pos = pos.long()
+    if earlier is None:
+        return pos, pos < C
+    return pos, pos + earlier[e_flat] < C
+
+
+def _earlier(e_flat, E: int, group):
+    """(E,) the count of slots routed to each expert on the ranks before
+    this one in `group` (their tokens come first in the global order)."""
+    counts = torch.bincount(e_flat, minlength=E)
+    every = collectives.all_gather_dim(counts[None], 0, group,
+                                       name="dispatch_all_gather")
+    return every[:dist.get_rank(group)].sum(0)
 
 
 def _experts(p, xe, eq_in: str, eq_out: str):
@@ -361,48 +380,84 @@ def _experts(p, xe, eq_in: str, eq_out: str):
     return product(eq_out, h, p["w_down"], xe.dtype)
 
 
-def _aux(cfg, probs, top_e, dims):
-    """The Switch load-balancing loss: E * sum_e f_e / K * p_e."""
+def _aux(cfg, probs, top_e, dims, group=None):
+    """The Switch load-balancing loss: E * sum_e f_e / K * p_e, each a mean
+    over the tokens (of every rank in `group`)."""
     E, K = cfg.n_experts, cfg.top_k
     routed = (top_e[..., None] == torch.arange(E, device=top_e.device)
               ).to(F32).sum(-2)
-    f_e = routed.mean(dim=dims)
-    p_e = probs.mean(dim=dims)
+    if group is None:
+        f_e = routed.mean(dim=dims)
+        p_e = probs.mean(dim=dims)
+    else:
+        n = routed[..., 0].numel() * dist.get_world_size(group)
+        sums = collectives.sum_over_ranks(
+            torch.stack([routed.sum(dim=dims), probs.sum(dim=dims)]), group,
+            name="dispatch_all_reduce")
+        f_e, p_e = sums[0] / n, sums[1] / n
     return E * torch.sum(f_e / K * p_e)
+
+
+# The data-parallel step's process group while its step runs
+# (`dispatch_group`). A module global, not a thread's: backward recomputes
+# a layer on autograd's own threads.
+_GROUP = [None]
+
+
+@contextlib.contextmanager
+def dispatch_group(group):
+    """Within this scope, an MoE layer dispatches over the tokens of every
+    rank of `group`, each rank's rows after those of the ranks before it,
+    as the reference's global arrays have them: a global dispatch takes
+    its capacity from every rank's tokens and places a rank's slots after
+    the earlier ranks' (one all_gather of per-expert counts a layer), and
+    both dispatches take the load-balance loss's means over every rank's
+    tokens (one differentiable all_reduce a layer)."""
+    prev, _GROUP[0] = _GROUP[0], group
+    try:
+        yield
+    finally:
+        _GROUP[0] = prev
 
 
 def moe_apply(cfg, p, x):
     """Top-k MoE with capacity; dispatch by scatter and gather (the
     reference's `moe_apply`). Global dispatch (the default) takes capacity
-    over the flattened B*S tokens; `cfg.moe_local_dispatch` takes it per
-    batch row (`_moe_apply_local`).
+    over the flattened B*S tokens (of every rank, within
+    `dispatch_group`); `cfg.moe_local_dispatch` takes it per batch row
+    (`_moe_apply_local`).
 
     Every shape is static and nothing leaves the device, so a CUDA graph
     can capture it: a slot at or past the capacity C is written to a
-    scratch column C of the (E, C + 1) table and dropped with it (the
+    scratch column of the expert's table and dropped with it (the
     reference's out-of-range scatter), and row T of the token table is a
-    pad row of zeros."""
+    pad row of zeros. A rank's table has min(C, T*K) columns, its own
+    slots' local places (a rank never holds more of an expert's slots)."""
     if cfg.moe_local_dispatch:
         return _moe_apply_local(cfg, p, x)
+    group = _GROUP[0]
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    C = max(int(K * T * cfg.capacity_factor / E), 1)
+    ranks = 1 if group is None else dist.get_world_size(group)
+    C = max(int(K * T * ranks * cfg.capacity_factor / E), 1)
+    Ct = min(C, T * K)
     xt = x.reshape(T, d)
     probs, top_p, top_e = _route(cfg, p, xt)
     e_flat = top_e.reshape(-1)                                   # (T*K,)
-    pos, keep = _slots(e_flat, E, C)
+    earlier = None if group is None else _earlier(e_flat, E, group)
+    pos, keep = _slots(e_flat, E, C, earlier)
     tok_idx = torch.arange(T * K, device=x.device) // K          # (T*K,)
-    dispatch = torch.full((E, C + 1), T, dtype=torch.int64, device=x.device)
-    dispatch[e_flat, torch.clamp(pos, max=C)] = tok_idx
+    dispatch = torch.full((E, Ct + 1), T, dtype=torch.int64, device=x.device)
+    dispatch[e_flat, torch.where(keep, pos, Ct)] = tok_idx
     xp = torch.cat([xt, xt.new_zeros(1, d)])                     # pad row
-    ye = _experts(p, xp[dispatch[:, :C]], "ecd,edf->ecf",
-                  "ecf,efd->ecd")                                # (E, C, d)
-    ys = ye[e_flat, torch.clamp(pos, max=C - 1)]                 # (T*K, d)
+    ye = _experts(p, xp[dispatch[:, :Ct]], "ecd,edf->ecf",
+                  "ecf,efd->ecd")                                # (E, Ct, d)
+    ys = ye[e_flat, torch.clamp(pos, max=Ct - 1)]                # (T*K, d)
     w_slot = (top_p.reshape(-1) * keep).to(ys.dtype)
     y = torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add_(
         0, tok_idx, ys * w_slot[:, None])
-    return y.reshape(B, S, d), _aux(cfg, probs, top_e, (0,))
+    return y.reshape(B, S, d), _aux(cfg, probs, top_e, (0,), group)
 
 
 def _moe_apply_local(cfg, p, x):
@@ -425,7 +480,8 @@ def _moe_apply_local(cfg, p, x):
     flat = (rows * S + tok_idx).reshape(-1)
     y = torch.zeros((B * S, d), dtype=ye.dtype, device=x.device).index_add_(
         0, flat, (ys * w_slot[..., None]).reshape(-1, d))
-    return y.reshape(B, S, d).to(x.dtype), _aux(cfg, probs, top_e, (0, 1))
+    return (y.reshape(B, S, d).to(x.dtype),
+            _aux(cfg, probs, top_e, (0, 1), _GROUP[0]))
 
 
 def moe_block_apply(cfg, p, x, ctx):
@@ -583,12 +639,24 @@ def linear_scan(a, b):
     log-depth doubling scan (after the pass at distance d, (a_t, b_t) is
     the composition of the steps t-2d+1 .. t). It multiplies a's, never
     sums their logarithms: exp(cumsum(log a)) underflows where the log
-    reaches thousands below zero. a and b are consumed."""
+    reaches thousands below zero. Without grad, a and b are consumed
+    (each pass writes in place); under grad each pass makes new tensors,
+    the same values: autograd keeps the operands each product read, and
+    a recomputed layer (torch.utils.checkpoint) cannot see an in-place
+    write to them."""
     S, d = a.shape[1], 1
+    functional = torch.is_grad_enabled() and (a.requires_grad
+                                              or b.requires_grad)
     while d < S:
-        b[:, d:] += a[:, d:] * b[:, :-d]
+        if functional:
+            b = torch.cat([b[:, :d], b[:, d:] + a[:, d:] * b[:, :-d]], 1)
+        else:
+            b[:, d:] += a[:, d:] * b[:, :-d]
         if 2 * d < S:
-            a[:, d:] = a[:, d:] * a[:, :-d]
+            if functional:
+                a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+            else:
+                a[:, d:] = a[:, d:] * a[:, :-d]
         d *= 2
     return b
 

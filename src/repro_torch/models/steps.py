@@ -29,6 +29,13 @@ Layout differences from the reference, all for PyTorch idiom:
   attention schedules theirs (`attention.FlashFn`). Per-layer
   recomputation (`cfg.remat`) is `torch.utils.checkpoint`; the train
   step updates its state in place where the reference donates it.
+* the addressing plan (`abstract_params`, `abstract_train_state`) is over
+  the reference's stacked layout, so its keys are the reference's
+  (``blocks/sub0/attn/wq``, ``rem/rem0/...``, ``enc/blocks/...``);
+  `param_plan_keys` maps each of the port's per-layer leaves to its key.
+  `make_sharded_train_step` is the data-parallel step over a process
+  group's data axis, each rank holding its shard of the state as the
+  plan places it (`state_shards`).
 """
 
 from __future__ import annotations
@@ -38,13 +45,17 @@ import math
 import numbers
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.cluster import policy as kpolicy
+from repro_torch.configs.registry import TensorSpec
+from repro_torch.core import addressing, collectives
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.blocks import BLOCKS, _norm, _norm_specs
+from repro_torch.models.blocks import (BLOCKS, _norm, _norm_specs,
+                                      dispatch_group)
 from repro_torch.models.layers import ParamSpec, layer_norm, product
 from repro_torch.optim import (AdamConfig, adam_init, adam_update,
                                warmup_cosine)
@@ -119,24 +130,208 @@ def iter_specs(tree):
             yield from iter_specs(item)
 
 
-def _materialize(tree, generator, device):
+def _materialize(tree, generator, device, take=None):
+    """Draw every leaf in `iter_specs` order; `take` (a tree of
+    `LeafShard`s, or None) keeps each leaf's shard only, one leaf at a
+    time."""
     if isinstance(tree, ParamSpec):
-        return tree.materialize(generator, device)
+        leaf = tree.materialize(generator, device)
+        return leaf if take is None else take.take(leaf)
     if isinstance(tree, dict):
-        return {k: _materialize(tree[k], generator, device)
+        return {k: _materialize(tree[k], generator, device,
+                                None if take is None else take[k])
                 for k in sorted(tree)}
-    return [_materialize(t, generator, device) for t in tree]
+    return [_materialize(t, generator, device,
+                         None if take is None else take[i])
+            for i, t in enumerate(tree)]
 
 
-def init_params(cfg, seed: int = 0, *, device=None, max_seq: int = 4096):
+def init_params(cfg, seed: int = 0, *, device=None, max_seq: int = 4096,
+                shards=None):
     """Random parameters drawn on `device` (None: the GPU) from a seeded
     torch.Generator (the port cannot recreate the reference's jax.random
     streams; tests load the reference's parameters through
-    `weights.from_jax_params`)."""
+    `weights.from_jax_params`). `shards` (a tree of `LeafShard`s like the
+    parameters) keeps each rank's shard of the same draw."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return _materialize(param_specs(cfg, max_seq), gen, device)
+    return _materialize(param_specs(cfg, max_seq), gen, device, shards)
+
+
+# ----------------------------------------------------------------------------
+# The addressing plan's view of the parameters (the reference's layout)
+# ----------------------------------------------------------------------------
+
+def _stacked_specs(layer: dict, n: int) -> dict:
+    return {k: (_stack(v, n) if isinstance(v, ParamSpec)
+                else _stacked_specs(v, n)) for k, v in layer.items()}
+
+
+def _ref_layout(cfg, max_seq: int = 4096) -> dict:
+    """The port's parameter specs in the reference's layout: each pattern
+    position's layers stacked on a leading "layers" axis under
+    ``blocks/sub<i>``, the remainder layers under ``rem/rem<i>``, an
+    encoder's blocks stacked under ``enc/blocks``."""
+    pattern, n_super, remainder = block_plan(cfg)
+    period = len(pattern)
+    specs = param_specs(cfg, max_seq)
+    layers = specs["blocks"]
+    out = {k: v for k, v in specs.items() if k not in ("blocks", "enc")}
+    out["blocks"] = {f"sub{i}": _stacked_specs(layers[i], n_super)
+                     for i in range(period)}
+    if remainder:
+        out["rem"] = {f"rem{i}": layers[n_super * period + i]
+                      for i in range(len(remainder))}
+    if "enc" in specs:
+        enc = specs["enc"]
+        out["enc"] = {k: v for k, v in enc.items() if k != "blocks"}
+        out["enc"]["blocks"] = _stacked_specs(enc["blocks"][0],
+                                              len(enc["blocks"]))
+    return out
+
+
+def _map_dicts(fn, tree):
+    """`fn` on every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_dicts(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def abstract_params(cfg, max_seq: int = 4096):
+    """(shape/dtype tree, logical tree) of the parameters in the
+    reference's layout; `TensorSpec` leaves, nothing allocated."""
+    specs = _ref_layout(cfg, max_seq)
+    return (_map_dicts(lambda s: TensorSpec(tuple(s.shape), s.dtype), specs),
+            _map_dicts(lambda s: tuple(s.logical), specs))
+
+
+def abstract_train_state(cfg, max_seq: int = 4096):
+    """(state shapes, state logical axes) of the train state: the moments
+    take their parameters' shapes (in `moment_dtype`) and logical axes."""
+    from repro_torch.optim.adamw import DTYPES
+    p_sds, p_log = abstract_params(cfg, max_seq)
+    mdt = DTYPES[cfg.moment_dtype]
+    m_sds = _map_dicts(lambda s: TensorSpec(s.shape, mdt), p_sds)
+    state_sds = {"params": p_sds,
+                 "opt": {"m": m_sds, "v": m_sds,
+                         "step": TensorSpec((), torch.int32)}}
+    state_log = {"params": p_log,
+                 "opt": {"m": p_log, "v": p_log, "step": ()}}
+    return state_sds, state_log
+
+
+def tree_paths(tree, prefix: str = ""):
+    """(path, leaf) pairs of a nested dict, the path its keys joined by
+    "/" in sorted order (the reference's `tree_flatten_with_path` order
+    and key form)."""
+    for k in sorted(tree):
+        key = f"{prefix}{k}"
+        if isinstance(tree[k], dict):
+            yield from tree_paths(tree[k], key + "/")
+        else:
+            yield key, tree[k]
+
+
+def param_plan_keys(cfg, max_seq: int = 4096):
+    """A tree like the port's parameters holding, at each leaf, (its key
+    in the plan, whether the plan's leaf stacks it on a "layers" axis)."""
+    pattern, n_super, _ = block_plan(cfg)
+    period = len(pattern)
+    specs = param_specs(cfg, max_seq)
+
+    def under(tree, prefix, stacked):
+        if isinstance(tree, ParamSpec):
+            return (prefix, stacked)
+        return {k: under(v, f"{prefix}/{k}", stacked)
+                for k, v in tree.items()}
+
+    out = {k: under(v, k, False) for k, v in specs.items()
+           if k not in ("blocks", "enc")}
+    out["blocks"] = [
+        under(layer, f"blocks/sub{j % period}", True) if j < n_super * period
+        else under(layer, f"rem/rem{j - n_super * period}", False)
+        for j, layer in enumerate(specs["blocks"])]
+    if "enc" in specs:
+        enc = specs["enc"]
+        out["enc"] = {k: under(v, f"enc/{k}", False) for k, v in enc.items()
+                      if k != "blocks"}
+        out["enc"]["blocks"] = [under(layer, "enc/blocks", True)
+                                for layer in enc["blocks"]]
+    return out
+
+
+def param_partition(cfg, mesh, rules, max_seq: int = 4096):
+    """Each of the port's parameter leaves' spec on `mesh` under `rules`:
+    the plan's spec of its key, less the stacked "layers" dim (which the
+    plan never splits)."""
+    p_sds, p_log = abstract_params(cfg, max_seq)
+    shapes, logical = dict(tree_paths(p_sds)), dict(tree_paths(p_log))
+
+    def one(leaf):
+        key, stacked = leaf
+        spec = rules.spec_for(logical[key], shapes[key].shape, mesh)
+        if not stacked:
+            return spec
+        if spec and spec[0] is not None:
+            raise NotImplementedError(f"{key}: the plan splits the stacked "
+                                      f"layers axis ({spec})")
+        return spec[1:]
+
+    return pytree.tree_map(one, param_plan_keys(cfg, max_seq),
+                           is_leaf=lambda x: isinstance(x, tuple))
+
+
+def check_data_parallel(mesh) -> int:
+    """The size of the mesh's "data" axis, when the data-parallel step can
+    run on the mesh: every other axis is of size 1."""
+    sizes = addressing.mesh_axes(mesh)
+    if "data" not in sizes:
+        raise ValueError(f"mesh axes {tuple(sizes)} have no 'data' axis")
+    wide = {a: n for a, n in sizes.items() if a != "data" and n > 1}
+    if wide:
+        raise NotImplementedError(
+            f"mesh {sizes}: axes {wide} above 1 need the tensor-parallel "
+            f"train step (ROADMAP Queue 1, a later item); the "
+            f"data-parallel step takes only the 'data' axis")
+    return sizes["data"]
+
+
+def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
+    """A `LeafShard` for every leaf of the train state on this rank: a
+    parameter's and its two moments' from the parameter's spec (ZeRO-1:
+    the moments follow their parameters), the step count whole. Shards
+    are spread over the mesh's "data" axis, whose process group they
+    gather over; every other axis must be of size 1. Needs a live
+    DeviceMesh (a rank's coordinates come from it)."""
+    parts = check_data_parallel(mesh)
+    group = mesh.get_group("data")
+    index = dist.get_rank(group)
+
+    def one(spec):
+        dims = [d for d in range(len(spec))
+                if "data" in addressing.spec_axes(spec, d)]
+        if not dims:
+            return addressing.LeafShard(None, device=device)
+        return addressing.LeafShard(dims[0], index, parts, device, group)
+
+    params = pytree.tree_map(one, param_partition(cfg, mesh, rules, max_seq),
+                             is_leaf=lambda x: isinstance(x, tuple))
+    return {"params": params,
+            "opt": {"m": params, "v": params,
+                    "step": addressing.LeafShard(None, device=device)}}
+
+
+def _path_key(path) -> tuple:
+    """A pytree key path as plain keys and indices."""
+    return tuple(getattr(k, "key", getattr(k, "idx", k)) for k in path)
+
+
+def _by_path(tree) -> dict:
+    """{key path: LeafShard} of a tree of `LeafShard`s."""
+    flat, _ = pytree.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, addressing.LeafShard))
+    return {_path_key(path): leaf for path, leaf in flat}
 
 
 # ----------------------------------------------------------------------------
@@ -568,11 +763,13 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
             a.div_(k)
         return lsum / k, {}, gacc
 
-    def update(state, grads):
-        """AdamW on the state, in place -> (opt state, metrics)."""
+    def update(state, grads, norm_reduce=None):
+        """AdamW on the state, in place -> (opt state, metrics).
+        `norm_reduce` (see `adam_update`) makes the clip's norm global
+        over a process group."""
         lr_scale = sched(state["opt"]["step"] + 1)
         _, opt, om = adam_update(state["params"], grads, state["opt"], adam,
-                                 lr_scale)
+                                 lr_scale, norm_reduce=norm_reduce)
         return opt, {"lr_scale": lr_scale, **om}
 
     def scoped(fn):
@@ -595,12 +792,143 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
 
 
 def init_train_state(cfg, seed: int = 0, *, device=None,
-                     max_seq: int = 4096, adam: AdamConfig | None = None):
+                     max_seq: int = 4096, adam: AdamConfig | None = None,
+                     shards=None):
     """{"params", "opt": {"m", "v", "step"}} on `device` (None: the GPU);
-    the parameters from `init_params(cfg, seed)`."""
+    the parameters from `init_params(cfg, seed)`. With `shards` (a
+    `state_shards` tree) each leaf is this rank's shard of that state:
+    the same draw, each parameter cut to its shard as it is drawn, and
+    zero moments of the shards' shapes."""
     adam = adam or AdamConfig(moment_dtype=cfg.moment_dtype)
-    params = init_params(cfg, seed, device=device, max_seq=max_seq)
+    params = init_params(cfg, seed, device=device, max_seq=max_seq,
+                         shards=None if shards is None else shards["params"])
     return {"params": params, "opt": adam_init(params, adam)}
+
+
+def make_sharded_train_step(cfg, mesh, *, rules=None,
+                            adam: AdamConfig | None = None,
+                            schedule_kwargs: dict | None = None, policy=None,
+                            max_seq: int = 4096):
+    """The data-parallel train step over `mesh`'s "data" axis (a live
+    DeviceMesh; every other axis of size 1, else NotImplementedError):
+    `train_step(state, batch) -> (state, metrics)` where `state` holds
+    this rank's shards (`state_shards`: the plan's spec of each leaf
+    under `rules`, the cluster's default rules when None) and `batch`
+    this rank's rows of the global batch (`data.Distributor`).
+
+    A step gathers every split parameter whole (`all_gather` along its
+    split dim), takes the local rows' loss and gradients through
+    `make_train_step`'s `accumulate` (the same fused ops and autograd
+    Functions, `grad_accum` micro-splitting the local rows), and reduces
+    each gradient to its mean over the ranks in f32: a split leaf's by
+    `reduce_scatter` to this rank's shard, a replicated one's by
+    `all_reduce`. AdamW then updates the local shards in place, its clip
+    reading the global norm: the per-leaf sums of squares of the split
+    leaves summed over the ranks, each replicated leaf's counted once.
+    The metrics (loss, and with grad_accum 1 its parts) are the ranks'
+    mean. On a group of one rank every collective is an identity and the
+    step equals `make_train_step`'s bit for bit.
+
+    An MoE model's step is the reference's on the global batch: its
+    layers dispatch within `blocks.dispatch_group` (capacity, slot places
+    and the load-balance loss over every rank's tokens), and with
+    grad_accum k > 1 the ranks first exchange rows (one all_gather of the
+    batch) so that a rank's i-th microbatch is its block of the global
+    batch's i-th (the reference's micro-split), not of its own rows. A
+    dense model's micro-split needs no exchange: its mean gradient does
+    not depend on which rows share a microbatch.
+
+    Each parameter is gathered whole for the whole step and its gradient
+    exists whole until the step reduces it, so only the moments' memory
+    falls with the ranks (ROADMAP Queue 1: the per-layer gather).
+
+    `train_step.shards` is the `state_shards` tree (no device) and
+    `.gather(params)` the parameters whole."""
+    rules = rules or addressing.default_rules(mesh,
+                                              overrides=cfg.rules_overrides)
+    shards = state_shards(cfg, mesh, rules, max_seq=max_seq)
+    group = mesh.get_group("data")
+    ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    by_path = _by_path(shards["params"])
+    plain = make_train_step(cfg, adam=adam, schedule_kwargs=schedule_kwargs,
+                            policy=policy)
+    pol = kpolicy.as_policy(policy) if policy is not None else None
+    k = cfg.grad_accum
+    regroup = k > 1 and "attn_moe" in layer_kinds(cfg)
+
+    def leaves_and_shards(tree):
+        """The tree's leaves (in its own order), their shards, its spec."""
+        flat, spec = pytree.tree_flatten_with_path(tree)
+        return ([leaf for _, leaf in flat],
+                [by_path[_path_key(path)] for path, _ in flat], spec)
+
+    def gather(params):
+        leaves, owners, spec = leaves_and_shards(params)
+        return pytree.tree_unflatten(
+            [s.gather(p) for s, p in zip(owners, leaves)], spec)
+
+    def micro_rows(batch, device):
+        """This rank's rows of each of the global batch's k microbatches,
+        the microbatches one after another (from every rank's rows)."""
+        out = {}
+        for key, v in _on(device, batch).items():
+            whole = collectives.all_gather_dim(v, 0, group,
+                                               name="batch_all_gather")
+            m = v.shape[0] // k
+            rows = (torch.arange(k, device=device)[:, None] * ranks * m
+                    + rank * m + torch.arange(m, device=device)).reshape(-1)
+            out[key] = whole[rows]
+        return out
+
+    def reduce_leaves(leaves, owners, spec):
+        """`leaves` (a list this function empties as it goes, so each
+        whole gradient is freed once reduced) -> the tree of means."""
+        out = []
+        for i, s in enumerate(owners):
+            g = leaves[i].to(F32)
+            leaves[i] = None
+            if s.sharded:
+                g = collectives.reduce_scatter_dim(g, s.dim, group)
+            else:
+                g = collectives.all_reduce(g, group)
+            out.append(g.div_(ranks))
+        return pytree.tree_unflatten(out, spec)
+
+    def norm_reduce(split: list):
+        """`adam_update`'s `norm_reduce` for leaves split as `split`
+        says: the split leaves' sums of squares summed over the ranks."""
+        def run(sums):
+            mask = torch.tensor(split, dtype=torch.bool, device=sums.device)
+            total = collectives.all_reduce(sums * mask, group)
+            return torch.where(mask, total, sums)
+        return run
+
+    def mean_metrics(metrics: dict) -> dict:
+        keys = list(metrics)
+        flat = collectives.all_reduce(
+            torch.stack([metrics[k].to(F32) for k in keys]), group)
+        return dict(zip(keys, flat.div_(ranks).unbind()))
+
+    def train_step(state, batch):
+        with kpolicy.scoped(pol), dispatch_group(group):
+            full = gather(state["params"])
+            if regroup:
+                batch = micro_rows(batch, pytree.tree_leaves(full)[0].device)
+            loss, parts, grads = plain.accumulate(full, batch)
+            del full
+            leaves, owners, spec = leaves_and_shards(grads)
+            del grads
+            grads = reduce_leaves(leaves, owners, spec)
+            opt, om = plain.update(state, grads,
+                                   norm_reduce([s.sharded for s in owners]))
+            means = mean_metrics({"loss": loss, **parts})
+            metrics = {"loss": means.pop("loss"),
+                       "lr_scale": om.pop("lr_scale"), **om}
+            return {"params": state["params"], "opt": opt}, metrics | means
+
+    train_step.shards = shards
+    train_step.gather = gather
+    return train_step
 
 
 def make_prefill_step(cfg, *, policy=None) -> Graphed:

@@ -1,7 +1,8 @@
 """The optimizer of the port (`repro.optim`): AdamW with f32 update math,
-the warmup-cosine schedule and the data-parallel reduction's gradient
-compression (`compress.py`; the train step that reduces over several
-cards is ROADMAP Queue 1 L)."""
+the warmup-cosine schedule and the gradient compression of the
+reference (`compress.py`). The data-parallel train step
+(`models/steps.make_sharded_train_step`) reduces in f32 without it, as
+the reference's step does."""
 
 from .adamw import AdamConfig, adam_init, adam_update, global_norm
 from .compress import (compress_decompress, compressed_psum,

@@ -58,8 +58,10 @@ def _slices(*tensors):
         yield [f[lo:lo + SLICE] for f in flats]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (0-d tensor)."""
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32 (0-d tensor).
+    `reduce` maps the (leaves,) vector of per-leaf sums before the total:
+    a sharded tree's shards summed over a process group."""
     sums = []
     for g in pytree.tree_leaves(tree):
         s = None
@@ -67,17 +69,22 @@ def global_norm(tree) -> torch.Tensor:
             t = torch.sum(torch.square(part.to(F32)))
             s = t if s is None else s + t
         sums.append(s)
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    sums = torch.stack(sums)
+    if reduce is not None:
+        sums = reduce(sums)
+    return torch.sqrt(torch.sum(sums))
 
 
 @torch.no_grad()
-def adam_update(params, grads, opt_state, cfg: AdamConfig, lr_scale=1.0):
+def adam_update(params, grads, opt_state, cfg: AdamConfig, lr_scale=1.0, *,
+                norm_reduce=None):
     """One AdamW step, in place: `params`, ``opt_state["m"]`` / ``["v"]``
     and ``opt_state["step"]`` are updated and returned, with the metrics
     ``{"grad_norm": ...}``. `grads` is a tree like `params` (any float
-    dtype)."""
+    dtype). `norm_reduce` is `global_norm`'s `reduce`: with shards of a
+    tree, the clip reads the whole tree's norm."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, norm_reduce)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0)
     t = step.to(F32)

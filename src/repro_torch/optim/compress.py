@@ -16,8 +16,10 @@ first-order lever. Two schemes:
 are plain tensor functions whose codes, scales and round trips are the
 reference's bit for bit. `compressed_psum` reduces over the
 `torch.distributed` process group it is given (the reference's runs
-under `shard_map` over a mesh axis). The train step that calls it over
-several cards is ROADMAP Queue 1 L.
+under `shard_map` over a mesh axis). No train step calls it: the
+reference's step has no compression (`compressed_psum` is used nowhere
+in the reference outside its own module), and neither has the port's
+data-parallel step.
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ the loop runs K steps a host round-trip: the straggler detector and the
 log sample at chunk granularity and the host syncs once a chunk. The
 state is updated in place by the step; a checkpoint takes its host copy
 when `save` is called, before the next step runs.
+
+A data-parallel run passes `state_shardings` (the state's `LeafShard`s):
+its checkpoints then hold whole leaves, gathered from every rank and
+written by the one rank with ``writer=True``, and a resume restores each
+rank's shards from them, at whatever world size wrote them.
 """
 
 from __future__ import annotations
@@ -70,14 +75,17 @@ def _crossed(prev: int, step: int, every: int) -> bool:
 
 class TrainLoop:
     def __init__(self, cfg: TrainLoopConfig, train_step: Callable, state,
-                 batch_iter, *, train_chunk: Callable | None = None):
+                 batch_iter, *, train_chunk: Callable | None = None,
+                 state_shardings=None, writer: bool = True):
         self.cfg = cfg
         self.train_step = train_step
         self.train_chunk = train_chunk
         self.state = state
         self.batch_iter = batch_iter
+        self.state_shardings = state_shardings
         self.ckpt = CheckpointManager(cfg.checkpoint_dir,
-                                      keep=cfg.keep_checkpoints)
+                                      keep=cfg.keep_checkpoints,
+                                      writer=writer)
         self.straggler = StragglerDetector(cfg.straggler_z,
                                            cfg.straggler_warmup)
         self.metrics_log: list[dict] = []
@@ -100,7 +108,8 @@ class TrainLoop:
         step = self.ckpt.latest_step()
         if step is None:
             return 0
-        self.state = self.ckpt.restore(step, self.state)
+        self.state = self.ckpt.restore(step, self.state,
+                                       shardings=self.state_shardings)
         return step
 
     # -- main loop ------------------------------------------------------------
@@ -147,9 +156,11 @@ class TrainLoop:
                     row["steps_in_chunk"] = k
                 self.metrics_log.append(row)
             if _crossed(prev, step, self.cfg.checkpoint_every):
-                self.ckpt.save(step, self.state)
+                self.ckpt.save(step, self.state,
+                               shardings=self.state_shardings)
         # final checkpoint on natural end or preemption
-        self.ckpt.save(step, self.state, block=True)
+        self.ckpt.save(step, self.state, block=True,
+                       shardings=self.state_shardings)
         self.ckpt.wait()
         return {"final_step": step,
                 "preempted": self._preempted,

@@ -36,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
+
+import torch_ranks
 
 from repro.checkpoint.manager import CheckpointManager as JManager
 from repro.optim import compress as jc
@@ -152,27 +153,12 @@ def test_compressed_psum_needs_a_group():
         tc.compressed_psum({"w": torch.ones(4)})       # no group argument
 
 
-def _two_rank_worker(rank, path, method, out_dir):
-    torch.set_num_threads(1)
-    store = dist.FileStore(path, 2)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=2)
-    try:
-        g = jax.tree.map(torch.from_numpy, _grads(100 + rank))
-        red, err = tc.compressed_psum(g, dist.group.WORLD, method)
-        flat = [t.numpy() for t in jax.tree.leaves(red)]
-        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
-                 *flat, *[t.numpy() for t in jax.tree.leaves(err)])
-    finally:
-        dist.destroy_process_group()
-
-
 @pytest.mark.parametrize("method", ["bf16", "int8_ef"])
 def test_compressed_psum_two_ranks_sums_against_numpy(tmp_path, method):
-    mp.start_processes(_two_rank_worker,
-                       args=(str(tmp_path / "store"), method,
-                             str(tmp_path)),
-                       nprocs=2, join=True, start_method="spawn")
-    outs = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    ranks = torch_ranks.run_ranks(
+        [("compressed_psum", dict(grads=[_grads(100 + r) for r in range(2)],
+                                  method=method))], 2, tmp_path)
+    outs = [{f"arr_{i}": a for i, a in enumerate(r[0])} for r in ranks]
     gs = [jax.tree.leaves(_grads(100 + r)) for r in range(2)]
     n = len(gs[0])
     sents = []

@@ -2417,3 +2417,68 @@ def test_cuda_restore_places_leaves_on_the_card(cuda, tmp_path):
                            state["w"].view(torch.int16))
     assert got["step"].device == torch.device("cpu")
 
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_train_step_of_one_rank_is_the_plain_step(cuda,
+                                                               tmp_path):
+    """A reduced qwen3 (2 layers, d_model 1024, 8 / 2 heads of 128, vocab
+    8192; grad_accum 2) under "fused": the data-parallel step over a
+    (data=1, model=1) DeviceMesh of a one-rank NCCL group equals the plain
+    step bit for bit over 2 steps (every collective an identity), issues
+    its collectives and launches rows 1-3 as the plain step does; a
+    checkpoint of its state restores onto its shards."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get
+    from repro_torch.core import addressing, collectives
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2, d_model=1024,
+                              n_heads=8, n_kv_heads=2, head_dim=128,
+                              d_ff=3456, vocab=8192, grad_accum=2)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    batches = [{k: torch.randint(0, cfg.vocab, (4, 256), generator=gen,
+                                 device=cuda, dtype=torch.int32)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    kw = {"schedule_kwargs": {"warmup": 1, "total": 4}, "policy": "fused"}
+    plain = steps.make_train_step(cfg, **kw)
+    a = steps.init_train_state(cfg, 0, device=cuda, max_seq=256)
+    launches.reset_counts()
+    for b in batches:
+        a, ma = plain(a, b)
+    want = {n: c["launches"] for n, c in launches.counts().items()}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_device_mesh(addressing.MeshSpec((1, 1),
+                                                    ("data", "model")))
+        rules = addressing.default_rules(mesh)
+        shards = steps.state_shards(cfg, mesh, rules, device=cuda,
+                                    max_seq=256)
+        step = steps.make_sharded_train_step(cfg, mesh, max_seq=256, **kw)
+        s = steps.init_train_state(cfg, 0, device=cuda, max_seq=256,
+                                   shards=shards)
+        launches.reset_counts()
+        collectives.reset_counts()
+        for b in batches:
+            s, ms = step(s, b)
+        torch.cuda.synchronize()
+        assert {n: c["launches"] for n, c in
+                launches.counts().items()} == want
+        assert collectives.counts()["all_gather"] > 0
+        assert float(ms["loss"]) == float(ma["loss"])
+        pytree.tree_map(lambda x, y: None if torch.equal(x, y)
+                        else pytest.fail("a leaf differs"), s, a)
+        mgr = CheckpointManager(tmp_path, async_save=False)
+        mgr.save(2, s, shardings=shards)
+        back = mgr.restore(2, s, shardings=shards)
+        pytree.tree_map(lambda x, y: None if torch.equal(x, y)
+                        else pytest.fail("a restored leaf differs"), back, s)
+    finally:
+        dist.destroy_process_group()

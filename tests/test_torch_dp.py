@@ -1,0 +1,369 @@
+"""repro_torch's data-parallel train step against its one-process step
+and the reference's, in spawned gloo ranks on the CPU
+(`tests/torch_ranks.py`: a `FileStore` under `tmp_path`, one thread a
+rank, every spawn joined against its own deadline and killed past it).
+
+* 2- and 4-rank sharded steps on qwen3-14b-smoke (f32, 3 steps, a global
+  batch of 8 x 16, each rank its rows), at grad_accum 1 and 2, and on
+  mixtral-8x7b-smoke at grad_accum 1 and 2 (MoE: the dispatch's capacity,
+  slot places and load-balance loss span every rank's tokens): losses,
+  grad norms and the whole state after the steps equal the port's
+  one-process step and the reference's jitted step with the same
+  grad_accum on the same global batch. Each rank's shards have the plan's
+  shard shapes; a step issues one all_gather and one reduce_scatter a
+  split parameter and one all_reduce a replicated one, plus the norm's
+  and the metrics', and an MoE step its dispatch's and (grad_accum 2) its
+  exchange of rows.
+* `TrainProgram` on a (2, 1) mesh: a run preempted after step 2 (SIGTERM
+  to every rank) writes whole leaves once; resumed at 4 ranks and at 1
+  it logs the uninterrupted 2-rank run's losses for steps 3-4.
+* `api.train(mesh=...)` at 2 ranks, `launch/train.py` under a torchrun
+  environment at 2 ranks, and `--data-axis 1` in this process (its own
+  one-rank group): bit-equal to the plain run there; a model axis above
+  1 raises, naming the tensor-parallel step.
+
+Tolerances: f32 losses, grad norms and lr scales within 1e-5 relative
+(mixtral's later steps against the reference 5e-5: `MOE_LATER`); the
+whole state within 1e-5 relative L2 (mixtral's against the reference
+5e-5) (sum order alone moves it: the
+ranks reduce in another order than one process accumulates). bf16 runs
+(the programs, the API and the launcher, whose parameters are bf16):
+losses within 2e-3 relative across world sizes, equal within one.
+"""
+
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+import dataclasses
+import json
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+
+import torch_parity
+import torch_ranks
+from repro.configs import get as jget
+from repro.models import steps as jsteps
+from repro_torch import api as tapi
+from repro_torch import weights
+from repro_torch.cluster import Cluster, TrainProgram
+from repro_torch.configs import get as tget
+from repro_torch.core import addressing
+from repro_torch.core.addressing import MeshSpec
+from repro_torch.launch import train as cli
+from repro_torch.models import steps as tsteps
+
+DENSE, MOE = "qwen3-14b-smoke", "mixtral-8x7b-smoke"
+SCHED = {"warmup": 1, "total": 10}
+B, S, N_STEPS = 8, 16, 3
+# (ranks, arch, grad_accum a rank)
+CASES = [(2, DENSE, 1), (2, DENSE, 2), (2, MOE, 1), (2, MOE, 2),
+         (4, DENSE, 1)]
+# mixtral against the reference after step 1: AdamW's first update
+# moves each element by about lr x sign(g), and the router's near-zero
+# gradients take either sign in the two packages' sum orders, so the
+# second step's gradient norm parts by ~1.1e-5 and the first moments by
+# 1.8e-5 relative L2 after three steps (the port's one-process step parts
+# from the reference's by as much)
+MOE_LATER = 5e-5
+PROG = dict(num_steps=4, batch=8, seq=16, warmup=1, log_every=1,
+            checkpoint_every=2)
+CLI = ["--device", "cpu", "--arch", "qwen3-14b", "--smoke", "--steps", "3",
+       "--batch", "4", "--seq", "16", "--no-resume"]
+
+
+def _batches():
+    rng = np.random.default_rng(40)
+    return [{k: torch.from_numpy(rng.integers(0, 256, (B, S)).astype(
+        np.int32)) for k in ("tokens", "labels")} for _ in range(N_STEPS)]
+
+
+_INIT = {}
+
+
+def _initial(arch):
+    """The initial train state of `arch` (the port's seeded draw in f32,
+    zero moments) for the reference and a fresh port copy of it (the
+    port's step updates it in place)."""
+    if arch not in _INIT:
+        drawn = tsteps.init_params(tget(arch), 0, device="cpu", max_seq=S)
+        params = torch_parity.reference_tree(tget(arch), drawn)
+        zeros = jax.tree.map(np.zeros_like, params)
+        host = {"params": params, "opt": {"m": zeros, "v": zeros,
+                                          "step": np.zeros((), np.int32)}}
+        _INIT[arch] = jax.tree.map(jnp.asarray, host), host
+    js, host = _INIT[arch]
+    return js, weights.from_jax_train_state(host, device="cpu")
+
+
+def _case_id(case):
+    ranks, arch, ga = case
+    return f"{ranks}-{arch.split('-')[0]}-accum{ga}"
+
+
+def _jobs(tmp, ranks):
+    jobs = []
+    for case in [c for c in CASES if c[0] == ranks]:
+        _, arch, ga = case
+        state = tmp / f"{arch}-state.pt"
+        if not state.exists():
+            torch.save(_initial(arch)[1], state)
+        jobs.append(("sharded_steps", dict(
+            arch=arch, grad_accum=ga, state=str(state),
+            batches=str(tmp / "batches.pt"), schedule_kwargs=SCHED)))
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every spawned run of this module, the three worlds at once (2 and
+    4 gloo ranks, and 2 launcher processes): {2: rank results, 4: ...,
+    "cli": ..., "resumed_1": the 1-rank resume, run in this process}. The
+    4-rank resume waits for the 2-rank run's copy of its checkpoint."""
+    tmp = tmp_path_factory.mktemp("dp")
+    torch.save(_batches(), tmp / "batches.pt")
+    cut = str(tmp / "cut")
+    two = [
+        ("program", dict(arch=DENSE, checkpoint_dir=cut, preempt_after=2,
+                         copies=(cut + "4", cut + "1"), **PROG)),
+        ("program", dict(arch=DENSE, checkpoint_dir=str(tmp / "whole"),
+                         **PROG)),
+        ("api_train", dict(checkpoint_dir=str(tmp / "api"), num_steps=2,
+                           batch=4, seq=16)),
+        ("model_axis", {})] + _jobs(tmp, 2)
+    four = _jobs(tmp, 4) + [
+        ("program", dict(arch=DENSE, checkpoint_dir=cut + "4", resume=True,
+                         wait_for=cut + "4.done", **PROG))]
+    worlds = {2: torch_ranks.start_ranks(two, 2, tmp / "two"),
+              4: torch_ranks.start_ranks(four, 4, tmp / "four"),
+              "cli": torch_ranks.start_ranks(
+                  [("cli", dict(port=torch_ranks.free_port(), argv=CLI + [
+                      "--checkpoint-dir", str(tmp / "cli2")]))], 2,
+                  tmp / "cli", group=False)}
+    out = {k: w.wait() for k, w in worlds.items()}
+    out["resumed_1"] = torch_ranks.in_process(
+        [("program", dict(arch=DENSE, checkpoint_dir=cut + "1", resume=True,
+                          **PROG))], tmp / "one")[0]
+    out["cut"] = tmp / "cut"
+    return out
+
+
+def _result(runs, case):
+    ranks, arch, ga = case
+    index = [c for c in CASES if c[0] == ranks].index(case)
+    first = 4 if ranks == 2 else 0           # the 2-rank world's 4 others
+    return [r[first + index] for r in runs[ranks]]
+
+
+_ONE = {}
+
+
+def _one_process(arch, ga, ref: bool):
+    """(metrics of each step, final state) of the port's step (`ref`
+    False) or the reference's jitted step (`FAST_COMPILE`) on the whole
+    batches."""
+    key = (arch, ga, ref)
+    if key not in _ONE:
+        js, ts = _initial(arch)
+        kw = {"schedule_kwargs": SCHED, "policy": "fused"}
+        rows = []
+        if ref:
+            jbs = [{k: jnp.asarray(v.numpy()) for k, v in b.items()}
+                   for b in _batches()]
+            step = jax.jit(jsteps.make_train_step(
+                dataclasses.replace(jget(arch), grad_accum=ga), **kw)).lower(
+                    js, jbs[0]).compile(
+                        compiler_options=torch_parity.FAST_COMPILE)
+            for jb in jbs:
+                js, m = step(js, jb)
+                rows.append({k: float(v) for k, v in m.items()})
+            state = weights.from_jax_train_state(
+                jax.tree.map(lambda a: np.asarray(a, np.float32), js),
+                device="cpu")
+        else:
+            step = tsteps.make_train_step(
+                dataclasses.replace(tget(arch), grad_accum=ga), **kw)
+            for b in _batches():
+                ts, m = step(ts, b)
+                rows.append({k: float(v) for k, v in m.items()})
+            state = ts
+        _ONE[key] = rows, state
+    return _ONE[key]
+
+
+def _close_states(got, want, tol=1e-5):
+    for part in ("params", "m", "v"):
+        g = got["params"] if part == "params" else got["opt"][part]
+        w = want["params"] if part == "params" else want["opt"][part]
+        num = sum(pytree.tree_leaves(pytree.tree_map(
+            lambda a, b: float(((a.float() - b.float()) ** 2).sum()), g, w)))
+        den = sum(float((b.float() ** 2).sum())
+                  for b in pytree.tree_leaves(w))
+        assert (num / den) ** 0.5 < tol, (part, (num / den) ** 0.5)
+    assert int(got["opt"]["step"]) == int(want["opt"]["step"]) == N_STEPS
+
+
+def _close_metrics(got, want, keys, later=1e-5):
+    """Step 1 within 1e-5; later steps within `later`."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = 1e-5 if i == 0 else later
+        for k in keys:
+            assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), (k, g, w)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_sharded_steps_equal_one_process_and_reference(runs, case):
+    ranks, arch, ga = case
+    res = _result(runs, case)
+    for r in res[1:]:                        # every rank logs the mean
+        assert r["metrics"] == res[0]["metrics"]
+    got = res[0]
+    keys = ["loss", "grad_norm", "lr_scale"] + (["ce", "aux"] if ga == 1
+                                                else [])
+    assert sorted(got["metrics"][0]) == sorted(keys)
+    for ref in (False, True):
+        want, state = _one_process(arch, ga, ref)
+        _close_metrics(got["metrics"], want, keys,
+                       later=MOE_LATER if ref and arch == MOE else 1e-5)
+        _close_states(got["state"], state,
+                      MOE_LATER if ref and arch == MOE else 1e-5)
+    if arch == MOE and ga == 1:
+        assert all(m["aux"] > 0 for m in got["metrics"])
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_each_ranks_shards_have_the_plans_shapes(runs, case):
+    """Every rank's parameter and moment shards have the shard shape of
+    the leaf's spec in the plan of a (ranks, 1) mesh; split leaves are
+    split over the data axis, the step count is whole."""
+    ranks, arch, ga = case
+    cfg = tget(arch)
+    mesh = MeshSpec((ranks, 1), ("data", "model"))
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    specs = tsteps.param_partition(cfg, mesh, rules, max_seq=S)
+    whole = _initial(arch)[1]["params"]
+    want = pytree.tree_map(
+        lambda spec, t: addressing.shard_shape(spec, t.shape, mesh),
+        specs, whole, is_leaf=lambda x: isinstance(x, tuple))
+    n_split = 0
+    for r in _result(runs, case):
+        shapes = r["shapes"]
+        assert shapes["params"] == shapes["opt"]["m"] == \
+            shapes["opt"]["v"] == want
+        assert shapes["opt"]["step"] == ()
+        n_split = sum(a != tuple(t.shape) for a, t in zip(
+            pytree.tree_leaves(want, is_leaf=lambda x: isinstance(
+                x, tuple)), pytree.tree_leaves(whole)))
+    assert n_split > 0
+
+
+def _split(spec) -> bool:
+    return any("data" in addressing.spec_axes(spec, d)
+               for d in range(len(spec)))
+
+
+@pytest.mark.parametrize("case", CASES[:1] + CASES[2:], ids=_case_id)
+def test_a_step_issues_its_collectives(runs, case):
+    """One all_gather and one reduce_scatter a split parameter (each
+    counting the whole leaf's f32 bytes here), one all_reduce a
+    replicated one, and two more: the norm's sums and the metrics. An
+    MoE layer's dispatch gathers its counts in each forward pass of each
+    microbatch (the layer's own and backward's recompute) and sums its
+    load-balance terms then and once in backward; with grad_accum 2 the
+    ranks first exchange the batch's two arrays."""
+    ranks, arch, ga = case
+    cfg = tget(arch)
+    mesh = MeshSpec((ranks, 1), ("data", "model"))
+    specs = tsteps.param_partition(cfg, mesh, addressing.default_rules(
+        mesh, overrides=cfg.rules_overrides), max_seq=S)
+    whole = _initial(arch)[1]["params"]
+    split = pytree.tree_leaves(pytree.tree_map(
+        lambda spec, t: 4 * t.numel() if _split(spec) else 0, specs, whole,
+        is_leaf=lambda x: isinstance(x, tuple)))
+    counts = _result(runs, case)[0]["counts"]
+    n = sum(b > 0 for b in split)
+    assert counts["all_gather"] == counts["reduce_scatter"] == n > 0
+    assert counts["all_reduce"] == len(split) - n + 2
+    assert counts["all_gather_bytes"] == counts["reduce_scatter_bytes"] \
+        == sum(split)
+    moe = sum(k == "attn_moe" for k in tsteps.layer_kinds(cfg))
+    passes = 2 if cfg.remat == "nothing" else 1
+    assert counts.get("dispatch_all_gather", 0) == ga * moe * passes
+    assert counts.get("dispatch_all_reduce", 0) == ga * moe * (passes + 1)
+    assert counts.get("batch_all_gather", 0) == (2 if arch == MOE and ga > 1
+                                          else 0)
+
+
+def test_checkpoint_at_two_ranks_resumes_at_one_and_four(runs):
+    """Steps 3-4 of a run preempted at step 2 on 2 ranks, resumed on 4
+    and on 1, log the uninterrupted 2-rank run's losses; the checkpoint
+    holds whole leaves (the unsharded state's shapes), written once."""
+    cut, whole = runs[2][0][:2]
+    assert whole["final_step"] == 4 and not whole["preempted"]
+    assert cut["final_step"] == 2 and cut["preempted"]
+    assert sorted(whole["losses"]) == [1, 2, 3, 4]
+    assert {k: whole["losses"][k] for k in (1, 2)} == cut["losses"]
+    for r in runs[2]:
+        assert r[1]["losses"] == whole["losses"]
+    resumed = [runs[4][0][-1], runs["resumed_1"]]
+    for rep in resumed:
+        assert rep["final_step"] == 4 and sorted(rep["losses"]) == [3, 4]
+        for k in (3, 4):
+            assert abs(rep["losses"][k] - whole["losses"][k]) <= \
+                2e-3 * whole["losses"][k], (k, rep["losses"])
+    manifest = json.loads((runs["cut"] / "step-000000002" /
+                           "manifest.json").read_text())
+    plain = tsteps.init_train_state(tget(DENSE), 0, device="cpu",
+                                    max_seq=16)
+    from repro_torch.checkpoint.manager import _items
+    assert {k: tuple(v["shape"]) for k, v in
+            manifest["leaves"].items()} == {
+                k: tuple(np.shape(v)) for k, v in _items(plain)}
+    # the 1-rank resume holds whole leaves too
+    assert runs["resumed_1"]["shapes"] == [
+        tuple(t.shape) for t in pytree.tree_leaves(plain["params"])]
+
+
+def test_api_train_and_launcher_on_a_mesh(runs, tmp_path, capsys):
+    """api.train(mesh=) at 2 ranks keeps the one-process report's keys
+    and losses; the launcher under a torchrun environment at 2 ranks
+    runs; `--data-axis 1` in one process (its own one-rank group) logs
+    the plain run's losses bit for bit."""
+    plain = tapi.train("qwen3-14b", num_steps=2, batch=4, seq=16,
+                       device="cpu", checkpoint_dir=str(tmp_path / "api"))
+    for r in runs[2]:
+        got = r[2]
+        assert got["keys"] == sorted(plain)
+        assert got["final_step"] == 2
+        for a, b in zip(got["losses"], [m["loss"] for m in
+                                        plain["metrics"]]):
+            assert abs(a - b) <= 2e-3 * b
+    argv = CLI
+    two = runs["cli"]
+    alone = cli.main(argv + ["--checkpoint-dir", str(tmp_path / "plain")])
+    one = cli.main(argv + ["--checkpoint-dir", str(tmp_path / "one"),
+                           "--data-axis", "1"])
+    assert not dist.is_initialized()          # the launcher's group ended
+    want = [m["loss"] for m in alone["metrics"]]
+    assert [m["loss"] for m in one["metrics"]] == want
+    for r in two:
+        assert r[0]["final_step"] == 3
+        for a, b in zip(r[0]["losses"], want):
+            assert abs(a - b) <= 2e-3 * b
+    assert "final step 3" in capsys.readouterr().out
+
+
+def test_a_model_axis_above_one_raises(runs):
+    for r in runs[2]:
+        assert "tensor-parallel" in r[3]
+    cluster = Cluster(DENSE, MeshSpec((1, 2), ("data", "model")),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        cluster.compile(TrainProgram(num_steps=1))
+    with pytest.raises(RuntimeError, match="no process group"):
+        Cluster(DENSE, MeshSpec((1, 1), ("data", "model")),
+                device="cpu").compile(TrainProgram(num_steps=1))

@@ -34,6 +34,7 @@ from repro_torch import api as tapi
 from repro_torch import weights
 from repro_torch.cluster import session as tsession
 from repro_torch.configs import get as tget
+from repro_torch.core.addressing import MeshSpec
 from repro_torch.kernels import tunedb as ttunedb
 from repro_torch.models import steps as tsteps
 from repro_torch.runtime import serve_loop as tserve_loop
@@ -338,14 +339,24 @@ def test_api_serve_matches_reference(params, chunk):
 
 
 @pytest.mark.parametrize("name,kwargs,item", [
-    # the id keeps the name this case had while meshes were Queue 1 I
-    pytest.param("train", {"mesh": object(), "device": "cpu"}, "Queue 1 L",
+    # the ids keep the names these cases had while meshes were Queue 1 I
+    # and the plan Queue 1 K
+    pytest.param("train", {"mesh": MeshSpec((1, 2), ("data", "model")),
+                           "device": "cpu"}, "tensor-parallel",
                  id="train-kwargs0-Queue 1 I"),
-    ("plan", {}, "Queue 1 K")])
+    pytest.param("plan", {"mesh": MeshSpec((16, 16), ("data", "model")),
+                          "device": "cpu"}, None,
+                 id="plan-kwargs1-Queue 1 K")])
 def test_api_unported_entry_points_raise(name, kwargs, item):
-    """What the port's entry points still refuse names its ROADMAP item:
-    `plan` (the addressing plan) and, since training is ported,
-    `train`'s `mesh=` (the data-parallel train step)."""
+    """What the port's entry points still refuse names what it waits for:
+    `train` on a mesh with a model axis above 1 (the tensor-parallel
+    step; the data axis runs). `plan`, refused until the planner was
+    ported, returns the plan (tests/test_torch_addressing.py holds it to
+    the reference's)."""
+    if item is None:
+        plan = getattr(tapi, name)("qwen3-14b", **kwargs)
+        assert plan["unembed"]["spec"] == ("data", "model")
+        return
     with pytest.raises(NotImplementedError, match=item):
         getattr(tapi, name)("qwen3-14b", **kwargs)
 

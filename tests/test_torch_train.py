@@ -53,6 +53,7 @@ from repro_torch import weights
 from repro_torch.cluster import session as tsession
 from repro_torch.cluster.policy import use_policy as tuse
 from repro_torch.configs import get as tget
+from repro_torch.core.addressing import MeshSpec
 from repro_torch.kernels import fused, launches, ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import steps as tsteps
@@ -732,7 +733,8 @@ def test_train_program_resume_and_double_buffer(tmp_path):
 
 def test_api_train_matches_reference_keys(tmp_path):
     """api.train's report keys equal the reference's; `steps_` warns and
-    works; `mesh=` is refused, naming its ROADMAP items."""
+    works; a `mesh=` with a model axis above 1 is refused, naming the
+    tensor-parallel step (the data axis runs: tests/test_torch_dp.py)."""
     kw = dict(num_steps=2, batch=2, seq=16)
     want = japi.train("qwen3-14b", checkpoint_dir=str(tmp_path / "j"), **kw)
     got = tapi.train("qwen3-14b", checkpoint_dir=str(tmp_path / "t"),
@@ -745,15 +747,16 @@ def test_api_train_matches_reference_keys(tmp_path):
                          checkpoint_dir=str(tmp_path / "alias"),
                          device="cpu")
     assert rep["final_step"] == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 L"):
-        tapi.train("qwen3-14b", mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        tapi.train("qwen3-14b", mesh=MeshSpec((1, 2), ("data", "model")),
+                   device="cpu")
 
 
 def test_cli_and_example_run_on_the_cpu(tmp_path, capsys):
     """`python -m repro_torch.launch.train --device cpu --arch qwen3-14b
     --smoke --steps 3` and `examples/train_lm_torch.py --fast` (2 steps,
-    small batch) run; --data-axis past the port's one device is
-    refused."""
+    small batch) run; a --data-axis that does not divide the ranks (one
+    process, no torchrun: one rank) is refused."""
     from repro_torch.launch import train as cli
     rep = cli.main(["--device", "cpu", "--arch", "qwen3-14b", "--smoke",
                     "--steps", "3", "--checkpoint-dir",

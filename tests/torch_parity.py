@@ -1,8 +1,10 @@
-"""Helpers the port's parity tests of mixed-kind archs share
-(`test_torch_recurrent.py`, `test_torch_vlm.py`): parameters loaded into
-both packages, decode caches cast to f32 on both sides, a layer's cache
-leaves read from the reference's `sub{i}` / `rem{i}` tree and from the
-port's groups, and a session served to its end."""
+"""Helpers the port's parity tests share (`test_torch_recurrent.py`,
+`test_torch_vlm.py`, `test_torch_grads.py`, `test_torch_dp.py`):
+parameters loaded into both packages (or the port's draw in the
+reference's layout, `reference_tree`), decode caches cast to f32 on both
+sides, a layer's cache leaves read from the reference's `sub{i}` /
+`rem{i}` tree and from the port's groups, a session served to its end,
+and the fast compile of a reference program."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,12 @@ from repro.cluster.session import ServeSessionProgram as JSession
 from repro.models import steps as jsteps
 from repro_torch import weights
 from repro_torch.models import steps as tsteps
+
+# compiler options for a reference program compiled only to be compared
+# with: without XLA's costly backend passes it compiles in about half
+# the time and computes the same function
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 
 
 def f32(t) -> np.ndarray:
@@ -207,3 +215,39 @@ def key_set(stats, prefix=""):
         if isinstance(v, dict) and k not in ("by_kind",):
             out |= key_set(v, prefix + k + ".")
     return out
+
+
+def reference_tree(cfg, params) -> dict:
+    """The port's parameters as f32 numpy arrays in the reference's
+    layout: each leaf at its plan key (`steps.param_plan_keys`), the
+    stacked ones stacked in layer order, dict keys sorted."""
+    tree, stacks = {}, {}
+
+    def put(key, value):
+        *path, last = key.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = value
+
+    def walk(keys, leaf):
+        if isinstance(keys, dict):
+            for k in keys:
+                walk(keys[k], leaf[k])
+        elif isinstance(keys, list):
+            for ks, lf in zip(keys, leaf):
+                walk(ks, lf)
+        elif keys[1]:                             # (key, stacked)
+            stacks.setdefault(keys[0], []).append(leaf.float().numpy())
+        else:
+            put(keys[0], leaf.float().numpy())
+
+    def ordered(node):                  # dict keys sorted, as jax's are
+        if isinstance(node, dict):
+            return {k: ordered(node[k]) for k in sorted(node)}
+        return node
+
+    walk(tsteps.param_plan_keys(cfg), params)
+    for key, layers in stacks.items():
+        put(key, np.stack(layers))
+    return ordered(tree)

@@ -1,10 +1,13 @@
 """chip_smoke.py's train phase alone (GPU): build the three kernels of
 qwen3-14b's fused route, optionally run the training card tests, then
 `chip_smoke.train_phase()` (part=step, part=grads, part=run; ~1 min),
-with the card's name and power limit.
+and with --dp the dp phase after it (the plan, the data-parallel step
+held to the train phase's, the launcher with --data-axis 1), with the
+card's name and power limit.
 
     python3 tools/train_phase.py            # the phase
     python3 tools/train_phase.py --tests    # the card tests first
+    python3 tools/train_phase.py --dp       # then chip_smoke's dp phase
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tests", action="store_true",
                     help=f"run tests/test_torch_cuda.py -k '{TESTS}' first")
+    ap.add_argument("--dp", action="store_true",
+                    help="run chip_smoke's dp phase after the train phase")
     args = ap.parse_args()
 
     import chip_smoke
@@ -43,8 +48,12 @@ def main() -> int:
         if r.returncode:
             return r.returncode
     t0 = time.perf_counter()
-    chip_smoke.train_phase(launches)
-    print(f"train phase {time.perf_counter() - t0:.1f} s")
+    _, plain = chip_smoke.train_phase(launches)
+    print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.dp:
+        t0 = time.perf_counter()
+        chip_smoke.dp_phase(launches, plain)
+        print(f"dp phase {time.perf_counter() - t0:.1f} s")
     return 0
 
 
