@@ -18,7 +18,9 @@ mixed-kind archs: recurrentgemma-9b at full width and depth, xlstm-125m
 whole, and llama-3.2-vision-90b at full width (10 of its 100 layers);
 then trains qwen3-14b at full width (4 of its 40 layers) through
 `TrainProgram` under "fused", and a reduced qwen3 through
-`TrainProgram.run()` with checkpoint, preemption and resume.
+`TrainProgram.run()` with checkpoint, preemption and resume; then the
+same train program on a one-rank (data, model) mesh, the model axis's
+kernel shapes, and a (1, 2) step of two thread ranks on the card.
 
     python3 chip_smoke.py
 
@@ -280,11 +282,24 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            repro_torch.launch.train --arch qwen3-14b --smoke --steps 6
            --data-axis 1` as a child process: exit 0, its losses and
            final parameters those of TrainProgram.run() in this process
+  tp       the model axis: part=kernels (right after the kernels phase),
+           rows 1-3 at a rank's local shapes of the train microbatch
+           (`TP_ROWS`: qwen3-14b on (2, 4) and (16, 16), mixtral-8x7b on
+           (16, 16)) as the kernels phase runs them, each row added to
+           its kernel's record; part=step (in dp's part=step: that
+           (data=1, model=1) step makes every split over "model" at size
+           1), its model collectives a step and a forward pass's
+           reduce_from_ranks (2 a layer + 1 + 2 a loss chunk); part=run
+           (in dp's part=run), the launcher's losses unchanged;
+           part=threads (last), a (data=1, model=2) step of qwen3-14b at
+           full width, 2 layers, its two ranks two threads of this
+           process in torch's threaded process group: losses and every
+           gradient leaf within 2e-2 of the one-rank step's
 
 The kernel launch counts are set to 0 before each of the suite, tune,
 compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
-groups (part=two and part=locality), moe, hybrid, xlstm, vlm, train and
-dp (part=step) runs and read right after; every kernel of a
+groups (part=two and part=locality), moe, hybrid, xlstm, vlm, train,
+dp (part=step) and tp (part=threads) runs and read right after; every kernel of a
 phase must have launched and no plain version may have run on a CUDA
 tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
@@ -301,6 +316,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -445,6 +461,7 @@ def main() -> int:
         build.library(name)
 
     records = kernel_phase()
+    tp_kernels_part(records)
     suite_records = suite_phase(launches)
     tune_results = tune_phase(launches)
     compose_counts = compose_phase(launches)
@@ -467,6 +484,9 @@ def main() -> int:
     train_counts, plain = train_phase(launches)
     dp_counts = dp_phase(launches, plain)
     del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_threads_part(launches)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
@@ -738,6 +758,29 @@ def _compare(name, got, want, tol=TOL):
     return err
 
 
+def kernel_case(cases: dict, timer, name, label, kernel, plain, library,
+                bnd, tol=TOL, schedule=None) -> None:
+    """One row of `name` at `label`: the kernel against its plain version
+    (max abs error, within `tol`), the instantiation a trace shows for a
+    GEMM `schedule`, then the kernel, plain and library times (flushed,
+    CUDA events) and, for a few-us row, its graph-replayed times; added
+    to `cases[name]`."""
+    err = _compare(f"{name} {label}", kernel(), plain(), tol)
+    graphed = {}
+    if schedule and on_mainloop(schedule):
+        schedule += f",kernel={kernel_instance(kernel)}"
+    elif schedule and schedule.startswith("decode"):
+        schedule += ",kernel=" + kernel_instance(
+            kernel, (DECODE_KERNEL,), ("skinny::",))
+    if name == "rmsnorm" or (schedule or "").startswith("decode"):
+        # a few us of device time: also without the host's dispatch
+        graphed = {"graph_ms": graph_ms(kernel, 10, timer.flush),
+                   "library_graph_ms": graph_ms(library, 10, timer.flush)}
+    cases.setdefault(name, []).append((
+        label, err, tol, timer(kernel), timer(plain, 3), timer(library),
+        bnd, schedule, graphed))
+
+
 def kernel_phase() -> list[dict]:
     """Each kernel of the model paths against its plain version on the
     same inputs, at the shapes those paths give it, then timed with its
@@ -759,24 +802,7 @@ def kernel_phase() -> list[dict]:
     # name -> list of (label, err, tol, ms, plain, lib, bound, schedule,
     # graph times)
     cases = {}
-
-    def case(name, label, kernel, plain, library, bnd, tol=TOL,
-             schedule=None):
-        err = _compare(f"{name} {label}", kernel(), plain(), tol)
-        graphed = {}
-        if schedule and on_mainloop(schedule):
-            schedule += f",kernel={kernel_instance(kernel)}"
-        elif schedule and schedule.startswith("decode"):
-            schedule += ",kernel=" + kernel_instance(
-                kernel, (DECODE_KERNEL,), ("skinny::",))
-        if name == "rmsnorm" or (schedule or "").startswith("decode"):
-            # a few us of device time: also without the host's dispatch
-            graphed = {"graph_ms": graph_ms(kernel, 10, timer.flush),
-                       "library_graph_ms": graph_ms(library, 10,
-                                                    timer.flush)}
-        cases.setdefault(name, []).append((
-            label, err, tol, timer(kernel), timer(plain, 3), timer(library),
-            bnd, schedule, graphed))
+    case = functools.partial(kernel_case, cases, timer)
 
     K = 5120
     for m, n in ((8, 5120), (8, 1024), (8, 17408), (512, 5120),
@@ -928,6 +954,116 @@ def kernel_phase() -> list[dict]:
     del cases, timer
     torch.cuda.empty_cache()
     return records
+
+
+# ----------------------------------------------------------------------------
+# tp: the model axis's local shapes, the (1, 1) step's model collectives,
+# two thread ranks on the card
+# ----------------------------------------------------------------------------
+
+# (tag, kernel, shape) of rows 1-3 at a rank's local shapes of the train
+# microbatch (M 1024 = 2 x 512) under the plan: qwen3-14b on (2, 4) (10 /
+# 2 heads of 128 a rank, d_ff 4352) and on (16, 16) (heads whole, d_ff
+# 1088); mixtral-8x7b on (16, 16) (2 query heads a rank, all 8 KV heads
+# whole of which it reads one, d_ff 896). The row-parallel partials run
+# on row 2 (the residual on model rank 0, zeros elsewhere).
+TP_ROWS = (
+    ("qwen3/4 q", "rmsnorm_matmul", (1024, 5120, 1280)),
+    ("qwen3/4 k,v", "rmsnorm_matmul", (1024, 5120, 256)),
+    ("qwen3/4 gate,up", "rmsnorm_matmul", (1024, 5120, 4352)),
+    ("qwen3/16 gate,up", "rmsnorm_matmul", (1024, 5120, 1088)),
+    ("mixtral/16 q", "rmsnorm_matmul", (1024, 4096, 256)),
+    ("qwen3/4 down", "matmul_residual_add", (1024, 4352, 5120)),
+    ("qwen3/16 down", "matmul_residual_add", (1024, 1088, 5120)),
+    ("mixtral/16 out", "matmul_residual_add", (1024, 256, 4096)),
+    ("qwen3/4 attn", "flash_attention_proj", (2, 10, 2, 512, 128, 5120)),
+    ("mixtral/16 attn", "flash_attention_proj", (2, 2, 1, 512, 128, 4096)),
+)
+
+
+def tp_kernels_part(records: list[dict]) -> None:
+    """Rows 1-3 at the local shapes of `TP_ROWS`, as `kernel_phase` runs
+    them (against the plain version at TOL, the kernel, plain and library
+    times flushed, mean of 10, the bound, the schedule and the traced
+    instantiation): one `tp part=kernels` line a row, each row added to
+    its kernel's record (`model_axis`: the tag)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import fused
+
+    timer = Timer(spin_cycles=SPIN_CYCLES)
+    g = torch.Generator(device="cuda").manual_seed(29)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    cases: dict = {}
+    tags = []
+    for tag, name, shape in TP_ROWS:
+        case = functools.partial(kernel_case, cases, timer, name)
+        if name == "rmsnorm_matmul":
+            m, k, n = shape
+            x, sc, w = randn(m, k), randn(k, scale=0.1), randn(
+                k, n, scale=k ** -0.5)
+            case(f"M{m}xK{k}xN{n}", lambda: fused.rmsnorm_matmul(x, sc, w),
+                 lambda: fused.rmsnorm_matmul_plain(x, sc, w),
+                 lambda: torch.matmul(x, w),
+                 bound((m * k + k + k * n + m * n) * 2, 2.0 * m * k * n),
+                 schedule=gemm_schedule(name, m, k, n))
+        elif name == "matmul_residual_add":
+            m, k, n = shape
+            a, w, r = randn(m, k), randn(k, n, scale=k ** -0.5), randn(m, n)
+            case(f"M{m}xK{k}xN{n}",
+                 lambda: fused.matmul_residual_add(a, w, r),
+                 lambda: fused.matmul_residual_add_plain(a, w, r),
+                 lambda: torch.addmm(r, a, w),
+                 bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n),
+                 schedule=gemm_schedule(name, m, k, n))
+        else:
+            B, H, KV, S, HD, DM = shape
+            q, k, v = (randn(B, H, S, HD), randn(B, KV, S, HD),
+                       randn(B, KV, S, HD))
+            wo = randn(H, HD, DM, scale=(H * HD) ** -0.5)
+            kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+
+            def library_fa(q=q, kr=kr, vr=vr, wo=wo):
+                o = F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+                return torch.einsum("bhsk,hkd->bsd", o, wo)
+
+            case(f"B{B}xH{H}xKV{KV}xS{S}xhd{HD}xdm{DM}",
+                 lambda: fused.flash_attention_proj(q, k, v, wo),
+                 lambda: fused.flash_attention_proj_plain(q, k, v, wo),
+                 library_fa,
+                 bound((q.numel() + k.numel() + v.numel() + wo.numel()
+                        + B * S * DM) * 2,
+                       4.0 * B * H * HD * (S * (S + 1) // 2)
+                       + 2.0 * B * S * H * HD * DM),
+                 schedule=gemm_schedule(name, B * S, H * HD, DM))
+        tags.append((name, tag))
+    by_name = {r["name"]: r for r in records}
+    seen: dict = {}
+    for name, tag in tags:
+        i = seen[name] = seen.get(name, -1) + 1
+        label, err, tol, ms, plain, lib, (bms, by), sched, gr = \
+            cases[name][i]
+        log("tp", part="kernels", tag=f"'{tag}'", name=name, shape=label,
+            max_abs_err=f"{err:.3g}",
+            tol=f"rtol={tol['rtol']},atol={tol['atol']}",
+            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+            library_ms=f"{lib:.4f}", vs_library=f"{ms / lib:.2f}",
+            bound_ms=f"{bms:.4f}", bound_by=by, bound_share=f"{bms / ms:.3f}",
+            schedule=sched)
+        rec = by_name.get(name)
+        if rec is None:                   # run alone (tools/train_phase.py)
+            continue
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["rows"].append({"shape": label, "model_axis": tag,
+                            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                            "library_ms": lib, "bound_ms": bms,
+                            "bound_by": by, "schedule": sched})
+    del cases, timer
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------------
@@ -4591,6 +4727,7 @@ def dp_step_part(launches, plain) -> dict:
                 raise AssertionError(f"dp: {len(differ)} leaves differ from"
                                      f" the train phase's: {differ[:4]}")
             n_leaves = len(pytree.tree_leaves(state))
+            tp_step_counts(cfg, prog, state, batches[0], coll, k)
 
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
@@ -4644,6 +4781,50 @@ def dp_step_part(launches, plain) -> dict:
     return train_launches(cfg, cfg.grad_accum)
 
 
+def tp_step_counts(cfg, prog, state, batch, coll: dict, k: int) -> dict:
+    """The model axis of the dp part=step run ((data=1, model=1): every
+    split the plan may make over "model" is made at size 1, so the step
+    runs the tensor-parallel code with identity collectives): its model
+    collectives over the k steps (`coll`, counted), each issued every step
+    (a multiple of k, none zero); then one forward pass of a microbatch
+    under the step's `ModelAxis` without grad, whose reduce_from_ranks
+    count is twice a layer, once for the embedding and twice a loss chunk
+    (the sums of exp and the label's logit), and max_over_ranks once a
+    chunk. One `tp part=step` line."""
+    from repro_torch.core import collectives
+    from repro_torch.models import steps
+
+    names = ("copy_to_ranks", "reduce_from_ranks", "max_over_ranks")
+    per_step = {n: coll[n] // k for n in names}
+    if any(coll[n] == 0 or coll[n] % k for n in names):
+        raise AssertionError(f"tp step: model collectives {coll} over {k} "
+                             f"steps")
+    rows = TRAIN_B // cfg.grad_accum
+    chunks = max(TRAIN_S // steps.LOSS_CHUNK, 1)
+    collectives.reset_counts()
+    with torch.no_grad():
+        steps.loss_fn(cfg, prog.step.gather(state["params"], whole=False),
+                      {key: v[:rows] for key, v in batch.items()},
+                      axis=prog.step.axis)
+    fwd = collectives.counts()
+    want = {"reduce_from_ranks": 2 * cfg.n_layers + 1 + 2 * chunks,
+            "max_over_ranks": chunks, "copy_to_ranks": 0}
+    if {n: fwd[n] for n in names} != want:
+        raise AssertionError(f"tp step: a forward pass issued {fwd}, "
+                             f"expected {want}")
+    axis = prog.step.axis
+    log("tp", part="step", mesh="data=1,model=1", world=1,
+        heads=f"{axis.heads.start}:{axis.heads.stop}",
+        kv_heads=f"{axis.kv_heads.start}:{axis.kv_heads.stop}",
+        ffn=axis.ffn, vocab=f"{axis.vocab.start}:{axis.vocab.stop}",
+        steps=k, losses_equal=True, leaves_equal=True,
+        model_collectives_a_step=json.dumps(per_step).replace(" ", ""),
+        model_bytes_a_step=json.dumps(
+            {n: coll[f"{n}_bytes"] // k for n in names}).replace(" ", ""),
+        forward=json.dumps({n: fwd[n] for n in names}).replace(" ", ""))
+    return per_step
+
+
 def dp_run_part() -> None:
     """`python -m repro_torch.launch.train --arch qwen3-14b --smoke
     --steps 6 --data-axis 1` as a child process on the card (its own
@@ -4693,6 +4874,134 @@ def dp_run_part() -> None:
         "--data-axis 1'", rc=r.returncode, child_s=f"{child_s:.1f}",
         losses_equal=True, params_equal=True,
         losses=json.dumps(printed).replace(" ", ""))
+    log("tp", part="run", mesh="data=1,model=1", rc=r.returncode,
+        losses_equal=True, params_equal=True,
+        losses=json.dumps(printed).replace(" ", ""))
+
+TP_THREAD_LAYERS = 2      # of qwen3-14b's 40 in the two-thread step
+
+
+def tp_threads_part(launches, cfg=None, device="cuda", batch=None) -> None:
+    """Two ranks on the one card: a (data=1, model=2) step of qwen3-14b at
+    full width, TP_THREAD_LAYERS layers, "fused", on one 2 x 512
+    microbatch, its two ranks two threads of this process in torch's
+    threaded process group (`multi_threaded_pg`, collectives on the CUDA
+    tensors themselves). First the one-rank gradients (`make_train_step`
+    's accumulate) from the same seeded draw; then each thread draws its
+    blocks of the parameters (query / KV heads, d_ff and vocabulary split
+    in two), and the sharded step's `accumulate` gives its loss and its
+    blocks of the reduced gradients. Both ranks' losses within TRAIN_TOL
+    of the one-rank loss (relative), every leaf's gradient (its blocks
+    together) within TRAIN_TOL relative L2 of the one-rank gradient, and
+    rows 1-3 launched (counted). `cfg`, `device` and `batch` replace the
+    card's run (a smoke config on the CPU checks the part itself)."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import addressing
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    cfg = cfg or dataclasses.replace(train_cfg(), n_layers=TP_THREAD_LAYERS,
+                                     grad_accum=1)
+    if batch is None:
+        batch = _stream_batches(cfg, 2, TRAIN_S, 1, seed=2)[0]
+    params = steps.init_params(cfg, 0, device=device)
+    loss, _, grads = steps.make_train_step(cfg, policy="fused").accumulate(
+        params, batch)
+    one = float(loss)
+    want = {steps._path_key(path): g
+            for path, g in pytree.tree_flatten_with_path(grads)[0]}
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    results, errors = {}, {}
+    store = dist.HashStore()
+
+    def rank(r):
+        # the thread's group is not destroyed: torch 2.11's
+        # destroy_process_group reads a field its threaded world lacks;
+        # uninstalling the threaded world below drops every thread's
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=2,
+                                    store=store)
+            mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                    torch.device(device).type)
+            rules = addressing.default_rules(mesh)
+            step = steps.make_sharded_train_step(cfg, mesh, rules=rules,
+                                                 policy="fused")
+            shards = steps.state_shards(cfg, mesh, rules, device=device)
+            local = steps.init_params(cfg, 0, device=device,
+                                      shards=shards["params"])
+            loss, _, grads = step.accumulate(local, batch)
+            by_path = steps._by_path(step.shards["params"])
+            sums = {}
+            for path, g in pytree.tree_flatten_with_path(grads)[0]:
+                key = steps._path_key(path)
+                ref = by_path[key].take(want[key]).float()
+                sums[key] = (float((g.float() - ref).square().sum()),
+                             float(ref.square().sum()),
+                             by_path[key].model_sharded)
+            results[r] = (float(loss), sums, step.axis)
+        except BaseException as e:
+            errors[r] = traceback.format_exc()
+            mt.ProcessLocalGroup.exception_handle(e)   # wakes the other
+
+    launches.reset_counts()
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mt._install_threaded_pg()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=rank, args=(r,), daemon=True)
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"tp threads: {errors or 'a rank hung'}")
+    finally:
+        mt._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    counted = _check_counts(launches, "tp", QWEN_FUSED)
+    worst, n_leaves = ("", 0.0), 0
+    for key in want:
+        parts = [results[r][1][key] for r in (0, 1)]
+        num, den = ((parts[0][0] + parts[1][0], parts[0][1] + parts[1][1])
+                    if parts[0][2] else parts[0][:2])
+        rel = (num / den) ** 0.5 if den else float(num > 0)
+        if rel > worst[1]:
+            worst = ("/".join(map(str, key)), rel)
+        n_leaves += 1
+    losses = [results[r][0] for r in (0, 1)]
+    if losses[0] != losses[1] or abs(losses[0] - one) > TRAIN_TOL * one:
+        raise AssertionError(f"tp threads: losses {losses}, one rank {one}")
+    if worst[1] > TRAIN_TOL:
+        raise AssertionError(f"tp threads: {worst[0]} differs by "
+                             f"{worst[1]:.3g} (relative L2) from one rank")
+    axis = results[0][2]
+    log("tp", part="threads", mesh="data=1,model=2", ranks="threads",
+        layers=cfg.n_layers, B=batch["tokens"].shape[0],
+        S=batch["tokens"].shape[1],
+        heads=f"{axis.heads.stop - axis.heads.start}/{cfg.n_heads}",
+        kv_heads=f"{axis.kv_heads.stop - axis.kv_heads.start}/"
+                 f"{cfg.n_kv_heads}",
+        vocab=f"{axis.vocab.stop - axis.vocab.start}/{cfg.vocab}",
+        loss=f"{losses[0]:.5f}", loss_one_rank=f"{one:.5f}",
+        leaves=n_leaves, worst_leaf=f"'{worst[0]}'",
+        worst_rel_l2=f"{worst[1]:.3g}", tol=TRAIN_TOL, wall_s=f"{wall:.1f}",
+        launches=_nonzero({n: counted[n] for n in QWEN_FUSED}))
+    del want, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -38,8 +38,8 @@ def train(arch: str, *, num_steps: int | None = None, steps_=_UNSET,
     Shim over `Cluster(...).compile(TrainProgram(...)).run()`. `steps_` is
     a deprecated alias for `num_steps` (kept for one release). `mesh` (a
     live DeviceMesh, or a `MeshSpec` made into one over the initialised
-    process group) trains data-parallel over its "data" axis, this
-    process one rank of it."""
+    process group) trains data-parallel over its batch axes and
+    tensor-parallel over its "model" axis, this process one rank of it."""
     if steps_ is not _UNSET:
         warnings.warn("api.train(steps_=...) is deprecated; use num_steps=",
                       DeprecationWarning, stacklevel=2)

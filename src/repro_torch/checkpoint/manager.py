@@ -26,7 +26,7 @@ shardings=)` puts each restored leaf on the device it names (one device
 for all, or a tree of them): the elastic restore onto the survivors'
 devices, the port's counterpart of the reference's per-leaf
 `device_put`. A tree of `core.addressing.LeafShard`s instead restores
-each rank's shard of every leaf (the data-parallel step's state), and
+each rank's block of every leaf (the sharded step's state), and
 `save(..., shardings=)` gathers such a state's leaves whole (a
 collective every rank joins) before the one manager with ``writer=True``
 writes them: a checkpoint holds whole leaves whatever the world size

@@ -24,10 +24,11 @@ description (`core.addressing.MeshSpec`, e.g. `launch.mesh.
 make_production_mesh()`: a 256-rank mesh planned with no ranks) or a live
 DeviceMesh, and `rules` the hybrid addressing rules on it. `plan()` is
 the reference's {tree path: {logical, spec, region, shape}}. A
-`TrainProgram` compiled on a cluster with a mesh runs the data-parallel
-step over the mesh's "data" axis (`steps.make_sharded_train_step`), on a
-DeviceMesh, or on one made of the description over the initialised
-process group. Dry-run and bench programs wait for later slices (ROADMAP
+`TrainProgram` compiled on a cluster with a mesh runs the sharded step
+(`steps.make_sharded_train_step`): data-parallel over the mesh's batch
+axes ("pod", "data"), tensor-parallel over "model" as the plan splits
+each leaf, on a DeviceMesh, or on one made of the description over the
+initialised process group. Dry-run and bench programs wait for later slices (ROADMAP
 Queue 1 K2, and J with the port's benchmark).
 """
 
@@ -276,7 +277,7 @@ class Cluster:
                                    self.rules)
 
     def device_mesh(self):
-        """The live DeviceMesh a data-parallel program runs on: the one
+        """The live DeviceMesh a sharded program runs on: the one
         the cluster was given, or one made of its description over the
         initialised process group (`launch.mesh.make_device_mesh`, which
         raises without one). None when the cluster was built without a
@@ -403,13 +404,15 @@ class CompiledTrain(Program):
     (The reference's run restores the state but feeds the stream from
     batch 0 again.)
 
-    On a cluster with a mesh the program is data-parallel over the mesh's
-    "data" axis (the reference's `CompiledTrain` on a mesh): `step` is
-    `steps.make_sharded_train_step`, the state holds this rank's shards
-    as the plan places them (`shards`), the feed materializes this rank's
-    rows of each global batch (the plan's ("batch", "seq") spec), and the
-    checkpoints hold whole leaves, gathered and written by rank 0 alone,
-    restored onto any world size's shards."""
+    On a cluster with a mesh the program is the reference's
+    `CompiledTrain` on a mesh: `step` is `steps.make_sharded_train_step`
+    (data-parallel over the batch axes, tensor-parallel over "model"),
+    the state holds this rank's blocks as the plan places them
+    (`shards`), the feed materializes this rank's rows of each global
+    batch (the plan's ("batch", "seq") spec: every model rank of a batch
+    row the same rows), and the checkpoints hold whole leaves, gathered
+    over both axes and written by the mesh's first rank alone, restored
+    onto any mesh's blocks."""
 
     kind = "train"
 
@@ -420,7 +423,7 @@ class CompiledTrain(Program):
         kw = {"schedule_kwargs": {"warmup": warmup, "total": n},
               "policy": policy}
         if cluster._mesh is not None:
-            steps.check_data_parallel(cluster.mesh)
+            steps.check_mesh(cluster.arch, cluster.mesh)
         self.mesh = cluster.device_mesh()
         self.shards = None
         if self.mesh is None:
@@ -490,12 +493,10 @@ class CompiledTrain(Program):
                        else max(n // 10, 1)),
             checkpoint_dir=spec.checkpoint_dir,
             steps_per_sync=spec.steps_per_sync)
-        group = None if self.mesh is None else self.mesh.get_group("data")
+        writer = self.mesh is None or not any(self.mesh.get_coordinate())
         loop = TrainLoop(cfg, self.step, self.init_state(), None,
                          train_chunk=self.chunk,
-                         state_shardings=self.shards,
-                         writer=group is None or
-                         torch.distributed.get_rank(group) == 0)
+                         state_shardings=self.shards, writer=writer)
         start = 0
         if spec.resume:
             start = loop.maybe_resume()
@@ -505,9 +506,9 @@ class CompiledTrain(Program):
         finally:
             if hasattr(feed, "close"):
                 feed.close()
-        if group is not None:
+        if self.mesh is not None:
             # every rank returns with the final checkpoint on disk
-            torch.distributed.barrier(group=group)
+            torch.distributed.barrier()
         if hasattr(feed, "stall_report"):
             report["feed"] = feed.stall_report()
         report["params"] = loop.state["params"]

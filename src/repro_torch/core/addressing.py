@@ -20,9 +20,11 @@ reference's `PartitionSpec`. A mesh is anything with axis names and sizes:
 a `MeshSpec` (a plain description, so a 256- or 512-rank mesh is planned
 with no ranks) or a live `torch.distributed.DeviceMesh`. Where the
 reference leaves placement to GSPMD, the port turns a spec into DTensor
-placements (`placements`) and into a rank's own slice of a leaf
-(`LeafShard`), which the data-parallel train step and the checkpoints
-read.
+placements (`placements`), into a rank's coordinates and process groups
+on a live mesh (`coordinates`, `batch_group`), and into a rank's own
+block of a leaf (`LeafShard`: a dim split over the batch axes, a dim
+split over "model", or both), which the sharded train step and the
+checkpoints read.
 """
 
 from __future__ import annotations
@@ -331,42 +333,123 @@ def local_block(spec: tuple, shape: Sequence[int], mesh,
     return tuple(out)
 
 
+def coordinates(mesh) -> dict[str, int]:
+    """This rank's coordinate on each axis of a live DeviceMesh."""
+    return dict(zip(mesh_axes(mesh), mesh.get_coordinate()))
+
+
+def block_index(axes: Sequence[str], mesh,
+                coords: Mapping[str, int]) -> tuple[int, int]:
+    """(index, parts) of the block that the rank at `coords` holds of a
+    dim split over `axes` (major first), as `local_block` counts it."""
+    sizes = mesh_axes(mesh)
+    index, parts = 0, 1
+    for a in axes:
+        index = index * sizes[a] + coords[a]
+        parts *= sizes[a]
+    return index, parts
+
+
+BATCH_AXES = ("pod", "data")
+_BATCH_GROUPS: dict = {}
+
+
+def batch_group(mesh):
+    """The process group of this rank's replicas over the batch axes
+    ("pod" and "data") of a live DeviceMesh: the ranks that share its
+    other coordinates, in the order `block_index` counts the batch axes
+    (pod major). One axis's own group when the mesh has one batch axis;
+    else a group of every such set of ranks, made once a mesh (every
+    rank makes them all, in one order)."""
+    sizes = mesh_axes(mesh)
+    axes = [a for a in BATCH_AXES if a in sizes]
+    if not axes:
+        raise ValueError(f"mesh axes {tuple(sizes)} have no batch axis "
+                         f"({BATCH_AXES})")
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    key = id(mesh)
+    if key not in _BATCH_GROUPS:
+        import torch.distributed as dist
+        names = list(sizes)
+        rest = [names.index(a) for a in names if a not in axes]
+        ranks = mesh.mesh.permute([names.index(a) for a in axes] + rest)
+        ranks = ranks.reshape(math.prod(sizes[a] for a in axes), -1)
+        mine = None
+        for col in ranks.t().tolist():
+            if col != sorted(col):
+                raise NotImplementedError(
+                    f"mesh {sizes}: the batch axes' ranks {col} are not in "
+                    f"rank order (the batch axes must lead the mesh)")
+            group = dist.new_group(col)
+            if dist.get_rank() in col:
+                mine = group
+        _BATCH_GROUPS[key] = (mesh, mine)
+    return _BATCH_GROUPS[key][1]
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafShard:
-    """One rank's block of a leaf: `dim` cut into `parts` equal chunks, of
-    which the rank holds chunk `index` (dim None: the whole leaf, a
-    replicated one), on `device`. `group` is the process group the chunks
-    are spread over.
+    """One rank's block of a leaf, on `device`: `dim` cut into `parts`
+    equal chunks over the batch axes, of which the rank holds chunk
+    `index` (dim None: whole over them), spread over the process group
+    `group`; and `model_dim` cut likewise into `model_parts` over the
+    "model" axis (`model_index`, `model_group`; None: whole over it). A
+    leaf with neither is replicated.
 
     `take` is how an initial state or a restore lands on the rank: its
-    chunk, cut on the host side of the copy to `device`, its own storage
-    (never a view of a whole leaf). `gather` is the collective that makes
-    a whole leaf from every rank's chunk; it runs for a split leaf also
-    when the group has one rank (then it is a copy)."""
+    block, cut on the host side of the copy to `device`, its own storage
+    (never a view of a whole leaf). `gather_batch` is the collective that
+    makes the rank's model block whole over the batch axes (what the
+    train step computes with), `gather` the leaf whole over both (what a
+    checkpoint holds); a split runs its gather also when its group has
+    one rank (then it is a copy)."""
     dim: int | None
     index: int = 0
     parts: int = 1
     device: Any = None
     group: Any = None
+    model_dim: int | None = None
+    model_index: int = 0
+    model_parts: int = 1
+    model_group: Any = None
 
     @property
     def sharded(self) -> bool:
+        """Split over the batch axes."""
         return self.dim is not None
+
+    @property
+    def model_sharded(self) -> bool:
+        return self.model_dim is not None
 
     def take(self, whole):
         t = torch.as_tensor(whole)
-        if not self.sharded or self.parts == 1:
+        part = t
+        for dim, index, parts in ((self.dim, self.index, self.parts),
+                                  (self.model_dim, self.model_index,
+                                   self.model_parts)):
+            if dim is not None and parts > 1:
+                n = part.shape[dim] // parts
+                part = part.narrow(dim, index * n, n)
+        if part is t:
             return t if self.device is None else t.to(self.device)
-        n = t.shape[self.dim] // self.parts
-        part = t.narrow(self.dim, self.index * n, n)
         out = part if self.device is None else part.to(self.device)
         if out.untyped_storage().data_ptr() == \
                 t.untyped_storage().data_ptr():
             out = out.clone()
         return out
 
-    def gather(self, local):
+    def gather_batch(self, local):
         if not self.sharded:
             return local
         from repro_torch.core import collectives
         return collectives.all_gather_dim(local, self.dim, self.group)
+
+    def gather(self, local):
+        whole = self.gather_batch(local)
+        if not self.model_sharded:
+            return whole
+        from repro_torch.core import collectives
+        return collectives.all_gather_dim(whole, self.model_dim,
+                                          self.model_group)

@@ -1,12 +1,24 @@
-"""The collectives of the data-parallel train step, each counted where it
-is issued.
+"""The collectives of the sharded train step, each counted where it is
+issued.
 
 `all_gather_dim` makes a whole leaf from every rank's chunk along a dim,
 `reduce_scatter_dim` sums a whole gradient over the ranks and hands each
 its chunk, `all_reduce` sums a tensor over the ranks in place, and
 `sum_over_ranks` is that sum as an autograd function (its backward sums
 the gradient over the ranks in turn: the MoE dispatch's load-balance
-sums, which every rank's loss reads). Each takes
+sums over the batch axes, which every rank's loss reads).
+
+The model axis has Megatron's two conjugate operators. `copy_to_ranks`
+is the identity forward and an all-reduce of the gradient backward: it
+stands where a value every model rank holds whole enters a computation
+split over the ranks (a column-parallel product's input, a norm scale
+read inside it), whose gradient each rank then holds only a part of.
+`reduce_from_ranks` is an all-reduce forward and the identity backward:
+it sums the ranks' partial outputs (a row-parallel product's) into the
+whole value. `max_over_ranks` is a max with no gradient (the
+vocab-parallel loss's). `sum_over_ranks` is not used on the model axis:
+every model rank holds the same replica of the loss, so summing its
+gradient over them would multiply it by the model size. Each takes
 the process group it runs on: there is no default group and no
 single-process shortcut. On a group of one rank each is a copy (or
 nothing), carried out by the backend all the same (NCCL on the card, gloo
@@ -26,7 +38,8 @@ import collections
 import torch
 import torch.distributed as dist
 
-NAMES = ("all_gather", "reduce_scatter", "all_reduce")
+NAMES = ("all_gather", "reduce_scatter", "all_reduce", "copy_to_ranks",
+         "reduce_from_ranks", "max_over_ranks")
 
 _COUNTS: collections.Counter = collections.Counter()
 
@@ -114,3 +127,50 @@ def sum_over_ranks(t: torch.Tensor, group, *,
     every rank's loss reads the sum, the gradient of `t` on a rank is the
     sum of the ranks' gradients of the sum."""
     return _SumOverRanks.apply(t, _need(group), name)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of `t` (a collective writes its result into it)."""
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _CopyToRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(_dense(grad), ctx.group, name="copy_to_ranks"), None
+
+
+class _ReduceFromRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(_dense(t), group, name="reduce_from_ranks")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` itself forward; backward, the sum over the ranks of its
+    gradient (counted as ``copy_to_ranks`` when backward issues it)."""
+    return _CopyToRanks.apply(t, _need(group))
+
+
+def reduce_from_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over the ranks (a new tensor); backward, the
+    gradient as it is, on every rank."""
+    return _ReduceFromRanks.apply(t, _need(group))
+
+
+def max_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `t` over the ranks (a new tensor, no
+    gradient)."""
+    out = _dense(t.detach())
+    _count("max_over_ranks", out)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_need(group))
+    return out

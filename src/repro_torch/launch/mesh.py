@@ -7,7 +7,7 @@ Multi-pod   : (2, 16, 16) over ("pod", "data", "model") — 512 ranks.
 The production and test shapes are plain descriptions (`MeshSpec`): the
 planner reads only axis names and sizes, so they are planned with no
 ranks at all. `make_device_mesh` makes a live DeviceMesh over an
-initialised process group (one rank a device), which the data-parallel
+initialised process group (one rank a device), which the sharded
 train step runs on; it never starts a group of its own.
 """
 

@@ -7,17 +7,23 @@ A thin wrapper over the Cluster façade: one `Cluster` (device, mesh and
 kernel policy) compiling a `TrainProgram`. It runs on the GPU unless
 `--device cpu` is given.
 
-Data parallelism: under ``torchrun --nproc-per-node N`` (which sets
-``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` and the rendezvous address)
-each process is one rank, on ``cuda:LOCAL_RANK``, and the mesh is
-``(data, N // data)`` over ("data", "model") with ``--data-axis`` data
-(0: all N), as the reference's launcher builds it; the step then reduces
-gradients over the data axis (`steps.make_sharded_train_step`). A model
-axis above 1 raises (the tensor-parallel step is a later item). A single
-process given ``--data-axis`` without torchrun makes its own one-rank
-group (NCCL on the card, gloo on the CPU) over a file store in a
-temporary directory: no network. Without ``--data-axis`` and outside
-torchrun the run is the plain single-device one.
+Sharding: under ``torchrun --nproc-per-node N`` (which sets ``RANK`` /
+``WORLD_SIZE`` / ``LOCAL_RANK`` and the rendezvous address) each process
+is one rank, on ``cuda:LOCAL_RANK``, and the mesh is ``(data, N //
+data)`` over ("data", "model") with ``--data-axis`` data (0: all N), as
+the reference's launcher builds it; the step
+(`steps.make_sharded_train_step`) is then data-parallel over "data" and
+tensor-parallel over "model", each leaf split as the plan splits it:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-14b --smoke --steps 4 --data-axis 2   # (2, 2)
+
+An arch with block kinds the model axis does not take yet raises at a
+model axis above 1 (`steps.check_mesh`). A single process given
+``--data-axis`` without torchrun makes its own one-rank group (NCCL on
+the card, gloo on the CPU) over a file store in a temporary directory:
+no network. Without ``--data-axis`` and outside torchrun the run is the
+plain single-device one.
 """
 
 from __future__ import annotations
@@ -62,9 +68,9 @@ def main(argv=None):
                                          "repro_torch-train"))
     ap.add_argument("--checkpoint-every", type=int, default=25)
     ap.add_argument("--data-axis", type=int, default=None,
-                    help="data axis size (0 = all ranks); given, or under "
-                         "torchrun, the run is data-parallel over a "
-                         "process group")
+                    help="data axis size (0 = all ranks; the model axis "
+                         "takes the rest); given, or under torchrun, the "
+                         "run is sharded over a process group")
     ap.add_argument("--policy", default=None, choices=MODES,
                     help="kernel policy mode (default: env-derived)")
     ap.add_argument("--no-resume", action="store_true",

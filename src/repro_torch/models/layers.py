@@ -52,11 +52,22 @@ class ParamSpec:
 # ----------------------------------------------------------------------------
 
 def rms_norm(x, scale, eps: float = 1e-6):
+    """In f32 (float64 for a float64 x), rounded to x's dtype."""
     dt = x.dtype
-    xf = x.to(F32)
+    acc = wide(dt)
+    xf = x.to(acc)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.to(F32))).to(dt)
+    return (y * (1.0 + scale.to(acc))).to(dt)
+
+
+def wide(*dtypes) -> torch.dtype:
+    """The dtype f32 work on these dtypes takes: f32, or float64 where
+    one of them is float64 (xlstm's mLSTM heads in an f32 run)."""
+    out = F32
+    for dt in dtypes:
+        out = torch.promote_types(out, dt)
+    return out
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -91,7 +102,8 @@ def product(eq: str, a, b, out_dtype) -> torch.Tensor:
     autograd."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         return _tensor_core_product(eq, a, b, out_dtype).to(out_dtype)
-    return torch.einsum(eq, a.to(F32), b.to(F32)).to(out_dtype)
+    acc = wide(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(acc), b.to(acc)).to(out_dtype)
 
 
 def _tensor_core_product(eq: str, a, b, out_dtype) -> torch.Tensor:

@@ -33,9 +33,11 @@ Layout differences from the reference, all for PyTorch idiom:
   the reference's stacked layout, so its keys are the reference's
   (``blocks/sub0/attn/wq``, ``rem/rem0/...``, ``enc/blocks/...``);
   `param_plan_keys` maps each of the port's per-layer leaves to its key.
-  `make_sharded_train_step` is the data-parallel step over a process
-  group's data axis, each rank holding its shard of the state as the
-  plan places it (`state_shards`).
+  `make_sharded_train_step` is the train step over a (data, model) or
+  (pod, data, model) process group, each rank holding its block of the
+  state as the plan places it (`state_shards`): data-parallel over the
+  batch axes, tensor-parallel over "model" (`model_axis`: the blocks,
+  the embedding and the vocab-parallel loss compute the plan's splits).
 """
 
 from __future__ import annotations
@@ -54,8 +56,7 @@ from repro_torch.configs.registry import TensorSpec
 from repro_torch.core import addressing, collectives
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.blocks import (BLOCKS, _norm, _norm_specs,
-                                      dispatch_group)
+from repro_torch.models.blocks import BLOCKS, ModelAxis, _norm, _norm_specs
 from repro_torch.models.layers import ParamSpec, layer_norm, product
 from repro_torch.optim import (AdamConfig, adam_init, adam_update,
                                warmup_cosine)
@@ -282,44 +283,164 @@ def param_partition(cfg, mesh, rules, max_seq: int = 4096):
                            is_leaf=lambda x: isinstance(x, tuple))
 
 
-def check_data_parallel(mesh) -> int:
-    """The size of the mesh's "data" axis, when the data-parallel step can
-    run on the mesh: every other axis is of size 1."""
+# the block kinds whose splits over "model" the sharded step computes
+MODEL_AXIS_KINDS = ("attn", "attn_moe")
+
+
+def check_mesh(cfg, mesh) -> tuple[int, int]:
+    """(batch ranks, model ranks) of a mesh the sharded step runs `cfg`
+    on: axes "data" (and "pod"), the batch axes, and "model"; any other
+    axis of size 1. A model axis above 1 takes the block kinds of
+    `MODEL_AXIS_KINDS` only."""
     sizes = addressing.mesh_axes(mesh)
     if "data" not in sizes:
         raise ValueError(f"mesh axes {tuple(sizes)} have no 'data' axis")
-    wide = {a: n for a, n in sizes.items() if a != "data" and n > 1}
-    if wide:
+    known = (*addressing.BATCH_AXES, "model")
+    other = {a: n for a, n in sizes.items() if a not in known and n > 1}
+    if other:
+        raise NotImplementedError(f"mesh {sizes}: the sharded step takes "
+                                  f"the axes {known}, not {other}")
+    model = sizes.get("model", 1)
+    off = _off_model_axis(cfg)
+    if model > 1 and off:
         raise NotImplementedError(
-            f"mesh {sizes}: axes {wide} above 1 need the tensor-parallel "
-            f"train step (ROADMAP Queue 1, a later item); the "
-            f"data-parallel step takes only the 'data' axis")
-    return sizes["data"]
+            f"{cfg.name} on mesh {sizes}: its block kinds {off} have no "
+            f"split over the model axis yet (ROADMAP Queue 1, Later: the "
+            f"model axis of the other block kinds); the sharded step "
+            f"splits {MODEL_AXIS_KINDS} over 'model'")
+    batch = math.prod(sizes[a] for a in addressing.BATCH_AXES if a in sizes)
+    return batch, model
+
+
+def _off_model_axis(cfg) -> list[str]:
+    """The block kinds of `cfg` outside `MODEL_AXIS_KINDS`."""
+    kinds = set(layer_kinds(cfg)) | ({"enc_attn"} if cfg.family == "encdec"
+                                     else set())
+    return sorted(kinds - set(MODEL_AXIS_KINDS))
+
+
+def _split_dims(spec, axes) -> list[int]:
+    """The dims of `spec` split over any of `axes`."""
+    return [d for d in range(len(spec))
+            if set(addressing.spec_axes(spec, d)) & set(axes)]
 
 
 def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
     """A `LeafShard` for every leaf of the train state on this rank: a
     parameter's and its two moments' from the parameter's spec (ZeRO-1:
-    the moments follow their parameters), the step count whole. Shards
-    are spread over the mesh's "data" axis, whose process group they
-    gather over; every other axis must be of size 1. Needs a live
-    DeviceMesh (a rank's coordinates come from it)."""
-    parts = check_data_parallel(mesh)
-    group = mesh.get_group("data")
-    index = dist.get_rank(group)
+    the moments follow their parameters), the step count whole. A dim
+    split over the batch axes is spread over their process group
+    (`addressing.batch_group`), a dim split over "model" over the model
+    axis's; a leaf may have one of each (w_down: ffn over model, embed
+    over data). Needs a live DeviceMesh (a rank's coordinates come from
+    it)."""
+    batch, model = check_mesh(cfg, mesh)
+    sizes = addressing.mesh_axes(mesh)
+    coords = addressing.coordinates(mesh)
+    bgroup = addressing.batch_group(mesh)
+    mgroup = mesh.get_group("model") if "model" in sizes else None
+    present = [a for a in addressing.BATCH_AXES if a in sizes]
 
-    def one(spec):
-        dims = [d for d in range(len(spec))
-                if "data" in addressing.spec_axes(spec, d)]
-        if not dims:
-            return addressing.LeafShard(None, device=device)
-        return addressing.LeafShard(dims[0], index, parts, device, group)
+    def one(path, spec):
+        key = "/".join(str(k) for k in _path_key(path))
+        bdims = _split_dims(spec, addressing.BATCH_AXES)
+        mdims = _split_dims(spec, ("model",))
+        if len(bdims) > 1 or len(mdims) > 1 or (set(bdims) & set(mdims)):
+            raise NotImplementedError(
+                f"{key}: spec {spec} splits more than one dim over the "
+                f"batch axes or the model axis, or one dim over both")
+        kw = {}
+        if bdims:
+            axes = addressing.spec_axes(spec, bdims[0])
+            if [a for a in present if sizes[a] > 1 and a not in axes]:
+                raise NotImplementedError(
+                    f"{key}: spec {spec} splits dim {bdims[0]} over {axes}, "
+                    f"not over every batch axis of mesh {sizes}")
+            index, parts = addressing.block_index(axes, mesh, coords)
+            kw = dict(dim=bdims[0], index=index, parts=parts, group=bgroup)
+        if mdims:
+            kw |= dict(model_dim=mdims[0], model_index=coords["model"],
+                       model_parts=model, model_group=mgroup)
+        return addressing.LeafShard(**{"dim": None, **kw}, device=device)
 
-    params = pytree.tree_map(one, param_partition(cfg, mesh, rules, max_seq),
-                             is_leaf=lambda x: isinstance(x, tuple))
+    params = pytree.tree_map_with_path(
+        one, param_partition(cfg, mesh, rules, max_seq),
+        is_leaf=lambda x: isinstance(x, tuple))
     return {"params": params,
             "opt": {"m": params, "v": params,
                     "step": addressing.LeafShard(None, device=device)}}
+
+
+# (parent key, leaf, dim) -> the ModelAxis field a split of that dim over
+# "model" sets; no other dim of an "attn" / "attn_moe" model may be split
+_MODEL_SPLITS = {
+    ("attn", "wq", 1): "heads", ("attn", "wo", 0): "heads",
+    ("attn", "bq", 0): "heads",
+    ("attn", "wk", 1): "kv_heads", ("attn", "wv", 1): "kv_heads",
+    ("attn", "bk", 0): "kv_heads", ("attn", "bv", 0): "kv_heads",
+    ("ffn", "w_gate", 1): "ffn", ("ffn", "w_up", 1): "ffn",
+    ("ffn", "w_down", 0): "ffn",
+    ("moe", "w_gate", 2): "expert_ffn", ("moe", "w_up", 2): "expert_ffn",
+    ("moe", "w_down", 1): "expert_ffn",
+    ("", "tok_embed", 0): "vocab", ("", "unembed", 1): "vocab",
+}
+
+
+def model_axis(cfg, mesh, rules, *, max_seq: int = 4096) -> ModelAxis | None:
+    """The `ModelAxis` of this rank on a live mesh (None without a
+    "model" axis, and for an arch with block kinds outside
+    `MODEL_AXIS_KINDS`, which `check_mesh` admits at model size 1 only:
+    there every leaf is whole and the step computes it as on one
+    device): for each dim the plan may split over "model" (the
+    heads, KV heads, d_ff and vocab dims of `_MODEL_SPLITS`), whether it
+    does, and this rank's block of it (`addressing.local_block`). Every
+    leaf holding such a dim must be split alike; a split of any other dim
+    raises NotImplementedError."""
+    sizes = addressing.mesh_axes(mesh)
+    check_mesh(cfg, mesh)
+    if "model" not in sizes or _off_model_axis(cfg):
+        return None
+    coords = addressing.coordinates(mesh)
+    specs = param_partition(cfg, mesh, rules, max_seq)
+    shapes = pytree.tree_map(lambda s: tuple(s.shape),
+                             param_specs(cfg, max_seq),
+                             is_leaf=lambda x: isinstance(x, ParamSpec))
+    seen: dict[str, set] = {}
+
+    def one(path, spec, shape):
+        keys = _path_key(path)
+        names = [k for k in keys if isinstance(k, str)]
+        parent = names[-2] if len(names) > 1 else ""
+        split = _split_dims(spec, ("model",))
+        for d in range(len(shape)):
+            field = _MODEL_SPLITS.get((parent, names[-1], d))
+            if field is None:
+                if d in split:
+                    raise NotImplementedError(
+                        f"{'/'.join(map(str, keys))}: the plan splits dim "
+                        f"{d} over 'model' ({spec}), which the sharded "
+                        f"step does not compute")
+                continue
+            block = addressing.local_block(spec, shape, mesh, coords)[d]
+            seen.setdefault(field, set()).add(
+                (block.start, block.stop) if d in split else None)
+
+    pytree.tree_map_with_path(one, specs, shapes,
+                              is_leaf=lambda x: isinstance(x, tuple))
+    for field, got in seen.items():
+        if len(got) > 1:
+            raise NotImplementedError(
+                f"the plan splits some of the {field} dims over 'model' "
+                f"and keeps others whole: {sorted(got, key=str)}")
+    at = {f: next(iter(g)) for f, g in seen.items()}
+    owned = {f: None if at.get(f) is None else slice(*at[f])
+             for f in ("heads", "kv_heads", "vocab")}
+    if owned["kv_heads"] is not None and owned["heads"] is None:
+        raise NotImplementedError("the plan splits the KV heads over "
+                                  "'model' and keeps the query heads whole")
+    return ModelAxis(mesh.get_group("model"), coords["model"],
+                     sizes["model"], ffn=at.get("ffn") is not None,
+                     expert_ffn=at.get("expert_ffn") is not None, **owned)
 
 
 def _path_key(path) -> tuple:
@@ -634,22 +755,41 @@ def logits(params, hidden):
     return hidden.to(F32) @ w.to(F32)
 
 
-def forward(cfg, params, tokens, *, cross_embeds=None):
+def _embed(table, tokens, axis: ModelAxis | None = None):
+    """The token embeddings; with `axis` splitting the vocabulary (the
+    tensor-parallel step), each rank looks up the tokens in its rows,
+    zeros elsewhere, and `reduce_from_ranks` sums the ranks' lookups (one
+    rank holds each row: the sum is exact)."""
+    if axis is None or axis.vocab is None:
+        return table[tokens.long()]
+    ids = tokens.long() - axis.vocab.start
+    own = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    return collectives.reduce_from_ranks(
+        torch.where(own[..., None], rows, rows.new_zeros(())), axis.group)
+
+
+def forward(cfg, params, tokens, *, cross_embeds=None,
+            axis: ModelAxis | None = None, group=None):
     """Token ids (B, S) -> final hidden states (B, S, d) and aux loss. An
     encoder-decoder model encodes `cross_embeds` (its stub frame
     embeddings) first and adds its learned decoder positions; a vision
     model's cross blocks take `cross_embeds` (its image embeddings) as
-    they come."""
+    they come. The sharded train step passes its `ModelAxis` (`axis`:
+    the embedding and the blocks compute this rank's splits) and its
+    batch ranks' group (`group`: MoE layers dispatch over every rank's
+    tokens); the blocks read both from their context."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
-    x = params["tok_embed"][tokens.long()]
+    x = _embed(params["tok_embed"], tokens, axis)
     encdec = cfg.family == "encdec"
     if encdec:
         cross_embeds = _encode(cfg, params, cross_embeds)
         x = x + params["dec_pos"][:S].to(x.dtype)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     ctx = {"positions": positions, "rope": not encdec,
-           "cross_embeds": cross_embeds, "max_seq": S}
+           "cross_embeds": cross_embeds, "max_seq": S,
+           "model_axis": axis, "dispatch_group": group}
     aux = 0.0
     remat = _remat(cfg)
     for kind, p in zip(kinds, params["blocks"]):
@@ -662,15 +802,38 @@ def forward(cfg, params, tokens, *, cross_embeds=None):
 # Loss (chunked over the sequence; the logits never exist at (B, S, V))
 # ----------------------------------------------------------------------------
 
-def _ce_block(unembed, h, y):
-    """One chunk's summed NLL and z-loss; h (B, c, d), y (B, c)."""
-    lg = logits({"unembed": unembed}, h)                   # (B, c, V) f32
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, y.long()[..., None])[..., 0]
+def _ce_block(unembed, h, y, axis: ModelAxis | None = None):
+    """One chunk's summed NLL and z-loss; h (B, c, d), y (B, c). The
+    logsumexp is the max (no gradient) plus the log of the summed exp.
+    With `axis` splitting the vocabulary (the tensor-parallel step) it is
+    vocab-parallel: h enters through `copy_to_ranks`, each rank holds its
+    columns' f32 logits, the max is taken over the ranks, the sums of exp
+    and the label's logit (from the rank that owns it) are summed over
+    them (`reduce_from_ranks`), and the z-loss is on the global lse; the
+    logits never exist whole. At one rank the arithmetic is the same."""
+    vocab = None if axis is None else axis.vocab
+    if vocab is not None:
+        h = collectives.copy_to_ranks(h, axis.group)
+    lg = logits({"unembed": unembed}, h)               # (B, c, V / model)
+    m = lg.detach().amax(dim=-1)
+    if vocab is not None:
+        m = collectives.max_over_ranks(m, axis.group)
+    sums = torch.exp(lg - m[..., None]).sum(dim=-1)
+    if vocab is not None:
+        sums = collectives.reduce_from_ranks(sums, axis.group)
+    lse = m + torch.log(sums)
+    if vocab is None:
+        ll = torch.gather(lg, -1, y.long()[..., None])[..., 0]
+    else:
+        ids = y.long() - vocab.start
+        own = (ids >= 0) & (ids < lg.shape[-1])
+        ll = torch.gather(lg, -1, ids.clamp(0, lg.shape[-1] - 1)[..., None])
+        ll = collectives.reduce_from_ranks(
+            torch.where(own, ll[..., 0], 0.0), axis.group)
     return (lse - ll).sum(), Z_COEF * torch.square(lse).sum()
 
 
-def _chunked_ce(cfg, unembed, hidden, labels):
+def _chunked_ce(cfg, unembed, hidden, labels, axis=None):
     """Mean cross-entropy plus z-loss over (B, S), LOSS_CHUNK positions at
     a time (S when S is not a multiple). Under grad each chunk is
     recomputed in backward, so one chunk's f32 logits are all that ever
@@ -684,17 +847,20 @@ def _chunked_ce(cfg, unembed, hidden, labels):
     for i in range(S // c):
         cols = slice(i * c, (i + 1) * c)
         nll, z = _layer(remat, _ce_block, unembed, hidden[:, cols],
-                        labels[:, cols])
+                        labels[:, cols], axis)
         total = total + nll + z
     return total / (B * S)
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, *, axis: ModelAxis | None = None,
+            group=None):
     """(loss, {"ce", "aux"}) of one batch: the chunked CE plus AUX_COEF x
-    the MoE load-balance loss (0 without MoE layers)."""
+    the MoE load-balance loss (0 without MoE layers). `axis` and `group`
+    as `forward` takes them."""
     cross = batch.get("enc_embeds", batch.get("img_embeds"))
-    hidden, aux = forward(cfg, params, batch["tokens"], cross_embeds=cross)
-    ce = _chunked_ce(cfg, params["unembed"], hidden, batch["labels"])
+    hidden, aux = forward(cfg, params, batch["tokens"], cross_embeds=cross,
+                          axis=axis, group=group)
+    ce = _chunked_ce(cfg, params["unembed"], hidden, batch["labels"], axis)
     aux = torch.as_tensor(aux, device=ce.device).to(F32)
     return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
@@ -709,7 +875,8 @@ def _on(device, batch: dict) -> dict:
 
 
 def make_train_step(cfg, *, adam: AdamConfig | None = None,
-                    schedule_kwargs: dict | None = None, policy=None):
+                    schedule_kwargs: dict | None = None, policy=None,
+                    axis: ModelAxis | None = None, group=None):
     """`train_step(state, batch) -> (state, metrics)`, the state updated
     in place (the reference donates it). `policy` pins the kernel policy
     (None -> the ambient one); its scope covers the forward and the
@@ -724,7 +891,8 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
     device; nothing is read back to the host. The step's halves are
     `train_step.accumulate(params, batch) -> (loss, parts, grads)` and
     `train_step.update(state, grads) -> (opt, metrics)`, each in the
-    policy's scope."""
+    policy's scope. `axis` and `group` go to `loss_fn` (the sharded
+    step's model axis and batch ranks; None on one device)."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
     adam = adam or AdamConfig(moment_dtype=cfg.moment_dtype)
     sched = functools.partial(warmup_cosine, **(schedule_kwargs or {}))
@@ -733,7 +901,8 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
     def grads_of(params, batch):
         leaves, spec = pytree.tree_flatten(params)
         live = [p.detach().requires_grad_() for p in leaves]
-        loss, parts = loss_fn(cfg, pytree.tree_unflatten(live, spec), batch)
+        loss, parts = loss_fn(cfg, pytree.tree_unflatten(live, spec), batch,
+                              axis=axis, group=group)
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
@@ -809,49 +978,75 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
                             adam: AdamConfig | None = None,
                             schedule_kwargs: dict | None = None, policy=None,
                             max_seq: int = 4096):
-    """The data-parallel train step over `mesh`'s "data" axis (a live
-    DeviceMesh; every other axis of size 1, else NotImplementedError):
-    `train_step(state, batch) -> (state, metrics)` where `state` holds
-    this rank's shards (`state_shards`: the plan's spec of each leaf
-    under `rules`, the cluster's default rules when None) and `batch`
-    this rank's rows of the global batch (`data.Distributor`).
+    """The train step over `mesh` (a live DeviceMesh over ("data",
+    "model") or ("pod", "data", "model"); `check_mesh` says which meshes
+    and archs it takes): `train_step(state, batch) -> (state, metrics)`
+    where `state` holds this rank's blocks (`state_shards`: the plan's
+    spec of each leaf under `rules`, the cluster's default rules when
+    None) and `batch` this rank's rows of the global batch
+    (`data.Distributor`: the rows go over the batch axes, pod major, and
+    every model rank of a batch row takes the same rows).
 
-    A step gathers every split parameter whole (`all_gather` along its
-    split dim), takes the local rows' loss and gradients through
+    Over the batch axes the step is data-parallel. It gathers each leaf
+    split over them whole over them (`LeafShard.gather_batch`; a split
+    over "model" stays), takes the local rows' loss and gradients through
     `make_train_step`'s `accumulate` (the same fused ops and autograd
     Functions, `grad_accum` micro-splitting the local rows), and reduces
-    each gradient to its mean over the ranks in f32: a split leaf's by
-    `reduce_scatter` to this rank's shard, a replicated one's by
-    `all_reduce`. AdamW then updates the local shards in place, its clip
-    reading the global norm: the per-leaf sums of squares of the split
-    leaves summed over the ranks, each replicated leaf's counted once.
-    The metrics (loss, and with grad_accum 1 its parts) are the ranks'
-    mean. On a group of one rank every collective is an identity and the
+    each gradient to its mean over the batch ranks in f32: by
+    `reduce_scatter` to this rank's block where the leaf is split over
+    the batch axes, by `all_reduce` where it is not.
+
+    Over "model" the step is tensor-parallel: under its `ModelAxis`
+    (the plan's splits, `model_axis`, passed to `loss_fn`) each rank
+    computes its query and KV heads, its d_ff columns of the FFN and of
+    every expert, and its vocabulary rows of the embedding and the loss,
+    with Megatron's `copy_to_ranks` / `reduce_from_ranks` around each
+    split computation; a dim the plan keeps whole is computed whole on
+    every model rank. Every model rank then holds the same loss, and the
+    gradient of each leaf it holds, whole or its block, complete.
+
+    AdamW updates the local blocks in place, its clip reading the global
+    norm: each leaf's sum of squares taken once over every distinct
+    block (summed over the ranks of the axes that split it, counted once
+    over those that replicate it), in one all_reduce over the mesh. The
+    metrics (loss, and with grad_accum 1 its parts) are the batch ranks'
+    mean. On a mesh of one rank every collective is an identity and the
     step equals `make_train_step`'s bit for bit.
 
     An MoE model's step is the reference's on the global batch: its
-    layers dispatch within `blocks.dispatch_group` (capacity, slot places
-    and the load-balance loss over every rank's tokens), and with
-    grad_accum k > 1 the ranks first exchange rows (one all_gather of the
-    batch) so that a rank's i-th microbatch is its block of the global
-    batch's i-th (the reference's micro-split), not of its own rows. A
-    dense model's micro-split needs no exchange: its mean gradient does
-    not depend on which rows share a microbatch.
+    layers dispatch over the batch ranks (`loss_fn`'s `group`)
+    (capacity, slot places and the load-balance loss over every rank's
+    tokens), and with grad_accum k > 1 the batch ranks first exchange
+    rows (one all_gather of the batch) so that a rank's i-th microbatch
+    is its block of the global batch's i-th (the reference's
+    micro-split), not of its own rows. A dense model's micro-split needs
+    no exchange: its mean gradient does not depend on which rows share a
+    microbatch.
 
-    Each parameter is gathered whole for the whole step and its gradient
-    exists whole until the step reduces it, so only the moments' memory
-    falls with the ranks (ROADMAP Queue 1: the per-layer gather).
+    Each leaf is gathered over the batch axes for the whole step and its
+    gradient exists at that size until the step reduces it, so over the
+    batch axes only the moments' memory falls with the ranks (ROADMAP
+    Queue 1: the per-layer gather).
 
-    `train_step.shards` is the `state_shards` tree (no device) and
-    `.gather(params)` the parameters whole."""
+    `train_step.shards` is the `state_shards` tree (no device),
+    `.axis` the `ModelAxis`, `.gather(params)` the parameters whole and
+    `.accumulate(params, batch) -> (loss, parts, grads)` the step's first
+    half: the mean loss and this rank's blocks of the reduced gradients
+    (what AdamW reads)."""
+    if dist.get_world_size() != math.prod(addressing.mesh_axes(mesh).values()):
+        raise ValueError("the sharded step's mesh must hold every rank of "
+                         "the process group (its norm reduces over them)")
     rules = rules or addressing.default_rules(mesh,
                                               overrides=cfg.rules_overrides)
     shards = state_shards(cfg, mesh, rules, max_seq=max_seq)
-    group = mesh.get_group("data")
+    axis = model_axis(cfg, mesh, rules, max_seq=max_seq)
+    group = addressing.batch_group(mesh)
     ranks, rank = dist.get_world_size(group), dist.get_rank(group)
+    coords = addressing.coordinates(mesh)
+    first = {a: c == 0 for a, c in coords.items()}
     by_path = _by_path(shards["params"])
     plain = make_train_step(cfg, adam=adam, schedule_kwargs=schedule_kwargs,
-                            policy=policy)
+                            policy=policy, axis=axis, group=group)
     pol = kpolicy.as_policy(policy) if policy is not None else None
     k = cfg.grad_accum
     regroup = k > 1 and "attn_moe" in layer_kinds(cfg)
@@ -862,10 +1057,11 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
         return ([leaf for _, leaf in flat],
                 [by_path[_path_key(path)] for path, _ in flat], spec)
 
-    def gather(params):
+    def gather(params, whole: bool = True):
         leaves, owners, spec = leaves_and_shards(params)
         return pytree.tree_unflatten(
-            [s.gather(p) for s, p in zip(owners, leaves)], spec)
+            [s.gather(p) if whole else s.gather_batch(p)
+             for s, p in zip(owners, leaves)], spec)
 
     def micro_rows(batch, device):
         """This rank's rows of each of the global batch's k microbatches,
@@ -882,7 +1078,8 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
 
     def reduce_leaves(leaves, owners, spec):
         """`leaves` (a list this function empties as it goes, so each
-        whole gradient is freed once reduced) -> the tree of means."""
+        gathered gradient is freed once reduced) -> the tree of means over
+        the batch ranks."""
         out = []
         for i, s in enumerate(owners):
             g = leaves[i].to(F32)
@@ -894,13 +1091,21 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
             out.append(g.div_(ranks))
         return pytree.tree_unflatten(out, spec)
 
-    def norm_reduce(split: list):
-        """`adam_update`'s `norm_reduce` for leaves split as `split`
-        says: the split leaves' sums of squares summed over the ranks."""
+    def norm_reduce(owners: list):
+        """`adam_update`'s `norm_reduce`: each leaf's sum of squares over
+        its distinct blocks. A rank adds its block's sum where it is the
+        first rank (coordinate 0) of every axis group that holds the same
+        block: of the batch axes unless the leaf is split over them, of
+        "model" unless it is split over it; one all_reduce over the mesh
+        then sums each distinct block once."""
+        lead = [(s.sharded or all(first.get(a, True)
+                                  for a in addressing.BATCH_AXES))
+                and (s.model_sharded or first.get("model", True))
+                for s in owners]
+
         def run(sums):
-            mask = torch.tensor(split, dtype=torch.bool, device=sums.device)
-            total = collectives.all_reduce(sums * mask, group)
-            return torch.where(mask, total, sums)
+            mask = torch.tensor(lead, dtype=sums.dtype, device=sums.device)
+            return collectives.all_reduce(sums * mask, dist.group.WORLD)
         return run
 
     def mean_metrics(metrics: dict) -> dict:
@@ -909,25 +1114,31 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
             torch.stack([metrics[k].to(F32) for k in keys]), group)
         return dict(zip(keys, flat.div_(ranks).unbind()))
 
-    def train_step(state, batch):
-        with kpolicy.scoped(pol), dispatch_group(group):
-            full = gather(state["params"])
+    def accumulate(params, batch):
+        with kpolicy.scoped(pol):
+            full = gather(params, whole=False)
             if regroup:
                 batch = micro_rows(batch, pytree.tree_leaves(full)[0].device)
             loss, parts, grads = plain.accumulate(full, batch)
             del full
             leaves, owners, spec = leaves_and_shards(grads)
             del grads
-            grads = reduce_leaves(leaves, owners, spec)
-            opt, om = plain.update(state, grads,
-                                   norm_reduce([s.sharded for s in owners]))
+            return loss, parts, reduce_leaves(leaves, owners, spec)
+
+    def train_step(state, batch):
+        loss, parts, grads = accumulate(state["params"], batch)
+        with kpolicy.scoped(pol):
+            opt, om = plain.update(state, grads, norm_reduce(
+                leaves_and_shards(grads)[1]))
             means = mean_metrics({"loss": loss, **parts})
             metrics = {"loss": means.pop("loss"),
                        "lr_scale": om.pop("lr_scale"), **om}
             return {"params": state["params"], "opt": opt}, metrics | means
 
     train_step.shards = shards
+    train_step.axis = axis
     train_step.gather = gather
+    train_step.accumulate = accumulate
     return train_step
 
 

@@ -9,7 +9,7 @@ log sample at chunk granularity and the host syncs once a chunk. The
 state is updated in place by the step; a checkpoint takes its host copy
 when `save` is called, before the next step runs.
 
-A data-parallel run passes `state_shardings` (the state's `LeafShard`s):
+A sharded run passes `state_shardings` (the state's `LeafShard`s):
 its checkpoints then hold whole leaves, gathered from every rank and
 written by the one rank with ``writer=True``, and a resume restores each
 rank's shards from them, at whatever world size wrote them.

@@ -17,10 +17,16 @@ rank, every spawn joined against its own deadline and killed past it).
 * `TrainProgram` on a (2, 1) mesh: a run preempted after step 2 (SIGTERM
   to every rank) writes whole leaves once; resumed at 4 ranks and at 1
   it logs the uninterrupted 2-rank run's losses for steps 3-4.
+* whisper-small-smoke and recurrentgemma-9b-smoke, whose block kinds
+  the model axis does not split, on a (2, 1) mesh: their plan names
+  "model" at size 1 on their heads and d_ff dims, and the step computes
+  every leaf whole there; the first batch's gradients (every leaf),
+  the losses, grad norms and the state after the steps equal the port's
+  one-process step.
 * `api.train(mesh=...)` at 2 ranks, `launch/train.py` under a torchrun
   environment at 2 ranks, and `--data-axis 1` in this process (its own
   one-rank group): bit-equal to the plain run there; a model axis above
-  1 raises, naming the tensor-parallel step.
+  1 raises for an arch whose block kinds it does not split (xlstm).
 
 Tolerances: f32 losses, grad norms and lr scales within 1e-5 relative
 (mixtral's later steps against the reference 5e-5: `MOE_LATER`); the
@@ -70,6 +76,17 @@ CASES = [(2, DENSE, 1), (2, DENSE, 2), (2, MOE, 1), (2, MOE, 2),
 # 1.8e-5 relative L2 after three steps (the port's one-process step parts
 # from the reference's by as much)
 MOE_LATER = 5e-5
+# archs with block kinds outside the model axis's, on a data-only mesh
+OTHER = ("whisper-small-smoke", "recurrentgemma-9b-smoke")
+# their grad norms after step 1 against the one-process step: the first
+# step's gradients agree within 1e-7, but AdamW's first update moves
+# each element by about lr x sign(g), and the zero-initialised biases'
+# and norm scales' near-zero gradients take either sign in the two sum
+# orders, so the norm parts by up to 1.7e-6 at step 2 and 7.8e-5 (whisper)
+# / 1.6e-5 (recurrentgemma) at step 3, and the first moments after three
+# steps by 7.6e-5 / 3.1e-5 relative L2, while every loss agrees within
+# 1e-7 and the parameters within 1e-5
+OTHER_LATER = 2e-4
 PROG = dict(num_steps=4, batch=8, seq=16, warmup=1, log_every=1,
             checkpoint_every=2)
 CLI = ["--device", "cpu", "--arch", "qwen3-14b", "--smoke", "--steps", "3",
@@ -80,6 +97,17 @@ def _batches():
     rng = np.random.default_rng(40)
     return [{k: torch.from_numpy(rng.integers(0, 256, (B, S)).astype(
         np.int32)) for k in ("tokens", "labels")} for _ in range(N_STEPS)]
+
+
+def _arch_batches(arch):
+    """`_batches()`, with an encoder-decoder's stub frame embeddings."""
+    cfg = tget(arch)
+    if cfg.family != "encdec":
+        return _batches()
+    rng = np.random.default_rng(41)
+    return [b | {"enc_embeds": torch.from_numpy(rng.standard_normal(
+        (B, cfg.enc_seq, cfg.d_model)).astype(np.float32))}
+        for b in _batches()]
 
 
 _INIT = {}
@@ -103,6 +131,19 @@ def _initial(arch):
 def _case_id(case):
     ranks, arch, ga = case
     return f"{ranks}-{arch.split('-')[0]}-accum{ga}"
+
+
+def _other_jobs(tmp):
+    """The 2-rank jobs of `OTHER` (last in the 2-rank world)."""
+    jobs = []
+    for arch in OTHER:
+        torch.save(_initial(arch)[1], tmp / f"{arch}-state.pt")
+        torch.save(_arch_batches(arch), tmp / f"{arch}-batches.pt")
+        jobs.append(("sharded_steps", dict(
+            arch=arch, grad_accum=1, state=str(tmp / f"{arch}-state.pt"),
+            batches=str(tmp / f"{arch}-batches.pt"),
+            schedule_kwargs=SCHED)))
+    return jobs
 
 
 def _jobs(tmp, ranks):
@@ -134,7 +175,7 @@ def runs(tmp_path_factory):
                          **PROG)),
         ("api_train", dict(checkpoint_dir=str(tmp / "api"), num_steps=2,
                            batch=4, seq=16)),
-        ("model_axis", {})] + _jobs(tmp, 2)
+        ("model_axis", {})] + _jobs(tmp, 2) + _other_jobs(tmp)
     four = _jobs(tmp, 4) + [
         ("program", dict(arch=DENSE, checkpoint_dir=cut + "4", resume=True,
                          wait_for=cut + "4.done", **PROG))]
@@ -187,7 +228,7 @@ def _one_process(arch, ga, ref: bool):
         else:
             step = tsteps.make_train_step(
                 dataclasses.replace(tget(arch), grad_accum=ga), **kw)
-            for b in _batches():
+            for b in _arch_batches(arch):
                 ts, m = step(ts, b)
                 rows.append({k: float(v) for k, v in m.items()})
             state = ts
@@ -195,7 +236,9 @@ def _one_process(arch, ga, ref: bool):
     return _ONE[key]
 
 
-def _close_states(got, want, tol=1e-5):
+def _close_states(got, want, tol=1e-5, moments=None):
+    """The whole state within `tol` relative L2 a part (the moments
+    within `moments` when given)."""
     for part in ("params", "m", "v"):
         g = got["params"] if part == "params" else got["opt"][part]
         w = want["params"] if part == "params" else want["opt"][part]
@@ -203,7 +246,8 @@ def _close_states(got, want, tol=1e-5):
             lambda a, b: float(((a.float() - b.float()) ** 2).sum()), g, w)))
         den = sum(float((b.float() ** 2).sum())
                   for b in pytree.tree_leaves(w))
-        assert (num / den) ** 0.5 < tol, (part, (num / den) ** 0.5)
+        lim = tol if part == "params" or moments is None else moments
+        assert (num / den) ** 0.5 < lim, (part, (num / den) ** 0.5)
     assert int(got["opt"]["step"]) == int(want["opt"]["step"]) == N_STEPS
 
 
@@ -298,6 +342,28 @@ def test_a_step_issues_its_collectives(runs, case):
                                           else 0)
 
 
+@pytest.mark.parametrize("arch", OTHER, ids=lambda a: a.split("-")[0])
+def test_other_kinds_train_on_a_data_only_mesh(runs, arch):
+    """A (2, 1) step of an arch whose block kinds the model axis does
+    not split equals the port's one-process step: the plan names "model"
+    at size 1, and the step keeps every leaf whole over it."""
+    res = [r[len(r) - len(OTHER) + OTHER.index(arch)] for r in runs[2]]
+    assert res[0]["metrics"] == res[1]["metrics"]
+    want, state = _one_process(arch, 1, False)
+    _close_metrics(res[0]["metrics"], want, ["loss", "lr_scale", "ce", "aux"])
+    _close_metrics(res[0]["metrics"], want, ["grad_norm"], later=OTHER_LATER)
+    _close_states(res[0]["state"], state, moments=OTHER_LATER)
+    _, _, grads = tsteps.make_train_step(
+        tget(arch), schedule_kwargs=SCHED, policy="fused").accumulate(
+            _initial(arch)[1]["params"], _arch_batches(arch)[0])
+    got = {pytree.keystr(p): t for p, t in
+           pytree.tree_flatten_with_path(res[0]["whole_grads"])[0]}
+    for path, g in pytree.tree_flatten_with_path(grads)[0]:
+        d = got[pytree.keystr(path)] - g
+        assert float(d.norm()) <= 1e-5 * float(g.norm()), pytree.keystr(path)
+    assert {r["coords"]["data"] for r in res} == {0, 1}
+
+
 def test_checkpoint_at_two_ranks_resumes_at_one_and_four(runs):
     """Steps 3-4 of a run preempted at step 2 on 2 ranks, resumed on 4
     and on 1, log the uninterrupted 2-rank run's losses; the checkpoint
@@ -358,11 +424,16 @@ def test_api_train_and_launcher_on_a_mesh(runs, tmp_path, capsys):
 
 
 def test_a_model_axis_above_one_raises(runs):
+    """A model axis above 1 raises for an arch whose block kinds the
+    sharded step does not split over "model" (xlstm's mlstm / slstm),
+    naming the ROADMAP item; qwen3 and mixtral train on such meshes
+    (`tests/test_torch_tp.py`)."""
+    item = "model axis of the other block kinds"
     for r in runs[2]:
-        assert "tensor-parallel" in r[3]
-    cluster = Cluster(DENSE, MeshSpec((1, 2), ("data", "model")),
+        assert item in r[3] and "mlstm" in r[3]
+    cluster = Cluster("xlstm-125m-smoke", MeshSpec((1, 2), ("data", "model")),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    with pytest.raises(NotImplementedError, match=item):
         cluster.compile(TrainProgram(num_steps=1))
     with pytest.raises(RuntimeError, match="no process group"):
         Cluster(DENSE, MeshSpec((1, 1), ("data", "model")),

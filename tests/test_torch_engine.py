@@ -338,27 +338,30 @@ def test_api_serve_matches_reference(params, chunk):
         want["stats"]["stall"]["host_syncs"]
 
 
-@pytest.mark.parametrize("name,kwargs,item", [
+@pytest.mark.parametrize("name,arch,kwargs,item", [
     # the ids keep the names these cases had while meshes were Queue 1 I
     # and the plan Queue 1 K
-    pytest.param("train", {"mesh": MeshSpec((1, 2), ("data", "model")),
-                           "device": "cpu"}, "tensor-parallel",
+    pytest.param("train", "xlstm-125m",
+                 {"mesh": MeshSpec((1, 2), ("data", "model")),
+                  "device": "cpu"}, "model axis of the other block kinds",
                  id="train-kwargs0-Queue 1 I"),
-    pytest.param("plan", {"mesh": MeshSpec((16, 16), ("data", "model")),
-                          "device": "cpu"}, None,
+    pytest.param("plan", "qwen3-14b",
+                 {"mesh": MeshSpec((16, 16), ("data", "model")),
+                  "device": "cpu"}, None,
                  id="plan-kwargs1-Queue 1 K")])
-def test_api_unported_entry_points_raise(name, kwargs, item):
+def test_api_unported_entry_points_raise(name, arch, kwargs, item):
     """What the port's entry points still refuse names what it waits for:
-    `train` on a mesh with a model axis above 1 (the tensor-parallel
-    step; the data axis runs). `plan`, refused until the planner was
-    ported, returns the plan (tests/test_torch_addressing.py holds it to
-    the reference's)."""
+    `train` on a mesh with a model axis above 1 for an arch whose block
+    kinds the sharded step does not split over "model" (xlstm; qwen3 and
+    mixtral train there: tests/test_torch_tp.py). `plan`, refused until
+    the planner was ported, returns the plan
+    (tests/test_torch_addressing.py holds it to the reference's)."""
     if item is None:
-        plan = getattr(tapi, name)("qwen3-14b", **kwargs)
+        plan = getattr(tapi, name)(arch, **kwargs)
         assert plan["unembed"]["spec"] == ("data", "model")
         return
     with pytest.raises(NotImplementedError, match=item):
-        getattr(tapi, name)("qwen3-14b", **kwargs)
+        getattr(tapi, name)(arch, **kwargs)
 
 
 # ----------------------------------------------------------------------------

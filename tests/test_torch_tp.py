@@ -1,0 +1,475 @@
+"""repro_torch's tensor-parallel train step (the model axis) against its
+one-process step and the reference's single-device step, in spawned gloo
+ranks on the CPU (`tests/torch_ranks.py`: a `FileStore` under the
+module's temporary directory, one thread a rank, every world joined
+against its own deadline and killed past it).
+
+* Sharded steps on (1, 2), (2, 2), (1, 4) ("data", "model") meshes and
+  one (2, 1, 2) ("pod", "data", "model") mesh, from one f32 state on
+  three global batches of 8 x 16, each rank its rows: qwen3-14b-smoke at
+  grad_accum 1 and 2; qwen1.5-32b-smoke (the qkv biases split with their
+  heads); mixtral-8x7b-smoke (the experts' d_ff split, the router whole),
+  whose router gradient is equal on every model rank; qwen3 with 6 query
+  and 2 KV heads at model 4 (heads the axis does not divide: whole on
+  every rank, as qwen3-14b's 40 are on (16, 16)); mixtral with 8 query
+  and 2 KV heads at model 4 (the query heads split, the KV heads whole,
+  each rank reading the one its two query heads share, as mixtral-8x7b
+  on (16, 16)). Against the port's one-process step and the reference's
+  jitted step on the global batch: every step's losses and metrics;
+  each leaf of the first batch's reduced gradients, gathered whole; the
+  whole state after the steps. Each rank's blocks are the plan's
+  `local_block` of the whole leaves.
+* At one rank (a (1, 1) mesh in this process) the step is bit-equal to
+  `make_train_step` in bf16, and a forward pass issues reduce_from_ranks
+  twice a layer, once for the embedding and twice a loss chunk.
+* `TrainProgram` on (2, 2): a run preempted after step 2 (SIGTERM to
+  every rank) resumed at (1, 4) and at (4, 1) logs the uninterrupted
+  run's losses for steps 3-4; the checkpoint holds whole leaves.
+* `launch/train.py` under a torchrun environment: `--data-axis 1` over
+  2 ranks (a (1, 2) mesh) and `--data-axis 2` over 4 (a (2, 2) mesh).
+* At model 2, whisper-, xlstm-, recurrentgemma- and
+  llama-3.2-vision-smoke raise NotImplementedError naming their ROADMAP
+  item.
+
+The initial weights are the port's seeded draw with the attention
+weights rescaled to their true fan-in (`torch_parity.true_fan_in`):
+without it the random scores are so large that the one-process step
+and the reference's part by 2e-5 a leaf before any sharding.
+
+Tolerances (f32): losses, grad norms and lr scales within 1e-5 relative
+(mixtral's later steps against the reference 5e-5: `MOE_LATER`, as in
+`tests/test_torch_dp.py`); every gradient leaf within 1e-5 relative L2;
+every leaf of the state after three steps within 1e-5 relative L2
+(mixtral's against the reference 5e-5), and each of params, m and v as
+a whole. One leaf is held in the whole tree only: qwen1.5's key biases
+`bk`, zero at init, whose gradient cancels over the positions (up to
+RoPE, a constant key shift leaves softmax as it is); AdamW moves each
+of their elements by about lr x sign(g), so after three steps they part
+by up to 5e-3 relative between any two sum orders, the one-process
+step's and the reference's too, while their gradients and moments agree
+within 1e-6. bf16 runs (the programs and the launcher): losses within
+2e-3 relative across meshes.
+"""
+
+import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+
+import torch_parity
+import torch_ranks
+from repro.configs import get as jget
+from repro.models import steps as jsteps
+from repro_torch import weights
+from repro_torch.configs import get as tget
+from repro_torch.core import addressing, collectives
+from repro_torch.core.addressing import MeshSpec
+from repro_torch.launch.mesh import make_device_mesh
+from repro_torch.models import steps as tsteps
+
+DENSE, BIAS, MOE = "qwen3-14b-smoke", "qwen1.5-32b-smoke", "mixtral-8x7b-smoke"
+WHOLE_HEADS = (("n_heads", 6), ("n_kv_heads", 2))   # at model 4
+KV_WHOLE = (("n_heads", 8), ("n_kv_heads", 2))      # at model 4
+SCHED = {"warmup": 1, "total": 10}
+B, S, N_STEPS = 8, 16, 3
+MOE_LATER = 5e-5
+# (mesh sizes, arch, grad_accum, config changes); a 3-axis mesh is over
+# ("pod", "data", "model")
+CASES = [((1, 2), DENSE, 1, ()), ((1, 2), DENSE, 2, ()),
+         ((1, 2), BIAS, 1, ()), ((1, 2), MOE, 1, ()),
+         ((2, 2), DENSE, 1, ()), ((2, 2), MOE, 2, ()),
+         ((1, 4), DENSE, 1, ()), ((1, 4), DENSE, 1, WHOLE_HEADS),
+         ((1, 4), MOE, 1, KV_WHOLE), ((2, 1, 2), DENSE, 1, ())]
+OTHER_KINDS = ["whisper-small-smoke", "xlstm-125m-smoke",
+               "recurrentgemma-9b-smoke", "llama-3.2-vision-90b-smoke"]
+PROG = dict(num_steps=4, batch=8, seq=16, warmup=1, log_every=1,
+            checkpoint_every=2)
+CLI = ["--device", "cpu", "--arch", "qwen3-14b", "--smoke", "--steps", "3",
+       "--batch", "4", "--seq", "16", "--no-resume"]
+
+
+def _names(sizes):
+    return ("pod", "data", "model") if len(sizes) == 3 else ("data", "model")
+
+
+def _case_id(case):
+    sizes, arch, ga, change = case
+    tail = "".join(f"-{k[2:]}{v}" for k, v in change)
+    return f"{'x'.join(map(str, sizes))}-{arch.split('-')[0]}-accum{ga}{tail}"
+
+
+def _cfgs(arch, ga, change):
+    change = dict(change)
+    return (dataclasses.replace(tget(arch), grad_accum=ga, **change),
+            dataclasses.replace(jget(arch), grad_accum=ga, **change))
+
+
+def _batches():
+    rng = np.random.default_rng(40)
+    return [{k: torch.from_numpy(rng.integers(0, 256, (B, S)).astype(
+        np.int32)) for k in ("tokens", "labels")} for _ in range(N_STEPS)]
+
+
+_INIT = {}
+
+
+def _initial(arch, change):
+    """The initial f32 train state of `arch` with `change` (the port's
+    seeded draw, the attention weights rescaled to their true fan-in
+    (`torch_parity.true_fan_in`), zero moments) for the reference and a
+    fresh port copy of it (the port's step updates it in place)."""
+    key = (arch, change)
+    if key not in _INIT:
+        cfg = _cfgs(arch, 1, change)[0]
+        drawn = tsteps.init_params(cfg, 0, device="cpu", max_seq=S)
+        params = torch_parity.true_fan_in(
+            torch_parity.reference_tree(cfg, drawn))
+        zeros = jax.tree.map(np.zeros_like, params)
+        host = {"params": params, "opt": {"m": zeros, "v": zeros,
+                                          "step": np.zeros((), np.int32)}}
+        _INIT[key] = jax.tree.map(jnp.asarray, host), host
+    js, host = _INIT[key]
+    return js, weights.from_jax_train_state(host, device="cpu")
+
+
+def _grad_keys(arch):
+    """The router's key paths (the leaves whose gradient is checked on
+    every rank)."""
+    cfg = tget(arch)
+    return [f"['blocks'][{i}]['moe']['router']"
+            for i in range(cfg.n_layers)] if arch == MOE else []
+
+
+def _step_jobs(tmp, world):
+    jobs = []
+    for case in [c for c in CASES if np.prod(c[0]) == world]:
+        sizes, arch, ga, change = case
+        state = tmp / f"{_case_id(case)}-state.pt"
+        torch.save(_initial(arch, change)[1], state)
+        jobs.append(("sharded_steps", dict(
+            arch=arch, grad_accum=ga, state=str(state),
+            batches=str(tmp / "batches.pt"), schedule_kwargs=SCHED,
+            mesh=sizes, names=_names(sizes), replace=dict(change) or None,
+            grads_of=_grad_keys(arch))))
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every spawned world of this module, started together: 2 gloo ranks
+    (the (1, 2) steps, then the other block kinds' errors), 4 gloo ranks
+    (the 4-rank steps, then the (2, 2) programs and their resumes at (1,
+    4) and (4, 1)), and the launcher at 2 and at 4 ranks (no group
+    before it)."""
+    tmp = tmp_path_factory.mktemp("tp")
+    torch.save(_batches(), tmp / "batches.pt")
+    cut = str(tmp / "cut")
+    two = _step_jobs(tmp, 2) + [("model_axis", dict(arch=a))
+                                for a in OTHER_KINDS]
+    four = _step_jobs(tmp, 4) + [
+        ("program", dict(arch=DENSE, checkpoint_dir=cut, preempt_after=2,
+                         copies=(cut + "14", cut + "41"), mesh=(2, 2),
+                         **PROG)),
+        ("program", dict(arch=DENSE, checkpoint_dir=str(tmp / "whole"),
+                         mesh=(2, 2), **PROG)),
+        ("program", dict(arch=DENSE, checkpoint_dir=cut + "14", resume=True,
+                         mesh=(1, 4), **PROG)),
+        ("program", dict(arch=DENSE, checkpoint_dir=cut + "41", resume=True,
+                         mesh=(4, 1), **PROG))]
+    cli = lambda world, data: torch_ranks.start_ranks(
+        [("cli", dict(port=torch_ranks.free_port(), argv=CLI + [
+            "--data-axis", str(data), "--checkpoint-dir",
+            str(tmp / f"cli{world}")]))], world, tmp / f"cli{world}-ranks",
+        group=False, timeout=240)
+    worlds = {2: torch_ranks.start_ranks(two, 2, tmp / "two", timeout=240),
+              4: torch_ranks.start_ranks(four, 4, tmp / "four",
+                                         timeout=300),
+              "cli2": cli(2, 1), "cli4": cli(4, 2)}
+    out = {k: w.wait() for k, w in worlds.items()}
+    out["cut"] = tmp / "cut"
+    return out
+
+
+def _result(runs, case):
+    world = int(np.prod(case[0]))
+    index = [c for c in CASES if np.prod(c[0]) == world].index(case)
+    return [r[index] for r in runs[world]]
+
+
+_ONE = {}
+
+
+def _one_process(case, ref: bool):
+    """(metrics of each step, final state, the first batch's gradients)
+    of the port's one-process step (`ref` False) or the reference's
+    jitted step (`FAST_COMPILE`; its gradients those of the loss on the
+    whole first batch, grad_accum 1 only) on the whole batches."""
+    _, arch, ga, change = case
+    key = (arch, ga, change, ref)
+    if key not in _ONE:
+        tcfg, jcfg = _cfgs(arch, ga, change)
+        js, ts = _initial(arch, change)
+        kw = {"schedule_kwargs": SCHED, "policy": "fused"}
+        rows, grads = [], None
+        if ref:
+            jbs = [{k: jnp.asarray(v.numpy()) for k, v in b.items()}
+                   for b in _batches()]
+            if ga == 1:
+                vg = jax.jit(jax.value_and_grad(
+                    lambda p, b: jsteps.loss_fn(jcfg, p, b)[0]))
+                _, g = vg.lower(js["params"], jbs[0]).compile(
+                    compiler_options=torch_parity.FAST_COMPILE)(
+                        js["params"], jbs[0])
+                grads = weights.from_jax_params(
+                    jax.tree.map(np.asarray, g), device="cpu")
+            step = jax.jit(jsteps.make_train_step(jcfg, **kw)).lower(
+                js, jbs[0]).compile(
+                    compiler_options=torch_parity.FAST_COMPILE)
+            for jb in jbs:
+                js, m = step(js, jb)
+                rows.append({k: float(v) for k, v in m.items()})
+            state = weights.from_jax_train_state(
+                jax.tree.map(lambda a: np.asarray(a, np.float32), js),
+                device="cpu")
+        else:
+            step = tsteps.make_train_step(tcfg, **kw)
+            grads = step.accumulate(ts["params"], _batches()[0])[2]
+            for b in _batches():
+                ts, m = step(ts, b)
+                rows.append({k: float(v) for k, v in m.items()})
+            state = ts
+        _ONE[key] = rows, state, grads
+    return _ONE[key]
+
+
+def _close_states(got, want, tol):
+    """Every leaf of the state within `tol` relative L2, but the key
+    biases' parameters (see the module's docstring), which count in the
+    whole parameter tree's relative L2, within `tol` too."""
+    for part in ("params", "m", "v"):
+        g = got["params"] if part == "params" else got["opt"][part]
+        w = want["params"] if part == "params" else want["opt"][part]
+        num = sum(pytree.tree_leaves(pytree.tree_map(
+            lambda a, b: float(((a.float() - b.float()) ** 2).sum()), g, w)))
+        den = sum(float((b.float() ** 2).sum())
+                  for b in pytree.tree_leaves(w))
+        assert (num / den) ** 0.5 < tol, (part, (num / den) ** 0.5)
+        if part == "params":
+            g, w = ({k: v for k, v in pytree.tree_flatten_with_path(t)[0]
+                     if "'bk'" not in pytree.keystr(k)} for t in (g, w))
+        _close_leaves(g, w, tol)
+    assert int(got["opt"]["step"]) == int(want["opt"]["step"]) == N_STEPS
+
+
+def _close_leaves(got, want, tol=1e-5):
+    """Every leaf within `tol` relative L2 (a zero leaf equal to zero)."""
+    def one(path, a, b):
+        a, b = a.double(), b.double()
+        if b.norm() == 0:
+            assert a.norm() == 0, pytree.keystr(path)
+            return
+        rel = float((a - b).norm() / b.norm())
+        assert rel < tol, (pytree.keystr(path), rel)
+
+    pytree.tree_map_with_path(one, got, want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_tp_steps_equal_one_process_and_reference(runs, case):
+    sizes, arch, ga, _ = case
+    res = _result(runs, case)
+    for r in res[1:]:                        # every rank logs the mean
+        assert r["metrics"] == res[0]["metrics"]
+    got = res[0]
+    keys = ["loss", "grad_norm", "lr_scale"] + (["ce", "aux"] if ga == 1
+                                                else [])
+    assert sorted(got["metrics"][0]) == sorted(keys)
+    for ref in (False, True):
+        want, state, _ = _one_process(case, ref)
+        later = MOE_LATER if ref and arch == MOE else 1e-5
+        for i, (g, w) in enumerate(zip(got["metrics"], want)):
+            for k in keys:
+                tol = 1e-5 if i == 0 else later
+                assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), \
+                    (k, g, w)
+        _close_states(got["state"], state, later)
+    counts = got["counts"]
+    assert counts["reduce_from_ranks"] > 0 and counts["copy_to_ranks"] > 0
+    assert counts["max_over_ranks"] > 0
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_tp_gradients_equal_leaf_by_leaf(runs, case):
+    """The first batch's gradients the step reduces (each rank's blocks,
+    gathered whole) against the port's one-process gradients and (at
+    grad_accum 1) the reference's, every leaf within 1e-5 relative L2."""
+    got = _result(runs, case)[0]["whole_grads"]
+    _close_leaves(got, _one_process(case, False)[2])
+    if case[2] == 1:
+        _close_leaves(got, _one_process(case, True)[2])
+
+
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_each_ranks_blocks_are_the_plans_local_block(runs, case):
+    """Every rank's parameter and moment blocks are `local_block` of the
+    leaf's spec in the plan of the mesh, at the rank's coordinates, cut
+    from the whole state; a leaf split over both axes (w_down) holds a
+    block of each; the step count is whole."""
+    sizes, arch, ga, change = case
+    cfg = _cfgs(arch, ga, change)[0]
+    mesh = MeshSpec(sizes, _names(sizes))
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    specs = tsteps.param_partition(cfg, mesh, rules, max_seq=S)
+    res = _result(runs, case)
+    whole = res[0]["state"]
+    both = 0
+    for r in res:
+        for part in ("params", "m", "v"):
+            w = whole["params"] if part == "params" else whole["opt"][part]
+            local = (r["local"]["params"] if part == "params"
+                     else r["local"]["opt"][part])
+
+            def one(spec, a, b):
+                block = addressing.local_block(spec, b.shape, mesh,
+                                               r["coords"])
+                assert tuple(a.shape) == addressing.shard_shape(
+                    spec, b.shape, mesh)
+                assert torch.equal(a, b[block])
+
+            pytree.tree_map(one, specs, local, w,
+                            is_leaf=lambda x: isinstance(x, tuple))
+        assert r["local"]["opt"]["step"].shape == ()
+        both = sum(len({a for d in range(len(sp))
+                        for a in addressing.spec_axes(sp, d)}
+                       & {"data", "model"}) == 2
+                   for sp in pytree.tree_leaves(
+                       specs, is_leaf=lambda x: isinstance(x, tuple)))
+    if sizes[-2] > 1 and sizes[-1] > 1:
+        assert both > 0
+
+
+def test_router_gradient_is_equal_on_every_model_rank(runs):
+    """mixtral on (1, 2) and (2, 2): the router (replicated over
+    "model") gets its whole gradient on each model rank, bit for bit the
+    same on the ranks of one data coordinate, and nonzero."""
+    for case in [c for c in CASES if c[1] == MOE and not c[3]]:
+        res = _result(runs, case)
+        by_row = {}
+        for r in res:
+            row = tuple(v for k, v in r["coords"].items() if k != "model")
+            by_row.setdefault(row, []).append(r["grads"])
+        for grads in by_row.values():
+            assert len(grads) == case[0][-1]
+            for key in _grad_keys(MOE):
+                assert grads[0][key].abs().max() > 0
+                for g in grads[1:]:
+                    assert torch.equal(g[key], grads[0][key]), key
+
+
+def test_one_rank_step_is_bit_equal_and_counts_its_model_collectives(
+        tmp_path):
+    """On a (1, 1) mesh (a one-rank gloo group of this process) the
+    sharded step goes through the model axis's code (every leaf it may
+    split named by the plan, at size 1) and equals `make_train_step` bit
+    for bit in bf16, losses and every leaf, dense and MoE; a forward pass
+    of qwen3 issues reduce_from_ranks twice a layer, once for the
+    embedding and twice a loss chunk (the sums of exp and the label's
+    logit), and max_over_ranks once a chunk."""
+    kw = {"schedule_kwargs": {"warmup": 1, "total": 4}, "policy": "fused"}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(MeshSpec((1, 1), ("data", "model")), "cpu")
+        for arch, ga in ((DENSE, 2), (MOE, 1)):
+            cfg = dataclasses.replace(tget(arch), grad_accum=ga)
+            plain = tsteps.make_train_step(cfg, **kw)
+            a = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S)
+            step = tsteps.make_sharded_train_step(cfg, mesh, max_seq=S, **kw)
+            assert step.axis.heads == slice(0, cfg.n_heads)
+            assert step.axis.vocab == slice(0, cfg.vocab)
+            s = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S,
+                                        shards=step.shards)
+            for b in _batches()[:2]:
+                a, ma = plain(a, b)
+                s, ms = step(s, b)
+                assert float(ms["loss"]) == float(ma["loss"])
+            pytree.tree_map_with_path(
+                lambda path, x, y: None if torch.equal(x, y)
+                else pytest.fail(f"{arch}: {pytree.keystr(path)} differs"),
+                s, a)
+        cfg = tget(DENSE)
+        step = tsteps.make_sharded_train_step(cfg, mesh, max_seq=S, **kw)
+        s = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S,
+                                    shards=step.shards)
+        collectives.reset_counts()
+        with torch.no_grad():
+            tsteps.loss_fn(cfg, s["params"], _batches()[0], axis=step.axis)
+        counts = collectives.counts()
+        assert counts["reduce_from_ranks"] == 2 * cfg.n_layers + 1 + 2
+        assert counts["max_over_ranks"] == 1
+        assert counts["copy_to_ranks"] == 0     # a backward collective
+    finally:
+        dist.destroy_process_group()
+
+
+def test_checkpoint_at_2x2_resumes_at_1x4_and_4x1(runs):
+    """Steps 3-4 of a (2, 2) run preempted at step 2, resumed on (1, 4)
+    and on (4, 1), log the uninterrupted (2, 2) run's losses (bf16,
+    within 2e-3); the checkpoint holds whole leaves, written once; every
+    rank of a run logs the same losses."""
+    res = runs[4]
+    first = len([c for c in CASES if np.prod(c[0]) == 4])
+    cut, whole, at14, at41 = (res[0][first + i] for i in range(4))
+    assert whole["final_step"] == 4 and not whole["preempted"]
+    assert cut["final_step"] == 2 and cut["preempted"]
+    assert sorted(whole["losses"]) == [1, 2, 3, 4]
+    assert {k: whole["losses"][k] for k in (1, 2)} == cut["losses"]
+    for r in res:
+        for i in range(4):
+            assert r[first + i]["losses"] == res[0][first + i]["losses"]
+    for rep in (at14, at41):
+        assert rep["final_step"] == 4 and sorted(rep["losses"]) == [3, 4]
+        for k in (3, 4):
+            assert abs(rep["losses"][k] - whole["losses"][k]) <= \
+                2e-3 * whole["losses"][k], (k, rep["losses"])
+    manifest = json.loads((runs["cut"] / "step-000000002" /
+                           "manifest.json").read_text())
+    plain = tsteps.init_train_state(tget(DENSE), 0, device="cpu", max_seq=S)
+    from repro_torch.checkpoint.manager import _items
+    assert {k: tuple(v["shape"]) for k, v in
+            manifest["leaves"].items()} == {
+                k: tuple(np.shape(v)) for k, v in _items(plain)}
+    # a (1, 4) rank holds a quarter of the vocabulary's rows
+    assert (64, 64) in at14["shapes"] and (256, 64) not in at14["shapes"]
+
+
+def test_launcher_trains_on_1x2_and_2x2(runs, tmp_path):
+    """`launch/train.py` under a torchrun environment: `--data-axis 1`
+    over 2 ranks and `--data-axis 2` over 4 run 3 steps, every rank
+    logging the single-process run's losses within 2e-3 (bf16)."""
+    from repro_torch.launch import train as cli
+    plain = cli.main(CLI + ["--checkpoint-dir", str(tmp_path / "plain")])
+    want = [m["loss"] for m in plain["metrics"]]
+    for world in ("cli2", "cli4"):
+        for r in runs[world]:
+            assert r[0]["final_step"] == 3
+            for a, b in zip(r[0]["losses"], want):
+                assert abs(a - b) <= 2e-3 * b
+
+
+@pytest.mark.parametrize("arch", OTHER_KINDS)
+def test_other_block_kinds_raise_on_a_model_axis(runs, arch):
+    msg = runs[2][0][len([c for c in CASES if np.prod(c[0]) == 2])
+                     + OTHER_KINDS.index(arch)]
+    assert msg is not None and "ROADMAP Queue 1" in msg
+    assert "model axis of the other block kinds" in msg
+    kinds = set(tsteps.layer_kinds(tget(arch))) - set(
+        tsteps.MODEL_AXIS_KINDS)
+    assert all(k in msg for k in kinds), (kinds, msg)

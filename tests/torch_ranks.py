@@ -137,21 +137,29 @@ def in_process(jobs: list, root) -> list:
 # Jobs
 # ----------------------------------------------------------------------------
 
-def _mesh(world: int, model: int = 1):
+def _mesh(world: int, model: int = 1, sizes=None, names=None):
+    """A DeviceMesh over the group: `sizes` / `names` when given, else
+    (world // model, model) over ("data", "model")."""
     from repro_torch.core.addressing import MeshSpec
     from repro_torch.launch.mesh import make_device_mesh
-    return make_device_mesh(MeshSpec((world // model, model),
-                                     ("data", "model")), "cpu")
+    if sizes is None:
+        sizes, names = (world // model, model), ("data", "model")
+    return make_device_mesh(MeshSpec(tuple(sizes), tuple(names)), "cpu")
 
 
 @job
 def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
-                  schedule_kwargs, policy="fused", max_seq=16):
-    """The data-parallel step from the whole state in the file `state`
-    (the port's layout) on the batches in the file `batches`, this rank
-    taking its rows (the plan's batch block). -> every step's metrics,
-    the collective counts of one step, each leaf's shard shape, and (rank
-    0) the whole state at the end."""
+                  schedule_kwargs, policy="fused", max_seq=16, mesh=None,
+                  names=("data", "model"), replace=None, grads_of=()):
+    """The sharded step on `mesh` (sizes over `names`; None: (world, 1))
+    from the whole state in the file `state` (the port's layout) on the
+    batches in the file `batches`, this rank taking its rows (the plan's
+    batch block); `replace` is `dataclasses.replace` keywords for the
+    arch's config. -> every step's metrics, the collective counts of one
+    step, each leaf's shard shape, this rank's mesh coordinates and
+    final blocks, the step's reduced gradients of the first batch (this
+    rank's blocks of the leaves named in `grads_of`, key paths, and on
+    rank 0 the whole tree) and (rank 0) the whole state at the end."""
     import dataclasses
 
     from torch.utils import _pytree as pytree
@@ -160,8 +168,9 @@ def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
     from repro_torch.core import addressing, collectives
     from repro_torch.models import steps
 
-    cfg = dataclasses.replace(get(arch), grad_accum=grad_accum)
-    mesh = _mesh(world)
+    cfg = dataclasses.replace(get(arch), grad_accum=grad_accum,
+                              **(replace or {}))
+    mesh = _mesh(world, sizes=mesh, names=names)
     rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
     shards = steps.state_shards(cfg, mesh, rules, device="cpu",
                                 max_seq=max_seq)
@@ -173,13 +182,23 @@ def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
         cfg, mesh, schedule_kwargs=schedule_kwargs, policy=policy,
         max_seq=max_seq)
     coords = dict(zip(addressing.mesh_axes(mesh), mesh.get_coordinate()))
-    metrics, counts = [], None
-    for batch in torch.load(batches, weights_only=False):
+    metrics, counts, grads = [], None, {}
+
+    def rows_of(batch):
         B, S = batch["tokens"].shape
         spec = rules.spec_for(("batch", "seq"), (B, S), mesh)
         rows = addressing.local_block(spec, (B, S), mesh, coords)[0]
+        return {k: v[rows] for k, v in batch.items()}
+
+    all_batches = torch.load(batches, weights_only=False)
+    _, _, g = step.accumulate(local["params"], rows_of(all_batches[0]))
+    grads = {pytree.keystr(path): t for path, t in
+             pytree.tree_flatten_with_path(g)[0]
+             if pytree.keystr(path) in grads_of}
+    whole_grads = step.gather(g)
+    for batch in all_batches:
         collectives.reset_counts()
-        local, m = step(local, {k: v[rows] for k, v in batch.items()})
+        local, m = step(local, rows_of(batch))
         counts = counts or collectives.counts()
         metrics.append({k: float(v) for k, v in m.items()})
     shapes = pytree.tree_map(lambda t: tuple(t.shape), local)
@@ -187,20 +206,22 @@ def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
         lambda sh, leaf: sh.gather(leaf), shards, local,
         is_leaf=lambda x: isinstance(x, addressing.LeafShard))
     return {"metrics": metrics, "counts": counts, "shapes": shapes,
-            "state": gathered if rank == 0 else None}
+            "coords": coords, "local": local,
+            "grads": grads, "state": gathered if rank == 0 else None,
+            "whole_grads": whole_grads if rank == 0 else None}
 
 
 @job
 def program(rank, world, *, arch, checkpoint_dir, preempt_after=None,
-            copies=(), wait_for=None, **spec):
-    """`Cluster(arch, MeshSpec((world, 1), ...)).compile(TrainProgram(
-    ...)).run()` on the CPU; with `preempt_after` k, a SIGTERM to this
-    rank after its k-th step (every rank at the same step). `wait_for`: a
-    file to wait for first (another world's `copies`, up to the
-    collectives' timeout); `copies`: directories rank 0 copies the
-    checkpoint directory into after the run, each then marked by a
-    ``<dir>.done`` file. -> the report's final step, preemption flag,
-    logged losses and the trained parameters' shapes."""
+            copies=(), wait_for=None, mesh=None, **spec):
+    """`Cluster(arch, MeshSpec(mesh or (world, 1), ("data", "model")))
+    .compile(TrainProgram(...)).run()` on the CPU; with `preempt_after`
+    k, a SIGTERM to this rank after its k-th step (every rank at the same
+    step). `wait_for`: a file to wait for first (another world's
+    `copies`, up to the collectives' timeout); `copies`: directories rank
+    0 copies the checkpoint directory into after the run, each then
+    marked by a ``<dir>.done`` file. -> the report's final step,
+    preemption flag, logged losses and the trained parameters' shapes."""
     from repro_torch.cluster import Cluster, TrainProgram
     from repro_torch.core.addressing import MeshSpec
 
@@ -211,8 +232,8 @@ def program(rank, world, *, arch, checkpoint_dir, preempt_after=None,
                 raise TimeoutError(f"{wait_for} never came")
             time.sleep(0.05)
 
-    cluster = Cluster(arch, MeshSpec((world, 1), ("data", "model")),
-                      device="cpu")
+    cluster = Cluster(arch, MeshSpec(tuple(mesh or (world, 1)),
+                                     ("data", "model")), device="cpu")
     prog = cluster.compile(TrainProgram(checkpoint_dir=checkpoint_dir,
                                         **spec))
     if preempt_after is not None:
@@ -273,15 +294,14 @@ def cli(rank, world, *, port, argv):
 
 
 @job
-def model_axis(rank, world):
-    """The data-parallel step on a (1, world) mesh: the message of its
-    NotImplementedError."""
+def model_axis(rank, world, *, arch="xlstm-125m-smoke"):
+    """The sharded step of `arch` on a (1, world) mesh: the message of
+    its NotImplementedError (None when it builds)."""
     from repro_torch.configs import get
     from repro_torch.models import steps
 
     try:
-        steps.make_sharded_train_step(get("qwen3-14b-smoke"),
-                                      _mesh(world, model=world))
+        steps.make_sharded_train_step(get(arch), _mesh(world, model=world))
     except NotImplementedError as e:
         return str(e)
     return None

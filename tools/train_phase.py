@@ -1,13 +1,17 @@
 """chip_smoke.py's train phase alone (GPU): build the three kernels of
 qwen3-14b's fused route, optionally run the training card tests, then
 `chip_smoke.train_phase()` (part=step, part=grads, part=run; ~1 min),
-and with --dp the dp phase after it (the plan, the data-parallel step
-held to the train phase's, the launcher with --data-axis 1), with the
-card's name and power limit.
+and with --dp the dp phase after it (the plan, the sharded step at
+(data=1, model=1) held to the train phase's with its model collectives,
+the launcher with --data-axis 1), with the card's name and power limit.
+With --tp, chip_smoke's tp parts: rows 1-3 at the model axis's local
+shapes (part=kernels), then the two-thread (1, 2) step (part=threads);
+--tp-only runs those alone.
 
     python3 tools/train_phase.py            # the phase
     python3 tools/train_phase.py --tests    # the card tests first
     python3 tools/train_phase.py --dp       # then chip_smoke's dp phase
+    python3 tools/train_phase.py --tp-only  # the tp parts alone (~2 min)
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ def main() -> int:
                     help=f"run tests/test_torch_cuda.py -k '{TESTS}' first")
     ap.add_argument("--dp", action="store_true",
                     help="run chip_smoke's dp phase after the train phase")
+    ap.add_argument("--tp", action="store_true",
+                    help="then chip_smoke's tp parts=kernels and threads")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="the tp parts alone")
     args = ap.parse_args()
 
     import chip_smoke
@@ -47,13 +55,20 @@ def main() -> int:
                                               PYTHONPATH=str(ROOT / "src")))
         if r.returncode:
             return r.returncode
-    t0 = time.perf_counter()
-    _, plain = chip_smoke.train_phase(launches)
-    print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
-    if args.dp:
+    if not args.tp_only:
         t0 = time.perf_counter()
-        chip_smoke.dp_phase(launches, plain)
-        print(f"dp phase {time.perf_counter() - t0:.1f} s")
+        _, plain = chip_smoke.train_phase(launches)
+        print(f"train phase {time.perf_counter() - t0:.1f} s", flush=True)
+        if args.dp:
+            t0 = time.perf_counter()
+            chip_smoke.dp_phase(launches, plain)
+            print(f"dp phase {time.perf_counter() - t0:.1f} s", flush=True)
+        del plain
+    if args.tp or args.tp_only:
+        t0 = time.perf_counter()
+        chip_smoke.tp_kernels_part([])
+        chip_smoke.tp_threads_part(launches)
+        print(f"tp parts {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 
