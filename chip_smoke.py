@@ -11,7 +11,8 @@ the robustness and durability layer on its graphed paged session
 (scripted faults, preemption, the journal, snapshots, crash and restore)
 and serving groups (`ShardedServeSessionProgram`: two session cells on
 one card behind one session, quarantine, a crash of a durable root, the
-locality example, gradient compression);
+locality example, gradient compression) and its serving cells on a
+one-rank (data, model) mesh;
 then mixtral-8x7b at full width (8 of its 32 layers): its MoE prefill on
 the banded schedule and its decode on rolling caches; then the three
 mixed-kind archs: recurrentgemma-9b at full width and depth, xlstm-125m
@@ -20,7 +21,8 @@ then trains qwen3-14b at full width (4 of its 40 layers) through
 `TrainProgram` under "fused", and a reduced qwen3 through
 `TrainProgram.run()` with checkpoint, preemption and resume; then the
 same train program on a one-rank (data, model) mesh, the model axis's
-kernel shapes, and a (1, 2) step of two thread ranks on the card.
+kernel shapes, a (1, 2) step and a (1, 2) decode of two thread ranks on
+the card.
 
     python3 chip_smoke.py
 
@@ -295,11 +297,29 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            full width, 2 layers, its two ranks two threads of this
            process in torch's threaded process group: losses and every
            gradient leaf within 2e-2 of the one-rank step's
+  mesh     serving on a mesh (`cluster.cells.build_cell`): part=kernels
+           (right after tp's), rows 1-2 on the decode kernel at a rank's
+           local decode shapes of qwen3-14b on (1, 2) and (2, 4) (M 8,
+           `MESH_ROWS`) and row 3 at the (1, 2) prefill's heads, each row
+           added to its kernel's record; part=cells (after groups, on
+           qwen3-14b's weights at full width and depth), the prefill,
+           decode, decode-chunk (K 16) and paged session cells on a
+           one-rank NCCL (data=1, model=1) mesh, where every split over
+           "model" is made at size 1: each bit-equal to its plain path,
+           with its model collectives a step and its wall against the
+           plain path's; part=threads (last), a (data=1, model=2) decode
+           of qwen3-14b at full width and depth, two thread ranks, the
+           cache's rows split over kv_seq: 16 steps' f32 logits within
+           1e-4 of the one-rank step's, the bf16 logits within twice the
+           step's noise floor (bf16 against f32, one rank), the greedy
+           tokens equal where the one-rank top-2 margin passes 4 times
+           its row's bf16 error
 
 The kernel launch counts are set to 0 before each of the suite, tune,
 compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
-groups (part=two and part=locality), moe, hybrid, xlstm, vlm, train,
-dp (part=step) and tp (part=threads) runs and read right after; every kernel of a
+groups (part=two and part=locality), mesh (part=cells), moe, hybrid,
+xlstm, vlm, train, dp (part=step), tp (part=threads) and mesh
+(part=threads) runs and read right after; every kernel of a
 phase must have launched and no plain version may have run on a CUDA
 tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
@@ -314,6 +334,7 @@ last two lines are the kernels' JSON record and {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -462,6 +483,7 @@ def main() -> int:
 
     records = kernel_phase()
     tp_kernels_part(records)
+    tp_kernels_part(records, MESH_ROWS, "mesh")
     suite_records = suite_phase(launches)
     tune_results = tune_phase(launches)
     compose_counts = compose_phase(launches)
@@ -474,6 +496,7 @@ def main() -> int:
     engine_traced = engine_phase(launches, cfg, params)
     chaos_counts = chaos_phase(launches, params)
     groups = groups_phase(launches, params)
+    mesh_counts = mesh_cells_part(launches, cfg, params)
     del params                        # qwen3-14b's 29.5 GB: mixtral is next
     gc.collect()                      # reference cycles may still hold them
     torch.cuda.empty_cache()
@@ -487,6 +510,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_threads_part(launches)
+    mesh_threads_part(launches)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
         # it. The qwen3 fused kernels: the prefill's (equal to its wrapper
@@ -508,10 +532,12 @@ def main() -> int:
                                + engine_traced[name] + moe_counts[name]
                                + hybrid_counts[name] + vlm_counts[name]
                                + train_counts[name] + dp_counts[name]
-                               + groups["traced"][name])
+                               + groups["traced"][name]
+                               + mesh_counts[name])
             rec["train_launches"] = train_counts[name]
             rec["dp_launches"] = dp_counts[name]
             rec["groups_launches"] = groups["traced"][name]
+            rec["mesh_launches"] = mesh_counts[name]
             rec["wrapper_launches"] = prefill_counts[name] + \
                 serve_counts[name] + chaos_counts[name] + \
                 groups["counts"][name]
@@ -981,12 +1007,34 @@ TP_ROWS = (
 )
 
 
-def tp_kernels_part(records: list[dict]) -> None:
-    """Rows 1-3 at the local shapes of `TP_ROWS`, as `kernel_phase` runs
-    them (against the plain version at TOL, the kernel, plain and library
-    times flushed, mean of 10, the bound, the schedule and the traced
-    instantiation): one `tp part=kernels` line a row, each row added to
-    its kernel's record (`model_axis`: the tag)."""
+# (tag, kernel, shape) of rows 1-2 on the decode kernel at a rank's local
+# shapes of qwen3-14b's decode step at 8 slots (M 8) under the plan on
+# (1, 2) (20 / 4 heads of 128 a rank, d_ff 8704) and on (2, 4) (10 / 2,
+# d_ff 4352), and row 3 at the (1, 2) prefill's heads (B 1, S 512).
+MESH_ROWS = (
+    ("qwen3/2 q", "rmsnorm_matmul", (8, 5120, 2560)),
+    ("qwen3/2 k,v", "rmsnorm_matmul", (8, 5120, 512)),
+    ("qwen3/2 gate,up", "rmsnorm_matmul", (8, 5120, 8704)),
+    ("qwen3/4 q", "rmsnorm_matmul", (8, 5120, 1280)),
+    ("qwen3/4 k,v", "rmsnorm_matmul", (8, 5120, 256)),
+    ("qwen3/4 gate,up", "rmsnorm_matmul", (8, 5120, 4352)),
+    ("qwen3/2 out", "matmul_residual_add", (8, 2560, 5120)),
+    ("qwen3/2 down", "matmul_residual_add", (8, 8704, 5120)),
+    ("qwen3/4 out", "matmul_residual_add", (8, 1280, 5120)),
+    ("qwen3/4 down", "matmul_residual_add", (8, 4352, 5120)),
+    ("qwen3/2 prefill attn", "flash_attention_proj",
+     (1, 20, 4, 512, 128, 5120)),
+)
+
+
+def tp_kernels_part(records: list[dict], rows=TP_ROWS,
+                    phase: str = "tp") -> None:
+    """Rows 1-3 at the local shapes of `rows` (`TP_ROWS`, or the mesh
+    phase's `MESH_ROWS`), as `kernel_phase` runs them (against the plain
+    version at TOL, the kernel, plain and library times flushed, mean of
+    10, the bound, the schedule and the traced instantiation; a decode
+    row also graph-replayed): one `<phase> part=kernels` line a row, each
+    row added to its kernel's record (`model_axis`: the tag)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import fused
@@ -1000,7 +1048,7 @@ def tp_kernels_part(records: list[dict]) -> None:
 
     cases: dict = {}
     tags = []
-    for tag, name, shape in TP_ROWS:
+    for tag, name, shape in rows:
         case = functools.partial(kernel_case, cases, timer, name)
         if name == "rmsnorm_matmul":
             m, k, n = shape
@@ -1047,13 +1095,13 @@ def tp_kernels_part(records: list[dict]) -> None:
         i = seen[name] = seen.get(name, -1) + 1
         label, err, tol, ms, plain, lib, (bms, by), sched, gr = \
             cases[name][i]
-        log("tp", part="kernels", tag=f"'{tag}'", name=name, shape=label,
+        log(phase, part="kernels", tag=f"'{tag}'", name=name, shape=label,
             max_abs_err=f"{err:.3g}",
             tol=f"rtol={tol['rtol']},atol={tol['atol']}",
             kernel_ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
             library_ms=f"{lib:.4f}", vs_library=f"{ms / lib:.2f}",
             bound_ms=f"{bms:.4f}", bound_by=by, bound_share=f"{bms / ms:.3f}",
-            schedule=sched)
+            schedule=sched, **{k: f"{v:.4f}" for k, v in gr.items()})
         rec = by_name.get(name)
         if rec is None:                   # run alone (tools/train_phase.py)
             continue
@@ -1061,7 +1109,7 @@ def tp_kernels_part(records: list[dict]) -> None:
         rec["rows"].append({"shape": label, "model_axis": tag,
                             "max_abs_err": err, "ms": ms, "plain_ms": plain,
                             "library_ms": lib, "bound_ms": bms,
-                            "bound_by": by, "schedule": sched})
+                            "bound_by": by, "schedule": sched, **gr})
     del cases, timer
     torch.cuda.empty_cache()
 
@@ -5001,6 +5049,479 @@ def tp_threads_part(launches, cfg=None, device="cuda", batch=None) -> None:
     del want, results
     gc.collect()
     torch.cuda.empty_cache()
+
+
+
+# ----------------------------------------------------------------------------
+# mesh: the serving cells of `cluster.cells.build_cell` on a process group
+# ----------------------------------------------------------------------------
+
+MESH_SLOTS = 8            # slots of the decode, chunk and session cells
+MESH_SEQ = 1024           # their max_seq (the private cache's rows)
+MESH_CHUNK = 16           # the decode-chunk and session cells' K
+MESH_DECODE = 8           # teacher-forced steps of the decode cell
+MESH_PAGE = 16
+MESH_THREAD_SEQ = 1024    # part=threads' cache rows (512 a rank)
+MESH_THREAD_STEPS = 16
+MESH_F32_TOL = 1e-4       # part=threads: relative L2 of a step's f32
+                          # logits, sharded against one rank (sum order)
+MESH_NOISE = 2.0          # part=threads: a bf16 step's sharded error in
+                          # multiples of its noise floor (bf16 against f32)
+
+
+def _mesh_inputs(vocab: int, device, B: int, S: int, steps_n: int,
+                 seed: int = 30) -> dict:
+    """Seeded inputs of the mesh cells: a 512-token prompt (B 1), per-slot
+    start positions spread over the cache's rows, teacher-forced decode
+    tokens, and a session of prompts (4-32 tokens) and budgets (8-24)."""
+    rng = np.random.default_rng(seed)
+    span = S - max(steps_n, 2 * MESH_CHUNK + 56)
+    lens = rng.integers(4, 33, B)
+    buf = np.zeros((B, 32), np.int64)
+    for b in range(B):
+        buf[b, :lens[b]] = rng.integers(0, vocab, lens[b])
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+    return {"prompt": t(rng.integers(0, vocab, (1, 512))),
+            "starts": t((np.arange(B) * span) // B),
+            "decode": t(rng.integers(0, vocab, (B, steps_n)).astype(
+                np.int32)),
+            "prompt_buf": t(buf), "prompt_len": t(lens.astype(np.int64)),
+            "budget": t(rng.integers(8, 25, B).astype(np.int64))}
+
+
+def _session_state(cache, inp, pps):
+    """Every slot of a session admitted with its prompt and budget; slot
+    b's page table from page 1 + b * pps."""
+    from repro_torch.runtime import engine
+    B = inp["prompt_buf"].shape[0]
+    st = engine.init_session_state(cache, B, inp["prompt_buf"].shape[1],
+                                   pps, device=cache[next(iter(cache))]
+                                   .device)
+    for k in ("prompt_buf", "prompt_len", "budget"):
+        st[k].copy_(inp[k])
+    st["active"].fill_(True)
+    if pps is not None:
+        st["pages"].copy_(1 + torch.arange(B, device=st["pages"].device)
+                          [:, None] * pps + torch.arange(
+                              pps, device=st["pages"].device))
+    return st
+
+
+def _drain(fn, params, state) -> tuple:
+    """Chunks of a session cell until every slot is done -> (tokens, emit
+    flags) of all its chunks."""
+    toks, emits = [], []
+    while True:
+        state, t, e, _, done = fn(params, state)
+        toks.append(t)
+        emits.append(e)
+        if bool(done):
+            return torch.cat(toks, 1), torch.cat(emits, 1)
+
+
+@contextlib.contextmanager
+def _reading_logits():
+    """Within the block, every greedy pick of the port's serving steps
+    (`steps._greedy`) also records its f32 logits, whole over the
+    vocabulary (a rank's block gathered over the model ranks here, outside
+    the step's counted collectives), in call order under its model rank
+    (0 for a step with no model axis): the dict of lists yielded. Thread
+    ranks share the one hook, entered outside their threads."""
+    import collections
+
+    import torch.distributed as dist
+
+    from repro_torch.models import steps
+    seen, greedy = collections.defaultdict(list), steps._greedy
+
+    def reading(lg, axis):
+        whole = lg
+        if axis is not None and axis.vocab is not None and axis.size > 1:
+            front = lg.movedim(-1, 0).contiguous()
+            out = front.new_empty((axis.size * front.shape[0],
+                                   *front.shape[1:]))
+            gather = getattr(dist, "all_gather_single", None) or \
+                dist.all_gather_into_tensor      # the name before torch 2.13
+            gather(out, front, group=axis.group)
+            whole = out.movedim(0, -1)
+        seen[0 if axis is None else axis.rank].append(whole.clone())
+        return greedy(lg, axis)
+
+    steps._greedy = reading
+    try:
+        yield seen
+    finally:
+        steps._greedy = greedy
+
+
+def mesh_cells_part(launches, cfg, params, device="cuda") -> dict:
+    """qwen3-14b at full width and depth (the prefill phase's weights) on
+    a (data=1, model=1) DeviceMesh over a one-rank NCCL group, under
+    "fused": the prefill cell (B 1, S 512), the decode cell (MESH_SLOTS
+    slots, MESH_DECODE teacher-forced steps at per-slot positions over
+    MESH_SEQ rows), the decode-chunk cell (K MESH_CHUNK) and the paged
+    session cell (K MESH_CHUNK, pages of MESH_PAGE, drained), each of
+    `cluster.cells.build_cell`. Every split over "model" is made at size
+    1, so the cells run the split code with one-rank collectives (which
+    skip the backend); each is bit-equal to the plain path
+    (`make_prefill_step`'s eager step, `make_decode_step`,
+    `engine.decode_chunk_fn` and `engine.session_chunk_fn` over it,
+    eager): the prefill's token and logits, each decode step's tokens
+    and logits (read through `_reading_logits` on both sides) and the
+    cache after them, the chunk's tokens, the session's tokens and emit
+    flags. The
+    launch counts are set to 0 before the cells run and read after (rows
+    1-3 must launch); each cell logs its model collectives a step and its
+    wall against the plain path's (both eager, after one warm-up prefill
+    and decode step). Returns the cells' counted launches.
+    `device` "cpu" (a gloo group) checks the part itself on a smoke
+    config."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.cluster import cells
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing, collectives
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
+
+    B, S, K = MESH_SLOTS, MESH_SEQ, MESH_CHUNK
+    inp = _mesh_inputs(cfg.vocab, device, B, S, MESH_DECODE)
+    clen = steps.decode_cache_len(cfg, S)
+    pps = -((S + 1) // -MESH_PAGE)
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn, *a):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def prefill_run(step, batch):
+        with _reading_logits() as seen:
+            return step(params, batch), seen[0][0]
+
+    def decode_run(step, cache):
+        toks = []
+        with _reading_logits() as seen:
+            for t in range(MESH_DECODE):
+                cache, tok = step(params, cache, {
+                    "tokens": inp["decode"][:, t:t + 1],
+                    "pos": inp["starts"] + t})
+                toks.append(tok)
+        return cache, torch.cat(toks, 1), torch.stack(seen[0])
+
+    def chunk_run(fn, cache):
+        tok = inp["decode"][:, :1].long()
+        z = lambda dt: torch.zeros(B, dtype=dt, device=device)
+        return fn(params, cache, tok.clone(), z(torch.bool), z(torch.int64),
+                  torch.zeros((), dtype=torch.int64, device=device),
+                  torch.full((), K, dtype=torch.int64, device=device))[-1]
+
+    def pool():
+        return steps.init_paged_cache(cfg, B, clen, n_pages=B * pps + 1,
+                                      page_size=MESH_PAGE, device=device)
+
+    def warm(pre, dec):
+        """One prefill and one decode step first (the card's first calls
+        of a shape, and a group's first collectives, are not timed)."""
+        pre(params, {"tokens": inp["prompt"]})
+        dec(params, steps.init_cache(cfg, B, clen, device=device),
+            {"tokens": inp["decode"][:, :1], "pos": inp["starts"]})
+
+    # the plain paths
+    plain_pre = steps.make_prefill_step(cfg, policy="fused").eager
+    plain_step = steps.make_decode_step(cfg, S, policy="fused")
+    warm(plain_pre, plain_step)
+    want, plain_ms = {}, {}
+    want["prefill"], plain_ms["prefill"] = timed(
+        prefill_run, plain_pre, {"tokens": inp["prompt"]})
+    want["decode"], plain_ms["decode"] = timed(
+        decode_run, plain_step, steps.init_cache(cfg, B, clen,
+                                                 device=device))
+    want["chunk"], plain_ms["chunk"] = timed(
+        chunk_run, engine.decode_chunk_fn(plain_step, K),
+        steps.init_cache(cfg, B, clen, device=device))
+    want["paged"], plain_ms["paged"] = timed(
+        _drain, engine.session_chunk_fn(plain_step, K, cuda_graph=False),
+        params, _session_state(pool(), inp, pps))
+
+    got, ms, coll, n_steps = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group(
+            "nccl" if device == "cuda" else "gloo", store=dist.FileStore(
+            f"{root}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh(MeshSpec((1, 1), ("data", "model")),
+                                    device)
+            rules = addressing.default_rules(mesh)
+            pre = steps.make_sharded_prefill_step(cfg, mesh, policy="fused",
+                                                  max_seq=512, batch=1)
+            dec = steps.make_sharded_decode_step(cfg, mesh, S, policy="fused",
+                                                 batch=B)
+            shape = ShapeConfig("mesh", S, B, "decode")
+            chunk = cells.build_cell(cfg, shape, mesh, rules, policy="fused",
+                                     decode_chunk=K)[0]
+            sess = cells.build_cell(cfg, shape, mesh, rules, policy="fused",
+                                    decode_chunk=K, session=True, paged=True,
+                                    page_size=MESH_PAGE)[0]
+            caches = {k: steps.init_cache(cfg, B, clen, device=device,
+                                          shards=chunk.cache_shards)
+                      if k != "paged" else steps.init_paged_cache(
+                          cfg, B, clen, n_pages=B * pps + 1,
+                          page_size=MESH_PAGE, device=device,
+                          shards=sess.cache_shards)
+                      for k in ("decode", "chunk", "paged")}
+            if dec.split.rows != slice(0, clen) or \
+                    sess.sharded_step.split.pool_heads is None:
+                raise AssertionError(f"mesh cells: cache split {dec.split}")
+            warm(pre, dec)
+            launches.reset_counts()
+            runs = {
+                "prefill": (prefill_run, pre, {"tokens": inp["prompt"]}),
+                "decode": (decode_run, dec, caches["decode"]),
+                "chunk": (chunk_run, chunk, caches["chunk"]),
+                "paged": (_drain, sess, params, _session_state(
+                    caches["paged"], inp, pps))}
+            for name, (fn, *args) in runs.items():
+                collectives.reset_counts()
+                got[name], ms[name] = timed(fn, *args)
+                coll[name] = {k: v for k, v in collectives.counts().items()
+                              if v and not k.endswith("_bytes")}
+            counted = _check_counts(launches, "mesh", QWEN_FUSED)
+        finally:
+            dist.destroy_process_group()
+    n_steps = {"prefill": 1, "decode": MESH_DECODE, "chunk": K,
+               "paged": coll["paged"]["argmax_all_gather"]}  # one a step
+    same = {
+        "prefill": all(torch.equal(a, b) for a, b in zip(got["prefill"],
+                                                         want["prefill"])),
+        "decode": all(torch.equal(a, b) for a, b in zip(got["decode"][1:],
+                                                        want["decode"][1:]))
+        and all(torch.equal(got["decode"][0][k], want["decode"][0][k])
+                for k in want["decode"][0]),
+        "chunk": torch.equal(got["chunk"], want["chunk"]),
+        "paged": all(torch.equal(a, b) for a, b in zip(got["paged"],
+                                                       want["paged"]))}
+    if not all(same.values()) or not got["paged"][1].any():
+        raise AssertionError(f"mesh cells: bit-equal {same}")
+    L = cfg.n_layers
+    per_step = {"heads_all_gather": L, "lse_max": L, "lse_sum": L,
+                "lse_out": L, "reduce_from_ranks": 2 * L + 1}
+    for name in ("decode", "chunk"):
+        c = {k: coll[name].get(k, 0) for k in per_step}
+        if c != {k: v * n_steps[name] for k, v in per_step.items()}:
+            raise AssertionError(f"mesh cells: {name} collectives "
+                                 f"{coll[name]}, expected {per_step} a step")
+    for name in runs:
+        log("mesh", part="cells", cell=name, mesh="data=1,model=1",
+            layers=L, bit_equal=same[name], steps=n_steps[name],
+            wall_ms=f"{ms[name]:.2f}", plain_wall_ms=f"{plain_ms[name]:.2f}",
+            collectives_a_step=json.dumps({
+                k: round(v / n_steps[name], 2) for k, v in
+                coll[name].items()}).replace(" ", ""))
+    log("mesh", part="cells", B=B, S=S, cache_rows=clen, chunk=K,
+        pages=B * pps + 1, split="kv_seq", launches=_nonzero(
+            {n: counted[n] for n in QWEN_FUSED}))
+    del caches, got, want, runs
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {n: counted[n] for n in QWEN_FUSED}
+
+
+def _to_f32_(tree):
+    """Every tensor of a nested dict or list replaced by its f32 copy, in
+    place, one leaf at a time (each bf16 leaf freed as its copy is
+    made, so a tree never exists twice)."""
+    for k in (list(tree) if isinstance(tree, dict) else range(len(tree))):
+        v = tree[k]
+        if isinstance(v, torch.Tensor):
+            tree[k] = v.float()
+        else:
+            _to_f32_(v)
+        del v
+    return tree
+
+
+def mesh_threads_part(launches, cfg=None, device="cuda") -> None:
+    """Two ranks on the one card: qwen3-14b at full width and full depth
+    on a (data=1, model=2) mesh whose ranks are two threads of this
+    process (torch's threaded process group), MESH_THREAD_STEPS
+    teacher-forced decode steps of MESH_SLOTS slots at per-slot positions
+    spread over MESH_THREAD_SEQ cache rows (split over kv_seq: half a
+    rank), against the one-rank step on the same seeded weights. Four
+    runs, one after the other, each freed before the next:
+
+    * one rank, bf16, "fused" (the logits to hold the sharded step to);
+    * one rank, the same weights cast to f32, "reference" (plain f32
+      products): the noise floor of a step, the relative L2 distance of
+      the bf16 logits from these;
+    * two thread ranks, bf16, "fused" (rows 1-2 launched, counted);
+    * two thread ranks, f32, "reference".
+
+    The f32 sharded logits are within MESH_F32_TOL relative L2 of the f32
+    one-rank logits every step (the split's arithmetic; only the order
+    of the sums differs). The bf16 sharded logits are within MESH_NOISE
+    times the step's noise floor of the bf16 one-rank logits: if the
+    sharded bf16 chain is no farther from f32 than the one-rank chain,
+    the two are at most twice the floor apart. The greedy tokens are
+    equal wherever the one-rank top-2 margin exceeds 4 times its row's
+    largest bf16 error against f32 (each of the two logits then moves
+    by less than half the margin). The logits are read whole through
+    `_reading_logits`. `cfg` and `device` replace the card's run (a
+    smoke config on the CPU checks the part itself)."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+
+    from repro_torch.configs import get
+    from repro_torch.core import addressing
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    cfg = cfg or get("qwen3-14b")
+    B, S, n = MESH_SLOTS, MESH_THREAD_SEQ, MESH_THREAD_STEPS
+    clen = steps.decode_cache_len(cfg, S)
+    rng = np.random.default_rng(31)
+    starts = torch.from_numpy((np.arange(B) * (S - n)) // B).to(device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n)).astype(
+        np.int32)).to(device)
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False   # f32 products
+    free = (lambda: (gc.collect(), torch.cuda.empty_cache())) \
+        if device == "cuda" else gc.collect
+
+    def run(step, params, cache):
+        for t in range(n):
+            cache, _ = step(params, cache, {"tokens": toks[:, t:t + 1],
+                                            "pos": starts + t})
+
+    def one_rank():
+        """(bf16 logits, f32 logits) of the one-rank step, on the host."""
+        params = steps.init_params(cfg, 0, device=device)
+        cache = steps.init_cache(cfg, B, clen, device=device)
+        with _reading_logits() as seen:
+            run(steps.make_decode_step(cfg, S, policy="fused"), params,
+                cache)
+        bf = [lg.cpu() for lg in seen[0]]
+        del cache, seen
+        _to_f32_(params)
+        cache = _to_f32_(steps.init_cache(cfg, B, clen, device=device))
+        with _reading_logits() as seen:
+            run(steps.make_decode_step(cfg, S, policy="reference"), params,
+                cache)
+        return bf, [lg.cpu() for lg in seen[0]]
+
+    def two_ranks(policy, f32):
+        """Each thread rank's logits (whole) of the sharded step, its
+        cache split and its cache block's shape, and the wall."""
+        meta, errors, store = {}, {}, dist.HashStore()
+
+        def rank(r):
+            try:
+                dist.init_process_group("threaded", rank=r, world_size=2,
+                                        store=store)
+                mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                        torch.device(device).type)
+                rules = addressing.default_rules(mesh)
+                dec = steps.make_sharded_decode_step(
+                    cfg, mesh, S, rules=rules, policy=policy, batch=B)
+                local = steps.init_params(cfg, 0, device=device,
+                                          shards=dec.shards)
+                cache = steps.init_cache(
+                    cfg, B, clen, device=device,
+                    shards=steps.cache_shards(cfg, mesh, rules, B, clen))
+                if f32:
+                    _to_f32_(local)
+                    _to_f32_(cache)
+                run(dec, local, cache)
+                meta[r] = (dec.split, tuple(cache["k"].shape))
+            except BaseException as e:
+                errors[r] = traceback.format_exc()
+                mt.ProcessLocalGroup.exception_handle(e)   # wakes the other
+
+        torch._C._distributed_c10d._set_thread_isolation_mode(True)
+        mt._install_threaded_pg()
+        t0 = time.perf_counter()
+        try:
+            with _reading_logits() as seen:
+                threads = [threading.Thread(target=rank, args=(r,),
+                                            daemon=True) for r in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(600)
+            wall = time.perf_counter() - t0
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(
+                    f"mesh threads: {errors or 'a rank hung'}")
+        finally:
+            mt._uninstall_threaded_pg()
+            torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        logits = {r: [lg.cpu() for lg in seen[r]] for r in (0, 1)}
+        return logits, meta, wall
+
+    t0 = time.perf_counter()
+    one, one32 = one_rank()
+    free()
+    launches.reset_counts()
+    got, meta, wall = two_ranks("fused", False)
+    counted = _check_counts(launches, "mesh", QWEN_FUSED[:2])
+    free()
+    got32, _, wall32 = two_ranks("reference", True)
+    free()
+
+    rel = lambda a, b: float((a.double() - b.double()).norm()
+                             / b.double().norm())
+    floor = [rel(one[t], one32[t]) for t in range(n)]
+    err = [max(rel(got[r][t], one[t]) for r in (0, 1)) for t in range(n)]
+    err32 = [max(rel(got32[r][t], one32[t]) for r in (0, 1))
+             for t in range(n)]
+    own = [max(rel(got[r][t], one32[t]) for r in (0, 1)) for t in range(n)]
+    checked, differ = 0, []
+    for t in range(n):
+        want = one[t].double()
+        noise = (want - one32[t].double()).abs().amax(dim=-1)
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 4 * noise
+        checked += int(sure.sum())
+        for r in (0, 1):
+            if not torch.equal(got[r][t].argmax(-1)[sure],
+                               want.argmax(-1)[sure]):
+                differ.append((t, r))
+    over = [t for t in range(n) if err[t] > MESH_NOISE * floor[t]]
+    ratio = max(e / f for e, f in zip(err, floor))
+    split, shape = meta[0]
+    if max(err32) > MESH_F32_TOL or over or differ or split.rows is None:
+        raise AssertionError(
+            f"mesh threads: f32 logits {max(err32):.3g} relative L2 (tol "
+            f"{MESH_F32_TOL}); bf16 above {MESH_NOISE} x the noise floor at "
+            f"steps {over} ({err} against {floor}); tokens differ at "
+            f"{differ}; split {split}")
+    log("mesh", part="threads", mesh="data=1,model=2", ranks="threads",
+        layers=cfg.n_layers, B=B, cache_rows=clen,
+        split=f"kv_seq:{split.rows.start}-{split.rows.stop}",
+        rank_cache_k=json.dumps(list(shape)).replace(" ", ""), steps=n,
+        worst_rel_l2=f"{max(err):.4g}",
+        noise_floor=f"{min(floor):.4g}-{max(floor):.4g}",
+        worst_over_floor=f"{ratio:.3f}", limit=f"{MESH_NOISE}xfloor",
+        sharded_floor=f"{min(own):.4g}-{max(own):.4g}",
+        f32_worst_rel_l2=f"{max(err32):.3g}",
+        f32_tol=MESH_F32_TOL, tokens_checked=checked, tokens_equal=True,
+        wall_s=f"{wall:.1f}", f32_wall_s=f"{wall32:.1f}",
+        part_s=f"{time.perf_counter() - t0:.1f}",
+        launches=_nonzero({k: counted[k] for k in QWEN_FUSED[:2]}))
+    del got, got32, one, one32
+    free()
 
 
 if __name__ == "__main__":

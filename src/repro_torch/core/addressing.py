@@ -423,6 +423,15 @@ class LeafShard:
     def model_sharded(self) -> bool:
         return self.model_dim is not None
 
+    def local_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of this rank's block of a leaf of `shape`."""
+        out = list(shape)
+        for dim, parts in ((self.dim, self.parts),
+                           (self.model_dim, self.model_parts)):
+            if dim is not None:
+                out[dim] //= parts
+        return tuple(out)
+
     def take(self, whole):
         t = torch.as_tensor(whole)
         part = t
@@ -453,3 +462,14 @@ class LeafShard:
         from repro_torch.core import collectives
         return collectives.all_gather_dim(whole, self.model_dim,
                                           self.model_group)
+
+
+def take_tree(shards, tree):
+    """Each leaf of `tree` cut to this rank's block (`LeafShard.take`),
+    `shards` a tree like it of `LeafShard`s (a whole cache or parameter
+    tree landing on a rank, as the tests and checkpoints place it)."""
+    if isinstance(shards, LeafShard):
+        return shards.take(tree)
+    if isinstance(shards, dict):
+        return {k: take_tree(shards[k], tree[k]) for k in tree}
+    return [take_tree(s, t) for s, t in zip(shards, tree)]

@@ -16,13 +16,28 @@ read inside it), whose gradient each rank then holds only a part of.
 `reduce_from_ranks` is an all-reduce forward and the identity backward:
 it sums the ranks' partial outputs (a row-parallel product's) into the
 whole value. `max_over_ranks` is a max with no gradient (the
-vocab-parallel loss's). `sum_over_ranks` is not used on the model axis:
-every model rank holds the same replica of the loss, so summing its
-gradient over them would multiply it by the model size. Each takes
-the process group it runs on: there is no default group and no
-single-process shortcut. On a group of one rank each is a copy (or
-nothing), carried out by the backend all the same (NCCL on the card, gloo
-on the CPU).
+vocab-parallel loss's).
+
+Serving on a mesh runs under `inference_mode` and uses the plain forms:
+`all_gather_dim` of the query heads and the new K/V rows
+(``heads_all_gather``), the log-sum-exp combine of a decode split over
+the cache's rows (`attention.combine_blocks`: ``lse_max``, then
+``lse_sum`` and ``lse_out``), the paged pool's writes shared over the
+batch ranks (``pool_all_gather``) and `argmax_over_ranks`, the greedy
+token of vocab-parallel logits (``argmax_all_gather``); with gradients
+off, `copy_to_ranks` and `reduce_from_ranks` take their forwards
+without an autograd Function. `sum_over_ranks` is not used on the model
+axis: every model rank holds the same replica of the loss, so summing
+its gradient over them would multiply it by the model size.
+
+Each takes the process group it runs on: there is no default group. On
+a group of one rank (a model axis of 1, a data-only mesh's model
+groups, a one-rank mesh) the result is the rank's own tensor, so the
+backend is not called: the call returns its input (an in-place sum, a
+max of a copy) or a copy of it (where it returns a new tensor). A
+one-rank NCCL call still costs the host its dispatch
+(`tools/mesh_trace.py` times it), which a decode step's ~240 would pay
+for nothing.
 
 `counts()` holds the calls made since `reset_counts()`, by name, and the
 bytes each call's whole tensor holds (``<name>_bytes``). A call counts
@@ -40,6 +55,9 @@ import torch.distributed as dist
 
 NAMES = ("all_gather", "reduce_scatter", "all_reduce", "copy_to_ranks",
          "reduce_from_ranks", "max_over_ranks")
+# the serving collectives (counted by these names where they are issued)
+SERVE_NAMES = ("heads_all_gather", "lse_max", "lse_sum", "lse_out",
+               "pool_all_gather", "argmax_all_gather", "steps_max")
 
 _COUNTS: collections.Counter = collections.Counter()
 
@@ -49,7 +67,8 @@ def reset_counts() -> None:
 
 
 def counts() -> dict[str, int]:
-    out = {n: 0 for n in NAMES} | {f"{n}_bytes": 0 for n in NAMES}
+    names = NAMES + SERVE_NAMES
+    out = {n: 0 for n in names} | {f"{n}_bytes": 0 for n in names}
     return out | dict(_COUNTS)
 
 
@@ -63,6 +82,11 @@ def _need(group):
     if group is None:
         raise ValueError("a collective needs its process group")
     return group
+
+
+def _alone(group) -> bool:
+    """Is `group` one rank (its collectives known without the backend)?"""
+    return dist.get_world_size(group) == 1
 
 
 # torch 2.13 names the flat collectives *_single (the *_tensor names
@@ -79,6 +103,9 @@ def all_gather_dim(local: torch.Tensor, dim: int, group, *,
     tensor)."""
     group = _need(group)
     n = dist.get_world_size(group)
+    if n == 1:
+        _count(name, local)
+        return local.clone(memory_format=torch.contiguous_format)
     front = local.movedim(dim, 0).contiguous()
     out = torch.empty((n * front.shape[0], *front.shape[1:]),
                       dtype=local.dtype, device=local.device)
@@ -93,6 +120,9 @@ def reduce_scatter_dim(whole: torch.Tensor, dim: int,
     rank: this rank's chunk (a new tensor)."""
     group = _need(group)
     n = dist.get_world_size(group)
+    if n == 1:
+        _count("reduce_scatter", whole)
+        return whole.clone(memory_format=torch.contiguous_format)
     front = whole.movedim(dim, 0).contiguous()
     out = torch.empty((front.shape[0] // n, *front.shape[1:]),
                       dtype=whole.dtype, device=whole.device)
@@ -106,7 +136,8 @@ def all_reduce(t: torch.Tensor, group, *,
     """The sum of `t` over the ranks, in place."""
     group = _need(group)
     _count(name, t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    if not _alone(group):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
@@ -158,19 +189,42 @@ class _ReduceFromRanks(torch.autograd.Function):
 def copy_to_ranks(t: torch.Tensor, group) -> torch.Tensor:
     """`t` itself forward; backward, the sum over the ranks of its
     gradient (counted as ``copy_to_ranks`` when backward issues it)."""
-    return _CopyToRanks.apply(t, _need(group))
+    group = _need(group)
+    if not torch.is_grad_enabled():
+        return t
+    return _CopyToRanks.apply(t, group)
 
 
 def reduce_from_ranks(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of `t` over the ranks (a new tensor); backward, the
     gradient as it is, on every rank."""
-    return _ReduceFromRanks.apply(t, _need(group))
+    group = _need(group)
+    if not torch.is_grad_enabled():
+        return all_reduce(_dense(t), group, name="reduce_from_ranks")
+    return _ReduceFromRanks.apply(t, group)
 
 
-def max_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
+def max_over_ranks(t: torch.Tensor, group, *,
+                   name: str = "max_over_ranks") -> torch.Tensor:
     """The elementwise max of `t` over the ranks (a new tensor, no
     gradient)."""
+    group = _need(group)
     out = _dense(t.detach())
-    _count("max_over_ranks", out)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_need(group))
+    _count(name, out)
+    if not _alone(group):
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def argmax_over_ranks(values: torch.Tensor, index: torch.Tensor,
+                      group) -> torch.Tensor:
+    """The global argmax of logits split over the ranks by their last
+    dim, from each rank's local max `values` (B,) f32 and its global
+    index `index` (B,): one all_gather of both (exact in float64), then on
+    every rank the largest value and, on a tie, the lowest rank's index,
+    which is the lowest index when the ranks hold ascending blocks (as
+    `torch.argmax` picks the first of equal maxima)."""
+    pair = torch.stack([values.to(torch.float64), index.to(torch.float64)])
+    every = all_gather_dim(pair[None], 0, group, name="argmax_all_gather")
+    best = torch.argmax(every[:, 0], dim=0)                  # first max
+    return every[:, 1].gather(0, best[None])[0].to(index.dtype)

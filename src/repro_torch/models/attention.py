@@ -38,6 +38,8 @@ import numbers
 
 import torch
 
+from repro_torch.core import collectives
+
 from .layers import dense, product
 
 NEG = -1e30
@@ -354,6 +356,42 @@ def per_slot(pos, b: int, device) -> torch.Tensor:
     return pos.expand(b) if pos.ndim == 0 else pos
 
 
+def _decode_scores(q, k_cache, pos, *, n_kv: int, window, rolling: bool,
+                   offset: int = 0, cache_len: int | None = None):
+    """The masked f32 scores (B, KV, G, S_c) of one token's queries
+    against cache rows `offset` .. `offset` + S_c of a cache of
+    `cache_len` rows (None: S_c, the whole cache), the reference's masks
+    on the rows' global indices."""
+    b, sc, kv, hd = k_cache.shape
+    total = sc if cache_len is None else cache_len
+    qg = _group(q, n_kv)[:, 0]                       # (B, KV, G, hd)
+    pairs = product("bkgd,bsjd->bkgsj", qg, k_cache, F32)
+    scores = torch.diagonal(pairs, dim1=1, dim2=4).movedim(-1, 1) * \
+        hd ** -0.5
+    idx = torch.arange(sc, device=q.device)
+    if offset:
+        idx = idx + offset
+    pos_b = per_slot(pos, b, q.device)
+    if rolling:
+        ok = idx[None, :] < torch.clamp(pos_b, max=total)[:, None]
+    else:
+        ok = idx[None, :] < pos_b[:, None]
+        if window is not None:
+            ok &= idx[None, :] >= (pos_b[:, None] - window)
+    return torch.where(ok[:, None, None, :], scores,
+                       torch.full_like(scores, NEG))
+
+
+def _decode_pv(p, v_cache, b: int, h: int):
+    """p (B, KV, G, S_c) in f32 rounded to v's dtype, times the cache's
+    values read in place (the kv-head diagonal of the pairs' product):
+    (B, 1, H, hd) in v's dtype."""
+    pairs = product("bkgs,bsjd->bkgjd", p.to(v_cache.dtype), v_cache,
+                    v_cache.dtype)
+    out = torch.diagonal(pairs, dim1=1, dim2=3).movedim(-1, 1)
+    return out.reshape(b, 1, h, v_cache.shape[-1])
+
+
 def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,
                      window: int | None = None, rolling: bool = False):
     """Single-token decode. q: (B,1,H,hd); caches: (B, S_c, KV, hd);
@@ -367,27 +405,51 @@ def decode_attention(q, k_cache, v_cache, pos, *, n_kv: int,
     that reads the cache in place, and the kv-head diagonal is kept: the
     same sums, for KV times the multiply-adds of a product bound by the
     cache's bytes."""
-    b, sc, kv, hd = k_cache.shape
-    h = q.shape[2]
-    scale = hd ** -0.5
-    qg = _group(q, n_kv)[:, 0]                       # (B, KV, G, hd)
-    pairs = product("bkgd,bsjd->bkgsj", qg, k_cache, F32)
-    scores = torch.diagonal(pairs, dim1=1, dim2=4).movedim(-1, 1) * scale
-    idx = torch.arange(sc, device=q.device)
-    pos_b = per_slot(pos, b, q.device)
-    if rolling:
-        ok = idx[None, :] < torch.clamp(pos_b, max=sc)[:, None]
-    else:
-        ok = idx[None, :] < pos_b[:, None]
-        if window is not None:
-            ok &= idx[None, :] >= (pos_b[:, None] - window)
-    scores = torch.where(ok[:, None, None, :], scores,
-                         torch.full_like(scores, NEG))
+    scores = _decode_scores(q, k_cache, pos, n_kv=n_kv, window=window,
+                            rolling=rolling)
     p = torch.softmax(scores, dim=-1)
-    pairs = product("bkgs,bsjd->bkgjd", p.to(v_cache.dtype), v_cache,
-                    v_cache.dtype)
-    out = torch.diagonal(pairs, dim1=1, dim2=3).movedim(-1, 1)
-    return out.reshape(b, 1, h, hd)
+    return _decode_pv(p, v_cache, q.shape[0], q.shape[2])
+
+
+def decode_attention_block(q, k_block, v_block, pos, *, n_kv: int,
+                           offset: int, cache_len: int,
+                           window: int | None = None,
+                           rolling: bool = False):
+    """`decode_attention` over one block of a cache split over its rows
+    (the plan's kv_seq over "model"): rows `offset` .. `offset` + S_b of a
+    cache of `cache_len` rows, masked on their global indices as the
+    whole cache is. Returns the block's output normalised over the
+    block's own keys (B, 1, H, hd), and its max and sum of exp (B, KV, G)
+    f32, which `combine_blocks` rescales. A block with no live key for a
+    slot (all its scores masked) has max -1e30, and its output gets
+    weight exactly 0 in the combine. At one block (offset 0, S_b =
+    cache_len) the output is `decode_attention`'s bit for bit."""
+    scores = _decode_scores(q, k_block, pos, n_kv=n_kv, window=window,
+                            rolling=rolling, offset=offset,
+                            cache_len=cache_len)
+    p = torch.softmax(scores, dim=-1)
+    m = scores.amax(dim=-1)
+    s = torch.exp(scores - m[..., None]).sum(dim=-1)
+    return _decode_pv(p, v_block, q.shape[0], q.shape[2]), m, s
+
+
+def combine_blocks(out, m, s, group):
+    """The log-sum-exp combine of `decode_attention_block`'s results over
+    the ranks of `group` (each rank one block of the rows): the max M
+    over the ranks (`max_over_ranks`), each block's weight w = s *
+    exp(m - M) summed over the ranks (`all_reduce`), and the outputs
+    scaled by w / sum(w) and summed (`all_reduce`, f32) -> (B, 1, H, hd)
+    in out's dtype. The softmax over the whole row is the blocks'
+    softmaxes so weighted. At one rank w / sum(w) is 1 exactly, and the
+    output is the block's bit for bit."""
+    b, _, h, hd = out.shape
+    top = collectives.max_over_ranks(m, group, name="lse_max")
+    w = s * torch.exp(m - top)
+    total = collectives.all_reduce(w.clone(), group, name="lse_sum")
+    scale = (w / total).reshape(b, 1, h, 1)
+    mixed = collectives.all_reduce(out.to(F32) * scale, group,
+                                   name="lse_out")
+    return mixed.to(out.dtype)
 
 
 def update_cache(k_cache, v_cache, k_new, v_new, pos, *,
@@ -403,6 +465,25 @@ def update_cache(k_cache, v_cache, k_new, v_new, pos, *,
     k_cache[rows, slot] = k_new[:, 0]
     v_cache[rows, slot] = v_new[:, 0]
     return k_cache, v_cache
+
+
+def update_cache_block(k_block, v_block, k_new, v_new, pos, *,
+                       offset: int, cache_len: int, rolling: bool = False):
+    """`update_cache` on one block of a cache split over its rows: a
+    slot's new row (`pos`, or `pos % cache_len` in a rolling buffer) is
+    written where it falls in rows `offset` .. `offset` + S_b, and a slot
+    whose row lies in another rank's block writes nothing (its block's
+    rows are written back as they are). In place; returns the blocks."""
+    sb = k_block.shape[1]
+    b = k_new.shape[0]
+    pos_b = per_slot(pos, b, k_block.device)
+    row = (pos_b % cache_len if rolling else pos_b) - offset
+    own = ((row >= 0) & (row < sb))[:, None, None]
+    at = torch.clamp(row, 0, sb - 1)
+    rows = torch.arange(b, device=k_block.device)
+    k_block[rows, at] = torch.where(own, k_new[:, 0], k_block[rows, at])
+    v_block[rows, at] = torch.where(own, v_new[:, 0], v_block[rows, at])
+    return k_block, v_block
 
 
 # ----------------------------------------------------------------------------

@@ -114,6 +114,21 @@ class ModelAxis:
     ffn: bool = False
     expert_ffn: bool = False
     vocab: slice | None = None
+    cache: "CacheSplit | None" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheSplit:
+    """How the plan splits a decode cache's K/V leaves over "model", for
+    this rank (`steps.cache_split`): `rows`, this rank's rows of a
+    private cache of `cache_len` rows where kv_seq is split (None: whole);
+    `heads`, the KV heads its private cache holds where kv_heads is split
+    instead (None: all); `pool_heads`, the KV heads its block of the paged
+    pool holds (None: all)."""
+    cache_len: int
+    rows: slice | None = None
+    heads: slice | None = None
+    pool_heads: slice | None = None
 
 
 def _copy_in(axis, p: dict, prefix: str) -> dict:
@@ -320,20 +335,42 @@ def _paged(ctx, window) -> bool:
     return ctx.get("pages") is not None and not window
 
 
-def attn_block_decode(cfg, p, x, cache, pos, ctx, *, window=None):
-    """One token through the block. `cache` {"k", "v"} is updated in place
-    (the reference donates it) and returned."""
-    window = window if window is not None else cfg.window
+def _paged_write(ctx, k_pool, v_pool, k, v, pos):
+    """`paged_update_cache` of this step's rows. With ctx["pool_group"]
+    (a mesh whose batch axes split the slots while every batch rank
+    holds the whole pool, as the plan places it) the rows, positions and
+    page tables of every batch rank are gathered first
+    (``pool_all_gather``), so that each rank's pool takes every slot's
+    write, as the reference's replicated pool does."""
+    group = ctx.get("pool_group")
+    pages = ctx["pages"]
+    if group is not None:
+        b = k.shape[0]
+        pos_b = attn_lib.per_slot(pos, b, k.device)
+        rows = collectives.all_gather_dim(torch.cat([k, v], dim=2), 0,
+                                          group, name="pool_all_gather")
+        idx = collectives.all_gather_dim(
+            torch.cat([pos_b[:, None].to(pages.dtype), pages], dim=1), 0,
+            group, name="pool_all_gather")
+        k, v = rows.split(k.shape[2], dim=2)
+        pos, pages = idx[:, 0], idx[:, 1:]
+    return attn_lib.paged_update_cache(k_pool, v_pool, k, v, pos, pages)
+
+
+def _attention_decode(cfg, p, x, cache, pos, ctx, *, window, fused: bool):
+    """The attention half of a decode step -> (x after the attention's
+    residual, new cache {"k", "v"}); `fused` takes the fused qkv and out
+    projections (the attn block under "fused"), else the plain ones."""
+    axis = ctx.get("model_axis")
+    if axis is not None and axis.cache is not None:
+        return _split_attention_decode(cfg, p, x, cache, pos, ctx, axis,
+                                       window=window, fused=fused)
     paged = _paged(ctx, window)
     rolling = (not paged and bool(window)
                and cache["k"].shape[1] < ctx["max_seq"])
-    if _fused_rms(cfg):
-        q, k, v = _fused_qkv(cfg, p, x, ctx)
-    else:
-        q, k, v = _plain_qkv(cfg, p, x, ctx)
+    q, k, v = (_fused_qkv if fused else _plain_qkv)(cfg, p, x, ctx)
     if paged:
-        kc, vc = attn_lib.paged_update_cache(cache["k"], cache["v"], k, v,
-                                             pos, ctx["pages"])
+        kc, vc = _paged_write(ctx, cache["k"], cache["v"], k, v, pos)
         o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1, ctx["pages"],
                                             n_kv=cfg.n_kv_heads)
     else:
@@ -342,13 +379,139 @@ def attn_block_decode(cfg, p, x, cache, pos, ctx, *, window=None):
         o = attn_lib.decode_attention(q, kc, vc, pos + 1,
                                       n_kv=cfg.n_kv_heads,
                                       window=window, rolling=rolling)
-    if _fused_rms(cfg):
+    if fused:
         x = _fused_out_residual(p, o, x)
     else:
         x = x + out_project(p["attn"], o)
-    if cfg.d_ff:
-        x = _ffn_residual(cfg, p, x)
     return x, {"k": kc, "v": vc}
+
+
+def _split_attention_decode(cfg, p, x, cache, pos, ctx, axis, *, window,
+                            fused: bool):
+    """`_attention_decode` on this rank's blocks (no autograd: serving
+    runs under inference_mode). The rank projects its query heads (all
+    of them where the plan keeps the heads whole) and the KV heads its
+    parameters hold. Its cache block then decides the rest:
+
+    * rows split (kv_seq over "model", a private cache): the rank needs
+      every query head and every KV head's new row, so q, k and v are
+      gathered over the model ranks (one ``heads_all_gather`` of the
+      three; nothing where the plan keeps both whole); it writes the rows
+      that fall in its block (`update_cache_block`), attends over its
+      block for every head (`decode_attention_block`) and the blocks are
+      combined (`combine_blocks`: ``lse_max`` and ``lse_sum`` on B x H,
+      ``lse_out`` on the B x H x hd outputs in f32); it keeps its query
+      heads' rows of the output. A layer: one all_gather, three
+      all_reduces and the out-projection's reduce_from_ranks. A
+      reduce-scatter of ``lse_out`` over the heads would hand each rank
+      only its heads (1 / model of those bytes); the all_reduce keeps
+      one combine for every split of the heads (whole heads included).
+    * KV heads split (a private cache whose rows the model size does not
+      divide, or the paged pool): the rank's query heads read its own KV
+      heads, with no collective.
+    * neither (the plan keeps the cache whole): every rank writes every
+      KV head's row (gathered where the parameters split them) and
+      attends for its query heads over the KV heads they read.
+
+    The out-projection of the rank's heads' rows of wo is a partial that
+    `reduce_from_ranks` sums, the residual added on model rank 0 (zeros
+    elsewhere where row 2's epilogue takes it). At one rank every step is
+    the unsplit block's arithmetic, bit for bit."""
+    split = axis.cache
+    paged = _paged(ctx, window)
+    a = p["attn"]
+    own_heads = axis.heads is not None
+    q, k, v = (_fused_qkv if fused else _plain_qkv)(cfg, p, x, ctx)
+    if paged:
+        cache_heads = split.pool_heads
+        rows = None
+    else:
+        cache_heads, rows = split.heads, split.rows
+    kv_all = cache_heads is None           # the cache block holds every KV head
+    gather_q = rows is not None and own_heads
+    gather_kv = kv_all and axis.kv_heads is not None
+    if gather_q or gather_kv:
+        parts = ([q] if gather_q else []) + ([k, v] if gather_kv else [])
+        whole = collectives.all_gather_dim(
+            torch.cat(parts, dim=2)[None], 0, axis.group,
+            name="heads_all_gather")                 # (model, B, 1, n, hd)
+        sizes = [t.shape[2] for t in parts]
+        pieces = whole.split(sizes, dim=3)
+        flat = [pc.movedim(0, 2).reshape(*pc.shape[1:3], -1, pc.shape[-1])
+                for pc in pieces]
+        if gather_q:
+            q_all = flat.pop(0)
+        if gather_kv:
+            k, v = flat
+    if not gather_q:
+        q_all = q
+    if paged:
+        kc, vc = _paged_write(ctx, cache["k"], cache["v"], k, v, pos)
+        kg = attn_lib.paged_gather(kc, ctx["pages"])
+        vg = attn_lib.paged_gather(vc, ctx["pages"])
+        o = _heads_attention(cfg, q, kg, vg, pos, axis, kv_all,
+                             window=None, rolling=False)
+    elif rows is not None:
+        rolling = bool(window) and split.cache_len < ctx["max_seq"]
+        kc, vc = attn_lib.update_cache_block(
+            cache["k"], cache["v"], k, v, pos, offset=rows.start,
+            cache_len=split.cache_len, rolling=rolling)
+        ob, m, sm = attn_lib.decode_attention_block(
+            q_all, kc, vc, pos + 1, n_kv=cfg.n_kv_heads,
+            offset=rows.start, cache_len=split.cache_len, window=window,
+            rolling=rolling)
+        o = attn_lib.combine_blocks(ob, m, sm, axis.group)
+        if own_heads:
+            o = o[:, :, axis.heads]
+    else:
+        rolling = (bool(window)
+                   and cache["k"].shape[1] < ctx["max_seq"])
+        kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos,
+                                       rolling=rolling)
+        o = _heads_attention(cfg, q, kc, vc, pos, axis, kv_all,
+                             window=window, rolling=rolling)
+    if not own_heads:
+        if fused:
+            return _fused_out_residual(p, o, x), {"k": kc, "v": vc}
+        return x + out_project(a, o), {"k": kc, "v": vc}
+    res = x if axis.rank == 0 else None
+    if fused:
+        part = _fused_out_residual(
+            p, o, torch.zeros_like(x) if res is None else res)
+    else:
+        part = out_project(a, o)
+        part = part if res is None else res + part
+    return (collectives.reduce_from_ranks(part, axis.group),
+            {"k": kc, "v": vc})
+
+
+def _heads_attention(cfg, q, kc, vc, pos, axis, kv_all: bool, *, window,
+                     rolling: bool):
+    """`decode_attention` of this rank's query heads `q` against cache
+    rows `kc` / `vc` that hold every KV head (`kv_all`: the query heads
+    read theirs, `_kv_read`) or the rank's own KV heads."""
+    if not kv_all or axis.heads is None:
+        return attn_lib.decode_attention(q, kc, vc, pos + 1,
+                                         n_kv=kc.shape[2], window=window,
+                                         rolling=rolling)
+    read = _kv_read(cfg, axis.heads)
+    n = (read.stop - read.start) if isinstance(read, slice) else len(read)
+    return attn_lib.decode_attention(q, kc[:, :, read], vc[:, :, read],
+                                     pos + 1, n_kv=n, window=window,
+                                     rolling=rolling)
+
+
+def attn_block_decode(cfg, p, x, cache, pos, ctx, *, window=None):
+    """One token through the block. `cache` {"k", "v"} is updated in place
+    (the reference donates it) and returned. Under a `ModelAxis` with a
+    `CacheSplit` in ctx["model_axis"] (the sharded decode step) the rank
+    computes its blocks (`_split_attention_decode`, `_ffn_residual`)."""
+    window = window if window is not None else cfg.window
+    x, new = _attention_decode(cfg, p, x, cache, pos, ctx, window=window,
+                               fused=_fused_rms(cfg))
+    if cfg.d_ff:
+        x = _ffn_residual(cfg, p, x, ctx.get("model_axis"))
+    return x, new
 
 
 # ----------------------------------------------------------------------------
@@ -420,9 +583,8 @@ def attn_cross_block_decode(cfg, p, x, cache, pos, ctx):
     ROADMAP Queue 3)."""
     q, k, v = _self_qkv(cfg, p, x, ctx)
     if _paged(ctx, None):
-        kc, vc = attn_lib.paged_update_cache(cache["self_k"],
-                                             cache["self_v"], k, v, pos,
-                                             ctx["pages"])
+        kc, vc = _paged_write(ctx, cache["self_k"], cache["self_v"], k, v,
+                              pos)
         o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1, ctx["pages"],
                                             n_kv=cfg.n_kv_heads)
     else:
@@ -635,28 +797,15 @@ def moe_block_apply(cfg, p, x, ctx):
 def moe_block_decode(cfg, p, x, cache, pos, ctx):
     """One token: the plain qkv and out projections under every policy,
     as the reference's `moe_block_decode` has them, then the MoE FFN with
-    T = B tokens."""
-    paged = _paged(ctx, cfg.window)
-    rolling = (not paged and bool(cfg.window)
-               and cache["k"].shape[1] < ctx["max_seq"])
-    q, k, v = qkv_project(p["attn"], _norm(cfg, p, "ln_attn", x),
-                          ctx["positions"], n_heads=cfg.n_heads,
-                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                          qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
-                          theta=cfg.rope_theta)
-    if paged:
-        kc, vc = attn_lib.paged_update_cache(cache["k"], cache["v"], k, v,
-                                             pos, ctx["pages"])
-        o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1, ctx["pages"],
-                                            n_kv=cfg.n_kv_heads)
-    else:
-        kc, vc = attn_lib.update_cache(cache["k"], cache["v"], k, v, pos,
-                                       rolling=rolling)
-        o = attn_lib.decode_attention(q, kc, vc, pos + 1, n_kv=cfg.n_kv_heads,
-                                      window=cfg.window, rolling=rolling)
-    x = x + out_project(p["attn"], o)
-    y, _ = moe_apply(cfg, p["moe"], _norm(cfg, p, "ln_ffn", x))
-    return x + y, {"k": kc, "v": vc}
+    T = B tokens (dispatched over every batch rank's slots with the
+    context's "dispatch_group", and the experts' d_ff split by its model
+    axis, as in training)."""
+    x, new = _attention_decode(cfg, p, x, cache, pos, ctx,
+                               window=cfg.window, fused=False)
+    y, _ = moe_apply(cfg, p["moe"], _norm(cfg, p, "ln_ffn", x),
+                     group=ctx.get("dispatch_group"),
+                     axis=ctx.get("model_axis"))
+    return x + y, new
 
 
 # ----------------------------------------------------------------------------

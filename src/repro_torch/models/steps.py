@@ -42,6 +42,7 @@ Layout differences from the reference, all for PyTorch idiom:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import numbers
@@ -56,6 +57,7 @@ from repro_torch.configs.registry import TensorSpec
 from repro_torch.core import addressing, collectives
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import blocks as blocks_lib
 from repro_torch.models.blocks import BLOCKS, ModelAxis, _norm, _norm_specs
 from repro_torch.models.layers import ParamSpec, layer_norm, product
 from repro_torch.optim import (AdamConfig, adam_init, adam_update,
@@ -325,24 +327,18 @@ def _split_dims(spec, axes) -> list[int]:
             if set(addressing.spec_axes(spec, d)) & set(axes)]
 
 
-def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
-    """A `LeafShard` for every leaf of the train state on this rank: a
-    parameter's and its two moments' from the parameter's spec (ZeRO-1:
-    the moments follow their parameters), the step count whole. A dim
+def _shard_maker(mesh, device):
+    """`one(key, spec) -> LeafShard` of this rank on a live mesh: a dim
     split over the batch axes is spread over their process group
     (`addressing.batch_group`), a dim split over "model" over the model
-    axis's; a leaf may have one of each (w_down: ffn over model, embed
-    over data). Needs a live DeviceMesh (a rank's coordinates come from
-    it)."""
-    batch, model = check_mesh(cfg, mesh)
+    axis's; a leaf may have one of each."""
     sizes = addressing.mesh_axes(mesh)
     coords = addressing.coordinates(mesh)
     bgroup = addressing.batch_group(mesh)
     mgroup = mesh.get_group("model") if "model" in sizes else None
     present = [a for a in addressing.BATCH_AXES if a in sizes]
 
-    def one(path, spec):
-        key = "/".join(str(k) for k in _path_key(path))
+    def one(key, spec):
         bdims = _split_dims(spec, addressing.BATCH_AXES)
         mdims = _split_dims(spec, ("model",))
         if len(bdims) > 1 or len(mdims) > 1 or (set(bdims) & set(mdims)):
@@ -360,11 +356,27 @@ def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
             kw = dict(dim=bdims[0], index=index, parts=parts, group=bgroup)
         if mdims:
             kw |= dict(model_dim=mdims[0], model_index=coords["model"],
-                       model_parts=model, model_group=mgroup)
+                       model_parts=sizes["model"], model_group=mgroup)
         return addressing.LeafShard(**{"dim": None, **kw}, device=device)
 
+    return one
+
+
+def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
+    """A `LeafShard` for every leaf of the train state on this rank: a
+    parameter's and its two moments' from the parameter's spec (ZeRO-1:
+    the moments follow their parameters), the step count whole. A dim
+    split over the batch axes is spread over their process group
+    (`addressing.batch_group`), a dim split over "model" over the model
+    axis's; a leaf may have one of each (w_down: ffn over model, embed
+    over data). Needs a live DeviceMesh (a rank's coordinates come from
+    it)."""
+    check_mesh(cfg, mesh)
+    one = _shard_maker(mesh, device)
     params = pytree.tree_map_with_path(
-        one, param_partition(cfg, mesh, rules, max_seq),
+        lambda path, spec: one("/".join(str(k) for k in _path_key(path)),
+                               spec),
+        param_partition(cfg, mesh, rules, max_seq),
         is_leaf=lambda x: isinstance(x, tuple))
     return {"params": params,
             "opt": {"m": params, "v": params,
@@ -494,14 +506,20 @@ def layer_caches(cfg) -> list[tuple[dict, int]]:
     return out
 
 
-def _zeros(specs: dict, device) -> dict:
+def _zeros(specs: dict, device, shards=None) -> dict:
+    """Zero leaves of `specs`; with `shards` ({leaf: LeafShard}) each
+    leaf's block of this rank."""
     device = resolve_device(device)
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+    return {k: torch.zeros(s.shape if shards is None
+                           else shards[k].local_shape(s.shape),
+                           dtype=s.dtype, device=device)
             for k, s in specs.items()}
 
 
-def init_cache(cfg, B: int, cache_len: int, *, device=None):
-    return _zeros(cache_specs(cfg, B, cache_len), device)
+def init_cache(cfg, B: int, cache_len: int, *, device=None, shards=None):
+    """The zero decode cache of B slots and cache_len rows; with `shards`
+    (`cache_shards`) this rank's blocks of it."""
+    return _zeros(cache_specs(cfg, B, cache_len), device, shards)
 
 
 def fill_cache_slots(cache, mask, value):
@@ -608,9 +626,89 @@ def paged_cache_specs(cfg, B: int, cache_len: int, *, n_pages: int,
 
 
 def init_paged_cache(cfg, B: int, cache_len: int, *, n_pages: int,
-                     page_size: int, device=None):
+                     page_size: int, device=None, shards=None):
+    """The zero paged cache; with `shards` (`cache_shards(n_pages=,
+    page_size=)`) this rank's blocks of it."""
     return _zeros(paged_cache_specs(cfg, B, cache_len, n_pages=n_pages,
-                                    page_size=page_size), device)
+                                    page_size=page_size), device, shards)
+
+
+def abstract_cache(cfg, B: int, cache_len: int):
+    """(shape/dtype, logical axes) of each decode cache leaf, in the
+    port's layout (`cache_specs`: a kind's layers stacked on a leading
+    "layers" axis, which the plan keeps whole; the reference stacks a
+    pattern position's layers the same way)."""
+    specs = cache_specs(cfg, B, cache_len)
+    return ({k: TensorSpec(tuple(v.shape), v.dtype) for k, v in specs.items()},
+            {k: tuple(v.logical) for k, v in specs.items()})
+
+
+def abstract_paged_cache(cfg, B: int, cache_len: int, *, n_pages: int,
+                         page_size: int):
+    """`abstract_cache` of a paged cache: each pool leaf's logical axes
+    ("layers", None, None, "kv_heads", None), so the plan splits the pool
+    by its KV heads only."""
+    specs = paged_cache_specs(cfg, B, cache_len, n_pages=n_pages,
+                              page_size=page_size)
+    return ({k: TensorSpec(tuple(v.shape), v.dtype) for k, v in specs.items()},
+            {k: tuple(v.logical) for k, v in specs.items()})
+
+
+def cache_shards(cfg, mesh, rules, B: int, cache_len: int, *,
+                 n_pages: int | None = None, page_size: int | None = None,
+                 device=None) -> dict:
+    """A `LeafShard` for each decode cache leaf of a (B, cache_len)
+    workload on this rank of a live mesh, from the plan's spec of the
+    leaf (`abstract_cache`; with `n_pages` / `page_size`, the paged
+    cache's): a K/V leaf's slots over the batch axes and its kv_seq over
+    "model" (its kv_heads where the model size does not divide
+    cache_len), a pool leaf by its KV heads, as `addressing.default_rules`
+    places them."""
+    check_mesh(cfg, mesh)
+    if n_pages is None:
+        sds, log = abstract_cache(cfg, B, cache_len)
+    else:
+        sds, log = abstract_paged_cache(cfg, B, cache_len, n_pages=n_pages,
+                                        page_size=page_size)
+    one = _shard_maker(mesh, device)
+    return {k: one(k, rules.spec_for(log[k], sds[k].shape, mesh))
+            for k in sds}
+
+
+def cache_split(cfg, mesh, rules, cache_len: int):
+    """The `blocks.CacheSplit` of this rank: where the plan puts the
+    attention kinds' K/V over "model" in a private cache of `cache_len`
+    rows (kv_seq, else kv_heads, else whole: the reference's rules with
+    their divisibility and axis-conflict fallback) and in the paged pool
+    (kv_heads or whole). None without a "model" axis."""
+    sizes = addressing.mesh_axes(mesh)
+    if "model" not in sizes:
+        return None
+    coords = addressing.coordinates(mesh)
+    batch = math.prod(sizes[a] for a in addressing.BATCH_AXES if a in sizes)
+    kv, hd = cfg.n_kv_heads, cfg.hd
+
+    def owned(logical, shape, dim):
+        """This rank's slice of dim `dim` (kv_seq 2 or kv_heads 3), None
+        where it is whole; the batch axes may split the slots (dim 1)."""
+        spec = rules.spec_for(logical, shape, mesh)
+        for d in range(len(shape)):
+            axes = set(addressing.spec_axes(spec, d))
+            if (d != 1 and axes - {"model"}) or (axes and d not in (1, 2, 3)):
+                raise NotImplementedError(
+                    f"the plan splits cache dim {d} over {axes} ({spec}), "
+                    f"which the sharded decode does not compute")
+        if "model" not in addressing.spec_axes(spec, dim):
+            return None
+        return addressing.local_block(spec, shape, mesh, coords)[dim]
+
+    private = (("layers", "batch", "kv_seq", "kv_heads", None),
+               (1, batch, cache_len, kv, hd))
+    pool = (("layers", None, None, "kv_heads", None), (1, 1, 1, kv, hd))
+    return blocks_lib.CacheSplit(cache_len=cache_len,
+                                 rows=owned(*private, 2),
+                                 heads=owned(*private, 3),
+                                 pool_heads=owned(*pool, 3))
 
 
 def make_paged_cache_ops(cfg, B: int, cache_len: int):
@@ -1142,10 +1240,30 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
     return train_step
 
 
-def make_prefill_step(cfg, *, policy=None) -> Graphed:
+def _greedy(lg, axis: ModelAxis | None):
+    """(B,) int64 greedy tokens of f32 logits (B, V), or of this rank's
+    vocabulary block of them where `axis` splits the vocabulary: the
+    global argmax, the largest value over the ranks and on a tie the
+    lowest index, as `torch.argmax` picks it
+    (`collectives.argmax_over_ranks`)."""
+    if axis is None or axis.vocab is None:
+        return torch.argmax(lg, dim=-1)
+    return collectives.argmax_over_ranks(
+        lg.amax(dim=-1), torch.argmax(lg, dim=-1) + axis.vocab.start,
+        axis.group)
+
+
+def make_prefill_step(cfg, *, policy=None, axis: ModelAxis | None = None,
+                      group=None) -> Graphed:
     """`prefill_step(params, batch) -> (B,) int32` greedy next tokens.
     `batch["enc_embeds"]` (or "img_embeds") is the cross context.
     `policy` pins the kernel policy (None -> the ambient one).
+
+    `axis` and `group` are the sharded prefill's (`make_sharded_prefill_
+    step`): the blocks compute this rank's splits, the embedding is the
+    masked lookup of its vocabulary rows, the logits are its vocabulary
+    block and the token their global argmax (`_greedy`); MoE layers
+    dispatch over the batch ranks' tokens.
 
     On CUDA inputs the step runs as captured CUDA graphs (`Graphed`), one
     per key: the batch's shapes and dtypes and the identity of the
@@ -1153,7 +1271,8 @@ def make_prefill_step(cfg, *, policy=None) -> Graphed:
     captures; later calls copy the batch into the graph's inputs and
     replay, and return a fresh token tensor. The graphs (`.graphs`) are
     the step's own and go with it; `.eager` is the step run from Python.
-    CPU inputs run eagerly."""
+    CPU inputs, and a step with `axis` or `group` (its collectives),
+    run eagerly."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
 
     @torch.inference_mode()
@@ -1161,21 +1280,31 @@ def make_prefill_step(cfg, *, policy=None) -> Graphed:
         with kpolicy.scoped(pol):
             cross = batch.get("enc_embeds", batch.get("img_embeds"))
             hidden, _ = forward(cfg, params, batch["tokens"],
-                                cross_embeds=cross)
+                                cross_embeds=cross, axis=axis, group=group)
             lg = logits(params, hidden[:, -1])
-            return torch.argmax(lg, dim=-1).to(torch.int32)
+            return _greedy(lg, axis).to(torch.int32)
 
-    return Graphed(prefill_step, copied=(1,))
+    return Graphed(prefill_step, copied=(1,),
+                   cuda_graph=axis is None and group is None)
 
 
-def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
+def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None,
+                     axis: ModelAxis | None = None, group=None):
     """`decode_step(params, cache, batch) -> (cache, token (B, 1) int32)`.
 
     `batch["pos"]` is an int (all slots at one position) or a (B,) tensor
     (per-slot positions, the continuous-batching session); a
     ``batch["pages"]`` (B, pages_per_slot) table routes K/V through the
     paged pool. The cache is updated in place. An encoder-decoder model
-    adds its learned position `dec_pos[pos]` and takes no rope."""
+    adds its learned position `dec_pos[pos]` and takes no rope.
+
+    `axis` (a `ModelAxis` with its `CacheSplit`) and `group` (the batch
+    ranks' group where the plan splits the slots) are the sharded decode
+    step's (`make_sharded_decode_step`): the cache holds this rank's
+    blocks, the attention kinds compute their splits
+    (`blocks._split_attention_decode`), MoE layers dispatch over every
+    batch rank's slots, a paged pool takes every batch rank's writes,
+    and the token is the global argmax of the vocabulary blocks."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
     kinds = layer_kinds(cfg)
     slots = layer_caches(cfg)
@@ -1193,21 +1322,149 @@ def make_decode_step(cfg, max_seq: int = 1 << 30, *, policy=None):
                                  device=tokens.device)
             else:
                 pos = torch.as_tensor(pos, device=tokens.device)
-            x = params["tok_embed"][tokens.long()]                # (B,1,d)
+            x = _embed(params["tok_embed"], tokens, axis)          # (B,1,d)
             positions = (pos.expand(B) if pos.ndim == 0 else pos)[:, None]
             if encdec:
                 x = x + params["dec_pos"][positions.long()].to(x.dtype)
             ctx = {"positions": positions, "rope": not encdec,
-                   "max_seq": max_seq, "pages": batch.get("pages")}
+                   "max_seq": max_seq, "pages": batch.get("pages"),
+                   "model_axis": axis, "dispatch_group": group,
+                   "pool_group": group}
             for kind, p, (keys, j) in zip(kinds, params["blocks"], slots):
                 layer_cache = {k: cache[key][j] for k, key in keys.items()}
                 x, _ = BLOCKS[kind]["decode"](cfg, p, x, layer_cache, pos,
                                               ctx)
             x = _final_norm(cfg, params, x)
             lg = logits(params, x[:, 0])
-            token = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
-            return cache, token
+            return cache, _greedy(lg, axis).to(torch.int32)[:, None]
 
+    return decode_step
+
+
+def _serve_parts(cfg, mesh, rules, max_seq: int, batch: int | None):
+    """(rules, parameter shards, ModelAxis, the batch ranks' group where
+    the plan splits `batch` rows over the batch axes (None: whole on
+    every rank; `batch` None: split), the parameters' gather) of a
+    sharded serving step."""
+    check_mesh(cfg, mesh)
+    rules = rules or addressing.default_rules(mesh,
+                                              overrides=cfg.rules_overrides)
+    shards = state_shards(cfg, mesh, rules, max_seq=max_seq)["params"]
+    axis = model_axis(cfg, mesh, rules, max_seq=max_seq)
+    sizes = addressing.mesh_axes(mesh)
+    ranks = math.prod(sizes[a] for a in addressing.BATCH_AXES if a in sizes)
+    spec = rules.spec_for(("batch",), (ranks if batch is None else batch,),
+                          mesh)
+    group = addressing.batch_group(mesh) if spec else None
+    return rules, shards, axis, group, _batch_gather(shards, mesh)
+
+
+def _batch_gather(shards, mesh):
+    """`gather(params)`: the parameters whole over the batch axes (each
+    leaf's "embed" block under fsdp gathered, `LeafShard.gather_batch`; a
+    split over "model" stays), gathered once per parameter tree (the
+    same leaf tensors, held by the memo) and kept for the cell's later
+    calls; where the batch axes have one rank a rank's blocks are whole
+    over them already, and nothing is gathered or copied. A rank then
+    holds its model blocks whole over the batch axes: for qwen3-14b's
+    bf16 parameters 7.38 GB on (2, 4) (3.89 GB sharded; 3.49 GB moved
+    once) and 6.57 GB on (16, 16) (0.50 GB sharded), where a gather
+    every call would move those bytes again each step."""
+    by_path = _by_path(shards)
+    one_rank = dist.get_world_size(addressing.batch_group(mesh)) == 1
+    memo: dict = {}
+
+    def gather(params):
+        if one_rank:
+            return params
+        flat, spec = pytree.tree_flatten_with_path(params)
+        leaves = [leaf for _, leaf in flat]
+        held = memo.get("leaves")
+        if held is not None and len(held) == len(leaves) and all(
+                a is b for a, b in zip(held, leaves)):
+            return memo["tree"]
+        memo.clear()
+        tree = pytree.tree_unflatten(
+            [by_path[_path_key(path)].gather_batch(leaf)
+             for path, leaf in flat], spec)
+        memo.update(leaves=leaves, tree=tree)
+        return tree
+
+    return gather
+
+
+def make_sharded_prefill_step(cfg, mesh, *, rules=None, policy=None,
+                              max_seq: int = 4096, batch: int | None = None):
+    """The prefill step over a live (data, model) or (pod, data, model)
+    mesh (`check_mesh`): `prefill_step(params, batch) -> (B_rank,) int32`
+    with `params` this rank's blocks (`.shards`, the train step's
+    `state_shards` of the parameters) and `batch` its rows of the global
+    batch (the plan's batch block; `batch`, the global row count, says
+    whether the plan splits it: None, a multiple of the batch ranks).
+
+    Each leaf split over the batch axes (fsdp's "embed") is gathered over
+    them once per parameter tree (`_batch_gather`; the gathered tree is
+    kept for later calls: a rank then holds its model blocks whole over
+    the batch axes, what the step reads every call, where gathering
+    every call would move them again each time); over "model" the rank
+    computes its splits as the train step's forward does (`ModelAxis`:
+    row 1 at N = heads / model and d_ff / model, row 3 at the rank's
+    heads, row 2 on the row-parallel partials), its vocabulary block of
+    the logits and their global argmax. Eager (no CUDA graph: the
+    collectives run between the kernels). At one rank the tokens equal
+    `make_prefill_step`'s bit for bit."""
+    rules, shards, axis, group, gather = _serve_parts(cfg, mesh, rules,
+                                                      max_seq, batch)
+    inner = make_prefill_step(cfg, policy=policy, axis=axis, group=group)
+
+    def prefill_step(params, batch):
+        return inner(gather(params), batch)
+
+    prefill_step.shards, prefill_step.axis = shards, axis
+    prefill_step.group, prefill_step.gather = group, gather
+    return prefill_step
+
+
+def make_sharded_decode_step(cfg, mesh, max_seq: int, *, rules=None,
+                             policy=None, batch: int | None = None):
+    """The decode step over a live mesh: `decode_step(params, cache,
+    batch) -> (cache, token (B_rank, 1) int32)` with this rank's
+    parameter blocks (`.shards`), its blocks of the cache
+    (`cache_shards` at the same `batch` and `decode_cache_len(cfg,
+    max_seq)`; paged or private) and its rows of
+    the tokens, positions and page tables.
+
+    The parameters' batch-axis blocks are gathered once per parameter
+    tree, as the sharded prefill's. Over "model" the rank computes its
+    query heads, its KV heads, its d_ff columns of the FFN or of every
+    expert and its vocabulary block (`ModelAxis`), and its block of the
+    cache as the plan places it (`CacheSplit`, `.split`): kv_seq split
+    over "model" (each rank writes the rows that fall in its block and
+    attends over them; the blocks combine by log-sum-exp), else kv_heads
+    (the pool, or a cache whose rows the model size does not divide:
+    each rank its heads' rows), else whole. See
+    `blocks._split_attention_decode` for the collectives of a layer. The
+    step is eager (a chunk of it on a mesh is not captured as a CUDA
+    graph: ROADMAP Queue 1, Later). At one rank it equals
+    `make_decode_step`'s bit for bit."""
+    rules, shards, axis, group, gather = _serve_parts(cfg, mesh, rules,
+                                                      max_seq, batch)
+    split = cache_split(cfg, mesh, rules, decode_cache_len(cfg, max_seq))
+    if axis is not None:
+        if split.heads is not None and split.heads != axis.kv_heads:
+            raise NotImplementedError(
+                f"the plan splits the cache's KV heads {split.heads} and "
+                f"the parameters' {axis.kv_heads} differently")
+        axis = dataclasses.replace(axis, cache=split)
+    inner = make_decode_step(cfg, max_seq, policy=policy, axis=axis,
+                             group=group)
+
+    def decode_step(params, cache, batch):
+        return inner(gather(params), cache, batch)
+
+    decode_step.shards, decode_step.axis = shards, axis
+    decode_step.group, decode_step.gather = group, gather
+    decode_step.split = split
     return decode_step
 
 

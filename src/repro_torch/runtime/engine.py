@@ -389,17 +389,20 @@ def _done(s):
     return (~s["active"]) | s["finished"] | (s["emitted"] >= s["budget"])
 
 
-def steps_needed(state) -> int:
+def steps_needed(state, group=None) -> int:
     """Decode steps until every slot is done, barring EOS: a live slot
     still feeds max(prompt_len - consumed - 1, 0) prompt tokens before its
-    first emission, then emits budget - emitted tokens. One host read."""
-    rows = torch.stack([state["consumed"], state["prompt_len"],
-                        state["emitted"], state["budget"],
-                        _done(state).to(I64)]).cpu().numpy()
-    consumed, plen, emitted, budget, done = rows
-    need = (np.maximum(plen - consumed - 1, 0) + (budget - emitted))
-    need = need[done == 0]
-    return int(need.max()) if need.size else 0
+    first emission, then emits budget - emitted tokens. One host read.
+    With `group` (a mesh's batch ranks, each holding its block of the
+    slots) the most any rank needs (``steps_max``), so that every rank
+    runs the same steps and their collectives."""
+    need = torch.clamp(state["prompt_len"] - state["consumed"] - 1, min=0) \
+        + (state["budget"] - state["emitted"])
+    need = torch.where(_done(state), 0, need).amax(0, keepdim=True)
+    if group is not None:
+        from repro_torch.core import collectives
+        need = collectives.max_over_ranks(need, group, name="steps_max")
+    return int(need.item())
 
 
 def _session_step(decode_step, params, s, eos_id):
@@ -430,7 +433,7 @@ def _session_step(decode_step, params, s, eos_id):
 
 def session_chunk_fn(decode_step: Callable, chunk: int,
                      eos_id: int | None = None, *,
-                     cuda_graph: bool = True) -> Callable:
+                     cuda_graph: bool = True, group=None) -> Callable:
     """The K-step session program: `chunk_fn(params, state) -> (state,
     tokens (B, K), emit (B, K) bool, busy (B,), all_done)`.
 
@@ -447,9 +450,26 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
     step is its warm-up) and replayed for every later step: the same
     kernels on the same tensors, so the same results.
     `cuda_graph=False` runs every step eagerly (to check the graph
-    against)."""
+    against).
+
+    On a mesh (`decode_step` a sharded step, `state` this rank's block:
+    the slot fields, prompt buffers and page tables its rows of the
+    slots, the cache its blocks) `group` is the batch ranks' group where
+    the plan splits the slots: the chunk's step count is the most any
+    rank needs and `all_done` holds over every rank's slots. A mesh
+    chunk runs eagerly (`cuda_graph=False`): its steps' collectives are
+    not captured."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    def all_done(state):
+        done = torch.all(_done(state))
+        if group is None:
+            return done
+        from repro_torch.core import collectives
+        busy = collectives.max_over_ranks((~done).to(I64)[None], group,
+                                          name="steps_max")
+        return busy[0] == 0
 
     @torch.inference_mode()
     def chunk_fn(params, state):
@@ -459,7 +479,7 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
         toks = torch.zeros((b, chunk), dtype=I64, device=dev)
         emit = torch.zeros((b, chunk), dtype=torch.bool, device=dev)
         busy = torch.zeros(b, dtype=I64, device=dev)
-        for t in range(min(chunk, steps_needed(state))):
+        for t in range(min(chunk, steps_needed(state, group))):
             if not graphed:
                 raw, em, live = _session_step(decode_step, params, state,
                                               eos_id)
@@ -472,7 +492,7 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
             toks[:, t] = raw
             emit[:, t] = em
             busy += live
-        return state, toks, emit, busy, torch.all(_done(state))
+        return state, toks, emit, busy, all_done(state)
 
     return chunk_fn
 

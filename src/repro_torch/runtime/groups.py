@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -348,8 +348,15 @@ class ShardedServeSession:
         if self._pool is None or len(live) == 1:
             results = [self._poll_group(g, timeout_s) for g in live]
         else:
-            results = list(self._pool.map(
-                lambda g: self._poll_group(g, timeout_s), live))
+            # every group's chunk (and its journal commit) ends before
+            # this call returns or raises; the first error in gid order
+            # is raised after (the reference's `pool.map` re-raises
+            # group 0's crash while group 1's chunk may still be
+            # committing: ROADMAP Queue 3)
+            futures = [self._pool.submit(self._poll_group, g, timeout_s)
+                       for g in live]
+            wait(futures)
+            results = [f.result() for f in futures]
         events: list = []
         for gid, evs, wedge in sorted(results, key=lambda r: r[0]):
             for handle, toks, done in evs:

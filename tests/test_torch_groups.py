@@ -527,6 +527,70 @@ def test_crash_restart_delivers_exactly_once(progs, tmp_path, groups):
     restored.close()
 
 
+def test_crash_waits_for_every_group_before_raising(progs, tmp_path):
+    """The crash race made deterministic: in the round where group 0's
+    scripted crash raises, group 1's poll is held until group 0's has
+    raised and then runs its chunk (and its journal commit) late. `poll`
+    must not raise before group 1's chunk is over: no journal changes
+    after it raised, and the restart delivers every token once (what
+    `test_crash_restart_delivers_exactly_once[2]` checks, which this
+    race failed under load)."""
+    import threading
+    import time
+    p = progs["port"]
+    reqs = _requests(6)
+    ref = p[2].open(params=p["params"])
+    hr = [ref.submit(q, n) for q, n in reqs]
+    ref.drain()
+    want = {(h.group, h.id): h.tokens.tolist() for h in hr}
+    ref.close()
+    d = tmp_path / "crash"
+    sess = p[2].open(params=p["params"], durable_dir=d,
+                     faults=tfaults.FaultPlan().crash(at_chunk=2))
+    g0, g1 = (g.session for g in sess.groups)
+    first_done = threading.Event()
+    poll0, poll1 = g0.poll, g1.poll
+
+    def held0(*a, **k):
+        try:
+            return poll0(*a, **k)
+        finally:
+            first_done.set()
+
+    def held1(*a, **k):
+        assert first_done.wait(10.0)
+        first_done.clear()
+        time.sleep(0.3)                 # group 0 has raised by now
+        return poll1(*a, **k)
+
+    g0.poll, g1.poll = held0, held1
+    hs = [sess.submit(q, n) for q, n in reqs]
+    assert {h.group for h in hs} == {0, 1}
+    delivered = {}
+    with pytest.raises(tfaults.SessionCrashed):
+        for _ in range(200):
+            for h, toks, _ in sess.poll():
+                delivered.setdefault((h.group, h.id), []).extend(
+                    int(t) for t in toks)
+    journals = [d / f"group{g:02d}" / "journal.jsonl" for g in (0, 1)]
+    at_raise = [j.read_bytes() for j in journals]
+    time.sleep(0.6)
+    assert [j.read_bytes() for j in journals] == at_raise
+    committed = {}
+    for g, j in enumerate(journals):
+        for rid, r in tjournal.replay(
+                tjournal.read_events(j)).requests.items():
+            committed[(g, rid)] = list(r.committed)
+    for key, toks in delivered.items():
+        assert committed[key][:len(toks)] == toks
+    restored = p[2].restore(d, params=p["params"])
+    final = {k: list(v) for k, v in committed.items()}
+    for h, toks, _ in restored.stream():
+        final.setdefault((h.group, h.id), []).extend(int(t) for t in toks)
+    assert final == want
+    restored.close()
+
+
 # ----------------------------------------------------------------------------
 # the examples
 # ----------------------------------------------------------------------------

@@ -19,6 +19,7 @@ process.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import shutil
@@ -330,3 +331,340 @@ def _sorted_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in _sorted_leaves(t)]
     return [tree]
+
+
+# ----------------------------------------------------------------------------
+# Serving on a mesh (tests/test_torch_serve_mesh.py)
+# ----------------------------------------------------------------------------
+
+SERVE_B, PROMPT, DECODE_STEPS, CHUNK, MAX_PROMPT, PAGE = 4, 6, 8, 4, 8, 4
+
+
+def serve_inputs(cfg, max_seq: int) -> dict:
+    """The seeded inputs of a serving case (global batch of SERVE_B
+    slots): prefill tokens (B, PROMPT); per-slot start positions that put
+    the slots in different blocks of the cache's rows; teacher-forced
+    decode tokens (B, DECODE_STEPS); a session's prompts (lengths 2 ..
+    MAX_PROMPT) and budgets."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    B = SERVE_B
+    span = max_seq - DECODE_STEPS
+    starts = (np.arange(B) * span) // B + rng.integers(0, max(span // B, 1),
+                                                       B)
+    lens = rng.integers(2, MAX_PROMPT + 1, B)
+    prompts = np.zeros((B, MAX_PROMPT), np.int64)
+    for b in range(B):
+        prompts[b, :lens[b]] = rng.integers(0, cfg.vocab, lens[b])
+    return {"prefill": torch.from_numpy(
+                rng.integers(0, cfg.vocab, (B, PROMPT)).astype(np.int32)),
+            "starts": torch.from_numpy(np.minimum(starts, span).astype(
+                np.int64)),
+            "decode": torch.from_numpy(
+                rng.integers(0, cfg.vocab, (B, DECODE_STEPS)).astype(
+                    np.int32)),
+            "prompt_buf": torch.from_numpy(prompts),
+            "prompt_len": torch.from_numpy(lens.astype(np.int64)),
+            "budget": torch.from_numpy(rng.integers(3, 7, B).astype(
+                np.int64))}
+
+
+def serve_cross(cfg):
+    """A vision or encoder-decoder model's cross context for the prefill
+    (f32, seeded), else None."""
+    n = cfg.n_img_tokens if cfg.family == "vlm" else (
+        cfg.enc_seq if cfg.family == "encdec" else 0)
+    if not n:
+        return None
+    g = torch.Generator().manual_seed(11)
+    return torch.randn((SERVE_B, n, cfg.d_model), generator=g) * 0.5
+
+
+def f32(cache: dict) -> dict:
+    """A cache's leaves in f32 (the tests' parameters are f32; the
+    reference cannot run its bf16 cache with f32 parameters either)."""
+    return {k: v.float() for k, v in cache.items()}
+
+
+def serve_state(cache, inputs, rows=slice(None), *, pages_per_slot=None):
+    """A session state (`engine.init_session_state`) over `cache` for the
+    slots `rows` of the inputs, every slot admitted with its prompt and
+    budget; with `pages_per_slot`, slot b's table maps the pages 1 + b *
+    pages_per_slot onwards (page 0 is the trash page)."""
+    from repro_torch.runtime import engine
+    buf = inputs["prompt_buf"][rows]
+    n = buf.shape[0]
+    state = engine.init_session_state(f32(cache), n, buf.shape[1],
+                                      pages_per_slot, device="cpu")
+    state["prompt_buf"].copy_(buf)
+    state["prompt_len"].copy_(inputs["prompt_len"][rows])
+    state["budget"].copy_(inputs["budget"][rows])
+    state["active"].fill_(True)
+    if pages_per_slot is not None:
+        slots = torch.arange(inputs["prompt_buf"].shape[0])[rows]
+        state["pages"].copy_(1 + slots[:, None] * pages_per_slot
+                             + torch.arange(pages_per_slot))
+    return state
+
+
+def run_session(fn, params, state, rounds: int = 2):
+    """`rounds` chunks of a session cell -> (tokens, emit flags) of every
+    chunk, concatenated along the steps."""
+    toks, emits = [], []
+    for _ in range(rounds):
+        state, t, e, _, _ = fn(params, state)
+        toks.append(t.clone())
+        emits.append(e.clone())
+    return torch.cat(toks, 1), torch.cat(emits, 1)
+
+
+def chunk_start(cfg, max_seq: int) -> int:
+    """Where a case's decode chunk starts: CHUNK rows before the middle
+    of the cache's rows, so that its 2 * CHUNK steps write and attend
+    across the boundary of two ranks' row blocks at model 2 or 4."""
+    from repro_torch.models import steps
+    return steps.decode_cache_len(cfg, max_seq) // 2 - CHUNK
+
+
+def run_chunk(fn, params, cache, start_tok, rounds: int = 2, start: int = 0):
+    """`rounds` calls of a K-step decode chunk from position `start`
+    (SERVE_B rows of `start_tok`, no EOS; the rows before `start` left as
+    the cache holds them) -> the tokens of every call."""
+    b = start_tok.shape[0]
+    tok = start_tok.to(torch.int64)
+    fin = torch.zeros(b, dtype=torch.bool)
+    emitted = torch.zeros(b, dtype=torch.int64)
+    pos = torch.full((), start, dtype=torch.int64)
+    rem = torch.full((), rounds * CHUNK, dtype=torch.int64)
+    out = []
+    for _ in range(rounds):
+        cache, tok, fin, emitted, pos, n, _, toks = fn(
+            params, cache, tok, fin, emitted, pos, rem)
+        rem = rem - n
+        out.append(toks)
+    return torch.cat(out, 1)
+
+
+@contextlib.contextmanager
+def reading_logits():
+    """Within the block, every greedy pick of the port's serving steps
+    (`steps._greedy`) also records its f32 logits, whole over the
+    vocabulary (a rank's block gathered over the model ranks here, outside
+    the step's counted collectives), in call order: the list yielded."""
+    from repro_torch.models import steps
+    seen, greedy = [], steps._greedy
+
+    def reading(lg, axis):
+        whole = lg
+        if axis is not None and axis.vocab is not None:
+            front = lg.movedim(-1, 0).contiguous()
+            out = front.new_empty((axis.size * front.shape[0],
+                                   *front.shape[1:]))
+            gather = getattr(dist, "all_gather_single", None) or \
+                dist.all_gather_into_tensor      # the name before torch 2.13
+            gather(out, front, group=axis.group)
+            whole = out.movedim(0, -1)
+        seen.append(whole.clone())
+        return greedy(lg, axis)
+
+    steps._greedy = reading
+    try:
+        yield seen
+    finally:
+        steps._greedy = greedy
+
+
+def serve_reference(cfg, params, max_seq: int, inputs, *, paged: bool,
+                    cross=None, cells: bool = True):
+    """The one-process results of a serving case on the whole batch (the
+    port's plain steps and cells): prefill tokens and logits, every
+    decode step's tokens and logits, the cache after them; with `cells`,
+    the chunk's tokens, the session's and (`paged`) the paged session's
+    tokens and emit flags and pool."""
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
+    B = SERVE_B
+    clen = steps.decode_cache_len(cfg, max_seq)
+    out = {}
+    batch = {"tokens": inputs["prefill"]}
+    if cross is not None:
+        batch["enc_embeds" if cfg.family == "encdec" else "img_embeds"] = \
+            cross
+    step = steps.make_decode_step(cfg, max_seq)
+    cache = f32(steps.init_cache(cfg, B, clen, device="cpu"))
+    out["decode"] = []
+    with reading_logits() as seen:
+        out["prefill"] = steps.make_prefill_step(cfg)(params, batch)
+        for t in range(DECODE_STEPS):
+            cache, tok = step(params, cache, {
+                "tokens": inputs["decode"][:, t:t + 1],
+                "pos": inputs["starts"] + t})
+            out["decode"].append(tok)
+    out["prefill_logits"], out["decode_logits"] = seen[0], seen[1:]
+    out["cache"] = cache
+    if not cells:
+        return out
+    plain = steps.make_decode_step(cfg, max_seq)
+    out["chunk"] = run_chunk(engine.decode_chunk_fn(plain, CHUNK), params,
+                             f32(steps.init_cache(cfg, B, clen,
+                                                  device="cpu")),
+                             inputs["decode"][:, :1],
+                             start=chunk_start(cfg, max_seq))
+    sess = engine.session_chunk_fn(plain, CHUNK, cuda_graph=False)
+    out["session"] = run_session(sess, params, serve_state(
+        steps.init_cache(cfg, B, clen, device="cpu"), inputs))
+    if paged:
+        pps = -((max_seq + 1) // -PAGE)
+        pool = steps.init_paged_cache(cfg, B, clen, n_pages=B * pps + 1,
+                                      page_size=PAGE, device="cpu")
+        state = serve_state(pool, inputs, pages_per_slot=pps)
+        out["paged"] = run_session(sess, params, state)
+        out["pool"] = state["cache"]
+    return out
+
+
+@job
+def serve_case(rank, world, *, arch, params, max_seq, mesh=None,
+               names=("data", "model"), replace=None, paged=True,
+               cells=True):
+    """A serving case on `mesh`, this rank's share of it, from the whole
+    parameters in the file `params` and `serve_inputs`: the sharded
+    prefill's tokens and logits, 8 teacher-forced sharded decode steps'
+    tokens and logits and the cache blocks after them; with `cells`, the
+    decode-chunk, session and (`paged`) paged session cells of
+    `cells.build_cell`, their tokens and the pool's blocks. Also this
+    rank's coordinates and batch rows, and one decode step's collective
+    counts."""
+    import dataclasses
+
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing, collectives
+    from repro_torch.models import steps
+
+    cfg = dataclasses.replace(get(arch), **(replace or {}))
+    mesh = _mesh(world, sizes=mesh, names=names)
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    coords = addressing.coordinates(mesh)
+    B = SERVE_B
+    spec = rules.spec_for(("batch",), (B,), mesh)
+    rows = addressing.local_block(spec, (B,), mesh, coords)[0]
+    inputs = serve_inputs(cfg, max_seq)
+    whole = torch.load(params, weights_only=False)
+    out = {"coords": coords, "rows": (rows.start, rows.stop)}
+
+    pre = steps.make_sharded_prefill_step(cfg, mesh, max_seq=max_seq,
+                                          batch=B)
+    local = addressing.take_tree(pre.shards, whole)
+    batch = {"tokens": inputs["prefill"][rows]}
+    cross = serve_cross(cfg)
+    if cross is not None:
+        batch["enc_embeds" if cfg.family == "encdec" else "img_embeds"] = \
+            cross[rows]
+
+    clen = steps.decode_cache_len(cfg, max_seq)
+    step = steps.make_sharded_decode_step(cfg, mesh, max_seq, batch=B)
+    shards = steps.cache_shards(cfg, mesh, rules, B, clen)
+    cache = f32(steps.init_cache(cfg, B, clen, device="cpu", shards=shards))
+    out["decode"] = []
+    with reading_logits() as seen:
+        out["prefill"] = pre(local, batch)
+        for t in range(DECODE_STEPS):
+            collectives.reset_counts()
+            cache, tok = step(local, cache, {
+                "tokens": inputs["decode"][rows, t:t + 1],
+                "pos": inputs["starts"][rows] + t})
+            out["counts"] = collectives.counts()
+            out["decode"].append(tok)
+    out["prefill_logits"], out["decode_logits"] = seen[0], seen[1:]
+    out["cache"] = cache
+    out["split"] = step.split
+    if not cells:
+        return out
+    shape = ShapeConfig("t", max_seq, B, "decode")
+    fn = cells_lib.build_cell(cfg, shape, mesh, rules, decode_chunk=CHUNK)[0]
+    out["chunk"] = run_chunk(fn, local, f32(steps.init_cache(
+        cfg, B, clen, device="cpu", shards=fn.cache_shards)),
+        inputs["decode"][rows, :1], start=chunk_start(cfg, max_seq))
+    fn = cells_lib.build_cell(cfg, shape, mesh, rules, decode_chunk=CHUNK,
+                              session=True)[0]
+    out["session"] = run_session(fn, local, serve_state(
+        steps.init_cache(cfg, B, clen, device="cpu",
+                         shards=fn.cache_shards), inputs, rows))
+    if paged:
+        fn, args = cells_lib.build_cell(cfg, shape, mesh, rules,
+                                        decode_chunk=CHUNK, session=True,
+                                        paged=True, page_size=PAGE)[:2]
+        pps = args[1]["pages"].shape[1]
+        pool = steps.init_paged_cache(
+            cfg, B, clen, n_pages=B * pps + 1, page_size=PAGE,
+            device="cpu", shards=fn.cache_shards)
+        state = serve_state(pool, inputs, rows, pages_per_slot=pps)
+        out["paged"] = run_session(fn, local, state)
+        out["pool"] = state["cache"]
+        out["pool_shards"] = {k: (s.dim, s.model_dim)
+                              for k, s in fn.cache_shards.items()}
+    out["cache_shards"] = {k: (s.dim, s.model_dim)
+                           for k, s in shards.items()}
+    return out
+
+
+@job
+def serve_refused(rank, world, *, arch):
+    """The decode cell of `arch` on a (1, world) mesh: the message of its
+    NotImplementedError (None when it builds)."""
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing
+
+    cfg = get(arch)
+    mesh = _mesh(world, model=world)
+    try:
+        cells_lib.build_cell(cfg, ShapeConfig("t", 16, SERVE_B, "decode"),
+                             mesh, addressing.default_rules(mesh))
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+@job
+def serve_ref_cells(rank, world, *, arch, params, inputs, seq=64, batch=8):
+    """qwen3's prefill, session and paged session cells of `build_cell` on
+    the reference's (2, 4) test mesh (`inputs`: the prefill tokens and
+    the session's prompts and budgets of every slot) -> this rank's rows,
+    its prefill tokens and each session's tokens and emit flags."""
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing
+    from repro_torch.models import steps
+
+    cfg = get(arch)
+    mesh = _mesh(world, sizes=(2, 4), names=("data", "model"))
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    coords = addressing.coordinates(mesh)
+    spec = rules.spec_for(("batch",), (batch,), mesh)
+    rows = addressing.local_block(spec, (batch,), mesh, coords)[0]
+    whole = torch.load(params, weights_only=False)
+    fn = cells_lib.build_cell(cfg, ShapeConfig("t", seq, batch, "prefill"),
+                              mesh, rules)[0]
+    local = addressing.take_tree(fn.shards, whole)
+    out = {"rows": (rows.start, rows.stop), "prefill": fn(local, {
+        "tokens": inputs["prefill"][rows]})}
+    shape = ShapeConfig("t", seq, batch, "decode")
+    clen = steps.decode_cache_len(cfg, seq)
+    for paged in (False, True):
+        fn, args = cells_lib.build_cell(cfg, shape, mesh, rules,
+                                        decode_chunk=CHUNK, session=True,
+                                        paged=paged, page_size=PAGE)[:2]
+        pps = args[1]["pages"].shape[1] if paged else None
+        cache = (steps.init_paged_cache(
+            cfg, batch, clen, n_pages=batch * pps + 1, page_size=PAGE,
+            device="cpu", shards=fn.cache_shards) if paged else
+            steps.init_cache(cfg, batch, clen, device="cpu",
+                             shards=fn.cache_shards))
+        state = serve_state(cache, inputs, rows, pages_per_slot=pps)
+        out["paged" if paged else "session"] = run_session(fn, local, state)
+    return out
