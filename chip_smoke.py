@@ -20,9 +20,10 @@ whole, and llama-3.2-vision-90b at full width (10 of its 100 layers);
 then trains qwen3-14b at full width (4 of its 40 layers) through
 `TrainProgram` under "fused", and a reduced qwen3 through
 `TrainProgram.run()` with checkpoint, preemption and resume; then the
-same train program on a one-rank (data, model) mesh, the model axis's
-kernel shapes, a (1, 2) step and a (1, 2) decode of two thread ranks on
-the card.
+same train program on a one-rank (data, model) mesh, with and without
+the per-layer gather, the model axis's kernel shapes, a (1, 2) step, a
+(2, 1) per-layer gather and a (1, 2) decode of two thread ranks on the
+card.
 
     python3 chip_smoke.py
 
@@ -280,7 +281,13 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            1-3's launches and the step's collectives counted, the median
            wall against the train phase's, the peak memory, one step
            traced (its launches, the idle share, the NCCL kernels' time),
-           the gather by CUDA events; part=run, `python -m
+           the gather by CUDA events; part=fsdp, the same step with the
+           per-layer gather (`make_sharded_train_step(fsdp_gather=True)`,
+           the train program's schedule) on a one-rank NCCL (1, 1) mesh:
+           losses and every state leaf bit-equal to the train phase's,
+           its collectives and bytes a step, median wall, a traced step's
+           device busy time and the peak memory beside part=step's and
+           the train phase's; part=run, `python -m
            repro_torch.launch.train --arch qwen3-14b --smoke --steps 6
            --data-axis 1` as a child process: exit 0, its losses and
            final parameters those of TrainProgram.run() in this process
@@ -296,7 +303,15 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            part=threads (last), a (data=1, model=2) step of qwen3-14b at
            full width, 2 layers, its two ranks two threads of this
            process in torch's threaded process group: losses and every
-           gradient leaf within 2e-2 of the one-rank step's
+           gradient leaf within 2e-2 of the one-rank step's;
+           part=fsdp_threads (after threads), the per-layer gather on a
+           (data=2, model=1) mesh of two thread ranks: (a) 2 layers, one
+           step of the whole-tree and of the per-layer step, every
+           rank's state bit-equal, both peaks; (b) 6 layers (above the
+           card for the whole-tree step), grad_accum 4, 8 x 512: each
+           reduced gradient leaf within twice its noise floor (the
+           one-rank bf16 gradient's distance from the f32 one) of the
+           one-rank bf16 gradient, then a whole step, and the peak
   mesh     serving on a mesh (`cluster.cells.build_cell`): part=kernels
            (right after tp's), rows 1-2 on the decode kernel at a rank's
            local decode shapes of qwen3-14b on (1, 2) and (2, 4) (M 8,
@@ -318,8 +333,9 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
 The kernel launch counts are set to 0 before each of the suite, tune,
 compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
 groups (part=two and part=locality), mesh (part=cells), moe, hybrid,
-xlstm, vlm, train, dp (part=step), tp (part=threads) and mesh
-(part=threads) runs and read right after; every kernel of a
+xlstm, vlm, train, dp (part=step and part=fsdp), tp (part=threads and
+part=fsdp_threads (b)) and mesh (part=threads) runs and read right
+after; every kernel of a
 phase must have launched and no plain version may have run on a CUDA
 tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
@@ -327,7 +343,10 @@ trace (`launches.traced_launches`). Every trace but the serve phase's
 holds its work between two sentinel kernels (`torch.cuda._sleep`), after
 64 primer kernels (a trace's first kernel records can go missing) and
 0.1 s of host time: a trace that lost either sentinel is logged and taken
-again with 1 s, then 4 s of host time, and the done line lists it. The
+again with 1 s, then 4 s of host time, and the done line lists it; so is
+the groups phase's two-group trace when a kernel's traced count is not a
+whole number of steps (a graph replay runs all of its kernels: records
+were lost between the sentinels), up to three runs in all. The
 last two lines are the kernels' JSON record and {"ok": true, "device":
 {...}}.
 """
@@ -505,11 +524,12 @@ def main() -> int:
     xlstm_phase(launches)
     vlm_counts = vlm_phase(launches)
     train_counts, plain = train_phase(launches)
-    dp_counts = dp_phase(launches, plain)
+    dp_counts, fsdp_counts = dp_phase(launches, plain)
     del plain
     gc.collect()
     torch.cuda.empty_cache()
     tp_threads_part(launches)
+    tp_fsdp_threads_part(launches)
     mesh_threads_part(launches)
     for rec in records:
         # launches: a kernel's runs on the device in the path that takes
@@ -525,17 +545,20 @@ def main() -> int:
         # already holds the suite phase's counts. train_launches: the
         # qwen3 fused kernels' launches in one full-width train step
         # (counted and traced); dp_launches: theirs in one step of the
-        # data-parallel train step (counted and traced).
+        # data-parallel train step (counted and traced); fsdp_launches:
+        # in one step of its per-layer gather (counted and traced).
         name = rec["name"]
         if name in QWEN_FUSED:
             rec["launches"] = (prefill_counts[name] + serve_traced[name]
                                + engine_traced[name] + moe_counts[name]
                                + hybrid_counts[name] + vlm_counts[name]
                                + train_counts[name] + dp_counts[name]
+                               + fsdp_counts[name]
                                + groups["traced"][name]
                                + mesh_counts[name])
             rec["train_launches"] = train_counts[name]
             rec["dp_launches"] = dp_counts[name]
+            rec["fsdp_launches"] = fsdp_counts[name]
             rec["groups_launches"] = groups["traced"][name]
             rec["mesh_launches"] = mesh_counts[name]
             rec["wrapper_launches"] = prefill_counts[name] + \
@@ -3435,32 +3458,50 @@ def groups_two(launches, cluster, params, reqs, card) -> dict:
     # the parsed events, the traced run took 153 s (its run: ~7 s; NVIDIA
     # H100 80GB HBM3, 700 W)
     t_trace = time.perf_counter()
-    prof = traced("groups two", drive, raw=True)
-    seen = launches.launch_counts(launches.device_kernels(prof))
+    for attempt in range(len(PADS_S)):
+        prof = traced("groups two", drive, raw=True)
+        seen = launches.launch_counts(launches.device_kernels(prof))
+        sess, counts = run["sess"], run["counts"]
+        # Wrappers count a step's warm-up and its capture (both under the
+        # capture lock, one thread at a time); the trace sees the warm-up
+        # and every replay. So each kernel's traced launches are its
+        # launches a step times the groups' warm-ups and replays, which
+        # holds only if both groups' replays ran the fused kernels. A
+        # replay runs all of its graph: a count that is not a whole
+        # number of steps is a trace that lost device records between
+        # its sentinels, taken again as `traced` takes one that lost a
+        # sentinel.
+        replays = [g.session.state["step_graph"].replays
+                   for g in sess.groups]
+        captures = sum(g.session.captures for g in sess.groups)
+        expect, torn = {}, []
+        for name in ("rmsnorm_matmul", "matmul_residual_add"):
+            per_step, rest = divmod(counts[name], 2 * captures)
+            expect[name] = per_step * sum(1 + r for r in replays)
+            if rest or per_step <= 0:
+                raise AssertionError(f"groups two: {name} counted "
+                                     f"{counts[name]} over {captures} "
+                                     f"captures")
+            if seen[name] % per_step:
+                torn.append(f"{name}:{seen[name]}/{expect[name]}")
+        if not torn:
+            break
+        LOST_TRACES.append(f"groups two:{','.join(torn)}")
+        log("trace", what="groups two", attempt=attempt,
+            torn=",".join(torn))
+        sess.close()
+    for name, want in expect.items():
+        if seen[name] != want:
+            raise AssertionError(f"groups two: {name} traced {seen[name]}, "
+                                 f"want {want} (replays {replays}, "
+                                 f"captures {captures})")
     trace_s = time.perf_counter() - t_trace
-    sess, (handles, delivered, traced_wall) = run["sess"], run["out"]
-    counts = run["counts"]
+    handles, delivered, traced_wall = run["out"]
     st = sess.stats()
     pl = st["placement"]
     if not sess.plan.degraded or distinct_ptrs(sess) != 1:
         raise AssertionError("groups two: the groups must share one card "
                              "and one parameter tree")
-    # Wrappers count a step's warm-up and its capture (both under the
-    # capture lock, one thread at a time); the trace sees the warm-up and
-    # every replay. So each kernel's traced launches are its launches a
-    # step times the groups' warm-ups and replays, which holds only if
-    # both groups' replays ran the fused kernels.
-    graphs = [g.session.state["step_graph"] for g in sess.groups]
-    replays = [gr.replays for gr in graphs]
-    captures = sum(g.session.captures for g in sess.groups)
-    expect = {}
-    for name in ("rmsnorm_matmul", "matmul_residual_add"):
-        per_step, rest = divmod(counts[name], 2 * captures)
-        expect[name] = per_step * sum(1 + r for r in replays)
-        if rest or per_step <= 0 or seen[name] != expect[name]:
-            raise AssertionError(f"groups two: {name} traced {seen[name]}, "
-                                 f"want {expect[name]} ({per_step} a step, "
-                                 f"replays {replays}, captures {captures})")
     if min(replays) <= 0 or captures != 2:
         raise AssertionError(f"groups two: replays {replays}, captures "
                              f"{captures}")
@@ -4488,6 +4529,7 @@ def train_step_part(launches) -> tuple[dict, dict]:
         raise AssertionError(f"train: the trace saw {seen}, expected "
                              f"{per_step}")
     busy = device_busy_ms(prof)
+    plain["busy_ms"] = busy
     wall = float(np.median(walls)) * 1e3
     flops, bound_ms, opt_bound = train_bound(cfg, TRAIN_B, TRAIN_S, n_params)
     log("train", part="step", B=TRAIN_B, S=TRAIN_S, steps=k,
@@ -4660,13 +4702,15 @@ def train_run_part(launches) -> None:
 PLAN_LEAVES = 562     # the reference's plan of the 10 archs on both meshes
 
 
-def dp_phase(launches, plain) -> dict:
-    """part=plan, part=step and part=run (see the module's docstring).
-    Returns part=step's kernel launches."""
+def dp_phase(launches, plain) -> tuple[dict, dict]:
+    """part=plan, part=step, part=fsdp and part=run (see the module's
+    docstring). Returns part=step's and part=fsdp's kernel launches a
+    step."""
     dp_plan_part()
-    counts = dp_step_part(launches, plain)
+    counts, whole = dp_step_part(launches, plain)
+    fsdp = dp_fsdp_part(launches, plain, whole)
     dp_run_part()
-    return counts
+    return counts, fsdp
 
 
 def dp_plan_part() -> None:
@@ -4698,7 +4742,7 @@ def dp_plan_part() -> None:
         seconds=f"{time.perf_counter() - t0:.2f}")
 
 
-def dp_step_part(launches, plain) -> dict:
+def dp_step_part(launches, plain) -> tuple[dict, dict]:
     """The train phase's TrainProgram (qwen3-14b, TRAIN_LAYERS layers at
     full width, batch 8 x 512, grad_accum 4, "fused") compiled on a
     Cluster with a (data=1, model=1) DeviceMesh over a one-rank NCCL
@@ -4710,7 +4754,9 @@ def dp_step_part(launches, plain) -> dict:
     collectives (counted where the step issues them); the median wall
     against the train phase's, the peak memory; one step traced (its
     launches, the device's idle share, the NCCL kernels' time) and the
-    gather alone by CUDA events."""
+    gather alone by CUDA events. Returns rows 1-3's launches a step and
+    the step's wall, busy time, peak and collectives a step (what
+    part=fsdp logs beside its own)."""
     import tempfile
 
     import torch.distributed as dist
@@ -4826,6 +4872,141 @@ def dp_step_part(launches, plain) -> dict:
     del state, prog
     gc.collect()
     torch.cuda.empty_cache()
+    names = ("all_gather", "reduce_scatter", "all_reduce")
+    return train_launches(cfg, cfg.grad_accum), {
+        "wall_ms": wall, "busy_ms": busy, "peak_gb": peak,
+        "collectives": {n: coll[n] // k for n in names},
+        "bytes": {n: coll[f"{n}_bytes"] // k for n in names}}
+
+
+def dp_fsdp_part(launches, plain, whole) -> dict:
+    """The train phase's step with the per-layer gather:
+    `steps.make_sharded_train_step(fsdp_gather=True)` of the same
+    TRAIN_LAYERS-layer qwen3-14b (8 x 512, grad_accum 4, "fused", the
+    train program's schedule) on a (data=1, model=1) DeviceMesh over a
+    one-rank NCCL group, from the seeded state on the train phase's
+    batches: losses and every parameter and moment leaf bit-equal to the
+    train phase's .step (one rank: the gather is the shard itself, the
+    reduce-scatter the gradient in f32), rows 1-3's launches counted; a
+    step's collectives and their bytes, the median wall, the device busy
+    time of one traced step and the peak memory, beside part=step's
+    (`whole`, the whole-tree gather) and the train phase's (`plain`).
+    Returns rows 1-3's launches a step."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import collectives
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    cfg, k = train_cfg(), TRAIN_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{root}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh(MeshSpec((1, 1), ("data", "model")),
+                                    "cuda")
+            step = steps.make_sharded_train_step(
+                cfg, mesh, schedule_kwargs={"warmup": 2, "total": 2 * k},
+                policy="fused", max_seq=TRAIN_S, fsdp_gather=True)
+            state = steps.init_train_state(cfg, 0, device="cuda",
+                                           max_seq=TRAIN_S,
+                                           shards=step.shards)
+            want = {n: c * k for n, c in
+                    train_launches(cfg, cfg.grad_accum).items()}
+            launches.reset_counts()
+            collectives.reset_counts()
+            walls, losses = [], []
+            for b in plain["batches"]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                walls.append(time.perf_counter() - t0)
+            counted = _check_counts(launches, "dp fsdp", QWEN_FUSED)
+            coll = collectives.counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if {n: counted[n] for n in QWEN_FUSED} != want:
+                raise AssertionError(f"dp fsdp: launches {counted}, "
+                                     f"expected {want}")
+            if losses != plain["losses"]:
+                raise AssertionError(f"dp fsdp: losses {losses} against "
+                                     f"the train phase's {plain['losses']}")
+            differ = []
+            pytree.tree_map_with_path(
+                lambda path, a, b: None if torch.equal(a, b.to(a.device))
+                else differ.append(pytree.keystr(path)),
+                state, plain["state"])
+            if differ:
+                raise AssertionError(f"dp fsdp: {len(differ)} leaves differ"
+                                     f" from the train phase's: "
+                                     f"{differ[:4]}")
+            n_leaves = len(pytree.tree_leaves(state))
+            held = sum(s.sharded for s in pytree.tree_leaves(
+                step.shards["params"]["blocks"],
+                is_leaf=lambda x: hasattr(x, "sharded")))
+            layer_gb = sum(t.numel() * t.element_size() for t in
+                           pytree.tree_leaves(
+                               state["params"]["blocks"][0])) / 1e9
+
+            def one_step():
+                launches.reset_counts()
+                step(state, plain["batches"][0])
+
+            prof = traced("dp_fsdp_step", one_step)
+            seen = {n: launches.traced_launches(prof)[n] for n in QWEN_FUSED}
+            if seen != train_launches(cfg, cfg.grad_accum):
+                raise AssertionError(f"dp fsdp: the trace saw {seen}")
+            busy = device_busy_ms(prof)
+        finally:
+            dist.destroy_process_group()
+    names = ("all_gather", "reduce_scatter", "all_reduce")
+    per_step = {n: coll[n] // k for n in names}
+    passes = 2 if cfg.remat == "nothing" else 1
+    wc = whole["collectives"]
+    expect = {"all_gather": wc["all_gather"] + held * (
+                  cfg.grad_accum * passes - 1),
+              "reduce_scatter": wc["reduce_scatter"] + held * (
+                  cfg.grad_accum - 1),
+              "all_reduce": wc["all_reduce"]}
+    if per_step != expect or any(coll[n] % k for n in names):
+        raise AssertionError(f"dp fsdp: collectives {coll} over {k} steps, "
+                             f"expected {expect} a step")
+    wall = float(np.median(walls)) * 1e3
+    log("dp", part="fsdp", world=1, mesh="data=1,model=1",
+        layers=cfg.n_layers, B=TRAIN_B, S=TRAIN_S,
+        grad_accum=cfg.grad_accum, steps=k, losses_equal=True,
+        leaves_equal=n_leaves, held_leaves=held,
+        wall_ms_median=f"{wall:.2f}",
+        whole_tree_wall_ms_median=f"{whole['wall_ms']:.2f}",
+        train_wall_ms_median=f"{float(np.median(plain['walls'])) * 1e3:.2f}",
+        wall_ms=json.dumps([round(w * 1e3, 2) for w in walls]).replace(
+            " ", ""),
+        device_busy_ms=f"{busy:.2f}",
+        whole_tree_busy_ms=f"{whole['busy_ms']:.2f}",
+        train_busy_ms=f"{plain['busy_ms']:.2f}",
+        idle_share=f"{max(0.0, 1 - busy / wall):.3f}",
+        peak_gb=f"{peak:.2f}", whole_tree_peak_gb=f"{whole['peak_gb']:.2f}",
+        train_peak_gb=f"{plain['peak_gb']:.2f}", layer_gb=f"{layer_gb:.3f}",
+        collectives=json.dumps(per_step).replace(" ", ""),
+        bytes_gb=json.dumps({n: round(coll[f"{n}_bytes"] / k / 1e9, 3)
+                             for n in names}).replace(" ", ""),
+        whole_tree_collectives=json.dumps(wc).replace(" ", ""),
+        whole_tree_bytes_gb=json.dumps(
+            {n: round(b / 1e9, 3) for n, b in whole["bytes"].items()}
+        ).replace(" ", ""),
+        launches=json.dumps(want).replace(" ", ""),
+        losses=json.dumps([round(x, 5) for x in losses]).replace(" ", ""),
+        gpu=f"'{gpu_line()}'")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
     return train_launches(cfg, cfg.grad_accum)
 
 
@@ -4929,6 +5110,52 @@ def dp_run_part() -> None:
 TP_THREAD_LAYERS = 2      # of qwen3-14b's 40 in the two-thread step
 
 
+def _thread_ranks(what: str, rank, world: int = 2,
+                  timeout: float = 600.0) -> float:
+    """`rank(r)` on `world` threads of this process, thread r rank r of
+    torch's threaded process group, joined against one deadline of
+    `timeout` s: an error on a rank, or a rank still running at the
+    deadline, fails `what`. Returns the wall in s. (A thread's group is
+    not destroyed: torch 2.11's destroy_process_group reads a field its
+    threaded world lacks; uninstalling the threaded world drops every
+    thread's.)"""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import multi_threaded_pg as mt
+
+    errors, store = {}, dist.HashStore()
+
+    def run(r):
+        try:
+            dist.init_process_group("threaded", rank=r, world_size=world,
+                                    store=store)
+            rank(r)
+        except BaseException as e:
+            errors[r] = traceback.format_exc()
+            mt.ProcessLocalGroup.exception_handle(e)   # wakes the others
+
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mt._install_threaded_pg()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=run, args=(r,), daemon=True)
+                   for r in range(world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(0.0, t0 + timeout - time.perf_counter()))
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"{what}: {errors or 'a rank hung'}")
+    finally:
+        mt._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    return wall
+
+
+
 def tp_threads_part(launches, cfg=None, device="cuda", batch=None) -> None:
     """Two ranks on the one card: a (data=1, model=2) step of qwen3-14b at
     full width, TP_THREAD_LAYERS layers, "fused", on one 2 x 512
@@ -4943,11 +5170,6 @@ def tp_threads_part(launches, cfg=None, device="cuda", batch=None) -> None:
     together) within TRAIN_TOL relative L2 of the one-rank gradient, and
     rows 1-3 launched (counted). `cfg`, `device` and `batch` replace the
     card's run (a smoke config on the CPU checks the part itself)."""
-    import threading
-    import traceback
-
-    import torch.distributed as dist
-    from torch.testing._internal.distributed import multi_threaded_pg as mt
     from torch.utils import _pytree as pytree
 
     from repro_torch.core import addressing
@@ -4969,55 +5191,30 @@ def tp_threads_part(launches, cfg=None, device="cuda", batch=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    results, errors = {}, {}
-    store = dist.HashStore()
+    results = {}
 
     def rank(r):
-        # the thread's group is not destroyed: torch 2.11's
-        # destroy_process_group reads a field its threaded world lacks;
-        # uninstalling the threaded world below drops every thread's
-        try:
-            dist.init_process_group("threaded", rank=r, world_size=2,
-                                    store=store)
-            mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
-                                    torch.device(device).type)
-            rules = addressing.default_rules(mesh)
-            step = steps.make_sharded_train_step(cfg, mesh, rules=rules,
-                                                 policy="fused")
-            shards = steps.state_shards(cfg, mesh, rules, device=device)
-            local = steps.init_params(cfg, 0, device=device,
-                                      shards=shards["params"])
-            loss, _, grads = step.accumulate(local, batch)
-            by_path = steps._by_path(step.shards["params"])
-            sums = {}
-            for path, g in pytree.tree_flatten_with_path(grads)[0]:
-                key = steps._path_key(path)
-                ref = by_path[key].take(want[key]).float()
-                sums[key] = (float((g.float() - ref).square().sum()),
-                             float(ref.square().sum()),
-                             by_path[key].model_sharded)
-            results[r] = (float(loss), sums, step.axis)
-        except BaseException as e:
-            errors[r] = traceback.format_exc()
-            mt.ProcessLocalGroup.exception_handle(e)   # wakes the other
+        mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                torch.device(device).type)
+        rules = addressing.default_rules(mesh)
+        step = steps.make_sharded_train_step(cfg, mesh, rules=rules,
+                                             policy="fused")
+        shards = steps.state_shards(cfg, mesh, rules, device=device)
+        local = steps.init_params(cfg, 0, device=device,
+                                  shards=shards["params"])
+        loss, _, grads = step.accumulate(local, batch)
+        by_path = steps._by_path(step.shards["params"])
+        sums = {}
+        for path, g in pytree.tree_flatten_with_path(grads)[0]:
+            key = steps._path_key(path)
+            ref = by_path[key].take(want[key]).float()
+            sums[key] = (float((g.float() - ref).square().sum()),
+                         float(ref.square().sum()),
+                         by_path[key].model_sharded)
+        results[r] = (float(loss), sums, step.axis)
 
     launches.reset_counts()
-    torch._C._distributed_c10d._set_thread_isolation_mode(True)
-    mt._install_threaded_pg()
-    t0 = time.perf_counter()
-    try:
-        threads = [threading.Thread(target=rank, args=(r,), daemon=True)
-                   for r in range(2)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-        wall = time.perf_counter() - t0
-        if errors or any(t.is_alive() for t in threads):
-            raise AssertionError(f"tp threads: {errors or 'a rank hung'}")
-    finally:
-        mt._uninstall_threaded_pg()
-        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    wall = _thread_ranks("tp threads", rank)
     counted = _check_counts(launches, "tp", QWEN_FUSED)
     worst, n_leaves = ("", 0.0), 0
     for key in want:
@@ -5050,6 +5247,242 @@ def tp_threads_part(launches, cfg=None, device="cuda", batch=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+
+TP_FSDP_LAYERS = (2, 6)   # part=fsdp_threads: (a) the whole-tree and the
+                          # per-layer step in turn; (b) the per-layer step
+                          # alone, a depth whose whole-tree step the
+                          # arithmetic puts above the card (~92 GB)
+
+
+def _sq_sums(a, b, chunk: int = 1 << 24) -> tuple[float, float, float]:
+    """(sum (a - b)^2, sum a^2, sum b^2) in float64, about `chunk`
+    elements (whole rows of dim 0) at a time on a's device; b may be on
+    the host and a view of any strides. A comparison of large leaves so
+    needs little device memory."""
+    rows = max(1, chunk // max(1, a[:1].numel())) if a.dim() else 1
+    out = [0.0, 0.0, 0.0]
+    for i in range(0, max(1, a.shape[0] if a.dim() else 1), rows):
+        x = (a[i:i + rows] if a.dim() else a).double()
+        y = (b[i:i + rows] if b.dim() else b).to(x.device, torch.float64)
+        for j, t in enumerate((x - y, x, y)):
+            out[j] += float(t.square().sum())
+    return tuple(out)
+
+
+def _batch_block(shard, whole):
+    """A view of this rank's block of `whole` over the batch axes (a
+    `LeafShard`'s; its block over "model" is the whole at model 1)."""
+    if not shard.sharded:
+        return whole
+    n = whole.shape[shard.dim] // shard.parts
+    return whole.narrow(shard.dim, shard.index * n, n)
+
+
+def tp_fsdp_threads_part(launches, cfg=None, device="cuda",
+                         batches=None) -> None:
+    """The per-layer gather on two ranks of the one card: qwen3-14b at
+    full width on a (data=2, model=1) mesh whose ranks are two threads of
+    this process (torch's threaded process group), each with its blocks
+    of the train state (`init_train_state(shards=)`) and its rows of the
+    batch.
+
+    (a) TP_FSDP_LAYERS[0] layers, grad_accum 1, a 2 x 512 batch: one
+    step of the whole-tree step, then one of the per-layer step
+    (`fsdp_gather=True`) from the same draw; every rank's state after
+    them bit-equal, and each run's peak memory (both ranks together).
+
+    (b) TP_FSDP_LAYERS[1] layers, grad_accum 4, 8 x 512: the per-layer
+    step alone, `accumulate` (each rank's blocks of the reduced
+    gradients, kept on the card) and AdamW on the shards with them
+    (`update`: the step's second half); the gradient norm equal on both
+    ranks; rows 1-3 launched (counted); the peak memory of the two
+    ranks. Then, from the same draw, the one-rank gradients
+    (`make_train_step`'s accumulate, "fused", bf16) and the same in f32
+    ("reference", plain f32 products): each leaf's noise floor is the
+    relative L2 distance of the bf16 gradient from the f32 one, and the
+    ranks' reduced gradient must lie within MESH_NOISE times its leaf's
+    floor of the one-rank bf16 gradient (if the sharded bf16 chain is no
+    farther from f32 than the one-rank chain, the two are at most twice
+    the floor apart); the ranks' mean loss finite and within TRAIN_TOL
+    of the one-rank loss.
+    `cfg`, `device` and `batches` ((a)'s, (b)'s) replace the card's run
+    (a smoke config on the CPU checks the part itself)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import addressing, collectives
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    base = cfg or train_cfg()
+    cuda = torch.device(device).type == "cuda"
+    cfg_a = dataclasses.replace(base, n_layers=TP_FSDP_LAYERS[0],
+                                grad_accum=1)
+    cfg_b = dataclasses.replace(base, n_layers=TP_FSDP_LAYERS[1])
+    if batches is None:
+        batches = (_stream_batches(cfg_a, 2, TRAIN_S, 1, seed=3)[0],
+                   _stream_batches(cfg_b, TRAIN_B, TRAIN_S, 1, seed=4)[0])
+    S = batches[0]["tokens"].shape[1]
+    sched = {"warmup": 2, "total": 8}
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else \
+            float("nan")
+
+    def sharded(c, fsdp, batch):
+        """(step, the rank's rows of `batch`) on this thread's mesh."""
+        mesh = make_device_mesh(MeshSpec((2, 1), ("data", "model")),
+                                torch.device(device).type)
+        step = steps.make_sharded_train_step(
+            c, mesh, schedule_kwargs=sched, policy="fused", max_seq=S,
+            fsdp_gather=fsdp)
+        rules = addressing.default_rules(mesh, overrides=c.rules_overrides)
+        shape = tuple(batch["tokens"].shape)
+        rows = addressing.local_block(rules.spec_for(("batch", "seq"), shape,
+                                                     mesh), shape, mesh,
+                                      addressing.coordinates(mesh))[0]
+        return step, {k: v[rows] for k, v in batch.items()}
+
+    t0 = time.perf_counter()
+    whole, layered, peaks, walls = {}, {}, {}, {}
+
+    def rank_a(r, fsdp):
+        """One step; the whole-tree step's state kept on the host, the
+        per-layer step's compared with it there leaf by leaf."""
+        step, rows = sharded(cfg_a, fsdp, batches[0])
+        state = steps.init_train_state(cfg_a, 0, device=device, max_seq=S,
+                                       shards=step.shards)
+        state, m = step(state, rows)
+        if not fsdp:
+            whole[r] = (float(m["loss"]), _host_copy(state))
+            return
+        differ = []
+        pytree.tree_map_with_path(
+            lambda path, a, b: None if torch.equal(a, b.to(a.device))
+            else differ.append(pytree.keystr(path)), state, whole[r][1])
+        layered[r] = (float(m["loss"]), differ,
+                      len(pytree.tree_leaves(state)))
+
+    for fsdp in (False, True):
+        free()
+        walls[fsdp] = _thread_ranks("tp fsdp_threads (a)",
+                                    functools.partial(rank_a, fsdp=fsdp))
+        peaks[fsdp] = peak_gb()
+    for r in (0, 1):
+        if layered[r][0] != whole[r][0] or layered[r][1]:
+            raise AssertionError(f"tp fsdp_threads (a): rank {r}: loss "
+                                 f"{layered[r][0]} against the whole-tree "
+                                 f"step's {whole[r][0]}; leaves that differ: "
+                                 f"{layered[r][1][:4]}")
+    n_leaves, loss_a = layered[0][2], layered[0][0]
+    del whole
+    free()
+
+    # (b): the per-layer step on two ranks first, its reduced gradients
+    # kept on the card; then the one-rank gradients in bf16 and in f32
+    batch, results, reduced = batches[1], {}, {}
+
+    def rank_b(r):
+        step, rows = sharded(cfg_b, True, batch)
+        state = steps.init_train_state(cfg_b, 0, device=device, max_seq=S,
+                                       shards=step.shards)
+        loss, _, grads = step.accumulate(state["params"], rows)
+        _, om = step.update(state, grads)
+        by_path = steps._by_path(step.shards["params"])
+        reduced[r] = {steps._path_key(p): (g, by_path[steps._path_key(p)])
+                      for p, g in pytree.tree_flatten_with_path(grads)[0]}
+        results[r] = (float(loss), float(om["grad_norm"]),
+                      tuple(state["params"]["blocks"][0]["attn"]["wq"].shape))
+
+    base_b = torch.cuda.memory_allocated() / 1e9 if cuda else float("nan")
+    launches.reset_counts()
+    collectives.reset_counts()
+    wall_b = _thread_ranks("tp fsdp_threads (b)", rank_b)
+    peak_b = peak_gb()
+    coll = collectives.counts()
+    counted = _check_counts(launches, "tp fsdp_threads", QWEN_FUSED) \
+        if cuda else {n: 0 for n in QWEN_FUSED}
+    free()
+
+    params = steps.init_params(cfg_b, 0, device=device, max_seq=S)
+    loss, _, bf16 = steps.make_train_step(
+        cfg_b, policy="fused").accumulate(params, batch)
+    one = float(loss)
+    del params
+    err = {}
+    for p, want in pytree.tree_flatten_with_path(bf16)[0]:
+        key = steps._path_key(p)
+        sums = [_sq_sums(g, _batch_block(sh, want))
+                for g, sh in (reduced[r][key] for r in (0, 1))]
+        num, _, den = ([a + b for a, b in zip(*sums)]
+                       if reduced[0][key][1].sharded else sums[0])
+        err[key] = (num / den) ** 0.5
+    del reduced, want
+    free()
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False   # f32 products
+    params = _to_f32_(steps.init_params(cfg_b, 0, device=device, max_seq=S))
+    _, _, f32 = steps.make_train_step(
+        cfg_b, policy="reference").accumulate(params, batch)
+    del params
+    worst, ratios, floor = ("", 0.0, 0.0, 0.0), [], {}
+    for (p, a), b in zip(pytree.tree_flatten_with_path(bf16)[0],
+                         pytree.tree_leaves(f32)):
+        key = steps._path_key(p)
+        num, _, den = _sq_sums(a, b)
+        floor[key] = (num / den) ** 0.5
+        ratio = err[key] / floor[key] if floor[key] else float("inf")
+        ratios.append(ratio)
+        if ratio > worst[1]:
+            worst = ("/".join(map(str, key)), ratio, err[key], floor[key])
+    del bf16, f32, a, b
+    free()
+    losses = [results[r][0] for r in (0, 1)]
+    mean = sum(losses) / 2
+    norms = [results[r][1] for r in (0, 1)]
+    if not np.isfinite(mean) or norms[0] != norms[1] or \
+            abs(mean - one) > TRAIN_TOL * one:
+        raise AssertionError(f"tp fsdp_threads (b): losses {losses}, one "
+                             f"rank {one}; grad norms {norms}")
+    if worst[1] > MESH_NOISE:
+        raise AssertionError(
+            f"tp fsdp_threads (b): {worst[0]} is {worst[2]:.3g} (relative "
+            f"L2) from the one-rank gradient, {worst[1]:.3f} x its noise "
+            f"floor {worst[3]:.3g} (limit {MESH_NOISE})")
+    arith = lambda L: 26 * (1.556 + 0.330 * L)
+    log("tp", part="fsdp_threads", mesh="data=2,model=1", ranks="threads",
+        a_layers=cfg_a.n_layers, a_B=batches[0]["tokens"].shape[0], S=S,
+        a_grad_accum=1, a_state_equal=True, a_leaves=n_leaves,
+        a_loss=f"{loss_a:.5f}",
+        a_peak_gb=f"{peaks[True]:.2f}", a_whole_tree_peak_gb=f"{peaks[False]:.2f}",
+        a_predicted_gb=f"{4.62 * cfg_a.n_layers + 43.1:.1f}/"
+                       f"{arith(cfg_a.n_layers):.1f}",
+        a_wall_s=f"{walls[True]:.1f}", a_whole_tree_wall_s=f"{walls[False]:.1f}",
+        b_layers=cfg_b.n_layers, b_B=batch["tokens"].shape[0],
+        b_grad_accum=cfg_b.grad_accum, b_leaves=len(floor),
+        b_rank_wq=json.dumps(list(results[0][2])).replace(" ", ""),
+        b_loss=f"{mean:.5f}", b_loss_one_rank=f"{one:.5f}",
+        b_grad_norm=f"{norms[0]:.5f}",
+        b_worst_leaf=f"'{worst[0]}'", b_worst_over_floor=f"{worst[1]:.3f}",
+        b_worst_rel_l2=f"{worst[2]:.4g}", b_its_floor=f"{worst[3]:.4g}",
+        b_floor=f"{min(floor.values()):.4g}-{max(floor.values()):.4g}",
+        b_median_over_floor=f"{float(np.median(ratios)):.3f}",
+        limit=f"{MESH_NOISE}xfloor",
+        b_peak_gb=f"{peak_b:.2f}", b_allocated_before_gb=f"{base_b:.2f}",
+        b_predicted_gb=f"{4.62 * cfg_b.n_layers + 43.1:.1f}",
+        b_whole_tree_arith_gb=f"{arith(cfg_b.n_layers):.1f}",
+        b_collectives_both_ranks=json.dumps(
+            {n: coll[n] for n in ("all_gather", "reduce_scatter",
+                                  "all_reduce")}).replace(" ", ""),
+        b_wall_s=f"{wall_b:.1f}", part_s=f"{time.perf_counter() - t0:.1f}",
+        launches=_nonzero({n: counted[n] for n in QWEN_FUSED}),
+        gpu=f"'{gpu_line()}'" if cuda else "cpu")
 
 
 # ----------------------------------------------------------------------------
@@ -5376,12 +5809,6 @@ def mesh_threads_part(launches, cfg=None, device="cuda") -> None:
     by less than half the margin). The logits are read whole through
     `_reading_logits`. `cfg` and `device` replace the card's run (a
     smoke config on the CPU checks the part itself)."""
-    import threading
-    import traceback
-
-    import torch.distributed as dist
-    from torch.testing._internal.distributed import multi_threaded_pg as mt
-
     from repro_torch.configs import get
     from repro_torch.core import addressing
     from repro_torch.core.addressing import MeshSpec
@@ -5424,49 +5851,27 @@ def mesh_threads_part(launches, cfg=None, device="cuda") -> None:
     def two_ranks(policy, f32):
         """Each thread rank's logits (whole) of the sharded step, its
         cache split and its cache block's shape, and the wall."""
-        meta, errors, store = {}, {}, dist.HashStore()
+        meta = {}
 
         def rank(r):
-            try:
-                dist.init_process_group("threaded", rank=r, world_size=2,
-                                        store=store)
-                mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
-                                        torch.device(device).type)
-                rules = addressing.default_rules(mesh)
-                dec = steps.make_sharded_decode_step(
-                    cfg, mesh, S, rules=rules, policy=policy, batch=B)
-                local = steps.init_params(cfg, 0, device=device,
-                                          shards=dec.shards)
-                cache = steps.init_cache(
-                    cfg, B, clen, device=device,
-                    shards=steps.cache_shards(cfg, mesh, rules, B, clen))
-                if f32:
-                    _to_f32_(local)
-                    _to_f32_(cache)
-                run(dec, local, cache)
-                meta[r] = (dec.split, tuple(cache["k"].shape))
-            except BaseException as e:
-                errors[r] = traceback.format_exc()
-                mt.ProcessLocalGroup.exception_handle(e)   # wakes the other
+            mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                    torch.device(device).type)
+            rules = addressing.default_rules(mesh)
+            dec = steps.make_sharded_decode_step(
+                cfg, mesh, S, rules=rules, policy=policy, batch=B)
+            local = steps.init_params(cfg, 0, device=device,
+                                      shards=dec.shards)
+            cache = steps.init_cache(
+                cfg, B, clen, device=device,
+                shards=steps.cache_shards(cfg, mesh, rules, B, clen))
+            if f32:
+                _to_f32_(local)
+                _to_f32_(cache)
+            run(dec, local, cache)
+            meta[r] = (dec.split, tuple(cache["k"].shape))
 
-        torch._C._distributed_c10d._set_thread_isolation_mode(True)
-        mt._install_threaded_pg()
-        t0 = time.perf_counter()
-        try:
-            with _reading_logits() as seen:
-                threads = [threading.Thread(target=rank, args=(r,),
-                                            daemon=True) for r in range(2)]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(600)
-            wall = time.perf_counter() - t0
-            if errors or any(t.is_alive() for t in threads):
-                raise AssertionError(
-                    f"mesh threads: {errors or 'a rank hung'}")
-        finally:
-            mt._uninstall_threaded_pg()
-            torch._C._distributed_c10d._set_thread_isolation_mode(False)
+        with _reading_logits() as seen:
+            wall = _thread_ranks("mesh threads", rank)
         logits = {r: [lg.cpu() for lg in seen[r]] for r in (0, 1)}
         return logits, meta, wall
 

@@ -48,7 +48,10 @@ def layer_gather_specs(cfg, mesh, rules):
     """The specs of one super-block's weights with the `data` axis left
     out (the FSDP weights gathered for the layer's use), its leading
     stacked "layers" dim stripped. (`rules` is the caller's; the gather
-    specs are the default rules without fsdp, as in the reference.)"""
+    specs are the default rules without fsdp, as in the reference.) The
+    port's per-layer gather (`build_cell(fsdp_gather=True)`) gives each
+    layer's leaves these specs' local shapes
+    (`tests/test_torch_dp.py`)."""
     from repro_torch.models import steps
     gather_rules = addressing.default_rules(mesh, fsdp=False,
                                             overrides=cfg.rules_overrides)
@@ -106,8 +109,11 @@ def build_cell(cfg, shape, mesh, rules, fsdp_gather: bool = False,
     `mesh` (a live DeviceMesh over an initialised process group), the
     reference's signature and kinds:
 
-    * train: `steps.make_sharded_train_step` as it is, over (state,
-      batch);
+    * train: `steps.make_sharded_train_step`, over (state, batch); with
+      `fsdp_gather` its per-layer gather (each decoder layer's leaves
+      split over the batch axes gathered as the layer runs, their
+      gradients reduce-scattered as backward finishes the layer: the
+      reference's gather to `layer_gather_specs` inside its scan);
     * prefill: `steps.make_sharded_prefill_step`, over (params, batch) ->
       this rank's greedy tokens;
     * decode: `steps.make_sharded_decode_step` over (params, cache,
@@ -128,17 +134,12 @@ def build_cell(cfg, shape, mesh, rules, fsdp_gather: bool = False,
     also carries `.shards` (the parameters' `LeafShard`s) and, in the
     decode kinds, `.cache_shards` and `.sharded_step` (the sharded decode
     step).
-    Every cell on a mesh runs eagerly. `fsdp_gather` (the reference's
-    per-layer gather inside its scan) is ROADMAP Queue 1's per-layer
-    gather and raises here."""
+    Every cell on a mesh runs eagerly. The serving kinds take
+    `fsdp_gather` and ignore it, as the reference's do."""
     from repro_torch.configs import input_specs
     from repro_torch.models import steps
     from repro_torch.runtime import engine
 
-    if fsdp_gather:
-        raise NotImplementedError(
-            "fsdp_gather: the per-layer gather waits (ROADMAP Queue 1, "
-            "Later: the per-layer gather of the data-parallel step)")
     B, S = shape.global_batch, shape.seq_len
     batch_sds = input_specs(cfg, shape)
     batch_local, batch_sh = _placed(mesh, rules, batch_sds,
@@ -151,7 +152,8 @@ def build_cell(cfg, shape, mesh, rules, fsdp_gather: bool = False,
 
     if shape.kind == "train":
         fn = steps.make_sharded_train_step(cfg, mesh, rules=rules,
-                                           policy=policy, max_seq=S)
+                                           policy=policy, max_seq=S,
+                                           fsdp_gather=fsdp_gather)
         p_sds = _port_specs(cfg, S)
         m_sds = _moment_specs(cfg, p_sds)
         local = _local(fn.shards, {"params": p_sds, "opt": {

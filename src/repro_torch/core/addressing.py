@@ -403,7 +403,10 @@ class LeafShard:
     makes the rank's model block whole over the batch axes (what the
     train step computes with), `gather` the leaf whole over both (what a
     checkpoint holds); a split runs its gather also when its group has
-    one rank (then it is a copy)."""
+    one rank (then it is a copy). The train step's per-layer gather
+    (`fsdp_gather`) gathers a layer's blocks with
+    `collectives.gather_for_layer` instead, which at one rank is the
+    block itself."""
     dim: int | None
     index: int = 0
     parts: int = 1

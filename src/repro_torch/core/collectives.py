@@ -7,6 +7,9 @@ its chunk, `all_reduce` sums a tensor over the ranks in place, and
 `sum_over_ranks` is that sum as an autograd function (its backward sums
 the gradient over the ranks in turn: the MoE dispatch's load-balance
 sums over the batch axes, which every rank's loss reads).
+`gather_for_layer` is the per-layer gather of the train step
+(`fsdp_gather`): an all_gather forward and, backward, a reduce_scatter
+of the gradient whose f32 block goes to the caller's accumulator.
 
 The model axis has Megatron's two conjugate operators. `copy_to_ranks`
 is the identity forward and an all-reduce of the gradient backward: it
@@ -72,10 +75,13 @@ def counts() -> dict[str, int]:
     return out | dict(_COUNTS)
 
 
-def _count(name: str, whole: torch.Tensor) -> None:
-    """One call of `name` on a whole tensor like `whole`."""
+def _count(name: str, whole: torch.Tensor, itemsize: int | None = None
+           ) -> None:
+    """One call of `name` on a whole tensor like `whole` (of `itemsize`
+    bytes an element when given)."""
     _COUNTS[name] += 1
-    _COUNTS[f"{name}_bytes"] += whole.numel() * whole.element_size()
+    _COUNTS[f"{name}_bytes"] += whole.numel() * (itemsize or
+                                                 whole.element_size())
 
 
 def _need(group):
@@ -184,6 +190,42 @@ class _ReduceFromRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherForLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, token, shard, dim, group, sink):
+        ctx.dim, ctx.group, ctx.sink = dim, group, sink
+        if _alone(group):
+            _count("all_gather", shard)
+            return shard                    # a view of the shard: no copy
+        return all_gather_dim(shard, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = dist.get_world_size(ctx.group)
+        if n == 1:                  # the mean is the gradient itself
+            _count("reduce_scatter", grad, itemsize=4)
+            ctx.sink(grad, False)
+        else:
+            ctx.sink(reduce_scatter_dim(grad.to(torch.float32), ctx.dim,
+                                        ctx.group).div_(n), True)
+        return None, None, None, None, None
+
+
+def gather_for_layer(shard: torch.Tensor, dim: int, group, token, sink):
+    """The per-layer gather of the sharded train step: forward, every
+    rank's `shard` concatenated along `dim` (`all_gather_dim`; at one
+    rank the shard itself, not a copy); backward, this rank's block of
+    the mean over the ranks of the gradient, reduced in f32
+    (`reduce_scatter_dim`, then divided by the ranks), handed to
+    `sink(block, owned)` and not returned: autograd would round it to the
+    shard's dtype. At one rank the block is the gradient itself, in its
+    own dtype and not `owned` (autograd's buffer: the sink adds it in
+    f32 or copies it). The shard takes no gradient; `token` (a 0-d
+    tensor that requires grad, which the caller differentiates the loss
+    by) puts the gather on the backward's path."""
+    return _GatherForLayer.apply(token, shard, dim, _need(group), sink)
 
 
 def copy_to_ranks(t: torch.Tensor, group) -> torch.Tensor:

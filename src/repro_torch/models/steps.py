@@ -868,7 +868,7 @@ def _embed(table, tokens, axis: ModelAxis | None = None):
 
 
 def forward(cfg, params, tokens, *, cross_embeds=None,
-            axis: ModelAxis | None = None, group=None):
+            axis: ModelAxis | None = None, group=None, layer_gather=None):
     """Token ids (B, S) -> final hidden states (B, S, d) and aux loss. An
     encoder-decoder model encodes `cross_embeds` (its stub frame
     embeddings) first and adds its learned decoder positions; a vision
@@ -876,7 +876,11 @@ def forward(cfg, params, tokens, *, cross_embeds=None,
     they come. The sharded train step passes its `ModelAxis` (`axis`:
     the embedding and the blocks compute this rank's splits) and its
     batch ranks' group (`group`: MoE layers dispatch over every rank's
-    tokens); the blocks read both from their context."""
+    tokens); the blocks read both from their context. With
+    `layer_gather` (the step's per-layer gather, `fsdp_gather`) each
+    layer of ``params["blocks"]``, the reference's remainder layers
+    included, computes with `layer_gather(i, p)`, called inside the
+    layer's checkpointed span: a recompute gathers again."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
     x = _embed(params["tok_embed"], tokens, axis)
@@ -890,10 +894,18 @@ def forward(cfg, params, tokens, *, cross_embeds=None,
            "model_axis": axis, "dispatch_group": group}
     aux = 0.0
     remat = _remat(cfg)
-    for kind, p in zip(kinds, params["blocks"]):
-        x, a = _layer(remat, BLOCKS[kind]["apply"], cfg, p, x, ctx)
+    for i, (kind, p) in enumerate(zip(kinds, params["blocks"])):
+        apply = BLOCKS[kind]["apply"]
+        if layer_gather is not None:
+            apply = functools.partial(_gathered, apply, layer_gather, i)
+        x, a = _layer(remat, apply, cfg, p, x, ctx)
         aux = aux + a
     return _final_norm(cfg, params, x), aux
+
+
+def _gathered(apply, gather, i, cfg, p, *args):
+    """`apply` on layer i's parameters as `gather` makes them."""
+    return apply(cfg, gather(i, p), *args)
 
 
 # ----------------------------------------------------------------------------
@@ -951,13 +963,13 @@ def _chunked_ce(cfg, unembed, hidden, labels, axis=None):
 
 
 def loss_fn(cfg, params, batch, *, axis: ModelAxis | None = None,
-            group=None):
+            group=None, layer_gather=None):
     """(loss, {"ce", "aux"}) of one batch: the chunked CE plus AUX_COEF x
-    the MoE load-balance loss (0 without MoE layers). `axis` and `group`
-    as `forward` takes them."""
+    the MoE load-balance loss (0 without MoE layers). `axis`, `group` and
+    `layer_gather` as `forward` takes them."""
     cross = batch.get("enc_embeds", batch.get("img_embeds"))
     hidden, aux = forward(cfg, params, batch["tokens"], cross_embeds=cross,
-                          axis=axis, group=group)
+                          axis=axis, group=group, layer_gather=layer_gather)
     ce = _chunked_ce(cfg, params["unembed"], hidden, batch["labels"], axis)
     aux = torch.as_tensor(aux, device=ce.device).to(F32)
     return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
@@ -972,9 +984,16 @@ def _on(device, batch: dict) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _acc_dtype(cfg):
+    """The dtype gradients accumulate in over microbatches: f32, bf16
+    when the moments are bf16."""
+    return torch.bfloat16 if cfg.moment_dtype == "bfloat16" else F32
+
+
 def make_train_step(cfg, *, adam: AdamConfig | None = None,
                     schedule_kwargs: dict | None = None, policy=None,
-                    axis: ModelAxis | None = None, group=None):
+                    axis: ModelAxis | None = None, group=None,
+                    layers: _LayerGather | None = None):
     """`train_step(state, batch) -> (state, metrics)`, the state updated
     in place (the reference donates it). `policy` pins the kernel policy
     (None -> the ambient one); its scope covers the forward and the
@@ -990,45 +1009,66 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
     `train_step.accumulate(params, batch) -> (loss, parts, grads)` and
     `train_step.update(state, grads) -> (opt, metrics)`, each in the
     policy's scope. `axis` and `group` go to `loss_fn` (the sharded
-    step's model axis and batch ranks; None on one device)."""
+    step's model axis and batch ranks; None on one device). With `layers`
+    (the sharded step's per-layer gather, `fsdp_gather`) `loss_fn`
+    gathers each decoder layer's leaves that `layers` holds as the layer
+    runs, and their gradients are its accumulators (this rank's blocks
+    of the means over the batch ranks, in f32), not autograd's."""
     pol = kpolicy.as_policy(policy) if policy is not None else None
     adam = adam or AdamConfig(moment_dtype=cfg.moment_dtype)
     sched = functools.partial(warmup_cosine, **(schedule_kwargs or {}))
-    acc_dtype = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else F32
+    acc_dtype = _acc_dtype(cfg)
 
     def grads_of(params, batch):
-        leaves, spec = pytree.tree_flatten(params)
-        live = [p.detach().requires_grad_() for p in leaves]
+        """(loss, parts, grads); a leaf `layers` holds has no grad here
+        (None)."""
+        flat, spec = pytree.tree_flatten_with_path(params)
+        held = [layers is not None and layers.held(path) for path, _ in flat]
+        live = [p if h else p.detach().requires_grad_()
+                for (_, p), h in zip(flat, held)]
+        wrt = [p for p, h in zip(live, held) if not h]
+        if layers is not None:
+            wrt.append(layers.token)
         loss, parts = loss_fn(cfg, pytree.tree_unflatten(live, spec), batch,
-                              axis=axis, group=group)
-        grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                    materialize_grads=True)
+                              axis=axis, group=group, layer_gather=layers)
+        grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                         materialize_grads=True))
         return (loss.detach(), {k: v.detach() for k, v in parts.items()},
-                pytree.tree_unflatten(list(grads), spec))
+                pytree.tree_unflatten([None if h else next(grads)
+                                       for h in held], spec))
 
     def accumulate(params, batch):
         """(loss, parts, grads) of the batch, over its k microbatches."""
-        batch = _on(pytree.tree_leaves(params)[0].device, batch)
+        device = pytree.tree_leaves(params)[0].device
+        batch = _on(device, batch)
+        if layers is not None:
+            layers.start(device)
         k = cfg.grad_accum
         if k <= 1:
-            return grads_of(params, batch)
+            loss, parts, grads = grads_of(params, batch)
+            return loss, parts, _filled(grads, params)
         micro = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])
                  for key, v in batch.items()}
-        gacc, lsum = None, torch.zeros((), dtype=F32,
-                                       device=batch["tokens"].device)
+        gacc, lsum = None, torch.zeros((), dtype=F32, device=device)
         for i in range(k):
             l, _, g = grads_of(params, {key: v[i] for key, v in micro.items()})
             if gacc is None:
-                gacc = pytree.tree_map(lambda x: x.to(acc_dtype), g)
+                gacc = pytree.tree_map(
+                    lambda x: None if x is None else x.to(acc_dtype), g)
             else:
                 for a, b in zip(pytree.tree_leaves(gacc),
                                 pytree.tree_leaves(g)):
-                    a.add_(b)
+                    if a is not None:
+                        a.add_(b)
             lsum = lsum + l
             del g
         for a in pytree.tree_leaves(gacc):
-            a.div_(k)
-        return lsum / k, {}, gacc
+            if a is not None:
+                a.div_(k)
+        return lsum / k, {}, _filled(gacc, params)
+
+    def _filled(grads, params):
+        return grads if layers is None else layers.fill(grads, params)
 
     def update(state, grads, norm_reduce=None):
         """AdamW on the state, in place -> (opt state, metrics).
@@ -1072,10 +1112,76 @@ def init_train_state(cfg, seed: int = 0, *, device=None,
     return {"params": params, "opt": adam_init(params, adam)}
 
 
+class _LayerGather:
+    """The per-layer gather of `make_sharded_train_step(fsdp_gather=True)`
+    (`layer_gather` of `forward`): it holds every leaf of
+    ``params["blocks"]`` split over the batch axes. `forward` calls it on
+    each layer's parameters inside the layer's checkpointed span; it
+    gathers each held leaf whole over the batch axes
+    (`collectives.gather_for_layer`; a split over "model" stays), and
+    backward hands it this rank's block of the leaf's gradient, the mean
+    over the batch ranks in f32, which it adds into the leaf's
+    accumulator (shard-sized, in `_acc_dtype` when grad_accum > 1; at
+    one rank the gradient itself, added in the accumulator's dtype).
+    `start` opens a call of `accumulate` (a new token, no accumulators);
+    `fill` puts the accumulators, divided by grad_accum, into the
+    gradient tree."""
+
+    def __init__(self, cfg, by_path: dict):
+        self.by_path, self.k = by_path, cfg.grad_accum
+        self.acc_dtype = _acc_dtype(cfg)
+        self.token, self.acc, self.layers = None, {}, {}
+
+    def held(self, path) -> bool:
+        key = _path_key(path)
+        return key[0] == "blocks" and self.by_path[key].sharded
+
+    def start(self, device) -> None:
+        self.token = torch.zeros((), dtype=F32, device=device,
+                                 requires_grad=True)
+        self.acc = {}
+
+    def __call__(self, i: int, p):
+        flat, spec = pytree.tree_flatten(p)
+        if i not in self.layers:    # each leaf's shard and sink, once
+            plan = []
+            for path, _ in pytree.tree_flatten_with_path(p)[0]:
+                key = ("blocks", i, *_path_key(path))
+                s = self.by_path[key]
+                plan.append((s, functools.partial(self._add, key))
+                            if s.sharded else None)
+            self.layers[i] = plan
+        return pytree.tree_unflatten(
+            [t if held is None else collectives.gather_for_layer(
+                t, held[0].dim, held[0].group, self.token, held[1])
+             for t, held in zip(flat, self.layers[i])], spec)
+
+    def _add(self, key, block, owned: bool) -> None:
+        dtype = F32 if self.k <= 1 else self.acc_dtype
+        if key in self.acc:
+            self.acc[key].add_(block)
+        elif owned and block.dtype == dtype:
+            self.acc[key] = block
+        else:
+            self.acc[key] = block.to(dtype, copy=True)
+
+    def fill(self, grads, params):
+        """`grads` (None at each held leaf) with the held leaves'
+        gradients: f32, zeros where the loss did not read the leaf."""
+        def one(path, g, p):
+            if g is not None:
+                return g
+            acc = self.acc.pop(_path_key(path), None)
+            if acc is None:
+                return torch.zeros(p.shape, dtype=F32, device=p.device)
+            return (acc.div_(self.k) if self.k > 1 else acc).to(F32)
+        return pytree.tree_map_with_path(one, grads, params)
+
+
 def make_sharded_train_step(cfg, mesh, *, rules=None,
                             adam: AdamConfig | None = None,
                             schedule_kwargs: dict | None = None, policy=None,
-                            max_seq: int = 4096):
+                            max_seq: int = 4096, fsdp_gather: bool = False):
     """The train step over `mesh` (a live DeviceMesh over ("data",
     "model") or ("pod", "data", "model"); `check_mesh` says which meshes
     and archs it takes): `train_step(state, batch) -> (state, metrics)`
@@ -1121,16 +1227,34 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
     no exchange: its mean gradient does not depend on which rows share a
     microbatch.
 
-    Each leaf is gathered over the batch axes for the whole step and its
-    gradient exists at that size until the step reduces it, so over the
-    batch axes only the moments' memory falls with the ranks (ROADMAP
-    Queue 1: the per-layer gather).
+    Without `fsdp_gather` each leaf is gathered over the batch axes for
+    the whole step and its gradient exists at that size until the step
+    reduces it, so over the batch axes only the moments' memory falls
+    with the ranks. With `fsdp_gather` (the reference's per-layer gather,
+    `cells.build_cell(fsdp_gather=True)`) each leaf of every decoder
+    layer (the reference's remainder layers too) that is split over the
+    batch axes is gathered as the layer runs, inside its checkpointed
+    span (under remat "nothing" the recompute gathers it again: an
+    all_gather a pass), and backward reduce-scatters its gradient as it
+    finishes the layer: the f32 mean over the batch ranks of this rank's
+    block, added into a shard-sized accumulator for each microbatch
+    (`_LayerGather`). A rank then holds one such layer whole at a time
+    (all of them under remat "none", whose backward keeps what each
+    layer saved, its gathered weights among it) and no whole gradient of
+    one. At one rank the gather is the
+    shard itself. The other leaves (the embedding, the unembedding, the
+    final norm, an encoder's leaves, a layer's leaves the batch axes do
+    not split) are gathered and reduced as without it. The step's state
+    and metrics are those without it (bit for bit at grad_accum 1; the
+    sum order of the microbatches' means differs above it).
 
     `train_step.shards` is the `state_shards` tree (no device),
     `.axis` the `ModelAxis`, `.gather(params)` the parameters whole and
     `.accumulate(params, batch) -> (loss, parts, grads)` the step's first
-    half: the mean loss and this rank's blocks of the reduced gradients
-    (what AdamW reads)."""
+    half: this rank's mean loss and its blocks of the reduced gradients
+    (what AdamW reads), `.update(state, grads) -> (opt, metrics)` the
+    second, AdamW on the blocks in place, its clip reading the global
+    norm."""
     if dist.get_world_size() != math.prod(addressing.mesh_axes(mesh).values()):
         raise ValueError("the sharded step's mesh must hold every rank of "
                          "the process group (its norm reduces over them)")
@@ -1143,8 +1267,10 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
     coords = addressing.coordinates(mesh)
     first = {a: c == 0 for a, c in coords.items()}
     by_path = _by_path(shards["params"])
+    layers = _LayerGather(cfg, by_path) if fsdp_gather else None
     plain = make_train_step(cfg, adam=adam, schedule_kwargs=schedule_kwargs,
-                            policy=policy, axis=axis, group=group)
+                            policy=policy, axis=axis, group=group,
+                            layers=layers)
     pol = kpolicy.as_policy(policy) if policy is not None else None
     k = cfg.grad_accum
     regroup = k > 1 and "attn_moe" in layer_kinds(cfg)
@@ -1161,6 +1287,20 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
             [s.gather(p) if whole else s.gather_batch(p)
              for s, p in zip(owners, leaves)], spec)
 
+    def held(tree) -> list:
+        """For each leaf of the tree: is it gathered layer by layer?"""
+        return [layers is not None and layers.held(path)
+                for path, _ in pytree.tree_flatten_with_path(tree)[0]]
+
+    def gather_step(params):
+        """The parameters as the step computes with them: each leaf
+        gathered over the batch axes, but those gathered layer by
+        layer."""
+        leaves, owners, spec = leaves_and_shards(params)
+        return pytree.tree_unflatten(
+            [p if h else s.gather_batch(p)
+             for s, p, h in zip(owners, leaves, held(params))], spec)
+
     def micro_rows(batch, device):
         """This rank's rows of each of the global batch's k microbatches,
         the microbatches one after another (from every rank's rows)."""
@@ -1174,14 +1314,17 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
             out[key] = whole[rows]
         return out
 
-    def reduce_leaves(leaves, owners, spec):
+    def reduce_leaves(leaves, owners, spec, done):
         """`leaves` (a list this function empties as it goes, so each
         gathered gradient is freed once reduced) -> the tree of means over
-        the batch ranks."""
+        the batch ranks; a leaf `done` marks is that mean already."""
         out = []
         for i, s in enumerate(owners):
             g = leaves[i].to(F32)
             leaves[i] = None
+            if done[i]:
+                out.append(g)
+                continue
             if s.sharded:
                 g = collectives.reduce_scatter_dim(g, s.dim, group)
             else:
@@ -1214,29 +1357,35 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
 
     def accumulate(params, batch):
         with kpolicy.scoped(pol):
-            full = gather(params, whole=False)
+            full = gather_step(params)
             if regroup:
                 batch = micro_rows(batch, pytree.tree_leaves(full)[0].device)
             loss, parts, grads = plain.accumulate(full, batch)
             del full
             leaves, owners, spec = leaves_and_shards(grads)
+            done = held(grads)
             del grads
-            return loss, parts, reduce_leaves(leaves, owners, spec)
+            return loss, parts, reduce_leaves(leaves, owners, spec, done)
+
+    def update(state, grads):
+        with kpolicy.scoped(pol):
+            return plain.update(state, grads, norm_reduce(
+                leaves_and_shards(grads)[1]))
 
     def train_step(state, batch):
         loss, parts, grads = accumulate(state["params"], batch)
+        opt, om = update(state, grads)
         with kpolicy.scoped(pol):
-            opt, om = plain.update(state, grads, norm_reduce(
-                leaves_and_shards(grads)[1]))
             means = mean_metrics({"loss": loss, **parts})
-            metrics = {"loss": means.pop("loss"),
-                       "lr_scale": om.pop("lr_scale"), **om}
-            return {"params": state["params"], "opt": opt}, metrics | means
+        metrics = {"loss": means.pop("loss"),
+                   "lr_scale": om.pop("lr_scale"), **om}
+        return {"params": state["params"], "opt": opt}, metrics | means
 
     train_step.shards = shards
     train_step.axis = axis
     train_step.gather = gather
     train_step.accumulate = accumulate
+    train_step.update = update
     return train_step
 
 

@@ -23,6 +23,18 @@ rank, every spawn joined against its own deadline and killed past it).
   every leaf whole there; the first batch's gradients (every leaf),
   the losses, grad norms and the state after the steps equal the port's
   one-process step.
+* The per-layer gather (`make_sharded_train_step(fsdp_gather=True)`,
+  `FSDP`) in the same worlds: at grad_accum 1 the state, metrics and
+  shard shapes bit-equal to the whole-tree step's (f32, and bf16 from
+  the port's bf16 draw, which catches a gradient rounded to bf16); at
+  grad_accum 2 within 1e-5 relative L2 a leaf (the microbatches' means
+  summed in another order); against the one-process step and the
+  reference's at the tolerances below. A step gathers each split block
+  leaf once a pass of each microbatch (twice under remat "nothing") and
+  reduce-scatters it once a microbatch; no `torch.autograd.grad` call
+  returns a gradient of such a leaf. With no process group: on both
+  production meshes each layer's leaves after the per-layer gather have
+  the shapes of the reference's `cells.layer_gather_specs`.
 * `api.train(mesh=...)` at 2 ranks, `launch/train.py` under a torchrun
   environment at 2 ranks, and `--data-axis 1` in this process (its own
   one-rank group): bit-equal to the plain run there; a model axis above
@@ -57,7 +69,7 @@ from repro.models import steps as jsteps
 from repro_torch import api as tapi
 from repro_torch import weights
 from repro_torch.cluster import Cluster, TrainProgram
-from repro_torch.configs import get as tget
+from repro_torch.configs import ARCHS, get as tget
 from repro_torch.core import addressing
 from repro_torch.core.addressing import MeshSpec
 from repro_torch.launch import train as cli
@@ -69,6 +81,12 @@ B, S, N_STEPS = 8, 16, 3
 # (ranks, arch, grad_accum a rank)
 CASES = [(2, DENSE, 1), (2, DENSE, 2), (2, MOE, 1), (2, MOE, 2),
          (4, DENSE, 1)]
+# (ranks, arch, grad_accum a rank, dtype) of the per-layer gather's
+# steps; "bf16" starts from the port's bf16 draw and has a whole-tree
+# step from that draw beside it in its world
+FSDP = [(2, DENSE, 1, "f32"), (2, DENSE, 2, "f32"), (2, MOE, 1, "f32"),
+        (2, MOE, 2, "f32"), (2, DENSE, 1, "bf16"), (4, DENSE, 1, "f32"),
+        (4, MOE, 2, "f32")]
 # mixtral against the reference after step 1: AdamW's first update
 # moves each element by about lr x sign(g), and the router's near-zero
 # gradients take either sign in the two packages' sum orders, so the
@@ -159,6 +177,31 @@ def _jobs(tmp, ranks):
     return jobs
 
 
+def _fsdp_id(case):
+    ranks, arch, ga, dtype = case
+    return f"{ranks}-{arch.split('-')[0]}-accum{ga}-{dtype}"
+
+
+def _fsdp_jobs(tmp, ranks):
+    """{(case, fsdp_gather): position among them} and the jobs of the
+    `FSDP` cases of a world (a bf16 case also its whole-tree step)."""
+    at, jobs = {}, []
+    for case in [c for c in FSDP if c[0] == ranks]:
+        _, arch, ga, dtype = case
+        state = tmp / f"{arch}-{dtype}-state.pt"
+        if not state.exists():
+            torch.save(_initial(arch)[1] if dtype == "f32" else
+                       tsteps.init_train_state(tget(arch), 0, device="cpu",
+                                               max_seq=S), state)
+        for fsdp in (True, False) if dtype == "bf16" else (True,):
+            at[(case, fsdp)] = len(jobs)
+            jobs.append(("sharded_steps", dict(
+                arch=arch, grad_accum=ga, state=str(state),
+                batches=str(tmp / "batches.pt"), schedule_kwargs=SCHED,
+                fsdp_gather=fsdp)))
+    return at, jobs
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every spawned run of this module, the three worlds at once (2 and
@@ -175,10 +218,17 @@ def runs(tmp_path_factory):
                          **PROG)),
         ("api_train", dict(checkpoint_dir=str(tmp / "api"), num_steps=2,
                            batch=4, seq=16)),
-        ("model_axis", {})] + _jobs(tmp, 2) + _other_jobs(tmp)
-    four = _jobs(tmp, 4) + [
-        ("program", dict(arch=DENSE, checkpoint_dir=cut + "4", resume=True,
-                         wait_for=cut + "4.done", **PROG))]
+        ("model_axis", {})] + _jobs(tmp, 2)
+    four = _jobs(tmp, 4)
+    at = {}
+    for world in (two, four):
+        ranks = 2 if world is two else 4
+        index, jobs = _fsdp_jobs(tmp, ranks)
+        at |= {key: len(world) + i for key, i in index.items()}
+        world += jobs
+    two += _other_jobs(tmp)
+    four += [("program", dict(arch=DENSE, checkpoint_dir=cut + "4",
+                              resume=True, wait_for=cut + "4.done", **PROG))]
     worlds = {2: torch_ranks.start_ranks(two, 2, tmp / "two"),
               4: torch_ranks.start_ranks(four, 4, tmp / "four"),
               "cli": torch_ranks.start_ranks(
@@ -190,6 +240,7 @@ def runs(tmp_path_factory):
         [("program", dict(arch=DENSE, checkpoint_dir=cut + "1", resume=True,
                           **PROG))], tmp / "one")[0]
     out["cut"] = tmp / "cut"
+    out["at"] = at
     return out
 
 
@@ -438,3 +489,183 @@ def test_a_model_axis_above_one_raises(runs):
     with pytest.raises(RuntimeError, match="no process group"):
         Cluster(DENSE, MeshSpec((1, 1), ("data", "model")),
                 device="cpu").compile(TrainProgram(num_steps=1))
+
+
+def _fsdp_result(runs, case, fsdp=True):
+    return [r[runs["at"][(case, fsdp)]] for r in runs[case[0]]]
+
+
+def _whole_tree(runs, case):
+    """The whole-tree step's rank results beside an `FSDP` case (same
+    world, arch, grad_accum and draw), or None."""
+    ranks, arch, ga, dtype = case
+    if dtype == "bf16":
+        return _fsdp_result(runs, case, fsdp=False)
+    return _result(runs, case[:3]) if case[:3] in CASES else None
+
+
+def _rel_l2(a, b) -> float:
+    """Relative L2 distance of `a` from `b` (0 for equal tensors)."""
+    a, b = a.double(), b.double()
+    return 0.0 if torch.equal(a, b) else float((a - b).norm() / b.norm())
+
+
+def _equal_trees(got, want, what):
+    pytree.tree_map_with_path(
+        lambda path, a, b: None if torch.equal(a, b)
+        else pytest.fail(f"{what}: {pytree.keystr(path)} differs"),
+        got, want)
+
+
+@pytest.mark.parametrize("case", FSDP, ids=_fsdp_id)
+def test_fsdp_steps_equal_the_whole_tree_step(runs, case):
+    """The per-layer gather's step against the whole-tree step from the
+    same state in the same world: every rank's blocks of the state after
+    three steps and the metrics bit-equal at grad_accum 1 (f32 and bf16),
+    within 1e-5 (metrics relative, each state leaf relative L2) at
+    grad_accum 2; the shard shapes equal. f32 cases also against the
+    one-process step and the reference's, as the whole-tree step is."""
+    ranks, arch, ga, dtype = case
+    res = _fsdp_result(runs, case)
+    for r in res[1:]:                        # every rank logs the mean
+        assert r["metrics"] == res[0]["metrics"]
+    keys = ["loss", "grad_norm", "lr_scale"] + (["ce", "aux"] if ga == 1
+                                                else [])
+    assert sorted(res[0]["metrics"][0]) == sorted(keys)
+    whole = _whole_tree(runs, case)
+    assert whole is not None or (ranks, ga) == (4, 2)
+    for r, w in zip(res, whole or ()):
+        assert r["shapes"] == w["shapes"] and r["coords"] == w["coords"]
+        if ga == 1:
+            assert r["metrics"] == w["metrics"]
+            _equal_trees(r["local"], w["local"], _fsdp_id(case))
+            continue
+        _close_metrics(r["metrics"], w["metrics"], keys)
+        pytree.tree_map_with_path(
+            lambda path, a, b: None if _rel_l2(a, b) <= 1e-5
+            else pytest.fail(f"{pytree.keystr(path)}: {_rel_l2(a, b)}"),
+            r["local"], w["local"])
+    if dtype == "f32":
+        for ref in (False, True):
+            want, state = _one_process(arch, ga, ref)
+            later = MOE_LATER if ref and arch == MOE else 1e-5
+            _close_metrics(res[0]["metrics"], want, keys, later=later)
+            _close_states(res[0]["state"], state, later)
+
+
+def _fsdp_leaves(arch, dtype, ranks):
+    """(key path, spec, whole initial leaf) of each parameter of an
+    `FSDP` case's state on a (ranks, 1) mesh."""
+    cfg = tget(arch)
+    mesh = MeshSpec((ranks, 1), ("data", "model"))
+    specs = tsteps.param_partition(cfg, mesh, addressing.default_rules(
+        mesh, overrides=cfg.rules_overrides), max_seq=S)
+    params = (_initial(arch)[1] if dtype == "f32" else
+              tsteps.init_train_state(cfg, 0, device="cpu",
+                                      max_seq=S))["params"]
+    by_key = {tsteps._path_key(path): spec for path, spec in
+              pytree.tree_flatten_with_path(
+                  specs, is_leaf=lambda x: isinstance(x, tuple))[0]}
+    return [(tsteps._path_key(path), by_key[tsteps._path_key(path)], t)
+            for path, t in pytree.tree_flatten_with_path(params)[0]]
+
+
+@pytest.mark.parametrize("case", FSDP, ids=_fsdp_id)
+def test_fsdp_step_issues_its_collectives(runs, case):
+    """A step of the per-layer gather: each block leaf split over the
+    data axis all-gathered once a pass of each microbatch (twice: the
+    layer and its recompute under remat "nothing", in the leaf's dtype)
+    and reduce-scattered once a microbatch (f32); the other split leaves
+    once a step each, as the whole-tree step does; one all_reduce a
+    replicated leaf, the norm's and the metrics'; the MoE dispatch's and
+    the row exchange as before. Each `torch.autograd.grad` call (one a
+    microbatch) returns the gradients of the other leaves whole and of
+    the token, none of a split block leaf (the whole-tree step's return
+    every leaf's)."""
+    ranks, arch, ga, dtype = case
+    cfg = tget(arch)
+    leaves = _fsdp_leaves(arch, dtype, ranks)
+    held = [k[0] == "blocks" and _split(sp) for k, sp, _ in leaves]
+    other = [not h and _split(sp) for h, (_, sp, _) in zip(held, leaves)]
+    nbytes = lambda mask, size=None: sum(
+        t.numel() * (size or t.element_size())
+        for m, (_, _, t) in zip(mask, leaves) if m)
+    passes = 2 if cfg.remat == "nothing" else 1
+    res = _fsdp_result(runs, case)
+    counts = res[0]["counts"]
+    assert sum(held) > 0
+    assert counts["all_gather"] == ga * passes * sum(held) + sum(other)
+    assert counts["reduce_scatter"] == ga * sum(held) + sum(other)
+    assert counts["all_reduce"] == len(leaves) - sum(held) - sum(other) + 2
+    assert counts["all_gather_bytes"] == ga * passes * nbytes(held) + \
+        nbytes(other)
+    assert counts["reduce_scatter_bytes"] == ga * nbytes(held, 4) + \
+        nbytes(other, 4)
+    moe = sum(k == "attn_moe" for k in tsteps.layer_kinds(cfg))
+    assert counts.get("dispatch_all_gather", 0) == ga * moe * passes
+    assert counts.get("dispatch_all_reduce", 0) == ga * moe * (passes + 1)
+    assert counts.get("batch_all_gather", 0) == (2 if arch == MOE and ga > 1
+                                          else 0)
+    free = sum(t.numel() for h, (_, _, t) in zip(held, leaves) if not h)
+    for r in res:
+        assert r["grad_numel"] == [free + 1] * ga
+    for w in _whole_tree(runs, case) or ():
+        assert w["grad_numel"] == [sum(t.numel() for *_, t in leaves)] * ga
+
+
+def _batch_free(spec) -> tuple:
+    """`spec` with the batch axes taken out (what the per-layer gather
+    makes of a leaf)."""
+    out = []
+    for d in range(len(spec)):
+        axes = tuple(a for a in addressing.spec_axes(spec, d)
+                     if a not in addressing.BATCH_AXES)
+        out.append(None if not axes else axes[0] if len(axes) == 1 else axes)
+    return tuple(out)
+
+
+PROD_MESHES = {"pod": ((16, 16), ("data", "model")),
+               "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@pytest.mark.parametrize("mesh", sorted(PROD_MESHES))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_layer_gather_shapes_are_the_references_specs(arch, mesh):
+    """With no process group, on a production mesh: each leaf of a layer
+    in the reference's scan (its remainder layers have no gather spec),
+    as the per-layer gather makes it (the plan's spec less the batch
+    axes), has the model axes and the local shape of its spec in
+    `cells.layer_gather_specs` (the reference's gather specs); the
+    gather undoes a split of some leaf."""
+    from repro_torch.cluster import cells
+    cfg = tget(arch)
+    m = MeshSpec(*PROD_MESHES[mesh])
+    rules = addressing.default_rules(m, overrides=cfg.rules_overrides)
+    specs = tsteps.param_partition(cfg, m, rules)
+    keys = tsteps.param_plan_keys(cfg)
+    shapes = tsteps.param_specs(cfg)
+    ref = dict(tsteps.tree_paths(cells.layer_gather_specs(cfg, m, rules)))
+    checked = undone = 0
+    for i, layer in enumerate(specs["blocks"]):
+        flat = pytree.tree_flatten_with_path(
+            layer, is_leaf=lambda x: isinstance(x, tuple))[0]
+        for path, spec in flat:
+            key, stacked = _at(keys["blocks"][i], path)
+            if not stacked:
+                continue
+            shape = _at(shapes["blocks"][i], path).shape
+            want = ref[key.removeprefix("blocks/")]
+            got = _batch_free(spec)
+            assert [addressing.spec_axes(got, d) for d in range(len(shape))] \
+                == [addressing.spec_axes(want, d) for d in range(len(shape))]
+            assert addressing.shard_shape(got, shape, m) == \
+                addressing.shard_shape(want, shape, m), key
+            checked += 1
+            undone += got != spec
+    assert checked > 0 and undone > 0
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[getattr(k, "key", getattr(k, "idx", k))]
+    return tree

@@ -33,8 +33,13 @@ on the CPU (`tests/torch_ranks.py`).
   lower there (ShardingTypeError in `dynamic_update_slice`) nor do
   mixtral's prefill and session cells (`jnp.repeat` asks for an
   out_sharding; ROADMAP Queue 3), so those are held to the unsharded
-  reference above.
-* On a (1, 1) mesh (a one-rank group of this process) every cell is bit
+  reference above. In the same subprocess the reference's qwen3 train
+  cell with `fsdp_gather` (its per-layer gather) lowers and takes two
+  steps; the port's (2, 4) train cell with `fsdp_gather` gives its
+  metrics and state within 1e-5.
+* On a (1, 1) mesh (a one-rank group of this process) the train cell
+  with `fsdp_gather` steps bit for bit as the one without it, and a
+  decode cell is the same with the flag; every cell is bit
   for bit the plain step's or cell's in bf16, and a decode step issues
   its model collectives (a layer: one heads_all_gather, lse_max,
   lse_sum, lse_out, two reduce_from_ranks; one argmax_all_gather).
@@ -99,6 +104,7 @@ OTHER_KINDS = ["whisper-small-smoke", "xlstm-125m-smoke",
                "recurrentgemma-9b-smoke", "llama-3.2-vision-90b-smoke"]
 ALL_ARCHS = sorted(ARCHS)
 REF_SHAPE = (64, 8)                     # (seq, slots) of the (2, 4) cells
+TRAIN_SHAPE = (16, 8)                   # (seq, batch) of the train cells
 TOL = 1e-5
 
 
@@ -205,6 +211,17 @@ REF_SCRIPT = textwrap.dedent("""
         out["paged" if paged else "session"] = [
             np.concatenate(toks, 1).tolist(),
             np.concatenate(emits, 1).tolist()]
+    train = data["train"]
+    f, _ = compiled(cells.build_cell(
+        cfg, ShapeConfig("t", train["seq"], train["batch"], "train"), mesh,
+        rules, fsdp_gather=True))
+    state, metrics = jax.tree.map(jnp.asarray, train["state"]), []
+    for b in train["batches"]:
+        state, m = f(state, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    with open(sys.argv[1] + ".train", "wb") as f:
+        pickle.dump({"metrics": metrics, "state": jax.tree.map(
+            lambda a: np.asarray(a, np.float32), state)}, f)
     print(json.dumps(out))
 """)
 
@@ -223,13 +240,32 @@ def _ref_inputs(cfg):
             "budget": rng.integers(3, 7, B)}
 
 
+def _train_inputs():
+    """The (2, 4) train cells' inputs: the initial state in the
+    reference's layout (the port's f32 draw at TRAIN_SHAPE's seq, the
+    attention weights at their true fan-in, zero moments) and two seeded
+    global batches."""
+    S, B = TRAIN_SHAPE
+    params = _params(DENSE, (), S)[1]
+    zeros = jax.tree.map(np.zeros_like, params)
+    state = {"params": params, "opt": {"m": zeros, "v": zeros,
+                                       "step": np.zeros((), np.int32)}}
+    rng = np.random.default_rng(9)
+    batches = [{k: rng.integers(0, tget(DENSE).vocab, (B, S)).astype(
+        np.int32) for k in ("tokens", "labels")} for _ in range(2)]
+    return state, batches
+
+
 def _start_reference_cells(tmp):
     """The reference's qwen3 (2, 4) cells in a subprocess (started, not
     waited for)."""
     cfg = tget(DENSE)
+    state, batches = _train_inputs()
     data = dict(arch=DENSE, params=_params(DENSE, (), REF_SHAPE[0])[1],
                 seq=REF_SHAPE[0], batch=REF_SHAPE[1], chunk=tr.CHUNK,
-                page=tr.PAGE, rounds=2, **_ref_inputs(cfg))
+                page=tr.PAGE, rounds=2, **_ref_inputs(cfg),
+                train=dict(seq=TRAIN_SHAPE[0], batch=TRAIN_SHAPE[1],
+                           state=state, batches=batches))
     path = tmp / "ref_cells.pkl"
     with open(path, "wb") as f:
         pickle.dump(data, f)
@@ -263,19 +299,29 @@ def runs(tmp_path_factory):
             mesh=(2, 1), cells=False)) for a in OTHER_KINDS]
     S, B = REF_SHAPE
     ref_cells = _start_reference_cells(tmp)
+    state, batches = _train_inputs()
+    torch.save(weights.from_jax_train_state(state, device="cpu"),
+               tmp / "train_state.pt")
+    torch.save([{k: torch.from_numpy(v) for k, v in b.items()}
+                for b in batches], tmp / "train_batches.pt")
     worlds = {
         2: tr.start_ranks(jobs[2], 2, tmp / "two", timeout=300),
         4: tr.start_ranks(jobs[4], 4, tmp / "four", timeout=300),
         8: tr.start_ranks([("serve_ref_cells", dict(
             arch=DENSE, params=_save_params(tmp, DENSE, (), S),
             inputs={k: torch.from_numpy(np.asarray(v)) for k, v in
-                    _ref_inputs(tget(DENSE)).items()}))], 8,
-            tmp / "eight", timeout=300),
+                    _ref_inputs(tget(DENSE)).items()})),
+            ("train_cell", dict(arch=DENSE, state=str(tmp / "train_state.pt"),
+                                batches=str(tmp / "train_batches.pt"),
+                                seq=TRAIN_SHAPE[0], batch=TRAIN_SHAPE[1]))],
+            8, tmp / "eight", timeout=300),
         "data": tr.start_ranks(data_only, 2, tmp / "data", timeout=300)}
     out = {k: w.wait() for k, w in worlds.items()}
     stdout, stderr = ref_cells.communicate(timeout=600)
     assert ref_cells.returncode == 0, stderr[-3000:]
     out["ref_cells"] = json.loads(stdout.strip().splitlines()[-1])
+    with open(tmp / "ref_cells.pkl.train", "rb") as f:
+        out["ref_train"] = pickle.load(f)
     return out
 
 
@@ -467,7 +513,7 @@ def test_reference_cells_at_2x4_give_the_ports_tokens(runs):
     ref = runs["ref_cells"]
     S, B = REF_SHAPE
     got = {"prefill": [None] * B, "session": {}, "paged": {}}
-    for (r,) in runs[8]:
+    for r, _ in runs[8]:
         rows = range(*r["rows"])
         for i, b in enumerate(rows):
             got["prefill"][b] = int(r["prefill"][i])
@@ -484,6 +530,39 @@ def test_reference_cells_at_2x4_give_the_ports_tokens(runs):
             np.testing.assert_array_equal(t[:steps][e[:steps]],
                                           toks[b, :steps][emit[b, :steps]])
         assert emit.any()
+
+
+def test_reference_fsdp_gather_train_cell_at_2x4(runs):
+    """The reference's own qwen3 train cell with `fsdp_gather` (each
+    super-block's weights constrained to `layer_gather_specs` inside its
+    scan) on its (2, 4) test mesh, lowered from its abstract arguments
+    in f32 and called on placed arrays, against the port's
+    `build_cell(fsdp_gather=True)` train cell on a (2, 4) world from the
+    same f32 state on the same two global batches: every rank's metrics
+    equal, and each step's metrics within 1e-5 relative of the
+    reference's, every leaf of the state after them within 1e-5 relative
+    L2."""
+    ref = runs["ref_train"]
+    got = [r for _, r in runs[8]]
+    for r in got[1:]:
+        assert r["metrics"] == got[0]["metrics"]
+    for g, w in zip(got[0]["metrics"], ref["metrics"]):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert abs(g[k] - w[k]) <= 1e-5 * max(abs(w[k]), 1.0), (k, g, w)
+    want = weights.from_jax_train_state(ref["state"], device="cpu")
+    assert int(got[0]["state"]["opt"]["step"]) == int(
+        want["opt"]["step"]) == len(ref["metrics"])
+
+    def close(path, a, b):
+        a, b = a.double(), b.double()
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        assert rel < 1e-5, (pytree.keystr(path), rel)
+
+    for part in ("params", "m", "v"):
+        pytree.tree_map_with_path(
+            close, *(s["params"] if part == "params" else s["opt"][part]
+                     for s in (got[0]["state"], want)))
 
 
 def _one_rank_mesh(tmp_path):
@@ -635,19 +714,30 @@ def test_one_rank_collectives_skip_the_backend(tmp_path, monkeypatch):
         dist.destroy_process_group()
 
 
+def _specs(tree):
+    """The specs of a tree of `addressing.Sharding`s (None kept)."""
+    return pytree.tree_map(lambda s: None if s is None else s.spec, tree,
+                           is_leaf=lambda x: isinstance(
+                               x, addressing.Sharding))
+
+
 def test_build_cell_train_kind_and_shapes(tmp_path):
-    """`build_cell`'s train kind is `make_sharded_train_step` as it is:
-    its arguments' local shapes are those of the state `init_train_state
+    """`build_cell`'s train kind is `make_sharded_train_step`: its
+    arguments' local shapes are those of the state `init_train_state
     (shards=)` draws and of the batch, donating the state; the decode
     cells' arguments hold this rank's shapes of the parameters, the
-    cache and the slot state; `fsdp_gather` (the per-layer gather) raises
-    naming its ROADMAP item."""
+    cache and the slot state. With `fsdp_gather` (the per-layer gather)
+    the train cell has the same arguments, placements and donation, and
+    its two steps (bf16, "fused") equal the whole-tree cell's bit for bit,
+    losses and state; a decode cell's arguments, placements, donation
+    and tokens are the same with the flag as without it."""
     mesh = _one_rank_mesh(tmp_path)
     try:
         cfg = tget(DENSE)
         rules = addressing.default_rules(mesh)
+        train = ShapeConfig("t", 16, 4, "train")
         fn, args, in_sh, out_sh, donate = cells.build_cell(
-            cfg, ShapeConfig("t", 16, 4, "train"), mesh, rules)
+            cfg, train, mesh, rules)
         assert donate == (0,) and fn.axis is not None
         state = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=16,
                                         shards=fn.shards)
@@ -663,9 +753,49 @@ def test_build_cell_train_kind_and_shapes(tmp_path):
         assert args[1]["pages"].shape == (4, 5)
         assert args[1]["cache"]["k"].shape[1] == 4 * 5 + 1
         assert in_sh[1]["cache"]["k"].spec == (None, None, None, "model")
-        with pytest.raises(NotImplementedError, match="per-layer gather"):
-            cells.build_cell(cfg, ShapeConfig("t", 16, 4, "train"), mesh,
-                             rules, fsdp_gather=True)
+        same = cells.build_cell(cfg, ShapeConfig("t", 16, 4, "decode"),
+                                mesh, rules, session=True, paged=True,
+                                page_size=4, fsdp_gather=True)
+        assert same[1] == args and same[4] == donate
+        assert _specs(same[2]) == _specs(in_sh)
+
+        whole = cells.build_cell(cfg, train, mesh, rules, policy="fused")
+        layered = cells.build_cell(cfg, train, mesh, rules, policy="fused",
+                                   fsdp_gather=True)
+        assert layered[1] == whole[1] and layered[4] == whole[4] == (0,)
+        assert _specs(layered[2]) == _specs(whole[2])
+        assert _specs(layered[3]) == _specs(whole[3])
+        a, b = (tsteps.init_train_state(cfg, 0, device="cpu", max_seq=16,
+                                        shards=c[0].shards)
+                for c in (whole, layered))
+        rng = np.random.default_rng(5)
+        for _ in range(2):
+            batch = {k: torch.from_numpy(rng.integers(
+                0, cfg.vocab, (4, 16)).astype(np.int32))
+                for k in ("tokens", "labels")}
+            a, ma = whole[0](a, batch)
+            b, mb = layered[0](b, batch)
+            assert {k: float(v) for k, v in ma.items()} == \
+                {k: float(v) for k, v in mb.items()}
+        pytree.tree_map_with_path(
+            lambda path, x, y: None if torch.equal(x, y)
+            else pytest.fail(f"{pytree.keystr(path)} differs"), a, b)
+
+        decode = ShapeConfig("t", 16, tr.SERVE_B, "decode")
+        inputs = tr.serve_inputs(cfg, 16)
+        params = tsteps.init_params(cfg, 0, device="cpu", max_seq=16)
+        clen = tsteps.decode_cache_len(cfg, 16)
+        toks = []
+        for flag in (False, True):
+            cell = cells.build_cell(cfg, decode, mesh, rules, policy="fused",
+                                    fsdp_gather=flag)
+            cache = tsteps.init_cache(cfg, tr.SERVE_B, clen, device="cpu",
+                                      shards=cell[0].cache_shards)
+            _, tok = cell[0](params, cache, {
+                "tokens": inputs["decode"][:, :1], "pos": inputs["starts"]})
+            toks.append((tok, cell[1], _specs(cell[2]), cell[4]))
+        assert torch.equal(toks[0][0], toks[1][0])
+        assert toks[0][1:] == toks[1][1:]
     finally:
         dist.destroy_process_group()
 

@@ -19,6 +19,13 @@ against its own deadline and killed past it).
   each leaf of the first batch's reduced gradients, gathered whole; the
   whole state after the steps. Each rank's blocks are the plan's
   `local_block` of the whole leaves.
+* The per-layer gather (`make_sharded_train_step(fsdp_gather=True)`,
+  `FSDP`) in the 4-rank world on (2, 2) and (2, 1, 2): bit-equal to the
+  whole-tree step at grad_accum 1, within 1e-5 relative L2 a leaf at
+  grad_accum 2, and against the one-process step and the reference's
+  as above; each split block leaf gathered over the batch axes once a
+  pass (its split over "model" kept) and reduce-scattered once a
+  microbatch, and no `torch.autograd.grad` call returning its gradient.
 * At one rank (a (1, 1) mesh in this process) the step is bit-equal to
   `make_train_step` in bf16, and a forward pass issues reduce_from_ranks
   twice a layer, once for the embedding and twice a loss chunk.
@@ -87,6 +94,9 @@ CASES = [((1, 2), DENSE, 1, ()), ((1, 2), DENSE, 2, ()),
          ((2, 2), DENSE, 1, ()), ((2, 2), MOE, 2, ()),
          ((1, 4), DENSE, 1, ()), ((1, 4), DENSE, 1, WHOLE_HEADS),
          ((1, 4), MOE, 1, KV_WHOLE), ((2, 1, 2), DENSE, 1, ())]
+# the per-layer gather's steps (fields as in CASES), in the 4-rank world
+FSDP = [((2, 2), DENSE, 1, ()), ((2, 2), MOE, 2, ()),
+        ((2, 1, 2), DENSE, 1, ()), ((2, 1, 2), MOE, 2, ())]
 OTHER_KINDS = ["whisper-small-smoke", "xlstm-125m-smoke",
                "recurrentgemma-9b-smoke", "llama-3.2-vision-90b-smoke"]
 PROG = dict(num_steps=4, batch=8, seq=16, warmup=1, log_every=1,
@@ -147,9 +157,9 @@ def _grad_keys(arch):
             for i in range(cfg.n_layers)] if arch == MOE else []
 
 
-def _step_jobs(tmp, world):
+def _step_jobs(tmp, world, cases=CASES, fsdp_gather=False):
     jobs = []
-    for case in [c for c in CASES if np.prod(c[0]) == world]:
+    for case in [c for c in cases if np.prod(c[0]) == world]:
         sizes, arch, ga, change = case
         state = tmp / f"{_case_id(case)}-state.pt"
         torch.save(_initial(arch, change)[1], state)
@@ -157,7 +167,7 @@ def _step_jobs(tmp, world):
             arch=arch, grad_accum=ga, state=str(state),
             batches=str(tmp / "batches.pt"), schedule_kwargs=SCHED,
             mesh=sizes, names=_names(sizes), replace=dict(change) or None,
-            grads_of=_grad_keys(arch))))
+            grads_of=_grad_keys(arch), fsdp_gather=fsdp_gather)))
     return jobs
 
 
@@ -182,7 +192,8 @@ def runs(tmp_path_factory):
         ("program", dict(arch=DENSE, checkpoint_dir=cut + "14", resume=True,
                          mesh=(1, 4), **PROG)),
         ("program", dict(arch=DENSE, checkpoint_dir=cut + "41", resume=True,
-                         mesh=(4, 1), **PROG))]
+                         mesh=(4, 1), **PROG))] + _step_jobs(
+                             tmp, 4, FSDP, fsdp_gather=True)
     cli = lambda world, data: torch_ranks.start_ranks(
         [("cli", dict(port=torch_ranks.free_port(), argv=CLI + [
             "--data-axis", str(data), "--checkpoint-dir",
@@ -473,3 +484,94 @@ def test_other_block_kinds_raise_on_a_model_axis(runs, arch):
     kinds = set(tsteps.layer_kinds(tget(arch))) - set(
         tsteps.MODEL_AXIS_KINDS)
     assert all(k in msg for k in kinds), (kinds, msg)
+
+
+def _fsdp_result(runs, case):
+    """Each rank's results of an `FSDP` case (after the 4-rank world's
+    step cases and its four programs)."""
+    first = len([c for c in CASES if np.prod(c[0]) == 4]) + 4
+    return [r[first + FSDP.index(case)] for r in runs[4]]
+
+
+@pytest.mark.parametrize("case", FSDP, ids=_case_id)
+def test_tp_fsdp_steps_equal_the_whole_tree_step(runs, case):
+    """The per-layer gather's step on a mesh with a model axis against
+    the whole-tree step from the same state in the same world (where it
+    runs that case): every rank's blocks and the metrics bit-equal at
+    grad_accum 1, each leaf within 1e-5 relative L2 at grad_accum 2;
+    against the one-process step and the reference's as the whole-tree
+    step is."""
+    sizes, arch, ga, _ = case
+    res = _fsdp_result(runs, case)
+    for r in res[1:]:
+        assert r["metrics"] == res[0]["metrics"]
+    if case in CASES:
+        for r, w in zip(res, _result(runs, case)):
+            assert r["shapes"] == w["shapes"] and r["coords"] == w["coords"]
+            if ga == 1:
+                assert r["metrics"] == w["metrics"]
+                pytree.tree_map_with_path(
+                    lambda path, a, b: None if torch.equal(a, b)
+                    else pytest.fail(f"{pytree.keystr(path)} differs"),
+                    r["local"], w["local"])
+            else:
+                _close_leaves(r["local"]["params"], w["local"]["params"])
+                _close_leaves(r["local"]["opt"]["m"], w["local"]["opt"]["m"])
+                _close_leaves(r["local"]["opt"]["v"], w["local"]["opt"]["v"])
+    keys = ["loss", "grad_norm", "lr_scale"] + (["ce", "aux"] if ga == 1
+                                                else [])
+    for ref in (False, True):
+        want, state, _ = _one_process(case, ref)
+        later = MOE_LATER if ref and arch == MOE else 1e-5
+        for i, (g, w) in enumerate(zip(res[0]["metrics"], want)):
+            for k in keys:
+                tol = 1e-5 if i == 0 else later
+                assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), \
+                    (k, g, w)
+        _close_states(res[0]["state"], state, later)
+
+
+@pytest.mark.parametrize("case", FSDP, ids=_case_id)
+def test_tp_fsdp_step_issues_its_collectives(runs, case):
+    """On (2, 2) and (2, 1, 2): each block leaf split over the batch axes
+    all-gathered over them once a pass of each microbatch (the layer and
+    its recompute) and reduce-scattered once a microbatch, the other
+    split leaves once a step, an all_reduce a leaf the batch axes do not
+    split, the norm's and the metrics'; each `torch.autograd.grad` call
+    returns the other leaves' gradients (whole over the batch axes, this
+    rank's block over "model") and the token's, none of a split block
+    leaf."""
+    sizes, arch, ga, change = case
+    cfg = _cfgs(arch, ga, change)[0]
+    mesh = MeshSpec(sizes, _names(sizes))
+    specs = {tsteps._path_key(p): sp for p, sp in
+             pytree.tree_flatten_with_path(tsteps.param_partition(
+                 cfg, mesh, addressing.default_rules(
+                     mesh, overrides=cfg.rules_overrides), max_seq=S),
+                 is_leaf=lambda x: isinstance(x, tuple))[0]}
+    res = _fsdp_result(runs, case)
+    batch_parts = int(np.prod(sizes[:-1]))
+    leaves = []
+    for path, shape in pytree.tree_flatten_with_path(
+            res[0]["shapes"]["params"],
+            is_leaf=lambda x: isinstance(x, tuple))[0]:
+        key = tsteps._path_key(path)
+        split = any(a in addressing.BATCH_AXES
+                    for d in range(len(specs[key]))
+                    for a in addressing.spec_axes(specs[key], d))
+        n = int(np.prod(shape)) * (batch_parts if split else 1)
+        leaves.append((key[0] == "blocks" and split, split, n))
+    held = sum(h for h, _, _ in leaves)
+    other = sum(s and not h for h, s, _ in leaves)
+    passes = 2 if cfg.remat == "nothing" else 1
+    counts = res[0]["counts"]
+    assert held > 0
+    assert counts["all_gather"] == ga * passes * held + other
+    assert counts["reduce_scatter"] == ga * held + other
+    assert counts["all_reduce"] == len(leaves) - held - other + 2
+    free = sum(n for h, _, n in leaves if not h)
+    for r in res:
+        assert r["grad_numel"] == [free + 1] * ga
+    if case in CASES:
+        for w in _result(runs, case):
+            assert w["grad_numel"] == [sum(n for *_, n in leaves)] * ga

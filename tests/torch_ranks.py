@@ -151,16 +151,21 @@ def _mesh(world: int, model: int = 1, sizes=None, names=None):
 @job
 def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
                   schedule_kwargs, policy="fused", max_seq=16, mesh=None,
-                  names=("data", "model"), replace=None, grads_of=()):
+                  names=("data", "model"), replace=None, grads_of=(),
+                  fsdp_gather=False):
     """The sharded step on `mesh` (sizes over `names`; None: (world, 1))
     from the whole state in the file `state` (the port's layout) on the
     batches in the file `batches`, this rank taking its rows (the plan's
     batch block); `replace` is `dataclasses.replace` keywords for the
-    arch's config. -> every step's metrics, the collective counts of one
-    step, each leaf's shard shape, this rank's mesh coordinates and
-    final blocks, the step's reduced gradients of the first batch (this
-    rank's blocks of the leaves named in `grads_of`, key paths, and on
-    rank 0 the whole tree) and (rank 0) the whole state at the end."""
+    arch's config; `fsdp_gather` the step's per-layer gather. -> every
+    step's metrics, the collective counts of one step, each leaf's shard
+    shape, this rank's mesh coordinates and final blocks, the step's
+    reduced gradients of the first batch (this rank's blocks of the
+    leaves named in `grads_of`, key paths, and on rank 0 the whole tree),
+    the elements of the gradients each `torch.autograd.grad` call of that
+    batch's `accumulate` returned (not those backward makes inside
+    one), and (rank 0) the whole state at the
+    end."""
     import dataclasses
 
     from torch.utils import _pytree as pytree
@@ -181,9 +186,9 @@ def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
                                 x, addressing.LeafShard))
     step = steps.make_sharded_train_step(
         cfg, mesh, schedule_kwargs=schedule_kwargs, policy=policy,
-        max_seq=max_seq)
+        max_seq=max_seq, fsdp_gather=fsdp_gather)
     coords = dict(zip(addressing.mesh_axes(mesh), mesh.get_coordinate()))
-    metrics, counts, grads = [], None, {}
+    metrics, counts, grads, grad_numel = [], None, {}, []
 
     def rows_of(batch):
         B, S = batch["tokens"].shape
@@ -192,7 +197,23 @@ def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
         return {k: v[rows] for k, v in batch.items()}
 
     all_batches = torch.load(batches, weights_only=False)
-    _, _, g = step.accumulate(local["params"], rows_of(all_batches[0]))
+    autograd_grad, depth = torch.autograd.grad, []
+
+    def counted_grad(*args, **kw):
+        depth.append(1)           # the calls backward makes inside one
+        try:
+            out = autograd_grad(*args, **kw)
+        finally:
+            depth.pop()
+        if not depth:
+            grad_numel.append(sum(t.numel() for t in out))
+        return out
+
+    torch.autograd.grad = counted_grad
+    try:
+        _, _, g = step.accumulate(local["params"], rows_of(all_batches[0]))
+    finally:
+        torch.autograd.grad = autograd_grad
     grads = {pytree.keystr(path): t for path, t in
              pytree.tree_flatten_with_path(g)[0]
              if pytree.keystr(path) in grads_of}
@@ -207,7 +228,7 @@ def sharded_steps(rank, world, *, arch, grad_accum, state, batches,
         lambda sh, leaf: sh.gather(leaf), shards, local,
         is_leaf=lambda x: isinstance(x, addressing.LeafShard))
     return {"metrics": metrics, "counts": counts, "shapes": shapes,
-            "coords": coords, "local": local,
+            "coords": coords, "local": local, "grad_numel": grad_numel,
             "grads": grads, "state": gathered if rank == 0 else None,
             "whole_grads": whole_grads if rank == 0 else None}
 
@@ -668,3 +689,37 @@ def serve_ref_cells(rank, world, *, arch, params, inputs, seq=64, batch=8):
         state = serve_state(cache, inputs, rows, pages_per_slot=pps)
         out["paged" if paged else "session"] = run_session(fn, local, state)
     return out
+
+
+@job
+def train_cell(rank, world, *, arch, state, batches, seq, batch):
+    """`build_cell`'s train cell with `fsdp_gather` on the reference's
+    (2, 4) test mesh from the whole state in the file `state` (the port's
+    layout) on the global batches in the file `batches`, this rank
+    taking its rows -> each step's metrics and (rank 0) the whole state
+    after them."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing
+
+    cfg = get(arch)
+    mesh = _mesh(world, sizes=(2, 4), names=("data", "model"))
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    coords = addressing.coordinates(mesh)
+    fn = cells_lib.build_cell(cfg, ShapeConfig("t", seq, batch, "train"),
+                              mesh, rules, fsdp_gather=True)[0]
+    local = addressing.take_tree(fn.shards,
+                                 torch.load(state, weights_only=False))
+    spec = rules.spec_for(("batch", "seq"), (batch, seq), mesh)
+    rows = addressing.local_block(spec, (batch, seq), mesh, coords)[0]
+    metrics = []
+    for b in torch.load(batches, weights_only=False):
+        local, m = fn(local, {k: v[rows] for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    whole = pytree.tree_map(
+        lambda sh, leaf: sh.gather(leaf), fn.shards, local,
+        is_leaf=lambda x: isinstance(x, addressing.LeafShard))
+    return {"metrics": metrics, "state": whole if rank == 0 else None}

@@ -3,10 +3,12 @@ qwen3-14b's fused route, optionally run the training card tests, then
 `chip_smoke.train_phase()` (part=step, part=grads, part=run; ~1 min),
 and with --dp the dp phase after it (the plan, the sharded step at
 (data=1, model=1) held to the train phase's with its model collectives,
-the launcher with --data-axis 1), with the card's name and power limit.
-With --tp, chip_smoke's tp parts: rows 1-3 at the model axis's local
-shapes (part=kernels), then the two-thread (1, 2) step (part=threads);
---tp-only runs those alone.
+the same step with the per-layer gather (part=fsdp), the launcher with
+--data-axis 1), with the card's name and power limit. With --tp,
+chip_smoke's tp parts: rows 1-3 at the model axis's local shapes
+(part=kernels), then the two-thread (1, 2) step (part=threads) and the
+two-thread (2, 1) per-layer gather (part=fsdp_threads); --tp-only runs
+those alone.
 
     python3 tools/train_phase.py            # the phase
     python3 tools/train_phase.py --tests    # the card tests first
@@ -68,6 +70,7 @@ def main() -> int:
         t0 = time.perf_counter()
         chip_smoke.tp_kernels_part([])
         chip_smoke.tp_threads_part(launches)
+        chip_smoke.tp_fsdp_threads_part(launches)
         print(f"tp parts {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
