@@ -292,9 +292,11 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            --data-axis 1` as a child process: exit 0, its losses and
            final parameters those of TrainProgram.run() in this process
   tp       the model axis: part=kernels (right after the kernels phase),
-           rows 1-3 at a rank's local shapes of the train microbatch
-           (`TP_ROWS`: qwen3-14b on (2, 4) and (16, 16), mixtral-8x7b on
-           (16, 16)) as the kernels phase runs them, each row added to
+           rows 1-3 and 7 at a rank's local shapes of the train
+           microbatch (`TP_ROWS`: qwen3-14b on (2, 4) and (16, 16),
+           mixtral-8x7b on (16, 16); whisper-small's encoder MLP,
+           recurrentgemma-9b's and llama-3.2-vision-90b's products at
+           model 2) as the kernels phase runs them, each row added to
            its kernel's record; part=step (in dp's part=step: that
            (data=1, model=1) step makes every split over "model" at size
            1), its model collectives a step and a forward pass's
@@ -329,13 +331,28 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            step's noise floor (bf16 against f32, one rank), the greedy
            tokens equal where the one-rank top-2 margin passes 4 times
            its row's bf16 error
+  kinds    the model axis of the other block kinds, inside the whisper,
+           hybrid, xlstm and vlm phases on their weights (`kinds_parts`):
+           [tp] part=kinds, the sharded train step (2 steps of 2 x 128
+           tokens; recurrentgemma-9b at 3 layers) on a one-rank NCCL
+           (1, 1) mesh bit-equal to the plain step, losses and every
+           state leaf (vision: one attn and one cross block forward and
+           backward, split at (1, 1) against unsplit); [tp]
+           part=kinds_threads, the same on (1, 2) as two thread ranks,
+           each gradient leaf within twice its noise floor, every leaf's
+           error and floor logged; [mesh] part=kinds_cells, the
+           prefill, decode, decode-chunk and session (and paged session)
+           cells on (1, 1) bit-equal to the plain paths; [mesh]
+           part=kinds_threads, a (1, 2) decode of two thread ranks as
+           part=threads holds qwen3-14b's; a [kinds] line sums their
+           walls
 
 The kernel launch counts are set to 0 before each of the suite, tune,
 compose, whisper, prefill, pallas_prefill, serve, profile, engine, chaos,
 groups (part=two and part=locality), mesh (part=cells), moe, hybrid,
 xlstm, vlm, train, dp (part=step and part=fsdp), tp (part=threads and
-part=fsdp_threads (b)) and mesh (part=threads) runs and read right
-after; every kernel of a
+part=fsdp_threads (b)), mesh (part=threads) and kinds (each
+part's sharded run) runs and read right after; every kernel of a
 phase must have launched and no plain version may have run on a CUDA
 tensor. A wrapper counts the launches it makes;
 the launches a replayed CUDA graph makes are counted from the profiler's
@@ -555,7 +572,9 @@ def main() -> int:
                                + train_counts[name] + dp_counts[name]
                                + fsdp_counts[name]
                                + groups["traced"][name]
-                               + mesh_counts[name])
+                               + mesh_counts[name]
+                               + KINDS_COUNTS.get(name, 0))
+            rec["kinds_launches"] = KINDS_COUNTS.get(name, 0)
             rec["train_launches"] = train_counts[name]
             rec["dp_launches"] = dp_counts[name]
             rec["fsdp_launches"] = fsdp_counts[name]
@@ -568,6 +587,9 @@ def main() -> int:
             rec["launches"] = {"flash_attention": pallas_counts,
                                "matmul_bias_act": whisper_counts,
                                "rmsnorm": compose_counts}[name][name]
+            if name == "matmul_bias_act":
+                rec["kinds_launches"] = KINDS_COUNTS.get(name, 0)
+                rec["launches"] += rec["kinds_launches"]
     for rec in suite_records:
         if rec["name"] == "conv2d":
             # the suite phase's own launches and those of the groups
@@ -577,6 +599,9 @@ def main() -> int:
     records += suite_records
     for rec in records:           # each kernel's cells of the tune phase
         rec["tune"] = tune_results.get(rec["name"], [])
+    log("kinds", walls=json.dumps({k: round(v, 1) for k, v in
+                                   KINDS_WALLS.items()}).replace(" ", ""),
+        seconds=f"{sum(KINDS_WALLS.values()):.1f}")
     log("done", seconds=f"{time.perf_counter() - t_start:.1f}",
         traces_taken_again=json.dumps(LOST_TRACES).replace(" ", ""))
     print(gpu_line())
@@ -1027,6 +1052,21 @@ TP_ROWS = (
     ("mixtral/16 out", "matmul_residual_add", (1024, 256, 4096)),
     ("qwen3/4 attn", "flash_attention_proj", (2, 10, 2, 512, 128, 5120)),
     ("mixtral/16 attn", "flash_attention_proj", (2, 2, 1, 512, 128, 4096)),
+    # the other block kinds at model 2: whisper-small's encoder MLP on row
+    # 7 (2 x 1500 frames, d_ff 1536 a rank), recurrentgemma-9b's local
+    # attention (8 of 16 heads of 256, its one KV head whole) and geglu MLP
+    # (d_ff 6144) and llama-3.2-vision-90b's attention (32 / 4 heads of
+    # 128) and MLP (d_ff 14336) on rows 1-2, at 2 x 512 rows
+    ("whisper/2 fc1", "matmul_bias_act", (3000, 768, 1536, "gelu")),
+    ("whisper/2 fc2", "matmul_bias_act", (3000, 1536, 768, "none")),
+    ("rgemma/2 q", "rmsnorm_matmul", (1024, 4096, 2048)),
+    ("rgemma/2 gate,up", "rmsnorm_matmul", (1024, 4096, 6144)),
+    ("rgemma/2 out", "matmul_residual_add", (1024, 2048, 4096)),
+    ("rgemma/2 down", "matmul_residual_add", (1024, 6144, 4096)),
+    ("vision/2 q", "rmsnorm_matmul", (1024, 8192, 4096)),
+    ("vision/2 k,v", "rmsnorm_matmul", (1024, 8192, 512)),
+    ("vision/2 gate,up", "rmsnorm_matmul", (1024, 8192, 14336)),
+    ("vision/2 down", "matmul_residual_add", (1024, 14336, 8192)),
 )
 
 
@@ -1052,8 +1092,8 @@ MESH_ROWS = (
 
 def tp_kernels_part(records: list[dict], rows=TP_ROWS,
                     phase: str = "tp") -> None:
-    """Rows 1-3 at the local shapes of `rows` (`TP_ROWS`, or the mesh
-    phase's `MESH_ROWS`), as `kernel_phase` runs them (against the plain
+    """Rows 1-3 and 7 at the local shapes of `rows` (`TP_ROWS`, or the
+    mesh phase's `MESH_ROWS`), as `kernel_phase` runs them (against the plain
     version at TOL, the kernel, plain and library times flushed, mean of
     10, the bound, the schedule and the traced instantiation; a decode
     row also graph-replayed): one `<phase> part=kernels` line a row, each
@@ -1090,6 +1130,17 @@ def tp_kernels_part(records: list[dict], rows=TP_ROWS,
                  lambda: fused.matmul_residual_add_plain(a, w, r),
                  lambda: torch.addmm(r, a, w),
                  bound((m * k + k * n + 2 * m * n) * 2, 2.0 * m * k * n),
+                 schedule=gemm_schedule(name, m, k, n))
+        elif name == "matmul_bias_act":
+            m, k, n, act = shape
+            a, w, bias = randn(m, k), randn(k, n, scale=k ** -0.5), randn(n)
+            lib_act = {"none": lambda t: t,
+                       "gelu": lambda t: F.gelu(t, approximate="tanh")}[act]
+            case(f"M{m}xK{k}xN{n}x{act}",
+                 lambda: fused.matmul_bias_act(a, w, bias, act),
+                 lambda: fused.matmul_bias_act_plain(a, w, bias, act),
+                 lambda: lib_act(torch.addmm(bias, a, w)),
+                 bound((m * k + k * n + n + m * n) * 2, 2.0 * m * k * n),
                  schedule=gemm_schedule(name, m, k, n))
         else:
             B, H, KV, S, HD, DM = shape
@@ -2096,7 +2147,16 @@ def whisper_phase(launches) -> dict:
     for key, ms, n in top[:5]:
         log("whisper", kernel=f"'{key[:70]}'", device_ms=f"{ms:.2f}",
             launches=n)
-    del params, frames, batch, runs, prog, prog16, cluster
+    del frames, batch, runs, prog, prog16, cluster
+    torch.cuda.empty_cache()
+    frames = torch.randn((KINDS_B, cfg.enc_seq, cfg.d_model), generator=g,
+                         device="cuda").bfloat16()
+    train_batch = _stream_batches(cfg, KINDS_B, KINDS_S, 1, seed=5)[0] | {
+        "enc_embeds": frames}
+    kinds_parts(launches, "whisper", cfg, params, train_cfg=cfg,
+                fresh=lambda: _clone_tree(params), batch=train_batch,
+                must=("matmul_bias_act",), max_seq=MAX_SEQ)
+    del params, frames, train_batch
     torch.cuda.empty_cache()
     return counted
 
@@ -4284,6 +4344,12 @@ def hybrid_phase(launches) -> dict:
     serve_program_check(launches, "hybrid", cfg, params, B=8, S=S, P=32,
                         NEW=64)
     session_check(launches, "hybrid", cfg, params)
+    L = KINDS_TRAIN_LAYERS[cfg.name]
+    kinds_parts(launches, "hybrid", cfg, params,
+                train_cfg=dataclasses.replace(cfg, n_layers=L, grad_accum=1),
+                fresh=lambda: _clone_tree(params, L),
+                batch=_stream_batches(cfg, KINDS_B, KINDS_S, 1, seed=6)[0],
+                must=("rmsnorm_matmul", "matmul_residual_add"))
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4310,6 +4376,9 @@ def xlstm_phase(launches) -> None:
     del batch
     serve_program_check(launches, "xlstm", cfg, params, B=8, S=512, P=32,
                         NEW=64)
+    kinds_parts(launches, "xlstm", cfg, params, train_cfg=cfg,
+                fresh=lambda: _clone_tree(params),
+                batch=_stream_batches(cfg, KINDS_B, KINDS_S, 1, seed=7)[0])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4347,6 +4416,7 @@ def vlm_phase(launches) -> dict:
     del batch
     serve_program_check(launches, "vlm", cfg, params, B=8, S=256, P=32,
                         NEW=64)
+    kinds_parts(launches, "vlm", cfg, params, must=QWEN_FUSED)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5928,6 +5998,817 @@ def mesh_threads_part(launches, cfg=None, device="cuda") -> None:
     del got, got32, one, one32
     free()
 
+
+
+# ----------------------------------------------------------------------------
+# kinds: the model axis of the other block kinds (whisper, recurrentgemma,
+# xlstm, llama-3.2-vision), run inside the phase that holds each arch's
+# weights: [tp] part=kinds / kinds_threads, [mesh] part=kinds_cells /
+# kinds_threads
+# ----------------------------------------------------------------------------
+
+KINDS_B, KINDS_S = 2, 128       # the train parts' batch (whisper: decoder
+#                                 tokens over its 1500 frames)
+KINDS_STEPS = 2                 # [tp] part=kinds: steps of each step kind
+KINDS_TRAIN_LAYERS = {"recurrentgemma-9b": 3}   # rglru, rglru, local_attn:
+#                                 2.75B parameters, ~47 GB of train state
+KINDS_BLOCK_S = 512             # vision's two blocks: text rows (B 1)
+KINDS_CELL_B, KINDS_CELL_SEQ = 4, 256     # [mesh] kinds_cells: slots, rows
+KINDS_CELL_PROMPT = 128         # its prefill cell's prompt (B 1)
+KINDS_CELL_K, KINDS_CELL_DECODE = 8, 4    # the chunk's K, decode steps
+KINDS_THREAD_LAYERS = {"recurrentgemma-9b": 6, "llama-3.2-vision-90b": 5}
+#                                 [mesh] kinds_threads: of the phase's
+#                                 layers, two periods / one (see PERF.md)
+KINDS_THREAD_STEPS = 4
+KINDS_WALLS: dict = {}          # part -> seconds, summed over the archs
+KINDS_COUNTS: dict = {}         # kernel -> the (1, 1) parts' launches
+
+
+@contextlib.contextmanager
+def _one_rank_mesh(device="cuda"):
+    """A (data=1, model=1) DeviceMesh over a one-rank process group of
+    this process (NCCL on the card, gloo on the CPU), ended after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group(
+            "nccl" if device == "cuda" else "gloo",
+            store=dist.FileStore(f"{root}/store", 1), rank=0, world_size=1)
+        try:
+            yield make_device_mesh(MeshSpec((1, 1), ("data", "model")),
+                                   device)
+        finally:
+            dist.destroy_process_group()
+
+
+def _kinds_free(device="cuda") -> None:
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _walled(part: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        KINDS_WALLS[part] = KINDS_WALLS.get(part, 0.0) + \
+            time.perf_counter() - t0
+
+
+def _axis_fields(axis) -> dict:
+    """What a ModelAxis splits, for a log line."""
+    span = lambda s: "whole" if s is None else f"{s.start}-{s.stop}"
+    return {"heads": span(axis.heads), "kv_heads": span(axis.kv_heads),
+            "ffn": axis.ffn, "lru": span(axis.lru),
+            "vocab": span(axis.vocab)}
+
+
+def _differing(a, b) -> list:
+    """Key paths of the leaves of `a` (on any device) not bit-equal to
+    those of `b` (on the host or the device)."""
+    from torch.utils import _pytree as pytree
+    out = []
+    pytree.tree_map_with_path(
+        lambda path, x, y: None if torch.equal(x, y.to(x.device))
+        else out.append(pytree.keystr(path)), a, b)
+    return out
+
+
+def kinds_train_part(launches, tag: str, cfg, fresh, batch, must=(),
+                     max_seq: int = 4096, device="cuda") -> dict:
+    """[tp] part=kinds: `cfg` trained KINDS_STEPS steps ("fused") by
+    `make_train_step` and by `make_sharded_train_step` on a (1, 1) mesh
+    over a one-rank group, each from `fresh()` (a new copy of the
+    phase's weights, cut to cfg's depth) with zero moments: the losses
+    and every leaf of the state after them bit-equal (the plain state
+    kept on the host meanwhile). Every split the plan names is made at
+    size 1. The counts are set to 0 before the sharded steps and read
+    after (`must` must launch). Returns them."""
+    from repro_torch.models import steps
+    from repro_torch.optim.adamw import AdamConfig, adam_init
+
+    kw = {"schedule_kwargs": {"warmup": 1, "total": 4}, "policy": "fused"}
+    adam = AdamConfig(moment_dtype=cfg.moment_dtype)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def state():
+        p = fresh()
+        return {"params": p, "opt": adam_init(p, adam)}
+
+    def run(step, s):
+        losses = []
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(KINDS_STEPS):
+            s, m = step(s, batch)
+            losses.append(float(m["loss"]))
+        sync()
+        return s, losses, (time.perf_counter() - t0) * 1e3 / KINDS_STEPS
+
+    s, want, plain_ms = run(steps.make_train_step(cfg, **kw), state())
+    host = _host_copy(s)
+    n_leaves = len(list(_leaves(s)))
+    del s
+    _kinds_free(device)
+    with _one_rank_mesh(device) as mesh:
+        step = steps.make_sharded_train_step(cfg, mesh, max_seq=max_seq,
+                                             **kw)
+        s = state()
+        launches.reset_counts()
+        s, got, ms = run(step, s)
+        counted = _check_counts(launches, f"tp kinds {tag}", must)
+        differ = _differing(s, host)
+        axis = step.axis
+        del s, step
+    del host
+    _kinds_free(device)
+    if got != want or differ:
+        raise AssertionError(f"tp kinds {tag}: losses {got} against the "
+                             f"plain step's {want}; leaves that differ: "
+                             f"{differ[:4]}")
+    log("tp", part="kinds", arch=cfg.name, mesh="data=1,model=1",
+        layers=cfg.n_layers, B=batch["tokens"].shape[0],
+        S=batch["tokens"].shape[1], steps=KINDS_STEPS, policy="fused",
+        losses=",".join(f"{x:.5f}" for x in got), bit_equal=True,
+        leaves=n_leaves, **_axis_fields(axis), step_ms=f"{ms:.1f}",
+        plain_step_ms=f"{plain_ms:.1f}", launches=_nonzero(counted))
+    return counted
+
+
+def _vision_block_inputs(cfg, device, S=KINDS_BLOCK_S):
+    """Seeded inputs of vision's two blocks: text rows x (1, S, d), the
+    image embeddings, the output cotangent, and the block context."""
+    g = torch.Generator(device=device).manual_seed(37)
+    dt = torch.bfloat16
+    x = torch.randn((1, S, cfg.d_model), generator=g, device=device).to(dt)
+    img = torch.randn((1, cfg.n_img_tokens, cfg.d_model), generator=g,
+                      device=device).to(dt)
+    dy = torch.randn((1, S, cfg.d_model), generator=g, device=device).to(dt)
+    ctx = {"positions": torch.arange(S, device=device)[None], "rope": True,
+           "cross_embeds": img, "max_seq": S}
+    return x, dy, ctx
+
+
+def _vision_blocks_grads(cfg, blocks_p, x, dy, ctx, axis=None,
+                         policy="fused"):
+    """Each of vision's two blocks (an attn block, then a cross block) on
+    x alone, forward and backward with the cotangent dy under `policy`:
+    [(y, dx, {leaf: gradient})] (with `axis`, this rank's splits)."""
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.models import blocks
+
+    out = []
+    for kind, p in zip(("attn", "cross"), blocks_p):
+        leaves = {k: v.detach().requires_grad_() for k, v in
+                  _flat_leaves(p).items()}
+        xi = x.detach().requires_grad_()
+        with use_policy(policy):
+            y, _ = blocks.BLOCKS[kind]["apply"](
+                cfg, _unflat(leaves), xi, dict(ctx, model_axis=axis))
+            g = torch.autograd.grad(y, [xi, *leaves.values()], dy)
+        out.append((y.detach(), g[0], dict(zip(leaves, g[1:]))))
+    return out
+
+
+def _flat_leaves(p, prefix="") -> dict:
+    """{"a/b": tensor} of a nested dict of tensors."""
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out |= _flat_leaves(v, f"{prefix}{k}/")
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflat(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split("/")
+        d = out
+        for k in parents:
+            d = d.setdefault(k, {})
+        d[leaf] = v
+    return out
+
+
+def _vision_cfg5(cfg):
+    """vision's plan at one period (4 attn + 1 cross): the blocks' specs
+    and splits, whatever the phase's depth."""
+    return dataclasses.replace(cfg, n_layers=cfg.cross_every)
+
+
+def kinds_blocks_part(launches, cfg, params, device="cuda") -> dict:
+    """[tp] part=kinds for llama-3.2-vision: the train step does not fit
+    (its first cross layer is layer 5, and five layers are 6.38B
+    parameters, ~110 GB of train state by PR 28's 17.2 B a parameter), so
+    one full-width attn block and one cross block (the phase's layers 0
+    and 4) run forward and backward ("fused"), unsplit and split at (1,
+    1) under the plan's ModelAxis: the outputs, the input's gradient and
+    every leaf's gradient bit-equal. The counts are set to 0 before the
+    split run and read after (rows 1-3 must launch)."""
+    from repro_torch.core import addressing
+    from repro_torch.models import steps
+
+    c5 = _vision_cfg5(cfg)
+    two = (params["blocks"][0], params["blocks"][c5.cross_every - 1])
+    x, dy, ctx = _vision_block_inputs(cfg, device)
+    t0 = time.perf_counter()
+    want = _vision_blocks_grads(cfg, two, x, dy, ctx)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with _one_rank_mesh(device) as mesh:
+        axis = steps.model_axis(c5, mesh, addressing.default_rules(mesh))
+        launches.reset_counts()
+        t0 = time.perf_counter()
+        got = _vision_blocks_grads(cfg, two, x, dy, ctx, axis)
+        ms = (time.perf_counter() - t0) * 1e3
+        counted = _check_counts(launches, "tp kinds vision",
+                                QWEN_FUSED if device == "cuda" else ())
+    differ = []
+    for kind, (ya, dxa, ga), (yb, dxb, gb) in zip(("attn", "cross"), got,
+                                                  want):
+        if not (torch.equal(ya, yb) and torch.equal(dxa, dxb)):
+            differ.append(f"{kind}: y or dx")
+        differ += [f"{kind}/{k}" for k in gb if not torch.equal(ga[k],
+                                                                gb[k])]
+    if differ:
+        raise AssertionError(f"tp kinds vision blocks: differ {differ}")
+    log("tp", part="kinds", arch=cfg.name, mesh="data=1,model=1",
+        blocks="attn,cross", B=1, S=KINDS_BLOCK_S,
+        img_tokens=cfg.n_img_tokens, policy="fused", bit_equal=True,
+        leaves=sum(len(g) for _, _, g in want), **_axis_fields(axis),
+        fwd_bwd_ms=f"{ms:.1f}", plain_fwd_bwd_ms=f"{plain_ms:.1f}",
+        train_state_gb_five_layers_arith=f"{6.38e9 * 17.2 / 1e9:.0f}",
+        launches=_nonzero(counted))
+    del got, want
+    _kinds_free(device)
+    return counted
+
+
+def _noise_ratio(err: float, floor: float, own: float) -> tuple:
+    """(ratio, held) of a leaf's bf16 gradient check: the sharded
+    gradient's distance `err` from the one-rank bf16 one in multiples of
+    the floor (the one-rank bf16 gradient's distance from f32), held
+    "err". Where that exceeds MESH_NOISE, the sharded gradient's own
+    distance from f32 (`own`) in multiples of the floor, held "own": the
+    premise the first check stands on (the sharded bf16 chain no farther
+    from f32 than MESH_NOISE times the one-rank chain). A leaf whose
+    floor reaches 1 (its one-rank bf16 gradient is farther from f32 than
+    the f32 gradient's own size: rounding noise, no signal; xlstm-smoke's
+    input-gate bias sits at 1.9e3 on the CPU, two unrelated noise draws
+    on the two sides) is logged and held by neither, "none". All
+    distances are relative to the f32 gradient's norm."""
+    if floor <= 0:
+        return (float("inf") if err > 0 else 0.0), "err"
+    if floor >= 1.0:
+        return 0.0, "none"
+    if err / floor <= MESH_NOISE:
+        return err / floor, "err"
+    return own / floor, "own"
+
+
+@contextlib.contextmanager
+def _f32_products(device):
+    """Plain f32 products (no TF32) within the block."""
+    if device != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
+                             max_seq: int = 4096, device="cuda") -> None:
+    """[tp] part=kinds_threads: `cfg` on a (data=1, model=2) mesh whose
+    ranks are two threads of this process (torch's threaded process
+    group), each taking its blocks of `fresh()` with the attention
+    weights at their true fan-in (`_true_fan_in`: whisper's random
+    scores are otherwise so large that its bf16 gradients carry no
+    signal): the sharded step's
+    `accumulate` ("fused") gives each rank its loss and its blocks of the
+    reduced gradients (kept on the card). Then the one-rank gradients
+    from the same weights, bf16 ("fused") and f32 ("reference", plain f32
+    products): each leaf's noise floor is the relative L2 distance of
+    the bf16 gradient from the f32 one, and the ranks' gradient (its
+    blocks together) must lie within MESH_NOISE times its leaf's floor of
+    the one-rank bf16 gradient; both ranks' losses equal and within
+    TRAIN_TOL of the one-rank loss. Each distance is relative to the L2
+    norm of the f32 gradient (the leaf's best estimate): a bf16 chain
+    can shrink a leaf's gradient (recurrentgemma-smoke's one-rank bf16
+    w_ra gradient on the CPU), and a distance relative to it would then
+    grow with no fault of the split. Every leaf's error, floor and the
+    ranks' own distance from f32 is logged (`[tp] part=kinds_threads
+    leaf=`)."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import addressing
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    fresh = functools.partial(lambda f: _true_fan_in(f()), fresh)
+    whole = fresh()
+    results, reduced = {}, {}
+
+    def rank(r):
+        mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                torch.device(device).type)
+        step = steps.make_sharded_train_step(cfg, mesh, policy="fused",
+                                             max_seq=max_seq)
+        local = addressing.take_tree(step.shards["params"], whole)
+        loss, _, grads = step.accumulate(local, batch)
+        by_path = steps._by_path(step.shards["params"])
+        reduced[r] = {steps._path_key(p): (g, by_path[steps._path_key(p)])
+                      for p, g in pytree.tree_flatten_with_path(grads)[0]}
+        results[r] = (float(loss), step.axis)
+
+    launches.reset_counts()
+    wall = _thread_ranks(f"tp kinds_threads {tag}", rank)
+    counted = _check_counts(launches, f"tp kinds_threads {tag}", ())
+    del whole
+    _kinds_free(device)
+    loss, _, bf16 = steps.make_train_step(cfg, policy="fused").accumulate(
+        fresh(), batch)
+    one = float(loss)
+    def against(whole: dict) -> dict:
+        """Each leaf's squared L2 distance of the ranks' gradient (its
+        blocks together) from `whole`'s."""
+        out = {}
+        for p, want in pytree.tree_flatten_with_path(whole)[0]:
+            key = steps._path_key(p)
+            owners = [reduced[r][key] for r in (0, 1)]
+            ranks = (0, 1) if owners[0][1].model_sharded else (0,)
+            out[key] = sum(_sq_sums(owners[r][0], owners[r][1].take(want))[0]
+                           for r in ranks)
+        return out
+
+    dist_bf16 = against(bf16)
+    _kinds_free(device)
+    with _f32_products(device):
+        _, _, f32 = steps.make_train_step(cfg, policy="reference"
+                                          ).accumulate(_to_f32_(fresh()),
+                                                       batch)
+    dist_f32 = against(f32)
+    del reduced
+    worst, floor, err, own, noisy = ("", 0.0, 0.0, 0.0), {}, {}, {}, {}
+    for (p, a), b in zip(pytree.tree_flatten_with_path(bf16)[0],
+                         pytree.tree_leaves(f32)):
+        key = steps._path_key(p)
+        num, _, den = _sq_sums(a, b)
+        scale = den or 1.0       # every distance against the f32 gradient
+        floor[key] = (num / scale) ** 0.5
+        err[key] = (dist_bf16[key] / scale) ** 0.5
+        own[key] = (dist_f32[key] / scale) ** 0.5
+        ratio, held = _noise_ratio(err[key], floor[key], own[key])
+        name = "/".join(map(str, key))
+        log("tp", part="kinds_threads", arch=cfg.name, leaf=f"'{name}'",
+            rel_l2=f"{err[key]:.4g}", floor=f"{floor[key]:.4g}",
+            sharded_floor=f"{own[key]:.4g}", over_floor=f"{ratio:.3f}",
+            held=held)
+        noisy[held] = noisy.get(held, 0) + 1
+        if ratio > worst[1]:
+            worst = (name, ratio, err[key], floor[key])
+    del bf16, f32
+    _kinds_free(device)
+    losses = [results[r][0] for r in (0, 1)]
+    if losses[0] != losses[1] or not np.isfinite(one) or \
+            abs(losses[0] - one) > TRAIN_TOL * abs(one):
+        raise AssertionError(f"tp kinds_threads {tag}: losses {losses}, "
+                             f"one rank {one}")
+    if worst[1] > MESH_NOISE:
+        raise AssertionError(
+            f"tp kinds_threads {tag}: {worst[0]} is {worst[2]:.3g} "
+            f"(relative L2) from the one-rank gradient, {worst[1]:.3f} x "
+            f"its noise floor {worst[3]:.3g} (limit {MESH_NOISE})")
+    log("tp", part="kinds_threads", arch=cfg.name, mesh="data=1,model=2",
+        ranks="threads", layers=cfg.n_layers, B=batch["tokens"].shape[0],
+        S=batch["tokens"].shape[1], **_axis_fields(results[0][1]),
+        loss=f"{losses[0]:.5f}", loss_one_rank=f"{one:.5f}",
+        leaves=len(floor), held=json.dumps(noisy).replace(" ", ""),
+        worst_leaf=f"'{worst[0]}'",
+        worst_over_floor=f"{worst[1]:.3f}", worst_rel_l2=f"{worst[2]:.4g}",
+        its_floor=f"{worst[3]:.4g}", limit=f"{MESH_NOISE}xfloor",
+        wall_s=f"{wall:.1f}", launches=_nonzero(counted))
+
+
+def kinds_blocks_threads_part(launches, cfg, params, device="cuda") -> None:
+    """[tp] part=kinds_threads for llama-3.2-vision's two blocks (see
+    `kinds_blocks_part`; their attention weights at the true fan-in):
+    each of two thread ranks of a (1, 2) mesh its
+    blocks of them (the plan's at one period), forward and backward
+    ("fused"); its input's gradient (whole on each rank) and its blocks
+    of the leaves' gradients against the unsplit blocks' in bf16, within
+    MESH_NOISE times each one's floor (bf16 against f32 "reference"),
+    both relative to the f32 gradient's norm."""
+    from repro_torch.core import addressing
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    c5 = _vision_cfg5(cfg)
+    idx = (0, c5.cross_every - 1)
+    two = tuple(_true_fan_in(params["blocks"][i]) for i in idx)
+    x, dy, ctx = _vision_block_inputs(cfg, device)
+    got = {}
+
+    def rank(r):
+        mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                torch.device(device).type)
+        rules = addressing.default_rules(mesh)
+        axis = steps.model_axis(c5, mesh, rules)
+        shards = steps.state_shards(c5, mesh, rules)["params"]["blocks"]
+        local = [addressing.take_tree(shards[i], p)
+                 for i, p in zip(idx, two)]
+        got[r] = ([(y, dx, g) for y, dx, g in _vision_blocks_grads(
+            cfg, local, x, dy, ctx, axis)],
+            [_flat_leaves(shards[i]) for i in idx], axis)
+
+    launches.reset_counts()
+    wall = _thread_ranks("tp kinds_threads vision", rank)
+    counted = _check_counts(launches, "tp kinds_threads vision",
+                            QWEN_FUSED if device == "cuda" else ())
+    want = _vision_blocks_grads(cfg, two, x, dy, ctx)
+    with _f32_products(device):
+        f32 = _vision_blocks_grads(
+            cfg, [_to_f32_(_unflat({k: v.detach() for k, v in
+                                    _flat_leaves(p).items()})) for p in two],
+            x.float(), dy.float(), ctx | {"cross_embeds":
+                                          ctx["cross_embeds"].float()},
+            policy="reference")
+    worst, n, noisy = ("", 0.0, 0.0, 0.0), 0, {}
+    for b, kind in enumerate(("attn", "cross")):
+        _, dx_w, g_w = want[b]
+        _, dx_f, g_f = f32[b]
+        dx = got[0][0][b][1]
+        items = [("x", [_sq_sums(dx, dx_w)], dx_w, dx_f, [(dx, dx_f)])]
+        for k in g_w:
+            sh = got[0][1][b][k]
+            ranks = (0, 1) if sh.model_sharded else (0,)
+            mine = [(got[r][0][b][2][k], got[r][1][b][k]) for r in ranks]
+            items.append((k, [_sq_sums(g, s.take(g_w[k])) for g, s in mine],
+                          g_w[k], g_f[k],
+                          [(g, s.take(g_f[k])) for g, s in mine]))
+        for k, parts, a, f, mine in items:
+            num, _, den = _sq_sums(a, f)
+            e = (sum(p[0] for p in parts) / (den or 1.0)) ** 0.5
+            fl = (num / (den or 1.0)) ** 0.5
+            o = (sum(_sq_sums(g, f_part)[0] for g, f_part in mine)
+                 / (den or 1.0)) ** 0.5
+            ratio, held = _noise_ratio(e, fl, o)
+            log("tp", part="kinds_threads", arch=cfg.name,
+                leaf=f"'{kind}/{k}'", rel_l2=f"{e:.4g}", floor=f"{fl:.4g}",
+                sharded_floor=f"{o:.4g}", over_floor=f"{ratio:.3f}",
+                held=held)
+            n += 1
+            noisy[held] = noisy.get(held, 0) + 1
+            if ratio > worst[1]:
+                worst = (f"{kind}/{k}", ratio, e, fl)
+    if worst[1] > MESH_NOISE:
+        raise AssertionError(
+            f"tp kinds_threads vision: {worst[0]} is {worst[2]:.3g} from "
+            f"the unsplit gradient, {worst[1]:.3f} x its floor "
+            f"{worst[3]:.3g} (limit {MESH_NOISE})")
+    log("tp", part="kinds_threads", arch=cfg.name, mesh="data=1,model=2",
+        ranks="threads", blocks="attn,cross", S=KINDS_BLOCK_S,
+        **_axis_fields(got[0][2]), leaves=n,
+        held=json.dumps(noisy).replace(" ", ""), worst_leaf=f"'{worst[0]}'",
+        worst_over_floor=f"{worst[1]:.3f}", worst_rel_l2=f"{worst[2]:.4g}",
+        its_floor=f"{worst[3]:.4g}", limit=f"{MESH_NOISE}xfloor",
+        wall_s=f"{wall:.1f}", launches=_nonzero(counted))
+    del got, want, f32
+    _kinds_free(device)
+
+
+def _cross_of(cfg, B: int, device):
+    """A prefill batch's cross context of `cfg` (seeded, bf16) and its
+    key, or (None, None)."""
+    n, key = ((cfg.enc_seq, "enc_embeds") if cfg.family == "encdec" else
+              (cfg.n_img_tokens, "img_embeds") if cfg.family == "vlm"
+              else (0, None))
+    if not n:
+        return None, None
+    g = torch.Generator(device=device).manual_seed(41)
+    return torch.randn((B, n, cfg.d_model), generator=g,
+                       device=device).to(torch.bfloat16), key
+
+
+def kinds_cells_part(launches, tag: str, cfg, params, must=(),
+                     device="cuda") -> dict:
+    """[mesh] part=kinds_cells: `cfg` with the phase's weights on a (1, 1)
+    mesh over a one-rank group, "fused": `build_cell`'s prefill cell (B
+    1, KINDS_CELL_PROMPT tokens, the cross context where the arch takes
+    one), decode cell (KINDS_CELL_B slots, KINDS_CELL_DECODE
+    teacher-forced steps at per-slot positions over KINDS_CELL_SEQ rows),
+    decode-chunk cell (K KINDS_CELL_K) and session cell (two chunks),
+    and the paged session cell where the arch pages; each against the
+    plain path (eager) bit for bit: tokens, logits (`_reading_logits`)
+    and the cache. The counts are set to 0 before the cells and read
+    after (`must` must launch). Returns them."""
+    from repro_torch.cluster import cells
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing, collectives
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
+
+    B, S, K = KINDS_CELL_B, KINDS_CELL_SEQ, KINDS_CELL_K
+    inp = _mesh_inputs(cfg.vocab, device, B, S, KINDS_CELL_DECODE)
+    prompt = inp["prompt"][:, :KINDS_CELL_PROMPT]
+    cross, key = _cross_of(cfg, 1, device)
+    pre_batch = {"tokens": prompt} | ({key: cross} if key else {})
+    clen = steps.decode_cache_len(cfg, S)
+    pps = -((S + 1) // -MESH_PAGE)
+    paged = any(steps.paged_cache_mask(cfg, 1, 1).values())
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn, *a):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def prefill_run(step):
+        with _reading_logits() as seen:
+            return step(params, pre_batch), seen[0][0]
+
+    def decode_run(step, cache):
+        toks = []
+        with _reading_logits() as seen:
+            for t in range(KINDS_CELL_DECODE):
+                cache, tok = step(params, cache, {
+                    "tokens": inp["decode"][:, t:t + 1],
+                    "pos": inp["starts"] + t})
+                toks.append(tok)
+        return cache, torch.cat(toks, 1), torch.stack(seen[0])
+
+    def chunk_run(fn, cache):
+        tok = inp["decode"][:, :1].long()
+        z = lambda dt: torch.zeros(B, dtype=dt, device=device)
+        return fn(params, cache, tok.clone(), z(torch.bool), z(torch.int64),
+                  torch.zeros((), dtype=torch.int64, device=device),
+                  torch.full((), K, dtype=torch.int64, device=device))[-1]
+
+    def session_run(fn, state):
+        toks, emits = [], []
+        for _ in range(2):
+            state, t, e, _, _ = fn(params, state)
+            toks.append(t)
+            emits.append(e)
+        return torch.cat(toks, 1), torch.cat(emits, 1)
+
+    def caches(shards=None, pool=False):
+        if pool:
+            return steps.init_paged_cache(cfg, B, clen, n_pages=B * pps + 1,
+                                          page_size=MESH_PAGE, device=device,
+                                          shards=shards)
+        return steps.init_cache(cfg, B, clen, device=device, shards=shards)
+
+    kinds = ("session", "paged") if paged else ("session",)
+    plain_step = steps.make_decode_step(cfg, S, policy="fused")
+    plain = {"prefill": (prefill_run, steps.make_prefill_step(
+        cfg, policy="fused").eager),
+        "decode": (decode_run, plain_step, caches()),
+        "chunk": (chunk_run, engine.decode_chunk_fn(plain_step, K),
+                  caches())}
+    for k in kinds:
+        plain[k] = (session_run, engine.session_chunk_fn(
+            plain_step, K, cuda_graph=False), _session_state(
+                caches(pool=k == "paged"), inp,
+                pps if k == "paged" else None))
+    want, plain_ms = {}, {}
+    for name, (fn, *args) in plain.items():
+        want[name], plain_ms[name] = timed(fn, *args)
+    del plain
+    got, ms, coll = {}, {}, {}
+    with _one_rank_mesh(device) as mesh:
+        rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+        shape = ShapeConfig("kinds", S, B, "decode")
+        pre = cells.build_cell(cfg, ShapeConfig("kinds", KINDS_CELL_PROMPT,
+                                                1, "prefill"), mesh, rules,
+                               policy="fused")[0]
+        dec = cells.build_cell(cfg, shape, mesh, rules, policy="fused")[0]
+        chunk = cells.build_cell(cfg, shape, mesh, rules, policy="fused",
+                                 decode_chunk=K)[0]
+        sharded = {"prefill": (prefill_run, pre),
+                   "decode": (decode_run, dec, caches(dec.cache_shards)),
+                   "chunk": (chunk_run, chunk, caches(chunk.cache_shards))}
+        for k in kinds:
+            fn = cells.build_cell(cfg, shape, mesh, rules, policy="fused",
+                                  decode_chunk=K, session=True,
+                                  paged=k == "paged", page_size=MESH_PAGE)[0]
+            sharded[k] = (session_run, fn, _session_state(
+                caches(fn.cache_shards, k == "paged"), inp,
+                pps if k == "paged" else None))
+        launches.reset_counts()
+        for name, (fn, *args) in sharded.items():
+            collectives.reset_counts()
+            got[name], ms[name] = timed(fn, *args)
+            coll[name] = {k: v for k, v in collectives.counts().items()
+                          if v and not k.endswith("_bytes")}
+        counted = _check_counts(launches, f"mesh kinds_cells {tag}", must)
+        del sharded
+    same = {}
+    for name in got:
+        a, b = got[name], want[name]
+        if name == "decode":
+            same[name] = all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])
+                             ) and not _differing(a[0], b[0])
+        elif name == "chunk":
+            same[name] = torch.equal(a, b)
+        else:
+            same[name] = all(torch.equal(x, y) for x, y in zip(a, b))
+    emitted = all(bool(got[k][1].any()) for k in kinds)
+    if not all(same.values()) or not emitted:
+        raise AssertionError(f"mesh kinds_cells {tag}: bit-equal {same}, "
+                             f"emitted {emitted}")
+    for name in got:
+        log("mesh", part="kinds_cells", arch=cfg.name, cell=name,
+            mesh="data=1,model=1", layers=cfg.n_layers, bit_equal=True,
+            wall_ms=f"{ms[name]:.2f}", plain_wall_ms=f"{plain_ms[name]:.2f}",
+            collectives=json.dumps(coll[name]).replace(" ", ""))
+    log("mesh", part="kinds_cells", arch=cfg.name, B=B, S=S,
+        cache_rows=clen, chunk=K, prompt=KINDS_CELL_PROMPT,
+        cross=key or "none", paged=paged, launches=_nonzero(counted))
+    del got, want
+    _kinds_free(device)
+    return counted
+
+
+def kinds_mesh_threads_part(launches, tag: str, cfg, params,
+                            device="cuda") -> None:
+    """[mesh] part=kinds_threads: the decode step of `cfg` (the phase's
+    weights, their first KINDS_THREAD_LAYERS layers for recurrentgemma
+    and vision, the attention weights at their true fan-in) on a
+    (data=1, model=2) mesh of two thread ranks, KINDS_THREAD_STEPS
+    teacher-forced steps of MESH_SLOTS slots at per-slot positions over
+    MESH_THREAD_SEQ rows (whisper: its 448), each rank its blocks of the weights and of the
+    cache, against the one-rank step, as `mesh_threads_part` holds
+    qwen3-14b's: f32 logits ("reference") within MESH_F32_TOL relative
+    L2, bf16 ("fused") within MESH_NOISE times the step's noise floor
+    (the one-rank bf16 logits against f32), the same greedy token
+    wherever the one-rank top-2 margin passes 4 times its row's bf16
+    error."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.core import addressing
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+
+    L = KINDS_THREAD_LAYERS.get(cfg.name.removesuffix("-smoke"),
+                                cfg.n_layers)
+    cfg = dataclasses.replace(cfg, n_layers=L)
+    params = _true_fan_in(dict(params, blocks=params["blocks"][:L]))
+    B, S, n = MESH_SLOTS, MESH_THREAD_SEQ, KINDS_THREAD_STEPS
+    if "dec_pos" in params:             # whisper's learned positions: 448
+        S = min(S, params["dec_pos"].shape[0])
+    clen = steps.decode_cache_len(cfg, S)
+    rng = np.random.default_rng(43)
+    starts = torch.from_numpy((np.arange(B) * (S - n)) // B).to(device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, n)).astype(
+        np.int32)).to(device)
+
+    def run(step, p, cache):
+        for t in range(n):
+            cache, _ = step(p, cache, {"tokens": toks[:, t:t + 1],
+                                       "pos": starts + t})
+
+    def one_rank(policy, f32):
+        p = pytree.tree_map(lambda t: t.float(), params) if f32 else params
+        cache = steps.init_cache(cfg, B, clen, device=device)
+        if f32:
+            _to_f32_(cache)
+        with _reading_logits() as seen, \
+                (_f32_products(device) if f32 else contextlib.nullcontext()):
+            run(steps.make_decode_step(cfg, S, policy=policy), p, cache)
+        return [lg.cpu() for lg in seen[0]]
+
+    def two_ranks(policy, f32):
+        meta = {}
+
+        def rank(r):
+            mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+                                    torch.device(device).type)
+            rules = addressing.default_rules(mesh,
+                                             overrides=cfg.rules_overrides)
+            dec = steps.make_sharded_decode_step(cfg, mesh, S, rules=rules,
+                                                 policy=policy, batch=B)
+            local = addressing.take_tree(dec.shards, params)
+            cache = steps.init_cache(
+                cfg, B, clen, device=device,
+                shards=steps.cache_shards(cfg, mesh, rules, B, clen))
+            if f32:
+                _to_f32_(local)
+                _to_f32_(cache)
+            run(dec, local, cache)
+            meta[r] = (dec.axis, {k: tuple(v.shape) for k, v in
+                                  cache.items()})
+
+        with _reading_logits() as seen, \
+                (_f32_products(device) if f32 else contextlib.nullcontext()):
+            wall = _thread_ranks(f"mesh kinds_threads {tag}", rank)
+        return {r: [lg.cpu() for lg in seen[r]] for r in (0, 1)}, meta, wall
+
+    one, one32 = one_rank("fused", False), one_rank("reference", True)
+    _kinds_free(device)
+    launches.reset_counts()
+    got, meta, wall = two_ranks("fused", False)
+    counted = _check_counts(launches, f"mesh kinds_threads {tag}", ())
+    _kinds_free(device)
+    got32, _, wall32 = two_ranks("reference", True)
+    _kinds_free(device)
+    rel = lambda a, b: float((a.double() - b.double()).norm()
+                             / b.double().norm())
+    floor = [rel(one[t], one32[t]) for t in range(n)]
+    err = [max(rel(got[r][t], one[t]) for r in (0, 1)) for t in range(n)]
+    err32 = [max(rel(got32[r][t], one32[t]) for r in (0, 1))
+             for t in range(n)]
+    checked, differ = 0, []
+    for t in range(n):
+        want = one[t].double()
+        noise = (want - one32[t].double()).abs().amax(dim=-1)
+        top2 = want.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 4 * noise
+        checked += int(sure.sum())
+        for r in (0, 1):
+            if not torch.equal(got[r][t].argmax(-1)[sure],
+                               want.argmax(-1)[sure]):
+                differ.append((t, r))
+    over = [t for t in range(n) if err[t] > MESH_NOISE * floor[t]]
+    if max(err32) > MESH_F32_TOL or over or differ:
+        raise AssertionError(
+            f"mesh kinds_threads {tag}: f32 logits {max(err32):.3g} "
+            f"relative L2 (tol {MESH_F32_TOL}); bf16 above {MESH_NOISE} x "
+            f"the floor at steps {over} ({err} against {floor}); tokens "
+            f"differ at {differ}")
+    axis, shapes = meta[0]
+    log("mesh", part="kinds_threads", arch=cfg.name, mesh="data=1,model=2",
+        ranks="threads", layers=L, B=B, cache_rows=clen, steps=n,
+        **_axis_fields(axis),
+        cache_split=json.dumps({k: v for k, v in
+                                dataclasses.asdict(axis.cache).items()
+                                if v is not None}, default=str
+                               ).replace(" ", ""),
+        rank_cache=json.dumps(shapes).replace(" ", ""),
+        worst_rel_l2=f"{max(err):.4g}",
+        noise_floor=f"{min(floor):.4g}-{max(floor):.4g}",
+        worst_over_floor=f"{max(e / f for e, f in zip(err, floor)):.3f}",
+        limit=f"{MESH_NOISE}xfloor", f32_worst_rel_l2=f"{max(err32):.3g}",
+        f32_tol=MESH_F32_TOL, tokens_checked=checked, tokens_equal=True,
+        wall_s=f"{wall:.1f}", f32_wall_s=f"{wall32:.1f}",
+        launches=_nonzero(counted))
+    del got, got32, one, one32
+    _kinds_free(device)
+
+
+def kinds_parts(launches, tag: str, cfg, params, *, train_cfg=None,
+                fresh=None, batch=None, must=(), max_seq: int = 4096,
+                device="cuda") -> dict:
+    """The four kinds parts of one arch in its phase, on the phase's
+    weights `params`: [tp] part=kinds and kinds_threads (`train_cfg`
+    trained from `fresh()` on `batch`; vision: its two blocks), [mesh]
+    part=kinds_cells and kinds_threads. Returns the counted launches of
+    the (1, 1) parts, summed."""
+    t0 = time.perf_counter()
+    if train_cfg is None:
+        a = _walled("tp_kinds", kinds_blocks_part, launches, cfg, params,
+                    device)
+        _walled("tp_kinds_threads", kinds_blocks_threads_part, launches,
+                cfg, params, device)
+    else:
+        a = _walled("tp_kinds", kinds_train_part, launches, tag, train_cfg,
+                    fresh, batch, must, max_seq, device)
+        _walled("tp_kinds_threads", kinds_train_threads_part, launches, tag,
+                train_cfg, fresh, batch, max_seq, device)
+    b = _walled("mesh_kinds_cells", kinds_cells_part, launches, tag, cfg,
+                params, must, device)
+    _walled("mesh_kinds_threads", kinds_mesh_threads_part, launches, tag,
+            cfg, params, device)
+    log(tag, part="kinds", seconds=f"{time.perf_counter() - t0:.1f}",
+        gpu=f"'{gpu_line()}'" if device == "cuda" else "cpu")
+    out = {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+    for k, v in out.items():
+        KINDS_COUNTS[k] = KINDS_COUNTS.get(k, 0) + v
+    return out
+
+
+def _clone_tree(tree, layers: int | None = None):
+    """A copy of a parameter tree on its device; with `layers`, of its
+    first `layers` decoder layers only."""
+    from torch.utils import _pytree as pytree
+    if layers is not None:
+        tree = dict(tree, blocks=tree["blocks"][:layers])
+    return pytree.tree_map(torch.clone, tree)
 
 if __name__ == "__main__":
     sys.exit(main())

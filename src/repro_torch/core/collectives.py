@@ -19,7 +19,10 @@ read inside it), whose gradient each rank then holds only a part of.
 `reduce_from_ranks` is an all-reduce forward and the identity backward:
 it sums the ranks' partial outputs (a row-parallel product's) into the
 whole value. `max_over_ranks` is a max with no gradient (the
-vocab-parallel loss's).
+vocab-parallel loss's). `scatter_from_ranks` is a reduce-scatter forward
+and an all-gather of the gradient backward: a product split on its
+input channels (the RG-LRU's gates) sums its partials and each rank
+keeps its own output channels.
 
 Serving on a mesh runs under `inference_mode` and uses the plain forms:
 `all_gather_dim` of the query heads and the new K/V rows
@@ -57,7 +60,8 @@ import torch
 import torch.distributed as dist
 
 NAMES = ("all_gather", "reduce_scatter", "all_reduce", "copy_to_ranks",
-         "reduce_from_ranks", "max_over_ranks")
+         "reduce_from_ranks", "max_over_ranks", "gates_reduce_scatter",
+         "gates_all_gather")
 # the serving collectives (counted by these names where they are issued)
 SERVE_NAMES = ("heads_all_gather", "lse_max", "lse_sum", "lse_out",
                "pool_all_gather", "argmax_all_gather", "steps_max")
@@ -120,19 +124,19 @@ def all_gather_dim(local: torch.Tensor, dim: int, group, *,
     return out.movedim(0, dim).contiguous()
 
 
-def reduce_scatter_dim(whole: torch.Tensor, dim: int,
-                       group) -> torch.Tensor:
+def reduce_scatter_dim(whole: torch.Tensor, dim: int, group, *,
+                       name: str = "reduce_scatter") -> torch.Tensor:
     """The sum over the ranks of `whole`, cut along `dim` into one chunk a
     rank: this rank's chunk (a new tensor)."""
     group = _need(group)
     n = dist.get_world_size(group)
     if n == 1:
-        _count("reduce_scatter", whole)
+        _count(name, whole)
         return whole.clone(memory_format=torch.contiguous_format)
     front = whole.movedim(dim, 0).contiguous()
     out = torch.empty((front.shape[0] // n, *front.shape[1:]),
                       dtype=whole.dtype, device=whole.device)
-    _count("reduce_scatter", front)
+    _count(name, front)
     _SCATTER(out, front, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -192,6 +196,18 @@ class _ReduceFromRanks(torch.autograd.Function):
         return grad, None
 
 
+class _ScatterFromRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(t, dim, group, name="gates_reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_dim(grad, ctx.dim, ctx.group,
+                              name="gates_all_gather"), None, None
+
+
 class _GatherForLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, token, shard, dim, group, sink):
@@ -244,6 +260,21 @@ def reduce_from_ranks(t: torch.Tensor, group) -> torch.Tensor:
     if not torch.is_grad_enabled():
         return all_reduce(_dense(t), group, name="reduce_from_ranks")
     return _ReduceFromRanks.apply(t, group)
+
+
+def scatter_from_ranks(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the ranks of `t`, each rank's partial of a whole
+    value, cut along `dim`: this rank's chunk (a new tensor; counted as
+    ``gates_reduce_scatter``). Backward, every rank's chunk of the
+    gradient gathered along `dim` (``gates_all_gather``): each rank's
+    partial reads every chunk of the sum, whose gradients the other
+    ranks hold. The RG-LRU's gate products, split on their input
+    channels, take it."""
+    group = _need(group)
+    if not torch.is_grad_enabled():
+        return reduce_scatter_dim(t, dim % t.ndim, group,
+                                  name="gates_reduce_scatter")
+    return _ScatterFromRanks.apply(t, dim % t.ndim, group)
 
 
 def max_over_ranks(t: torch.Tensor, group, *,

@@ -27,14 +27,22 @@ discards what a block returns, and a captured CUDA graph writes to the
 addresses it was captured on, so no decode allocates a state tensor.
 
 With a `ModelAxis` under the block context's "model_axis" (the
-tensor-parallel train step, `steps.forward(axis=)`) "attn" and
-"attn_moe" compute the splits the plan makes over the "model" axis,
-which GSPMD derives for the reference: each rank its query heads (and
-its KV heads, or the KV heads its query heads read), its d_ff columns
-of an FFN or of every expert. A split sub-block's input enters through
+tensor-parallel train step, `steps.forward(axis=)`, and the sharded
+serving steps) every kind computes the splits the plan makes over the
+"model" axis, which GSPMD derives for the reference: each rank its query
+heads (and its KV heads, or the KV heads its query heads read) of a
+self-, cross- or encoder attention, its d_ff columns of an FFN (swiglu,
+geglu or whisper's gelu MLP) or of every expert, its channels of the
+RG-LRU recurrence. A split sub-block's input enters through
 `collectives.copy_to_ranks` and its partial output leaves through
-`collectives.reduce_from_ranks`; a sub-block the plan keeps whole runs
-as it does on one device, on every rank, with no collective.
+`collectives.reduce_from_ranks`, the residual (and an output bias)
+added once, on model rank 0; a gated sub-block (vision's cross) sums
+its partials in f32 before its gate multiplies the sum (`_row_sum`);
+the RG-LRU's two gate products, split on their input channels, sum
+their partials with a reduce-scatter (`collectives.scatter_from_ranks`). A sub-block the plan keeps whole
+(xlstm's mLSTM and sLSTM under its own rules, heads the model size does
+not divide) runs as it does on one device, on every rank, with no
+collective.
 """
 
 from __future__ import annotations
@@ -53,9 +61,9 @@ from repro_torch.kernels.ref import ACTIVATIONS
 from . import attention as attn_lib
 from .layers import (ParamSpec, _mm, apply_ffn, attn_specs, ffn_specs,
                      fused_attention_proj, fused_matmul_bias_act,
-                     fused_matmul_residual, fused_norm_matmul, layer_norm,
-                     out_project, product, qkv_postprocess, qkv_project,
-                     rms_norm, wide)
+                     fused_matmul_residual, fused_norm_matmul, gelu_mlp,
+                     layer_norm, out_project, product, qkv_postprocess,
+                     qkv_project, rms_norm, wide)
 
 F32 = torch.float32
 
@@ -101,9 +109,11 @@ class ModelAxis:
     """What the plan splits over the "model" axis, for this rank: its
     coordinate `rank` of `size` on the axis and the axis's process group;
     the query heads (`heads`), KV heads (`kv_heads`) and vocabulary rows
-    (`vocab`) it owns (a slice of the whole dim; None where the plan
-    keeps the dim whole), and whether a dense FFN's d_ff (`ffn`) and the
-    experts' d_ff (`expert_ffn`) are split. A split dim is split also at
+    (`vocab`) and channels of the RG-LRU's width (`lru`) it owns (a
+    slice of the whole dim; None where the plan keeps the dim whole), and
+    whether a dense FFN's d_ff (`ffn`) and the experts' d_ff
+    (`expert_ffn`) are split. The lru width and d_ff are both logical
+    "ffn", but a model size may divide one and not the other. A split dim is split also at
     size 1: the plan names the axis, and the step runs its collectives
     (identities there)."""
     group: Any
@@ -114,6 +124,7 @@ class ModelAxis:
     ffn: bool = False
     expert_ffn: bool = False
     vocab: slice | None = None
+    lru: slice | None = None
     cache: "CacheSplit | None" = None
 
 
@@ -124,19 +135,49 @@ class CacheSplit:
     private cache of `cache_len` rows where kv_seq is split (None: whole);
     `heads`, the KV heads its private cache holds where kv_heads is split
     instead (None: all); `pool_heads`, the KV heads its block of the paged
-    pool holds (None: all)."""
+    pool holds (None: all); `cross_heads`, the KV heads its block of a
+    cross-attention cache (whisper's cross K/V, vision's image K/V:
+    ("batch", None, "kv_heads", None)) holds (None: all)."""
     cache_len: int
     rows: slice | None = None
     heads: slice | None = None
     pool_heads: slice | None = None
+    cross_heads: slice | None = None
 
 
-def _copy_in(axis, p: dict, prefix: str) -> dict:
-    """`p` with each leaf whose name starts with `prefix` (a norm's scale
-    and bias) through `copy_to_ranks`: read inside a split computation,
-    its gradient is summed over the model ranks."""
+def _copy_in(axis, p: dict, prefix) -> dict:
+    """`p` with each leaf whose name starts with `prefix` (a str or a
+    tuple of them: a norm's scale and bias, a gate) through
+    `copy_to_ranks`: read inside a split computation, its gradient is
+    summed over the model ranks."""
     return {k: collectives.copy_to_ranks(v, axis.group)
             if k.startswith(prefix) else v for k, v in p.items()}
+
+
+def _partial_out(axis, part, res):
+    """The sum over the model ranks (`reduce_from_ranks`) of this rank's
+    partial `part` of a row-parallel output, the residual `res` (the
+    copied input, so that its gradient too is summed once) added into
+    model rank 0's partial before the sum. At one rank: res + part."""
+    return collectives.reduce_from_ranks(
+        res + part if axis.rank == 0 else part, axis.group)
+
+
+def _split_heads(axis) -> bool:
+    """Does `axis` split the query heads (the attention sub-blocks then
+    compute this rank's heads)?"""
+    return axis is not None and axis.heads is not None
+
+
+def _attn_view(p: dict, key: str, norm: str) -> dict:
+    """The attention sub-block `key` of p and its norm `norm` under the
+    attn block's names ("attn", "ln_attn"...), for the split attention
+    code (whisper's decoder self-attention)."""
+    view = {"attn": p[key]}
+    for tail in ("", "_s", "_b"):
+        if norm + tail in p:
+            view["ln_attn" + tail] = p[norm + tail]
+    return view
 
 
 def _kv_read(cfg, heads: slice):
@@ -202,7 +243,7 @@ def _plain_qkv(cfg, p, x, ctx):
 
 def _self_attention(cfg, p, x, ctx, *, window, causal=True):
     axis = ctx.get("model_axis")
-    if axis is not None and axis.heads is not None:
+    if _split_heads(axis):
         return _split_self_attention(cfg, p, x, ctx, axis, window=window,
                                      causal=causal)
     if _fused_rms(cfg):
@@ -223,7 +264,8 @@ def _self_attention(cfg, p, x, ctx, *, window, causal=True):
     return x + out_project(p["attn"], o)
 
 
-def _split_self_attention(cfg, p, x, ctx, axis, *, window, causal):
+def _split_self_attention(cfg, p, x, ctx, axis, *, window, causal,
+                          schedule=None):
     """`_self_attention` on this rank's query heads: x and the norm's
     scale enter through `copy_to_ranks`; the rank projects its q, k and v
     heads, attends and projects its heads' rows of wo into a partial of
@@ -231,8 +273,10 @@ def _split_self_attention(cfg, p, x, ctx, axis, *, window, causal):
     residual is added once, on model rank 0, into its partial before the
     sum (the copied x, so that its gradient too is summed once); where a
     fused kernel adds the residual in its epilogue, the other ranks give
-    it zeros. At one rank this is `_self_attention`'s arithmetic, bit for
-    bit."""
+    it zeros. `schedule` pins the attention's schedule (whisper's
+    encoder: "direct"; None: the config's). At one rank this is
+    `_self_attention`'s arithmetic (and `enc_attn_block_apply`'s), bit
+    for bit."""
     xc = collectives.copy_to_ranks(x, axis.group)
     lp = _copy_in(axis, p, "ln_attn")
     lp["attn"] = _split_attn(cfg, p["attn"], axis)
@@ -253,63 +297,101 @@ def _split_self_attention(cfg, p, x, ctx, axis, *, window, causal):
         q, k, v = _plain_qkv(cfg, lp, xc, ctx)
         o = attn_lib.attention(q, k, v, n_kv=k.shape[2], causal=causal,
                                window=window, chunk=cfg.attn_chunk,
-                               schedule=cfg.attn_schedule)
+                               schedule=schedule or cfg.attn_schedule)
         part = out_project(lp["attn"], o)
         part = part if res is None else res + part
     return collectives.reduce_from_ranks(part, axis.group)
 
 
-def _split_ffn_residual(cfg, p, x, axis):
-    """`_ffn_residual` of a swiglu MLP (the kinds of
-    `steps.MODEL_AXIS_KINDS` have no other) on this rank's d_ff columns:
+def _ffn_route(cfg) -> str:
+    """The route `_ffn_residual` takes under the active policy: "norm_matmul"
+    (a swiglu or geglu MLP after an rmsnorm under "fused": the norm in
+    the gate/up prologues (row 1), the residual in the down projection's
+    epilogue (row 2)), "bias_act" (a gelu MLP under "fused": row 7 on
+    both products) or "plain"."""
+    if current_policy().fused:
+        if cfg.norm == "rms" and cfg.ffn_kind in ("swiglu", "geglu"):
+            return "norm_matmul"
+        if cfg.ffn_kind == "gelu":
+            return "bias_act"
+    return "plain"
+
+
+def _split_ffn_residual(cfg, p, x, axis, route: str):
+    """`_ffn_residual` on this rank's d_ff columns, by `route`
+    (`_ffn_route`; whisper's decoder MLP is "plain" under every policy):
     x and the norm's scale enter through `copy_to_ranks`, gate and up
-    are column slices (row 1 at N = d_ff / model under "fused"), the
-    down projection a row slice whose partial product
-    `reduce_from_ranks` sums. Row 2 takes
-    the partial with the residual in its epilogue, the copied x on model
-    rank 0 and zeros on the others: row 5 (`ops.matmul`) has no autograd
-    Function, so under grad it could not take the partial alone, and at
-    one rank row 2 rounds bf16(bf16(h @ W) + x) as the unsplit block
-    does."""
+    (or w_in and b_in) are column slices, the down projection (w_out) a
+    row slice whose partial product `reduce_from_ranks` sums.
+
+    * "norm_matmul": row 1 at N = d_ff / model; row 2 takes the partial
+      with the residual in its epilogue, the copied x on model rank 0
+      and zeros on the others: row 5 (`ops.matmul`) has no autograd
+      Function, so under grad it could not take the partial alone, and
+      at one rank row 2 rounds bf16(bf16(h @ W) + x) as the unsplit
+      block does.
+    * "bias_act": row 7 at N = d_ff / model, then at K = d_ff / model
+      with the output bias b_out on model rank 0 and zeros elsewhere.
+    * "plain": the MLP's products on the columns; a gelu MLP's b_out
+      goes into model rank 0's partial only (bf16(h @ W) + b_out, then
+      + x, as the unsplit block rounds them).
+
+    b_out, read on one rank but whole on each, enters through
+    `copy_to_ranks` as the residual does: its gradient is rank 0's, on
+    every rank. The other ranks add it times 0: every rank's copy then
+    takes a gradient, so that each issues the copy's all-reduce in
+    backward (a copy no gradient reached would skip it on those ranks
+    alone, and the ranks' collectives would part)."""
     xc = collectives.copy_to_ranks(x, axis.group)
     lp = _copy_in(axis, p, "ln_ffn")
     f = p["ffn"]
-    if current_policy().fused and cfg.norm == "rms":
+    first = axis.rank == 0
+    if route == "norm_matmul":
         g = fused_norm_matmul(xc, lp["ln_ffn"], f["w_gate"])
         u = fused_norm_matmul(xc, lp["ln_ffn"], f["w_up"])
         act = F.silu if cfg.ffn_kind == "swiglu" else ACTIVATIONS["gelu"]
         h = act(g.to(F32)).to(x.dtype) * u
-        part = fused_matmul_residual(
-            h, f["w_down"], xc if axis.rank == 0 else torch.zeros_like(xc))
+        return collectives.reduce_from_ranks(fused_matmul_residual(
+            h, f["w_down"], xc if first else torch.zeros_like(xc)),
+            axis.group)
+    n = _norm(cfg, lp, "ln_ffn", xc)
+    if cfg.ffn_kind == "gelu":
+        b_out = collectives.copy_to_ranks(f["b_out"], axis.group)
+        b_out = b_out if first else b_out * 0
+        if route == "bias_act":
+            h = fused_matmul_bias_act(n, f["w_in"], f["b_in"], "gelu")
+            part = fused_matmul_bias_act(h, f["w_out"], b_out, "none")
+        else:
+            part = gelu_mlp(n, f["w_in"], f["b_in"], f["w_out"], b_out)
     else:
-        part = apply_ffn(f, _norm(cfg, lp, "ln_ffn", xc), kind=cfg.ffn_kind)
-        part = xc + part if axis.rank == 0 else part
-    return collectives.reduce_from_ranks(part, axis.group)
+        part = apply_ffn(f, n, kind=cfg.ffn_kind)
+    return _partial_out(axis, part, xc)
 
 
-def _ffn_residual(cfg, p, x, axis: ModelAxis | None = None):
+def _ffn_residual(cfg, p, x, axis: ModelAxis | None = None,
+                  route: str | None = None):
     """x + FFN(norm(x)); under "fused" a swiglu or geglu MLP folds the
     rmsnorm into the gate/up prologues and the residual into the
     down-projection epilogue, and a gelu MLP takes the bias + activation
-    epilogue on both of its products. With `axis` splitting d_ff, this
+    epilogue on both of its products (`route`, "plain" for whisper's
+    decoder, which takes no fused kernel under any policy, as in the
+    reference; None: `_ffn_route`). With `axis` splitting d_ff, this
     rank's columns (`_split_ffn_residual`)."""
+    route = route or _ffn_route(cfg)
     if axis is not None and axis.ffn:
-        return _split_ffn_residual(cfg, p, x, axis)
-    if current_policy().fused:
-        f = p["ffn"]
-        if cfg.norm == "rms" and cfg.ffn_kind in ("swiglu", "geglu"):
-            g = fused_norm_matmul(x, p["ln_ffn"], f["w_gate"])
-            u = fused_norm_matmul(x, p["ln_ffn"], f["w_up"])
-            act = F.silu if cfg.ffn_kind == "swiglu" else ACTIVATIONS["gelu"]
-            h = act(g.to(F32)).to(x.dtype) * u
-            return fused_matmul_residual(h, f["w_down"], x)
-        if cfg.ffn_kind == "gelu":
-            h = fused_matmul_bias_act(_norm(cfg, p, "ln_ffn", x), f["w_in"],
-                                      f["b_in"], "gelu")
-            return x + fused_matmul_bias_act(h, f["w_out"], f["b_out"],
-                                             "none")
-    return x + apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x),
-                         kind=cfg.ffn_kind)
+        return _split_ffn_residual(cfg, p, x, axis, route)
+    f = p["ffn"]
+    if route == "norm_matmul":
+        g = fused_norm_matmul(x, p["ln_ffn"], f["w_gate"])
+        u = fused_norm_matmul(x, p["ln_ffn"], f["w_up"])
+        act = F.silu if cfg.ffn_kind == "swiglu" else ACTIVATIONS["gelu"]
+        h = act(g.to(F32)).to(x.dtype) * u
+        return fused_matmul_residual(h, f["w_down"], x)
+    if route == "bias_act":
+        h = fused_matmul_bias_act(_norm(cfg, p, "ln_ffn", x), f["w_in"],
+                                  f["b_in"], "gelu")
+        return x + fused_matmul_bias_act(h, f["w_out"], f["b_out"], "none")
+    return x + apply_ffn(f, _norm(cfg, p, "ln_ffn", x), kind=cfg.ffn_kind)
 
 
 def attn_block_apply(cfg, p, x, ctx, *, window=None):
@@ -546,25 +628,61 @@ def _cross_q(cfg, p, x):
     return qc + p["cross"]["bq"] if cfg.qkv_bias else qc
 
 
+def _enc_kv(cfg, a, enc):
+    """The cross K/V of the encoder output `enc` with the cross weights
+    `a` (this rank's KV heads, or those its query heads read, under a
+    split)."""
+    kc = _mm(enc, a["wk"], "bsd,dhk->bshk")
+    vc = _mm(enc, a["wv"], "bsd,dhk->bshk")
+    if cfg.qkv_bias:
+        kc, vc = kc + a["bk"], vc + a["bv"]
+    return kc, vc
+
+
+def _split_cross_attention(cfg, p, x, enc, axis):
+    """Whisper's cross-attention on this rank's query heads: x and the
+    norm's scale enter through `copy_to_ranks`; the rank projects its
+    query heads of x and its KV heads of the encoder output `enc` (the
+    ones its query heads read where the plan keeps the KV heads whole),
+    attends and projects its heads' rows of wo into a partial that
+    `reduce_from_ranks` sums, the residual on model rank 0. `enc` has
+    entered through `copy_to_ranks` once for every layer
+    (`steps.forward`): each rank's layers hand the encoder only their own
+    heads' share of its gradient."""
+    xc = collectives.copy_to_ranks(x, axis.group)
+    lp = _copy_in(axis, p, "ln_cross")
+    a = lp["cross"] = _split_attn(cfg, p["cross"], axis)
+    kc, vc = _enc_kv(cfg, a, enc)
+    o = attn_lib.cross_attention(_cross_q(cfg, lp, xc), kc, vc,
+                                 n_kv=kc.shape[2], chunk=cfg.attn_chunk)
+    return _partial_out(axis, out_project(a, o), xc)
+
+
 def attn_cross_block_apply(cfg, p, x, ctx):
     """Causal self-attention, cross-attention to ctx["cross_embeds"] (the
     encoder output), then the MLP. The MLP is `apply_ffn` under every
-    policy: the reference's decoder takes no fused kernel."""
-    q, k, v = _self_qkv(cfg, p, x, ctx)
-    o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=True,
-                           chunk=cfg.attn_chunk, schedule=cfg.attn_schedule)
-    x = x + out_project(p["self"], o)
+    policy: the reference's decoder takes no fused kernel. Under a model
+    axis each sub-block computes this rank's query heads and d_ff
+    columns as the plan splits them (`_split_self_attention`,
+    `_split_cross_attention`, `_split_ffn_residual`)."""
+    axis = ctx.get("model_axis")
     enc = ctx["cross_embeds"]
-    kc = _mm(enc, p["cross"]["wk"], "bsd,dhk->bshk")
-    vc = _mm(enc, p["cross"]["wv"], "bsd,dhk->bshk")
-    if cfg.qkv_bias:
-        kc, vc = kc + p["cross"]["bk"], vc + p["cross"]["bv"]
-    o = attn_lib.cross_attention(_cross_q(cfg, p, x), kc, vc,
-                                 n_kv=cfg.n_kv_heads, chunk=cfg.attn_chunk)
-    x = x + out_project(p["cross"], o)
-    x = x + apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x),
-                      kind=cfg.ffn_kind)
-    return x, 0.0
+    if _split_heads(axis):
+        x = _split_self_attention(cfg, _attn_view(p, "self", "ln_self"), x,
+                                  ctx, axis, window=None, causal=True)
+        x = _split_cross_attention(cfg, p, x, enc, axis)
+    else:
+        q, k, v = _self_qkv(cfg, p, x, ctx)
+        o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=True,
+                               chunk=cfg.attn_chunk,
+                               schedule=cfg.attn_schedule)
+        x = x + out_project(p["self"], o)
+        kc, vc = _enc_kv(cfg, p["cross"], enc)
+        o = attn_lib.cross_attention(_cross_q(cfg, p, x), kc, vc,
+                                     n_kv=cfg.n_kv_heads,
+                                     chunk=cfg.attn_chunk)
+        x = x + out_project(p["cross"], o)
+    return _ffn_residual(cfg, p, x, axis, "plain"), 0.0
 
 
 def attn_cross_cache_specs(cfg, B: int, cache_len: int) -> dict:
@@ -575,30 +693,88 @@ def attn_cross_cache_specs(cfg, B: int, cache_len: int) -> dict:
             "cross_k": cross, "cross_v": cross}
 
 
+def _cross_decode(cfg, q, k_cache, v_cache, axis):
+    """One token's attention of q against a cross-attention cache read
+    whole along its rows (whisper's cross K/V, vision's image K/V). Under
+    a model axis (`axis.cache`) q holds this rank's query heads (all
+    where the plan keeps them whole) and the cache block the rank's KV
+    heads (`cross_heads`) or every KV head, of which the query heads
+    read theirs (`_heads_attention`)."""
+    n = k_cache.shape[1]
+    if axis is None or axis.cache is None:
+        return attn_lib.decode_attention(q, k_cache, v_cache, n,
+                                         n_kv=cfg.n_kv_heads)
+    return _heads_attention(cfg, q, k_cache, v_cache, n - 1, axis,
+                            axis.cache.cross_heads is None, window=None,
+                            rolling=False)
+
+
+def _row_sum(axis, eq: str, h, w):
+    """`_mm(h, w, eq)` of this rank's rows of w (a row-parallel product)
+    summed over the model ranks, rounded once to h's dtype as the unsplit
+    product rounds it: the ranks' partials are summed in f32 (at one rank
+    the product is rounded as the unsplit block rounds it). A gated
+    block's scalar gate reads the sum's every element, and partials
+    rounded to bf16 before the sum would move its gradient by several
+    times a bf16 run's own error."""
+    if axis.size == 1:
+        return collectives.reduce_from_ranks(_mm(h, w, eq), axis.group)
+    return collectives.reduce_from_ranks(product(eq, h, w, F32),
+                                         axis.group).to(h.dtype)
+
+
+def _row_out(axis, a, o, x, gate=None):
+    """x + out_project(o), or x + gate * out_project(o): where `axis`
+    splits the heads, this rank's heads' partial summed over the model
+    ranks (ungated: the residual on model rank 0, before the sum; gated:
+    the partials summed in f32 (`_row_sum`) and the gate multiplying the
+    sum, so that every rank computes its whole gradient, the residual
+    added after it); whole on every rank where it does not."""
+    if gate is None:
+        y = out_project(a, o)
+        return _partial_out(axis, y, x) if _split_heads(axis) else x + y
+    if _split_heads(axis):
+        y = _row_sum(axis, "bshk,hkd->bsd", o, a["wo"])
+    else:
+        y = out_project(a, o)
+    return x + gate * y
+
+
 def attn_cross_block_decode(cfg, p, x, cache, pos, ctx):
     """One token through the decoder block, its cache updated in place.
     Under a page table (`ctx["pages"]`) the self K/V go through the shared
     pool; the cross K/V stay private and are read as they stand: nothing
     fills them from the encoder (zeros from init, as in the reference;
-    ROADMAP Queue 3)."""
-    q, k, v = _self_qkv(cfg, p, x, ctx)
-    if _paged(ctx, None):
-        kc, vc = _paged_write(ctx, cache["self_k"], cache["self_v"], k, v,
-                              pos)
-        o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1, ctx["pages"],
-                                            n_kv=cfg.n_kv_heads)
+    ROADMAP Queue 3). Under a model axis with a `CacheSplit` (the sharded
+    decode step) the self-attention takes `_split_attention_decode` on
+    the self cache's block, the cross-attention this rank's query heads
+    against its cross cache block (`_cross_decode`) and the MLP its d_ff
+    columns."""
+    axis = ctx.get("model_axis")
+    if axis is not None and axis.cache is not None:
+        x, new = _split_attention_decode(
+            cfg, _attn_view(p, "self", "ln_self"), x,
+            {"k": cache["self_k"], "v": cache["self_v"]}, pos, ctx, axis,
+            window=None, fused=False)
+        kc, vc = new["k"], new["v"]
     else:
-        kc, vc = attn_lib.update_cache(cache["self_k"], cache["self_v"], k,
-                                       v, pos)
-        o = attn_lib.decode_attention(q, kc, vc, pos + 1,
-                                      n_kv=cfg.n_kv_heads)
-    x = x + out_project(p["self"], o)
-    o = attn_lib.decode_attention(_cross_q(cfg, p, x), cache["cross_k"],
-                                  cache["cross_v"], cfg.enc_seq,
-                                  n_kv=cfg.n_kv_heads)
-    x = x + out_project(p["cross"], o)
-    x = x + apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x),
-                      kind=cfg.ffn_kind)
+        q, k, v = _self_qkv(cfg, p, x, ctx)
+        if _paged(ctx, None):
+            kc, vc = _paged_write(ctx, cache["self_k"], cache["self_v"], k,
+                                  v, pos)
+            o = attn_lib.paged_decode_attention(q, kc, vc, pos + 1,
+                                                ctx["pages"],
+                                                n_kv=cfg.n_kv_heads)
+        else:
+            kc, vc = attn_lib.update_cache(cache["self_k"], cache["self_v"],
+                                           k, v, pos)
+            o = attn_lib.decode_attention(q, kc, vc, pos + 1,
+                                          n_kv=cfg.n_kv_heads)
+        x = x + out_project(p["self"], o)
+    o = _cross_decode(cfg, _cross_q(cfg, p, x), cache["cross_k"],
+                      cache["cross_v"], axis)
+    x = _row_out(axis, p["cross"], o, x)
+    x = _ffn_residual(cfg, p, x, axis, "plain")
     return x, {"self_k": kc, "self_v": vc, "cross_k": cache["cross_k"],
                "cross_v": cache["cross_v"]}
 
@@ -606,15 +782,20 @@ def attn_cross_block_decode(cfg, p, x, cache, pos, ctx):
 def enc_attn_block_apply(cfg, p, x, ctx):
     """Bidirectional self-attention (direct), then the MLP through
     `_ffn_residual`, which under "fused" is whisper's matmul_bias_act
-    path."""
-    q, k, v = qkv_project(p["attn"], _norm(cfg, p, "ln_attn", x),
-                          ctx["positions"], n_heads=cfg.n_heads,
-                          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                          qkv_bias=cfg.qkv_bias, rope=False)
-    o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=False,
-                           schedule="direct")
-    x = x + out_project(p["attn"], o)
-    return _ffn_residual(cfg, p, x), 0.0
+    path; under a model axis, this rank's heads and d_ff columns."""
+    axis = ctx.get("model_axis")
+    if _split_heads(axis):
+        x = _split_self_attention(cfg, p, x, ctx, axis, window=None,
+                                  causal=False, schedule="direct")
+    else:
+        q, k, v = qkv_project(p["attn"], _norm(cfg, p, "ln_attn", x),
+                              ctx["positions"], n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                              qkv_bias=cfg.qkv_bias, rope=False)
+        o = attn_lib.attention(q, k, v, n_kv=cfg.n_kv_heads, causal=False,
+                               schedule="direct")
+        x = x + out_project(p["attn"], o)
+    return _ffn_residual(cfg, p, x, axis), 0.0
 
 
 # ----------------------------------------------------------------------------
@@ -829,26 +1010,66 @@ def _image_q(cfg, p, x):
     return rms_norm(q, p["attn"]["q_norm"])
 
 
-def _gated_tail(cfg, p, x, o):
-    """x + tanh(gate_attn) * out_project(o), then + tanh(gate_ffn) * FFN;
-    the gates are f32 parameters, rounded to x's dtype after the tanh."""
-    ga = torch.tanh(p["gate_attn"]).to(x.dtype)
-    gf = torch.tanh(p["gate_ffn"]).to(x.dtype)
-    x = x + ga * out_project(p["attn"], o)
-    y = apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x), kind=cfg.ffn_kind)
-    return x + gf * y
+def _image_kv(a, emb):
+    """The image K/V (k normed after its projection) of the embeddings
+    `emb` with the attention weights `a`."""
+    k = rms_norm(_mm(emb, a["wk"], "bsd,dhk->bshk"), a["k_norm"])
+    return k, _mm(emb, a["wv"], "bsd,dhk->bshk")
+
+
+def _gate(p, name: str, x):
+    """tanh of the f32 gate p[name], rounded to x's dtype."""
+    return torch.tanh(p[name]).to(x.dtype)
+
+
+def _gated_ffn(cfg, p, x, axis: ModelAxis | None):
+    """x + tanh(gate_ffn) * FFN(norm(x)) on the plain route (a swiglu or
+    geglu MLP); with `axis` splitting d_ff, this rank's columns (x and
+    the norm's scale through `copy_to_ranks`), the down projection's
+    partials summed in f32 over the model ranks (`_row_sum`) before the
+    gate multiplies the sum: every rank then computes the gate's whole
+    gradient, and the residual stays outside the sum."""
+    if axis is None or not axis.ffn:
+        y = apply_ffn(p["ffn"], _norm(cfg, p, "ln_ffn", x), kind=cfg.ffn_kind)
+    else:
+        xc = collectives.copy_to_ranks(x, axis.group)
+        lp = _copy_in(axis, p, "ln_ffn")
+        f, n = lp["ffn"], _norm(cfg, lp, "ln_ffn", xc)
+        g = _mm(n, f["w_gate"], "...d,df->...f")
+        u = _mm(n, f["w_up"], "...d,df->...f")
+        act = F.silu if cfg.ffn_kind == "swiglu" else ACTIVATIONS["gelu"]
+        h = act(g.to(F32)).to(x.dtype) * u
+        y = _row_sum(axis, "...f,fd->...d", h, f["w_down"])
+    return x + _gate(p, "gate_ffn", x) * y
 
 
 def cross_block_apply(cfg, p, x, ctx):
     """Cross-attention of the text to ctx["cross_embeds"] (the image
-    embeddings, taken as they come), k normed after its projection."""
+    embeddings, taken as they come), k normed after its projection, then
+    x + tanh(gate_attn) * out_project(o) and the gated FFN; the gates are
+    f32 parameters, rounded to x's dtype after the tanh. Under a model
+    axis splitting the heads the rank projects its query heads and the
+    KV heads it owns or reads (`_split_attn`; x, the norm's scale and
+    the q/k-norm scales through `copy_to_ranks`), and its partial of the
+    out-projection is summed over the ranks before the gate multiplies
+    it (`_row_out`); the FFN takes its d_ff columns (`_gated_ffn`)."""
+    axis = ctx.get("model_axis")
     emb = ctx["cross_embeds"]
-    k = rms_norm(_mm(emb, p["attn"]["wk"], "bsd,dhk->bshk"),
-                 p["attn"]["k_norm"])
-    v = _mm(emb, p["attn"]["wv"], "bsd,dhk->bshk")
-    o = attn_lib.cross_attention(_image_q(cfg, p, x), k, v,
-                                 n_kv=cfg.n_kv_heads, chunk=cfg.attn_chunk)
-    return _gated_tail(cfg, p, x, o), 0.0
+    if _split_heads(axis):
+        xc = collectives.copy_to_ranks(x, axis.group)
+        lp = _copy_in(axis, p, "ln_attn")
+        a = lp["attn"] = _split_attn(cfg, p["attn"], axis)
+        k, v = _image_kv(a, emb)
+        o = attn_lib.cross_attention(_image_q(cfg, lp, xc), k, v,
+                                     n_kv=k.shape[2], chunk=cfg.attn_chunk)
+    else:
+        a = p["attn"]
+        k, v = _image_kv(a, emb)
+        o = attn_lib.cross_attention(_image_q(cfg, p, x), k, v,
+                                     n_kv=cfg.n_kv_heads,
+                                     chunk=cfg.attn_chunk)
+    x = _row_out(axis, a, o, x, _gate(p, "gate_attn", x))
+    return _gated_ffn(cfg, p, x, axis), 0.0
 
 
 def cross_cache_specs(cfg, B: int, cache_len: int) -> dict:
@@ -861,11 +1082,12 @@ def cross_cache_specs(cfg, B: int, cache_len: int) -> dict:
 def cross_block_decode(cfg, p, x, cache, pos, ctx):
     """One token against the cached image K/V, read as they stand: nothing
     fills them (zeros from init, as in the reference, and as whisper's
-    cross K/V)."""
-    o = attn_lib.decode_attention(_image_q(cfg, p, x), cache["k"],
-                                  cache["v"], cache["k"].shape[1],
-                                  n_kv=cfg.n_kv_heads)
-    return _gated_tail(cfg, p, x, o), cache
+    cross K/V). Under a model axis, this rank's query heads against its
+    block of the cache (`_cross_decode`), and its d_ff columns."""
+    axis = ctx.get("model_axis")
+    o = _cross_decode(cfg, _image_q(cfg, p, x), cache["k"], cache["v"], axis)
+    x = _row_out(axis, p["attn"], o, x, _gate(p, "gate_attn", x))
+    return _gated_ffn(cfg, p, x, axis), cache
 
 
 # ----------------------------------------------------------------------------
@@ -904,25 +1126,49 @@ def _causal_conv(x, w, state=None):
     return y, (ext[:, -(W - 1):] if state is not None else None)
 
 
-def _rglru_gates(p, u):
+def _gate_product(u, w, axis: ModelAxis | None):
+    """u @ w (a gate's product, "...r,rs->...s") rounded once to u's
+    dtype, as the reference rounds it. Where `axis` splits the lru width
+    w holds this rank's rows, its input channels (w_ra and w_ix are
+    ("ffn", None)): the rank's product is a partial of every output
+    channel, so the partials are summed in f32 over the model ranks and
+    each rank keeps its own channels (`collectives.scatter_from_ranks`:
+    a reduce-scatter forward, an all-gather of the gradient backward, so
+    that u's gradient takes every channel's) before the one rounding. At
+    one rank the product is rounded as the unsplit block rounds it."""
+    eq = "...r,rs->...s"
+    if axis is None or axis.lru is None:
+        return _mm(u, w, eq)
+    if axis.size == 1:
+        return collectives.scatter_from_ranks(_mm(u, w, eq), -1, axis.group)
+    return collectives.scatter_from_ranks(product(eq, u, w, F32), -1,
+                                          axis.group).to(u.dtype)
+
+
+def _rglru_gates(p, u, axis: ModelAxis | None = None):
     """log a (< 0) and the input gate, f32: each gate's product rounded to
     u's dtype, then cast to f32, as the reference rounds it."""
-    r = torch.sigmoid(_mm(u, p["w_ra"], "...r,rs->...s").to(F32) + p["b_ra"])
-    i = torch.sigmoid(_mm(u, p["w_ix"], "...r,rs->...s").to(F32) + p["b_ix"])
+    r = torch.sigmoid(_gate_product(u, p["w_ra"], axis).to(F32) + p["b_ra"])
+    i = torch.sigmoid(_gate_product(u, p["w_ix"], axis).to(F32) + p["b_ix"])
     return -8.0 * F.softplus(p["lam"]) * r, i
 
 
-def _rglru_inputs(cfg, p, x, conv_state=None):
+def _rglru_inputs(cfg, p, x, conv_state=None, axis=None):
     """The gelu output gate, a and b of h_t = a_t h_(t-1) + b_t (f32), and
-    the new convolution state."""
+    the new convolution state; with `axis` splitting the lru width, of
+    this rank's channels (p its blocks of the leaves)."""
     h = _norm(cfg, p, "ln_rec", x)
     gate = ACTIVATIONS["gelu"](_mm(h, p["w_gate"], "bsd,dr->bsr").to(F32))
     u, conv = _causal_conv(_mm(h, p["w_x"], "bsd,dr->bsr"), p["conv_w"],
                            conv_state)
-    log_a, i_gate = _rglru_gates(p, u)
+    log_a, i_gate = _rglru_gates(p, u, axis)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
         * (i_gate * u.to(F32))
     return gate, torch.exp(log_a), b, conv
+
+
+def _lru_split(axis) -> bool:
+    return axis is not None and axis.lru is not None
 
 
 def linear_scan(a, b):
@@ -953,10 +1199,24 @@ def linear_scan(a, b):
 
 
 def rglru_block_apply(cfg, p, x, ctx):
-    gate, a, b, _ = _rglru_inputs(cfg, p, x)
-    y = (gate * linear_scan(a, b)).to(x.dtype)
-    x = x + _mm(y, p["w_out"], "bsr,rd->bsd")
-    return _ffn_residual(cfg, p, x), 0.0
+    """The RG-LRU over the sequence, then the MLP. Under a model axis
+    splitting the lru width each rank computes its channels: x and
+    ln_rec enter through `copy_to_ranks`, w_x / w_gate are column
+    slices, the convolution, lam, the gate biases and the scan are per
+    channel, the gates' products sum their partials (`_gate_product`),
+    and w_out's row partial is summed over the ranks with the residual
+    on model rank 0. The MLP takes its d_ff columns."""
+    axis = ctx.get("model_axis")
+    lp, xin = p, x
+    if _lru_split(axis):
+        xin = collectives.copy_to_ranks(x, axis.group)
+        lp = _copy_in(axis, p, "ln_rec")
+    gate, a, b, _ = _rglru_inputs(cfg, lp, xin,
+                                  axis=axis if _lru_split(axis) else None)
+    y = _mm((gate * linear_scan(a, b)).to(x.dtype), p["w_out"],
+            "bsr,rd->bsd")
+    x = _partial_out(axis, y, xin) if _lru_split(axis) else x + y
+    return _ffn_residual(cfg, p, x, axis), 0.0
 
 
 def rglru_cache_specs(cfg, B: int, cache_len: int) -> dict:
@@ -968,14 +1228,21 @@ def rglru_cache_specs(cfg, B: int, cache_len: int) -> dict:
 
 def rglru_block_decode(cfg, p, x, cache, pos, ctx):
     """One step of the recurrence: h (f32) and the convolution's last
-    inputs (x's dtype) are written into the cache in place."""
-    gate, a, b, conv = _rglru_inputs(cfg, p, x, cache["conv"])
+    inputs (x's dtype) are written into the cache in place. Under a
+    model axis splitting the lru width the cache block holds this rank's
+    channels, which it steps with no collective but the gates' sums and
+    w_out's partial (`rglru_block_apply`)."""
+    axis = ctx.get("model_axis")
+    split = _lru_split(axis)
+    gate, a, b, conv = _rglru_inputs(cfg, p, x, cache["conv"],
+                                     axis if split else None)
     h = a[:, 0] * cache["h"] + b[:, 0]
     cache["h"].copy_(h)
     cache["conv"].copy_(conv)
-    y = (gate[:, 0] * h).to(x.dtype)[:, None]
-    x = x + _mm(y, p["w_out"], "bsr,rd->bsd")
-    return _ffn_residual(cfg, p, x), cache
+    y = _mm((gate[:, 0] * h).to(x.dtype)[:, None], p["w_out"],
+            "bsr,rd->bsd")
+    x = _partial_out(axis, y, x) if split else x + y
+    return _ffn_residual(cfg, p, x, axis), cache
 
 
 # ----------------------------------------------------------------------------

@@ -285,15 +285,34 @@ def param_partition(cfg, mesh, rules, max_seq: int = 4096):
                            is_leaf=lambda x: isinstance(x, tuple))
 
 
-# the block kinds whose splits over "model" the sharded step computes
-MODEL_AXIS_KINDS = ("attn", "attn_moe")
+# what is left of ROADMAP Queue 1 O, cited by the refusal below
+UNSPLIT_ITEM = ("ROADMAP Queue 1, K2: what is left of the model axis of the "
+                "other block kinds (xlstm's mlstm / slstm leaves under rules "
+                "that split them, as the dry run's tponly variant does)")
 
 
-def check_mesh(cfg, mesh) -> tuple[int, int]:
+def check_mesh(cfg, mesh, rules=None, *, max_seq: int = 4096
+               ) -> tuple[int, int]:
     """(batch ranks, model ranks) of a mesh the sharded step runs `cfg`
     on: axes "data" (and "pod"), the batch axes, and "model"; any other
-    axis of size 1. A model axis above 1 takes the block kinds of
-    `MODEL_AXIS_KINDS` only."""
+    axis of size 1. With a "model" axis every dim the plan splits over
+    it (under `rules`; None: the arch's own, `cfg.rules_overrides`) must
+    be one the step computes (`_MODEL_SPLITS`): a split of any other
+    raises NotImplementedError naming its ROADMAP item. Takes a
+    `MeshSpec` or a live mesh."""
+    sizes = _check_axes(mesh)
+    if "model" in sizes:
+        rules = rules or addressing.default_rules(
+            mesh, overrides=cfg.rules_overrides)
+        _model_dims(cfg, mesh, rules, max_seq)
+    batch = math.prod(sizes[a] for a in addressing.BATCH_AXES if a in sizes)
+    return batch, sizes.get("model", 1)
+
+
+def _check_axes(mesh) -> dict:
+    """The mesh's axis sizes, raising for a mesh the sharded step does
+    not take (no "data" axis, an axis above 1 outside the batch axes and
+    "model")."""
     sizes = addressing.mesh_axes(mesh)
     if "data" not in sizes:
         raise ValueError(f"mesh axes {tuple(sizes)} have no 'data' axis")
@@ -302,23 +321,7 @@ def check_mesh(cfg, mesh) -> tuple[int, int]:
     if other:
         raise NotImplementedError(f"mesh {sizes}: the sharded step takes "
                                   f"the axes {known}, not {other}")
-    model = sizes.get("model", 1)
-    off = _off_model_axis(cfg)
-    if model > 1 and off:
-        raise NotImplementedError(
-            f"{cfg.name} on mesh {sizes}: its block kinds {off} have no "
-            f"split over the model axis yet (ROADMAP Queue 1, Later: the "
-            f"model axis of the other block kinds); the sharded step "
-            f"splits {MODEL_AXIS_KINDS} over 'model'")
-    batch = math.prod(sizes[a] for a in addressing.BATCH_AXES if a in sizes)
-    return batch, model
-
-
-def _off_model_axis(cfg) -> list[str]:
-    """The block kinds of `cfg` outside `MODEL_AXIS_KINDS`."""
-    kinds = set(layer_kinds(cfg)) | ({"enc_attn"} if cfg.family == "encdec"
-                                     else set())
-    return sorted(kinds - set(MODEL_AXIS_KINDS))
+    return sizes
 
 
 def _split_dims(spec, axes) -> list[int]:
@@ -371,7 +374,7 @@ def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
     axis's; a leaf may have one of each (w_down: ffn over model, embed
     over data). Needs a live DeviceMesh (a rank's coordinates come from
     it)."""
-    check_mesh(cfg, mesh)
+    check_mesh(cfg, mesh, rules, max_seq=max_seq)
     one = _shard_maker(mesh, device)
     params = pytree.tree_map_with_path(
         lambda path, spec: one("/".join(str(k) for k in _path_key(path)),
@@ -384,61 +387,85 @@ def state_shards(cfg, mesh, rules, *, device=None, max_seq: int = 4096):
 
 
 # (parent key, leaf, dim) -> the ModelAxis field a split of that dim over
-# "model" sets; no other dim of an "attn" / "attn_moe" model may be split
+# "model" sets; no other dim may be split. The parent of a leaf under an
+# attention, FFN or expert sub-block is the sub-block's key (whisper's
+# decoder: "self", "cross"); that of a leaf directly under a layer is the
+# layer's kind (the RG-LRU's)
+_ATTN_SPLITS = {("wq", 1): "heads", ("wo", 0): "heads", ("bq", 0): "heads",
+                ("wk", 1): "kv_heads", ("wv", 1): "kv_heads",
+                ("bk", 0): "kv_heads", ("bv", 0): "kv_heads"}
 _MODEL_SPLITS = {
-    ("attn", "wq", 1): "heads", ("attn", "wo", 0): "heads",
-    ("attn", "bq", 0): "heads",
-    ("attn", "wk", 1): "kv_heads", ("attn", "wv", 1): "kv_heads",
-    ("attn", "bk", 0): "kv_heads", ("attn", "bv", 0): "kv_heads",
+    **{(parent, leaf, d): field for parent in ("attn", "self", "cross")
+       for (leaf, d), field in _ATTN_SPLITS.items()},
     ("ffn", "w_gate", 1): "ffn", ("ffn", "w_up", 1): "ffn",
     ("ffn", "w_down", 0): "ffn",
+    ("ffn", "w_in", 1): "ffn", ("ffn", "b_in", 0): "ffn",
+    ("ffn", "w_out", 0): "ffn",
     ("moe", "w_gate", 2): "expert_ffn", ("moe", "w_up", 2): "expert_ffn",
     ("moe", "w_down", 1): "expert_ffn",
+    **{("rglru", leaf, d): "lru" for leaf, d in (
+        ("w_x", 1), ("w_gate", 1), ("conv_w", 1), ("w_ra", 0), ("b_ra", 0),
+        ("w_ix", 0), ("b_ix", 0), ("lam", 0), ("w_out", 0))},
     ("", "tok_embed", 0): "vocab", ("", "unembed", 1): "vocab",
 }
 
 
-def model_axis(cfg, mesh, rules, *, max_seq: int = 4096) -> ModelAxis | None:
-    """The `ModelAxis` of this rank on a live mesh (None without a
-    "model" axis, and for an arch with block kinds outside
-    `MODEL_AXIS_KINDS`, which `check_mesh` admits at model size 1 only:
-    there every leaf is whole and the step computes it as on one
-    device): for each dim the plan may split over "model" (the
-    heads, KV heads, d_ff and vocab dims of `_MODEL_SPLITS`), whether it
-    does, and this rank's block of it (`addressing.local_block`). Every
-    leaf holding such a dim must be split alike; a split of any other dim
-    raises NotImplementedError."""
-    sizes = addressing.mesh_axes(mesh)
-    check_mesh(cfg, mesh)
-    if "model" not in sizes or _off_model_axis(cfg):
-        return None
-    coords = addressing.coordinates(mesh)
+def _model_dims(cfg, mesh, rules, max_seq: int) -> list:
+    """(field, dim, spec, shape) of every dim of `_MODEL_SPLITS` in each
+    parameter leaf, in the plan of `mesh` under `rules`; raises
+    NotImplementedError where the plan splits any other dim over
+    "model"."""
+    kinds = layer_kinds(cfg)
     specs = param_partition(cfg, mesh, rules, max_seq)
     shapes = pytree.tree_map(lambda s: tuple(s.shape),
                              param_specs(cfg, max_seq),
                              is_leaf=lambda x: isinstance(x, ParamSpec))
-    seen: dict[str, set] = {}
+    out = []
 
     def one(path, spec, shape):
         keys = _path_key(path)
         names = [k for k in keys if isinstance(k, str)]
         parent = names[-2] if len(names) > 1 else ""
+        if keys[0] == "blocks" and len(names) == 2:
+            parent = kinds[keys[1]]
+        elif keys[:2] == ("enc", "blocks") and len(names) == 3:
+            parent = "enc_attn"
         split = _split_dims(spec, ("model",))
         for d in range(len(shape)):
             field = _MODEL_SPLITS.get((parent, names[-1], d))
-            if field is None:
-                if d in split:
-                    raise NotImplementedError(
-                        f"{'/'.join(map(str, keys))}: the plan splits dim "
-                        f"{d} over 'model' ({spec}), which the sharded "
-                        f"step does not compute")
-                continue
-            block = addressing.local_block(spec, shape, mesh, coords)[d]
-            seen.setdefault(field, set()).add(
-                (block.start, block.stop) if d in split else None)
+            if field is not None:
+                out.append((field, d, spec, shape))
+            elif d in split:
+                raise NotImplementedError(
+                    f"{'/'.join(map(str, keys))} ({parent}): the plan "
+                    f"splits dim {d} over 'model' ({spec}), which the "
+                    f"sharded step does not compute ({UNSPLIT_ITEM})")
 
     pytree.tree_map_with_path(one, specs, shapes,
                               is_leaf=lambda x: isinstance(x, tuple))
+    return out
+
+
+def model_axis(cfg, mesh, rules, *, max_seq: int = 4096) -> ModelAxis | None:
+    """The `ModelAxis` of this rank on a live mesh (None without a
+    "model" axis), for every block kind: for each dim the plan may split
+    over "model" (the heads, KV heads, d_ff, lru width and vocab dims of
+    `_MODEL_SPLITS`), whether it does, and this rank's block of it
+    (`addressing.local_block`). Where the plan keeps every such dim of a
+    block whole (xlstm's under its own rules) the block runs whole on
+    every model rank, as on one device. Every leaf holding such a dim
+    must be split alike; a split of any other dim raises
+    NotImplementedError (`check_mesh`)."""
+    sizes = _check_axes(mesh)
+    if "model" not in sizes:
+        return None
+    coords = addressing.coordinates(mesh)
+    seen: dict[str, set] = {}
+    for field, d, spec, shape in _model_dims(cfg, mesh, rules, max_seq):
+        block = addressing.local_block(spec, shape, mesh, coords)[d]
+        seen.setdefault(field, set()).add(
+            (block.start, block.stop) if d in _split_dims(spec, ("model",))
+            else None)
     for field, got in seen.items():
         if len(got) > 1:
             raise NotImplementedError(
@@ -446,7 +473,7 @@ def model_axis(cfg, mesh, rules, *, max_seq: int = 4096) -> ModelAxis | None:
                 f"and keeps others whole: {sorted(got, key=str)}")
     at = {f: next(iter(g)) for f, g in seen.items()}
     owned = {f: None if at.get(f) is None else slice(*at[f])
-             for f in ("heads", "kv_heads", "vocab")}
+             for f in ("heads", "kv_heads", "vocab", "lru")}
     if owned["kv_heads"] is not None and owned["heads"] is None:
         raise NotImplementedError("the plan splits the KV heads over "
                                   "'model' and keeps the query heads whole")
@@ -664,7 +691,7 @@ def cache_shards(cfg, mesh, rules, B: int, cache_len: int, *,
     "model" (its kv_heads where the model size does not divide
     cache_len), a pool leaf by its KV heads, as `addressing.default_rules`
     places them."""
-    check_mesh(cfg, mesh)
+    check_mesh(cfg, mesh, rules)
     if n_pages is None:
         sds, log = abstract_cache(cfg, B, cache_len)
     else:
@@ -679,8 +706,13 @@ def cache_split(cfg, mesh, rules, cache_len: int):
     """The `blocks.CacheSplit` of this rank: where the plan puts the
     attention kinds' K/V over "model" in a private cache of `cache_len`
     rows (kv_seq, else kv_heads, else whole: the reference's rules with
-    their divisibility and axis-conflict fallback) and in the paged pool
-    (kv_heads or whole). None without a "model" axis."""
+    their divisibility and axis-conflict fallback), in the paged pool
+    (kv_heads or whole) and in a cross-attention cache (whisper's cross
+    K/V, vision's image K/V: kv_heads or whole). None without a "model"
+    axis. The recurrent caches (the RG-LRU's h and conv over the lru
+    width, xlstm's over its heads) are each rank's block of the plan
+    (`cache_shards`), as the parameters' splits (`ModelAxis`) compute
+    them."""
     sizes = addressing.mesh_axes(mesh)
     if "model" not in sizes:
         return None
@@ -705,10 +737,13 @@ def cache_split(cfg, mesh, rules, cache_len: int):
     private = (("layers", "batch", "kv_seq", "kv_heads", None),
                (1, batch, cache_len, kv, hd))
     pool = (("layers", None, None, "kv_heads", None), (1, 1, 1, kv, hd))
+    cross = (("layers", "batch", None, "kv_heads", None),
+             (1, batch, 1, kv, hd))
     return blocks_lib.CacheSplit(cache_len=cache_len,
                                  rows=owned(*private, 2),
                                  heads=owned(*private, 3),
-                                 pool_heads=owned(*pool, 3))
+                                 pool_heads=owned(*pool, 3),
+                                 cross_heads=owned(*cross, 3))
 
 
 def make_paged_cache_ops(cfg, B: int, cache_len: int):
@@ -829,13 +864,14 @@ def _layer(remat: bool, apply, *args):
     return apply(*args)
 
 
-def _encode(cfg, params, enc_embeds):
-    """Whisper's encoder over stub frame embeddings (B, enc_seq, d)."""
+def _encode(cfg, params, enc_embeds, axis: ModelAxis | None = None):
+    """Whisper's encoder over stub frame embeddings (B, enc_seq, d); with
+    `axis` its blocks compute this rank's splits, as the decoder's do."""
     enc = params["enc"]
     x = enc_embeds + enc["pos"].to(enc_embeds.dtype)
     B, S = x.shape[:2]
     ctx = {"positions": torch.arange(S, device=x.device).expand(B, S),
-           "rope": False}
+           "rope": False, "model_axis": axis}
     remat = _remat(cfg)
     for p in enc["blocks"]:
         x, _ = _layer(remat, BLOCKS["enc_attn"]["apply"], cfg, p, x, ctx)
@@ -880,14 +916,23 @@ def forward(cfg, params, tokens, *, cross_embeds=None,
     `layer_gather` (the step's per-layer gather, `fsdp_gather`) each
     layer of ``params["blocks"]``, the reference's remainder layers
     included, computes with `layer_gather(i, p)`, called inside the
-    layer's checkpointed span: a recompute gathers again."""
+    layer's checkpointed span: a recompute gathers again.
+
+    Where `axis` splits the heads the cross context (the encoder output,
+    the image embeddings) enters through `copy_to_ranks` once: every
+    layer's split cross-attention projects this rank's KV heads of it,
+    so a rank's gradient of it is its heads' share, summed over the
+    model ranks before the encoder's backward."""
     kinds = layer_kinds(cfg)
     B, S = tokens.shape
     x = _embed(params["tok_embed"], tokens, axis)
     encdec = cfg.family == "encdec"
     if encdec:
-        cross_embeds = _encode(cfg, params, cross_embeds)
+        cross_embeds = _encode(cfg, params, cross_embeds, axis)
         x = x + params["dec_pos"][:S].to(x.dtype)
+    if cross_embeds is not None and axis is not None and \
+            axis.heads is not None:
+        cross_embeds = collectives.copy_to_ranks(cross_embeds, axis.group)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     ctx = {"positions": positions, "rope": not encdec,
            "cross_embeds": cross_embeds, "max_seq": S,
@@ -1495,7 +1540,6 @@ def _serve_parts(cfg, mesh, rules, max_seq: int, batch: int | None):
     the plan splits `batch` rows over the batch axes (None: whole on
     every rank; `batch` None: split), the parameters' gather) of a
     sharded serving step."""
-    check_mesh(cfg, mesh)
     rules = rules or addressing.default_rules(mesh,
                                               overrides=cfg.rules_overrides)
     shards = state_shards(cfg, mesh, rules, max_seq=max_seq)["params"]
@@ -1600,10 +1644,11 @@ def make_sharded_decode_step(cfg, mesh, max_seq: int, *, rules=None,
                                                       max_seq, batch)
     split = cache_split(cfg, mesh, rules, decode_cache_len(cfg, max_seq))
     if axis is not None:
-        if split.heads is not None and split.heads != axis.kv_heads:
-            raise NotImplementedError(
-                f"the plan splits the cache's KV heads {split.heads} and "
-                f"the parameters' {axis.kv_heads} differently")
+        for held in (split.heads, split.cross_heads):
+            if held is not None and held != axis.kv_heads:
+                raise NotImplementedError(
+                    f"the plan splits the cache's KV heads {held} and the "
+                    f"parameters' {axis.kv_heads} differently")
         axis = dataclasses.replace(axis, cache=split)
     inner = make_decode_step(cfg, max_seq, policy=policy, axis=axis,
                              group=group)

@@ -17,10 +17,9 @@ rank, every spawn joined against its own deadline and killed past it).
 * `TrainProgram` on a (2, 1) mesh: a run preempted after step 2 (SIGTERM
   to every rank) writes whole leaves once; resumed at 4 ranks and at 1
   it logs the uninterrupted 2-rank run's losses for steps 3-4.
-* whisper-small-smoke and recurrentgemma-9b-smoke, whose block kinds
-  the model axis does not split, on a (2, 1) mesh: their plan names
-  "model" at size 1 on their heads and d_ff dims, and the step computes
-  every leaf whole there; the first batch's gradients (every leaf),
+* whisper-small-smoke and recurrentgemma-9b-smoke on a (2, 1) mesh:
+  their plan names "model" at size 1 on their heads, d_ff and lru
+  dims, and the step computes those splits at size 1 (whole there); the first batch's gradients (every leaf),
   the losses, grad norms and the state after the steps equal the port's
   one-process step.
 * The per-layer gather (`make_sharded_train_step(fsdp_gather=True)`,
@@ -38,7 +37,8 @@ rank, every spawn joined against its own deadline and killed past it).
 * `api.train(mesh=...)` at 2 ranks, `launch/train.py` under a torchrun
   environment at 2 ranks, and `--data-axis 1` in this process (its own
   one-rank group): bit-equal to the plain run there; a model axis above
-  1 raises for an arch whose block kinds it does not split (xlstm).
+  1 raises where the plan splits a leaf the step does not compute
+  (xlstm under the dry run's tponly rules).
 
 Tolerances: f32 losses, grad norms and lr scales within 1e-5 relative
 (mixtral's later steps against the reference 5e-5: `MOE_LATER`); the
@@ -218,7 +218,7 @@ def runs(tmp_path_factory):
                          **PROG)),
         ("api_train", dict(checkpoint_dir=str(tmp / "api"), num_steps=2,
                            batch=4, seq=16)),
-        ("model_axis", {})] + _jobs(tmp, 2)
+        ("model_axis", {"overrides": (("embed", None),)})] + _jobs(tmp, 2)
     four = _jobs(tmp, 4)
     at = {}
     for world in (two, four):
@@ -395,9 +395,9 @@ def test_a_step_issues_its_collectives(runs, case):
 
 @pytest.mark.parametrize("arch", OTHER, ids=lambda a: a.split("-")[0])
 def test_other_kinds_train_on_a_data_only_mesh(runs, arch):
-    """A (2, 1) step of an arch whose block kinds the model axis does
-    not split equals the port's one-process step: the plan names "model"
-    at size 1, and the step keeps every leaf whole over it."""
+    """A (2, 1) step of whisper or recurrentgemma equals the port's
+    one-process step: the plan names "model" at size 1, and the step's
+    splits over it are whole."""
     res = [r[len(r) - len(OTHER) + OTHER.index(arch)] for r in runs[2]]
     assert res[0]["metrics"] == res[1]["metrics"]
     want, state = _one_process(arch, 1, False)
@@ -475,15 +475,17 @@ def test_api_train_and_launcher_on_a_mesh(runs, tmp_path, capsys):
 
 
 def test_a_model_axis_above_one_raises(runs):
-    """A model axis above 1 raises for an arch whose block kinds the
-    sharded step does not split over "model" (xlstm's mlstm / slstm),
-    naming the ROADMAP item; qwen3 and mixtral train on such meshes
+    """A model axis above 1 raises where the plan splits a leaf the
+    sharded step does not compute (xlstm's mlstm / slstm leaves under the
+    dry run's tponly rules, which replace its own), naming the ROADMAP
+    item; every arch trains on such meshes under its own rules
     (`tests/test_torch_tp.py`)."""
     item = "model axis of the other block kinds"
     for r in runs[2]:
         assert item in r[3] and "mlstm" in r[3]
-    cluster = Cluster("xlstm-125m-smoke", MeshSpec((1, 2), ("data", "model")),
-                      device="cpu")
+    cluster = Cluster(dataclasses.replace(
+        tget("xlstm-125m-smoke"), rules_overrides=(("embed", None),)),
+        MeshSpec((1, 2), ("data", "model")), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         cluster.compile(TrainProgram(num_steps=1))
     with pytest.raises(RuntimeError, match="no process group"):

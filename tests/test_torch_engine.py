@@ -343,24 +343,25 @@ def test_api_serve_matches_reference(params, chunk):
     # and the plan Queue 1 K
     pytest.param("train", "xlstm-125m",
                  {"mesh": MeshSpec((1, 2), ("data", "model")),
-                  "device": "cpu"}, "model axis of the other block kinds",
+                  "device": "cpu"}, "no process group",
                  id="train-kwargs0-Queue 1 I"),
     pytest.param("plan", "qwen3-14b",
                  {"mesh": MeshSpec((16, 16), ("data", "model")),
                   "device": "cpu"}, None,
                  id="plan-kwargs1-Queue 1 K")])
 def test_api_unported_entry_points_raise(name, arch, kwargs, item):
-    """What the port's entry points still refuse names what it waits for:
-    `train` on a mesh with a model axis above 1 for an arch whose block
-    kinds the sharded step does not split over "model" (xlstm; qwen3 and
-    mixtral train there: tests/test_torch_tp.py). `plan`, refused until
-    the planner was ported, returns the plan
-    (tests/test_torch_addressing.py holds it to the reference's)."""
+    """What the port's entry points refuse names what they wait for.
+    `train` on a mesh with a model axis above 1, refused for xlstm until
+    the model axis took every block kind, admits it and waits for a
+    process group, which this process has none of (every block kind
+    trains there: tests/test_torch_tp.py). `plan`, refused until the
+    planner was ported, returns the plan (tests/test_torch_addressing.py
+    holds it to the reference's)."""
     if item is None:
         plan = getattr(tapi, name)(arch, **kwargs)
         assert plan["unembed"]["spec"] == ("data", "model")
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match=item):
         getattr(tapi, name)(arch, **kwargs)
 
 

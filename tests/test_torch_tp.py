@@ -34,9 +34,31 @@ against its own deadline and killed past it).
   run's losses for steps 3-4; the checkpoint holds whole leaves.
 * `launch/train.py` under a torchrun environment: `--data-axis 1` over
   2 ranks (a (1, 2) mesh) and `--data-axis 2` over 4 (a (2, 2) mesh).
-* At model 2, whisper-, xlstm-, recurrentgemma- and
-  llama-3.2-vision-smoke raise NotImplementedError naming their ROADMAP
-  item.
+* The other block kinds (`KINDS`): whisper-small-smoke (enc_attn and
+  attn_cross: the encoder's and the decoder's heads and gelu MLPs, the
+  cross-attention's KV heads of the encoder output), xlstm-125m-smoke
+  (under its own rules only the vocabulary splits: its mLSTM and sLSTM
+  blocks run whole on every model rank), recurrentgemma-9b-smoke (the
+  RG-LRU's channels, local_attn's heads, the geglu MLP) and
+  llama-3.2-vision-90b-smoke (its cross blocks' heads, KV heads of the
+  image embeddings and gated MLP; the gates opened,
+  `torch_parity.open_gates`) on (1, 2), (2, 2), (1, 4) and (2, 1, 2),
+  and whisper with 6 query and 6 KV heads at model 4 (a mixed plan: the
+  heads whole, d_ff split), with the encoder's stub frames or the image
+  embeddings in each batch, against the one-process step and the
+  reference's as above. The leaf-by-leaf gradient test holds the two
+  places a split may drop a share of a gradient: the encoder output,
+  which every rank's split cross-attention reads (its gradient summed
+  over the model ranks before the encoder's backward), and the RG-LRU's
+  input u through its two gate products, split on their input channels
+  (every channel's gradient gathered back to each rank).
+* On a (1, 1) mesh the four archs' sharded steps are bit-equal to
+  `make_train_step` in bf16.
+* xlstm under the dry run's tponly rules (`default_rules(mesh,
+  overrides=(("embed", None),))`), which split its mLSTM / sLSTM leaves
+  over "model", raises NotImplementedError naming what is left of the
+  ROADMAP item, on a MeshSpec, through `Cluster.compile` and in the
+  2-rank world.
 
 The initial weights are the port's seeded draw with the attention
 weights rescaled to their true fan-in (`torch_parity.true_fan_in`):
@@ -48,7 +70,29 @@ Tolerances (f32): losses, grad norms and lr scales within 1e-5 relative
 `tests/test_torch_dp.py`); every gradient leaf within 1e-5 relative L2;
 every leaf of the state after three steps within 1e-5 relative L2
 (mixtral's against the reference 5e-5), and each of params, m and v as
-a whole. One leaf is held in the whole tree only: qwen1.5's key biases
+a whole. The other block kinds' states are held as
+`tests/test_torch_dp.py` holds them on a data-only mesh (`KINDS_LATER`):
+their gradients agree leaf by leaf within 1e-5, but AdamW's first
+updates move each element by about lr x sign(g), and their many
+zero-initialised biases and norm scales (xlstm's sLSTM bias b, the
+RG-LRU's gate biases, the norms' offsets) have near-zero gradient
+elements that take either sign in two sum orders; their later grad
+norms and moments are held within 2e-4 and the parameters within 1e-5
+as a whole tree. xlstm (`XLSTM`) is held to the reference at the first
+step only (its loss and grad norm within 1e-5) and by its loss at every
+step, and to the one-process step in full: its f32 gradients part from
+the reference's by up to 1.0e-4 a leaf at this batch (the input gate's
+bias; `tests/test_torch_grads.py` pins the cause, a head output row whose
+terms cancel, and holds the two packages within 7e-5 at its own batch),
+and AdamW's first update then moves its step-3 grad norm 1.1% from the
+reference's in the one-process step as much as in the sharded one; its
+later grad norms part from the one-process step's by up to 2.3e-4 and
+are held within 1e-3 (`XLSTM_NORM_LATER`). Vision's two f32 gate
+scalars (`GATES`) take their gradient as one sum over every element of
+the block's output, whose terms cancel: the one-process step's is
+3.8e-6 from the reference's and the sharded step's within 1e-5 of the
+one-process step's, so against the reference they are held within the
+sum of the two, 2e-5. One leaf is held in the whole tree only: qwen1.5's key biases
 `bk`, zero at init, whose gradient cancels over the positions (up to
 RoPE, a constant key shift leaves softmax as it is); AdamW moves each
 of their elements by about lr x sign(g), so after three steps they part
@@ -97,8 +141,22 @@ CASES = [((1, 2), DENSE, 1, ()), ((1, 2), DENSE, 2, ()),
 # the per-layer gather's steps (fields as in CASES), in the 4-rank world
 FSDP = [((2, 2), DENSE, 1, ()), ((2, 2), MOE, 2, ()),
         ((2, 1, 2), DENSE, 1, ()), ((2, 1, 2), MOE, 2, ())]
-OTHER_KINDS = ["whisper-small-smoke", "xlstm-125m-smoke",
-               "recurrentgemma-9b-smoke", "llama-3.2-vision-90b-smoke"]
+WHISPER, XLSTM, RGEMMA, VISION = (
+    "whisper-small-smoke", "xlstm-125m-smoke", "recurrentgemma-9b-smoke",
+    "llama-3.2-vision-90b-smoke")
+KINDS = (WHISPER, XLSTM, RGEMMA, VISION)
+MIXED = (("n_heads", 6), ("n_kv_heads", 6))          # at model 4
+CASES += [(sizes, arch, 1, ()) for arch in KINDS
+          for sizes in ((1, 2), (2, 2), (1, 4), (2, 1, 2))]
+CASES += [((1, 4), WHISPER, 1, MIXED)]
+# the other kinds' later grad norms and moments (see the docstring);
+# xlstm's later grad norms against the one-process step
+KINDS_LATER = 2e-4
+XLSTM_NORM_LATER = 1e-3
+# vision's tanh gates against the reference's (see the docstring)
+GATES = {"gate_attn": 2e-5, "gate_ffn": 2e-5}
+# the dry run's tponly rules, which replace xlstm's own
+TPONLY = (("embed", None),)
 PROG = dict(num_steps=4, batch=8, seq=16, warmup=1, log_every=1,
             checkpoint_every=2)
 CLI = ["--device", "cpu", "--arch", "qwen3-14b", "--smoke", "--steps", "3",
@@ -121,10 +179,21 @@ def _cfgs(arch, ga, change):
             dataclasses.replace(jget(arch), grad_accum=ga, **change))
 
 
-def _batches():
+def _batches(arch=DENSE):
+    """Three seeded global batches; an encoder-decoder's carry its stub
+    frame embeddings, a vision model's its image embeddings."""
     rng = np.random.default_rng(40)
-    return [{k: torch.from_numpy(rng.integers(0, 256, (B, S)).astype(
+    out = [{k: torch.from_numpy(rng.integers(0, 256, (B, S)).astype(
         np.int32)) for k in ("tokens", "labels")} for _ in range(N_STEPS)]
+    cfg = tget(arch)
+    n, key = ((cfg.enc_seq, "enc_embeds") if cfg.family == "encdec" else
+              (cfg.n_img_tokens, "img_embeds") if cfg.family == "vlm"
+              else (0, None))
+    if n:
+        rng = np.random.default_rng(41)
+        out = [b | {key: torch.from_numpy((0.5 * rng.standard_normal(
+            (B, n, cfg.d_model))).astype(np.float32))} for b in out]
+    return out
 
 
 _INIT = {}
@@ -139,8 +208,8 @@ def _initial(arch, change):
     if key not in _INIT:
         cfg = _cfgs(arch, 1, change)[0]
         drawn = tsteps.init_params(cfg, 0, device="cpu", max_seq=S)
-        params = torch_parity.true_fan_in(
-            torch_parity.reference_tree(cfg, drawn))
+        params = torch_parity.open_gates(torch_parity.true_fan_in(
+            torch_parity.reference_tree(cfg, drawn)))
         zeros = jax.tree.map(np.zeros_like, params)
         host = {"params": params, "opt": {"m": zeros, "v": zeros,
                                           "step": np.zeros((), np.int32)}}
@@ -163,9 +232,12 @@ def _step_jobs(tmp, world, cases=CASES, fsdp_gather=False):
         sizes, arch, ga, change = case
         state = tmp / f"{_case_id(case)}-state.pt"
         torch.save(_initial(arch, change)[1], state)
+        batches = tmp / f"batches-{arch}.pt"
+        if not batches.exists():
+            torch.save(_batches(arch), batches)
         jobs.append(("sharded_steps", dict(
             arch=arch, grad_accum=ga, state=str(state),
-            batches=str(tmp / "batches.pt"), schedule_kwargs=SCHED,
+            batches=str(batches), schedule_kwargs=SCHED,
             mesh=sizes, names=_names(sizes), replace=dict(change) or None,
             grads_of=_grad_keys(arch), fsdp_gather=fsdp_gather)))
     return jobs
@@ -174,15 +246,14 @@ def _step_jobs(tmp, world, cases=CASES, fsdp_gather=False):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every spawned world of this module, started together: 2 gloo ranks
-    (the (1, 2) steps, then the other block kinds' errors), 4 gloo ranks
-    (the 4-rank steps, then the (2, 2) programs and their resumes at (1,
-    4) and (4, 1)), and the launcher at 2 and at 4 ranks (no group
-    before it)."""
+    (the (1, 2) steps, then xlstm's error under the tponly rules), 4 gloo
+    ranks (the 4-rank steps, then the (2, 2) programs and their resumes
+    at (1, 4) and (4, 1)), and the launcher at 2 and at 4 ranks (no
+    group before it)."""
     tmp = tmp_path_factory.mktemp("tp")
-    torch.save(_batches(), tmp / "batches.pt")
     cut = str(tmp / "cut")
-    two = _step_jobs(tmp, 2) + [("model_axis", dict(arch=a))
-                                for a in OTHER_KINDS]
+    two = _step_jobs(tmp, 2) + [("model_axis", dict(arch=XLSTM,
+                                                    overrides=TPONLY))]
     four = _step_jobs(tmp, 4) + [
         ("program", dict(arch=DENSE, checkpoint_dir=cut, preempt_after=2,
                          copies=(cut + "14", cut + "41"), mesh=(2, 2),
@@ -231,7 +302,7 @@ def _one_process(case, ref: bool):
         rows, grads = [], None
         if ref:
             jbs = [{k: jnp.asarray(v.numpy()) for k, v in b.items()}
-                   for b in _batches()]
+                   for b in _batches(arch)]
             if ga == 1:
                 vg = jax.jit(jax.value_and_grad(
                     lambda p, b: jsteps.loss_fn(jcfg, p, b)[0]))
@@ -251,8 +322,8 @@ def _one_process(case, ref: bool):
                 device="cpu")
         else:
             step = tsteps.make_train_step(tcfg, **kw)
-            grads = step.accumulate(ts["params"], _batches()[0])[2]
-            for b in _batches():
+            grads = step.accumulate(ts["params"], _batches(arch)[0])[2]
+            for b in _batches(arch):
                 ts, m = step(ts, b)
                 rows.append({k: float(v) for k, v in m.items()})
             state = ts
@@ -260,10 +331,12 @@ def _one_process(case, ref: bool):
     return _ONE[key]
 
 
-def _close_states(got, want, tol):
+def _close_states(got, want, tol, whole_only=False):
     """Every leaf of the state within `tol` relative L2, but the key
     biases' parameters (see the module's docstring), which count in the
-    whole parameter tree's relative L2, within `tol` too."""
+    whole parameter tree's relative L2, within `tol` too. With
+    `whole_only` (the other block kinds) params as a whole tree within
+    `tol` and the moments within `KINDS_LATER`."""
     for part in ("params", "m", "v"):
         g = got["params"] if part == "params" else got["opt"][part]
         w = want["params"] if part == "params" else want["opt"][part]
@@ -271,7 +344,10 @@ def _close_states(got, want, tol):
             lambda a, b: float(((a.float() - b.float()) ** 2).sum()), g, w)))
         den = sum(float((b.float() ** 2).sum())
                   for b in pytree.tree_leaves(w))
-        assert (num / den) ** 0.5 < tol, (part, (num / den) ** 0.5)
+        lim = KINDS_LATER if whole_only and part != "params" else tol
+        assert (num / den) ** 0.5 < lim, (part, (num / den) ** 0.5)
+        if whole_only:
+            continue
         if part == "params":
             g, w = ({k: v for k, v in pytree.tree_flatten_with_path(t)[0]
                      if "'bk'" not in pytree.keystr(k)} for t in (g, w))
@@ -279,15 +355,19 @@ def _close_states(got, want, tol):
     assert int(got["opt"]["step"]) == int(want["opt"]["step"]) == N_STEPS
 
 
-def _close_leaves(got, want, tol=1e-5):
-    """Every leaf within `tol` relative L2 (a zero leaf equal to zero)."""
+def _close_leaves(got, want, tol=1e-5, by_name=None):
+    """Every leaf within `tol` relative L2 (a zero leaf equal to zero);
+    `by_name` {leaf name: tol} for the leaves it names."""
+    by_name = by_name or {}
+
     def one(path, a, b):
         a, b = a.double(), b.double()
         if b.norm() == 0:
             assert a.norm() == 0, pytree.keystr(path)
             return
         rel = float((a - b).norm() / b.norm())
-        assert rel < tol, (pytree.keystr(path), rel)
+        name = getattr(path[-1], "key", None)
+        assert rel < by_name.get(name, tol), (pytree.keystr(path), rel)
 
     pytree.tree_map_with_path(one, got, want)
 
@@ -302,15 +382,21 @@ def test_tp_steps_equal_one_process_and_reference(runs, case):
     keys = ["loss", "grad_norm", "lr_scale"] + (["ce", "aux"] if ga == 1
                                                 else [])
     assert sorted(got["metrics"][0]) == sorted(keys)
+    kinds = arch in KINDS
+    norm_later = XLSTM_NORM_LATER if arch == XLSTM else KINDS_LATER
     for ref in (False, True):
         want, state, _ = _one_process(case, ref)
         later = MOE_LATER if ref and arch == MOE else 1e-5
         for i, (g, w) in enumerate(zip(got["metrics"], want)):
             for k in keys:
-                tol = 1e-5 if i == 0 else later
+                if ref and arch == XLSTM and i > 0 and k == "grad_norm":
+                    continue                # see the module's docstring
+                tol = 1e-5 if i == 0 else (
+                    norm_later if kinds and k == "grad_norm" else later)
                 assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), \
                     (k, g, w)
-        _close_states(got["state"], state, later)
+        if not (ref and arch == XLSTM):
+            _close_states(got["state"], state, later, whole_only=kinds)
     counts = got["counts"]
     assert counts["reduce_from_ranks"] > 0 and counts["copy_to_ranks"] > 0
     assert counts["max_over_ranks"] > 0
@@ -323,8 +409,9 @@ def test_tp_gradients_equal_leaf_by_leaf(runs, case):
     grad_accum 1) the reference's, every leaf within 1e-5 relative L2."""
     got = _result(runs, case)[0]["whole_grads"]
     _close_leaves(got, _one_process(case, False)[2])
-    if case[2] == 1:
-        _close_leaves(got, _one_process(case, True)[2])
+    if case[2] == 1 and case[1] != XLSTM:   # see the module's docstring
+        _close_leaves(got, _one_process(case, True)[2],
+                      by_name=GATES if case[1] == VISION else None)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
@@ -475,15 +562,69 @@ def test_launcher_trains_on_1x2_and_2x2(runs, tmp_path):
                 assert abs(a - b) <= 2e-3 * b
 
 
-@pytest.mark.parametrize("arch", OTHER_KINDS)
-def test_other_block_kinds_raise_on_a_model_axis(runs, arch):
-    msg = runs[2][0][len([c for c in CASES if np.prod(c[0]) == 2])
-                     + OTHER_KINDS.index(arch)]
-    assert msg is not None and "ROADMAP Queue 1" in msg
-    assert "model axis of the other block kinds" in msg
-    kinds = set(tsteps.layer_kinds(tget(arch))) - set(
-        tsteps.MODEL_AXIS_KINDS)
-    assert all(k in msg for k in kinds), (kinds, msg)
+@pytest.mark.parametrize("arch", KINDS, ids=lambda a: a.split("-")[0])
+def test_one_rank_kinds_step_is_bit_equal(tmp_path, arch):
+    """On a (1, 1) mesh the other block kinds' sharded steps go through
+    their split code at size 1 (the heads, d_ff, lru width and
+    vocabulary the plan names) and equal `make_train_step` bit for bit in
+    bf16 ("fused"), losses and every leaf after two steps."""
+    kw = {"schedule_kwargs": {"warmup": 1, "total": 4}, "policy": "fused"}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_device_mesh(MeshSpec((1, 1), ("data", "model")), "cpu")
+        cfg = tget(arch)
+        plain = tsteps.make_train_step(cfg, **kw)
+        a = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S)
+        step = tsteps.make_sharded_train_step(cfg, mesh, max_seq=S, **kw)
+        assert step.axis.vocab == slice(0, cfg.vocab)
+        if arch == XLSTM:       # its own rules keep its block leaves whole
+            assert step.axis.heads is None and not step.axis.ffn
+        else:
+            assert step.axis.heads == slice(0, cfg.n_heads)
+            assert step.axis.ffn
+        assert (step.axis.lru is not None) == (arch == RGEMMA)
+        s = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S,
+                                    shards=step.shards)
+        for b in _batches(arch)[:2]:
+            b = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                 for k, v in b.items()}
+            a, ma = plain(a, b)
+            s, ms = step(s, b)
+            assert float(ms["loss"]) == float(ma["loss"])
+        pytree.tree_map_with_path(
+            lambda path, x, y: None if torch.equal(x, y)
+            else pytest.fail(f"{arch}: {pytree.keystr(path)} differs"), s, a)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_xlstm_under_tponly_rules_raises_naming_the_item(runs):
+    """The dry run's tponly rules replace xlstm's own: they split its
+    mLSTM / sLSTM leaves over "model" (w_up's 2 di columns straddle the
+    x / z halves, the gates' inputs), which the sharded step does not
+    compute. It raises NotImplementedError naming what is left of the
+    ROADMAP item: planned on a MeshSpec ((1, 2), (2, 4), (16, 16)),
+    compiled as a `TrainProgram` (before any process group) and built in
+    the 2-rank world. Under xlstm's own rules the same meshes admit
+    it."""
+    from repro_torch.cluster import Cluster, TrainProgram
+    item = "model axis of the other block kinds"
+    cfg = tget(XLSTM)
+    tponly = dataclasses.replace(cfg, rules_overrides=TPONLY)
+    for sizes in ((1, 2), (2, 4), (16, 16)):
+        mesh = MeshSpec(sizes, ("data", "model"))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") \
+                as e:
+            tsteps.check_mesh(cfg, mesh, addressing.default_rules(
+                mesh, overrides=TPONLY))
+        assert item in str(e.value) and "mlstm" in str(e.value)
+        assert tsteps.check_mesh(cfg, mesh) == sizes
+    with pytest.raises(NotImplementedError, match=item):
+        Cluster(tponly, MeshSpec((1, 2), ("data", "model")),
+                device="cpu").compile(TrainProgram(num_steps=1))
+    msg = runs[2][0][len([c for c in CASES if np.prod(c[0]) == 2])]
+    assert msg is not None and "ROADMAP Queue 1" in msg and item in msg
 
 
 def _fsdp_result(runs, case):

@@ -733,11 +733,12 @@ def test_train_program_resume_and_double_buffer(tmp_path):
 
 def test_api_train_matches_reference_keys(tmp_path):
     """api.train's report keys equal the reference's; `steps_` warns and
-    works; a `mesh=` with a model axis above 1 is refused for an arch
-    whose block kinds the sharded step does not split over "model"
-    (xlstm), naming the ROADMAP item (the data axis runs:
-    tests/test_torch_dp.py; the model axis for qwen3 and mixtral:
-    tests/test_torch_tp.py)."""
+    works; a `mesh=` with a model axis above 1 admits every arch under
+    its own rules (xlstm too: the plan splits only its vocabulary) and
+    then needs a process group, which this process has none of (the
+    data axis runs: tests/test_torch_dp.py; the model axis for every
+    block kind: tests/test_torch_tp.py; the refusal of a split the step
+    does not compute, xlstm under the tponly rules, is pinned there)."""
     kw = dict(num_steps=2, batch=2, seq=16)
     want = japi.train("qwen3-14b", checkpoint_dir=str(tmp_path / "j"), **kw)
     got = tapi.train("qwen3-14b", checkpoint_dir=str(tmp_path / "t"),
@@ -750,8 +751,7 @@ def test_api_train_matches_reference_keys(tmp_path):
                          checkpoint_dir=str(tmp_path / "alias"),
                          device="cpu")
     assert rep["final_step"] == 1
-    with pytest.raises(NotImplementedError,
-                       match="model axis of the other block kinds"):
+    with pytest.raises(RuntimeError, match="no process group"):
         tapi.train("xlstm-125m", mesh=MeshSpec((1, 2), ("data", "model")),
                    device="cpu")
 

@@ -316,14 +316,20 @@ def cli(rank, world, *, port, argv):
 
 
 @job
-def model_axis(rank, world, *, arch="xlstm-125m-smoke"):
-    """The sharded step of `arch` on a (1, world) mesh: the message of
-    its NotImplementedError (None when it builds)."""
+def model_axis(rank, world, *, arch="xlstm-125m-smoke", overrides=None):
+    """The sharded step of `arch` on a (1, world) mesh (under
+    `default_rules(mesh, overrides=overrides)` when given, else the
+    arch's own rules): the message of its NotImplementedError (None when
+    it builds)."""
     from repro_torch.configs import get
+    from repro_torch.core import addressing
     from repro_torch.models import steps
 
+    mesh = _mesh(world, model=world)
+    rules = (None if overrides is None else
+             addressing.default_rules(mesh, overrides=overrides))
     try:
-        steps.make_sharded_train_step(get(arch), _mesh(world, model=world))
+        steps.make_sharded_train_step(get(arch), mesh, rules=rules)
     except NotImplementedError as e:
         return str(e)
     return None
@@ -632,25 +638,6 @@ def serve_case(rank, world, *, arch, params, max_seq, mesh=None,
 
 
 @job
-def serve_refused(rank, world, *, arch):
-    """The decode cell of `arch` on a (1, world) mesh: the message of its
-    NotImplementedError (None when it builds)."""
-    from repro_torch.cluster import cells as cells_lib
-    from repro_torch.configs import get
-    from repro_torch.configs.registry import ShapeConfig
-    from repro_torch.core import addressing
-
-    cfg = get(arch)
-    mesh = _mesh(world, model=world)
-    try:
-        cells_lib.build_cell(cfg, ShapeConfig("t", 16, SERVE_B, "decode"),
-                             mesh, addressing.default_rules(mesh))
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
-@job
 def serve_ref_cells(rank, world, *, arch, params, inputs, seq=64, batch=8):
     """qwen3's prefill, session and paged session cells of `build_cell` on
     the reference's (2, 4) test mesh (`inputs`: the prefill tokens and
@@ -692,12 +679,47 @@ def serve_ref_cells(rank, world, *, arch, params, inputs, seq=64, batch=8):
 
 
 @job
-def train_cell(rank, world, *, arch, state, batches, seq, batch):
-    """`build_cell`'s train cell with `fsdp_gather` on the reference's
-    (2, 4) test mesh from the whole state in the file `state` (the port's
-    layout) on the global batches in the file `batches`, this rank
-    taking its rows -> each step's metrics and (rank 0) the whole state
-    after them."""
+def decode_cell(rank, world, *, arch, params, seq, batch, tokens, start):
+    """`build_cell`'s decode cell of `arch` on the reference's (2, 4) test
+    mesh from the whole parameters in the file `params`: teacher-forced
+    steps of `tokens` (batch x steps) from position `start` (one position
+    for every slot, as the reference's cell takes it), this rank its rows
+    and its blocks of a zero f32 cache -> its rows and the tokens of
+    every step."""
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing
+    from repro_torch.models import steps
+
+    cfg = get(arch)
+    mesh = _mesh(world, sizes=(2, 4), names=("data", "model"))
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    coords = addressing.coordinates(mesh)
+    spec = rules.spec_for(("batch",), (batch,), mesh)
+    rows = addressing.local_block(spec, (batch,), mesh, coords)[0]
+    fn = cells_lib.build_cell(cfg, ShapeConfig("t", seq, batch, "decode"),
+                              mesh, rules)[0]
+    local = addressing.take_tree(fn.shards,
+                                 torch.load(params, weights_only=False))
+    cache = f32(steps.init_cache(cfg, batch, steps.decode_cache_len(
+        cfg, seq), device="cpu", shards=fn.cache_shards))
+    out = []
+    for t in range(tokens.shape[1]):
+        cache, tok = fn(local, cache, {"tokens": tokens[rows, t:t + 1],
+                                       "pos": start + t})
+        out.append(tok)
+    return {"rows": (rows.start, rows.stop), "decode": torch.cat(out, 1)}
+
+
+@job
+def train_cell(rank, world, *, arch, state, batches, seq, batch,
+               fsdp_gather=True):
+    """`build_cell`'s train cell (with `fsdp_gather` unless it is False)
+    on the reference's (2, 4) test mesh from the whole state in the file
+    `state` (the port's layout) on the global batches in the file
+    `batches`, this rank taking its rows -> each step's metrics and (rank
+    0) the whole state after them."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.cluster import cells as cells_lib
@@ -710,7 +732,7 @@ def train_cell(rank, world, *, arch, state, batches, seq, batch):
     rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
     coords = addressing.coordinates(mesh)
     fn = cells_lib.build_cell(cfg, ShapeConfig("t", seq, batch, "train"),
-                              mesh, rules, fsdp_gather=True)[0]
+                              mesh, rules, fsdp_gather=fsdp_gather)[0]
     local = addressing.take_tree(fn.shards,
                                  torch.load(state, weights_only=False))
     spec = rules.spec_for(("batch", "seq"), (batch, seq), mesh)
