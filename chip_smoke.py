@@ -331,6 +331,20 @@ Phases (each prints one line; a failed phase raises, exit code != 0):
            step's noise floor (bf16 against f32, one rank), the greedy
            tokens equal where the one-rank top-2 margin passes 4 times
            its row's bf16 error
+  dryrun   the dry run (`DryRunProgram`): part=cells, each (1, 1) cell
+           the call runs at full width (dp part=step's train step, mesh
+           part=cells' prefill, decode, decode-chunk and paged session
+           cells) traced on meta tensors under "fused" in a process of
+           its own with no card visible (started before mesh part=cells,
+           `--dryrun-cells`), then held to one real call of the same
+           `build_cell` cell on a one-rank NCCL mesh (after mesh
+           part=cells; the train cell inside dp part=step): the
+           kernels' records equal the wrappers' launches, the
+           collectives equal by name, count and bytes, each workspace's
+           Python size equals the library's, the traced peak within 10%
+           of the card's (the allocator's peak above what was allocated
+           before the call, plus the arguments); flops, bytes and the
+           roofline terms logged beside the call's device time
   kinds    the model axis of the other block kinds, inside the whisper,
            hybrid, xlstm and vlm phases on their weights (`kinds_parts`):
            [tp] part=kinds, the sharded train step (2 steps of 2 x 128
@@ -379,6 +393,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -532,7 +547,15 @@ def main() -> int:
     engine_traced = engine_phase(launches, cfg, params)
     chaos_counts = chaos_phase(launches, params)
     groups = groups_phase(launches, params)
-    mesh_counts = mesh_cells_part(launches, cfg, params)
+    with tempfile.TemporaryDirectory() as dry_dir:
+        dry = dryrun_start(dry_dir)           # the trace runs beside mesh's
+        try:
+            mesh_counts = mesh_cells_part(launches, cfg, params)
+            dryrun_mesh_part(launches, cfg, params, *dry)
+        finally:
+            if dry[0].poll() is None:         # a part failed first
+                dry[0].kill()
+                dry[0].wait()
     del params                        # qwen3-14b's 29.5 GB: mixtral is next
     gc.collect()                      # reference cycles may still hold them
     torch.cuda.empty_cache()
@@ -4832,8 +4855,9 @@ def dp_step_part(launches, plain) -> tuple[dict, dict]:
     import torch.distributed as dist
     from torch.utils import _pytree as pytree
 
+    from repro_torch.cluster import cells
     from repro_torch.cluster.session import Cluster, TrainProgram
-    from repro_torch.core import collectives
+    from repro_torch.core import addressing, collectives
     from repro_torch.core.addressing import MeshSpec
     from repro_torch.launch.mesh import make_device_mesh
 
@@ -4892,6 +4916,11 @@ def dp_step_part(launches, plain) -> tuple[dict, dict]:
                                      f" the train phase's: {differ[:4]}")
             n_leaves = len(pytree.tree_leaves(state))
             tp_step_counts(cfg, prog, state, batches[0], coll, k)
+            dcfg, dshape, _ = dryrun_cells()["train"]
+            dryrun_train(launches, cells.build_cell(
+                dcfg, dshape, mesh, addressing.default_rules(
+                    mesh, overrides=dcfg.rules_overrides),
+                policy="fused")[0], state, batches[0])
 
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
@@ -5564,6 +5593,7 @@ MESH_SEQ = 1024           # their max_seq (the private cache's rows)
 MESH_CHUNK = 16           # the decode-chunk and session cells' K
 MESH_DECODE = 8           # teacher-forced steps of the decode cell
 MESH_PAGE = 16
+DRY_BUDGET = 24           # [dryrun]: the session cell's budgets (> its K)
 MESH_THREAD_SEQ = 1024    # part=threads' cache rows (512 a rank)
 MESH_THREAD_STEPS = 16
 MESH_F32_TOL = 1e-4       # part=threads: relative L2 of a step's f32
@@ -6810,5 +6840,294 @@ def _clone_tree(tree, layers: int | None = None):
         tree = dict(tree, blocks=tree["blocks"][:layers])
     return pytree.tree_map(torch.clone, tree)
 
+# ----------------------------------------------------------------------------
+# [dryrun]: the dry run's meta trace of the (1, 1) cells against real calls
+# ----------------------------------------------------------------------------
+
+DRY = {}                  # the trace's results by cell, and the part's walls
+DRY_PEAK_TOL = 0.10       # the trace's peak against the card's, relative
+
+
+def dryrun_cells():
+    """The (1, 1) cells the call runs at full width, as `build_cell`
+    builds them: [dp] part=step's train step and [mesh] part=cells'
+    prefill, decode, decode-chunk and paged session cells of qwen3-14b."""
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    q = get("qwen3-14b")
+    dec = ShapeConfig("mesh", MESH_SEQ, MESH_SLOTS, "decode")
+    return {
+        "train": (train_cfg(), ShapeConfig("dp", TRAIN_S, TRAIN_B, "train"),
+                  {}),
+        "prefill": (q, ShapeConfig("mesh", 512, 1, "prefill"), {}),
+        "decode": (q, dec, {}),
+        "chunk": (q, dec, {"decode_chunk": MESH_CHUNK}),
+        "paged": (q, dec, {"decode_chunk": MESH_CHUNK, "session": True,
+                           "paged": True, "page_size": MESH_PAGE})}
+
+
+def dryrun_trace(path: str) -> int:
+    """`python3 chip_smoke.py --dryrun-cells PATH`: each cell of
+    `dryrun_cells` dry-run under "fused" (`DryRunProgram` on a one-rank
+    MeshSpec, a meta trace over a fake process group; run with no card
+    visible) -> JSON at PATH: the record, the kernel records by wrapper
+    and by route, the collectives' counts, the workspaces and the plain
+    versions run."""
+    from repro_torch.cluster.session import Cluster, DryRunProgram
+    from repro_torch.core import collectives
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.kernels import traced
+
+    out = {}
+    for name, (cfg, shape, kw) in dryrun_cells().items():
+        cluster = Cluster(cfg, MeshSpec((1, 1), ("data", "model")),
+                          device="meta", policy="fused")
+        prog = cluster.compile(DryRunProgram(shape=shape, **kw))
+        collectives.reset_counts()
+        traced.PLAIN_CALLS.clear()
+        rec = prog.run()
+        launches: dict = {}
+        for route, k in rec["kernels"].items():
+            name_ = route.split(":")[0]
+            launches[name_] = launches.get(name_, 0) + k["launches"]
+        out[name] = {
+            "record": rec,
+            "collectives": {k: v for k, v in collectives.counts().items()
+                            if v},
+            "launches": launches,
+            "workspaces": sorted({(r.name, r.workspace_sizes,
+                                   r.workspace_bytes)
+                                  for r in prog.tracker.kernels
+                                  if r.workspace_sizes}),
+            "plain_calls": sum(traced.PLAIN_CALLS.values())}
+        del prog
+    Path(path).write_text(json.dumps(out, default=float))
+    return 0
+
+
+def dryrun_start(root: str):
+    """The trace of every cell, started in a process of its own with no
+    card visible (its meta trace needs none), while the card runs the
+    phases before the checks."""
+    import os
+    path = f"{root}/dryrun_cells.json"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-cells", path], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    DRY["started"] = time.perf_counter()
+    return proc, path
+
+
+def dryrun_wait(proc, path) -> None:
+    """Wait for the trace's process (its wait counts in the part's wall)
+    and load its results into DRY."""
+    t0 = time.perf_counter()
+    log_text, _ = proc.communicate(timeout=600)
+    DRY["wait_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: the trace failed:\n{log_text[-3000:]}")
+    DRY["cells"] = json.loads(Path(path).read_text())
+    DRY["trace_s"] = time.perf_counter() - DRY["started"]
+
+
+def _arg_bytes(tree) -> int:
+    """The bytes of a tree's distinct storages (a cell's arguments)."""
+    seen, total = set(), 0
+    for t in _leaves(tree):
+        if isinstance(t, torch.Tensor) and \
+                t.untyped_storage().data_ptr() not in seen:
+            seen.add(t.untyped_storage().data_ptr())
+            total += t.untyped_storage().nbytes()
+    return total
+
+
+def dryrun_real(launches, fn, args) -> dict:
+    """One real call of a cell with the counts set to 0 just before it:
+    the wrappers' launches, the collectives' counts and the call's peak
+    (the allocator's peak above what was allocated before it, plus the
+    arguments' bytes: what the trace's peak holds), and its device time."""
+    from repro_torch.core import collectives
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset_counts()
+    collectives.reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn(*args)
+    ev[1].record()
+    torch.cuda.synchronize()
+    real = {"peak": torch.cuda.max_memory_allocated() - base +
+            _arg_bytes(args),
+            "ms": ev[0].elapsed_time(ev[1]),
+            "launches": {k: v["launches"] for k, v in
+                         launches.counts().items() if v["launches"]},
+            "plain": {k: v["plain_cuda_calls"] for k, v in
+                      launches.counts().items() if v["plain_cuda_calls"]},
+            "collectives": {k: v for k, v in collectives.counts().items()
+                            if v}}
+    del out
+    return real
+
+
+def dryrun_check(name: str, real: dict, card: str) -> None:
+    """Hold the trace of cell `name` to its real call: the launches by
+    wrapper, the collectives by name, count and bytes, each workspace
+    against the library's, and the peak within DRY_PEAK_TOL (hard); log
+    flops, bytes and the roofline terms beside the call's device time."""
+    from repro_torch.kernels import build, traced
+    dry = DRY["cells"][name]
+    rec = dry["record"]
+    if dry["plain_calls"] or real["plain"]:
+        raise AssertionError(f"dryrun {name}: plain versions ran "
+                             f"(trace {dry['plain_calls']}, card "
+                             f"{real['plain']})")
+    if dry["launches"] != real["launches"]:
+        raise AssertionError(f"dryrun {name}: launches {dry['launches']} "
+                             f"against the card's {real['launches']}")
+    if dry["collectives"] != real["collectives"]:
+        raise AssertionError(f"dryrun {name}: collectives "
+                             f"{dry['collectives']} against the card's "
+                             f"{real['collectives']}")
+    for kernel, sizes, nbytes in dry["workspaces"]:
+        lib = int(build.entry(kernel, f"{kernel}_workspace_floats")(*sizes))
+        mine = traced.workspace_floats(kernel, *sizes)
+        if lib != mine or nbytes != 4 * max(mine, 1):
+            raise AssertionError(f"dryrun {name}: {kernel}{tuple(sizes)} "
+                                 f"workspace {mine} floats (trace "
+                                 f"{nbytes} bytes) against the library's "
+                                 f"{lib}")
+    miss = rec["peak_device_bytes"] / real["peak"] - 1
+    r, h = rec["roofline"], rec["hlo"]
+    log("dryrun", part="cells", cell=name, gpu=f"'{card}'",
+        launches=json.dumps({k: v["launches"] for k, v in
+                             rec["kernels"].items()}).replace(" ", ""),
+        launches_equal=True, collectives_equal=True,
+        collectives=sum(v for k, v in dry["collectives"].items()
+                        if not k.endswith("_bytes")),
+        workspaces_equal=len(dry["workspaces"]),
+        peak_gb=f"{rec['peak_device_bytes'] / 1e9:.3f}",
+        card_peak_gb=f"{real['peak'] / 1e9:.3f}", peak_miss=f"{miss:+.4f}",
+        flops=f"{h['flops_per_device']:.4e}",
+        builtin_flops=f"{rec['cost_analysis_builtin']['flops']:.4e}",
+        bytes=f"{h['bytes_per_device']:.4e}",
+        compute_ms=f"{r['compute_s'] * 1e3:.3f}",
+        memory_ms=f"{r['memory_s'] * 1e3:.3f}",
+        collective_ms=f"{r['collective_s'] * 1e3:.3f}",
+        dominant=r["dominant"], card_ms=f"{real['ms']:.2f}",
+        trace_s=f"{rec['seconds']['trace']:.2f}")
+    if abs(miss) > DRY_PEAK_TOL:
+        raise AssertionError(f"dryrun {name}: peak "
+                             f"{rec['peak_device_bytes']} against the "
+                             f"card's {real['peak']} ({miss:+.3f})")
+
+
+def dryrun_mesh_part(launches, cfg, params, proc, path) -> None:
+    """[dryrun] part=cells, the mesh cells: each of `dryrun_cells`' qwen3
+    cells built on a one-rank NCCL (1, 1) mesh under "fused" and called
+    once on the prefill phase's weights (a fresh cache or pool; every
+    slot of the session with a prompt that fills its buffer and a budget
+    of `DRY_BUDGET`, so that its chunk runs all of its K steps), held to
+    its trace (`dryrun_check`)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.cluster import cells
+    from repro_torch.configs.registry import TensorSpec
+    from repro_torch.core import addressing
+    from repro_torch.core.addressing import MeshSpec
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import steps
+    from repro_torch.runtime import engine
+    from torch.utils import _pytree as pytree
+
+    dryrun_wait(proc, path)
+    t0 = time.perf_counter()
+    card = gpu_line()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+
+    def tokens(s):
+        return torch.randint(0, cfg.vocab, s.shape, generator=gen,
+                             device="cuda", dtype=s.dtype)
+
+    with tempfile.TemporaryDirectory() as root:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            f"{root}/store", 1), rank=0, world_size=1)
+        try:
+            mesh = make_device_mesh(MeshSpec((1, 1), ("data", "model")),
+                                    "cuda")
+            rules = addressing.default_rules(mesh)
+            for name, (c, shape, kw) in dryrun_cells().items():
+                if name == "train":
+                    continue
+                fn, specs = cells.build_cell(c, shape, mesh, rules,
+                                             policy="fused", **kw)[:2]
+                B, S = shape.global_batch, shape.seq_len
+                clen = steps.decode_cache_len(c, S)
+                if name == "prefill":
+                    args = (params, pytree.tree_map(
+                        tokens, specs[1],
+                        is_leaf=lambda x: isinstance(x, TensorSpec)))
+                elif name == "paged":
+                    pps = specs[1]["pages"].shape[1]
+                    pool = steps.init_paged_cache(
+                        c, B, clen, n_pages=B * pps + 1, page_size=MESH_PAGE,
+                        device="cuda", shards=fn.cache_shards)
+                    P = specs[1]["prompt_buf"].shape[1]
+                    state = engine.init_session_state(pool, B, P, pps,
+                                                      device="cuda")
+                    state["prompt_buf"].copy_(tokens(TensorSpec(
+                        (B, P), torch.int64)))
+                    state["prompt_len"].fill_(P)
+                    state["budget"].fill_(DRY_BUDGET)
+                    state["active"].fill_(True)
+                    state["pages"].copy_(
+                        1 + torch.arange(B, device="cuda")[:, None] * pps
+                        + torch.arange(pps, device="cuda"))
+                    args = (params, state)
+                else:
+                    cache = steps.init_cache(c, B, clen, device="cuda",
+                                             shards=fn.cache_shards)
+                    i64 = torch.int64
+                    if name == "decode":
+                        args = (params, cache, {
+                            "tokens": tokens(specs[2]["tokens"]),
+                            "pos": torch.full((), S // 2, dtype=torch.int32,
+                                              device="cuda")})
+                    else:
+                        z = lambda dt: torch.zeros(B, dtype=dt, device="cuda")
+                        args = (params, cache, tokens(specs[2]).long(),
+                                z(torch.bool), z(i64),
+                                torch.full((), S // 2, dtype=i64,
+                                           device="cuda"),
+                                torch.full((), MESH_CHUNK, dtype=i64,
+                                           device="cuda"))
+                real = dryrun_real(launches, fn, args)
+                del args
+                dryrun_check(name, real, card)
+                gc.collect()
+        finally:
+            dist.destroy_process_group()
+    DRY["mesh_s"] = time.perf_counter() - t0
+
+
+def dryrun_train(launches, fn, state, batch) -> None:
+    """[dryrun] part=cells, the train cell: [dp] part=step's step, as
+    `build_cell` builds it on the same one-rank mesh, called once on the
+    step's state (updated in place) and batch, held to its trace."""
+    t0 = time.perf_counter()
+    real = dryrun_real(launches, fn, (state, batch))
+    dryrun_check("train", real, gpu_line())
+    DRY["train_s"] = time.perf_counter() - t0
+    log("dryrun", part="cells", cells=len(DRY["cells"]),
+        trace_s=f"{DRY['trace_s']:.1f}", wait_s=f"{DRY['wait_s']:.1f}",
+        seconds=f"{DRY['wait_s'] + DRY['mesh_s'] + DRY['train_s']:.1f}")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        sys.exit(dryrun_trace(sys.argv[2]))
     sys.exit(main())

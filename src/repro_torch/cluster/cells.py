@@ -10,8 +10,10 @@ process group. Where the reference returns a program for XLA to lower
 with its arguments' global shapes and shardings, the port returns what
 this rank runs: its callable, its arguments' local shapes (its blocks as
 the plan places them) and their placements (the plan's spec on the
-mesh), and the donated positions. It lowers nothing: what a dry run of
-a cell measures on the card is ROADMAP Queue 1 K2's question.
+mesh), and the donated positions. It lowers nothing: a dry run
+(`cluster/session.py` `CompiledDryRun`) traces this rank's cell on meta
+tensors (`meta_args`) over a fake process group of the mesh's size, and
+counts its flops, bytes, collectives and peak memory.
 """
 
 from __future__ import annotations
@@ -231,6 +233,16 @@ def build_cell(cfg, shape, mesh, rules, fsdp_gather: bool = False,
     return (step, (params, cache, batch_local), (params_sh, cache_sh,
                                                  batch_sh),
             (cache_sh, tok_sh), (1,))
+
+
+def meta_args(args):
+    """`build_cell`'s arguments as meta tensors of their local shapes
+    (what a dry run traces the cell on): every `TensorSpec` of the tree
+    made, nothing allocated."""
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), args,
+        is_leaf=lambda x: isinstance(x, TensorSpec))
 
 
 def _port_specs(cfg, max_seq: int):

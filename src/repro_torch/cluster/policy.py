@@ -119,10 +119,13 @@ class KernelPolicy:
 
         A miss races on synthetic operands on the operands' device; inside
         a CUDA-graph capture that cannot run, so a miss there raises (a
-        hit is a dict lookup and a launch, and capture-safe)."""
+        hit is a dict lookup and a launch, and capture-safe). Inside a dry
+        run's trace (`device.tracing_card`, meta operands) a miss takes
+        the kernel's own plan and times nothing."""
         import torch
 
         from repro_torch.configs import registry
+        from repro_torch.device import tracing
         from repro_torch.kernels import ops, pipeline
 
         desc = ops.OPS[name]
@@ -136,7 +139,10 @@ class KernelPolicy:
             dtype_bytes = lead.dtype.itemsize
             key = pipeline.shape_key(shapes, dtype_bytes)
             rec = registry.get_kernel_tune(name, key)
-            if rec is None:
+            if rec is None and lead.is_meta and tracing():
+                self.bump("tune_misses")
+                blocks, route = {}, "fused"
+            elif rec is None:
                 if lead.is_cuda and torch.cuda.is_current_stream_capturing():
                     raise RuntimeError(
                         f"tuned_call({name!r}): no tune record for {key} "

@@ -28,8 +28,10 @@ the reference's {tree path: {logical, spec, region, shape}}. A
 (`steps.make_sharded_train_step`): data-parallel over the mesh's batch
 axes ("pod", "data"), tensor-parallel over "model" as the plan splits
 each leaf, on a DeviceMesh, or on one made of the description over the
-initialised process group. Dry-run and bench programs wait for later slices (ROADMAP
-Queue 1 K2, and J with the port's benchmark).
+initialised process group. `DryRunProgram` traces one cell of the
+cluster's mesh on meta tensors over a fake process group of its size
+(`CompiledDryRun`; no card: ``Cluster(arch, mesh, device="meta")``).
+The bench program waits for the port's benchmark (ROADMAP Queue 1 J).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch.distributed
 
 from repro_torch.cluster.policy import KernelPolicy, as_policy, use_policy
 from repro_torch.configs import get as get_arch
-from repro_torch.configs.registry import ArchConfig
+from repro_torch.configs.registry import ArchConfig, ShapeConfig
 from repro_torch.configs.registry import kernel_tunes
 from repro_torch.core import addressing
 from repro_torch.device import resolve_device
@@ -166,11 +168,27 @@ class ShardedServeSessionProgram(ServeSessionProgram):
     groups: int = 2                        # serving groups (session cells)
 
 
+@dataclasses.dataclass(frozen=True)
+class DryRunProgram:
+    """Trace one (arch x shape) cell of this cluster's mesh on meta
+    tensors and record its memory, cost and collectives: no allocation,
+    no launch, no card."""
+
+    shape: "str | ShapeConfig" = "train_4k"   # a SHAPES name or a shape
+    fsdp_gather: bool = False
+    decode_chunk: int = 1                  # decode shapes: the K-step
+    #   chunk cell instead of the single-step one
+    session: bool = False                  # decode shapes: the slot-
+    #   scheduled session cell instead
+    paged: bool = False                    # session shapes: the shared-
+    #   paged-KV session cell (page tables in state)
+    page_size: int = 16                    # tokens per KV page (paged)
+
+
 # the reference's program specs the port does not define yet, and the
 # ROADMAP Queue 1 item that brings each
 UNPORTED = {"BenchProgram": "J (item 13, the benches; waits for the "
-                            "port's benchmark PR)",
-            "DryRunProgram": "K2 (item 14, the dry run)"}
+                            "port's benchmark PR)"}
 
 # the regions of `Cluster.plan`: a leaf split over any mesh axis is
 # INTERLEAVED when one of its logical axes is a weight axis, else
@@ -302,7 +320,8 @@ class Cluster:
         builders = {ServeProgram: CompiledServe,
                     ServeSessionProgram: CompiledServeSession,
                     ShardedServeSessionProgram: CompiledShardedServeSession,
-                    TrainProgram: CompiledTrain}
+                    TrainProgram: CompiledTrain,
+                    DryRunProgram: CompiledDryRun}
         name = type(spec).__name__
         if self.arch is None:
             raise ValueError(f"{name} needs an arch; this cluster was "
@@ -917,6 +936,142 @@ class CompiledShardedServeSession(CompiledServeSession):
         raise NotImplementedError(
             "the one-shot legacy path is not defined for sharded "
             "sessions; use open() + submit/drain")
+
+
+class CompiledDryRun(Program):
+    """The dry run of one cell (the reference's `CompiledDryRun`): this
+    rank's cell, exactly as `cells.build_cell` builds it on the
+    cluster's mesh, traced on meta tensors over a fake process group of
+    the mesh's size (`core.compat.abstract_mesh`, rank 0) along the
+    card's route (`device.tracing_card`: the hand-written kernels'
+    records, the bf16 tensor-core products, the counted collectives),
+    under the program's policy. `run()` returns the reference's record,
+    field for field, from what the trace counted (`core.op_cost`,
+    `core.locality`); a field that does not apply is named under
+    ``notes`` with the reason. Nothing is allocated or launched, and it
+    needs no card: a cluster on a machine without one takes
+    ``device="meta"``. A split the step does not compute (xlstm under
+    the tponly rules) is recorded as ``"refused"`` with its error."""
+
+    kind = "dryrun"
+
+    NOTES = {
+        "seconds.lower": "nothing is lowered: the cell runs eagerly, "
+                         "and `trace` is the meta run",
+        "seconds.compile": "nothing is compiled: the kernels are built "
+                           "once a machine (kernels/build.py)",
+        "memory_analysis.generated_code_size_in_bytes":
+            "no code is generated a cell: the kernels are built once a "
+            "machine",
+        "cost_analysis_builtin.bytes_accessed":
+            "FlopCounterMode counts flops only",
+        "cost_analysis_builtin.transcendentals":
+            "FlopCounterMode counts flops only",
+        "hlo": "from a trace of rank 0 on meta tensors (core/op_cost.py), "
+               "not from HLO: aten ops, the kernel records and the "
+               "counted collectives",
+        "roofline.collective_wire3_s":
+            "a TPU torus's three links; NVLink and the network are "
+            "switched (collective_s prices each group's level)",
+    }
+
+    def run(self) -> dict:
+        import time
+
+        from repro_torch.cluster import cells
+        from repro_torch.configs.registry import SHAPES, cell_supported
+        from repro_torch.core import compat, locality, op_cost
+        from repro_torch.core import mesh as hw
+
+        cluster, spec = self.cluster, self.spec
+        cfg = cluster._require_arch("DryRunProgram")
+        shape = SHAPES[spec.shape] if isinstance(spec.shape, str) \
+            else spec.shape
+        ok, reason = cell_supported(cfg, shape)
+        if not ok:
+            self._last_run = {"status": "skipped", "reason": reason}
+            return self._last_run
+        desc = addressing.describe(cluster.mesh)
+        n_chips = desc.size
+        t0 = time.time()
+        with compat.abstract_mesh(desc.sizes, desc.axis_names) as mesh, \
+                use_policy(self.policy):
+            try:
+                fn, args, _, _, donate = cells.build_cell(
+                    cfg, shape, mesh, cluster.rules,
+                    fsdp_gather=spec.fsdp_gather, policy=self.policy,
+                    decode_chunk=spec.decode_chunk, session=spec.session,
+                    paged=spec.paged, page_size=spec.page_size)
+            except NotImplementedError as e:
+                self._last_run = {"status": "refused", "reason": str(e),
+                                  "n_chips": n_chips}
+                return self._last_run
+            args = cells.meta_args(args)
+            with op_cost.tracked() as tracker, compat.tracing_card():
+                tracker.arguments(args, donate)
+                out = fn(*args)
+                tracker.outputs(out)
+                del out, args
+        t_trace = time.time() - t0
+        t0 = time.time()
+        costs = op_cost.analyze(tracker)
+        mem = locality.extract_memory(tracker)
+        ca = locality.extract_costs(tracker)
+        topo = hw.h100_topology(desc.sizes, desc.axis_names)
+        coll_s = locality.collective_seconds(tracker.calls, topo)
+        t_analyze = time.time() - t0
+
+        mf = cells.model_flops(cfg, shape)
+        flops_dev, bytes_dev = costs["flops"], costs["bytes"]
+        record = {
+            "status": "ok",
+            "n_chips": n_chips,
+            "seconds": {"trace": t_trace, "analyze": t_analyze},
+            "memory_analysis": mem,
+            "peak_device_bytes": locality.peak_device_bytes(mem),
+            "cost_analysis_builtin": ca,
+            "hlo": {
+                "flops_per_device": flops_dev,
+                "bytes_per_device": bytes_dev,
+                "transcendentals_per_device": costs["transcendentals"],
+                "collective_operand_bytes_per_device":
+                    costs["collective_operand_bytes"],
+                "collective_wire_bytes_per_device":
+                    costs["collective_wire_bytes"],
+                "collectives": costs["collectives"],
+            },
+            "model": mf,
+            "roofline": {
+                "compute_s": flops_dev / hw.PEAK_FLOPS_BF16,
+                "memory_s": bytes_dev / hw.HBM_BW,
+                "collective_s": coll_s,
+                "useful_flops_ratio": mf["model_flops"] / max(
+                    flops_dev * n_chips, 1.0),
+            },
+            "kernels": _kernel_summary(tracker.kernels),
+            "notes": dict(self.NOTES),
+        }
+        dom = max(("compute_s", "memory_s", "collective_s"),
+                  key=lambda k: record["roofline"][k])
+        record["roofline"]["dominant"] = dom
+        self._last_run = record
+        self.tracker = tracker
+        return record
+
+
+def _kernel_summary(records) -> dict:
+    """{"<kernel>:<route>": {"launches", "flops", "hbm_bytes",
+    "workspace_bytes"}} of a trace's kernel records."""
+    out: dict = {}
+    for r in records:
+        e = out.setdefault(f"{r.name}:{r.route}", {
+            "launches": 0, "flops": 0.0, "hbm_bytes": 0.0,
+            "workspace_bytes": 0})
+        e["launches"] += 1
+        e["flops"] += r.flops
+        e["hbm_bytes"] += r.hbm_bytes
+        e["workspace_bytes"] = max(e["workspace_bytes"], r.workspace_bytes)
+    return dict(sorted(out.items()))
 
 
 def _to_device(tree, device):

@@ -49,12 +49,18 @@ for nothing.
 bytes each call's whole tensor holds (``<name>_bytes``). A call counts
 under its collective's name unless its caller names it otherwise (the
 MoE dispatch's counts under ``dispatch_*``, the step's exchange of batch
-rows under ``batch_all_gather``).
+rows under ``batch_all_gather``). Inside `ledger()` each call is also
+recorded as a `Call`: its kind by the reference's names ("all-gather",
+"reduce-scatter", "all-reduce"), its result's bytes and its group's
+ranks, which a dry run (`core/op_cost.py`, `core/locality.py`) prices.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+from typing import Iterator
 
 import torch
 import torch.distributed as dist
@@ -67,6 +73,29 @@ SERVE_NAMES = ("heads_all_gather", "lse_max", "lse_sum", "lse_out",
                "pool_all_gather", "argmax_all_gather", "steps_max")
 
 _COUNTS: collections.Counter = collections.Counter()
+_LEDGERS: list[list] = []
+
+
+@dataclasses.dataclass(frozen=True)
+class Call:
+    """One collective call: its counted name, its kind, the bytes of its
+    result on this rank and the global ranks of its group."""
+    name: str
+    kind: str
+    result_bytes: int
+    ranks: tuple
+
+
+@contextlib.contextmanager
+def ledger() -> Iterator[list]:
+    """A list that every collective issued inside the block appends its
+    `Call` to."""
+    calls: list = []
+    _LEDGERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _LEDGERS.remove(calls)
 
 
 def reset_counts() -> None:
@@ -79,13 +108,20 @@ def counts() -> dict[str, int]:
     return out | dict(_COUNTS)
 
 
-def _count(name: str, whole: torch.Tensor, itemsize: int | None = None
-           ) -> None:
-    """One call of `name` on a whole tensor like `whole` (of `itemsize`
-    bytes an element when given)."""
+def _count(name: str, whole: torch.Tensor, group, kind: str,
+           itemsize: int | None = None) -> None:
+    """One call of `name` (a collective of `kind` over `group`) on a whole
+    tensor like `whole` (of `itemsize` bytes an element when given)."""
+    nbytes = whole.numel() * (itemsize or whole.element_size())
     _COUNTS[name] += 1
-    _COUNTS[f"{name}_bytes"] += whole.numel() * (itemsize or
-                                                 whole.element_size())
+    _COUNTS[f"{name}_bytes"] += nbytes
+    if _LEDGERS:
+        ranks = tuple(dist.get_process_group_ranks(group))
+        if kind == "reduce-scatter":
+            nbytes //= len(ranks)
+        call = Call(name, kind, nbytes, ranks)
+        for calls in _LEDGERS:
+            calls.append(call)
 
 
 def _need(group):
@@ -114,12 +150,12 @@ def all_gather_dim(local: torch.Tensor, dim: int, group, *,
     group = _need(group)
     n = dist.get_world_size(group)
     if n == 1:
-        _count(name, local)
+        _count(name, local, group, "all-gather")
         return local.clone(memory_format=torch.contiguous_format)
     front = local.movedim(dim, 0).contiguous()
     out = torch.empty((n * front.shape[0], *front.shape[1:]),
                       dtype=local.dtype, device=local.device)
-    _count(name, out)
+    _count(name, out, group, "all-gather")
     _GATHER(out, front, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -131,12 +167,12 @@ def reduce_scatter_dim(whole: torch.Tensor, dim: int, group, *,
     group = _need(group)
     n = dist.get_world_size(group)
     if n == 1:
-        _count(name, whole)
+        _count(name, whole, group, "reduce-scatter")
         return whole.clone(memory_format=torch.contiguous_format)
     front = whole.movedim(dim, 0).contiguous()
     out = torch.empty((front.shape[0] // n, *front.shape[1:]),
                       dtype=whole.dtype, device=whole.device)
-    _count(name, front)
+    _count(name, front, group, "reduce-scatter")
     _SCATTER(out, front, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim).contiguous()
 
@@ -145,7 +181,7 @@ def all_reduce(t: torch.Tensor, group, *,
                name: str = "all_reduce") -> torch.Tensor:
     """The sum of `t` over the ranks, in place."""
     group = _need(group)
-    _count(name, t)
+    _count(name, t, group, "all-reduce")
     if not _alone(group):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
@@ -213,7 +249,7 @@ class _GatherForLayer(torch.autograd.Function):
     def forward(ctx, token, shard, dim, group, sink):
         ctx.dim, ctx.group, ctx.sink = dim, group, sink
         if _alone(group):
-            _count("all_gather", shard)
+            _count("all_gather", shard, group, "all-gather")
             return shard                    # a view of the shard: no copy
         return all_gather_dim(shard, dim, group)
 
@@ -221,7 +257,8 @@ class _GatherForLayer(torch.autograd.Function):
     def backward(ctx, grad):
         n = dist.get_world_size(ctx.group)
         if n == 1:                  # the mean is the gradient itself
-            _count("reduce_scatter", grad, itemsize=4)
+            _count("reduce_scatter", grad, ctx.group, "reduce-scatter",
+                   itemsize=4)
             ctx.sink(grad, False)
         else:
             ctx.sink(reduce_scatter_dim(grad.to(torch.float32), ctx.dim,
@@ -283,7 +320,7 @@ def max_over_ranks(t: torch.Tensor, group, *,
     gradient)."""
     group = _need(group)
     out = _dense(t.detach())
-    _count(name, out)
+    _count(name, out, group, "all-reduce")
     if not _alone(group):
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out

@@ -99,6 +99,16 @@ class Topology:
             return self.levels[-1]
         return self.levels[1]
 
+    def ranks_level(self, ranks: Sequence[int]) -> Level:
+        """The level a collective over these global ranks crosses: the
+        card's own for one rank, NVLink when they share a node (ranks
+        r // NODE_GPUS equal: a mesh's ranks fill nodes in order), else
+        the network."""
+        nodes = {r // NODE_GPUS for r in ranks}
+        if len(set(ranks)) < 2:
+            return self.levels[0]
+        return self.levels[1] if len(nodes) == 1 else self.levels[-1]
+
     def bisection_bw(self, axis: str) -> float:
         """Aggregate bandwidth across the bisection of one mesh axis (B/s).
 

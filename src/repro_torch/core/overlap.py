@@ -1,7 +1,19 @@
 """Transfer-vs-compute overlap ledger (the port of
 `repro.core.overlap.overlap_report`, for the data feed's
-`stall_report`). The rest of the reference module (layer scans with
-remat, sharding constraints) is XLA's: ROADMAP Queue 1 K2."""
+`stall_report`).
+
+Where the rest of the reference module went:
+
+* `with_sharding`, `shard_batch` and `shard_batch_tree` do not apply:
+  each rank's block is made explicitly (`cluster/cells.build_cell`,
+  `core/addressing.LeafShard`), and no compiler picks a layout;
+* `prefetchable_scan` is the layer loop of `models/steps.forward` with
+  `_remat` (`torch.utils.checkpoint` a layer);
+* the remat policies `"dots"` / `"dots_no_batch"` are ROADMAP Queue 1 P;
+* the next layer's prefetch under the per-layer gather (`fsdp_gather`:
+  each layer's all_gather sits on its critical path) is an open note of
+  ROADMAP Queue 1.
+"""
 
 from __future__ import annotations
 

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from . import build, pipeline
+from repro_torch.device import on_card
+
+from . import build, pipeline, traced
 
 F32 = torch.float32
 NEG = -1e30
@@ -43,8 +45,7 @@ def attention_f32(q, k, v, causal: bool = True):
 
 def flash_attention_plain(q, k, v, causal: bool = True):
     """`attention_f32` rounded once to q.dtype."""
-    if q.is_cuda:
-        flash_attention_plain.cuda_calls += 1
+    traced.count_plain(flash_attention_plain, q)
     return attention_f32(q, k, v, causal).to(q.dtype)
 
 
@@ -56,7 +57,7 @@ def flash_attention(q, k, v, causal: bool = True):
     if k.shape != (b, kv, s, hd) or v.shape != k.shape or h % kv:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not q.is_cuda:
+    if not on_card(q):
         return flash_attention_plain(q, k, v, causal)
     build.check_operands("flash_attention", q, k, v)
     if hd not in HEAD_DIMS:
@@ -64,6 +65,10 @@ def flash_attention(q, k, v, causal: bool = True):
                          f"{HEAD_DIMS}; got hd={hd}")
     out = torch.empty_like(q)
     if b == 0 or h == 0 or s == 0:
+        return out
+    if q.is_meta:
+        traced.record("flash_attention", dict(b=b, h=h, kv=kv, s=s, hd=hd),
+                      q.dtype, q.device)
         return out
     err = build.entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv,

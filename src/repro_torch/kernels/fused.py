@@ -5,10 +5,15 @@ Each wrapper takes the reference kernel's operands in the reference
 layout. Given CPU tensors it runs its plain PyTorch version (the same
 arithmetic, step by step); given CUDA tensors it launches the hand-written
 Hopper kernel from `csrc/` on the current stream, or raises — there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``; each
-plain version counts the calls it served with CUDA tensors in
+fallback. Given meta tensors inside `device.tracing_card()` (a dry run)
+it checks them as on the card and records the launch it would make
+(`traced.py`); outside that scope meta tensors take the plain version.
+Each wrapper counts its launches in ``<wrapper>.launches``; each plain
+version counts the calls it served with CUDA tensors in
 ``<plain>.cuda_calls`` (a run on the card that should go through the
-kernels asserts that this stays 0). `launches.py` gathers the counts.
+kernels asserts that this stays 0), and those on meta tensors inside
+`tracing_card()` in `traced.PLAIN_CALLS`. `launches.py` gathers the
+counts.
 
   rmsnorm_matmul       replaces repro/kernels/fused.py build_rmsnorm_matmul
   matmul_bias_act      replaces repro/kernels/fused.py build_matmul_bias_act
@@ -33,7 +38,9 @@ import dataclasses
 
 import torch
 
-from . import build, gemm_plans, pipeline, ref
+from repro_torch.device import on_card
+
+from . import build, gemm_plans, pipeline, ref, traced
 from .flash_attention import attention_f32
 
 F32 = torch.float32
@@ -49,8 +56,7 @@ def rmsnorm_matmul_plain(x, scale, w, eps: float = 1e-6, **_knobs):
     """bf16-faithful plain version: normalise in f32, round to x.dtype
     (the reference prologue's cast), multiply with f32 accumulation,
     round to x.dtype."""
-    if x.is_cuda:
-        rmsnorm_matmul_plain.cuda_calls += 1
+    traced.count_plain(rmsnorm_matmul_plain, x)
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xn = (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(F32))).to(x.dtype)
@@ -64,12 +70,16 @@ def rmsnorm_matmul(x, scale, w, eps: float = 1e-6, *, tile_n: int = 0,
     if w.shape[0] != k or scale.shape != (k,):
         raise ValueError(f"rmsnorm_matmul: shapes {tuple(x.shape)}, "
                          f"{tuple(scale.shape)}, {tuple(w.shape)}")
-    if not x.is_cuda:
+    if not on_card(x):
         return rmsnorm_matmul_plain(x, scale, w, eps)
     build.check_operands("rmsnorm_matmul", x, scale, w)
     n = w.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
+        return out
+    if x.is_meta:
+        traced.record("rmsnorm_matmul", dict(m=m, k=k, n=n), x.dtype,
+                      x.device, (m, n, k))
         return out
     ws = build.workspace("rmsnorm_matmul", x.device, m, n, k)
     err = build.entry("rmsnorm_matmul")(
@@ -90,8 +100,7 @@ def matmul_bias_act_plain(a, b, bias, act: str = "gelu", **_knobs):
     rounded to a.dtype, then the bias is added and the activation applied
     in f32, and the result rounded again (ops._ref_matmul_bias_act rounds
     once)."""
-    if a.is_cuda:
-        matmul_bias_act_plain.cuda_calls += 1
+    traced.count_plain(matmul_bias_act_plain, a)
     y = (a.to(F32) @ b.to(F32)).to(a.dtype)
     return ref.ACTIVATIONS[act](y.to(F32) + bias.to(F32)).to(a.dtype)
 
@@ -105,12 +114,16 @@ def matmul_bias_act(a, b, bias, act: str = "gelu", *, tile_n: int = 0,
     if b.shape[0] != k or bias.shape != (b.shape[1],):
         raise ValueError(f"matmul_bias_act: shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(bias.shape)}")
-    if not a.is_cuda:
+    if not on_card(a):
         return matmul_bias_act_plain(a, b, bias, act)
     build.check_operands("matmul_bias_act", a, b, bias)
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
+        return out
+    if a.is_meta:
+        traced.record("matmul_bias_act", dict(m=m, k=k, n=n), a.dtype, a.device,
+                      (m, n, k))
         return out
     ws = build.workspace("matmul_bias_act", a.device, m, n, k)
     err = build.entry("matmul_bias_act")(
@@ -130,8 +143,7 @@ def matmul_residual_add_plain(a, b, res, **_knobs):
     """The reference *kernel's* double rounding: the matmul result is
     rounded to a.dtype, then the residual is added in f32 and the sum
     rounded again (ops._ref_matmul_residual_add rounds once)."""
-    if a.is_cuda:
-        matmul_residual_add_plain.cuda_calls += 1
+    traced.count_plain(matmul_residual_add_plain, a)
     y = (a.to(F32) @ b.to(F32)).to(a.dtype)
     return (y.to(F32) + res.to(F32)).to(a.dtype)
 
@@ -143,12 +155,16 @@ def matmul_residual_add(a, b, res, *, tile_n: int = 0, boxes: int = 0,
     if b.shape[0] != k or res.shape != (m, b.shape[1]):
         raise ValueError(f"matmul_residual_add: shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(res.shape)}")
-    if not a.is_cuda:
+    if not on_card(a):
         return matmul_residual_add_plain(a, b, res)
     build.check_operands("matmul_residual_add", a, b, res)
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
+        return out
+    if a.is_meta:
+        traced.record("matmul_residual_add", dict(m=m, k=k, n=n), a.dtype, a.device,
+                      (m, n, k))
         return out
     ws = build.workspace("matmul_residual_add", a.device, m, n, k)
     err = build.entry("matmul_residual_add")(
@@ -169,8 +185,7 @@ def flash_attention_proj_plain(q, k, v, wo, causal: bool = True,
     summed projection in f32. q: (B,H,S,hd); k/v: (B,KV,S,hd);
     wo: (H,hd,dm) -> (B,S,dm). One softmax over all keys: equal to the
     reference kernel when its kv block spans the sequence (S <= 512)."""
-    if q.is_cuda:
-        flash_attention_proj_plain.cuda_calls += 1
+    traced.count_plain(flash_attention_proj_plain, q)
     o = attention_f32(q, k, v, causal).to(wo.dtype).to(F32)
     return torch.einsum("bhsk,hkd->bsd", o, wo.to(F32)).to(q.dtype)
 
@@ -186,7 +201,7 @@ def flash_attention_proj(q, k, v, wo, causal: bool = True, *,
         raise ValueError(f"flash_attention_proj: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, "
                          f"{tuple(wo.shape)}")
-    if not q.is_cuda:
+    if not on_card(q):
         return flash_attention_proj_plain(q, k, v, wo, causal)
     build.check_operands("flash_attention_proj", q, k, v, wo)
     dm = wo.shape[2]
@@ -195,6 +210,11 @@ def flash_attention_proj(q, k, v, wo, causal: bool = True, *,
                          f"hd={HEAD_DIM} and d_model % 8 == 0; got hd={hd}, "
                          f"d_model={dm}")
     out = torch.empty((b, s, dm), dtype=q.dtype, device=q.device)
+    if q.is_meta:
+        traced.record("flash_attention_proj", dict(b=b, h=h, kv=kv, s=s,
+                                                   hd=hd, dm=dm),
+                      q.dtype, q.device, (b, h, s, dm))
+        return out
     ws = build.workspace("flash_attention_proj", q.device, b, h, s, dm)
     err = build.entry("flash_attention_proj")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), wo.data_ptr(),

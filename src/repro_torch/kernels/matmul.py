@@ -20,15 +20,16 @@ from __future__ import annotations
 
 import torch
 
-from . import build, gemm_plans, pipeline, ref
+from repro_torch.device import on_card
+
+from . import build, gemm_plans, pipeline, ref, traced
 
 DTYPES = (torch.float32, torch.bfloat16)
 
 
 def matmul_plain(a, b, **_knobs):
     """a @ b with an f32 accumulator, rounded once to a.dtype."""
-    if a.is_cuda:
-        matmul_plain.cuda_calls += 1
+    traced.count_plain(matmul_plain, a)
     return ref.matmul(a, b)
 
 
@@ -38,13 +39,17 @@ def matmul(a, b, *, tile_n: int = 0, boxes: int = 0, cluster: int = 0):
     if b.dim() != 2 or b.shape[0] != k:
         raise ValueError(f"matmul: shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
-    if not a.is_cuda:
+    if not on_card(a):
         return matmul_plain(a, b)
     build.check_operands("matmul", a, b, dtypes=DTYPES)
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0 or k == 0:
         return out.zero_()
+    if a.is_meta:
+        traced.record("matmul", dict(m=m, k=k, n=n), a.dtype, a.device,
+                      (m, n, k, int(a.dtype == torch.float32)))
+        return out
     ws = build.workspace("matmul", a.device, m, n, k,
                          int(a.dtype == torch.float32))
     err = build.entry("matmul", f"matmul_{build.SUFFIX[a.dtype]}")(

@@ -332,10 +332,15 @@ def _race(kernel: str, shapes: dict, candidates: Sequence[dict],
     `timer(fn, blocks) -> seconds` is injectable for deterministic tests.
     """
     from repro_torch.kernels import ops
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        raise RuntimeError(
+            f"autotune({kernel!r}): a race times the kernel and cannot run "
+            f"on meta tensors (a dry run's trace takes the tune record or "
+            f"the kernel's own plan)")
     desc = ops.OPS.get(kernel)
     if desc is None or desc.operands is None:
         return None
-    dev = resolve_device(device)
     try:
         operands = desc.operands(shapes, _RACE_DTYPES.get(
             dtype_bytes, torch.float32), dev)

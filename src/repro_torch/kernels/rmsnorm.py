@@ -11,8 +11,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import mesh as hw
+from repro_torch.device import on_card
 
-from . import build, pipeline, ref
+from . import build, pipeline, ref, traced
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -20,8 +21,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 def rmsnorm_plain(x, scale, eps: float = 1e-6):
     """x * rsqrt(mean(x^2) + eps) * (1 + scale) in f32, rounded once to
     x.dtype."""
-    if x.is_cuda:
-        rmsnorm_plain.cuda_calls += 1
+    traced.count_plain(rmsnorm_plain, x)
     return ref.rmsnorm(x, scale, eps)
 
 
@@ -31,11 +31,14 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if scale.shape != (d,):
         raise ValueError(f"rmsnorm: shapes {tuple(x.shape)}, "
                          f"{tuple(scale.shape)}")
-    if not x.is_cuda:
+    if not on_card(x):
         return rmsnorm_plain(x, scale, eps)
     build.check_operands("rmsnorm", x, scale, dtypes=DTYPES)
     out = torch.empty_like(x)
     if m == 0 or d == 0:
+        return out
+    if x.is_meta:
+        traced.record("rmsnorm", dict(m=m, d=d), x.dtype, x.device)
         return out
     err = build.entry("rmsnorm", f"rmsnorm_{build.SUFFIX[x.dtype]}")(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), m, d, float(eps),

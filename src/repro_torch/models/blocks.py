@@ -853,8 +853,12 @@ def _slots(e_flat, E: int, C: int, earlier=None):
 
 def _earlier(e_flat, E: int, group):
     """(E,) the count of slots routed to each expert on the ranks before
-    this one in `group` (their tokens come first in the global order)."""
-    counts = torch.bincount(e_flat, minlength=E)
+    this one in `group` (their tokens come first in the global order).
+    The counts are an `index_add_` of ones, `bincount`'s integers with a
+    static shape: a dry run's meta trace has no `bincount`."""
+    counts = torch.zeros(E, dtype=torch.int64, device=e_flat.device)
+    counts.index_add_(0, e_flat.long(), torch.ones_like(e_flat,
+                                                        dtype=torch.int64))
     every = collectives.all_gather_dim(counts[None], 0, group,
                                        name="dispatch_all_gather")
     return every[:dist.get_rank(group)].sum(0)

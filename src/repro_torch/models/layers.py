@@ -13,6 +13,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import on_card
 from repro_torch.kernels.ref import ACTIVATIONS
 
 F32 = torch.float32
@@ -90,7 +91,8 @@ def product(eq: str, a, b, out_dtype) -> torch.Tensor:
     `out_dtype`: the reference's einsum on bf16 operands (f32 out where it
     asks for `preferred_element_type=F32`, the operand dtype elsewhere).
 
-    On CUDA, bf16 operands run on the tensor cores as one `mm` / `bmm`:
+    On the card's route (`device.on_card`: CUDA, or meta in a dry run's
+    trace), bf16 operands run on the tensor cores as one `mm` / `bmm`:
     cuBLAS accumulates in f32 and rounds once to a bf16 output, or writes
     an f32 output (`out_dtype=`) when f32 is asked for. PyTorch's
     `allow_bf16_reduced_precision_reduction` is left as the caller has it
@@ -100,7 +102,7 @@ def product(eq: str, a, b, out_dtype) -> torch.Tensor:
     function: a product of bf16 values is exact in f32). Under grad the f32
     result's product is `F32Product`; every other path is plain
     autograd."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    if on_card(a) and a.dtype == b.dtype == torch.bfloat16:
         return _tensor_core_product(eq, a, b, out_dtype).to(out_dtype)
     acc = wide(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(acc), b.to(acc)).to(out_dtype)

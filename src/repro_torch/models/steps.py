@@ -55,7 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.cluster import policy as kpolicy
 from repro_torch.configs.registry import TensorSpec
 from repro_torch.core import addressing, collectives
-from repro_torch.device import resolve_device
+from repro_torch.device import on_card, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blocks_lib
 from repro_torch.models.blocks import BLOCKS, ModelAxis, _norm, _norm_specs
@@ -285,8 +285,9 @@ def param_partition(cfg, mesh, rules, max_seq: int = 4096):
                            is_leaf=lambda x: isinstance(x, tuple))
 
 
-# what is left of ROADMAP Queue 1 O, cited by the refusal below
-UNSPLIT_ITEM = ("ROADMAP Queue 1, K2: what is left of the model axis of the "
+# what is left of ROADMAP Queue 1 O, cited by the refusal below (the dry
+# run records its cells as refused with this text)
+UNSPLIT_ITEM = ("ROADMAP Queue 1 Q: what is left of the model axis of the "
                 "other block kinds (xlstm's mlstm / slstm leaves under rules "
                 "that split them, as the dry run's tponly variant does)")
 
@@ -884,7 +885,7 @@ def logits(params, hidden):
     kernel: on the GPU one bf16 GEMM with an f32 result, elsewhere an f32
     product of the upcast operands (the same function)."""
     w = params["unembed"]
-    if hidden.is_cuda and hidden.dtype == w.dtype == torch.bfloat16:
+    if on_card(hidden) and hidden.dtype == w.dtype == torch.bfloat16:
         return product("...d,dv->...v", hidden, w, F32)
     return hidden.to(F32) @ w.to(F32)
 
@@ -1045,7 +1046,10 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
     backward, so a recomputed layer takes the forward's kernels.
 
     With cfg.grad_accum = k > 1 the batch is cut into k microbatches along
-    its rows, each one's gradients taken with `torch.autograd.grad` and
+    its rows (a batch of fewer rows than k into a microbatch a row: a
+    batch rank of a large mesh may hold fewer rows than grad_accum, where
+    the reference's compiler pads each microbatch over the ranks), each
+    one's gradients taken with `torch.autograd.grad` and
     added into an accumulator of `acc_dtype` (f32, bf16 when the moments
     are bf16), which is divided by k: the metrics are the mean loss, the
     learning-rate scale and the gradient norm. With k = 1 the metrics also
@@ -1086,9 +1090,9 @@ def make_train_step(cfg, *, adam: AdamConfig | None = None,
         """(loss, parts, grads) of the batch, over its k microbatches."""
         device = pytree.tree_leaves(params)[0].device
         batch = _on(device, batch)
+        k = micro_count(cfg, batch)
         if layers is not None:
-            layers.start(device)
-        k = cfg.grad_accum
+            layers.start(device, k)
         if k <= 1:
             loss, parts, grads = grads_of(params, batch)
             return loss, parts, _filled(grads, params)
@@ -1157,6 +1161,14 @@ def init_train_state(cfg, seed: int = 0, *, device=None,
     return {"params": params, "opt": adam_init(params, adam)}
 
 
+def micro_count(cfg, batch) -> int:
+    """The microbatches a step cuts `batch` into: cfg.grad_accum, or one
+    a row where the batch holds fewer rows (a batch rank of the (2, 16,
+    16) mesh holds 8 of train_4k's 256 rows, against grad_accum 16)."""
+    rows = next(iter(batch.values())).shape[0]
+    return max(1, min(cfg.grad_accum, rows))
+
+
 class _LayerGather:
     """The per-layer gather of `make_sharded_train_step(fsdp_gather=True)`
     (`layer_gather` of `forward`): it holds every leaf of
@@ -1181,10 +1193,10 @@ class _LayerGather:
         key = _path_key(path)
         return key[0] == "blocks" and self.by_path[key].sharded
 
-    def start(self, device) -> None:
+    def start(self, device, k: int) -> None:
         self.token = torch.zeros((), dtype=F32, device=device,
                                  requires_grad=True)
-        self.acc = {}
+        self.acc, self.k = {}, k
 
     def __call__(self, i: int, p):
         flat, spec = pytree.tree_flatten(p)
@@ -1270,7 +1282,11 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
     is its block of the global batch's i-th (the reference's
     micro-split), not of its own rows. A dense model's micro-split needs
     no exchange: its mean gradient does not depend on which rows share a
-    microbatch.
+    microbatch. Where a rank holds fewer rows than grad_accum
+    (`micro_count`), its i-th microbatch is its i-th row: the global
+    microbatch is then a row of every rank (the reference's compiler
+    pads each of its grad_accum microbatches over the ranks instead, so
+    an MoE model's capacity counts the tokens of other microbatches).
 
     Without `fsdp_gather` each leaf is gathered over the batch axes for
     the whole step and its gradient exists at that size until the step
@@ -1347,14 +1363,16 @@ def make_sharded_train_step(cfg, mesh, *, rules=None,
              for s, p, h in zip(owners, leaves, held(params))], spec)
 
     def micro_rows(batch, device):
-        """This rank's rows of each of the global batch's k microbatches,
-        the microbatches one after another (from every rank's rows)."""
+        """This rank's rows of each of the global batch's microbatches
+        (`micro_count`), the microbatches one after another (from every
+        rank's rows)."""
         out = {}
+        n = micro_count(cfg, batch)
         for key, v in _on(device, batch).items():
             whole = collectives.all_gather_dim(v, 0, group,
                                                name="batch_all_gather")
-            m = v.shape[0] // k
-            rows = (torch.arange(k, device=device)[:, None] * ranks * m
+            m = v.shape[0] // n
+            rows = (torch.arange(n, device=device)[:, None] * ranks * m
                     + rank * m + torch.arange(m, device=device)).reshape(-1)
             out[key] = whole[rows]
         return out

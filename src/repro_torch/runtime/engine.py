@@ -45,7 +45,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, tracing
 from repro_torch.runtime.compile_cache import (Captured, Graphed,
                                                tensor_leaves)
 
@@ -389,19 +389,24 @@ def _done(s):
     return (~s["active"]) | s["finished"] | (s["emitted"] >= s["budget"])
 
 
-def steps_needed(state, group=None) -> int:
+def steps_needed(state, group=None, bound: int | None = None) -> int:
     """Decode steps until every slot is done, barring EOS: a live slot
     still feeds max(prompt_len - consumed - 1, 0) prompt tokens before its
     first emission, then emits budget - emitted tokens. One host read.
     With `group` (a mesh's batch ranks, each holding its block of the
     slots) the most any rank needs (``steps_max``), so that every rank
-    runs the same steps and their collectives."""
+    runs the same steps and their collectives. Inside a dry run's trace
+    (`device.tracing_card`) it returns `bound`, the chunk's K, without
+    the read: the reference's session chunk is a scan of K steps, and
+    its dry run counts K."""
     need = torch.clamp(state["prompt_len"] - state["consumed"] - 1, min=0) \
         + (state["budget"] - state["emitted"])
     need = torch.where(_done(state), 0, need).amax(0, keepdim=True)
     if group is not None:
         from repro_torch.core import collectives
         need = collectives.max_over_ranks(need, group, name="steps_max")
+    if bound is not None and tracing():
+        return bound
     return int(need.item())
 
 
@@ -479,7 +484,7 @@ def session_chunk_fn(decode_step: Callable, chunk: int,
         toks = torch.zeros((b, chunk), dtype=I64, device=dev)
         emit = torch.zeros((b, chunk), dtype=torch.bool, device=dev)
         busy = torch.zeros(b, dtype=I64, device=dev)
-        for t in range(min(chunk, steps_needed(state, group))):
+        for t in range(min(chunk, steps_needed(state, group, chunk))):
             if not graphed:
                 raw, em, live = _session_step(decode_step, params, state,
                                               eos_id)

@@ -402,18 +402,23 @@ def test_cluster_rejects_unknown_program():
     pytest.param(tsession.ShardedServeSessionProgram(), None,
                  id="ShardedServeSessionProgram-Queue 1 I"),
     (jsession.BenchProgram(), "Queue 1 J"),
-    (jsession.DryRunProgram(), "Queue 1 K")],
+    # the id keeps the name this case had before Queue 1 K2 was ported
+    pytest.param(tsession.DryRunProgram(), None,
+                 id="DryRunProgram-Queue 1 K")],
     ids=lambda x: type(x).__name__ if not isinstance(x, str) else x)
 def test_unported_program_specs_name_their_roadmap_item(spec, item):
     """Each spec the port does not define names its ROADMAP item;
-    TrainProgram (Queue 1 H) and ShardedServeSessionProgram (Queue 1 I)
-    are ported and compile to their programs."""
+    TrainProgram (Queue 1 H), ShardedServeSessionProgram (Queue 1 I) and
+    DryRunProgram (Queue 1 K2) are ported and compile to their
+    programs."""
     cluster = tsession.Cluster(ARCH, device="cpu")
     if item is None:
         assert type(spec).__name__ not in tsession.UNPORTED
         want = {tsession.TrainProgram: tsession.CompiledTrain,
                 tsession.ShardedServeSessionProgram:
-                    tsession.CompiledShardedServeSession}[type(spec)]
+                    tsession.CompiledShardedServeSession,
+                tsession.DryRunProgram: tsession.CompiledDryRun}[
+                    type(spec)]
         assert type(cluster.compile(spec)) is want
         return
     with pytest.raises(NotImplementedError, match=item):

@@ -121,6 +121,7 @@ CASES += [((1, 4), WHISPER, 24, (("n_heads", 6), ("n_kv_heads", 6)))]
 ALL_ARCHS = sorted(ARCHS)
 REF_SHAPE = (64, 8)                     # (seq, slots) of the (2, 4) cells
 TRAIN_SHAPE = (16, 8)                   # (seq, batch) of the train cells
+DRY_SHAPE = (16, 8)                     # (seq, batch) of the dry-run check
 KINDS_START, KINDS_DECODE = 20, 4       # the kinds' (2, 4) decode cells
 TOL = 1e-5
 # xlstm's f32 logits against the reference's: the port runs the mLSTM
@@ -381,6 +382,9 @@ def runs(tmp_path_factory):
         for a in ALL_ARCHS] + [("serve_case", dict(
             arch=a, params=_save_params(tmp, a, (), 24), max_seq=24,
             mesh=(2, 1), cells=False)) for a in KINDS]
+    # last in the 4-rank world: the dry run's fake-against-real check
+    jobs[4].append(("dryrun_cells", dict(arch=DENSE, seq=DRY_SHAPE[0],
+                                         batch=DRY_SHAPE[1])))
     S, B = REF_SHAPE
     ref_cells = _start_reference_cells(tmp)
     kinds_jobs = []
@@ -426,6 +430,35 @@ def runs(tmp_path_factory):
         with open(tmp / f"ref_cells.pkl.{arch}", "rb") as f:
             out["ref_kinds_state"][arch] = pickle.load(f)
     return out
+
+
+def test_dry_run_equals_a_real_run_of_its_rank(runs):
+    """A dry run's meta trace of each rank of a (2, 2) fake world
+    (`core.compat.abstract_mesh(rank=)`) against the gloo world's real
+    run of the same rank (`torch_ranks.dryrun_cells`): qwen3-14b-smoke's
+    train and decode cells of `build_cell` issue the same collectives by
+    name, count and bytes, and their products the same flops
+    (FlopCounterMode's formulas; both on the plain route: the real run's
+    tensors are on the CPU, the trace runs outside `tracing_card`)."""
+    from repro_torch.core import compat, op_cost
+    cfg = tget(DENSE)
+    for rank, res in enumerate(runs[4]):
+        real = res[-1]
+        with compat.abstract_mesh((2, 2), ("data", "model"),
+                                  rank=rank) as mesh:
+            rules = addressing.default_rules(
+                mesh, overrides=cfg.rules_overrides)
+            for kind in ("train", "decode"):
+                fn, args = cells.build_cell(cfg, ShapeConfig(
+                    "t", *DRY_SHAPE, kind), mesh, rules)[:2]
+                collectives.reset_counts()
+                with op_cost.tracked() as tr:
+                    fn(*cells.meta_args(args))
+                got = collectives.counts()
+                assert got == real[kind]["collectives"], (rank, kind)
+                assert any(got.values())
+                assert tr.ops.products == real[kind]["products"] > 0
+    assert not dist.is_initialized()
 
 
 def _result(runs, case):

@@ -745,3 +745,46 @@ def train_cell(rank, world, *, arch, state, batches, seq, batch,
         lambda sh, leaf: sh.gather(leaf), fn.shards, local,
         is_leaf=lambda x: isinstance(x, addressing.LeafShard))
     return {"metrics": metrics, "state": whole if rank == 0 else None}
+
+
+@job
+def dryrun_cells(rank, world, *, arch, seq, batch, mesh=(2, 2)):
+    """`build_cell`'s train and decode cells of `arch` on `mesh` over
+    ("data", "model"), run for real on this rank's seeded blocks (CPU:
+    the plain route) under `core.op_cost.tracked` -> for each cell the
+    collectives' counts and bytes (`collectives.counts`) and the products'
+    flops (FlopCounterMode's formulas), which a dry run's meta trace of
+    the same rank must give too."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig, TensorSpec
+    from repro_torch.core import addressing, collectives, op_cost
+
+    cfg = get(arch)
+    dmesh = _mesh(world, sizes=mesh, names=("data", "model"))
+    rules = addressing.default_rules(dmesh, overrides=cfg.rules_overrides)
+    gen = torch.Generator().manual_seed(rank)
+
+    def real(s):
+        if s.dtype.is_floating_point:
+            return (torch.randn(s.shape, generator=gen) * 0.02).to(s.dtype)
+        if s.dtype == torch.bool:
+            return torch.zeros(s.shape, dtype=torch.bool)
+        return torch.randint(0, cfg.vocab, s.shape, generator=gen,
+                             dtype=s.dtype) if s.shape else \
+            torch.zeros((), dtype=s.dtype)
+
+    out = {}
+    for kind in ("train", "decode"):
+        fn, args = cells_lib.build_cell(
+            cfg, ShapeConfig("t", seq, batch, kind), dmesh, rules)[:2]
+        args = pytree.tree_map(real, args,
+                               is_leaf=lambda x: isinstance(x, TensorSpec))
+        collectives.reset_counts()
+        with op_cost.tracked() as tr:
+            fn(*args)
+        out[kind] = {"collectives": collectives.counts(),
+                     "products": tr.ops.products}
+    return out
