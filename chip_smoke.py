@@ -4402,9 +4402,56 @@ def xlstm_phase(launches) -> None:
     kinds_parts(launches, "xlstm", cfg, params, train_cfg=cfg,
                 fresh=lambda: _clone_tree(params),
                 batch=_stream_batches(cfg, KINDS_B, KINDS_S, 1, seed=7)[0])
+    xlstm_tponly_part(launches, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+
+TPONLY = (("embed", None),)        # the dry run's tponly rules
+
+
+def xlstm_tponly_part(launches, cfg, params) -> None:
+    """[tp] part=xlstm_tponly: xlstm-125m under the dry run's tponly
+    rules, which split its mLSTM / sLSTM leaves over "model" (the inner
+    width, w_up's and w_in's columns, the cells' heads where the model
+    size divides them), on the phase's weights: on a (1, 1) mesh the
+    train step (KINDS_STEPS steps, every state leaf) and the prefill,
+    decode, decode-chunk and session cells bit-equal to the plain paths
+    (`kinds_train_part`, `kinds_cells_part`); at one period of the
+    pattern (4 layers: 3 mlstm, 1 slstm) on (1, 4) thread ranks
+    (the heads split, one a rank) the train step's gradients and the
+    decode step's logits and tokens held as the other kinds' are
+    (`kinds_train_threads_part`, `kinds_mesh_threads_part`: each leaf
+    within MESH_NOISE times its noise floor, which takes the move of its
+    one-rank bf16 gradient under a move of the weights by 2^-10 of
+    themselves too (`moved_floor`); f32 logits within MESH_F32_TOL); and
+    the same on (1, 2) thread ranks with 3 heads of
+    256 (d_model and the inner width 768 as xlstm-125m's), whose heads
+    the model size does not divide: every rank runs every head, its
+    inner width split."""
+    t0 = time.perf_counter()
+    part, tag = "xlstm_tponly", "xlstm"
+    tp = dataclasses.replace(cfg, rules_overrides=TPONLY)
+    batch = _stream_batches(cfg, KINDS_B, KINDS_S, 1, seed=7)[0]
+    fresh = lambda: _clone_tree(params)
+    kinds_train_part(launches, tag, tp, fresh, batch, part=part)
+    kinds_cells_part(launches, tag, tp, params, part=part)
+    L = len(cfg.pattern)                # one period: every leaf kind
+    cut = dataclasses.replace(tp, n_layers=L)
+    kinds_train_threads_part(launches, tag, cut, lambda: _clone_tree(
+        params, L), batch, world=4, part=part, moved_floor=True)
+    kinds_mesh_threads_part(launches, tag, cut, _clone_tree(params, L),
+                            world=4, part=part)
+    whole = dataclasses.replace(cut, n_heads=3, n_kv_heads=3, head_dim=256)
+    wp = init_on_card(tag, whole)
+    kinds_train_threads_part(launches, tag, whole, lambda: _clone_tree(wp),
+                             batch, world=2, part=part, moved_floor=True)
+    kinds_mesh_threads_part(launches, tag, whole, wp, world=2, part=part)
+    del wp
+    _kinds_free()
+    log("tp", part=part, seconds=f"{time.perf_counter() - t0:.1f}",
+        gpu=f"'{gpu_line()}'")
 
 
 def vlm_phase(launches) -> dict:
@@ -4518,6 +4565,7 @@ def train_phase(launches) -> tuple[dict, dict]:
     phase holds its sharded step to (`train_step_part`'s second value)."""
     counts, plain = train_step_part(launches)
     train_grads_part(launches)
+    train_remat_part(launches)
     train_run_part(launches)
     return counts, plain
 
@@ -4706,6 +4754,169 @@ def train_grads_part(launches) -> None:
         worst_leaf=f"'{worst[0]}'", worst_rel_l2=f"{worst[1]:.3g}",
         tol=TRAIN_TOL, launches=json.dumps(want).replace(" ", ""))
     del params, gk, gr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+REMAT_POLICIES = ("nothing", "dots_no_batch", "dots")
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "tma_wgmma",
+                "mma_kernel")   # the device kernels of a matrix product
+
+
+def _gemm_kernels(prof) -> dict:
+    """{device kernel name: runs} of a trace's matrix-product kernels."""
+    from repro_torch.kernels import launches
+    return {k: n for k, n in launches.device_kernels(prof).items()
+            if any(g in k.lower() for g in GEMM_KERNELS)}
+
+
+def train_remat_part(launches) -> None:
+    """[train] part=remat: one microbatch (2 x 512) of qwen3-14b at full
+    width, TRAIN_LAYERS layers, from one set of seeded weights, under
+    cfg.remat "nothing", "dots_no_batch" and "dots" (core/remat.py),
+    each `accumulate` run twice (the second timed with CUDA events, its
+    peak memory read above the memory held before it). Under "fused"
+    (rows 1-3) and under "tuned" (the products on cuBLAS, attention
+    through its chunked schedule) the selective policies' loss and every
+    gradient leaf are bit-equal to "nothing"'s; under "fused" rows 1-3
+    launch as often as under "nothing" (the layer recomputed whole: the
+    reference's policies keep nothing of a Pallas call). Under "tuned"
+    one call of each policy is traced: under "dots_no_batch" the
+    recompute's matrix-product kernels are fewer by six weight products
+    a layer (q, k, v, out, gate, up: each product's own kernels, counted
+    from a trace of it alone at its shape), and no kernel runs more
+    often. The seventh kept product, the down projection, saves no
+    launch: "nothing"'s recompute stops once it has made again what
+    backward reads (torch's checkpoint stops early), which is before the
+    down projection, whose output backward does not read. The
+    peaks are reported beside the arithmetic of what "dots_no_batch"
+    keeps (the seven products' bf16 outputs, 52,224 elements a token a
+    layer for qwen3-14b); the walls beside "nothing"'s."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.cluster.policy import use_policy
+    from repro_torch.models import steps
+    from repro_torch.models.layers import product
+
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(train_cfg(), grad_accum=1)
+    params = steps.init_params(cfg, 0, device="cuda")
+    batch = _stream_batches(cfg, 2, TRAIN_S, 1, seed=1)[0]
+    tokens, L = batch["tokens"].numel(), cfg.n_layers
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    products = {"q": (d, cfg.n_heads * hd), "k": (d, cfg.n_kv_heads * hd),
+                "v": (d, cfg.n_kv_heads * hd), "out": (cfg.n_heads * hd, d),
+                "gate": (d, f), "up": (d, f), "down": (f, d)}
+    per_token = sum(n for _, n in products.values())
+    kept_gb = per_token * 2 * tokens * L / 1e9
+    card = gpu_line()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for route in ("fused", "tuned"):
+        runs, want = {}, None
+        for name in REMAT_POLICIES:
+            step = steps.make_train_step(dataclasses.replace(
+                cfg, remat=name), policy=route)
+            for timed in (False, True):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                launches.reset_counts()
+                ev[0].record()
+                loss, _, grads = step.accumulate(params, batch)
+                ev[1].record()
+                torch.cuda.synchronize()
+                if timed:
+                    break
+                del grads
+            counted = _check_counts(launches, f"train remat {route}",
+                                    QWEN_FUSED if route == "fused" else ())
+            runs[name] = {"loss": float(loss),
+                          "ms": ev[0].elapsed_time(ev[1]),
+                          "peak_gb": (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+                          "launches": {n: counted[n] for n in QWEN_FUSED}}
+            if want is None:
+                want = grads
+            else:
+                differ = [pytree.keystr(p) for (p, a), b in zip(
+                    pytree.tree_flatten_with_path(grads)[0],
+                    pytree.tree_leaves(want)) if not torch.equal(a, b)]
+                if differ or runs[name]["loss"] != runs["nothing"]["loss"]:
+                    raise AssertionError(
+                        f"train remat {route}: {name} against nothing: "
+                        f"loss {runs[name]['loss']} / "
+                        f"{runs['nothing']['loss']}, leaves that differ "
+                        f"{differ[:4]} of {len(differ)}")
+                if route == "fused" and runs[name]["launches"] != \
+                        runs["nothing"]["launches"]:
+                    raise AssertionError(
+                        f"train remat fused: {name} launched "
+                        f"{runs[name]['launches']}, nothing "
+                        f"{runs['nothing']['launches']}")
+            del grads
+        if route == "fused" and runs["nothing"]["launches"] != \
+                train_launches(cfg, 1):
+            raise AssertionError(f"train remat fused: nothing launched "
+                                 f"{runs['nothing']['launches']}")
+        del want
+        gemm = {}
+        if route == "tuned":
+            for name in REMAT_POLICIES:
+                step = steps.make_train_step(dataclasses.replace(
+                    cfg, remat=name), policy=route)
+                gemm[name] = _gemm_kernels(traced(
+                    f"train_remat_{name}",
+                    lambda: step.accumulate(params, batch)))
+            x = torch.randn((tokens, f), device="cuda").bfloat16()
+
+            def alone():
+                with use_policy(route):
+                    for key, (rows, cols) in products.items():
+                        if key == "down":     # not recomputed: see above
+                            continue
+                        w = x.new_zeros((rows, cols))
+                        product("td,de->te", x[:, :rows], w, x.dtype)
+
+            each = sum(_gemm_kernels(traced("train_remat_products",
+                                            alone)).values())
+            del x
+            fewer = {n: {k: gemm["nothing"].get(k, 0) - gemm[n].get(k, 0)
+                         for k in set(gemm["nothing"]) | set(gemm[n])}
+                     for n in REMAT_POLICIES[1:]}
+            drop = sum(fewer["dots_no_batch"].values())
+            if not each or drop != L * each or \
+                    min(fewer["dots_no_batch"].values()) < 0:
+                raise AssertionError(
+                    f"train remat tuned: the recompute under dots_no_batch "
+                    f"ran {drop} fewer product kernels, expected "
+                    f"{L} x {each} (by kernel: {fewer['dots_no_batch']})")
+            del fewer
+        nothing_gb = runs["nothing"]["peak_gb"]
+        for name in REMAT_POLICIES:
+            r = runs[name]
+            extra = {}
+            if gemm:
+                extra = {"product_kernels": sum(gemm[name].values()),
+                         "fewer_than_nothing": sum(
+                             gemm["nothing"].values())
+                         - sum(gemm[name].values())}
+            log("train", part="remat", route=route, remat=name, B=2,
+                S=TRAIN_S, layers=L, bit_equal=True,
+                loss=f"{r['loss']:.5f}", wall_ms=f"{r['ms']:.2f}",
+                wall_vs_nothing=f"{r['ms'] / runs['nothing']['ms']:.3f}",
+                peak_gb=f"{r['peak_gb']:.3f}",
+                peak_over_nothing_gb=f"{r['peak_gb'] - nothing_gb:.3f}",
+                launches=json.dumps(r["launches"]).replace(" ", ""),
+                gpu=f"'{card}'", **extra)
+    log("train", part="remat", kept_elements_a_token_a_layer=per_token,
+        kept_gb_arithmetic=f"{kept_gb:.3f}", tokens=tokens,
+        saved_kernels_a_layer=each,
+        saved_kernels_expected=f"{L}x{each}",
+        seconds=f"{time.perf_counter() - t_part:.1f}",
+        gpu=f"'{card}'")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6096,6 +6307,7 @@ def _axis_fields(axis) -> dict:
     span = lambda s: "whole" if s is None else f"{s.start}-{s.stop}"
     return {"heads": span(axis.heads), "kv_heads": span(axis.kv_heads),
             "ffn": axis.ffn, "lru": span(axis.lru),
+            "inner": span(axis.inner), "cell_heads": span(axis.cell_heads),
             "vocab": span(axis.vocab)}
 
 
@@ -6111,7 +6323,8 @@ def _differing(a, b) -> list:
 
 
 def kinds_train_part(launches, tag: str, cfg, fresh, batch, must=(),
-                     max_seq: int = 4096, device="cuda") -> dict:
+                     max_seq: int = 4096, device="cuda",
+                     part: str = "kinds") -> dict:
     """[tp] part=kinds: `cfg` trained KINDS_STEPS steps ("fused") by
     `make_train_step` and by `make_sharded_train_step` on a (1, 1) mesh
     over a one-rank group, each from `fresh()` (a new copy of the
@@ -6162,7 +6375,7 @@ def kinds_train_part(launches, tag: str, cfg, fresh, batch, must=(),
         raise AssertionError(f"tp kinds {tag}: losses {got} against the "
                              f"plain step's {want}; leaves that differ: "
                              f"{differ[:4]}")
-    log("tp", part="kinds", arch=cfg.name, mesh="data=1,model=1",
+    log("tp", part=part, arch=cfg.name, mesh="data=1,model=1",
         layers=cfg.n_layers, B=batch["tokens"].shape[0],
         S=batch["tokens"].shape[1], steps=KINDS_STEPS, policy="fused",
         losses=",".join(f"{x:.5f}" for x in got), bit_equal=True,
@@ -6318,9 +6531,11 @@ def _f32_products(device):
 
 
 def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
-                             max_seq: int = 4096, device="cuda") -> None:
-    """[tp] part=kinds_threads: `cfg` on a (data=1, model=2) mesh whose
-    ranks are two threads of this process (torch's threaded process
+                             max_seq: int = 4096, device="cuda",
+                             world: int = 2, part: str = "kinds_threads",
+                             moved_floor: bool = False) -> None:
+    """[tp] part=kinds_threads: `cfg` on a (data=1, model=`world`) mesh
+    whose ranks are threads of this process (torch's threaded process
     group), each taking its blocks of `fresh()` with the attention
     weights at their true fan-in (`_true_fan_in`: whisper's random
     scores are otherwise so large that its bf16 gradients carry no
@@ -6338,7 +6553,13 @@ def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
     w_ra gradient on the CPU), and a distance relative to it would then
     grow with no fault of the split. Every leaf's error, floor and the
     ranks' own distance from f32 is logged (`[tp] part=kinds_threads
-    leaf=`)."""
+    leaf=`). With `moved_floor` a leaf's floor is also at least the move
+    of its one-rank bf16 gradient when every weight moves by 2^-10 of
+    itself (a seeded normal draw, rounded back to bf16: most elements
+    keep their bits, some move one unit in the last place): a gradient
+    that sums terms which cancel (xlstm's input gate biases) moves by
+    many times its f32 size under such a move, and its one bf16 sample
+    against f32 does not show that noise."""
     from torch.utils import _pytree as pytree
 
     from repro_torch.core import addressing
@@ -6351,7 +6572,7 @@ def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
     results, reduced = {}, {}
 
     def rank(r):
-        mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+        mesh = make_device_mesh(MeshSpec((1, world), ("data", "model")),
                                 torch.device(device).type)
         step = steps.make_sharded_train_step(cfg, mesh, policy="fused",
                                              max_seq=max_seq)
@@ -6363,21 +6584,33 @@ def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
         results[r] = (float(loss), step.axis)
 
     launches.reset_counts()
-    wall = _thread_ranks(f"tp kinds_threads {tag}", rank)
-    counted = _check_counts(launches, f"tp kinds_threads {tag}", ())
+    wall = _thread_ranks(f"tp {part} {tag}", rank, world)
+    counted = _check_counts(launches, f"tp {part} {tag}", ())
     del whole
     _kinds_free(device)
     loss, _, bf16 = steps.make_train_step(cfg, policy="fused").accumulate(
         fresh(), batch)
     one = float(loss)
+    moved = None
+    if moved_floor:
+        g = torch.Generator(device=device).manual_seed(47)
+        weights = pytree.tree_map(lambda t: (t.float() * (1 + 2.0 ** -10 * (
+            torch.randn(t.shape, generator=g, device=device)))).to(t.dtype),
+            fresh())
+        moved = steps.make_train_step(cfg, policy="fused").accumulate(
+            weights, batch)[2]
+        del weights
+        moved = {steps._path_key(p): m for p, m in
+                 pytree.tree_flatten_with_path(moved)[0]}
+
     def against(whole: dict) -> dict:
         """Each leaf's squared L2 distance of the ranks' gradient (its
         blocks together) from `whole`'s."""
         out = {}
         for p, want in pytree.tree_flatten_with_path(whole)[0]:
             key = steps._path_key(p)
-            owners = [reduced[r][key] for r in (0, 1)]
-            ranks = (0, 1) if owners[0][1].model_sharded else (0,)
+            owners = [reduced[r][key] for r in range(world)]
+            ranks = range(world) if owners[0][1].model_sharded else (0,)
             out[key] = sum(_sq_sums(owners[r][0], owners[r][1].take(want))[0]
                            for r in ranks)
         return out
@@ -6397,11 +6630,14 @@ def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
         num, _, den = _sq_sums(a, b)
         scale = den or 1.0       # every distance against the f32 gradient
         floor[key] = (num / scale) ** 0.5
+        if moved is not None:
+            floor[key] = max(floor[key],
+                             (_sq_sums(moved.pop(key), a)[0] / scale) ** 0.5)
         err[key] = (dist_bf16[key] / scale) ** 0.5
         own[key] = (dist_f32[key] / scale) ** 0.5
         ratio, held = _noise_ratio(err[key], floor[key], own[key])
         name = "/".join(map(str, key))
-        log("tp", part="kinds_threads", arch=cfg.name, leaf=f"'{name}'",
+        log("tp", part=part, arch=cfg.name, leaf=f"'{name}'",
             rel_l2=f"{err[key]:.4g}", floor=f"{floor[key]:.4g}",
             sharded_floor=f"{own[key]:.4g}", over_floor=f"{ratio:.3f}",
             held=held)
@@ -6410,17 +6646,17 @@ def kinds_train_threads_part(launches, tag: str, cfg, fresh, batch,
             worst = (name, ratio, err[key], floor[key])
     del bf16, f32
     _kinds_free(device)
-    losses = [results[r][0] for r in (0, 1)]
-    if losses[0] != losses[1] or not np.isfinite(one) or \
+    losses = [results[r][0] for r in range(world)]
+    if len(set(losses)) > 1 or not np.isfinite(one) or \
             abs(losses[0] - one) > TRAIN_TOL * abs(one):
-        raise AssertionError(f"tp kinds_threads {tag}: losses {losses}, "
+        raise AssertionError(f"tp {part} {tag}: losses {losses}, "
                              f"one rank {one}")
     if worst[1] > MESH_NOISE:
         raise AssertionError(
-            f"tp kinds_threads {tag}: {worst[0]} is {worst[2]:.3g} "
+            f"tp {part} {tag}: {worst[0]} is {worst[2]:.3g} "
             f"(relative L2) from the one-rank gradient, {worst[1]:.3f} x "
             f"its noise floor {worst[3]:.3g} (limit {MESH_NOISE})")
-    log("tp", part="kinds_threads", arch=cfg.name, mesh="data=1,model=2",
+    log("tp", part=part, arch=cfg.name, mesh=f"data=1,model={world}",
         ranks="threads", layers=cfg.n_layers, B=batch["tokens"].shape[0],
         S=batch["tokens"].shape[1], **_axis_fields(results[0][1]),
         loss=f"{losses[0]:.5f}", loss_one_rank=f"{one:.5f}",
@@ -6533,7 +6769,7 @@ def _cross_of(cfg, B: int, device):
 
 
 def kinds_cells_part(launches, tag: str, cfg, params, must=(),
-                     device="cuda") -> dict:
+                     device="cuda", part: str = "kinds_cells") -> dict:
     """[mesh] part=kinds_cells: `cfg` with the phase's weights on a (1, 1)
     mesh over a one-rank group, "fused": `build_cell`'s prefill cell (B
     1, KINDS_CELL_PROMPT tokens, the cross context where the arch takes
@@ -6645,7 +6881,7 @@ def kinds_cells_part(launches, tag: str, cfg, params, must=(),
             got[name], ms[name] = timed(fn, *args)
             coll[name] = {k: v for k, v in collectives.counts().items()
                           if v and not k.endswith("_bytes")}
-        counted = _check_counts(launches, f"mesh kinds_cells {tag}", must)
+        counted = _check_counts(launches, f"mesh {part} {tag}", must)
         del sharded
     same = {}
     for name in got:
@@ -6659,14 +6895,14 @@ def kinds_cells_part(launches, tag: str, cfg, params, must=(),
             same[name] = all(torch.equal(x, y) for x, y in zip(a, b))
     emitted = all(bool(got[k][1].any()) for k in kinds)
     if not all(same.values()) or not emitted:
-        raise AssertionError(f"mesh kinds_cells {tag}: bit-equal {same}, "
+        raise AssertionError(f"mesh {part} {tag}: bit-equal {same}, "
                              f"emitted {emitted}")
     for name in got:
-        log("mesh", part="kinds_cells", arch=cfg.name, cell=name,
+        log("mesh", part=part, arch=cfg.name, cell=name,
             mesh="data=1,model=1", layers=cfg.n_layers, bit_equal=True,
             wall_ms=f"{ms[name]:.2f}", plain_wall_ms=f"{plain_ms[name]:.2f}",
             collectives=json.dumps(coll[name]).replace(" ", ""))
-    log("mesh", part="kinds_cells", arch=cfg.name, B=B, S=S,
+    log("mesh", part=part, arch=cfg.name, B=B, S=S,
         cache_rows=clen, chunk=K, prompt=KINDS_CELL_PROMPT,
         cross=key or "none", paged=paged, launches=_nonzero(counted))
     del got, want
@@ -6675,7 +6911,8 @@ def kinds_cells_part(launches, tag: str, cfg, params, must=(),
 
 
 def kinds_mesh_threads_part(launches, tag: str, cfg, params,
-                            device="cuda") -> None:
+                            device="cuda", world: int = 2,
+                            part: str = "kinds_threads") -> None:
     """[mesh] part=kinds_threads: the decode step of `cfg` (the phase's
     weights, their first KINDS_THREAD_LAYERS layers for recurrentgemma
     and vision, the attention weights at their true fan-in) on a
@@ -6727,7 +6964,7 @@ def kinds_mesh_threads_part(launches, tag: str, cfg, params,
         meta = {}
 
         def rank(r):
-            mesh = make_device_mesh(MeshSpec((1, 2), ("data", "model")),
+            mesh = make_device_mesh(MeshSpec((1, world), ("data", "model")),
                                     torch.device(device).type)
             rules = addressing.default_rules(mesh,
                                              overrides=cfg.rules_overrides)
@@ -6746,22 +6983,24 @@ def kinds_mesh_threads_part(launches, tag: str, cfg, params,
 
         with _reading_logits() as seen, \
                 (_f32_products(device) if f32 else contextlib.nullcontext()):
-            wall = _thread_ranks(f"mesh kinds_threads {tag}", rank)
-        return {r: [lg.cpu() for lg in seen[r]] for r in (0, 1)}, meta, wall
+            wall = _thread_ranks(f"mesh {part} {tag}", rank, world)
+        return ({r: [lg.cpu() for lg in seen[r]] for r in range(world)},
+                meta, wall)
 
     one, one32 = one_rank("fused", False), one_rank("reference", True)
     _kinds_free(device)
     launches.reset_counts()
     got, meta, wall = two_ranks("fused", False)
-    counted = _check_counts(launches, f"mesh kinds_threads {tag}", ())
+    counted = _check_counts(launches, f"mesh {part} {tag}", ())
     _kinds_free(device)
     got32, _, wall32 = two_ranks("reference", True)
     _kinds_free(device)
     rel = lambda a, b: float((a.double() - b.double()).norm()
                              / b.double().norm())
     floor = [rel(one[t], one32[t]) for t in range(n)]
-    err = [max(rel(got[r][t], one[t]) for r in (0, 1)) for t in range(n)]
-    err32 = [max(rel(got32[r][t], one32[t]) for r in (0, 1))
+    err = [max(rel(got[r][t], one[t]) for r in range(world))
+           for t in range(n)]
+    err32 = [max(rel(got32[r][t], one32[t]) for r in range(world))
              for t in range(n)]
     checked, differ = 0, []
     for t in range(n):
@@ -6770,19 +7009,19 @@ def kinds_mesh_threads_part(launches, tag: str, cfg, params,
         top2 = want.topk(2, dim=-1).values
         sure = (top2[:, 0] - top2[:, 1]) > 4 * noise
         checked += int(sure.sum())
-        for r in (0, 1):
+        for r in range(world):
             if not torch.equal(got[r][t].argmax(-1)[sure],
                                want.argmax(-1)[sure]):
                 differ.append((t, r))
     over = [t for t in range(n) if err[t] > MESH_NOISE * floor[t]]
     if max(err32) > MESH_F32_TOL or over or differ:
         raise AssertionError(
-            f"mesh kinds_threads {tag}: f32 logits {max(err32):.3g} "
+            f"mesh {part} {tag}: f32 logits {max(err32):.3g} "
             f"relative L2 (tol {MESH_F32_TOL}); bf16 above {MESH_NOISE} x "
             f"the floor at steps {over} ({err} against {floor}); tokens "
             f"differ at {differ}")
     axis, shapes = meta[0]
-    log("mesh", part="kinds_threads", arch=cfg.name, mesh="data=1,model=2",
+    log("mesh", part=part, arch=cfg.name, mesh=f"data=1,model={world}",
         ranks="threads", layers=L, B=B, cache_rows=clen, steps=n,
         **_axis_fields(axis),
         cache_split=json.dumps({k: v for k, v in

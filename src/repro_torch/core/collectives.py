@@ -22,7 +22,10 @@ whole value. `max_over_ranks` is a max with no gradient (the
 vocab-parallel loss's). `scatter_from_ranks` is a reduce-scatter forward
 and an all-gather of the gradient backward: a product split on its
 input channels (the RG-LRU's gates) sums its partials and each rank
-keeps its own output channels.
+keeps its own output channels. `gather_from_ranks` is its conjugate, an
+all-gather forward and a reduce-scatter of the gradient backward: a
+product split on its output channels whose whole output each rank reads
+in part (xlstm's w_up and w_in columns).
 
 Serving on a mesh runs under `inference_mode` and uses the plain forms:
 `all_gather_dim` of the query heads and the new K/V rows
@@ -67,7 +70,7 @@ import torch.distributed as dist
 
 NAMES = ("all_gather", "reduce_scatter", "all_reduce", "copy_to_ranks",
          "reduce_from_ranks", "max_over_ranks", "gates_reduce_scatter",
-         "gates_all_gather")
+         "gates_all_gather", "inner_all_gather", "inner_reduce_scatter")
 # the serving collectives (counted by these names where they are issued)
 SERVE_NAMES = ("heads_all_gather", "lse_max", "lse_sum", "lse_out",
                "pool_all_gather", "argmax_all_gather", "steps_max")
@@ -244,6 +247,18 @@ class _ScatterFromRanks(torch.autograd.Function):
                               name="gates_all_gather"), None, None
 
 
+class _GatherFromRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(t, dim, group, name="inner_all_gather")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter_dim(grad, ctx.dim, ctx.group,
+                                  name="inner_reduce_scatter"), None, None
+
+
 class _GatherForLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, token, shard, dim, group, sink):
@@ -306,12 +321,28 @@ def scatter_from_ranks(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     gradient gathered along `dim` (``gates_all_gather``): each rank's
     partial reads every chunk of the sum, whose gradients the other
     ranks hold. The RG-LRU's gate products, split on their input
-    channels, take it."""
+    channels, take it, and xlstm's q / k / v and gate products where the
+    model size divides its heads."""
     group = _need(group)
     if not torch.is_grad_enabled():
         return reduce_scatter_dim(t, dim % t.ndim, group,
                                   name="gates_reduce_scatter")
     return _ScatterFromRanks.apply(t, dim % t.ndim, group)
+
+
+def gather_from_ranks(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `t` concatenated along `dim` (a new tensor; counted as
+    ``inner_all_gather``), each rank's columns of a column-parallel
+    product made whole. Backward, the gradient summed over the ranks and
+    cut along `dim` (``inner_reduce_scatter``): each rank reads only some
+    columns of the whole, and the columns it computed take every rank's
+    share. xlstm's w_up and w_in outputs take it (`scatter_from_ranks`'
+    conjugate)."""
+    group = _need(group)
+    if not torch.is_grad_enabled():
+        return all_gather_dim(t, dim % t.ndim, group,
+                              name="inner_all_gather")
+    return _GatherFromRanks.apply(t, dim % t.ndim, group)
 
 
 def max_over_ranks(t: torch.Tensor, group, *,

@@ -9,7 +9,9 @@ Where the rest of the reference module went:
   `core/addressing.LeafShard`), and no compiler picks a layout;
 * `prefetchable_scan` is the layer loop of `models/steps.forward` with
   `_remat` (`torch.utils.checkpoint` a layer);
-* the remat policies `"dots"` / `"dots_no_batch"` are ROADMAP Queue 1 P;
+* `_policy`'s names are cfg.remat's: `"nothing"` and no checkpoint
+  (`"none"`, `"everything"`) in `models/steps._layer`, the selective
+  `"dots"` / `"dots_no_batch"` in `core/remat.py`;
 * the next layer's prefetch under the per-layer gather (`fsdp_gather`:
   each layer's all_gather sits on its critical path) is an open note of
   ROADMAP Queue 1.

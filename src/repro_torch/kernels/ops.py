@@ -57,6 +57,7 @@ from typing import Callable
 import torch
 
 from repro_torch.cluster.policy import current_policy
+from repro_torch.core import remat
 from repro_torch.device import resolve_device
 
 from . import axpy as _axpy
@@ -224,13 +225,16 @@ class _FusedVJP(torch.autograd.Function):
     the plain version on the CPU, or the race's unfused composition) with
     the inputs saved as residuals; the backward is `vjp(grad, need,
     *inputs)`, the VJP of the reference's composition recomputed from
-    them (the reference's `_*_fwd` / `_*_bwd` pair)."""
+    them (the reference's `_*_fwd` / `_*_bwd` pair). The forward runs
+    marked as a fused kernel's (`core.remat`): a selective remat policy
+    keeps nothing of it, its plain version's products included."""
 
     @staticmethod
     def forward(ctx, run, vjp, *inputs):
         ctx.vjp = vjp
         ctx.save_for_backward(*inputs)
-        return run(*inputs)
+        with remat.marked(remat.FUSED):
+            return run(*inputs)
 
     @staticmethod
     def backward(ctx, grad):

@@ -18,6 +18,8 @@ them.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --arch xlstm-125m --variant tponly --mesh both
+                                                   # every shape, in this process
   python -m repro_torch.launch.dryrun --all --mesh both --jobs 4   # a process a cell
 """
 
@@ -158,17 +160,22 @@ def main(argv=None):
         failed = run_all(kinds, timeout=args.timeout, jobs=args.jobs,
                          only_missing=args.only_missing, out_dir=out)
         sys.exit(1 if failed else 0)
-    if not (args.arch and args.shape):
-        ap.error("--arch and --shape are required without --all")
+    if not args.arch:
+        ap.error("--arch is required without --all")
+    refused = False
     try:
         for kind in kinds:
-            rec = run_cell(args.arch, args.shape, kind, out_dir=out,
-                           variant=args.variant)
-            if rec["status"] == "refused":
-                print(f"[dryrun] refused: {rec['reason']}", file=sys.stderr)
-                sys.exit(1)
+            for shape in [args.shape] if args.shape else list(SHAPES):
+                rec = run_cell(args.arch, shape, kind, out_dir=out,
+                               variant=args.variant)
+                if rec["status"] == "refused":
+                    print(f"[dryrun] refused: {rec['reason']}",
+                          file=sys.stderr)
+                    refused = True
     except Exception:
         traceback.print_exc()
+        sys.exit(1)
+    if refused:
         sys.exit(1)
 
 

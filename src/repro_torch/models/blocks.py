@@ -113,9 +113,13 @@ class ModelAxis:
     slice of the whole dim; None where the plan keeps the dim whole), and
     whether a dense FFN's d_ff (`ffn`) and the experts' d_ff
     (`expert_ffn`) are split. The lru width and d_ff are both logical
-    "ffn", but a model size may divide one and not the other. A split dim is split also at
-    size 1: the plan names the axis, and the step runs its collectives
-    (identities there)."""
+    "ffn", but a model size may divide one and not the other. xLSTM's
+    blocks take `inner`, the rank's channels of the inner width di (the
+    mLSTM's conv and q / k / v / gate rows, the down projections' rows),
+    and `cell_heads`, its heads of the mLSTM / sLSTM cells (None: every
+    head, on every rank). A split dim is split also at size 1: the plan
+    names the axis, and the step runs its collectives (identities
+    there)."""
     group: Any
     rank: int
     size: int
@@ -125,6 +129,8 @@ class ModelAxis:
     expert_ffn: bool = False
     vocab: slice | None = None
     lru: slice | None = None
+    inner: slice | None = None
+    cell_heads: slice | None = None
     cache: "CacheSplit | None" = None
 
 
@@ -1272,22 +1278,58 @@ def mlstm_block_specs(cfg) -> dict:
     return s
 
 
-def _mlstm_qkvif(cfg, p, x, conv_state=None):
+def _inner_split(axis) -> bool:
+    """Does `axis` split xlstm's inner width (its blocks then compute this
+    rank's channels)?"""
+    return axis is not None and axis.inner is not None
+
+
+def _cell_sum(axis, eq: str, a, w, out_dtype):
+    """`product(eq, a, w, out_dtype)` where `axis` splits the inner width:
+    a and w hold this rank's channels of the contraction, so the rank's
+    product is a partial of the whole. The partials are summed over the
+    model ranks in the heads' dtype (f32, float64 in an f32 run) and
+    rounded once to `out_dtype`, as the unsplit product rounds it: where
+    the cells' heads split, by a reduce-scatter on the heads (dim 2),
+    each rank keeping its own (`scatter_from_ranks`), else by an
+    all-reduce (`reduce_from_ranks`; every rank then runs every head).
+    At one rank the product is rounded as the unsplit block rounds it."""
+    if not _inner_split(axis):
+        return product(eq, a, w, out_dtype)
+    acc = out_dtype if axis.size == 1 else wide(a.dtype, w.dtype)
+    part = product(eq, a, w, acc)
+    if axis.cell_heads is not None:
+        return collectives.scatter_from_ranks(part, 2, axis.group).to(
+            out_dtype)
+    return collectives.reduce_from_ranks(part, axis.group).to(out_dtype)
+
+
+def _mlstm_qkvif(cfg, p, x, conv_state=None, axis=None):
     """x: (B, S, d) -> the output gate, q, k, v (B, S, H, hd), the log
     input and forget gates li, lf (B, S, H) in f32 (their products in f32,
     as the reference runs them; float64 for a float64 x) and the new
-    convolution state."""
+    convolution state. Where `axis` splits the inner width (p its blocks
+    of the leaves) each rank projects x on its w_up columns and gathers
+    the whole (B, S, 2 di) output (gate and main straddle the ranks, and
+    the rank's conv channels are another rank's columns), then takes its
+    channels of gate and main; q, k, v and the gates sum its partials
+    (`_cell_sum`): its heads, or every head."""
     acc = wide(x.dtype)
     up = _mm(_norm(cfg, p, "ln", x), p["w_up"], "bsd,de->bse")
-    gate, main = up.chunk(2, dim=-1)
+    if _inner_split(axis):
+        up = collectives.gather_from_ranks(up, -1, axis.group)
+        gate, main = (half[..., axis.inner] for half in up.chunk(2, dim=-1))
+    else:
+        gate, main = up.chunk(2, dim=-1)
     main, conv = _causal_conv(main, p["conv_w"], conv_state)
     main = F.silu(main.to(acc)).to(x.dtype)
-    q = _mm(main, p["wq"], "bse,ehk->bshk")
-    k = _mm(main, p["wk"], "bse,ehk->bshk")
-    v = _mm(main, p["wv"], "bse,ehk->bshk")
+    q = _cell_sum(axis, "bse,ehk->bshk", main, p["wq"], main.dtype)
+    k = _cell_sum(axis, "bse,ehk->bshk", main, p["wk"], main.dtype)
+    v = _cell_sum(axis, "bse,ehk->bshk", main, p["wv"], main.dtype)
     mf = main.to(acc)
-    li = product("bse,eh->bsh", mf, p["w_i"], acc) + p["b_i"]
-    lf = F.logsigmoid(product("bse,eh->bsh", mf, p["w_f"], acc) + p["b_f"])
+    li = _cell_sum(axis, "bse,eh->bsh", mf, p["w_i"], acc) + p["b_i"]
+    lf = F.logsigmoid(_cell_sum(axis, "bse,eh->bsh", mf, p["w_f"], acc)
+                      + p["b_f"])
     return gate, q, k, v, li, lf, conv
 
 
@@ -1297,7 +1339,8 @@ def _mlstm_chunk(q, k, v, li, lf, C0, n0, m0, scale):
     c, H, hd); li, lf: (B, c, H); the carried state C0 (B, H, hd, hd), n0
     (B, H, hd), m0 (B, H). Returns (h, C1, n1, m1). Every product has two
     operands: the reference's three-operand sums are taken as a pairwise
-    product first."""
+    product first. Each is a `product` in the heads' dtype (an einsum:
+    marked for the selective remat policies)."""
     c = q.shape[1]
     acc = wide(q.dtype)
     Fc = torch.cumsum(lf, dim=1)                                # (B,c,H)
@@ -1309,14 +1352,14 @@ def _mlstm_chunk(q, k, v, li, lf, C0, n0, m0, scale):
     m_t = torch.clamp(torch.maximum(D.amax(dim=2), m_inter), min=-1e30)
 
     qs, kf, vf = q.to(acc) * scale, k.to(acc), v.to(acc)
-    scw = torch.einsum("bthd,bshd->btsh", qs, kf) \
+    scw = product("bthd,bshd->btsh", qs, kf, acc) \
         * torch.exp(D - m_t[:, :, None, :])
-    h_intra = torch.einsum("btsh,bshd->bthd", scw, vf)
-    n_intra = torch.einsum("btsh,bshd->bthd", scw, kf)
+    h_intra = product("btsh,bshd->bthd", scw, vf, acc)
+    n_intra = product("btsh,bshd->bthd", scw, kf, acc)
     dec = torch.exp(m_inter - m_t)                              # (B,t,H)
-    h_inter = torch.einsum("bthd,bhde->bthe", qs, C0) * dec[..., None]
-    n_inter = torch.einsum("bthd,bhd->bth", qs, n0) * dec
-    qn = torch.einsum("bthd,bthd->bth", qs, n_intra) + n_inter
+    h_inter = product("bthd,bhde->bthe", qs, C0, acc) * dec[..., None]
+    n_inter = product("bthd,bhd->bth", qs, n0, acc) * dec
+    qn = product("bthd,bthd->bth", qs, n_intra, acc) + n_inter
     den = torch.maximum(torch.abs(qn), torch.exp(-m_t))
     h = (h_intra + h_inter) / den[..., None]
 
@@ -1326,31 +1369,68 @@ def _mlstm_chunk(q, k, v, li, lf, C0, n0, m0, scale):
     w_kv = torch.exp(m_kv - m1[:, None, :])
     carry = torch.exp(m0 + F_tot - m1)
     wk = w_kv[..., None] * kf
-    C1 = carry[..., None, None] * C0 + torch.einsum("bshd,bshe->bhde", wk, vf)
+    C1 = carry[..., None, None] * C0 + product("bshd,bshe->bhde", wk, vf,
+                                               acc)
     n1 = carry[..., None] * n0 + wk.sum(dim=1)
     return h, C1, n1, m1
 
 
-def _mlstm_out(cfg, p, x, h, gate):
+def _xlstm_down(axis, h, w, x):
+    """x + h @ w ("bse,ed->bsd"). Where `axis` splits the inner width, h
+    and w hold this rank's channels: the ranks' partials are summed in
+    f32 and rounded once, as the unsplit product rounds it (`_row_sum`:
+    bf16 partials rounded apart move the input gate bias's gradient, a
+    sum whose terms cancel, by several times its bf16 noise floor), and
+    x is the block's input as it came, not its copy into the split
+    computation: every rank adds it whole."""
+    if not _inner_split(axis):
+        return x + _mm(h, w, "bse,ed->bsd")
+    return x + _row_sum(axis, "bse,ed->bsd", h, w)
+
+
+def _mlstm_out(cfg, p, x, h, gate, axis=None):
     """The head outputs h (B, S, H, hd) f32 -> x + the down-projection of
-    their per-head rmsnorm times silu(gate)."""
+    their per-head rmsnorm times silu(gate). Where `axis` splits the
+    inner width, gate and w_down hold this rank's channels: h is its
+    heads' (the cells' heads split), or every head's, which enter through
+    `copy_to_ranks` after the norm (each rank reads only its channels,
+    and the heads every rank computed alike take the whole gradient);
+    the down projection's partials are summed over the ranks
+    (`_xlstm_down`)."""
     B, S = h.shape[:2]
-    h = rms_norm(h.to(x.dtype), p["ogate_ln"])
-    h = h.reshape(B, S, -1) * F.silu(gate.to(F32)).to(x.dtype)
-    return x + _mm(h, p["w_down"], "bse,ed->bsd")
+    h = rms_norm(h.to(x.dtype), p["ogate_ln"]).reshape(B, S, -1)
+    if _inner_split(axis) and axis.cell_heads is None:
+        h = collectives.copy_to_ranks(h, axis.group)[..., axis.inner]
+    h = h * F.silu(gate.to(F32)).to(x.dtype)
+    return _xlstm_down(axis, h, p["w_down"], x)
 
 
 _MLSTM_HEADS = ("ln", "w_up", "conv_w", "wq", "wk", "wv", "w_i", "b_i",
                 "w_f", "b_f")
 
 
+def _xlstm_in(axis, p, x):
+    """x and p as a block splitting xlstm's inner width reads them: x and
+    the norm's scale (read on every rank, each using its channels of the
+    projection) through `copy_to_ranks`; as they are otherwise."""
+    if not _inner_split(axis):
+        return p, x
+    return (_copy_in(axis, p, "ln"),
+            collectives.copy_to_ranks(x, axis.group))
+
+
 def mlstm_block_apply(cfg, p, x, ctx):
     """Chunks of c = min(attn_chunk, S) rows (S a multiple of c, as the
     reference's reshape needs), the state carried from chunk to chunk
-    from C = 0, n = 0, m = -1e30."""
+    from C = 0, n = 0, m = -1e30. Under a model axis splitting the inner
+    width each rank computes its channels and its heads (or every head:
+    `_mlstm_qkvif`, `_mlstm_out`)."""
+    axis = ctx.get("model_axis")
+    axis = axis if _inner_split(axis) else None
+    p, xin = _xlstm_in(axis, p, x)
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    hp, hx = p, x
+    hd = cfg.hd
+    hp, hx = p, xin
     if x.dtype == torch.float32:
         # an f32 run takes the heads (gates, chunk sums, carried state)
         # in float64: in f32 a head output row whose terms cancel is left
@@ -1364,8 +1444,9 @@ def mlstm_block_apply(cfg, p, x, ctx):
         # are_within_the_references_error`). bf16 runs keep the
         # reference's f32 arithmetic.
         hp = {n: p[n].double() for n in _MLSTM_HEADS}
-        hx = x.double()
-    gate, q, k, v, li, lf, _ = _mlstm_qkvif(cfg, hp, hx)
+        hx = xin.double()
+    gate, q, k, v, li, lf, _ = _mlstm_qkvif(cfg, hp, hx, axis=axis)
+    H = q.shape[2]
     acc = wide(q.dtype)
     c = min(cfg.attn_chunk, S)
     if S % c:
@@ -1381,7 +1462,7 @@ def mlstm_block_apply(cfg, p, x, ctx):
                                   hd ** -0.5)
         hs.append(h)
     return _mlstm_out(cfg, p, x, torch.cat(hs, dim=1).to(F32),
-                      gate.to(x.dtype)), 0.0
+                      gate.to(x.dtype), axis), 0.0
 
 
 def mlstm_cache_specs(cfg, B: int, cache_len: int) -> dict:
@@ -1399,8 +1480,13 @@ def mlstm_cache_specs(cfg, B: int, cache_len: int) -> dict:
 def mlstm_block_decode(cfg, p, x, cache, pos, ctx):
     """The stabilised single step; C, n, m and the convolution state are
     written into the cache in place (a fresh cache starts m at 0, as the
-    reference's does)."""
-    gate, q, k, v, li, lf, conv = _mlstm_qkvif(cfg, p, x, cache["conv"])
+    reference's does). Under a model axis splitting the inner width the
+    cache block holds this rank's conv channels and its heads' (or every
+    head's) C, n, m (`steps.cache_shards`)."""
+    axis = ctx.get("model_axis")
+    axis = axis if _inner_split(axis) else None
+    gate, q, k, v, li, lf, conv = _mlstm_qkvif(cfg, p, x, cache["conv"],
+                                               axis)
     q, k, v, li, lf = (t[:, 0] for t in (q, k, v, li, lf))
     m1 = torch.maximum(lf + cache["m"], li)
     fd = torch.exp(lf + cache["m"] - m1)
@@ -1417,7 +1503,7 @@ def mlstm_block_decode(cfg, p, x, cache, pos, ctx):
     cache["m"].copy_(m1)
     cache["conv"].copy_(conv)
     h = (num / den[..., None])[:, None]                         # (B,1,H,hd)
-    return _mlstm_out(cfg, p, x, h, gate), cache
+    return _mlstm_out(cfg, p, x, h, gate, axis), cache
 
 
 # ----------------------------------------------------------------------------
@@ -1437,17 +1523,18 @@ def slstm_block_specs(cfg) -> dict:
 
 
 def _slstm_scan(cfg, p, z_in, state):
-    """z_in: (B, S, 4 * di); state: [c, n, m, h], each (B, H, hd) f32. One
-    step a row of S, the recurrent product with r_h in f32. Returns the
-    h of every step (B, S, H, hd) and the last state."""
+    """z_in: (B, S, 4 * H * hd), the four gates of the heads r_h holds;
+    state: [c, n, m, h], each (B, H, hd) f32. One step a row of S, the
+    recurrent product with r_h in f32. Returns the h of every step (B, S,
+    H, hd) and the last state."""
     B, S, _ = z_in.shape
-    H, hd = cfg.n_heads, cfg.hd
     r_h = p["r_h"].to(F32)
+    H, hd = r_h.shape[1], cfg.hd
     c, n, m, h = state
     hs = []
     for t in range(S):
         zt = z_in[:, t].reshape(B, 4, H, hd).to(F32) \
-            + torch.einsum("bhd,ghde->bghe", h, r_h)
+            + product("bhd,ghde->bghe", h, r_h, F32)
         i_r, f_r, z_r, o_r = zt.unbind(dim=1)
         lf = F.logsigmoid(f_r)
         m1 = torch.maximum(lf + m, i_r)
@@ -1461,23 +1548,51 @@ def _slstm_scan(cfg, p, z_in, state):
     return torch.stack(hs, dim=1), (c, n, m, h)
 
 
-def _slstm_in(cfg, p, x):
-    return _mm(_norm(cfg, p, "ln", x), p["w_in"], "bsd,de->bse") + p["b"]
+def _slstm_in(cfg, p, x, axis=None):
+    """The gates' inputs (B, S, 4 di). Where `axis` splits the inner width
+    each rank computes its w_in columns plus its b, and the (B, S, 4 di)
+    whole is gathered once, before the scan (no collective runs inside
+    it); where the cells' heads split too the rank keeps its heads of
+    each gate."""
+    z = _mm(_norm(cfg, p, "ln", x), p["w_in"], "bsd,de->bse") + p["b"]
+    if not _inner_split(axis):
+        return z
+    z = collectives.gather_from_ranks(z, -1, axis.group)
+    if axis.cell_heads is None:
+        return z
+    B, S = z.shape[:2]
+    return z.reshape(B, S, 4, cfg.n_heads, cfg.hd)[
+        :, :, :, axis.cell_heads].reshape(B, S, -1)
 
 
-def _slstm_out(p, x, hs):
+def _slstm_out(p, x, hs, axis=None):
+    """x + hs's output projection. Where `axis` splits the inner width,
+    hs is this rank's heads' (the cells' heads split) or every head's, of
+    which the rank takes its channels (every rank computed them alike
+    from the same z, so each holds the gradient of its channels' share
+    only: r_h enters through `copy_to_ranks`, `slstm_block_apply`), and
+    w_out's partials are summed over the ranks (`_xlstm_down`)."""
     B, S = hs.shape[:2]
     y = hs.reshape(B, S, -1).to(x.dtype)
-    return x + _mm(y, p["w_out"], "bse,ed->bsd")
+    if _inner_split(axis) and axis.cell_heads is None:
+        y = y[..., axis.inner]
+    return _xlstm_down(axis, y, p["w_out"], x)
 
 
 def slstm_block_apply(cfg, p, x, ctx):
-    """The scan from c = n = h = 0 and m = -1e30."""
-    B = x.shape[0]
-    zero = torch.zeros((B, cfg.n_heads, cfg.hd), dtype=F32, device=x.device)
-    hs, _ = _slstm_scan(cfg, p, _slstm_in(cfg, p, x),
-                        [zero, zero, zero - 1e30, zero])
-    return _slstm_out(p, x, hs), 0.0
+    """The scan from c = n = h = 0 and m = -1e30. Under a model axis
+    splitting the inner width each rank scans its heads with its r_h
+    block, or every head with r_h whole (`_slstm_in`, `_slstm_out`)."""
+    axis = ctx.get("model_axis")
+    axis = axis if _inner_split(axis) else None
+    p, xin = _xlstm_in(axis, p, x)
+    if axis is not None and axis.cell_heads is None:
+        p = _copy_in(axis, p, "r_h")
+    z = _slstm_in(cfg, p, xin, axis)
+    zero = torch.zeros((x.shape[0], p["r_h"].shape[1], cfg.hd), dtype=F32,
+                       device=x.device)
+    hs, _ = _slstm_scan(cfg, p, z, [zero, zero, zero - 1e30, zero])
+    return _slstm_out(p, x, hs, axis), 0.0
 
 
 def slstm_cache_specs(cfg, B: int, cache_len: int) -> dict:
@@ -1488,13 +1603,17 @@ def slstm_cache_specs(cfg, B: int, cache_len: int) -> dict:
 
 def slstm_block_decode(cfg, p, x, cache, pos, ctx):
     """One step of the scan from the cached c, n, m, h (a fresh cache
-    starts m at 0, as the reference's does), written back in place."""
+    starts m at 0, as the reference's does), written back in place.
+    Under a model axis splitting the inner width the cache block holds
+    this rank's heads (or every head)."""
+    axis = ctx.get("model_axis")
+    axis = axis if _inner_split(axis) else None
     keys = ("c", "n", "m", "h")
-    hs, state = _slstm_scan(cfg, p, _slstm_in(cfg, p, x),
+    hs, state = _slstm_scan(cfg, p, _slstm_in(cfg, p, x, axis),
                             [cache[k] for k in keys])
     for k, t in zip(keys, state):
         cache[k].copy_(t)
-    return _slstm_out(p, x, hs), cache
+    return _slstm_out(p, x, hs, axis), cache
 
 
 # ----------------------------------------------------------------------------

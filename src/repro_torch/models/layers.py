@@ -13,6 +13,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import remat
 from repro_torch.device import on_card
 from repro_torch.kernels.ref import ACTIVATIONS
 
@@ -101,11 +102,14 @@ def product(eq: str, a, b, out_dtype) -> torch.Tensor:
     Elsewhere both operands are upcast and multiplied in f32 (the same
     function: a product of bf16 values is exact in f32). Under grad the f32
     result's product is `F32Product`; every other path is plain
-    autograd."""
-    if on_card(a) and a.dtype == b.dtype == torch.bfloat16:
-        return _tensor_core_product(eq, a, b, out_dtype).to(out_dtype)
-    acc = wide(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(acc), b.to(acc)).to(out_dtype)
+    autograd. Its `mm` / `bmm` runs marked as a product with or without
+    a batch index (`core.remat`: what cfg.remat "dots" and
+    "dots_no_batch" keep)."""
+    with remat.marked(remat.product_kind(eq, a.ndim, b.ndim)):
+        if on_card(a) and a.dtype == b.dtype == torch.bfloat16:
+            return _tensor_core_product(eq, a, b, out_dtype).to(out_dtype)
+        acc = wide(a.dtype, b.dtype)
+        return torch.einsum(eq, a.to(acc), b.to(acc)).to(out_dtype)
 
 
 def _tensor_core_product(eq: str, a, b, out_dtype) -> torch.Tensor:

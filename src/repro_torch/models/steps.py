@@ -55,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.cluster import policy as kpolicy
 from repro_torch.configs.registry import TensorSpec
 from repro_torch.core import addressing, collectives
+from repro_torch.core import remat as remat_lib
 from repro_torch.device import on_card, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as blocks_lib
@@ -73,9 +74,10 @@ LOSS_CHUNK = 512    # sequence chunk for the fused CE
 # cfg.remat values forward takes under grad: "nothing" keeps each layer's
 # input and recomputes the layer in backward (the reference's
 # `nothing_saveable`), "none" and "everything" (everything saveable)
-# recompute nothing. The reference's "dots" / "dots_no_batch" (save the
-# products' outputs) have no port yet.
-REMAT = ("nothing", "none", "everything")
+# recompute nothing, "dots" and "dots_no_batch" keep the layer's input
+# and the outputs of its products (those without a batch index), and
+# recompute the rest (`core/remat.py`)
+REMAT = ("nothing", "none", "everything", "dots", "dots_no_batch")
 
 
 # ----------------------------------------------------------------------------
@@ -285,11 +287,10 @@ def param_partition(cfg, mesh, rules, max_seq: int = 4096):
                            is_leaf=lambda x: isinstance(x, tuple))
 
 
-# what is left of ROADMAP Queue 1 O, cited by the refusal below (the dry
-# run records its cells as refused with this text)
-UNSPLIT_ITEM = ("ROADMAP Queue 1 Q: what is left of the model axis of the "
-                "other block kinds (xlstm's mlstm / slstm leaves under rules "
-                "that split them, as the dry run's tponly variant does)")
+# cited by the refusal below (the dry run records its cells as refused
+# with this text)
+UNSPLIT_ITEM = ("ROADMAP Queue 3, \"Splits over 'model' the port does not "
+                "compute\"")
 
 
 def check_mesh(cfg, mesh, rules=None, *, max_seq: int = 4096
@@ -407,6 +408,16 @@ _MODEL_SPLITS = {
     **{("rglru", leaf, d): "lru" for leaf, d in (
         ("w_x", 1), ("w_gate", 1), ("conv_w", 1), ("w_ra", 0), ("b_ra", 0),
         ("w_ix", 0), ("b_ix", 0), ("lam", 0), ("w_out", 0))},
+    # xlstm's blocks: the inner width di, w_up's 2 di columns (gate and
+    # main), w_in's 4 di (the four gates) and the cells' heads
+    **{("mlstm", leaf, d): "inner" for leaf, d in (
+        ("conv_w", 1), ("wq", 0), ("wk", 0), ("wv", 0), ("w_i", 0),
+        ("w_f", 0), ("w_down", 0))},
+    ("mlstm", "w_up", 1): "inner_up",
+    **{("mlstm", leaf, 0): "cell_heads" for leaf in ("b_i", "b_f",
+                                                      "ogate_ln")},
+    ("slstm", "w_in", 1): "inner_gates", ("slstm", "b", 0): "inner_gates",
+    ("slstm", "w_out", 0): "inner", ("slstm", "r_h", 1): "cell_heads",
     ("", "tok_embed", 0): "vocab", ("", "unembed", 1): "vocab",
 }
 
@@ -450,13 +461,14 @@ def _model_dims(cfg, mesh, rules, max_seq: int) -> list:
 def model_axis(cfg, mesh, rules, *, max_seq: int = 4096) -> ModelAxis | None:
     """The `ModelAxis` of this rank on a live mesh (None without a
     "model" axis), for every block kind: for each dim the plan may split
-    over "model" (the heads, KV heads, d_ff, lru width and vocab dims of
-    `_MODEL_SPLITS`), whether it does, and this rank's block of it
-    (`addressing.local_block`). Where the plan keeps every such dim of a
-    block whole (xlstm's under its own rules) the block runs whole on
-    every model rank, as on one device. Every leaf holding such a dim
-    must be split alike; a split of any other dim raises
-    NotImplementedError (`check_mesh`)."""
+    over "model" (the heads, KV heads, d_ff, lru width, xlstm's inner
+    width and cell heads, and vocab dims of `_MODEL_SPLITS`), whether it
+    does, and this rank's block of it (`addressing.local_block`). Where
+    the plan keeps every such dim of a block whole (xlstm's under its own
+    rules) the block runs whole on every model rank, as on one device.
+    Every leaf holding such a dim must be split alike (xlstm's inner
+    width with w_up's and w_in's columns); a split of any other dim
+    raises NotImplementedError (`check_mesh`)."""
     sizes = _check_axes(mesh)
     if "model" not in sizes:
         return None
@@ -474,10 +486,20 @@ def model_axis(cfg, mesh, rules, *, max_seq: int = 4096) -> ModelAxis | None:
                 f"and keeps others whole: {sorted(got, key=str)}")
     at = {f: next(iter(g)) for f, g in seen.items()}
     owned = {f: None if at.get(f) is None else slice(*at[f])
-             for f in ("heads", "kv_heads", "vocab", "lru")}
+             for f in ("heads", "kv_heads", "vocab", "lru", "inner",
+                       "cell_heads")}
     if owned["kv_heads"] is not None and owned["heads"] is None:
         raise NotImplementedError("the plan splits the KV heads over "
                                   "'model' and keeps the query heads whole")
+    inner = {f: at.get(f) is not None for f in ("inner", "inner_up",
+                                                "inner_gates")
+             if f in at}
+    if len(set(inner.values())) > 1 or (owned["cell_heads"] is not None
+                                        and owned["inner"] is None):
+        raise NotImplementedError(
+            f"the plan splits some of xlstm's inner width over 'model' and "
+            f"keeps the rest whole ({inner}, cell heads "
+            f"{owned['cell_heads']})")
     return ModelAxis(mesh.get_group("model"), coords["model"],
                      sizes["model"], ffn=at.get("ffn") is not None,
                      expert_ffn=at.get("expert_ffn") is not None, **owned)
@@ -843,26 +865,32 @@ def _final_norm(cfg, params, x):
     return _norm(cfg, params, "ln_f", x)
 
 
-def _remat(cfg) -> bool:
-    """Does forward recompute each layer in backward? Only under grad, and
-    only for cfg.remat "nothing" (see REMAT)."""
-    if not torch.is_grad_enabled():
-        return False
+def _remat(cfg) -> str | None:
+    """The remat policy of forward's layers: None where nothing is
+    recomputed (without grad, and under cfg.remat "none" /
+    "everything"), else cfg.remat (see REMAT)."""
+    if not torch.is_grad_enabled() or cfg.remat in ("none", "everything"):
+        return None
     if cfg.remat not in REMAT:
-        raise NotImplementedError(
-            f"remat policy {cfg.remat!r}: the port takes {REMAT}; the "
-            f"selective policies wait in ROADMAP Queue 1 (after H)")
-    return cfg.remat == "nothing"
+        raise ValueError(f"unknown remat policy {cfg.remat!r}; the port "
+                         f"takes {REMAT}")
+    return cfg.remat
 
 
-def _layer(remat: bool, apply, *args):
-    """One layer, `apply(*args)`: under `remat`, only its inputs are kept
-    and backward runs it again (the policy scope of the step is still
-    active then, so the recompute takes the same kernels)."""
-    if remat:
-        return checkpoint(apply, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    return apply(*args)
+def _layer(remat: str | None, apply, *args):
+    """One layer, `apply(*args)`. Under `remat` "nothing" only its inputs
+    are kept and backward runs it again; under "dots" / "dots_no_batch"
+    its products' outputs are kept too (`core.remat.contexts`), and the
+    recompute reads them back in place of their products. The policy
+    scope of the step is still active in the recompute, so it takes the
+    same kernels, and it issues the layer's collectives again on every
+    rank."""
+    if remat is None:
+        return apply(*args)
+    kw = {} if remat == "nothing" else {"context_fn": remat_lib.contexts(
+        remat)}
+    return checkpoint(apply, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 def _encode(cfg, params, enc_embeds, axis: ModelAxis | None = None):
@@ -998,7 +1026,7 @@ def _chunked_ce(cfg, unembed, hidden, labels, axis=None):
     c = min(LOSS_CHUNK, S)
     if S % c:
         c = S
-    remat = torch.is_grad_enabled()
+    remat = "nothing" if torch.is_grad_enabled() else None
     total = torch.zeros((), dtype=F32, device=hidden.device)
     for i in range(S // c):
         cols = slice(i * c, (i + 1) * c)
@@ -1662,7 +1690,9 @@ def make_sharded_decode_step(cfg, mesh, max_seq: int, *, rules=None,
                                                       max_seq, batch)
     split = cache_split(cfg, mesh, rules, decode_cache_len(cfg, max_seq))
     if axis is not None:
-        for held in (split.heads, split.cross_heads):
+        kv = any("kv_heads" in s.logical
+                 for s in cache_specs(cfg, 1, 1).values())
+        for held in (split.heads, split.cross_heads) if kv else ():
             if held is not None and held != axis.kv_heads:
                 raise NotImplementedError(
                     f"the plan splits the cache's KV heads {held} and the "

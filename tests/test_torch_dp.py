@@ -38,7 +38,8 @@ rank, every spawn joined against its own deadline and killed past it).
   environment at 2 ranks, and `--data-axis 1` in this process (its own
   one-rank group): bit-equal to the plain run there; a model axis above
   1 raises where the plan splits a leaf the step does not compute
-  (xlstm under the dry run's tponly rules).
+  (xlstm under rules that split its heads and keep its inner width
+  whole).
 
 Tolerances: f32 losses, grad norms and lr scales within 1e-5 relative
 (mixtral's later steps against the reference 5e-5: `MOE_LATER`); the
@@ -218,7 +219,7 @@ def runs(tmp_path_factory):
                          **PROG)),
         ("api_train", dict(checkpoint_dir=str(tmp / "api"), num_steps=2,
                            batch=4, seq=16)),
-        ("model_axis", {"overrides": (("embed", None),)})] + _jobs(tmp, 2)
+        ("model_axis", {"overrides": (("ffn", None),)})] + _jobs(tmp, 2)
     four = _jobs(tmp, 4)
     at = {}
     for world in (two, four):
@@ -476,15 +477,16 @@ def test_api_train_and_launcher_on_a_mesh(runs, tmp_path, capsys):
 
 def test_a_model_axis_above_one_raises(runs):
     """A model axis above 1 raises where the plan splits a leaf the
-    sharded step does not compute (xlstm's mlstm / slstm leaves under the
-    dry run's tponly rules, which replace its own), naming the ROADMAP
-    item; every arch trains on such meshes under its own rules
-    (`tests/test_torch_tp.py`)."""
-    item = "model axis of the other block kinds"
+    sharded step does not compute (xlstm's mlstm leaves under rules that
+    split its heads and keep its inner width whole, which replace its
+    own), naming the leaf and the ROADMAP entry; every arch trains on
+    such meshes under its own rules, xlstm under the dry run's tponly
+    rules too (`tests/test_torch_tp.py`)."""
+    item = "Splits over 'model' the port does not compute"
     for r in runs[2]:
         assert item in r[3] and "mlstm" in r[3]
     cluster = Cluster(dataclasses.replace(
-        tget("xlstm-125m-smoke"), rules_overrides=(("embed", None),)),
+        tget("xlstm-125m-smoke"), rules_overrides=(("ffn", None),)),
         MeshSpec((1, 2), ("data", "model")), device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         cluster.compile(TrainProgram(num_steps=1))

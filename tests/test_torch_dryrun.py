@@ -26,8 +26,10 @@
 * Production meshes: qwen3-14b `decode_32k` on (16, 16) and
   (2, 16, 16), whisper-small `decode_32k` on (16, 16) (the reference's
   own failing CI cell) come out "ok".
-* Refused: xlstm under the tponly rules records "refused" naming its
-  ROADMAP label, which exists; the CLI exits 1 for it.
+* xlstm under the tponly rules records "ok" (its mLSTM / sLSTM leaves
+  split over "model"); a plan the step does not compute (the embedding
+  dim over "model") records "refused" naming its ROADMAP entry, which
+  exists, and the CLI exits 1 for it.
 * Variants: the table equals the reference's `VARIANTS`.
 * Process groups: a dry run leaves none behind and refuses to start
   while one is initialised; the roofline tables render the records.
@@ -344,20 +346,36 @@ def test_production_decode_cells_are_ok(arch, multi, tmp_path):
     assert not dist.is_initialized()
 
 
-def test_tponly_xlstm_is_refused_naming_its_label(tmp_path):
+# rules that split the embedding dim over "model" (the hidden states'
+# width), a split the step does not compute for any arch
+EMBED_TP = (("embed", "model"),)
+
+
+def test_tponly_xlstm_is_refused_naming_its_label(tmp_path, monkeypatch):
+    """xlstm under the tponly rules (its mLSTM / sLSTM leaves split over
+    "model", ROADMAP Queue 1 Q) records "ok" for its train, prefill and
+    decode cells on the (2, 4) fake world. A plan the step still refuses
+    (the embedding dim over "model") records "refused" naming the ROADMAP
+    entry, which exists, and the CLI exits 1 for it (a variant of those
+    rules added to the table here)."""
     tponly = dataclasses.replace(
         tget(XLSTM), **{k: v for k, v in dryrun.VARIANTS["tponly"].items()})
-    rec, _ = _run(XLSTM, MESHES["2x4"], "train", cfg=tponly)
+    for kind in ("train", "prefill", "decode"):
+        rec, _ = _run(XLSTM, MESHES["2x4"], kind, cfg=tponly)
+        assert rec["status"] == "ok", (kind, rec.get("reason"))
+        assert rec["hlo"]["flops_per_device"] > 0
+    refused = dataclasses.replace(tget(XLSTM), rules_overrides=EMBED_TP)
+    rec, _ = _run(XLSTM, MESHES["2x4"], "train", cfg=refused)
     assert rec["status"] == "refused"
-    label = re.search(r"ROADMAP Queue 1 (\w+):", rec["reason"]).group(1)
-    assert "model axis of the other block kinds" in rec["reason"]
-    roadmap = (ROOT / "ROADMAP.md").read_text()
-    assert re.search(rf"\*\*{label}\. ", roadmap), label
+    entry = re.search(r'ROADMAP Queue 3, "([^"]+)"', rec["reason"]).group(1)
+    assert entry in (ROOT / "ROADMAP.md").read_text()
+    monkeypatch.setitem(dryrun.VARIANTS, "embed_tp",
+                        {"rules_overrides": EMBED_TP})
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "xlstm-125m", "--shape", "train_4k",
-                     "--variant", "tponly", "--out", str(tmp_path)])
+                     "--variant", "embed_tp", "--out", str(tmp_path)])
     assert e.value.code == 1
-    assert json.loads((tmp_path / "xlstm-125m__train_4k__single__tponly"
+    assert json.loads((tmp_path / "xlstm-125m__train_4k__single__embed_tp"
                        ".json").read_text())["status"] == "refused"
     assert not dist.is_initialized()
 
@@ -390,11 +408,11 @@ def test_roofline_tables_render_the_records(tmp_path):
         rec, _ = _run(DENSE, MESHES[name], "decode")
         dryrun._write({"arch": DENSE, "shape": "t", "mesh": mesh,
                        "variant": None} | rec, tmp_path)
-    tponly = dataclasses.replace(tget(XLSTM),
-                                 rules_overrides=(("embed", None),))
-    rec, _ = _run(XLSTM, MESHES["2x4"], "train", cfg=tponly)
+    refused = dataclasses.replace(tget(XLSTM), rules_overrides=EMBED_TP)
+    rec, _ = _run(XLSTM, MESHES["2x4"], "train", cfg=refused)
+    assert rec["status"] == "refused"
     dryrun._write({"arch": XLSTM, "shape": "t", "mesh": "single",
-                   "variant": "tponly"} | rec, tmp_path)
+                   "variant": "embed_tp"} | rec, tmp_path)
     base = roofline.baseline_table("single", tmp_path).splitlines()
     assert len(base) == 3 and DENSE in base[2]
     multi = roofline.multi_pod_table(tmp_path).splitlines()

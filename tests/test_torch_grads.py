@@ -208,9 +208,9 @@ def test_xlstm_gradient_error_is_one_cancelling_row(monkeypatch):
     heads = {}
     out = blocks._mlstm_out
 
-    def keep(cfg, p, x, h, gate):
+    def keep(cfg, p, x, h, gate, *axis):
         heads[h.dtype] = h.detach().double()
-        return out(cfg, p, x, h, gate)
+        return out(cfg, p, x, h, gate, *axis)
 
     kinds = tsteps.layer_kinds(tcfg)
     with torch.no_grad(), monkeypatch.context() as m:

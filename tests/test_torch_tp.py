@@ -56,8 +56,27 @@ against its own deadline and killed past it).
   `make_train_step` in bf16.
 * xlstm under the dry run's tponly rules (`default_rules(mesh,
   overrides=(("embed", None),))`), which split its mLSTM / sLSTM leaves
-  over "model", raises NotImplementedError naming what is left of the
-  ROADMAP item, on a MeshSpec, through `Cluster.compile` and in the
+  over "model" (`XLSTM_TP`: the inner width, w_up's and w_in's columns,
+  the cells' heads), on the four meshes, and with 2 heads of 32 at model
+  4 (`XLSTM_TP_WHOLE`: the cells' heads whole, the inner width split),
+  against the one-process step and the reference's as xlstm under its
+  own rules, with two departures. Its first-step gradients and grad
+  norm are held within twice their noise floor where that is above 1e-5
+  (`_grad_floor`: the largest move of the one-process gradient under a
+  1e-7 relative move of every parameter): a split sums the mLSTM's
+  products in another order, and its f32 gradients are that sensitive.
+  The input gate biases' (`b_i`) move by up to 4.4e-3 relative so (a
+  head output row whose terms cancel), 8.9e-2 with 2 heads; the other
+  leaves' by up to ~4e-5, and the split parts from the one-process step
+  by up to 1.6e-5 there (tok_embed at model 4). And
+  its later steps are held by their losses, not their grad norms: after
+  AdamW's first update (lr x sign(g) on those near-zero gradients) the
+  grad norms part by up to 2.5e-3, and the moments after three steps by
+  up to 2.5e-4 as a whole tree (held within `XLSTM_NORM_LATER`). At (1, 1) the tponly step is bit-equal
+  to `make_train_step` in bf16. Rules that split xlstm's heads and keep
+  its inner width whole (q / k / v split on their heads), a split the
+  step does not compute, raise NotImplementedError naming the leaf and
+  the ROADMAP entry, on a MeshSpec, through `Cluster.compile` and in the
   2-rank world.
 
 The initial weights are the port's seeded draw with the attention
@@ -105,6 +124,7 @@ within 1e-6. bf16 runs (the programs and the launcher): losses within
 import torch_threads  # noqa: F401  (first: caps torch's CPU threads)
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -125,6 +145,7 @@ from repro_torch.core.addressing import MeshSpec
 from repro_torch.launch.mesh import make_device_mesh
 from repro_torch.models import steps as tsteps
 
+ROOT = Path(__file__).resolve().parents[1]
 DENSE, BIAS, MOE = "qwen3-14b-smoke", "qwen1.5-32b-smoke", "mixtral-8x7b-smoke"
 WHOLE_HEADS = (("n_heads", 6), ("n_kv_heads", 2))   # at model 4
 KV_WHOLE = (("n_heads", 8), ("n_kv_heads", 2))      # at model 4
@@ -149,14 +170,25 @@ MIXED = (("n_heads", 6), ("n_kv_heads", 6))          # at model 4
 CASES += [(sizes, arch, 1, ()) for arch in KINDS
           for sizes in ((1, 2), (2, 2), (1, 4), (2, 1, 2))]
 CASES += [((1, 4), WHISPER, 1, MIXED)]
+# the dry run's tponly rules, which replace xlstm's own and split its
+# mLSTM / sLSTM leaves over "model"; and with 2 heads of 32 at model 4
+# (the cells' heads whole, their inner width split)
+TPONLY = (("embed", None),)
+XLSTM_TP = (("rules_overrides", TPONLY),)
+XLSTM_TP_WHOLE = XLSTM_TP + (("n_heads", 2), ("n_kv_heads", 2),
+                             ("head_dim", 32))
+CASES += [(sizes, XLSTM, 1, XLSTM_TP)
+          for sizes in ((1, 2), (2, 2), (1, 4), (2, 1, 2))]
+CASES += [((1, 4), XLSTM, 1, XLSTM_TP_WHOLE)]
+# rules that split xlstm's heads and keep its inner width whole: a split
+# the step does not compute
+HEADS_ONLY = (("ffn", None),)
 # the other kinds' later grad norms and moments (see the docstring);
 # xlstm's later grad norms against the one-process step
 KINDS_LATER = 2e-4
 XLSTM_NORM_LATER = 1e-3
 # vision's tanh gates against the reference's (see the docstring)
 GATES = {"gate_attn": 2e-5, "gate_ffn": 2e-5}
-# the dry run's tponly rules, which replace xlstm's own
-TPONLY = (("embed", None),)
 PROG = dict(num_steps=4, batch=8, seq=16, warmup=1, log_every=1,
             checkpoint_every=2)
 CLI = ["--device", "cpu", "--arch", "qwen3-14b", "--smoke", "--steps", "3",
@@ -169,8 +201,18 @@ def _names(sizes):
 
 def _case_id(case):
     sizes, arch, ga, change = case
-    tail = "".join(f"-{k[2:]}{v}" for k, v in change)
+    tail = "".join("-tponly" if k == "rules_overrides" else f"-{k[2:]}{v}"
+                   for k, v in change)
     return f"{'x'.join(map(str, sizes))}-{arch.split('-')[0]}-accum{ga}{tail}"
+
+
+def _plain(change) -> tuple:
+    """`change` less the rules (which one process does not read)."""
+    return tuple((k, v) for k, v in change if k != "rules_overrides")
+
+
+def _tponly(case) -> bool:
+    return any(k == "rules_overrides" for k, _ in case[3])
 
 
 def _cfgs(arch, ga, change):
@@ -204,6 +246,7 @@ def _initial(arch, change):
     seeded draw, the attention weights rescaled to their true fan-in
     (`torch_parity.true_fan_in`), zero moments) for the reference and a
     fresh port copy of it (the port's step updates it in place)."""
+    change = _plain(change)
     key = (arch, change)
     if key not in _INIT:
         cfg = _cfgs(arch, 1, change)[0]
@@ -246,14 +289,16 @@ def _step_jobs(tmp, world, cases=CASES, fsdp_gather=False):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every spawned world of this module, started together: 2 gloo ranks
-    (the (1, 2) steps, then xlstm's error under the tponly rules), 4 gloo
+    (the (1, 2) steps, then xlstm's step built under the tponly rules and
+    its error under rules splitting its heads alone), 4 gloo
     ranks (the 4-rank steps, then the (2, 2) programs and their resumes
     at (1, 4) and (4, 1)), and the launcher at 2 and at 4 ranks (no
     group before it)."""
     tmp = tmp_path_factory.mktemp("tp")
     cut = str(tmp / "cut")
-    two = _step_jobs(tmp, 2) + [("model_axis", dict(arch=XLSTM,
-                                                    overrides=TPONLY))]
+    two = _step_jobs(tmp, 2) + [
+        ("model_axis", dict(arch=XLSTM, overrides=TPONLY)),
+        ("model_axis", dict(arch=XLSTM, overrides=HEADS_ONLY))]
     four = _step_jobs(tmp, 4) + [
         ("program", dict(arch=DENSE, checkpoint_dir=cut, preempt_after=2,
                          copies=(cut + "14", cut + "41"), mesh=(2, 2),
@@ -294,6 +339,7 @@ def _one_process(case, ref: bool):
     jitted step (`FAST_COMPILE`; its gradients those of the loss on the
     whole first batch, grad_accum 1 only) on the whole batches."""
     _, arch, ga, change = case
+    change = _plain(change)
     key = (arch, ga, change, ref)
     if key not in _ONE:
         tcfg, jcfg = _cfgs(arch, ga, change)
@@ -331,12 +377,12 @@ def _one_process(case, ref: bool):
     return _ONE[key]
 
 
-def _close_states(got, want, tol, whole_only=False):
+def _close_states(got, want, tol, whole_only=False, moments=KINDS_LATER):
     """Every leaf of the state within `tol` relative L2, but the key
     biases' parameters (see the module's docstring), which count in the
     whole parameter tree's relative L2, within `tol` too. With
     `whole_only` (the other block kinds) params as a whole tree within
-    `tol` and the moments within `KINDS_LATER`."""
+    `tol` and the moments within `moments`."""
     for part in ("params", "m", "v"):
         g = got["params"] if part == "params" else got["opt"][part]
         w = want["params"] if part == "params" else want["opt"][part]
@@ -344,7 +390,7 @@ def _close_states(got, want, tol, whole_only=False):
             lambda a, b: float(((a.float() - b.float()) ** 2).sum()), g, w)))
         den = sum(float((b.float() ** 2).sum())
                   for b in pytree.tree_leaves(w))
-        lim = KINDS_LATER if whole_only and part != "params" else tol
+        lim = moments if whole_only and part != "params" else tol
         assert (num / den) ** 0.5 < lim, (part, (num / den) ** 0.5)
         if whole_only:
             continue
@@ -389,26 +435,84 @@ def test_tp_steps_equal_one_process_and_reference(runs, case):
         later = MOE_LATER if ref and arch == MOE else 1e-5
         for i, (g, w) in enumerate(zip(got["metrics"], want)):
             for k in keys:
-                if ref and arch == XLSTM and i > 0 and k == "grad_norm":
+                if arch == XLSTM and i > 0 and k == "grad_norm" and (
+                        ref or _tponly(case)):
                     continue                # see the module's docstring
                 tol = 1e-5 if i == 0 else (
                     norm_later if kinds and k == "grad_norm" else later)
+                if i == 0 and k == "grad_norm" and _tponly(case):
+                    tol = max(tol, 2 * _grad_floor(case)[1])
                 assert abs(g[k] - w[k]) <= tol * max(abs(w[k]), 1.0), \
                     (k, g, w)
         if not (ref and arch == XLSTM):
-            _close_states(got["state"], state, later, whole_only=kinds)
+            _close_states(got["state"], state, later, whole_only=kinds,
+                          moments=XLSTM_NORM_LATER if _tponly(case)
+                          else KINDS_LATER)
     counts = got["counts"]
     assert counts["reduce_from_ranks"] > 0 and counts["copy_to_ranks"] > 0
     assert counts["max_over_ranks"] > 0
+
+
+_FLOOR = {}
+
+
+def _grad_floor(case) -> tuple[dict, float]:
+    """The noise floor of a case's f32 first-step gradients: for each leaf
+    (by key path) the largest relative L2 change of the one-process
+    step's gradient of the first batch when every parameter moves by
+    1e-7 relative (four seeded normal draws), and that of the gradient
+    norm. xlstm's input gate biases' floors reach 1e-3 or more (a head
+    output row whose terms cancel; see the module's docstring), the
+    other leaves' some 1e-5."""
+    _, arch, _, change = case
+    change = _plain(change)
+    if (arch, change) not in _FLOOR:
+        step = tsteps.make_train_step(_cfgs(arch, 1, change)[0],
+                                      policy="fused")
+        params = _initial(arch, change)[1]["params"]
+        batch = _batches(arch)[0]
+        base = step.accumulate(params, batch)[2]
+        norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                    for g in pytree.tree_leaves(base))))
+        leaves, worst = {}, 0.0
+        for seed in range(4):
+            gen = torch.Generator().manual_seed(seed)
+            moved = pytree.tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+                t.shape, generator=gen)), params)
+            got = step.accumulate(moved, batch)[2]
+            for (path, a), b in zip(pytree.tree_flatten_with_path(got)[0],
+                                    pytree.tree_leaves(base)):
+                a, b = a.double(), b.double()
+                key = pytree.keystr(path)
+                leaves[key] = max(leaves.get(key, 0.0),
+                                  float((a - b).norm() / b.norm()))
+            n = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                     for g in pytree.tree_leaves(got))))
+            worst = max(worst, abs(n - norm) / norm)
+        _FLOOR[arch, change] = leaves, worst
+    return _FLOOR[arch, change]
 
 
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_tp_gradients_equal_leaf_by_leaf(runs, case):
     """The first batch's gradients the step reduces (each rank's blocks,
     gathered whole) against the port's one-process gradients and (at
-    grad_accum 1) the reference's, every leaf within 1e-5 relative L2."""
+    grad_accum 1) the reference's, every leaf within 1e-5 relative L2;
+    under the tponly rules each of xlstm's leaves within twice its noise
+    floor where that is above 1e-5 (`_grad_floor`)."""
     got = _result(runs, case)[0]["whole_grads"]
-    _close_leaves(got, _one_process(case, False)[2])
+    if _tponly(case):
+        floor = _grad_floor(case)[0]
+
+        def one(path, a, b):
+            a, b = a.double(), b.double()
+            rel = float((a - b).norm() / b.norm())
+            lim = max(1e-5, 2 * floor[pytree.keystr(path)])
+            assert rel < lim, (pytree.keystr(path), rel, lim)
+
+        pytree.tree_map_with_path(one, got, _one_process(case, False)[2])
+    else:
+        _close_leaves(got, _one_process(case, False)[2])
     if case[2] == 1 and case[1] != XLSTM:   # see the module's docstring
         _close_leaves(got, _one_process(case, True)[2],
                       by_name=GATES if case[1] == VISION else None)
@@ -450,7 +554,8 @@ def test_each_ranks_blocks_are_the_plans_local_block(runs, case):
                    for sp in pytree.tree_leaves(
                        specs, is_leaf=lambda x: isinstance(x, tuple)))
     if sizes[-2] > 1 and sizes[-1] > 1:
-        assert both > 0
+        # the tponly rules split no leaf over the batch axes
+        assert (both > 0) != _tponly(case)
 
 
 def test_router_gradient_is_equal_on_every_model_rank(runs):
@@ -562,28 +667,18 @@ def test_launcher_trains_on_1x2_and_2x2(runs, tmp_path):
                 assert abs(a - b) <= 2e-3 * b
 
 
-@pytest.mark.parametrize("arch", KINDS, ids=lambda a: a.split("-")[0])
-def test_one_rank_kinds_step_is_bit_equal(tmp_path, arch):
-    """On a (1, 1) mesh the other block kinds' sharded steps go through
-    their split code at size 1 (the heads, d_ff, lru width and
-    vocabulary the plan names) and equal `make_train_step` bit for bit in
-    bf16 ("fused"), losses and every leaf after two steps."""
+def _one_rank_step_bit_equal(tmp_path, arch, cfg):
+    """`cfg` (of `arch`)'s sharded step on a (1, 1) mesh against
+    `make_train_step`, bf16 ("fused"): losses and every leaf after two
+    steps bit-equal. -> the step's `ModelAxis`."""
     kw = {"schedule_kwargs": {"warmup": 1, "total": 4}, "policy": "fused"}
     dist.init_process_group("gloo", store=dist.FileStore(
         str(tmp_path / "store"), 1), rank=0, world_size=1)
     try:
         mesh = make_device_mesh(MeshSpec((1, 1), ("data", "model")), "cpu")
-        cfg = tget(arch)
         plain = tsteps.make_train_step(cfg, **kw)
         a = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S)
         step = tsteps.make_sharded_train_step(cfg, mesh, max_seq=S, **kw)
-        assert step.axis.vocab == slice(0, cfg.vocab)
-        if arch == XLSTM:       # its own rules keep its block leaves whole
-            assert step.axis.heads is None and not step.axis.ffn
-        else:
-            assert step.axis.heads == slice(0, cfg.n_heads)
-            assert step.axis.ffn
-        assert (step.axis.lru is not None) == (arch == RGEMMA)
         s = tsteps.init_train_state(cfg, 0, device="cpu", max_seq=S,
                                     shards=step.shards)
         for b in _batches(arch)[:2]:
@@ -594,37 +689,81 @@ def test_one_rank_kinds_step_is_bit_equal(tmp_path, arch):
             assert float(ms["loss"]) == float(ma["loss"])
         pytree.tree_map_with_path(
             lambda path, x, y: None if torch.equal(x, y)
-            else pytest.fail(f"{arch}: {pytree.keystr(path)} differs"), s, a)
+            else pytest.fail(f"{arch}: {pytree.keystr(path)} differs"),
+            s, a)
+        return step.axis
     finally:
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("arch", KINDS, ids=lambda a: a.split("-")[0])
+def test_one_rank_kinds_step_is_bit_equal(tmp_path, arch):
+    """On a (1, 1) mesh the other block kinds' sharded steps go through
+    their split code at size 1 (the heads, d_ff, lru width and
+    vocabulary the plan names) and equal `make_train_step` bit for bit in
+    bf16 ("fused"), losses and every leaf after two steps."""
+    cfg = tget(arch)
+    axis = _one_rank_step_bit_equal(tmp_path, arch, cfg)
+    assert axis.vocab == slice(0, cfg.vocab)
+    if arch == XLSTM:       # its own rules keep its block leaves whole
+        assert axis.heads is None and not axis.ffn
+        assert axis.inner is None and axis.cell_heads is None
+    else:
+        assert axis.heads == slice(0, cfg.n_heads)
+        assert axis.ffn
+    assert (axis.lru is not None) == (arch == RGEMMA)
+
+
+def test_one_rank_xlstm_tponly_step_is_bit_equal(tmp_path):
+    """xlstm under the tponly rules on a (1, 1) mesh: its mLSTM / sLSTM
+    blocks go through the split code at size 1 (the inner width, w_up's
+    and w_in's columns gathered, the cells' heads) and the step equals
+    `make_train_step` bit for bit in bf16."""
+    cfg = dataclasses.replace(tget(XLSTM), rules_overrides=TPONLY)
+    axis = _one_rank_step_bit_equal(tmp_path, XLSTM, cfg)
+    di = cfg.n_heads * cfg.hd
+    assert axis.inner == slice(0, di)
+    assert axis.cell_heads == slice(0, cfg.n_heads)
+    assert axis.heads is None and axis.lru is None
+
+
 def test_xlstm_under_tponly_rules_raises_naming_the_item(runs):
-    """The dry run's tponly rules replace xlstm's own: they split its
-    mLSTM / sLSTM leaves over "model" (w_up's 2 di columns straddle the
-    x / z halves, the gates' inputs), which the sharded step does not
-    compute. It raises NotImplementedError naming what is left of the
-    ROADMAP item: planned on a MeshSpec ((1, 2), (2, 4), (16, 16)),
-    compiled as a `TrainProgram` (before any process group) and built in
-    the 2-rank world. Under xlstm's own rules the same meshes admit
-    it."""
+    """The dry run's tponly rules replace xlstm's own and split its mLSTM
+    / sLSTM leaves over "model" (w_up's 2 di columns straddling gate and
+    main, w_in's 4 di the four gates, the q / k / v / gate rows on the
+    inner width, the cells' heads where the model size divides them):
+    the step computes that split, planned on a MeshSpec ((1, 2), (2, 4),
+    (16, 16)) and built in the 2-rank world. Rules that split xlstm's
+    heads and keep its inner width whole (q / k / v split on their heads)
+    are a split it does not compute: it raises NotImplementedError naming
+    the leaf and the ROADMAP entry, planned on a MeshSpec, compiled as a
+    `TrainProgram` (before any process group) and built in the 2-rank
+    world. Under xlstm's own rules the same meshes admit it."""
     from repro_torch.cluster import Cluster, TrainProgram
-    item = "model axis of the other block kinds"
+    item = "Splits over 'model' the port does not compute"
+    assert item in (ROOT / "ROADMAP.md").read_text()
     cfg = tget(XLSTM)
-    tponly = dataclasses.replace(cfg, rules_overrides=TPONLY)
     for sizes in ((1, 2), (2, 4), (16, 16)):
         mesh = MeshSpec(sizes, ("data", "model"))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1") \
+        assert tsteps.check_mesh(cfg, mesh, addressing.default_rules(
+            mesh, overrides=TPONLY)) == sizes
+        assert tsteps.check_mesh(cfg, mesh) == sizes
+    for sizes in ((1, 2), (2, 4)):
+        mesh = MeshSpec(sizes, ("data", "model"))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 3") \
                 as e:
             tsteps.check_mesh(cfg, mesh, addressing.default_rules(
-                mesh, overrides=TPONLY))
+                mesh, overrides=HEADS_ONLY))
         assert item in str(e.value) and "mlstm" in str(e.value)
-        assert tsteps.check_mesh(cfg, mesh) == sizes
+        assert "wq" in str(e.value) and "dim 1" in str(e.value)
     with pytest.raises(NotImplementedError, match=item):
-        Cluster(tponly, MeshSpec((1, 2), ("data", "model")),
+        Cluster(dataclasses.replace(cfg, rules_overrides=HEADS_ONLY),
+                MeshSpec((1, 2), ("data", "model")),
                 device="cpu").compile(TrainProgram(num_steps=1))
-    msg = runs[2][0][len([c for c in CASES if np.prod(c[0]) == 2])]
-    assert msg is not None and "ROADMAP Queue 1" in msg and item in msg
+    at = len([c for c in CASES if np.prod(c[0]) == 2])
+    built, msg = runs[2][0][at], runs[2][0][at + 1]
+    assert built is None
+    assert msg is not None and "ROADMAP Queue 3" in msg and item in msg
 
 
 def _fsdp_result(runs, case):

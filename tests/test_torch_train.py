@@ -338,7 +338,9 @@ def test_param_grads_match_reference(smoke_params, policy, remat, dtype):
 def test_remat_is_recomputation(smoke_params, monkeypatch):
     """Under remat "nothing" forward keeps each layer's inputs and runs
     the layer again in backward (its fused kernels launch twice); "none"
-    runs it once; "dots" is refused under grad and serves without."""
+    runs it once; "dots" and "dots_no_batch" run it again too (nothing
+    of a fused kernel is kept, as in the reference), and serve without
+    grad."""
     _, tp = smoke_params["float32"]
     batch = {k: torch.from_numpy(v) for k, v in _tokens().items()}
     cfg = tget(ARCH)
@@ -350,14 +352,13 @@ def test_remat_is_recomputation(smoke_params, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(fused, "rmsnorm_matmul_plain", counting)
-    for remat, want in (("nothing", 2), ("none", 1)):
+    for remat, want in (("nothing", 2), ("none", 1), ("dots", 2),
+                        ("dots_no_batch", 2)):
         calls.clear()
         tsteps.make_train_step(dataclasses.replace(cfg, remat=remat),
                                policy="fused").accumulate(tp, batch)
         assert len(calls) == want * 5 * cfg.n_layers, remat
     dots = dataclasses.replace(cfg, remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsteps.make_train_step(dots).accumulate(tp, batch)
     with torch.no_grad():
         hidden, _ = tsteps.forward(dots, tp, batch["tokens"])
     assert hidden.shape == (2, 16, cfg.d_model)

@@ -679,20 +679,24 @@ def serve_ref_cells(rank, world, *, arch, params, inputs, seq=64, batch=8):
 
 
 @job
-def decode_cell(rank, world, *, arch, params, seq, batch, tokens, start):
+def decode_cell(rank, world, *, arch, params, seq, batch, tokens, start,
+                replace=None):
     """`build_cell`'s decode cell of `arch` on the reference's (2, 4) test
     mesh from the whole parameters in the file `params`: teacher-forced
     steps of `tokens` (batch x steps) from position `start` (one position
     for every slot, as the reference's cell takes it), this rank its rows
     and its blocks of a zero f32 cache -> its rows and the tokens of
-    every step."""
+    every step. `replace` is `dataclasses.replace` keywords for the
+    arch's config."""
+    import dataclasses
+
     from repro_torch.cluster import cells as cells_lib
     from repro_torch.configs import get
     from repro_torch.configs.registry import ShapeConfig
     from repro_torch.core import addressing
     from repro_torch.models import steps
 
-    cfg = get(arch)
+    cfg = dataclasses.replace(get(arch), **(replace or {}))
     mesh = _mesh(world, sizes=(2, 4), names=("data", "model"))
     rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
     coords = addressing.coordinates(mesh)
@@ -713,13 +717,44 @@ def decode_cell(rank, world, *, arch, params, seq, batch, tokens, start):
 
 
 @job
+def prefill_cell(rank, world, *, arch, params, tokens, replace=None):
+    """`build_cell`'s prefill cell of `arch` (`replace` as `decode_cell`
+    takes it) on the reference's (2, 4) test mesh from the whole
+    parameters in the file `params` on the prompts `tokens` (batch x
+    seq), this rank its rows -> its rows and their greedy tokens."""
+    import dataclasses
+
+    from repro_torch.cluster import cells as cells_lib
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import ShapeConfig
+    from repro_torch.core import addressing
+
+    cfg = dataclasses.replace(get(arch), **(replace or {}))
+    mesh = _mesh(world, sizes=(2, 4), names=("data", "model"))
+    rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
+    batch, seq = tokens.shape
+    spec = rules.spec_for(("batch",), (batch,), mesh)
+    rows = addressing.local_block(spec, (batch,), mesh,
+                                  addressing.coordinates(mesh))[0]
+    fn = cells_lib.build_cell(cfg, ShapeConfig("t", seq, batch, "prefill"),
+                              mesh, rules)[0]
+    local = addressing.take_tree(fn.shards,
+                                 torch.load(params, weights_only=False))
+    return {"rows": (rows.start, rows.stop),
+            "prefill": fn(local, {"tokens": tokens[rows]})}
+
+
+@job
 def train_cell(rank, world, *, arch, state, batches, seq, batch,
-               fsdp_gather=True):
+               fsdp_gather=True, replace=None):
     """`build_cell`'s train cell (with `fsdp_gather` unless it is False)
     on the reference's (2, 4) test mesh from the whole state in the file
     `state` (the port's layout) on the global batches in the file
     `batches`, this rank taking its rows -> each step's metrics and (rank
-    0) the whole state after them."""
+    0) the whole state after them. `replace` as `decode_cell` takes
+    it."""
+    import dataclasses
+
     from torch.utils import _pytree as pytree
 
     from repro_torch.cluster import cells as cells_lib
@@ -727,7 +762,7 @@ def train_cell(rank, world, *, arch, state, batches, seq, batch,
     from repro_torch.configs.registry import ShapeConfig
     from repro_torch.core import addressing
 
-    cfg = get(arch)
+    cfg = dataclasses.replace(get(arch), **(replace or {}))
     mesh = _mesh(world, sizes=(2, 4), names=("data", "model"))
     rules = addressing.default_rules(mesh, overrides=cfg.rules_overrides)
     coords = addressing.coordinates(mesh)

@@ -9,11 +9,15 @@ vision: one attn and one cross block, forward and backward), [tp]
 part=kinds_threads (a (1, 2) step on two thread ranks against the
 one-rank gradients' noise floor), [mesh] part=kinds_cells (build_cell's
 cells on (1, 1), bit-equal) and [mesh] part=kinds_threads (a (1, 2)
-decode on two thread ranks), with the card's name and power limit.
+decode on two thread ranks), with the card's name and power limit; for
+xlstm-125m then [tp] part=xlstm_tponly (the same parts under the dry
+run's tponly rules, its mLSTM / sLSTM leaves split over "model";
+--tponly-only runs that part alone).
 
     python3 tools/kinds_phase.py                    # every arch (~3 min)
     python3 tools/kinds_phase.py --arch xlstm-125m  # one arch
     python3 tools/kinds_phase.py --no-rows          # skip part=kernels
+    python3 tools/kinds_phase.py --arch xlstm-125m --tponly-only --no-rows
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def main() -> int:
                     help="the archs to run (default: all four)")
     ap.add_argument("--no-rows", action="store_true",
                     help="skip [tp] part=kernels")
+    ap.add_argument("--tponly-only", action="store_true",
+                    help="xlstm-125m: [tp] part=xlstm_tponly alone")
     args = ap.parse_args()
 
     import torch
@@ -87,7 +93,10 @@ def main() -> int:
                                                1, seed=7)[0])
         else:
             kw = dict(must=cs.QWEN_FUSED)
-        cs.kinds_parts(launches, arch, cfg, params, **kw)
+        if not (args.tponly_only and arch == "xlstm-125m"):
+            cs.kinds_parts(launches, arch, cfg, params, **kw)
+        if arch == "xlstm-125m":
+            cs.xlstm_tponly_part(launches, cfg, params)
         del params, kw
         gc.collect()
         torch.cuda.empty_cache()

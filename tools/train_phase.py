@@ -1,6 +1,7 @@
 """chip_smoke.py's train phase alone (GPU): build the three kernels of
 qwen3-14b's fused route, optionally run the training card tests, then
-`chip_smoke.train_phase()` (part=step, part=grads, part=run; ~1 min),
+`chip_smoke.train_phase()` (part=step, part=grads, part=remat,
+part=run; ~1 min),
 and with --dp the dp phase after it (the plan, the sharded step at
 (data=1, model=1) held to the train phase's with its model collectives,
 the same step with the per-layer gather (part=fsdp), the launcher with
@@ -8,12 +9,14 @@ the same step with the per-layer gather (part=fsdp), the launcher with
 chip_smoke's tp parts: rows 1-3 at the model axis's local shapes
 (part=kernels), then the two-thread (1, 2) step (part=threads) and the
 two-thread (2, 1) per-layer gather (part=fsdp_threads); --tp-only runs
-those alone.
+those alone. --remat-only runs part=remat alone (the selective remat
+policies on qwen3-14b at full width, TRAIN_LAYERS layers).
 
     python3 tools/train_phase.py            # the phase
     python3 tools/train_phase.py --tests    # the card tests first
     python3 tools/train_phase.py --dp       # then chip_smoke's dp phase
     python3 tools/train_phase.py --tp-only  # the tp parts alone (~2 min)
+    python3 tools/train_phase.py --remat-only   # part=remat alone
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ def main() -> int:
                     help="then chip_smoke's tp parts=kernels and threads")
     ap.add_argument("--tp-only", action="store_true",
                     help="the tp parts alone")
+    ap.add_argument("--remat-only", action="store_true",
+                    help="the train phase's part=remat alone")
     args = ap.parse_args()
 
     import chip_smoke
@@ -57,6 +62,12 @@ def main() -> int:
                                               PYTHONPATH=str(ROOT / "src")))
         if r.returncode:
             return r.returncode
+    if args.remat_only:
+        t0 = time.perf_counter()
+        chip_smoke.train_remat_part(launches)
+        print(f"train part=remat {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return 0
     if not args.tp_only:
         t0 = time.perf_counter()
         _, plain = chip_smoke.train_phase(launches)
